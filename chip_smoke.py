@@ -16,8 +16,10 @@
    ladder, on the tabulated path and under the auto profile, then the
    failure cases and a flat 512-vote batch.  Launch counters are zeroed
    just before this phase and read just after it.
-4. Timing of each kernel at the main path's shapes (CUDA events) beside
-   its plain version, and its bound from the shapes.
+4. Each kernel at the main path's shapes (B = V = 10,000): its output held
+   against its plain version's on the same inputs, tolerance 0 (verdicts
+   and R' encodings of the commit, window tables bit for bit), its time
+   (CUDA events) beside the plain version's, and its bound from the shapes.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the card
 line; the last line is {"ok": true, "device": {...}}.  Exits non-zero,
@@ -42,15 +44,20 @@ FLAT_BATCH = 512
 CHAIN_ID = "chip-smoke"
 
 # Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s
-# float32 outside the tensor cores.  Integer multiply-adds issue at half
-# the float32 FMA rate (64 of 128 lanes per SM): 67e12 / 2 / 2.
+# float32 outside the tensor cores.  The integer multiply rate is not in the
+# data sheet; the bound assumes one 32x32->64 partial product (one
+# IMAD.WIDE.U32) per lane per clock on 64 of the 128 lanes of an SM, half
+# the float32 FMA rate: 67e12 / 2 / 2 per second.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
-# one radix-2^51 field multiply: 25 64x64->128 products of 4 32-bit partial
-# products, each a low and a high multiply-add
-IMAD_PER_FE_MUL = 25 * 4 * 2
-FE_MUL_DOUBLE, FE_MUL_ADD, FE_MUL_MADD = 8, 9, 7
-FE_MUL_FINISH = 254 + 11 + 2  # inversion chain + two affine multiplies
+# A 64x64->128 product is 4 such partial products.  In 64x64->128 products
+# (csrc/fe51.cuh): a field multiply 25, a squaring 15; a point doubling
+# 4 squarings + 4 multiplies, a complete add 9 multiplies, a mixed add 7;
+# the finish an inversion (254 squarings + 11 multiplies) and 2 multiplies.
+IMAD_PER_PRODUCT = 4
+MUL, SQ = 25, 15
+DOUBLE, ADD, MADD = 4 * SQ + 4 * MUL, 9 * MUL, 7 * MUL
+FINISH = 254 * SQ + 11 * MUL + 2 * MUL
 
 
 def log(*args):
@@ -65,8 +72,38 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
-def bound(ops_fe_mul: float, nbytes: float):
-    ops_ms = ops_fe_mul * IMAD_PER_FE_MUL / IMAD_PER_S * 1000
+def sass_counts(so: str):
+    """(function, IMAD instructions, of them IMAD.WIDE, all instructions)
+    for each device function in the built library's SASS, from cuobjdump;
+    the field helpers are __noinline__ and so show as functions of their
+    own.  Empty when cuobjdump is missing."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return []
+    out = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=120)
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts.setdefault(name, [0, 0, 0])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name and m:
+            op = m.group(1)
+            c = counts[name]
+            c[2] += 1
+            if op.startswith("IMAD"):
+                c[0] += 1
+                c[1] += op.startswith("IMAD.WIDE")
+    return [(k, *v) for k, v in counts.items()]
+
+
+def bound(products: float, nbytes: float):
+    ops_ms = products * IMAD_PER_PRODUCT / IMAD_PER_S * 1000
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1000
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -315,8 +352,27 @@ def phase_main(keys, card, dev):
     return vset, commit, msgs, tab
 
 
+def max_abs_diff(got, want) -> int:
+    """Largest |kernel - plain| over paired tensors; 0 when they are equal."""
+    import torch
+
+    return max(0 if torch.equal(a, b) else int((a.int() - b.int()).abs().max())
+               for a, b in zip(got, want))
+
+
+def hold(name, report, got, want, what):
+    """Kernel output against its plain version's at tolerance 0; the
+    report's max_abs_err is the largest difference of any comparison."""
+    err = max_abs_diff(got, want)
+    log(f"  {name}: {what} max|kernel - plain|={err}")
+    if err:
+        raise AssertionError(f"{name} disagrees with its plain version at the main path's shapes")
+    report[name]["max_abs_err"] = float(max(report[name].get("max_abs_err", 0.0), err))
+
+
 def phase_timing(vset, commit, msgs, tab_cache, report):
-    """Kernel and plain times at the main path's shapes, and bounds."""
+    """Kernel against plain, kernel and plain times, and bounds, at the main
+    path's shapes (the 10k commit, its 10k pubkey rows and window tables)."""
     import numpy as np
     import torch
 
@@ -329,32 +385,47 @@ def phase_timing(vset, commit, msgs, tab_cache, report):
              for v, m, cs in zip(vset.validators, msgs, commit.signatures)]
     idx, h, s, ry, rs = bvm._device_rows(table.device, np.arange(n), *bvm._scalar_rows(items)[:4])
     rows, tables = table.neg_a_rows, table.build_tables()
+    plain = []
 
-    # ladder
+    def keep(fn):
+        return lambda: plain.append(fn())
+
+    # ladder: the commit's verdicts (all valid) and R' encodings
     k_ms = cuda_ms(lambda: ed25519_cuda.verify_indexed(rows, idx, h, s, ry, rs))
-    p_ms = wall_ms(lambda: ed25519.verify_prepared_packed(rows[idx.long()], h, s, ry, rs))
-    fe_muls = n * (7 * FE_MUL_DOUBLE + 7 * FE_MUL_ADD
-                   + 64 * (4 * FE_MUL_DOUBLE + FE_MUL_ADD + FE_MUL_MADD) + FE_MUL_FINISH)
-    b_ms, b_by = bound(fe_muls, nbytes(rows, idx, h, s, ry, rs) + 2 * n)
+    got = ed25519_cuda.verify_indexed(rows, idx, h, s, ry, rs, want_r=True)
+    p_ms = wall_ms(keep(lambda: ed25519.verify_prepared_packed(
+        rows[idx.long()], h, s, ry, rs, want_r=True)))
+    if not bool(got[0].all()):
+        raise AssertionError("ed25519_ladder rejected a valid commit signature")
+    hold("ed25519_ladder", report, got, plain.pop(), f"B={n} verdicts and R' bytes")
+    products = n * (7 * DOUBLE + 7 * ADD + 64 * (4 * DOUBLE + ADD + MADD) + FINISH)
+    b_ms, b_by = bound(products, nbytes(rows, idx, h, s, ry, rs) + 2 * n)
     report["ed25519_ladder"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
-    # window tables
+    # window tables: the kernel's build against the plain build, bit for bit
     k_ms = cuda_ms(lambda: ed25519_table.build_window_tables(rows), reps=2)
-    p_ms = wall_ms(lambda: ed25519_table.build_window_tables_plain(rows))
-    fe_muls = rows.shape[0] * 64 * (14 * FE_MUL_ADD + 4 * FE_MUL_DOUBLE)
-    b_ms, b_by = bound(fe_muls, nbytes(rows, tables))
+    p_ms = wall_ms(keep(lambda: ed25519_table.build_window_tables_plain(rows)))
+    hold("ed25519_window_tables", report, (ed25519_table.build_window_tables(rows),),
+         (plain.pop(),), f"V={rows.shape[0]} tables")
+    products = rows.shape[0] * 64 * (14 * ADD + 4 * DOUBLE)
+    b_ms, b_by = bound(products, nbytes(rows, tables))
     report["ed25519_window_tables"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
     # tabulated verify: table bytes counted for the rows this commit reads
     k_ms = cuda_ms(lambda: ed25519_table.verify_tabulated(tables, idx, h, s, ry, rs))
+    got = ed25519_table.verify_tabulated(tables, idx, h, s, ry, rs, want_r=True)
     hd, sd = ed25519.expand_digits(h), ed25519.expand_digits(s)
-    p_ms = wall_ms(lambda: ed25519_table.verify_tabulated_plain(tables, idx, hd, sd, ry, rs))
+    p_ms = wall_ms(keep(lambda: ed25519_table.verify_tabulated_plain(
+        tables, idx, hd, sd, ry, rs, want_r=True)))
+    if not bool(got[0].all()):
+        raise AssertionError("ed25519_tabulated rejected a valid commit signature")
+    hold("ed25519_tabulated", report, got, plain.pop(), f"B={n} verdicts and R' bytes")
     w = torch.arange(64, device=idx.device)
     rows_read = torch.unique((idx.long()[:, None] * 64 + w) * 16 + hd.long().flip(1)).numel()
     row_bytes = 4 * 20 * tables.element_size()
-    base_bytes = 64 * 16 * 4 * 5 * 8
-    fe_muls = n * (128 * FE_MUL_ADD + FE_MUL_FINISH)
-    b_ms, b_by = bound(fe_muls, rows_read * row_bytes + base_bytes + nbytes(idx, h, s, ry, rs) + 2 * n)
+    base_bytes = 64 * 16 * 4 * 20 * 4
+    products = n * (128 * ADD + FINISH)
+    b_ms, b_by = bound(products, rows_read * row_bytes + base_bytes + nbytes(idx, h, s, ry, rs) + 2 * n)
     report["ed25519_tabulated"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -389,6 +460,8 @@ def main() -> int:
         for line in f:
             if "Used" in line or "spill" in line or line.startswith("=="):
                 log("  ptxas: " + line.strip())
+    for fn, imad, wide, total in sass_counts(_build.library_path()):
+        log(f"  sass: {fn} IMAD={imad} (IMAD.WIDE={wide}) instructions={total}")
     if not hostprep.have_fast_prep():
         raise AssertionError("host-prep C library did not build")
     t0 = time.perf_counter()
@@ -427,7 +500,7 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched on the main path")
         report[name]["launches"] = c
 
-    log("[4] kernel timing at the main path's shapes")
+    log("[4] kernels vs plain versions and timing at the main path's shapes")
     phase_timing(vset, commit, msgs, tab_cache, report)
     for r in report.values():
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.1f} ms, bound "

@@ -328,9 +328,11 @@ class PubkeyTable:
             return _tabulated_verdict[key]
 
     def _profile_tabulated(self, n: int, key: str) -> bool:
-        """Time one tabulated dispatch vs one ladder dispatch at batch n
-        (zero-filled inputs: both kernels do the same work for any data).
-        Min of 3 each, after one untimed run.  A failing kernel raises."""
+        """Time one tabulated dispatch vs one ladder dispatch at batch n.
+        Both kernels do the same work for any data, so the scalars are zero;
+        signature i reads validator i's rows (mod the set size), the gather
+        pattern of a commit.  Min of 3 each, after one untimed run.  A
+        failing kernel raises."""
         from ..ops import ed25519_cuda, ed25519_table
 
         t0 = time.perf_counter()
@@ -338,7 +340,7 @@ class PubkeyTable:
         torch.cuda.synchronize()
         build_ms = _ms_since(t0)
         dev = self.device
-        idx = torch.zeros(n, dtype=torch.int32, device=dev)
+        idx = (torch.arange(n, device=dev) % self.neg_a_rows.shape[0]).to(torch.int32)
         h = torch.zeros((n, 32), dtype=torch.uint8, device=dev)
         ry = torch.zeros((n, _N_LIMBS), dtype=torch.int16, device=dev)
         rs = torch.zeros(n, dtype=torch.uint8, device=dev)
@@ -406,37 +408,29 @@ class PubkeyTable:
 
 
 def from_jax_state(
-    neg_a_rows: np.ndarray,
-    window_tables: Optional[np.ndarray],
-    device=None,
-    pubkeys: Optional[Sequence[bytes]] = None,
-    tabulated: Optional[bool] = None,
+    neg_a_rows: np.ndarray, window_tables: Optional[np.ndarray], device=None
 ) -> PubkeyTable:
     """A PubkeyTable whose device state is the JAX package's arrays: the
     [V, 4, 20] −A rows (PubkeyTable.neg_a_rows) and, optionally, the
-    [V*1024, 4, 20] int16 window tables (build_window_tables).
+    [V*1024, 4, 20] int16 window tables (build_window_tables).  Given
+    tables, the table serves tabulated; without, it decides as AUTO.
 
-    Host prep hashes the raw pubkeys, so they are needed too; without
-    `pubkeys` they are re-encoded from the rows (A = (−x, y)), and rows
-    equal to the identity placeholder (0, 1, 1, 0) count as invalid keys."""
+    Host prep hashes the raw pubkeys, so they are re-encoded from the rows
+    (A = (−x, y); decompression accepts only canonical encodings, so this
+    round-trips).  Rows equal to the identity placeholder (0, 1, 1, 0) count
+    as invalid keys: a validator whose key is the identity point itself is
+    rejected, never accepted in place of an invalid key."""
     rows = np.ascontiguousarray(neg_a_rows).astype(np.int16)
     if rows.ndim != 3 or rows.shape[1:] != (4, _N_LIMBS):
         raise ValueError(f"neg_a_rows must be [V, 4, 20], got {rows.shape}")
     v = rows.shape[0]
-    if pubkeys is None:
-        pubkeys = []
-        for r in rows:
-            nx, y = (sum(int(l) << (_LIMB_BITS * i) for i, l in enumerate(r[c])) for c in (0, 1))
-            pubkeys.append(em.compress((em.P - nx) % em.P, y))
-        row_valid = ~(rows == IDENTITY_ROW).all(axis=(1, 2))
-    else:
-        pubkeys = [bytes(pk) for pk in pubkeys]
-        if len(pubkeys) != v:
-            raise ValueError(f"{len(pubkeys)} pubkeys for {v} rows")
-        row_valid = np.array([_neg_a_limbs(pk) is not None for pk in pubkeys], dtype=bool)
-    table = PubkeyTable([], device=device, tabulated=tabulated)
-    table.pubkeys = list(pubkeys)
-    table.row_valid = row_valid
+    pubkeys = []
+    for r in rows:
+        nx, y = (sum(int(l) << (_LIMB_BITS * i) for i, l in enumerate(r[c])) for c in (0, 1))
+        pubkeys.append(em.compress((em.P - nx) % em.P, y))
+    table = PubkeyTable([], device=device, tabulated=True if window_tables is not None else None)
+    table.pubkeys = pubkeys
+    table.row_valid = ~(rows == IDENTITY_ROW).all(axis=(1, 2))
     table.neg_a_rows = torch.as_tensor(rows, device=table.device)
     if window_tables is not None:
         wt = np.ascontiguousarray(window_tables).astype(np.int16)

@@ -8,8 +8,9 @@
 //
 // What bounds it on the H100: integer multiply throughput.  Per signature
 // the ladder does 64 x (4 doublings + 1 add + 1 madd) plus the 14-op d*(-A)
-// table and a 265-op inversion, about 3.5k field multiplies of 25 64x64->128
-// products each, against 392 bytes of input.  Nothing here is memory-bound.
+// table and a 265-op inversion: about 2.15k field multiplies of 25
+// 64x64->128 products and 1.3k squarings of 15, against 392 bytes of input.
+// Nothing here is memory-bound.
 //
 // Design: one thread per signature, blocks of 128.  Field elements are five
 // 64-bit limbs (fe51.cuh) so each product is one native 64-bit multiply pair

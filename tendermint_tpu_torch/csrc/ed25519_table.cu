@@ -19,8 +19,9 @@
 // [128, 4, 20, B] XLA gather in front of it (verify_tabulated); plain
 // version ops/ed25519_table.py verify_tabulated_plain.  Bound on the H100:
 // table-row bytes -- 64 random 160-byte int16 rows per signature from the
-// validator tables (205 MB for a 10k commit) plus 64 rows from the 160 KB
-// base-window table, which stays in L2.  Design: one thread per signature
+// validator tables (205 MB for a 10k commit) plus 64 rows from the 320 KB
+// base-window table (13-bit int32 limbs, converted on load as kernel 1 does
+// its madd table), which stays in L2.  Design: one thread per signature
 // reads its 64 table rows straight from global memory by index (no
 // materialized gather, no relayout), sums them with the complete add, then
 // inverts, canonicalizes and compares as kernel 1 does.  The TPU kernel
@@ -70,7 +71,7 @@ __global__ void __launch_bounds__(kThreads)
                      const uint8_t *__restrict__ s_le,    // [B, 32]
                      const int16_t *__restrict__ r_y,     // [B, 20]
                      const uint8_t *__restrict__ r_sign,  // [B]
-                     const u64 *__restrict__ base_windows,  // [64*16, 4, 5] radix 2^51
+                     const int32_t *__restrict__ base_windows,  // [64*16, 4, 20]
                      uint8_t *__restrict__ ok, uint8_t *__restrict__ r_out,
                      int n_rows, int batch) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -87,7 +88,7 @@ __global__ void __launch_bounds__(kThreads)
     ge_add(acc, acc, q);
   }
   for (int w = 0; w < 64; w++) {
-    ge_load51(q, base_windows + 20 * (16 * w + scalar_digit(s, w)));
+    ge_from13(q, base_windows + 80 * (16 * w + scalar_digit(s, w)));
     ge_add(acc, acc, q);
   }
   ge_finish(acc, r_y + 20 * (size_t)i, r_sign[i], ok + i,
@@ -112,6 +113,6 @@ extern "C" int ed25519_tabulated_launch(const void *tables, const void *idx, con
   tabulated_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int16_t *)tables, (const int32_t *)idx, (const uint8_t *)h_le,
       (const uint8_t *)s_le, (const int16_t *)r_y, (const uint8_t *)r_sign,
-      (const u64 *)base_windows, (uint8_t *)ok, (uint8_t *)r_out, n_rows, batch);
+      (const int32_t *)base_windows, (uint8_t *)ok, (uint8_t *)r_out, n_rows, batch);
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,8 @@
 // formula below the subtrahend is a fe_mul output or a canonical value, and
 // the largest fe_mul operand is an add of an add/sub result (< 2^53.5), so
 // no extra carry is needed; 128-bit sums stay < 2^114 and every carry
-// < 2^63.
+// < 2^63.  fe_sq forms the same column sums from doubled (< 2^55) and
+// 19-fold (< 2^59) operands, so it takes the same limbs.
 //
 // The point formulas are the JAX package's (ops/curve.py: add-2008-hwcd-3,
 // madd-2008-hwcd-3, dbl-2008-hwcd for a = -1), term for term and in the same
@@ -90,16 +91,9 @@ static __device__ __forceinline__ void fe_carry(fe &t) {
   c = t.v[4] >> 51; t.v[4] &= MASK51; t.v[0] += 19 * c;
 }
 
-static __device__ __forceinline__ void fe_mul(fe &r, const fe &a, const fe &b) {
-  const u64 a0 = a.v[0], a1 = a.v[1], a2 = a.v[2], a3 = a.v[3], a4 = a.v[4];
-  const u64 b0 = b.v[0], b1 = b.v[1], b2 = b.v[2], b3 = b.v[3], b4 = b.v[4];
-  const u64 b1_19 = b1 * 19, b2_19 = b2 * 19, b3_19 = b3 * 19, b4_19 = b4 * 19;
-  u128 t0 = {0, 0}, t1 = {0, 0}, t2 = {0, 0}, t3 = {0, 0}, t4 = {0, 0};
-  mac(t0, a0, b0); mac(t0, a1, b4_19); mac(t0, a2, b3_19); mac(t0, a3, b2_19); mac(t0, a4, b1_19);
-  mac(t1, a0, b1); mac(t1, a1, b0); mac(t1, a2, b4_19); mac(t1, a3, b3_19); mac(t1, a4, b2_19);
-  mac(t2, a0, b2); mac(t2, a1, b1); mac(t2, a2, b0); mac(t2, a3, b4_19); mac(t2, a4, b3_19);
-  mac(t3, a0, b3); mac(t3, a1, b2); mac(t3, a2, b1); mac(t3, a3, b0); mac(t3, a4, b4_19);
-  mac(t4, a0, b4); mac(t4, a1, b3); mac(t4, a2, b2); mac(t4, a3, b1); mac(t4, a4, b0);
+// carry the five 128-bit column sums of a product into limbs <= 2^51 + 2^13
+static __device__ __forceinline__ void fe_reduce(fe &r, u128 t0, u128 t1, u128 t2, u128 t3,
+                                                 u128 t4) {
   u64 c, r0, r1, r2, r3, r4;
   r0 = t0.lo & MASK51; c = shr51(t0);
   add64(t1, c); r1 = t1.lo & MASK51; c = shr51(t1);
@@ -111,11 +105,37 @@ static __device__ __forceinline__ void fe_mul(fe &r, const fe &a, const fe &b) {
   r.v[0] = r0; r.v[1] = r1; r.v[2] = r2; r.v[3] = r3; r.v[4] = r4;
 }
 
-static __device__ __forceinline__ void fe_sq(fe &r, const fe &a) { fe_mul(r, a, a); }
+static __device__ __forceinline__ void fe_mul(fe &r, const fe &a, const fe &b) {
+  const u64 a0 = a.v[0], a1 = a.v[1], a2 = a.v[2], a3 = a.v[3], a4 = a.v[4];
+  const u64 b0 = b.v[0], b1 = b.v[1], b2 = b.v[2], b3 = b.v[3], b4 = b.v[4];
+  const u64 b1_19 = b1 * 19, b2_19 = b2 * 19, b3_19 = b3 * 19, b4_19 = b4 * 19;
+  u128 t0 = {0, 0}, t1 = {0, 0}, t2 = {0, 0}, t3 = {0, 0}, t4 = {0, 0};
+  mac(t0, a0, b0); mac(t0, a1, b4_19); mac(t0, a2, b3_19); mac(t0, a3, b2_19); mac(t0, a4, b1_19);
+  mac(t1, a0, b1); mac(t1, a1, b0); mac(t1, a2, b4_19); mac(t1, a3, b3_19); mac(t1, a4, b2_19);
+  mac(t2, a0, b2); mac(t2, a1, b1); mac(t2, a2, b0); mac(t2, a3, b4_19); mac(t2, a4, b3_19);
+  mac(t3, a0, b3); mac(t3, a1, b2); mac(t3, a2, b1); mac(t3, a3, b0); mac(t3, a4, b4_19);
+  mac(t4, a0, b4); mac(t4, a1, b3); mac(t4, a2, b2); mac(t4, a3, b1); mac(t4, a4, b0);
+  fe_reduce(r, t0, t1, t2, t3, t4);
+}
+
+// a^2 in 15 products: the 128-bit column sums are fe_mul(a, a)'s exactly,
+// so the result is bit-identical to it
+static __device__ __forceinline__ void fe_sq(fe &r, const fe &a) {
+  const u64 a0 = a.v[0], a1 = a.v[1], a2 = a.v[2], a3 = a.v[3], a4 = a.v[4];
+  const u64 d0 = 2 * a0, d1 = 2 * a1, d2 = 2 * a2, d3 = 2 * a3;
+  const u64 a3_19 = a3 * 19, a4_19 = a4 * 19;
+  u128 t0 = {0, 0}, t1 = {0, 0}, t2 = {0, 0}, t3 = {0, 0}, t4 = {0, 0};
+  mac(t0, a0, a0); mac(t0, d1, a4_19); mac(t0, d2, a3_19);
+  mac(t1, d0, a1); mac(t1, d2, a4_19); mac(t1, a3, a3_19);
+  mac(t2, d0, a2); mac(t2, a1, a1); mac(t2, d3, a4_19);
+  mac(t3, d0, a3); mac(t3, d1, a2); mac(t3, a4, a4_19);
+  mac(t4, d0, a4); mac(t4, d1, a3); mac(t4, a2, a2);
+  fe_reduce(r, t0, t1, t2, t3, t4);
+}
 
 static __device__ __noinline__ void fe_sqn(fe &r, const fe &a, int n) {
   r = a;
-  for (int i = 0; i < n; i++) fe_mul(r, r, r);
+  for (int i = 0; i < n; i++) fe_sq(r, r);
 }
 
 // z^(p-2), the ref10 addition chain (254 squarings + 11 multiplies) that
@@ -197,11 +217,6 @@ static __device__ __forceinline__ void fe_to13(int16_t *out, fe c) {
   for (int i = 0; i < 20; i++) out[i] = (int16_t)fe_limb13(c, i);
 }
 
-static __device__ __forceinline__ void fe_load51(fe &r, const u64 *p) {
-#pragma unroll
-  for (int i = 0; i < 5; i++) r.v[i] = p[i];
-}
-
 static __device__ __forceinline__ void ge_identity(ge &r) {
   fe_zero(r.X);
   fe_one(r.Y);
@@ -218,18 +233,11 @@ static __device__ __forceinline__ void ge_from13(ge &r, const T *p) {
   fe_from13(r.T, p + 60);
 }
 
-// a point stored as [4, 5] radix-2^51 limbs
-static __device__ __forceinline__ void ge_load51(ge &r, const u64 *p) {
-  fe_load51(r.X, p);
-  fe_load51(r.Y, p + 5);
-  fe_load51(r.Z, p + 10);
-  fe_load51(r.T, p + 15);
-}
-
 // complete addition, add-2008-hwcd-3 (ops/curve.py point_add)
 static __device__ __noinline__ void ge_add(ge &r, const ge &p, const ge &q) {
   fe a, b, c, d, e, f, g, h, t0, t1, two_d;
-  fe_load51(two_d, FE_TWO_D);
+#pragma unroll
+  for (int i = 0; i < 5; i++) two_d.v[i] = FE_TWO_D[i];
   fe_sub(t0, p.Y, p.X);
   fe_sub(t1, q.Y, q.X);
   fe_mul(a, t0, t1);

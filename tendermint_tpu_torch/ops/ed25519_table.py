@@ -101,22 +101,6 @@ def base_windows() -> np.ndarray:
     return _build_base_windows()
 
 
-def to_radix51(limbs13: np.ndarray) -> np.ndarray:
-    """[..., 20] 13-bit limbs -> [..., 5] int64 radix-2^51 limbs of the same
-    (already reduced) value — the form kernel 3 reads its base windows in."""
-    flat = limbs13.reshape(-1, N)
-    out = np.zeros((flat.shape[0], 5), dtype=np.int64)
-    for r, row in enumerate(flat):
-        v = sum(int(x) << (fe.LIMB_BITS * i) for i, x in enumerate(row)) % fe.P_INT
-        out[r] = [(v >> (51 * k)) & ((1 << 51) - 1) for k in range(5)]
-    return out.reshape(limbs13.shape[:-1] + (5,))
-
-
-@functools.lru_cache(maxsize=1)
-def base_windows51() -> np.ndarray:
-    return to_radix51(base_windows())
-
-
 def verify_tabulated_plain(
     tables: torch.Tensor,  # [V*64*16, 4, 20] int16
     idx: torch.Tensor,  # [B] int validator row per signature
@@ -204,7 +188,7 @@ def verify_tabulated(
         rc = _build.lib().ed25519_tabulated_launch(
             tables.data_ptr(), idx.data_ptr(), h_le.data_ptr(), s_le.data_ptr(),
             r_y.data_ptr(), r_sign.data_ptr(),
-            _check.device_const(base_windows51(), tables.device).data_ptr(),
+            _check.device_const(base_windows(), tables.device).data_ptr(),
             ok.data_ptr(), r_out.data_ptr() if want_r else None,
             rows, batch, torch.cuda.current_stream(tables.device).cuda_stream,
         )

@@ -160,11 +160,11 @@ def test_from_jax_state_round_trip(sigs16, jax_verdicts):
     ours = bvm.PubkeyTable(pks[:4], device=CPU, tabulated=True)
     np.testing.assert_array_equal(ours.neg_a_rows.numpy(), rows)
     np.testing.assert_array_equal(ours.build_tables().numpy(), tables)
-    for kwargs in ({"pubkeys": pks[:4]}, {}):
-        for tab in (True, False):
-            carried = bvm.from_jax_state(rows, tables, device=CPU, tabulated=tab, **kwargs)
-            assert carried.pubkeys == pks[:4]
-            assert carried.verify_indexed([0, 1, 2, 3], msgs[:4], sigs[:4]) == jax_verdicts[:4]
+    for carried_tables, path in ((tables, "tabulated"), (None, "indexed")):
+        carried = bvm.from_jax_state(rows, carried_tables, device=CPU)
+        assert carried.pubkeys == pks[:4]
+        assert carried.verify_indexed([0, 1, 2, 3], msgs[:4], sigs[:4]) == jax_verdicts[:4]
+        assert carried.verifier.last_dispatch["path"] == path
     bad = bvm.from_jax_state(np.stack([rows[0], bvm.IDENTITY_ROW]), None, device=CPU)
     assert bad.row_valid.tolist() == [True, False]
 
