@@ -6,11 +6,15 @@
 1. Setup: prints the card (nvidia-smi name and power limit), builds the
    CUDA kernels from the checkout's sources and the host-prep C library.
 2. Each kernel against its plain torch version on the card, on the same
-   inputs, tolerance 0 (integer math): kernel 1 (ladder) and kernel 3
-   (tabulated verify) at B = 1024 on a mix of valid signatures and every
-   corruption class, comparing verdicts and the R' encodings; kernel 2
-   (window tables) for 64 validators, bit for bit.  Verdicts of real
-   signatures are also held against the pure-Python ed25519 oracle.
+   inputs, tolerance 0 (integer math), at ragged shapes (no multiple of 8
+   or 32): kernel 1 (ladder) and kernel 3 (tabulated verify) at B = 1021
+   on a mix of valid signatures and every corruption class, comparing
+   verdicts and the R' encodings; kernel 2 (window tables) for 67
+   validators, bit for bit.  Verdicts of real signatures are also held
+   against the pure-Python ed25519 oracle.  Then the four-lane point
+   helpers (csrc/ge_quad.cuh) against the one-lane helpers (csrc/fe51.cuh)
+   on real points: doubling and mixed add equal bit for bit, the add (which
+   takes 2d*T cached) equal as canonical values.
 3. The main path at full size: a 10,000-validator set signs a full commit;
    ValidatorSet.verify_commit runs through the crypto.batch hooks on the
    ladder, on the tabulated path and under the auto profile, then the
@@ -21,8 +25,9 @@
    and R' encodings of the commit, window tables bit for bit), its time
    (CUDA events) beside the plain version's, and its bound from the shapes.
 
-Prints, before the last line, a JSON object {"kernels": [...]} and the card
-line; the last line is {"ok": true, "device": {...}}.  Exits non-zero,
+Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
+also its threads and warps per SM at the 10k launch, registers, stack and
+spill bytes from the ptxas log, and bound_ms / ms) and the card line; the last line is {"ok": true, "device": {...}}.  Exits non-zero,
 printing no result, without a card, outside a checkout, or when any phase
 fails.
 """
@@ -38,8 +43,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_VALIDATORS = 10_000
-KERNEL_BATCH = 1024
-TABLE_VALIDATORS = 64
+KERNEL_BATCH = 1021
+TABLE_VALIDATORS = 67
+SELFTEST_ITEMS = 512
 FLAT_BATCH = 512
 CHAIN_ID = "chip-smoke"
 
@@ -51,12 +57,14 @@ CHAIN_ID = "chip-smoke"
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 67e12 / 4
 # A 64x64->128 product is 4 such partial products.  In 64x64->128 products
-# (csrc/fe51.cuh): a field multiply 25, a squaring 15; a point doubling
-# 4 squarings + 4 multiplies, a complete add 9 multiplies, a mixed add 7;
+# (csrc/fe51.cuh, csrc/ge_quad.cuh): a field multiply 25, a squaring 15; a
+# point doubling 4 squarings + 4 multiplies, a complete add 9 multiplies
+# (8 when the second point carries 2d*T, as the ladder's table and the
+# build's P_w do; the conversion to that form is 1 multiply), a mixed add 7;
 # the finish an inversion (254 squarings + 11 multiplies) and 2 multiplies.
 IMAD_PER_PRODUCT = 4
 MUL, SQ = 25, 15
-DOUBLE, ADD, MADD = 4 * SQ + 4 * MUL, 9 * MUL, 7 * MUL
+DOUBLE, ADD, ADD_CACHED, MADD = 4 * SQ + 4 * MUL, 9 * MUL, 8 * MUL, 7 * MUL
 FINISH = 254 * SQ + 11 * MUL + 2 * MUL
 
 
@@ -254,6 +262,37 @@ def phase_kernels(rng, keys, report, dev):
         t["ry"], t["rs"], want_r=True)
     compare("ed25519_tabulated", got, want)
 
+    if dev.type == "cuda":  # the quad helpers exist only on the card
+        quad_vs_one_lane(rng, t["rows"], dev)
+
+
+def quad_vs_one_lane(rng, rows, dev):
+    """The four-lane point helpers against the one-lane helpers on real
+    points (decompressed keys and the identity, doubled once in the kernel
+    so Z is general; every 8th add is P + P)."""
+    import numpy as np
+    import torch
+
+    from tendermint_tpu_torch.ops import ed25519_cuda
+
+    pi = rng.integers(0, rows.shape[0], SELFTEST_ITEMS)
+    qi = rng.integers(0, rows.shape[0], SELFTEST_ITEMS)
+    qi[::8] = pi[::8]
+    digits = torch.as_tensor(rng.integers(0, 16, SELFTEST_ITEMS, dtype=np.uint8), device=dev)
+    raw, canon = ed25519_cuda.quad_selftest(
+        rows[torch.as_tensor(pi, device=dev)].contiguous(),
+        rows[torch.as_tensor(qi, device=dev)].contiguous(), digits)
+    torch.cuda.synchronize()
+    ops = ("dbl", "add", "madd")
+    raw_diff = {op: int((raw[0, :, k] != raw[1, :, k]).any(dim=2).any(dim=1).sum())
+                for k, op in enumerate(ops)}
+    canon_diff = {op: int((canon[0, :, k] != canon[1, :, k]).any(dim=2).any(dim=1).sum())
+                  for k, op in enumerate(ops)}
+    log(f"  quad vs one-lane helpers, {SELFTEST_ITEMS} points: items whose raw limbs differ "
+        f"{raw_diff}, whose canonical values differ {canon_diff}")
+    if raw_diff["dbl"] or raw_diff["madd"] or any(canon_diff.values()):
+        raise AssertionError("quad point helpers disagree with the one-lane helpers")
+
 
 def build_commit(keys):
     from tendermint_tpu_torch.types.block import BlockID, Commit, PartSetHeader
@@ -377,8 +416,9 @@ def phase_timing(vset, commit, msgs, tab_cache, report):
     import torch
 
     from tendermint_tpu_torch.crypto import batch_verifier as bvm
-    from tendermint_tpu_torch.ops import ed25519, ed25519_cuda, ed25519_table
+    from tendermint_tpu_torch.ops import _build, ed25519, ed25519_cuda, ed25519_table
 
+    lib = _build.lib()  # its *_threads exports give each launch's thread count
     table = tab_cache.table_for(vset.pubkeys_digest(), None)
     n = vset.size()
     items = [(v.pub_key.bytes(), m, cs.signature)
@@ -398,18 +438,29 @@ def phase_timing(vset, commit, msgs, tab_cache, report):
     if not bool(got[0].all()):
         raise AssertionError("ed25519_ladder rejected a valid commit signature")
     hold("ed25519_ladder", report, got, plain.pop(), f"B={n} verdicts and R' bytes")
-    products = n * (7 * DOUBLE + 7 * ADD + 64 * (4 * DOUBLE + ADD + MADD) + FINISH)
+    products = n * (7 * DOUBLE + 7 * ADD_CACHED + 16 * MUL
+                    + 64 * (4 * DOUBLE + ADD_CACHED + MADD) + FINISH)
     b_ms, b_by = bound(products, nbytes(rows, idx, h, s, ry, rs) + 2 * n)
-    report["ed25519_ladder"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    report["ed25519_ladder"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                    threads=lib.ed25519_ladder_threads(n))
 
     # window tables: the kernel's build against the plain build, bit for bit
     k_ms = cuda_ms(lambda: ed25519_table.build_window_tables(rows), reps=2)
     p_ms = wall_ms(keep(lambda: ed25519_table.build_window_tables_plain(rows)))
     hold("ed25519_window_tables", report, (ed25519_table.build_window_tables(rows),),
          (plain.pop(),), f"V={rows.shape[0]} tables")
-    products = rows.shape[0] * 64 * (14 * ADD + 4 * DOUBLE)
+    # per window: P_w to the cached form, then 14 cached adds
+    products = rows.shape[0] * (64 * (14 * ADD_CACHED + MUL) + 63 * 4 * DOUBLE)
     b_ms, b_by = bound(products, nbytes(rows, tables))
-    report["ed25519_window_tables"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    threads_a, threads_b = (lib.ed25519_table_threads(p, rows.shape[0]) for p in (0, 1))
+    pass_ms = kernel_device_ms(lambda: ed25519_table.build_window_tables(rows),
+                               ("chain_kernel", "windows_kernel"))
+    report["ed25519_window_tables"].update(
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, threads=threads_b,
+        passes={"chain": {"kernel": "chain_kernel", "threads": threads_a,
+                          "ms": pass_ms.get("chain_kernel")},
+                "windows": {"kernel": "windows_kernel", "threads": threads_b,
+                            "ms": pass_ms.get("windows_kernel")}})
 
     # tabulated verify: table bytes counted for the rows this commit reads
     k_ms = cuda_ms(lambda: ed25519_table.verify_tabulated(tables, idx, h, s, ry, rs))
@@ -426,7 +477,47 @@ def phase_timing(vset, commit, msgs, tab_cache, report):
     base_bytes = 64 * 16 * 4 * 20 * 4
     products = n * (128 * ADD + FINISH)
     b_ms, b_by = bound(products, rows_read * row_bytes + base_bytes + nbytes(idx, h, s, ry, rs) + 2 * n)
-    report["ed25519_tabulated"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    report["ed25519_tabulated"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                       threads=lib.ed25519_table_threads(2, n))
+
+
+def kernel_device_ms(fn, names) -> dict:
+    """Device ms of each named kernel in one run of fn, from torch.profiler;
+    a name is missing where the profiler records no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for name in names:
+            if name in ev.key and us:
+                out[name] = us / 1000
+    return out
+
+
+def add_resources(report, log_text, sm_count):
+    """Registers, stack and spill bytes (ptxas log), warps per SM and the
+    bound share into each kernel's report."""
+    from tendermint_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    passes = report["ed25519_window_tables"]["passes"]
+    entries = [(report["ed25519_ladder"], "ladder_kernel", lib.ed25519_ladder_resident_warps()),
+               (report["ed25519_tabulated"], "tabulated_kernel", lib.ed25519_table_resident_warps(2)),
+               (report["ed25519_window_tables"], "windows_kernel", lib.ed25519_table_resident_warps(1)),
+               (passes["chain"], "chain_kernel", lib.ed25519_table_resident_warps(0)),
+               (passes["windows"], "windows_kernel", lib.ed25519_table_resident_warps(1))]
+    for r, kernel, resident in entries:
+        r.update(_build.resources_of(kernel, log_text))
+        # warps launched per SM; how many of them one SM holds at once
+        r["warps_per_sm"] = r["threads"] / 32 / sm_count
+        r["resident_warps_per_sm"] = resident
+    for r in report.values():
+        r["bound_share"] = r["bound_ms"] / r["ms"]
 
 
 def main() -> int:
@@ -457,9 +548,10 @@ def main() -> int:
     _build.lib()
     log(f"  CUDA kernels built in {time.perf_counter() - t0:.3f} s ({_build.library_path()})")
     with open(_build.ptxas_log_path()) as f:
-        for line in f:
-            if "Used" in line or "spill" in line or line.startswith("=="):
-                log("  ptxas: " + line.strip())
+        ptxas_log = f.read()
+    for line in ptxas_log.splitlines():
+        if "Used" in line or "spill" in line or line.startswith("=="):
+            log("  ptxas: " + line.strip())
     for fn, imad, wide, total in sass_counts(_build.library_path()):
         log(f"  sass: {fn} IMAD={imad} (IMAD.WIDE={wide}) instructions={total}")
     if not hostprep.have_fast_prep():
@@ -502,13 +594,26 @@ def main() -> int:
 
     log("[4] kernels vs plain versions and timing at the main path's shapes")
     phase_timing(vset, commit, msgs, tab_cache, report)
+    add_resources(report, ptxas_log, torch.cuda.get_device_properties(0).multi_processor_count)
     for r in report.values():
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.1f} ms, bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']}) ({card})")
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, share {r['bound_share']:.4f}; "
+            f"{r['threads']} threads, {r['warps_per_sm']:.2f} warps/SM launched, "
+            f"{r['resident_warps_per_sm']} resident, {r['regs']} regs, "
+            f"stack {r['stack_bytes']} B, spill {r['spill_bytes']} B) ({card})")
+    for name, p in report["ed25519_window_tables"]["passes"].items():
+        log(f"  ed25519_window_tables pass {name}: {p['ms']} ms (profiler), {p['threads']} threads, "
+            f"{p['warps_per_sm']:.2f} warps/SM launched, {p['resident_warps_per_sm']} resident, "
+            f"{p['regs']} regs, stack {p['stack_bytes']} B, "
+            f"spill {p['spill_bytes']} B ({card})")
 
     keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys_order} for r in report.values()]}))
+                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share",
+                  "threads", "warps_per_sm", "resident_warps_per_sm", "regs", "stack_bytes",
+                  "spill_bytes")
+    kernels = [{k: r[k] for k in keys_order + (("passes",) if "passes" in r else ())}
+               for r in report.values()]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

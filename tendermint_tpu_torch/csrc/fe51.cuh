@@ -21,6 +21,15 @@
 // madd-2008-hwcd-3, dbl-2008-hwcd for a = -1), term for term and in the same
 // order, so projective coordinates agree with the plain torch version mod p
 // even on points off the curve.
+//
+// Who uses what.  The one-lane point helpers below (ge_double, ge_add,
+// ge_madd, ge_finish: one thread carries a whole point) serve kernel 3 (the
+// tabulated sum); pass B of kernel 2 (one thread per (validator, window)
+// runs 14 adds of one point) uses ge_add_cached.  Kernel 1 (the ladder) and
+// pass A of kernel 2 (the doubling chain) use the four-lane forms of
+// ge_quad.cuh, which split each formula across a quad of lanes with the
+// same products in the same order; they share fe_mul, fe_sq, fe_invert and
+// finish_affine from here.
 #pragma once
 
 #include <stdint.h>
@@ -184,10 +193,11 @@ static __device__ __forceinline__ void fe_canon(fe &t) {
   t.v[4] &= MASK51;
 }
 
-// 20 non-negative 13-bit limbs (any int type, at most 15 bits each) ->
-// radix 2^51; bits at and above 2^255 fold back by 19
-template <typename T>
-static __device__ __forceinline__ void fe_from13(fe &r, const T *limbs) {
+// 20 non-negative 13-bit limbs (any int type, at most 15 bits each, from a
+// pointer or anything else indexable) -> radix 2^51; bits at and above
+// 2^255 fold back by 19
+template <typename P>
+static __device__ __forceinline__ void fe_from13(fe &r, P limbs) {
   fe_zero(r);
 #pragma unroll
   for (int i = 0; i < 20; i++) {
@@ -258,6 +268,45 @@ static __device__ __noinline__ void ge_add(ge &r, const ge &p, const ge &q) {
   fe_mul(r.T, e, h);
 }
 
+// A point in the cached form (Y-X, Y+X, 2d*T, Z) that the complete add
+// reads its second operand in: converting costs one multiply, and each add
+// from it 8 instead of 9.
+struct ge_cached {
+  fe ymx, ypx, t2d, Z;
+};
+
+static __device__ __forceinline__ void ge_to_cached(ge_cached &r, const ge &p) {
+  fe two_d;
+#pragma unroll
+  for (int i = 0; i < 5; i++) two_d.v[i] = FE_TWO_D[i];
+  fe_sub(r.ymx, p.Y, p.X);
+  fe_add(r.ypx, p.Y, p.X);
+  fe_mul(r.t2d, p.T, two_d);
+  r.Z = p.Z;
+}
+
+// add-2008-hwcd-3 with q cached: ge_add's formula with c = T1 * (2d*T2)
+// instead of (T1*2d) * T2, equal mod p, not as limbs; the same products as
+// ge_quad.cuh's quad_add.  Inlined into kernel 2 pass B's loop.
+static __device__ __forceinline__ void ge_add_cached(ge &r, const ge &p, const ge_cached &q) {
+  fe a, b, c, d, e, f, g, h, t0;
+  fe_sub(t0, p.Y, p.X);
+  fe_mul(a, t0, q.ymx);
+  fe_add(t0, p.Y, p.X);
+  fe_mul(b, t0, q.ypx);
+  fe_mul(c, p.T, q.t2d);
+  fe_mul(d, p.Z, q.Z);
+  fe_add(d, d, d);
+  fe_sub(e, b, a);
+  fe_sub(f, d, c);
+  fe_add(g, d, c);
+  fe_add(h, b, a);
+  fe_mul(r.X, e, f);
+  fe_mul(r.Y, g, h);
+  fe_mul(r.Z, f, g);
+  fe_mul(r.T, e, h);
+}
+
 // mixed addition with (y-x, y+x, 2d*x*y), Z2 = 1 (ops/curve.py point_madd)
 static __device__ __noinline__ void ge_madd(ge &r, const ge &p, const fe &ymx, const fe &ypx,
                                      const fe &td) {
@@ -302,17 +351,12 @@ static __device__ __forceinline__ int scalar_digit(const uint8_t *le, int k) {
   return (le[k >> 1] >> (4 * (k & 1))) & 15;
 }
 
-// Affine, canonical, and compared limb for limb against the signature's
-// raw R y limbs (never reduced, so a non-canonical R fails) and x parity.
-// Optionally writes the 32-byte encoding of R'.
-static __device__ __noinline__ void ge_finish(const ge &acc, const int16_t *r_y, uint8_t r_sign,
-                                       uint8_t *ok, uint8_t *r_out) {
-  fe zinv, x, y;
-  fe_invert(zinv, acc.Z);
-  fe_mul(x, acc.X, zinv);
-  fe_mul(y, acc.Y, zinv);
-  fe_canon(x);
-  fe_canon(y);
+// Compare canonical affine (x, y) limb for limb against the signature's raw
+// R y limbs (never reduced, so a non-canonical R fails) and x parity, and
+// write the verdict; optionally the 32-byte encoding of R'.
+static __device__ __forceinline__ void finish_affine(const fe &x, const fe &y,
+                                                     const int16_t *r_y, uint8_t r_sign,
+                                                     uint8_t *ok, uint8_t *r_out) {
   bool good = (int)(x.v[0] & 1) == (int)r_sign;
 #pragma unroll
   for (int i = 0; i < 20; i++) good = good && (fe_limb13(y, i) == (int)r_y[i]);
@@ -326,4 +370,16 @@ static __device__ __noinline__ void ge_finish(const ge &acc, const int16_t *r_y,
       for (int j = 0; j < 8; j++) r_out[8 * i + j] = (uint8_t)(w[i] >> (8 * j));
     r_out[31] |= (uint8_t)((x.v[0] & 1) << 7);
   }
+}
+
+// Projective -> affine, canonical, compared (finish_affine).
+static __device__ __noinline__ void ge_finish(const ge &acc, const int16_t *r_y, uint8_t r_sign,
+                                       uint8_t *ok, uint8_t *r_out) {
+  fe zinv, x, y;
+  fe_invert(zinv, acc.Z);
+  fe_mul(x, acc.X, zinv);
+  fe_mul(y, acc.Y, zinv);
+  fe_canon(x);
+  fe_canon(y);
+  finish_affine(x, y, r_y, r_sign, ok, r_out);
 }

@@ -18,6 +18,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -116,5 +117,48 @@ def lib() -> ctypes.CDLL:
         cdll.ed25519_tabulated_launch.restype = i
         cdll.ed25519_window_tables_launch.argtypes = [vp, vp, i, vp]
         cdll.ed25519_window_tables_launch.restype = i
+        cdll.ed25519_quad_selftest_launch.argtypes = [vp] * 6 + [i, vp]
+        cdll.ed25519_quad_selftest_launch.restype = i
+        # launch shapes, read by chip_smoke.py's report
+        cdll.ed25519_ladder_threads.argtypes = [i]
+        cdll.ed25519_table_threads.argtypes = [i, i]
+        cdll.ed25519_ladder_resident_warps.argtypes = []
+        cdll.ed25519_table_resident_warps.argtypes = [i]
+        for fn in ("ed25519_ladder_threads", "ed25519_table_threads",
+                   "ed25519_ladder_resident_warps", "ed25519_table_resident_warps"):
+            getattr(cdll, fn).restype = i
         _lib = cdll
         return _lib
+
+
+def kernel_resources(log: str) -> dict:
+    """Per kernel (mangled entry name) from a `ptxas -v` log: registers per
+    thread, stack frame bytes and spill-store bytes."""
+    out: dict = {}
+    entry = props = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {"regs": None, "stack_bytes": None, "spill_bytes": None}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m and props in out:
+            out[props]["stack_bytes"], out[props]["spill_bytes"] = int(m.group(1)), int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in out:
+            out[entry]["regs"] = int(m.group(1))
+    return out
+
+
+def resources_of(kernel: str, log: str) -> dict:
+    """kernel_resources of the one entry whose mangled name holds `kernel`."""
+    found = [r for name, r in kernel_resources(log).items() if kernel in name]
+    if len(found) != 1:
+        raise KeyError(f"{len(found)} entries named like {kernel!r} in the ptxas log")
+    return found[0]

@@ -5,6 +5,11 @@
 `rows`.  On CUDA tensors it launches the kernel on the current stream; on
 CPU tensors it runs the plain version (ops/ed25519.py) — the only reason it
 ever does.  `LAUNCHES` counts kernel launches and nothing else.
+
+The kernel runs one quad of four lanes per signature (csrc/ge_quad.cuh);
+`quad_selftest` holds those four-lane point helpers against the one-lane
+helpers of csrc/fe51.cuh on the card.  It is a check, not part of the path,
+and counts no launch.
 """
 
 from __future__ import annotations
@@ -56,3 +61,29 @@ def verify_indexed(
     if want_r:
         return ok.bool(), r_out
     return ok.bool()
+
+
+def quad_selftest(p_rows: torch.Tensor, q_rows: torch.Tensor, digits: torch.Tensor):
+    """For n items on CUDA tensors (p_rows, q_rows [n, 4, 20] int16 points,
+    digits [n] uint8): with P = 2·p_row and Q = 2·q_row, the one-lane and
+    the quad forms of (2P, P + Q, P + base[digit]).  Returns (raw, canon):
+    raw [2, n, 3, 4, 5] int64 (the radix-2^51 limbs' bits), canon
+    [2, n, 3, 4, 20] int16 canonical limbs; index 0 one-lane, 1 quad."""
+    n = digits.shape[0]
+    _check.tensors(
+        p_rows.device,
+        p_rows=(p_rows, torch.int16, (n, 4, 20)),
+        q_rows=(q_rows, torch.int16, (n, 4, 20)),
+        digits=(digits, torch.uint8, (n,)),
+    )
+    raw = torch.empty((2, n, 3, 4, 5), dtype=torch.int64, device=p_rows.device)
+    canon = torch.empty((2, n, 3, 4, 20), dtype=torch.int16, device=p_rows.device)
+    if n:
+        rc = _build.lib().ed25519_quad_selftest_launch(
+            p_rows.data_ptr(), q_rows.data_ptr(), digits.data_ptr(),
+            _check.device_const(BASE_TABLE, p_rows.device).data_ptr(),
+            raw.data_ptr(), canon.data_ptr(), n,
+            torch.cuda.current_stream(p_rows.device).cuda_stream,
+        )
+        _check.launched("ed25519_quad_selftest", rc)
+    return raw, canon

@@ -19,7 +19,10 @@ by either package carry across.
 This module holds the plain versions (`build_window_tables_plain`,
 `verify_tabulated_plain`) and the wrappers of kernels 2 and 3
 (csrc/ed25519_table.cu): `build_window_tables` and `verify_tabulated` launch
-the kernels on CUDA tensors and run the plain versions on CPU tensors.
+the kernels on CUDA tensors and run the plain versions on CPU tensors.  A
+build is two launches (pass A, the doubling chain, one quad per validator;
+pass B, the 14 adds, one thread per (validator, window)); `BUILD_LAUNCHES`
+counts one per build.
 """
 
 from __future__ import annotations

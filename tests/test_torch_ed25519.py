@@ -22,7 +22,7 @@ from tendermint_tpu.ops import ed25519_table as jtab
 from tendermint_tpu_torch.crypto import batch_verifier as bvm
 from tendermint_tpu_torch.crypto import ed25519_math as em
 from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
-from tendermint_tpu_torch.ops import ed25519, ed25519_cuda, ed25519_table
+from tendermint_tpu_torch.ops import _build, curve, ed25519, ed25519_cuda, ed25519_table, fe
 
 # B <= 16: intra-op threads buy nothing here and contend with other test workers
 torch.set_num_threads(1)
@@ -125,6 +125,71 @@ def test_window_tables_bit_identical_to_jax(batch):
     np.testing.assert_array_equal(got.numpy(), want)
     # the wrapper on a CPU tensor is the plain build
     np.testing.assert_array_equal(ed25519_table.build_window_tables(torch.as_tensor(rows)).numpy(), want)
+
+
+def test_window_table_build_splits_into_chain_and_windows():
+    """Kernel 2 builds in two passes: a doubling chain that writes entries
+    0 and 1 (canonical P_w) of every window, then 14 adds per window that
+    start again from the canonical P_w read back.  Both steps, done with
+    the plain curve layer, give the JAX build's tables bit for bit."""
+    rng = np.random.default_rng(11)
+    keys = [Ed25519PrivKey.from_secret(rng.bytes(32)) for _ in range(4)]
+    rows = np.stack([bvm._neg_a_limbs(k.pub_key().bytes()) for k in keys] + [bvm.IDENTITY_ROW])
+    v = rows.shape[0]
+    want = np.asarray(jtab.build_window_tables(rows.astype(np.int32))).reshape(v, 64, 16, 4, 20)
+    plain = ed25519_table.build_window_tables_plain(torch.as_tensor(rows)).reshape(v, 64, 16, 4, 20)
+    np.testing.assert_array_equal(plain[:, :, :2].numpy(), want[:, :, :2])
+
+    def canon(pt):  # -> [N, 4, 20] int16
+        return torch.stack([curve.canonical(c) for c in pt]).permute(2, 0, 1).to(torch.int16)
+
+    p_w = plain[:, :, 1].to(torch.int32).reshape(-1, 4, 20).permute(1, 2, 0)  # [4, 20, V*64]
+    p = tuple(p_w)
+    two_d = fe.const(ed25519.TWO_D, torch.device("cpu"))
+    m, entries = p, []
+    for _ in range(2, 16):
+        m = curve.point_add(m, p, two_d)
+        entries.append(canon(m))
+    got = torch.stack(entries, dim=1).reshape(v, 64, 14, 4, 20)
+    np.testing.assert_array_equal(got.numpy(), want[:, :, 2:])
+
+    q = p
+    for _ in range(4):
+        q = curve.point_double(q)
+    nxt = canon(q).reshape(v, 64, 4, 20)
+    np.testing.assert_array_equal(nxt[:, :-1].numpy(), want[:, 1:, 1])
+
+
+PTXAS_LOG = """== ed25519_ladder.cu
+ptxas info    : Function properties for _Z9fe_invertR2feRKS_
+    48 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113ladder_kernelEPKsPKiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113ladder_kernelEPKsPKiii
+    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 416 bytes cmem[0]
+== ed25519_table.cu
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114windows_kernelEPsi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114windows_kernelEPsi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_log_resources_per_kernel():
+    res = _build.kernel_resources(PTXAS_LOG)
+    assert len(res) == 2  # device functions are not entries
+    assert _build.resources_of("ladder_kernel", PTXAS_LOG) == {
+        "regs": 168, "stack_bytes": 16, "spill_bytes": 8}
+    assert _build.resources_of("windows_kernel", PTXAS_LOG) == {
+        "regs": 128, "stack_bytes": 0, "spill_bytes": 0}
+    with pytest.raises(KeyError):
+        _build.resources_of("chain_kernel", PTXAS_LOG)
+
+
+def test_quad_selftest_needs_the_card():
+    rows = torch.zeros((2, 4, 20), dtype=torch.int16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ed25519_cuda.quad_selftest(rows, rows, torch.zeros(2, dtype=torch.uint8))
 
 
 def _indexed_inputs(triples, pks):
