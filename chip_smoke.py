@@ -7,9 +7,9 @@
    CUDA kernels from the checkout's sources and the host-prep C library.
 2. Each kernel against its plain torch version on the card, on the same
    inputs, tolerance 0 (integer math), at ragged shapes (no multiple of 8
-   or 32): kernel 1 (ladder) and kernel 3 (tabulated verify) at B = 1021
-   on a mix of valid signatures and every corruption class, comparing
-   verdicts and the R' encodings; kernel 2 (window tables) for 67
+   or 32): kernel 1 (ladder) at B = 1021 and kernel 3 (tabulated verify)
+   at B = 1, 7 and 1021 on a mix of valid signatures and every corruption
+   class, comparing verdicts and the R' encodings; kernel 2 (window tables) for 67
    validators, bit for bit.  Verdicts of real signatures are also held
    against the pure-Python ed25519 oracle.  Then the four-lane point
    helpers (csrc/ge_quad.cuh) against the one-lane helpers (csrc/fe51.cuh)
@@ -24,6 +24,9 @@
    against its plain version's on the same inputs, tolerance 0 (verdicts
    and R' encodings of the commit, window tables bit for bit), its time
    (CUDA events) beside the plain version's, and its bound from the shapes.
+   Then the auto-profile's pick of phase 3 (also timed by CUDA events)
+   against these times: wherever the two kernels differ by more than 10 %,
+   the run fails unless the profile picked the faster one.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -60,7 +63,8 @@ IMAD_PER_S = 67e12 / 4
 # (csrc/fe51.cuh, csrc/ge_quad.cuh): a field multiply 25, a squaring 15; a
 # point doubling 4 squarings + 4 multiplies, a complete add 9 multiplies
 # (8 when the second point carries 2d*T, as the ladder's table and the
-# build's P_w do; the conversion to that form is 1 multiply), a mixed add 7;
+# build's P_w and kernel 3's table rows do; the conversion to that form is 1
+# multiply), a mixed add 7 (kernel 1's and kernel 3's base tables);
 # the finish an inversion (254 squarings + 11 multiplies) and 2 multiplies.
 IMAD_PER_PRODUCT = 4
 MUL, SQ = 25, 15
@@ -228,17 +232,19 @@ def phase_kernels(rng, keys, report, dev):
         ry=torch.as_tensor(r_y, device=dev), rs=torch.as_tensor(r_sign, device=dev),
     )
 
-    def compare(name, got, want):
+    def compare(name, got, want, b=len(idx)):
+        """The kernel's verdicts and R' of the first b rows of the mix."""
         (ok_k, r_k), (ok_p, r_p) = got, want
         mismatched = int((ok_k != ok_p).sum())
         err = int((r_k.int() - r_p.int()).abs().max())
-        verdicts = np.logical_and(ok_k.cpu().numpy(), valid)
-        oracle_bad = int((verdicts[real] != oracle[real]).sum())
-        log(f"  {name}: B={len(idx)} accepted={int(verdicts.sum())} verdict mismatches={mismatched} "
+        verdicts = np.logical_and(ok_k.cpu().numpy(), valid[:b])
+        oracle_bad = int((verdicts[real[:b]] != oracle[:b][real[:b]]).sum())
+        log(f"  {name}: B={b} accepted={int(verdicts.sum())} verdict mismatches={mismatched} "
             f"R' max|diff|={err} oracle mismatches={oracle_bad}")
         if mismatched or err or oracle_bad:
             raise AssertionError(f"{name} disagrees with its plain version or the oracle")
-        report[name]["max_abs_err"] = float(max(err, mismatched))
+        report[name]["max_abs_err"] = float(max(report[name].get("max_abs_err", 0.0),
+                                                err, mismatched))
 
     got = ed25519_cuda.verify_indexed(t["rows"], t["idx"], t["h"], t["s"], t["ry"], t["rs"], want_r=True)
     want = ed25519.verify_prepared_packed(
@@ -254,13 +260,16 @@ def phase_kernels(rng, keys, report, dev):
         raise AssertionError("window tables differ from the plain build")
     report["ed25519_window_tables"]["max_abs_err"] = float(diff)
 
-    # the tabulated kernel needs every row tabulated: table the full row set
+    # the tabulated kernel needs every row tabulated: table the full row set;
+    # B = 1 and 7 leave most lanes of a warp past the batch, 1021 a partial warp
     tables_all = ed25519_table.build_window_tables(t["rows"])
-    got = ed25519_table.verify_tabulated(tables_all, t["idx"], t["h"], t["s"], t["ry"], t["rs"], want_r=True)
-    want = ed25519_table.verify_tabulated_plain(
-        tables_all, t["idx"], ed25519.expand_digits(t["h"]), ed25519.expand_digits(t["s"]),
-        t["ry"], t["rs"], want_r=True)
-    compare("ed25519_tabulated", got, want)
+    for b in (1, 7, len(idx)):
+        part = [t[k][:b].contiguous() for k in ("idx", "h", "s", "ry", "rs")]
+        got = ed25519_table.verify_tabulated(tables_all, *part, want_r=True)
+        want = ed25519_table.verify_tabulated_plain(
+            tables_all, part[0], ed25519.expand_digits(part[1]), ed25519.expand_digits(part[2]),
+            part[3], part[4], want_r=True)
+        compare("ed25519_tabulated", got, want, b)
 
     if dev.type == "cuda":  # the quad helpers exist only on the card
         quad_vs_one_lane(rng, t["rows"], dev)
@@ -344,7 +353,8 @@ def phase_main(keys, card, dev):
     run("auto, cold", auto)
     run("auto, warm", auto)
     prof = next(iter(bvm.tabulated_profiles.values()))
-    log(f"  auto profile: tabulated={'engaged' if prof['tab_ms'] < prof['ladder_ms'] else 'off'} "
+    log(f"  auto profile (CUDA events): tabulated="
+        f"{'engaged' if prof['tab_ms'] < prof['ladder_ms'] else 'off'} "
         f"tab_ms={prof['tab_ms']:.3f} ladder_ms={prof['ladder_ms']:.3f} "
         f"table_build_ms={prof['table_build_ms']:.3f} at B={int(prof['batch'])} ({card})")
     # the host work of verify_commit outside host prep and the dispatch
@@ -474,11 +484,29 @@ def phase_timing(vset, commit, msgs, tab_cache, report):
     w = torch.arange(64, device=idx.device)
     rows_read = torch.unique((idx.long()[:, None] * 64 + w) * 16 + hd.long().flip(1)).numel()
     row_bytes = 4 * 20 * tables.element_size()
-    base_bytes = 64 * 16 * 4 * 20 * 4
-    products = n * (128 * ADD + FINISH)
+    base_bytes = ed25519_table.base_windows_madd().nbytes
+    # per signature: 64 rows to the cached form and added, 64 mixed adds of
+    # base windows, one add joining the two quads' sums, the finish
+    products = n * (64 * (MUL + ADD_CACHED) + 64 * MADD + (MUL + ADD_CACHED) + FINISH)
     b_ms, b_by = bound(products, rows_read * row_bytes + base_bytes + nbytes(idx, h, s, ry, rs) + 2 * n)
     report["ed25519_tabulated"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                        threads=lib.ed25519_table_threads(2, n))
+
+
+def check_profile(report, card):
+    """The auto-profile's pick (phase 3) against phase 4's event times: where
+    those differ by more than 10 %, the profile must have picked the faster
+    kernel."""
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+
+    prof = next(iter(bvm.tabulated_profiles.values()))
+    tab, ladder = report["ed25519_tabulated"]["ms"], report["ed25519_ladder"]["ms"]
+    picked_tab = prof["tab_ms"] < prof["ladder_ms"]
+    log(f"  auto profile (CUDA events, median of 5): tab_ms={prof['tab_ms']:.4f} "
+        f"ladder_ms={prof['ladder_ms']:.4f} -> {'tables' if picked_tab else 'ladder'}; "
+        f"phase 4: tabulated {tab:.4f} ms, ladder {ladder:.4f} ms ({card})")
+    if abs(tab - ladder) > 0.1 * min(tab, ladder) and picked_tab != (tab < ladder):
+        raise AssertionError("the auto-profile picked the kernel that phase 4 times slower")
 
 
 def kernel_device_ms(fn, names) -> dict:
@@ -606,6 +634,7 @@ def main() -> int:
             f"{p['warps_per_sm']:.2f} warps/SM launched, {p['resident_warps_per_sm']} resident, "
             f"{p['regs']} regs, stack {p['stack_bytes']} B, "
             f"spill {p['spill_bytes']} B ({card})")
+    check_profile(report, card)
 
     keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share",

@@ -20,6 +20,7 @@ device="cpu", where the wrappers run their plain torch versions.
 from __future__ import annotations
 
 import collections
+import statistics
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -249,12 +250,15 @@ tabulated_profiles: Dict[str, Dict[str, float]] = {}
 _tabulated_lock = threading.Lock()
 
 
-def _timed_ms(fn) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+def _event_ms(fn, stream) -> float:
+    """Device ms of what one call of fn launches on `stream`, by CUDA events
+    (the kernels' own clock)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record(stream)
     fn()
-    torch.cuda.synchronize()
-    return _ms_since(t0)
+    end.record(stream)
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 class PubkeyTable:
@@ -328,11 +332,13 @@ class PubkeyTable:
             return _tabulated_verdict[key]
 
     def _profile_tabulated(self, n: int, key: str) -> bool:
-        """Time one tabulated dispatch vs one ladder dispatch at batch n.
-        Both kernels do the same work for any data, so the scalars are zero;
-        signature i reads validator i's rows (mod the set size), the gather
-        pattern of a commit.  Min of 3 each, after one untimed run.  A
-        failing kernel raises."""
+        """Time one tabulated dispatch vs one ladder dispatch at batch n, by
+        CUDA events on the current stream, the kernels' own clock (a host
+        clock adds uneven host work to each), median of 5 each after one
+        untimed run.  Engages the tables when they are faster, the JAX
+        package's rule.  Both kernels do the same work for any data, so the
+        scalars are zero; signature i reads validator i's rows (mod the set
+        size), the gather pattern of a commit.  A failing kernel raises."""
         from ..ops import ed25519_cuda, ed25519_table
 
         t0 = time.perf_counter()
@@ -351,10 +357,11 @@ class PubkeyTable:
         def run_ladder():
             ed25519_cuda.verify_indexed(self.neg_a_rows, idx, h, h, ry, rs)
 
+        stream = torch.cuda.current_stream(dev)
         run_tab()
         run_ladder()
-        tab_ms = min(_timed_ms(run_tab) for _ in range(3))
-        ladder_ms = min(_timed_ms(run_ladder) for _ in range(3))
+        tab_ms = statistics.median(_event_ms(run_tab, stream) for _ in range(5))
+        ladder_ms = statistics.median(_event_ms(run_ladder, stream) for _ in range(5))
         tabulated_profiles[key] = {
             "tab_ms": tab_ms, "ladder_ms": ladder_ms, "table_build_ms": build_ms,
             "batch": float(n), "validators": float(len(self.pubkeys)),

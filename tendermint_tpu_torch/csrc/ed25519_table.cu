@@ -36,24 +36,58 @@
 // tendermint_tpu/ops/ed25519_table.py _sum_verify -> _sum_kernel and the
 // [128, 4, 20, B] XLA gather in front of it (verify_tabulated); plain
 // version ops/ed25519_table.py verify_tabulated_plain.  Bound on the H100:
-// table-row bytes -- 64 random 160-byte int16 rows per signature from the
-// validator tables (205 MB for a 10k commit) plus 64 rows from the 320 KB
-// base-window table (13-bit int32 limbs, converted on load as kernel 1 does
-// its madd table), which stays in L2.  Design: one thread per signature
-// reads its 64 table rows straight from global memory by index (no
-// materialized gather, no relayout), sums them with the complete add, then
-// inverts, canonicalizes and compares as kernel 1 does.  The TPU kernel
-// carried its accumulator across a sequential grid axis in VMEM; here the
-// 128-step sum is a loop inside the thread.
+// integer multiply throughput.  Per signature 64 table rows, each converted
+// to the cached form (1 multiply) and added (8), 64 base windows by mixed
+// add (7), one add that joins the two quads' sums and the finish: 29,960
+// 64x64->128 products, 0.072 ms at 10k signatures, against ~0.03 ms of
+// bytes (64 random 160-byte int16 rows per signature from the validator
+// tables, about 100 MB for a 10k commit; the 240 KB base table stays in
+// L2).  What holds it on the card is instruction slots more than latency: the
+// design variants tried (tabulated_trial.py) ranked by their total warp
+// instructions, not by the length of a lane's chain (PERF.md).
+//
+// Design: eight lanes per signature, two quads (ge_quad.cuh), 16 signatures
+// per 128-thread block.  Quad q sums windows 32q ... 32q + 31 of both
+// halves: the validator-table rows h_w (lane j reads coordinate j of the
+// row as five 8-byte loads, straight from global memory by index, one
+// window ahead; converted to the cached form, then the quad add) and the
+// base windows s_w in madd form (y-x, y+x, 2d*x*y; base_windows_madd, 13-bit
+// int32 limbs, converted on load; lane 3 passes any of the three, as in
+// kernel 1).  The two chains are independent and equally long: each lane
+// runs 32 x 3 + 32 x 2 multiply steps, and a 10k commit launches 80,000
+// threads.  Each quad then takes the other's sum by one cross-quad shuffle
+// and adds it (3 steps).  Lanes past `batch` clamp to the last signature
+// and store nothing, so every shuffle has its full warp.
+// The finish (inversion, x, y, compare: about half of a lane's chain) runs
+// once per signature on one thread: quad 0 leaves X, Y, Z in shared memory
+// and the block's first 16 threads finish a signature each.  Run on every
+// lane of both quads (quad_finish, as the ladder does), it took the warps
+// twice the instruction slots per signature that one quad would, and the
+// kernel was slower than one quad per signature (PERF.md).  128-thread
+// blocks hold the finish to half of one warp of four; 64 or 256 were
+// slower, as were caps on registers (spills) and an L1-heavy carveout (it
+// leaves too little shared memory for three blocks).
+// The sum order differs from the plain version's (one chain of 128
+// complete adds), so projective limbs differ; verdicts and canonical R' do
+// not.  The TPU kernel carried its accumulator across a sequential grid
+// axis in VMEM; here the sum is a loop in the quad.
 #include <cuda_runtime.h>
 
 #include "ge_quad.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;      // kernel 3 and pass B
+constexpr int kThreads = 128;      // pass B
 constexpr int kChainQuads = 16;    // pass A: validators per block of 64
 constexpr int kChainThreads = 4 * kChainQuads;
+constexpr int kSumQuads = 2;       // kernel 3: quads per signature
+constexpr int kSumLanes = 4 * kSumQuads;
+constexpr int kSumWindows = 64 / kSumQuads;
+constexpr int kSumThreads = 128;   // kernel 3
+constexpr int kSumSigs = kSumThreads / kSumLanes;  // signatures per block
+static_assert((kSumQuads & (kSumQuads - 1)) == 0 && kSumLanes <= 32 &&
+                  kSumThreads % kSumLanes == 0,
+              "a power-of-two number of quads per signature, in one warp");
 
 // the 80 int16 limbs of an entry as 40 little-endian 32-bit words
 struct PackedLimbs {
@@ -153,35 +187,80 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Kernel 3: quad q of a signature's kSumQuads sums windows
+// kSumWindows * q ... kSumWindows * (q + 1) - 1 of both halves; lane j owns
+// coordinate j.  Then one thread per signature finishes.
+__global__ void __launch_bounds__(kSumThreads)
     tabulated_kernel(const int16_t *__restrict__ tables,  // [V*64*16, 4, 20]
                      const int32_t *__restrict__ idx,     // [B]
                      const uint8_t *__restrict__ h_le,    // [B, 32]
                      const uint8_t *__restrict__ s_le,    // [B, 32]
                      const int16_t *__restrict__ r_y,     // [B, 20]
                      const uint8_t *__restrict__ r_sign,  // [B]
-                     const int32_t *__restrict__ base_windows,  // [64*16, 4, 20]
+                     const int32_t *__restrict__ base_madd,  // [64*16, 3, 20]
                      uint8_t *__restrict__ ok, uint8_t *__restrict__ r_out,
                      int n_rows, int batch) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= batch) return;
-  int row = idx[i];
+  const int t = blockIdx.x * kSumThreads + threadIdx.x;
+  const int j = t & 3;
+  const int quad = (t >> 2) % kSumQuads;
+  const int i = t / kSumLanes;
+  const bool live = i < batch;
+  const int ic = live ? i : batch - 1;  // clamp: the lanes run, store nothing
+  int row = idx[ic];
   if (row < 0 || row >= n_rows) row = 0;  // callers clip; never fault
-  const uint8_t *h = h_le + 32 * (size_t)i;
-  const uint8_t *s = s_le + 32 * (size_t)i;
+  const uint8_t *h = h_le + 32 * (size_t)ic;
+  const uint8_t *s = s_le + 32 * (size_t)ic;
   const int16_t *vt = tables + (size_t)80 * 16 * 64 * row;
-  ge acc, q;
-  ge_identity(acc);
-  for (int w = 0; w < 64; w++) {
-    ge_from13(q, vt + 80 * (16 * w + scalar_digit(h, w)));
-    ge_add(acc, acc, q);
+  const int bj = j < 3 ? j : 2;  // lane 3 passes any madd coordinate
+  const int w0 = kSumWindows * quad, w_end = w0 + kSumWindows;
+
+  fe acc = quad_identity(j);
+  quad_row next = quad_row_fetch(vt + 80 * (16 * w0 + scalar_digit(h, w0)), j);
+#pragma unroll 1
+  for (int w = w0; w < w_end; w++) {
+    // base entry s_w (L2-resident), then the table row of window w + 1
+    // (the last window fetches its own again) ahead of this window's adds
+    const uint4 *bsrc = reinterpret_cast<const uint4 *>(
+        base_madd + 20 * (3 * (16 * w + scalar_digit(s, w)) + bj));
+    uint32_t bw[20];
+#pragma unroll
+    for (int k = 0; k < 5; k++) {
+      const uint4 u = __ldg(bsrc + k);
+      bw[4 * k] = u.x;
+      bw[4 * k + 1] = u.y;
+      bw[4 * k + 2] = u.z;
+      bw[4 * k + 3] = u.w;
+    }
+    fe row_w;
+    fe_from13(row_w, next);
+    const int wn = w + 1 < w_end ? w + 1 : w;
+    next = quad_row_fetch(vt + 80 * (16 * wn + scalar_digit(h, wn)), j);
+    acc = quad_add(acc, quad_cached(row_w, j), j);
+    fe b;
+    fe_from13(b, bw);
+    acc = quad_madd(acc, b, j);
   }
-  for (int w = 0; w < 64; w++) {
-    ge_from13(q, base_windows + 80 * (16 * w + scalar_digit(s, w)));
-    ge_add(acc, acc, q);
-  }
-  ge_finish(acc, r_y + 20 * (size_t)i, r_sign[i], ok + i,
-            r_out != nullptr ? r_out + 32 * (size_t)i : nullptr);
+  // fold the other quads' sums in (one add for a pair)
+#pragma unroll
+  for (int m = 4; m < kSumLanes; m *= 2) acc = quad_add(acc, quad_cached(fe_shfl_xor(acc, m), j), j);
+
+  // The finish runs once per signature, on one thread: quad 0 leaves X, Y,
+  // Z in shared memory, and the block's first kSumSigs threads each take
+  // one signature.  No shuffle follows.
+  __shared__ fe xyz[kSumSigs][3];
+  if (quad == 0 && j < 3) xyz[threadIdx.x / kSumLanes][j] = acc;
+  __syncthreads();
+  const int f = blockIdx.x * kSumSigs + threadIdx.x;
+  if (threadIdx.x >= kSumSigs || f >= batch) return;
+  const fe *p = xyz[threadIdx.x];
+  fe zinv, x, y;
+  fe_invert(zinv, p[2]);
+  fe_mul(x, p[0], zinv);
+  fe_mul(y, p[1], zinv);
+  fe_canon(x);
+  fe_canon(y);
+  finish_affine(x, y, r_y + 20 * (size_t)f, r_sign[f], ok + f,
+                r_out != nullptr ? r_out + 32 * (size_t)f : nullptr);
 }
 
 // The grid of each launch, by `which`: pass A (0) and pass B (1) of a build
@@ -193,8 +272,8 @@ struct Grid {
 
 Grid grid(int which, int n) {
   if (which == 0) return {(n + kChainQuads - 1) / kChainQuads, kChainThreads};
-  if (which == 1) n *= 64;  // one thread per (validator, window)
-  return {(n + kThreads - 1) / kThreads, kThreads};
+  if (which == 1) return {(64 * n + kThreads - 1) / kThreads, kThreads};  // per (validator, window)
+  return {(kSumLanes * n + kSumThreads - 1) / kSumThreads, kSumThreads};
 }
 
 }  // namespace
@@ -233,12 +312,12 @@ extern "C" int ed25519_table_resident_warps(int which) {
 
 extern "C" int ed25519_tabulated_launch(const void *tables, const void *idx, const void *h_le,
                                         const void *s_le, const void *r_y, const void *r_sign,
-                                        const void *base_windows, void *ok, void *r_out,
+                                        const void *base_madd, void *ok, void *r_out,
                                         int n_rows, int batch, void *stream) {
   const Grid g = grid(2, batch);
   tabulated_kernel<<<g.blocks, g.threads, 0, (cudaStream_t)stream>>>(
       (const int16_t *)tables, (const int32_t *)idx, (const uint8_t *)h_le,
       (const uint8_t *)s_le, (const int16_t *)r_y, (const uint8_t *)r_sign,
-      (const int32_t *)base_windows, (uint8_t *)ok, (uint8_t *)r_out, n_rows, batch);
+      (const int32_t *)base_madd, (uint8_t *)ok, (uint8_t *)r_out, n_rows, batch);
   return (int)cudaGetLastError();
 }

@@ -22,14 +22,16 @@
 // order, so projective coordinates agree with the plain torch version mod p
 // even on points off the curve.
 //
-// Who uses what.  The one-lane point helpers below (ge_double, ge_add,
-// ge_madd, ge_finish: one thread carries a whole point) serve kernel 3 (the
-// tabulated sum); pass B of kernel 2 (one thread per (validator, window)
-// runs 14 adds of one point) uses ge_add_cached.  Kernel 1 (the ladder) and
-// pass A of kernel 2 (the doubling chain) use the four-lane forms of
-// ge_quad.cuh, which split each formula across a quad of lanes with the
-// same products in the same order; they share fe_mul, fe_sq, fe_invert and
-// finish_affine from here.
+// Who uses what.  Kernel 1 (the ladder), pass A of kernel 2 (the doubling
+// chain) and kernel 3 (the tabulated sum, two quads per signature) use the
+// four-lane forms of ge_quad.cuh, which split each formula across a quad of
+// lanes with the same products in the same order; they share fe_mul, fe_sq,
+// fe_invert and finish_affine from here.  Pass B of kernel 2 (one thread
+// per (validator, window) runs 14 adds of one point) uses the one-lane
+// ge_to_cached and ge_add_cached.  The other one-lane point helpers
+// (ge_double, ge_add, ge_madd: one thread carries a whole point) are the
+// reference that the quad self-test (ed25519_ladder.cu) holds the quad
+// forms against.
 #pragma once
 
 #include <stdint.h>
@@ -72,11 +74,6 @@ static __device__ __forceinline__ u64 shr51(const u128 &t) { return (t.lo >> 51)
 static __device__ __forceinline__ void fe_zero(fe &r) {
 #pragma unroll
   for (int i = 0; i < 5; i++) r.v[i] = 0;
-}
-
-static __device__ __forceinline__ void fe_one(fe &r) {
-  fe_zero(r);
-  r.v[0] = 1;
 }
 
 static __device__ __forceinline__ void fe_add(fe &r, const fe &a, const fe &b) {
@@ -227,13 +224,6 @@ static __device__ __forceinline__ void fe_to13(int16_t *out, fe c) {
   for (int i = 0; i < 20; i++) out[i] = (int16_t)fe_limb13(c, i);
 }
 
-static __device__ __forceinline__ void ge_identity(ge &r) {
-  fe_zero(r.X);
-  fe_one(r.Y);
-  fe_one(r.Z);
-  fe_zero(r.T);
-}
-
 // a point stored as [4, 20] 13-bit limbs (X, Y, Z, T)
 template <typename T>
 static __device__ __forceinline__ void ge_from13(ge &r, const T *p) {
@@ -370,16 +360,4 @@ static __device__ __forceinline__ void finish_affine(const fe &x, const fe &y,
       for (int j = 0; j < 8; j++) r_out[8 * i + j] = (uint8_t)(w[i] >> (8 * j));
     r_out[31] |= (uint8_t)((x.v[0] & 1) << 7);
   }
-}
-
-// Projective -> affine, canonical, compared (finish_affine).
-static __device__ __noinline__ void ge_finish(const ge &acc, const int16_t *r_y, uint8_t r_sign,
-                                       uint8_t *ok, uint8_t *r_out) {
-  fe zinv, x, y;
-  fe_invert(zinv, acc.Z);
-  fe_mul(x, acc.X, zinv);
-  fe_mul(y, acc.Y, zinv);
-  fe_canon(x);
-  fe_canon(y);
-  finish_affine(x, y, r_y, r_sign, ok, r_out);
 }

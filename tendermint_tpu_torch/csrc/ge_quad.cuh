@@ -12,7 +12,10 @@
 // Operands move within the quad by __shfl_sync (a field element is five
 // 64-bit limbs: ten 32-bit shuffles), with the full mask: every lane of the
 // warp takes part in every shuffle, so a caller never returns early before
-// the last one.  Lanes differ by operand (selects), never by branch.
+// the last one.  Lanes differ by operand (selects), never by branch.  A
+// point spread over several quads (kernel 3: two per signature) joins them
+// by fe_shfl_xor across quads; table rows load one coordinate per lane
+// (quad_row_fetch).
 //
 // Bit-identity with the one-lane helpers.  dbl and madd form the same
 // products from the same operands in the same order as ge_double and
@@ -43,6 +46,15 @@ static __device__ __forceinline__ fe fe_shfl_xor1(const fe &a) {
   return r;
 }
 
+// the same coordinate from the quad `lane_mask` lanes away (4: the other
+// quad of a pair), over the whole warp
+static __device__ __forceinline__ fe fe_shfl_xor(const fe &a, int lane_mask) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 5; i++) r.v[i] = __shfl_xor_sync(0xffffffffu, a.v[i], lane_mask);
+  return r;
+}
+
 static __device__ __forceinline__ fe fe_sel(bool c, const fe &a, const fe &b) {
   fe r;
 #pragma unroll
@@ -55,6 +67,29 @@ static __device__ __forceinline__ fe quad_identity(int j) {
   fe r;
   fe_zero(r);
   r.v[0] = (j == 1 || j == 2) ? 1 : 0;
+  return r;
+}
+
+// Coordinate j of a [4, 20] int16 table row, the 40 bytes at 40*j, read by
+// lane j as five 8-byte loads: the quad reads the row's 160 contiguous
+// bytes together.  Rows are 160 bytes apart in a 256-byte-aligned table, so
+// each lane's words are 8-byte aligned (never 16: coordinate 1 starts at
+// byte 40).  A caller converts it with fe_from13 (quad_row indexes as the
+// 20 limbs), after it has fetched the next row.
+struct quad_row {
+  uint2 w[5];
+  // limb n of the coordinate (four int16 limbs per word, little-endian)
+  __device__ __forceinline__ uint32_t operator[](int n) const {
+    const uint2 u = w[n >> 2];
+    return (((n & 2) ? u.y : u.x) >> (16 * (n & 1))) & 0xffff;
+  }
+};
+
+static __device__ __forceinline__ quad_row quad_row_fetch(const int16_t *row, int j) {
+  const uint2 *src = reinterpret_cast<const uint2 *>(row + 20 * j);
+  quad_row r;
+#pragma unroll
+  for (int k = 0; k < 5; k++) r.w[k] = __ldg(src + k);
   return r;
 }
 

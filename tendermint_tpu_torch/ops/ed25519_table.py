@@ -22,7 +22,11 @@ This module holds the plain versions (`build_window_tables_plain`,
 the kernels on CUDA tensors and run the plain versions on CPU tensors.  A
 build is two launches (pass A, the doubling chain, one quad per validator;
 pass B, the 14 adds, one thread per (validator, window)); `BUILD_LAUNCHES`
-counts one per build.
+counts one per build.  Kernel 3 spreads each signature's sum over two
+quads of four lanes, each summing 32 windows of both halves, and takes the
+base windows in madd form (`base_windows_madd`); it sums in another order
+than the plain version, so its projective limbs differ, but its verdicts
+and canonical R' do not.
 """
 
 from __future__ import annotations
@@ -102,6 +106,20 @@ def _build_base_windows() -> np.ndarray:
 @functools.lru_cache(maxsize=1)
 def base_windows() -> np.ndarray:
     return _build_base_windows()
+
+
+@functools.lru_cache(maxsize=1)
+def base_windows_madd() -> np.ndarray:
+    """[64*16, 3, 20] int32: base_windows() in kernel 3's madd form
+    (y−x, y+x, 2d·x·y), canonical; entry d = 0 of each window is the
+    identity's (1, 1, 0), as in ops/ed25519.py's BASE_TABLE."""
+    ext = base_windows()
+    rows = np.zeros((ext.shape[0], 3, N), dtype=np.int32)
+    for e, (x_l, y_l, _, _) in enumerate(ext):
+        x, y = fe.to_int(x_l), fe.to_int(y_l)
+        for c, v in enumerate(((y - x) % em.P, (y + x) % em.P, 2 * em.D * x * y % em.P)):
+            rows[e, c] = fe.from_int(v)[:, 0]
+    return rows
 
 
 def verify_tabulated_plain(
@@ -191,7 +209,7 @@ def verify_tabulated(
         rc = _build.lib().ed25519_tabulated_launch(
             tables.data_ptr(), idx.data_ptr(), h_le.data_ptr(), s_le.data_ptr(),
             r_y.data_ptr(), r_sign.data_ptr(),
-            _check.device_const(base_windows(), tables.device).data_ptr(),
+            _check.device_const(base_windows_madd(), tables.device).data_ptr(),
             ok.data_ptr(), r_out.data_ptr() if want_r else None,
             rows, batch, torch.cuda.current_stream(tables.device).cuda_stream,
         )
