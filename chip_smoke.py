@@ -27,6 +27,22 @@
    Then the auto-profile's pick of phase 3 (also timed by CUDA events)
    against these times: wherever the two kernels differ by more than 10 %,
    the run fails unless the profile picked the faster one.
+5. Vote ingress at full width, on phase 3's set and precommits (every
+   100th signature corrupted), with the node's engine settings
+   (BatchVerifier(min_device_batch=16) with a FlightRecorder,
+   start_warmup, an installed TableCache on tabulated auto, rebuilt for
+   the set): the 10,000 votes as a verify_one storm in one loop tick, as
+   100 verify_direct relay frames from 4 concurrent senders, and as one
+   verify_many batch through AsyncBatchVerifier; the storm's accepted
+   votes into a precommit VoteSet (2/3 must turn at vote 6,667), a
+   conflicting precommit (must raise with evidence), make_commit (must
+   equal phase 3's commit but the corrupted slots) and its verify_commit
+   through the TableCache; then TableCache.rebuild on a ladder cache and
+   the 10k indexed verify with the chunked single shot on and off (equal
+   verdicts).  Prints votes/s, flush sizes, queue wait, per-flush host-prep
+   and device ms, dispatches by path, latency and the ladder's launches;
+   fails on any wrong verdict, a batch of 16 or more votes on the host, or
+   a ladder that was not launched.  Its launches add to the kernels line.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -50,6 +66,9 @@ KERNEL_BATCH = 1021
 TABLE_VALIDATORS = 67
 SELFTEST_ITEMS = 512
 FLAT_BATCH = 512
+VOTE_FRAME = 100  # votes per relay frame in phase 5
+RELAY_SENDERS = 4
+CORRUPT_EVERY = 100  # phase 5: every 100th validator's precommit has a bad signature
 CHAIN_ID = "chip-smoke"
 
 # Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s
@@ -509,6 +528,254 @@ def check_profile(report, card):
         raise AssertionError("the auto-profile picked the kernel that phase 4 times slower")
 
 
+def percentile(values, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, dtype=float), q)) if len(values) else float("nan")
+
+
+def phase_ingress(keys, vset, commit, msgs, card, dev):
+    """Vote ingress at full width on the node's engine settings, reusing
+    phase 3's set and signed precommits.  Returns the per-mode numbers."""
+    import asyncio
+    import collections
+
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+    from tendermint_tpu_torch.libs.tracing import FlightRecorder
+    from tendermint_tpu_torch.ops import _build, ed25519_cuda
+    from tendermint_tpu_torch.types.block import BlockID, CommitSig, PartSetHeader
+    from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE
+    from tendermint_tpu_torch.types.vote import ErrVoteConflictingVotes, Vote
+    from tendermint_tpu_torch.types.vote_set import VoteSet
+
+    n = vset.size()
+    bid = commit.block_id
+    set_key = vset.pubkeys_digest()
+    pks = [v.pub_key.bytes() for v in vset.validators]
+    sigs = [cs.signature for cs in commit.signatures]
+    bad = set(range(0, n, CORRUPT_EVERY))
+    for i in bad:
+        s = bytearray(sigs[i])
+        s[0] ^= 1  # a flipped bit of R
+        sigs[i] = bytes(s)
+    expect = [i not in bad for i in range(n)]
+    triples = list(zip(pks, msgs, sigs))
+    rec = FlightRecorder(size=1 << 17)
+
+    def next_seq() -> int:
+        return rec.snapshot(since=1 << 62)["next_seq"]
+
+    def wait_rebuilds(count: int, timeout: float = 600.0):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            done = rec.events(kinds=["verify.table_rebuild"])
+            if len(done) >= count:
+                if not all(e["ok"] for e in done):
+                    raise AssertionError(f"table rebuild failed: {done}")
+                return done[count - 1]
+            time.sleep(0.05)  # each poll walks the whole ring
+        raise AssertionError("table rebuild did not finish")
+
+    # 1. cold start: the library is loaded, so warmup serves the device at once
+    bv = bvm.BatchVerifier(device=dev, min_device_batch=16, recorder=rec)
+    bv.start_warmup()
+    cache = bvm.TableCache(bv, tabulated=None).install()
+    bv.install()
+    ok = bv.verify(pks[1:17], msgs[1:17], sigs[1:17])
+    if ok != expect[1:17] or bv.last_dispatch["path"] != "device":
+        raise AssertionError(f"first batch after start_warmup: {bv.last_dispatch}")
+    if rec.events(kinds=["verify.bucket_compile"]):
+        raise AssertionError("start_warmup rebuilt a library that was already loaded")
+    probe = bv.probe_dispatch_rtt()
+    log(f"  start_warmup: library loaded={_build.loaded()}, first 16-vote batch path="
+        f"{bv.last_dispatch['path']}; RTT probe dispatch_rtt_ms={probe['dispatch_rtt_ms']:.4f} "
+        f"prep_ms_per_chunk={probe['prep_ms_per_chunk']:.4f} (chunk {bv.effective_chunk()}) "
+        f"chunked_selected={bool(probe['chunked_selected'])} ({card})")
+    t0 = time.perf_counter()
+    if not cache.rebuild(set_key, pks):
+        raise AssertionError("rebuild of the installed cache did not start")
+    ev = wait_rebuilds(1)
+    log(f"  installed TableCache (tabulated auto) rebuilt for {n} validators in "
+        f"{(time.perf_counter() - t0) * 1000:.3f} ms (recorded {ev['ms']} ms)")
+
+    # 2-4. the three arrival modes through one AsyncBatchVerifier
+    async def storm(abv, loop, enq, done):
+        futs = []
+        for i, (pk, m, s) in enumerate(triples):  # one loop tick
+            enq[i] = loop.time()
+            futs.append(abv.verify_one(pk, m, s))
+            futs[-1].add_done_callback(lambda f, i=i: done.__setitem__(i, loop.time()))
+        log(f"    storm: {n} verify_one calls enqueued in {(loop.time() - enq[0]) * 1000:.3f} ms "
+            f"(one loop tick)")
+        return await asyncio.gather(*futs)
+
+    async def relay(abv, loop, enq, done):
+        frames = [list(range(i, min(i + VOTE_FRAME, n))) for i in range(0, n, VOTE_FRAME)]
+        out = [None] * n
+
+        async def sender(k):
+            for frame in frames[k::RELAY_SENDERS]:
+                for i in frame:
+                    enq[i] = loop.time()
+                res = await abv.verify_direct([triples[i] for i in frame])
+                for i, r in zip(frame, res):
+                    out[i], done[i] = r, loop.time()
+
+        await asyncio.gather(*(sender(k) for k in range(RELAY_SENDERS)))
+        return out
+
+    async def many(abv, loop, enq, done):
+        t = loop.time()
+        futs = abv.verify_many(triples)
+        for i, f in enumerate(futs):
+            enq[i] = t
+            f.add_done_callback(lambda f, i=i: done.__setitem__(i, loop.time()))
+        return await asyncio.gather(*futs)
+
+    async def drive():
+        loop = asyncio.get_running_loop()
+        abv = bvm.AsyncBatchVerifier(bv)  # the node's max_batch, flush_interval, flush_min
+        await abv.start()
+        out = {}
+        try:
+            for name, fn in (("verify_one storm", storm), ("verify_direct frames", relay),
+                             ("verify_many batch", many)):
+                since, launches = next_seq(), ed25519_cuda.LAUNCHES
+                enq, done = [0.0] * n, [0.0] * n
+                t0 = time.perf_counter()
+                verdicts = await fn(abv, loop, enq, done)
+                wall = time.perf_counter() - t0
+                out[name] = {
+                    "verdicts": [bool(v) for v in verdicts], "wall_s": wall,
+                    "events": rec.events(since=since, kinds=["verify.flush", "verify.dispatch"]),
+                    "latency_ms": [(d - e) * 1000 for d, e in zip(done, enq)],
+                    "ladder_launches": ed25519_cuda.LAUNCHES - launches,
+                }
+        finally:
+            await abv.stop()
+        return out
+
+    ladder_before = ed25519_cuda.LAUNCHES
+    modes = asyncio.run(drive())
+    device_flushes = 0
+    for name, m in modes.items():
+        wrong = sum(a != b for a, b in zip(m["verdicts"], expect))
+        flush = [e for e in m["events"] if e["kind"] == "verify.flush"]
+        disp = [e for e in m["events"] if e["kind"] == "verify.dispatch"]
+        paths = collections.Counter(e["path"] for e in disp)
+        waits = [e["wait_ms"] for e in flush]
+        lat = m["latency_ms"]
+        log(f"  {name}: {n} votes in {m['wall_s'] * 1000:.3f} ms = {n / m['wall_s']:.1f} votes/s, "
+            f"verdict mismatches={wrong}; flushes={len(flush)} sizes={[e['batch'] for e in flush]}; "
+            f"dispatches={len(disp)} by path {dict(paths)}; ladder launches={m['ladder_launches']} "
+            f"({card})")
+        if flush:
+            log(f"    queue wait (oldest per flush) p50={percentile(waits, 50):.3f} "
+                f"p99={percentile(waits, 99):.3f} ms; per flush host_prep_ms="
+                f"{[e['host_prep_ms'] for e in disp]} device_ms={[e['device_ms'] for e in disp]}")
+        else:
+            log(f"    per frame host_prep_ms p50={percentile([e['host_prep_ms'] for e in disp], 50):.3f} "
+                f"device_ms p50={percentile([e['device_ms'] for e in disp], 50):.3f} "
+                f"max={max(e['device_ms'] for e in disp):.3f}")
+        busy = sum(e["device_ms"] for e in disp) / (m["wall_s"] * 1000)
+        log(f"    vote latency (enqueue to verdict) p50={percentile(lat, 50):.3f} "
+            f"p99={percentile(lat, 99):.3f} ms; dispatches (copies, kernel, verdict copy; "
+            f"host clock) cover {busy * 100:.2f} % of the mode's wall time")
+        if wrong:
+            raise AssertionError(f"{name}: {wrong} verdicts differ from the expected ones")
+        big = [e for e in disp if e["n"] >= 16]
+        if any(e["path"] in ("host", "host-cold") for e in big):
+            raise AssertionError(f"{name}: a batch of 16 or more votes went to the host")
+        device_flushes += sum(e["path"] == "device" for e in big)
+        m["flush_sizes"] = [e["batch"] for e in flush]
+        m["paths"] = dict(paths)
+    if not device_flushes:
+        raise AssertionError("no batch of 16 or more votes reached the ladder")
+    if dev.type == "cuda" and ed25519_cuda.LAUNCHES == ladder_before:  # counts launches only
+        raise AssertionError("the ladder's launch counter did not move during vote ingress")
+
+    # 5. the storm's verdicts feed a precommit VoteSet, in arrival order
+    storm_ok = modes["verify_one storm"]["verdicts"]
+    vs = VoteSet(CHAIN_ID, commit.height, commit.round, PRECOMMIT_TYPE, vset)
+    quorum = vset.total_voting_power() * 2 // 3 + 1
+    power = vset.validators[0].voting_power
+    want_cross = -(-quorum // power)
+    added, crossed_at = 0, None
+    t0 = time.perf_counter()
+    for i, ok in enumerate(storm_ok):
+        if not ok:
+            continue
+        cs = commit.signatures[i]
+        vote = Vote(PRECOMMIT_TYPE, commit.height, commit.round, bid, cs.timestamp_ns,
+                    cs.validator_address, i, sigs[i])
+        if not vs.add_vote(vote, verify=False):
+            raise AssertionError(f"VoteSet refused vote {i}")
+        added += 1
+        if crossed_at is None and vs.has_two_thirds_majority():
+            crossed_at = added
+    add_ms = (time.perf_counter() - t0) * 1000
+    log(f"  VoteSet: {added} accepted precommits added in {add_ms:.3f} ms; 2/3 reached at vote "
+        f"{crossed_at} (expected {want_cross} of power {power})")
+    if crossed_at != want_cross:
+        raise AssertionError("the VoteSet's 2/3 majority did not turn at the expected vote")
+    by_addr = {k.pub_key().address(): k for k in keys}
+    v5 = vset.validators[5]
+    other = BlockID(b"\x33" * 32, PartSetHeader(1, b"\x44" * 32))
+    conflict = Vote(PRECOMMIT_TYPE, commit.height, commit.round, other,
+                    commit.signatures[5].timestamp_ns, v5.address, 5)
+    conflict.signature = by_addr[v5.address].sign(conflict.sign_bytes(CHAIN_ID))
+    try:
+        vs.add_vote(conflict, verify=False)
+        raise AssertionError("a conflicting precommit by validator 5 was accepted")
+    except ErrVoteConflictingVotes as e:
+        ev = e.evidence
+        ev.verify(CHAIN_ID, v5.pub_key)
+        if ev.address() != v5.address or {ev.vote_a.block_id, ev.vote_b.block_id} != {bid, other}:
+            raise AssertionError("the conflict's evidence names the wrong votes")
+        log(f"  conflicting precommit by validator 5: {str(e)[:60]}...; evidence verifies")
+    made = vs.make_commit()
+    diff = [i for i in range(n) if made.signatures[i] != (
+        commit.signatures[i] if expect[i] else CommitSig.absent())]
+    if diff or (made.height, made.round, made.block_id) != (commit.height, commit.round, bid):
+        raise AssertionError(f"make_commit differs from phase 3's commit at {diff[:5]}")
+    absent = sum(cs.is_absent() for cs in made.signatures)
+    t0 = time.perf_counter()
+    vset.verify_commit(CHAIN_ID, bid, commit.height, made)
+    d = bv.last_dispatch
+    log(f"  make_commit: equal to phase 3's commit but {absent} absent; verify_commit through the "
+        f"installed TableCache passed in {(time.perf_counter() - t0) * 1000:.3f} ms, path={d['path']} "
+        f"host_prep_ms={d['host_prep_ms']} device_ms={d['device_ms']} ({card})")
+
+    # 6. TableCache.rebuild on a ladder cache, then the chunked single shot
+    ladder_cache = bvm.TableCache(bv, tabulated=False)
+    t0 = time.perf_counter()
+    if not ladder_cache.rebuild(set_key, pks):
+        raise AssertionError("rebuild of the ladder cache did not start")
+    ev = wait_rebuilds(2)
+    log(f"  ladder TableCache rebuilt in {(time.perf_counter() - t0) * 1000:.3f} ms "
+        f"(warm dispatch path={bv.last_dispatch['path']})")
+    table = ladder_cache.table_for(set_key, None)
+    idxs = list(range(n))
+    results, times = {}, collections.defaultdict(list)
+    for chunked in (True, False, True, False):
+        table.chunked_single_shot = chunked
+        t0 = time.perf_counter()
+        results[chunked] = table.verify_indexed(idxs, msgs, sigs)
+        times[chunked].append((time.perf_counter() - t0) * 1000)
+        if bv.last_dispatch["path"] != ("chunked" if chunked else "indexed"):
+            raise AssertionError(f"chunked_single_shot={chunked} took path {bv.last_dispatch['path']}")
+    log(f"  {n}-signature indexed verify, chunked single shot (chunk {bv.effective_chunk()}, "
+        f"depth {bv.chunk_depth}): wall ms {[round(t, 3) for t in times[True]]}; monolithic: "
+        f"{[round(t, 3) for t in times[False]]} ({card})")
+    if results[True] != results[False] or results[True] != expect:
+        raise AssertionError("chunked and monolithic verdicts differ")
+    log(f"  chunked == monolithic == expected verdicts ({n - len(bad)} valid, {len(bad)} corrupted)")
+    batch_hook.set_verifier(None)
+    batch_hook.set_indexed_verifier(None)
+    return modes
+
+
 def kernel_device_ms(fn, names) -> dict:
     """Device ms of each named kernel in one run of fn, from torch.profiler;
     a name is missing where the profiler records no device time for it."""
@@ -636,7 +903,24 @@ def main() -> int:
             f"spill {p['spill_bytes']} B ({card})")
     check_profile(report, card)
 
-    keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    log("[5] vote ingress: 10k precommits through AsyncBatchVerifier, VoteSet, commit")
+    ed25519_cuda.LAUNCHES = 0
+    ed25519_table.BUILD_LAUNCHES = 0
+    ed25519_table.SUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    phase_ingress(keys, vset, commit, msgs, card, dev)
+    counts = {
+        "ed25519_ladder": ed25519_cuda.LAUNCHES,
+        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
+    }
+    log(f"  launches in phase 5: {counts}; phase 5 took {time.perf_counter() - t0:.3f} s")
+    if counts["ed25519_ladder"] == 0:
+        raise AssertionError("the ladder was not launched during vote ingress")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+    keys_order =("name", "route", "source", "replaces", "launches", "max_abs_err",
                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share",
                   "threads", "warps_per_sm", "resident_warps_per_sm", "regs", "stack_bytes",
                   "spill_bytes")

@@ -12,24 +12,40 @@ of labor:
            (ops/ed25519_table.py).
 
 A CUDA kernel takes any batch size, so batches are not padded to buckets
-and nothing is compiled per shape.  Every entry point takes `device`: None
-means "cuda", and without a card it raises unless the caller passes
-device="cpu", where the wrappers run their plain torch versions.
+and nothing is compiled per shape: the JAX package's per-bucket compile
+warmup becomes one background build of the kernel library.  Every entry
+point takes `device`: None means "cuda", and without a card it raises
+unless the caller passes device="cpu", where the wrappers run their plain
+torch versions.
+
+Vote ingress: AsyncBatchVerifier coalesces single checks (verify_one),
+pre-batched relay frames (verify_direct) and whole batches (verify_many)
+onto BatchVerifier.verify on a one-worker executor.
 """
 
 from __future__ import annotations
 
+import asyncio
 import collections
+import contextlib
+import logging
 import statistics
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..libs import tracing
+from ..libs.metrics import VerifyMetrics
+from ..libs.service import Service
+from ..ops import _build
 from . import batch as batch_hook
 from . import ed25519_math as em
+
+logger = logging.getLogger(__name__)
 
 _N_LIMBS = 20
 _LIMB_BITS = 13
@@ -192,6 +208,8 @@ def _ms_since(t0: float) -> float:
 # the verifier
 # ---------------------------------------------------------------------------
 
+_CHUNK = 2048  # chunk of the double-buffered single shot (PubkeyTable._verify_chunked)
+
 
 class BatchVerifier:
     """Batched ed25519 verification of per-call (pubkey, msg, sig) triples
@@ -199,13 +217,170 @@ class BatchVerifier:
 
     `min_device_batch` is a routing rule: batches smaller than it verify on
     the serial host path (crypto.batch.host_batch_verify).  1 = always the
-    device.  `last_dispatch` holds the host-prep and device times of the
-    most recent call, for the smoke run and benchmarks."""
+    device.  Every dispatch is recorded as a `verify.dispatch` event on
+    `recorder` (and kept in `last_dispatch`), with the JAX package's fields;
+    `metrics` gets the same observations as there.  `chunk_size` (0 = the
+    module's _CHUNK) and `chunk_depth` shape PubkeyTable's chunked single
+    shot.  `shards` is 1: one card."""
 
-    def __init__(self, device=None, min_device_batch: int = 1):
+    # min_device_batch values past this can never be reached by a real
+    # batch: the engine routes everything to the host, and start_warmup
+    # builds nothing.
+    _NEVER_DEVICE = 1 << 16
+
+    def __init__(
+        self,
+        device=None,
+        min_device_batch: int = 1,
+        metrics: Optional[VerifyMetrics] = None,
+        recorder=None,
+        chunk_size: int = 0,
+        chunk_depth: int = 2,
+    ):
         self.device = resolve_device(device)
         self.min_device_batch = min_device_batch
+        self.shards = 1
+        self.chunk_size = chunk_size
+        self.chunk_depth = chunk_depth
+        self.metrics = metrics if metrics is not None else VerifyMetrics()
+        self.recorder = recorder if recorder is not None else tracing.NOP
         self.last_dispatch: Dict[str, object] = {}
+        # Cold start.  On the card the device path needs the kernel library,
+        # which nvcc builds at first use (ops/_build.py, ~10 s).  In warmup
+        # mode (start_warmup) the build runs on a background thread and
+        # verify() serves the host path, path="host-cold", only while it is
+        # in flight.  A failed build is kept and raised by every later
+        # device-routed verify(): unlike the JAX package, which leaves a
+        # bucket whose compile failed on the host path for good, the port
+        # never lets a broken kernel hide behind the host.
+        self._needs_library = self.device.type == "cuda"
+        self._warmup_mode = False
+        self._building = False
+        self._build_error: Optional[Exception] = None
+        self._warm_lock = threading.Lock()
+        # host<->device dispatch RTT probe (run at install; drives the
+        # chunked single shot's auto choice).  None until probed.
+        self.rtt_probe: Optional[Dict[str, float]] = None
+
+    def _dispatch(self, **fields) -> None:
+        fields["shards"] = self.shards
+        self.last_dispatch = fields
+        self.recorder.record("verify.dispatch", **fields)
+
+    # -- cold start --------------------------------------------------------
+
+    def _library_state(self, n: int) -> str:
+        """"ready", "building" or "failed" for a device-routed batch of n.
+        Outside warmup mode, on the CPU, or once the library is loaded:
+        ready (a missing library then builds inline at the first launch).
+        Otherwise starts the background build if none has run."""
+        if not self._warmup_mode or not self._needs_library or _build.loaded():
+            return "ready"
+        with self._warm_lock:
+            if self._build_error is not None:
+                return "failed"
+            if self._building:
+                return "building"
+            self._building = True
+        # non-daemon: interpreter exit waits for nvcc instead of killing the
+        # build half-way through writing the library
+        threading.Thread(target=self._build_library, args=(n,), daemon=False,
+                         name="bv-warmup").start()
+        return "building"
+
+    def _build_library(self, n: int) -> None:
+        t0 = time.perf_counter()
+        error = None
+        try:
+            _build.lib()
+        except Exception as e:  # kept, and raised by the next device-routed verify
+            logger.exception("CUDA kernel library build failed")
+            error = e
+        with self._warm_lock:
+            self._building = False
+            self._build_error = error
+        self.metrics.bucket_compiles.inc()
+        self.recorder.record("verify.bucket_compile", bucket=n, ms=round(_ms_since(t0), 3),
+                             ok=error is None, shards=self.shards)
+
+    def start_warmup(self) -> "BatchVerifier":
+        """Enable cold-start routing and start building the kernel library
+        in the background (nothing to build on the CPU, once it is loaded,
+        or when min_device_batch keeps every batch on the host)."""
+        self._warmup_mode = True
+        if self.min_device_batch < self._NEVER_DEVICE:
+            self._library_state(max(1, self.min_device_batch))
+        return self
+
+    def rewarm(self, n: int) -> None:
+        """Warm for an expected batch of n (a validator-set size change).
+        A CUDA kernel takes any batch size, so past the library build there
+        is nothing to warm: this only starts the build where none has run."""
+        if not self._warmup_mode or self.min_device_batch >= self._NEVER_DEVICE:
+            return
+        if n < self.min_device_batch:
+            return
+        self._library_state(n)
+
+    # -- chunked single shot: RTT probe ------------------------------------
+
+    def probe_dispatch_rtt(self, samples: int = 7) -> Dict[str, float]:
+        """What one extra device dispatch costs against what one chunk of
+        host prep takes, to decide whether the chunked single shot pays
+        (PubkeyTable.chunked_single_shot).
+
+        - dispatch_rtt_ms: min round trip of a tiny device op and the fetch
+          of its result;
+        - prep_ms_per_chunk: host prep of one chunk of signatures, from a
+          512-signature synthetic batch (what overlap can hide per extra
+          dispatch).
+
+        Chunking is selected iff dispatch_rtt_ms < prep_ms_per_chunk.
+        Cached after the first call."""
+        if self.rtt_probe is not None:
+            return self.rtt_probe
+        x = torch.zeros(8, dtype=torch.int32, device=self.device)
+        (x + 1).cpu()  # first-use allocation outside the timed loop
+        rtts = []
+        for _ in range(samples):
+            t0 = time.perf_counter()
+            (x + 1).cpu()
+            rtts.append(time.perf_counter() - t0)
+        rtt_ms = min(rtts) * 1000
+        probe_n = 512
+        items = [(bytes(32), b"\x08\x02\x11" + bytes(100), bytes(64)) for _ in range(probe_n)]
+        _scalar_rows(items)  # warm allocators and the C library
+        t0 = time.perf_counter()
+        _scalar_rows(items)
+        prep_ms_per_chunk = _ms_since(t0) / probe_n * self.effective_chunk()
+        self.rtt_probe = {
+            "dispatch_rtt_ms": rtt_ms,
+            "prep_ms_per_chunk": prep_ms_per_chunk,
+            "chunked_selected": float(rtt_ms < prep_ms_per_chunk),
+        }
+        self.recorder.record(
+            "verify.chunked",
+            selected=bool(rtt_ms < prep_ms_per_chunk),
+            rtt_ms=round(rtt_ms, 4),
+            prep_ms=round(prep_ms_per_chunk, 4),
+            shards=self.shards,
+        )
+        return self.rtt_probe
+
+    def effective_chunk(self) -> int:
+        """Chunk size of the chunked single shot: the configured size or
+        the module default (one card: nothing to round to)."""
+        return self.chunk_size or _CHUNK
+
+    def chunked_auto(self) -> bool:
+        """True when the RTT probe says the chunked single shot pays."""
+        try:
+            return bool(self.probe_dispatch_rtt()["chunked_selected"])
+        except Exception:
+            logger.exception("dispatch RTT probe failed; keeping the monolithic path")
+            return False
+
+    # -- verify --------------------------------------------------------------
 
     def verify(
         self, pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes]
@@ -215,15 +390,26 @@ class BatchVerifier:
         n = len(sigs)
         if n == 0:
             return []
+        self.metrics.batch_size.observe(n)
         if n < self.min_device_batch:
             t0 = time.perf_counter()
             out = batch_hook.host_batch_verify(pubkeys, msgs, sigs)
-            self.last_dispatch = {"path": "host", "n": n, "host_prep_ms": 0.0,
-                                  "device_ms": _ms_since(t0)}
+            self._dispatch(n=n, bucket=0, path="host", host_prep_ms=0.0,
+                           device_ms=round(_ms_since(t0), 3))
             return out
+        state = self._library_state(n)
+        if state == "failed":
+            raise RuntimeError(
+                "the CUDA kernel library failed to build; device-routed batches "
+                f"are not served from the host: {self._build_error!r}"
+            ) from self._build_error
+        if state == "building":
+            self._dispatch(n=n, bucket=n, path="host-cold", host_prep_ms=0.0, device_ms=0.0)
+            return batch_hook.host_batch_verify(pubkeys, msgs, sigs)
         t0 = time.perf_counter()
         neg_a, h_digits, s_digits, r_y, r_sign, valid = prepare_batch(pubkeys, msgs, sigs)
-        prep_ms = _ms_since(t0)
+        prep_s = time.perf_counter() - t0
+        self.metrics.host_prep_seconds.observe(prep_s)
         if not valid.any():
             return [False] * n
         t1 = time.perf_counter()
@@ -231,14 +417,19 @@ class BatchVerifier:
         ok = ed25519_cuda.verify_indexed(
             rows, *_device_rows(self.device, np.arange(n), h_digits, s_digits, r_y, r_sign)
         ).cpu().numpy()
-        self.last_dispatch = {"path": "flat", "n": n, "host_prep_ms": prep_ms,
-                              "device_ms": _ms_since(t1)}
+        dev_s = time.perf_counter() - t1
+        self.metrics.device_seconds.observe(dev_s)
+        self._dispatch(n=n, bucket=n, path="device", host_prep_ms=round(prep_s * 1000, 3),
+                       device_ms=round(dev_s * 1000, 3))
         return np.logical_and(ok, valid).tolist()
 
     def install(self) -> "BatchVerifier":
         """Become the process-wide batch-verify hook used by
-        ValidatorSet.verify_commit* when no indexed hook serves."""
+        ValidatorSet.verify_commit* when no indexed hook serves, and start
+        the dispatch RTT probe in the background, so the chunked single
+        shot's choice is made before the first large batch arrives."""
         batch_hook.set_verifier(self.verify)
+        threading.Thread(target=self.chunked_auto, daemon=False, name="bv-rtt-probe").start()
         return self
 
 
@@ -248,6 +439,15 @@ class BatchVerifier:
 _tabulated_verdict: Dict[str, bool] = {}
 tabulated_profiles: Dict[str, Dict[str, float]] = {}
 _tabulated_lock = threading.Lock()
+
+
+def invalidate_tabulated_profile() -> None:
+    """Drop the cached tabulated-vs-ladder verdicts.  The profile is timed
+    at the live commit size, so a validator-set size change can flip the
+    break-even: TableCache.rebuild calls this when the set size changes and
+    the next table to resolve AUTO profiles again."""
+    with _tabulated_lock:
+        _tabulated_verdict.clear()
 
 
 def _event_ms(fn, stream) -> float:
@@ -261,6 +461,36 @@ def _event_ms(fn, stream) -> float:
     return start.elapsed_time(end)
 
 
+class _ChunkSlot:
+    """One slot of the chunked single shot's ring: host buffers for one
+    chunk's kernel inputs and verdicts, pinned on the card so both copies
+    run asynchronously, and the event recorded after the verdict copy.
+    A slot is refilled, and its verdicts read, only after that event."""
+
+    def __init__(self, cs: int, card: bool):
+        def buf(shape, dtype):
+            return torch.empty(shape, dtype=dtype, pin_memory=card)
+
+        self.inputs = (
+            buf(cs, torch.int32),  # idx
+            buf((cs, 32), torch.uint8),  # h, packed
+            buf((cs, 32), torch.uint8),  # s, packed
+            buf((cs, _N_LIMBS), torch.int16),  # r_y
+            buf(cs, torch.uint8),  # r_sign
+        )
+        self.ok = buf(cs, torch.bool)
+        self.done = torch.cuda.Event() if card else None
+
+    def fill(self, cnt: int, *arrays: np.ndarray) -> None:
+        for t, a in zip(self.inputs, arrays):
+            t.numpy()[:cnt] = a
+
+    def verdicts(self, cnt: int) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.ok.numpy()[:cnt]
+
+
 class PubkeyTable:
     """Device-resident decompressed validator pubkey table, keyed by
     validator index — commits verify by gathering rows inside the kernel.
@@ -271,7 +501,12 @@ class PubkeyTable:
     `tabulated=None` (the default) is AUTO: a one-time per-process profile
     times both kernels at the live commit size on this card and engages the
     tables only where they win.  On the CPU (plain versions) auto means
-    off."""
+    off.
+
+    `chunked_single_shot` splits a large ladder batch into chunks whose
+    host prep overlaps the device's work on the previous ones
+    (_verify_chunked).  None (the default) is AUTO: the verifier's RTT
+    probe decides.  True/False force it either way."""
 
     TABULATED_MAX_VALIDATORS = 16384  # ~2.6 GB of device tables
 
@@ -299,6 +534,8 @@ class PubkeyTable:
         if n > self.TABULATED_MAX_VALIDATORS:
             tabulated = False
         self.tabulated = tabulated
+        self.chunked_single_shot: Optional[bool] = None
+        self._stream = None  # the chunked single shot's CUDA stream, made at first use
 
     def __len__(self) -> int:
         return len(self.pubkeys)
@@ -380,6 +617,7 @@ class PubkeyTable:
         if n == 0:
             return []
         pk_count = len(self.pubkeys)
+        self.verifier.metrics.batch_size.observe(n)
         if n < self.verifier.min_device_batch:
             return batch_hook.host_batch_verify(
                 [self.pubkeys[i] if 0 <= i < pk_count else b"" for i in (int(i) for i in idxs)],
@@ -391,15 +629,24 @@ class PubkeyTable:
         for i, (idx, msg, sig) in enumerate(zip(idx_arr.tolist(), msgs, sigs)):
             if 0 <= idx < pk_count and self.row_valid[idx]:
                 items[i] = (self.pubkeys[idx], msg, sig)
+        idx_arr = np.clip(idx_arr, 0, max(pk_count - 1, 0))
 
         tab = self._tabulated_active(n)
 
+        cs = self.verifier.effective_chunk()
+        use_chunked = self.chunked_single_shot
+        chunk_eligible = not tab and n >= 2 * cs
+        if use_chunked is None and chunk_eligible:
+            use_chunked = self.verifier.chunked_auto()
+        if use_chunked and chunk_eligible:
+            return self._verify_chunked(items, idx_arr, cs)
+
         t0 = time.perf_counter()
         h_digits, s_digits, r_y, r_sign, valid = _scalar_rows(items)
-        prep_ms = _ms_since(t0)
+        prep_s = time.perf_counter() - t0
+        self.verifier.metrics.host_prep_seconds.observe(prep_s)
         if not valid.any():
             return [False] * n
-        idx_arr = np.clip(idx_arr, 0, max(pk_count - 1, 0))
         t1 = time.perf_counter()
         args = _device_rows(self.device, idx_arr, h_digits, s_digits, r_y, r_sign)
         if tab:
@@ -407,11 +654,72 @@ class PubkeyTable:
         else:
             ok = ed25519_cuda.verify_indexed(self.neg_a_rows, *args)
         ok = ok.cpu().numpy()
-        self.verifier.last_dispatch = {
-            "path": "tabulated" if tab else "indexed", "n": n,
-            "host_prep_ms": prep_ms, "device_ms": _ms_since(t1),
-        }
+        dev_s = time.perf_counter() - t1
+        self.verifier.metrics.device_seconds.observe(dev_s)
+        self.verifier._dispatch(
+            n=n, bucket=n, path="tabulated" if tab else "indexed",
+            host_prep_ms=round(prep_s * 1000, 3), device_ms=round(dev_s * 1000, 3),
+        )
         return np.logical_and(ok, valid).tolist()
+
+    def _verify_chunked(self, items: list, idx_arr: np.ndarray, cs: int) -> List[bool]:
+        """Double-buffered single shot on the ladder: chunk k+1's host prep
+        runs while the card verifies chunk k, so a large batch costs about
+        prep(one chunk) + device(all) instead of prep(all) + device(all).
+
+        On the card every launch and copy runs on this table's own CUDA
+        stream.  A ring of chunk_depth slots of pinned host buffers holds
+        the chunks in flight: inputs go H2D and verdicts D2H without
+        blocking the host, and an event recorded after the verdict copy
+        gates both the slot's refill and the reading of its verdicts.  On
+        CPU tensors the same loop runs with plain buffers and no stream."""
+        from ..ops import ed25519_cuda
+
+        n = len(items)
+        dev = self.device
+        card = dev.type == "cuda"
+        n_chunks = (n + cs - 1) // cs
+        slots = [_ChunkSlot(cs, card) for _ in range(min(max(1, self.verifier.chunk_depth), n_chunks))]
+        pending: "collections.deque" = collections.deque()
+        out: List[bool] = []
+
+        def collect():
+            slot, cnt, valid_c = pending.popleft()
+            out.extend(np.logical_and(slot.verdicts(cnt), valid_c).tolist())
+
+        t0 = time.perf_counter()
+        ctx = contextlib.nullcontext()
+        stream = None
+        if card:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(device=dev)
+            stream = self._stream
+            # the rows were uploaded on the caller's stream
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            ctx = torch.cuda.stream(stream)
+        with ctx:
+            for k, start in enumerate(range(0, n, cs)):
+                end = min(start + cs, n)
+                cnt = end - start
+                h, s, ry, rs, valid_c = _scalar_rows(items[start:end])
+                # the oldest chunk in flight holds the slot this one refills
+                while len(pending) >= len(slots):
+                    collect()
+                slot = slots[k % len(slots)]
+                slot.fill(cnt, idx_arr[start:end], _pack_digits(h), _pack_digits(s), ry, rs)
+                args = [t[:cnt].to(dev, non_blocking=True) for t in slot.inputs]
+                ok = ed25519_cuda.verify_indexed(self.neg_a_rows, *args)
+                slot.ok[:cnt].copy_(ok, non_blocking=True)
+                if card:
+                    slot.done.record(stream)
+                pending.append((slot, cnt, valid_c))
+            while pending:
+                collect()
+        # prep and device time interleave by design: the overlapped wall
+        # time is reported as device_ms
+        self.verifier._dispatch(n=n, bucket=cs, path="chunked", host_prep_ms=0.0,
+                                device_ms=round(_ms_since(t0), 3))
+        return out
 
 
 def from_jax_state(
@@ -455,8 +763,14 @@ class TableCache:
     verify_commit knows (validator-set key, row indices); routing through
     this cache lets commit verification gather pubkey rows (and, tabulated,
     window tables) on the device instead of shipping pubkeys every call.
-    Keyed by the set's pubkey digest; small LRU.  Tables build synchronously
-    on a miss.  Installed process-wide via `install()`."""
+    Keyed by the set's pubkey digest; small LRU.  Installed process-wide
+    via `install()`.
+
+    Outside warmup mode a miss builds the table synchronously.  In warmup
+    mode (the node's: BatchVerifier.start_warmup) a miss builds it on a
+    background thread and declines (returns None) meanwhile, so the caller
+    falls back to the flat batch verifier instead of stalling on the build;
+    `rebuild` builds a set's table before its first commit arrives."""
 
     def __init__(
         self,
@@ -469,10 +783,11 @@ class TableCache:
         self.max_sets = max_sets
         self.tabulated = tabulated
         self._tables: "collections.OrderedDict[bytes, PubkeyTable]" = collections.OrderedDict()
+        self._building: set = set()
         self._lock = threading.Lock()
 
     def table_for(self, set_key: bytes, pubkeys: Sequence[bytes]) -> PubkeyTable:
-        """Get or build the table for a validator set."""
+        """Get or build (synchronously) the table for a validator set."""
         with self._lock:
             tab = self._tables.get(set_key)
             if tab is not None:
@@ -496,19 +811,359 @@ class TableCache:
         sigs: Sequence[bytes],
     ) -> Optional[List[bool]]:
         """`pubkeys` is the set's rows or a thunk returning them (only a
-        cache miss materializes them)."""
+        cache miss materializes them).  None: declined while the set's
+        table builds in the background."""
         with self._lock:
             tab = self._tables.get(set_key)
             if tab is not None:
                 self._tables.move_to_end(set_key)
-        if tab is None:
-            tab = self.table_for(set_key, pubkeys() if callable(pubkeys) else pubkeys)
-        return tab.verify_indexed(idxs, msgs, sigs)
+        metrics, recorder = self.verifier.metrics, self.verifier.recorder
+        if tab is not None:
+            metrics.table_cache_hits.inc()
+            recorder.record("verify.table", hit=True, n=len(sigs))
+            return tab.verify_indexed(idxs, msgs, sigs)
+        metrics.table_cache_misses.inc()
+        recorder.record("verify.table", hit=False, n=len(sigs))
+        if not self.verifier._warmup_mode:
+            return self.table_for(set_key, self._rows(pubkeys)).verify_indexed(idxs, msgs, sigs)
+        with self._lock:
+            if set_key in self._building:
+                return None
+            self._building.add(set_key)
+        pk_copy = [bytes(pk) for pk in self._rows(pubkeys)]
+        n_hint = max(len(sigs), 1)
+
+        def build():
+            try:
+                tab = self.table_for(set_key, pk_copy)
+                # warm the dispatch at this commit's size, so the first
+                # verify after the build does not pay the AUTO profile
+                tab.verify_indexed(
+                    [i % max(len(pk_copy), 1) for i in range(n_hint)],
+                    [b"warmup"] * n_hint,
+                    [bytes(64)] * n_hint,
+                )
+            except Exception:  # the next miss tries again; the flat path serves meanwhile
+                logger.exception("background table build failed")
+            finally:
+                with self._lock:
+                    self._building.discard(set_key)
+
+        # non-daemon: interpreter exit waits for the build's device work
+        threading.Thread(target=build, daemon=False, name="table-build").start()
+        return None
+
+    @staticmethod
+    def _rows(pubkeys) -> Sequence[bytes]:
+        """Materialized rows, or the result of a lazy thunk."""
+        return pubkeys() if callable(pubkeys) else pubkeys
 
     def has_table(self, set_key: bytes) -> bool:
         with self._lock:
             return set_key in self._tables
 
+    def rebuild(self, set_key: bytes, pubkeys) -> bool:
+        """Build the table for a validator set in the background, before
+        its first commit arrives (the node calls this when a validator-set
+        update lands), and warm the dispatch at the whole-commit shape (one
+        row per validator).  When the set size differs from every cached
+        set's, the tabulated break-even profile is dropped first, since it
+        was timed at another size.
+
+        Returns True when a build was started; False when the set's table
+        is already cached or building."""
+        pk_copy = [bytes(pk) for pk in self._rows(pubkeys)]
+        n = len(pk_copy)
+        with self._lock:
+            known_sizes = {len(tab.pubkeys) for tab in self._tables.values()}
+            if set_key in self._tables or set_key in self._building:
+                self.verifier.rewarm(n)
+                return False
+            self._building.add(set_key)
+        if known_sizes and n not in known_sizes:
+            invalidate_tabulated_profile()
+        self.verifier.rewarm(n)
+        t0 = time.perf_counter()
+
+        def build():
+            ok = False
+            try:
+                tab = self.table_for(set_key, pk_copy)
+                tab.verify_indexed(list(range(n)), [b"warmup"] * n, [bytes(64)] * n)
+                ok = True
+            except Exception:  # recorded with ok=False
+                logger.exception("table rebuild failed")
+            finally:
+                with self._lock:
+                    self._building.discard(set_key)
+            self.verifier.metrics.table_rebuilds.inc()
+            self.verifier.recorder.record(
+                "verify.table_rebuild",
+                set_key=set_key.hex()[:16],
+                validators=n,
+                ms=round(_ms_since(t0), 3),
+                ok=ok,
+                shards=self.verifier.shards,
+            )
+
+        threading.Thread(target=build, daemon=False, name="table-rebuild").start()
+        return True
+
     def install(self) -> "TableCache":
         batch_hook.set_indexed_verifier(self.verify_indexed)
         return self
+
+
+# ---------------------------------------------------------------------------
+# async batcher: trickling votes coalesce into device batches
+# ---------------------------------------------------------------------------
+
+
+class AsyncBatchVerifier(Service):
+    """Deadline-flushed batcher.
+
+    Callers enqueue single (pubkey, msg, sig) checks and await a future; a
+    flusher coalesces the queue into one BatchVerifier call on a
+    one-worker executor, so device work never runs on the event loop and
+    stays serialized.
+
+    The window adapts to the arrival rate: while recent inter-arrival gaps
+    say more votes are imminent it keeps coalescing up to `flush_interval`;
+    when the queue goes quiet it flushes after `flush_min`.  Batches are cut
+    at `max_batch`; past `max_pending` queued checks, new ones verify on
+    the host path instead of queueing.  `adaptive=False` flushes on a fixed
+    `flush_interval`.  Defaults are the node's ([tpu] config).  Futures and
+    the executor belong to the running loop: call the methods from it."""
+
+    def __init__(
+        self,
+        verifier: Optional[BatchVerifier] = None,
+        max_batch: int = 4096,
+        flush_interval: float = 0.002,
+        max_pending: int = 65536,
+        flush_min: float = 0.0002,
+        adaptive: bool = True,
+    ):
+        super().__init__("batch-verifier")
+        self.verifier = verifier or BatchVerifier()
+        self.max_batch = max_batch
+        self.flush_interval = flush_interval
+        self.flush_min = min(flush_min, flush_interval)
+        self.adaptive = adaptive
+        self.max_pending = max_pending
+        # (pubkey, msg, sig, fut, t_enqueued): the timestamp feeds the
+        # queue-wait histogram and the recorder's flush events
+        self._pending: List[Tuple[bytes, bytes, bytes, asyncio.Future, float]] = []
+        self._wake: Optional[asyncio.Event] = None
+        self._task: Optional[asyncio.Task] = None
+        self._executor: Optional[ThreadPoolExecutor] = None
+        # EWMA of the enqueue inter-arrival gap (seconds); None until 2 arrivals
+        self._ewma_gap: Optional[float] = None
+        self._last_arrival: Optional[float] = None
+        self._enqueued = 0  # monotonic count, detects arrivals per window
+
+    async def on_start(self) -> None:
+        self._wake = asyncio.Event()
+        self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="bv-flush")
+        self.verifier.start_warmup()  # builds on its own thread; host path until built
+        self._task = self.spawn(self._flush_loop(), "flush-loop")
+
+    async def on_stop(self) -> None:
+        if self._task:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+        for _, _, _, fut, _ in self._pending:
+            if not fut.done():
+                fut.cancel()
+        self._pending.clear()
+        if self._executor is not None:
+            self._executor.shutdown(wait=False)
+
+    def _note_arrival(self, now: float, accepted: int) -> None:
+        """Shared enqueue bookkeeping: one arrival-rate sample per call (a
+        batch of N simultaneous entries must not convince the EWMA that
+        votes arrive at nanosecond gaps), the arrivals counter the adaptive
+        flusher watches, and the wake."""
+        if self._last_arrival is not None:
+            # one-sided clamp: one long idle period must not poison the
+            # estimate for the next burst
+            gap = min(now - self._last_arrival, self.flush_interval)
+            self._ewma_gap = gap if self._ewma_gap is None else 0.8 * self._ewma_gap + 0.2 * gap
+        self._last_arrival = now
+        self._enqueued += accepted
+        if self._wake and (self.adaptive or len(self._pending) >= self.max_batch):
+            self._wake.set()
+
+    def verify_one(self, pubkey: bytes, msg: bytes, sig: bytes) -> "asyncio.Future[bool]":
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        if len(self._pending) >= self.max_pending:
+            # backpressure: past the cap verify inline on the host path;
+            # slower per signature, but bounded memory and no dropped-vote
+            # false negatives
+            ok = batch_hook.host_batch_verify([pubkey], [msg], [sig])[0]
+            fut.set_result(bool(ok))
+            return fut
+        now = loop.time()
+        self._pending.append((pubkey, msg, sig, fut, now))
+        self.verifier.recorder.record("verify.enqueue", pending=len(self._pending))
+        self._note_arrival(now, accepted=1)
+        return fut
+
+    async def verify_direct(self, items: Sequence[Tuple[bytes, bytes, bytes]]) -> List[bool]:
+        """One pre-batched engine call on the flush executor, bypassing the
+        coalescing flusher: a relay frame already has a batch's shape.  The
+        single executor worker keeps it serialized with regular flushes."""
+        if not items:
+            return []
+        pubkeys = [it[0] for it in items]
+        msgs = [it[1] for it in items]
+        sigs = [it[2] for it in items]
+        loop = asyncio.get_running_loop()
+        self.verifier.recorder.record("verify.direct_batch", n=len(items))
+        return await loop.run_in_executor(self._executor, self.verifier.verify, pubkeys, msgs, sigs)
+
+    def verify_many(
+        self, items: Sequence[Tuple[bytes, bytes, bytes]]
+    ) -> List["asyncio.Future[bool]"]:
+        """Enqueue a whole batch of (pubkey, msg, sig) checks as one
+        arrival: everything is appended before the flusher wakes, so the
+        batch reaches the device as one flush instead of vote by vote.
+        Returns one future per item, in order."""
+        loop = asyncio.get_running_loop()
+        futs: List[asyncio.Future] = []
+        overflow: List[Tuple[bytes, bytes, bytes, asyncio.Future]] = []
+        now = loop.time()
+        accepted = 0
+        for pubkey, msg, sig in items:
+            fut: asyncio.Future = loop.create_future()
+            futs.append(fut)
+            if len(self._pending) >= self.max_pending:
+                overflow.append((pubkey, msg, sig, fut))
+                continue
+            self._pending.append((pubkey, msg, sig, fut, now))
+            accepted += 1
+        if items:
+            self.verifier.recorder.record(
+                "verify.enqueue_batch", n=len(items), pending=len(self._pending)
+            )
+            self._note_arrival(now, accepted)
+        if overflow:
+            # verify_one's backpressure contract (past the cap: host path,
+            # never drop), but a whole batch of overflow runs on the flush
+            # executor while the service runs, not inline on the loop
+            pks = [o[0] for o in overflow]
+            over_msgs = [o[1] for o in overflow]
+            over_sigs = [o[2] for o in overflow]
+            if self._executor is not None:
+                ex_fut = loop.run_in_executor(
+                    self._executor, batch_hook.host_batch_verify, pks, over_msgs, over_sigs
+                )
+
+                def deliver(done_fut, overflow=overflow):
+                    try:
+                        results = done_fut.result()
+                    except Exception as e:
+                        for _, _, _, fut in overflow:
+                            if not fut.done():
+                                fut.set_exception(RuntimeError(f"overflow verify failed: {e!r}"))
+                        return
+                    for (_, _, _, fut), ok in zip(overflow, results):
+                        if not fut.done():
+                            fut.set_result(bool(ok))
+
+                ex_fut.add_done_callback(deliver)
+            else:
+                results = batch_hook.host_batch_verify(pks, over_msgs, over_sigs)
+                for (_, _, _, fut), ok in zip(overflow, results):
+                    fut.set_result(bool(ok))
+        return futs
+
+    def _quiet_window(self) -> float:
+        """How long the flusher waits for more arrivals before flushing:
+        about four gaps while votes stream in, the floor when the next
+        arrival is expected past the deadline anyway."""
+        gap = self._ewma_gap
+        if gap is None or 4 * gap >= self.flush_interval:
+            return self.flush_min
+        return max(4 * gap, self.flush_min)
+
+    async def _wait_for_batch(self) -> None:
+        """Adaptive coalescing: sleep until there is work, then extend in
+        quiet windows while arrivals continue, capped at flush_interval."""
+        loop = asyncio.get_running_loop()
+        if not self._pending:
+            await self._wake.wait()
+            self._wake.clear()
+        deadline = loop.time() + self.flush_interval
+        while self._pending and len(self._pending) < self.max_batch:
+            remaining = deadline - loop.time()
+            if remaining <= 0:
+                break
+            before = self._enqueued
+            try:
+                await asyncio.wait_for(
+                    self._wake.wait(), timeout=min(self._quiet_window(), remaining)
+                )
+            except asyncio.TimeoutError:
+                if self._enqueued == before:
+                    break  # a full quiet window with no arrivals: flush now
+            self._wake.clear()
+
+    async def _flush_loop(self) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            if self.adaptive:
+                await self._wait_for_batch()
+            else:
+                try:
+                    await asyncio.wait_for(self._wake.wait(), timeout=self.flush_interval)
+                except asyncio.TimeoutError:
+                    pass
+                self._wake.clear()
+            if not self._pending:
+                continue
+            # cut at max_batch so one storm does not make an unbounded
+            # batch; the rest flushes on the next iteration
+            batch = self._pending[: self.max_batch]
+            del self._pending[: self.max_batch]
+            if len(self._pending) >= self.max_batch and self._wake:
+                self._wake.set()
+            now = loop.time()
+            wait_s = max(0.0, now - batch[0][4])  # the oldest entry's queue wait
+            quantum_s = self._quiet_window() if self.adaptive else self.flush_interval
+            m = self.verifier.metrics
+            m.queue_wait_seconds.observe(wait_s)
+            m.flush_quantum_seconds.set(quantum_s)
+            self.verifier.recorder.record(
+                "verify.flush",
+                batch=len(batch),
+                wait_ms=round(wait_s * 1000, 3),
+                quantum_ms=round(quantum_s * 1000, 3),
+                shards=self.verifier.shards,
+            )
+            pubkeys = [b[0] for b in batch]
+            msgs = [b[1] for b in batch]
+            sigs = [b[2] for b in batch]
+            try:
+                results = await loop.run_in_executor(
+                    self._executor, self.verifier.verify, pubkeys, msgs, sigs
+                )
+            except asyncio.CancelledError:
+                for _, _, _, fut, _ in batch:
+                    if not fut.done():
+                        fut.cancel()
+                raise
+            except Exception as e:
+                # a dead flusher would strand every pending and future
+                # caller: fail this batch's futures and keep the loop alive
+                for _, _, _, fut, _ in batch:
+                    if not fut.done():
+                        fut.set_exception(RuntimeError(f"batch verify failed: {e!r}"))
+                continue
+            for (_, _, _, fut, _), ok in zip(batch, results):
+                if not fut.done():
+                    fut.set_result(bool(ok))

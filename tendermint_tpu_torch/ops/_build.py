@@ -100,8 +100,15 @@ def _compile(so: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def loaded() -> bool:
+    """True once the library is loaded.  Never takes the build lock, so a
+    caller can ask while another thread's build is in flight."""
+    return _lib is not None
+
+
 def lib() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use.  Holds the build lock across
+    the compile: a second caller waits for the first one's build."""
     global _lib
     with _lock:
         if _lib is not None:

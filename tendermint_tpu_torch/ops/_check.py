@@ -2,10 +2,15 @@
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 _consts: dict = {}
+# the flush executor, build threads and the caller's thread all launch
+# kernels; without the lock two first uploads of one constant could race
+_consts_lock = threading.Lock()
 
 
 def tensors(device: torch.device, **named) -> None:
@@ -27,11 +32,12 @@ def tensors(device: torch.device, **named) -> None:
 def device_const(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host constant copied to `device` once and cached."""
     key = (id(arr), str(device))
-    t = _consts.get(key)
-    if t is None:
-        t = torch.as_tensor(np.ascontiguousarray(arr), device=device)
-        _consts[key] = t
-    return t
+    with _consts_lock:
+        t = _consts.get(key)
+        if t is None:
+            t = torch.as_tensor(np.ascontiguousarray(arr), device=device)
+            _consts[key] = t
+        return t
 
 
 def launched(name: str, rc: int) -> None:

@@ -10,6 +10,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List
 
+from ..encoding.proto import field_bytes, field_varint
 from . import canonical
 from .params import MAX_SIGNATURE_SIZE, MAX_VOTES_COUNT
 
@@ -43,6 +44,9 @@ class PartSetHeader:
             raise ValueError("negative Total")
         validate_hash(self.hash)
 
+    def encode(self) -> bytes:
+        return field_varint(1, self.total) + field_bytes(2, self.hash)
+
     def __str__(self) -> str:
         return f"{self.total}:{self.hash.hex()[:12]}"
 
@@ -53,6 +57,10 @@ class BlockID:
 
     hash: bytes = b""
     parts_header: PartSetHeader = field(default_factory=PartSetHeader)
+
+    def key(self) -> bytes:
+        """Machine-readable identity (types/block.go:905)."""
+        return self.hash + self.parts_header.encode()
 
     def is_zero(self) -> bool:
         return len(self.hash) == 0 and self.parts_header.is_zero()

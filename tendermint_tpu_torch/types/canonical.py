@@ -25,6 +25,10 @@ PREVOTE_TYPE = 0x01
 PRECOMMIT_TYPE = 0x02
 
 
+def is_vote_type_valid(t: int) -> bool:
+    return t in (PREVOTE_TYPE, PRECOMMIT_TYPE)
+
+
 def _canonical_part_set_header(total: int, hash_: bytes) -> bytes:
     return field_bytes(1, hash_) + field_varint(2, total)
 

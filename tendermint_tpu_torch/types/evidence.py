@@ -1,0 +1,69 @@
+"""DuplicateVoteEvidence: what VoteSet raises on a double-sign (a subset of
+tendermint_tpu/types/evidence.py; its wire bytes and hash need the codec,
+which the port does not have).
+
+Reference parity: types/evidence.go (DuplicateVoteEvidence:101).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+
+class DuplicateVoteEvidence:
+    """A validator signed two conflicting votes (types/evidence.go:101)."""
+
+    def __init__(self, pub_key, vote_a, vote_b):
+        self.pub_key = pub_key
+        self.vote_a = vote_a
+        self.vote_b = vote_b
+
+    @classmethod
+    def from_votes(cls, pub_key, vote1, vote2) -> Optional["DuplicateVoteEvidence"]:
+        """Orders the two votes by block key (types/evidence.go:110)."""
+        if vote1 is None or vote2 is None:
+            return None
+        if vote1.block_id.key() <= vote2.block_id.key():
+            return cls(pub_key, vote1, vote2)
+        return cls(pub_key, vote2, vote1)
+
+    def height(self) -> int:
+        return self.vote_a.height
+
+    def time_ns(self) -> int:
+        return self.vote_a.timestamp_ns
+
+    def address(self) -> bytes:
+        return self.pub_key.address()
+
+    def verify(self, chain_id: str, pub_key) -> None:
+        """types/evidence.go:166 — same H/R/S + validator, different blocks,
+        both signatures valid."""
+        a, b = self.vote_a, self.vote_b
+        if a.height != b.height or a.round != b.round or a.type != b.type:
+            raise ValueError(f"H/R/S does not match: {a} vs {b}")
+        if a.validator_address != b.validator_address:
+            raise ValueError("validator addresses do not match")
+        if a.validator_index != b.validator_index:
+            raise ValueError("validator indices do not match")
+        if a.block_id == b.block_id:
+            raise ValueError("blockIDs are the same - not a real duplicate vote")
+        if pub_key.address() != a.validator_address:
+            raise ValueError("address does not match pubkey")
+        if not pub_key.verify(a.sign_bytes(chain_id), a.signature):
+            raise ValueError("invalid signature on VoteA")
+        if not pub_key.verify(b.sign_bytes(chain_id), b.signature):
+            raise ValueError("invalid signature on VoteB")
+
+    def validate_basic(self) -> None:
+        if not self.pub_key.bytes():
+            raise ValueError("empty PubKey")
+        if self.vote_a is None or self.vote_b is None:
+            raise ValueError("one or both of the votes are empty")
+        self.vote_a.validate_basic()
+        self.vote_b.validate_basic()
+        if self.vote_a.block_id.key() >= self.vote_b.block_id.key():
+            raise ValueError("duplicate votes in invalid order")
+
+    def __repr__(self) -> str:
+        return f"DuplicateVoteEvidence(VoteA: {self.vote_a}; VoteB: {self.vote_b})"

@@ -158,6 +158,12 @@ class ValidatorSet:
             return -1, None
         return idx, self.validators[idx].copy()
 
+    def get_by_index(self, index: int) -> Tuple[Optional[bytes], Optional[Validator]]:
+        if index < 0 or index >= len(self.validators):
+            return None, None
+        v = self.validators[index]
+        return v.address, v.copy()
+
     def _indexed(self, row_idxs: List[int]):
         """The indexed-hook argument, or None when no table engine is
         installed.  Rows are passed lazily: a table-cache hit never builds

@@ -1,7 +1,8 @@
-"""Vote: sign-bytes and the CommitSig a precommit becomes (a subset of
-tendermint_tpu/types/vote.py, enough to build commits).
+"""Vote type + errors (a subset of tendermint_tpu/types/vote.py: no codec,
+no BLS sign-bytes).
 
-Reference parity: types/vote.go (Vote:48, CommitSig:60).
+Reference parity: types/vote.go (Vote:48, CommitSig:60, Verify:124,
+ValidateBasic:136).
 """
 
 from __future__ import annotations
@@ -9,7 +10,21 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from . import canonical
-from .block import BLOCK_ID_FLAG_COMMIT, BLOCK_ID_FLAG_NIL, BlockID, CommitSig
+from .block import ADDRESS_SIZE, BLOCK_ID_FLAG_COMMIT, BLOCK_ID_FLAG_NIL, BlockID, CommitSig
+from .params import MAX_SIGNATURE_SIZE
+
+
+class VoteError(Exception):
+    pass
+
+
+class ErrVoteConflictingVotes(VoteError):
+    """Raised by VoteSet on double-sign; carries the evidence
+    (types/vote.go:29)."""
+
+    def __init__(self, evidence):
+        self.evidence = evidence
+        super().__init__(f"conflicting votes from validator {evidence.vote_a.validator_address.hex()}")
 
 
 @dataclass
@@ -50,4 +65,57 @@ class Vote:
             validator_address=self.validator_address,
             timestamp_ns=self.timestamp_ns,
             signature=self.signature,
+        )
+
+    def verify(self, chain_id: str, pub_key) -> None:
+        """Single-vote host verification (types/vote.go:124).  Vote ingress
+        verifies through crypto.batch_verifier instead."""
+        if pub_key.address() != self.validator_address:
+            raise VoteError("invalid validator address")
+        if not pub_key.verify(self.sign_bytes(chain_id), self.signature):
+            raise VoteError("invalid signature")
+
+    def validate_basic(self) -> None:
+        if not canonical.is_vote_type_valid(self.type):
+            raise ValueError("invalid Type")
+        if self.height < 0:
+            raise ValueError("negative Height")
+        if self.round < 0:
+            raise ValueError("negative Round")
+        self.block_id.validate_basic()
+        if not self.block_id.is_zero() and not self.block_id.is_complete():
+            raise ValueError(f"blockID must be either empty or complete, got {self.block_id}")
+        if len(self.validator_address) != ADDRESS_SIZE:
+            raise ValueError(
+                f"expected ValidatorAddress size {ADDRESS_SIZE}, got {len(self.validator_address)}"
+            )
+        if self.validator_index < 0:
+            raise ValueError("negative ValidatorIndex")
+        if not self.signature:
+            raise ValueError("signature is missing")
+        if len(self.signature) > MAX_SIGNATURE_SIZE:
+            raise ValueError(f"signature is too big (max: {MAX_SIGNATURE_SIZE})")
+
+    def is_nil(self) -> bool:
+        return self.block_id.is_zero()
+
+    def copy(self) -> "Vote":
+        return Vote(
+            self.type,
+            self.height,
+            self.round,
+            self.block_id,
+            self.timestamp_ns,
+            self.validator_address,
+            self.validator_index,
+            self.signature,
+        )
+
+    def __str__(self) -> str:
+        tname = {canonical.PREVOTE_TYPE: "Prevote", canonical.PRECOMMIT_TYPE: "Precommit"}.get(
+            self.type, "?"
+        )
+        return (
+            f"Vote{{{self.validator_index}:{self.validator_address.hex()[:12]} "
+            f"{self.height}/{self.round:02d}/{tname} {self.block_id.hash.hex()[:12]}}}"
         )
