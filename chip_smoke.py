@@ -43,6 +43,26 @@
    and device ms, dispatches by path, latency and the ladder's launches;
    fails on any wrong verdict, a batch of 16 or more votes on the host, or
    a ladder that was not launched.  Its launches add to the kernels line.
+6. The light client at full width (lite2, statesync's engine lane,
+   liteserve's VerifyCache): a chain of 1,005 heights whose 10,000-validator
+   set (power 10) replaces its 2,500 oldest validators by new keys every
+   100 heights; commits are signed on first request.  Run 1: bisection
+   1 -> 1,000 through the installed BatchVerifier and TableCache (tabulated
+   auto) with an honest witness; it must make the 12 expected steps, persist
+   {1, 250, 437, 577, 788, 1000} and build tables for each new set.  Run 2:
+   sequence 1,000 -> 1,005 on the next set.  Run 3: the same bisection with
+   the node's engine settings and EngineCommitPreverify (each commit one
+   verify_many arrival).  Run 4: eight tenants bisect concurrently through
+   one VerifyCache(async_verifier=...): 9 misses, 95 hits or coalesced
+   joins.  Run 5: a flipped signature in header 1,000 (ValueError "wrong
+   signature (#i)") and a witness serving another header 1,000
+   (DivergedHeaderError, store rolled back).  Prints per step the path,
+   batch, host prep and device ms and the table cache's hit or miss; per new
+   set the table build (host rows, kernel 2); per run wall time and headers
+   per second; the cache's stats and the phase's launches, which add to the
+   kernels line.  Fails on any other step, height, stat or error, or when
+   kernel 2, the kernel serving the trusted commits (run 1) or the ladder
+   (runs 3-4) was not launched.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -53,6 +73,8 @@ fails.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -70,6 +92,23 @@ VOTE_FRAME = 100  # votes per relay frame in phase 5
 RELAY_SENDERS = 4
 CORRUPT_EVERY = 100  # phase 5: every 100th validator's precommit has a bad signature
 CHAIN_ID = "chip-smoke"
+SIGN_THREADS = min(8, os.cpu_count() or 1)  # key generation and commit signing
+
+# Phase 6: the light client's chain (BASELINE config #5 widths)
+SEC = 1_000_000_000
+LITE_T0 = 1_700_000_000 * SEC
+LITE_ROTATE = 2500  # validators replaced at each epoch boundary
+LITE_EPOCH = 100  # heights per epoch
+LITE_TOP = 1005  # the chain's last height
+LITE_TARGET = 1000  # what the bisections verify
+LITE_TENANTS = 8
+# bisection 1 -> 1000: (trusted height, untrusted height, trusted?); the
+# trust check passes when the two sets are at most two epochs apart
+LITE_STEPS = [(1, 1000, False), (1, 500, False), (1, 250, True), (250, 1000, False),
+              (250, 625, False), (250, 437, True), (437, 1000, False), (437, 718, False),
+              (437, 577, True), (577, 1000, False), (577, 788, True), (788, 1000, True)]
+LITE_HEIGHTS = [1000, 788, 577, 437, 250, 1]  # what it persists, descending
+LITE_DISTINCT = 9  # distinct headers a bisection asks for: 1 and the 8 untrusted heights
 
 # Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s
 # float32 outside the tensor cores.  The integer multiply rate is not in the
@@ -167,10 +206,16 @@ def wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1000
 
 
-def make_keys(n, prefix="val"):
+def make_keys(n, prefix="val", start=0):
+    """Keys prefix-start .. prefix-(n-1), made on SIGN_THREADS threads (the
+    C key derivation releases the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
 
-    return [Ed25519PrivKey.from_secret(f"{prefix}-{i}".encode()) for i in range(n)]
+    with ThreadPoolExecutor(SIGN_THREADS) as ex:
+        return list(ex.map(lambda i: Ed25519PrivKey.from_secret(f"{prefix}-{i}".encode()),
+                           range(start, n), chunksize=512))
 
 
 def kernel_mix(rng, keys):
@@ -563,9 +608,6 @@ def phase_ingress(keys, vset, commit, msgs, card, dev):
     triples = list(zip(pks, msgs, sigs))
     rec = FlightRecorder(size=1 << 17)
 
-    def next_seq() -> int:
-        return rec.snapshot(since=1 << 62)["next_seq"]
-
     def wait_rebuilds(count: int, timeout: float = 600.0):
         deadline = time.perf_counter() + timeout
         while time.perf_counter() < deadline:
@@ -641,7 +683,7 @@ def phase_ingress(keys, vset, commit, msgs, card, dev):
         try:
             for name, fn in (("verify_one storm", storm), ("verify_direct frames", relay),
                              ("verify_many batch", many)):
-                since, launches = next_seq(), ed25519_cuda.LAUNCHES
+                since, launches = next_seq(rec), ed25519_cuda.LAUNCHES
                 enq, done = [0.0] * n, [0.0] * n
                 t0 = time.perf_counter()
                 verdicts = await fn(abv, loop, enq, done)
@@ -774,6 +816,472 @@ def phase_ingress(keys, vset, commit, msgs, card, dev):
     batch_hook.set_verifier(None)
     batch_hook.set_indexed_verifier(None)
     return modes
+
+
+class LiteChain:
+    """Phase 6's chain: heights 1 .. top; the validator set of epoch e =
+    (h - 1) // epoch is keys[rotate * e : rotate * e + n] at power 10, so
+    each epoch replaces the `rotate` oldest validators by new keys.
+    next_validators_hash and last_block_id chain the headers, all hashed
+    here; a height's commit (every validator of its set, for its block) is
+    signed on first request and kept."""
+
+    def __init__(self, keys, n, rotate, epoch, top):
+        from tendermint_tpu_torch.types.block import BlockID, Header, PartSetHeader
+        from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
+
+        self.n, self.rotate, self.epoch_len, self.top = n, rotate, epoch, top
+        self.key_of = {k.pub_key().address(): k for k in keys}
+        self.index_of = {k.pub_key().bytes(): i for i, k in enumerate(keys)}
+        self.sets = {e: ValidatorSet([Validator.new(k.pub_key(), 10)
+                                      for k in keys[rotate * e: rotate * e + n]])
+                     for e in range(self.epoch(top + 1) + 1)}
+        set_hash = {e: vset.hash() for e, vset in self.sets.items()}
+        self.headers, self.signed = {}, {}
+        last = BlockID()
+        for h in range(1, top + 1):
+            e = self.epoch(h)
+            header = Header(
+                chain_id=CHAIN_ID, height=h, time_ns=self.time_ns(h), last_block_id=last,
+                validators_hash=set_hash[e], next_validators_hash=set_hash[self.epoch(h + 1)],
+                proposer_address=self.sets[e].validators[0].address,
+            )
+            last = BlockID(header.hash(), PartSetHeader(1, header.hash()))
+            self.headers[h] = header
+        self.sign_s = 0.0  # host seconds spent signing commits
+
+    def epoch(self, h: int) -> int:
+        return (h - 1) // self.epoch_len
+
+    @staticmethod
+    def time_ns(h: int) -> int:
+        return LITE_T0 + h * SEC
+
+    def now(self) -> int:
+        return self.time_ns(self.top) + 5 * SEC
+
+    def vals(self, h: int):
+        return self.sets[self.epoch(h)]
+
+    def trust(self, h: int):
+        from tendermint_tpu_torch.lite2 import TrustOptions
+
+        return TrustOptions(10 * self.top * SEC, h, self.headers[h].hash())
+
+    def signed_header(self, h: int):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from tendermint_tpu_torch.types.block import (
+            BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig, PartSetHeader, SignedHeader)
+
+        if h not in self.signed:
+            t0 = time.perf_counter()
+            header, vset = self.headers[h], self.vals(h)
+            bid = BlockID(header.hash(), PartSetHeader(1, header.hash()))
+            ts = self.time_ns(h)
+            sigs = [CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts + i, b"")
+                    for i, v in enumerate(vset.validators)]
+            unsigned = Commit(h, 0, bid, sigs)
+            jobs = [(self.key_of[cs.validator_address], unsigned.vote_sign_bytes(CHAIN_ID, i))
+                    for i, cs in enumerate(sigs)]
+            with ThreadPoolExecutor(SIGN_THREADS) as ex:
+                raw = list(ex.map(lambda job: job[0].sign(job[1]), jobs, chunksize=512))
+            sigs = [CommitSig(BLOCK_ID_FLAG_COMMIT, cs.validator_address, cs.timestamp_ns, r)
+                    for cs, r in zip(sigs, raw)]
+            self.signed[h] = SignedHeader(header, Commit(h, 0, bid, sigs))
+            self.sign_s += time.perf_counter() - t0
+        return self.signed[h]
+
+    def provider(self, overrides=None):
+        """A lite2 Provider serving this chain; `overrides` {height:
+        SignedHeader} are served in place of the chain's own."""
+        from tendermint_tpu_torch.lite2.provider import Provider, SignedHeaderNotFound
+
+        chain, served = self, dict(overrides or {})
+
+        class ChainProvider(Provider):
+            def chain_id(self) -> str:
+                return CHAIN_ID
+
+            async def signed_header(self, height: int):
+                h = height or chain.top
+                if not 1 <= h <= chain.top:
+                    raise SignedHeaderNotFound(f"no signed header at height {height}")
+                return served.get(h) or chain.signed_header(h)
+
+            async def validator_set(self, height: int):
+                return chain.vals(height or chain.top)
+
+        return ChainProvider()
+
+
+@contextlib.contextmanager
+def table_timing(chain, builds: list, dev):
+    """Record each PubkeyTable built meanwhile: its set's epoch, the host
+    rows' ms (decompression and upload) and the window tables' ms (kernel
+    2), each between card synchronizations.  Restores the class after."""
+    import torch
+
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+
+    cls = bvm.PubkeyTable
+    orig_init, orig_build = cls.__init__, cls.build_tables
+    by_table = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def init(self, pubkeys, *args, **kwargs):
+        t0 = time.perf_counter()
+        orig_init(self, pubkeys, *args, **kwargs)
+        sync()
+        first = min(chain.index_of[bytes(pk)] for pk in pubkeys)
+        by_table[id(self)] = {"epoch": first // chain.rotate, "validators": len(pubkeys),
+                              "rows_ms": _ms(t0), "build_ms": None}
+        builds.append(by_table[id(self)])
+
+    def build(self):
+        if self._window_tables is not None or id(self) not in by_table:
+            return orig_build(self)
+        sync()
+        t0 = time.perf_counter()
+        out = orig_build(self)
+        sync()
+        by_table[id(self)]["build_ms"] = _ms(t0)
+        return out
+
+    cls.__init__, cls.build_tables = init, build
+    try:
+        yield
+    finally:
+        cls.__init__, cls.build_tables = orig_init, orig_build
+
+
+def _ms(t0: float) -> float:
+    return (time.perf_counter() - t0) * 1000
+
+
+def next_seq(rec) -> int:
+    return rec.snapshot(since=1 << 62)["next_seq"]
+
+
+async def lite_run(chain, rec, mode="bisection", trust_h=1, target=LITE_TARGET,
+                   preverify=None, store=None):
+    """One client run with an honest witness; every commit check passes a
+    probe that notes the step (trusted height from the store, untrusted
+    height, recorder position, host clock) before `preverify` (None: the
+    installed hooks verify)."""
+    from tendermint_tpu_torch import lite2
+
+    steps = []
+    client = None
+
+    async def probe(sh, vals_sets):
+        steps.append({"trusted": client.store.latest_height(), "untrusted": sh.height,
+                      "seq": next_seq(rec), "t": time.perf_counter(), "sign_s": chain.sign_s})
+        return None if preverify is None else await preverify(sh, vals_sets)
+
+    client = lite2.Client(CHAIN_ID, chain.trust(trust_h), chain.provider(), [chain.provider()],
+                          store=store, mode=mode, commit_preverify=probe, now_fn=chain.now)
+    sign0, t0 = chain.sign_s, time.perf_counter()
+    sh = await client.verify_header_at_height(target, chain.now())
+    end, end_seq = time.perf_counter(), next_seq(rec)
+    for i, st in enumerate(steps):
+        last = i + 1 == len(steps)
+        st["ms"] = ((end if last else steps[i + 1]["t"]) - st["t"]) * 1000
+        st["sign_ms"] = ((chain.sign_s if last else steps[i + 1]["sign_s"]) - st["sign_s"]) * 1000
+        st["ok"] = (sh.height if last else steps[i + 1]["trusted"]) == st["untrusted"]
+    if sh.hash() != chain.headers[target].hash():
+        raise AssertionError(f"the client's header {target} is not the chain's")
+    disp = [e for e in rec.events(since=steps[0]["seq"], kinds=["verify.dispatch"])
+            if e["seq"] < end_seq]
+    return {"client": client, "steps": steps, "wall_s": end - t0, "sign_s": chain.sign_s - sign0,
+            "end_seq": end_seq, "dispatch_ms": sum(e["device_ms"] for e in disp)}
+
+
+def check_bisection(name, run, card):
+    """The bisection's steps and persisted heights against LITE_STEPS and
+    LITE_HEIGHTS; prints them on a mismatch."""
+    steps = [(st["trusted"], st["untrusted"], st["ok"]) for st in run["steps"]]
+    heights = run["client"].store.heights()
+    if steps[0][:2] != (0, 1) or steps[1:] != LITE_STEPS or heights != LITE_HEIGHTS:
+        log(f"  {name}: steps {steps}; persisted {heights}")
+        raise AssertionError(f"{name}: the bisection's steps or heights differ from the expected ones")
+    log(f"  {name}: {len(LITE_STEPS)} steps as expected, persisted {heights}; "
+        + run_summary(run, len(heights), card))
+
+
+def card_memory(dev, cache) -> str:
+    """The card's allocated memory beside the number of sets the table
+    cache holds: an evicted set's tables must be freed."""
+    import torch
+
+    held = f"{len(cache._tables)} sets cached (max {cache.max_sets})"
+    if dev.type != "cuda":
+        return held
+    return f"{held}, {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated on the card"
+
+
+def run_summary(run, headers, card) -> str:
+    """Wall time, signing, headers/s without signing, and the dispatches'
+    share of the rest (host clock: an upper bound on the card's busy share)."""
+    verify_ms = (run["wall_s"] - run["sign_s"]) * 1000
+    return (f"{len(run['steps'])} commit checks in {run['wall_s'] * 1000:.3f} ms wall, of which "
+            f"signing {run['sign_s'] * 1000:.3f} ms; {headers / max(verify_ms, 1e-9) * 1000:.3f} "
+            f"headers/s without signing; dispatches {run['dispatch_ms']:.3f} ms = "
+            f"{run['dispatch_ms'] / max(verify_ms, 1e-9) * 100:.2f} % of that ({card})")
+
+
+def print_steps(run, rec, card):
+    """Per commit check: outcome, the engine's dispatches (path, batch,
+    host prep and device ms) and the table cache's hit or miss."""
+    steps = run["steps"]
+    for i, st in enumerate(steps):
+        until = steps[i + 1]["seq"] if i + 1 < len(steps) else run["end_seq"]
+        evs = [e for e in rec.events(since=st["seq"], kinds=["verify.table", "verify.dispatch",
+                                                             "verify.flush"])
+               if e["seq"] < until]
+        parts, table = [], None
+        for e in evs:
+            if e["kind"] == "verify.table":
+                table = "hit" if e["hit"] else "miss, built"
+            elif e["kind"] == "verify.flush":
+                parts.append(f"flush {e['batch']}")
+            else:
+                parts.append(f"{e['path']} n={e['n']} host_prep_ms={e['host_prep_ms']} "
+                             f"device_ms={e['device_ms']}" + (f" table {table}" if table else ""))
+                table = None
+        what = "init" if st["trusted"] == 0 else ("trusted" if st["ok"] else "can't trust")
+        log(f"    {st['trusted']} -> {st['untrusted']} {what}: {st['ms']:.3f} ms "
+            f"(signing the next request {st['sign_ms']:.3f} ms); "
+            f"{'; '.join(parts) or 'no signature shared, no dispatch'} ({card})")
+
+
+def host_breakdown(chain, card):
+    """Host ms of the parts of one skipping step at full width, on the
+    step 788 -> 1000 with a VerifyCache lookup serving the signatures (what
+    a tenant of run 4 pays per call once the commit is verified)."""
+    from tendermint_tpu_torch.liteserve.cache import _commit_digest
+    from tendermint_tpu_torch.lite2 import verify_non_adjacent
+
+    lo, hi = LITE_STEPS[-1][:2]
+    trusted, sh, vals = chain.signed_header(lo), chain.signed_header(hi), chain.vals(hi)
+    old = chain.vals(lo)
+    ok = {}
+    for i, cs in enumerate(sh.commit.signatures):
+        ok[(vals.validators[i].pub_key.bytes(), sh.commit.vote_sign_bytes(CHAIN_ID, i),
+            cs.signature)] = True
+
+    def lookup(pubkeys, msgs, sigs):
+        return [ok[k] for k in zip(pubkeys, msgs, sigs)]
+
+    parts = {
+        "validate_basic": lambda: sh.validate_basic(CHAIN_ID),
+        "set hash": vals.hash,
+        "sign-bytes": lambda: [sh.commit.vote_sign_bytes(CHAIN_ID, i)
+                               for i in range(len(sh.commit.signatures))],
+        "trusted-set lookups": lambda: [old.get_by_address(cs.validator_address)
+                                        for cs in sh.commit.signatures],
+        "commit digest": lambda: _commit_digest(sh.commit),
+        "whole step": lambda: verify_non_adjacent(
+            CHAIN_ID, trusted, old, sh, vals, 10 * chain.top * SEC, chain.now(), 10 * SEC,
+            batch_verify=lookup),
+    }
+    out = {}
+    for name, fn in parts.items():
+        t0 = time.perf_counter()
+        fn()
+        out[name] = round(_ms(t0), 3)
+    log(f"  host ms of one skipping step {lo} -> {hi} at {len(vals)} validators, signatures "
+        f"served by a lookup: {out} ({card})")
+
+
+def phase_light(keys, card, dev, report):
+    """The light client at full width (see the module docstring, 6).
+    Returns the launches of run 1 and of runs 3-4 by counter."""
+    import asyncio
+    import dataclasses
+
+    from tendermint_tpu_torch import lite2
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+    from tendermint_tpu_torch.libs.tracing import FlightRecorder
+    from tendermint_tpu_torch.liteserve import VerifyCache
+    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
+    from tendermint_tpu_torch.statesync import EngineCommitPreverify
+    from tendermint_tpu_torch.types.block import Commit, SignedHeader
+
+    def counters():
+        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
+                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
+
+    def since(before):
+        return {k: v - before[k] for k, v in counters().items()}
+
+    n = N_VALIDATORS
+    t0 = time.perf_counter()
+    need = n + LITE_ROTATE * (LITE_TOP // LITE_EPOCH)
+    all_keys = list(keys[:n]) + make_keys(need, start=n)
+    chain = LiteChain(all_keys, n, LITE_ROTATE, LITE_EPOCH, LITE_TOP)
+    log(f"  chain: {LITE_TOP} headers hashed, {len(chain.sets)} validator sets of {n} "
+        f"({need} keys) in {_ms(t0):.3f} ms")
+
+    # run 1: bisection through the installed hooks, tables on auto
+    rec = FlightRecorder(size=1 << 16)
+    bv = bvm.BatchVerifier(device=dev, recorder=rec).install()
+    cache = bvm.TableCache(bv, tabulated=None).install()
+    builds = []
+    before = counters()
+    with table_timing(chain, builds, dev):
+        run1 = asyncio.run(lite_run(chain, rec))
+    launches_run1 = since(before)
+    log("  run 1, bisection through the hooks:")
+    print_steps(run1, rec, card)
+    check_bisection("run 1", run1, card)
+    for b in builds:
+        log(f"    new set, epoch {b['epoch']} ({b['validators']} validators): host rows "
+            f"{b['rows_ms']:.3f} ms, window tables (kernel 2) "
+            f"{'not built' if b['build_ms'] is None else format(b['build_ms'], '.3f') + ' ms'} ({card})")
+    met = sorted({chain.epoch(h) for h in LITE_HEIGHTS})
+    built = sorted(b["epoch"] for b in builds if b["build_ms"] is not None)
+    paths = {e["path"] for e in rec.events(kinds=["verify.dispatch"])}
+    log(f"  run 1: sets met {met}, tables built for {built}, dispatch paths {sorted(paths)}, "
+        f"launches {launches_run1}; {card_memory(dev, cache)}")
+    if dev.type == "cuda":  # the counters count kernel launches only
+        if built != met:
+            raise AssertionError("run 1 did not build window tables for every new set it met")
+        if "tabulated" in paths and not launches_run1["ed25519_tabulated"]:
+            raise AssertionError("run 1 took the tabulated path without launching kernel 3")
+        if paths & {"indexed", "chunked"} and not launches_run1["ed25519_ladder"]:
+            raise AssertionError("run 1 took the ladder path without launching kernel 1")
+
+    # run 2: sequence on from the stored header at 1000 into the next set
+    with table_timing(chain, builds, dev):
+        run2 = asyncio.run(lite_run(chain, rec, mode=lite2.SEQUENCE, trust_h=LITE_TARGET,
+                                       target=LITE_TOP, store=run1["client"].store))
+    log(f"  run 2, sequence {LITE_TARGET} -> {LITE_TOP}:")
+    print_steps(run2, rec, card)
+    seq_heights = run2["client"].store.heights()[: LITE_TOP - LITE_TARGET + 1]
+    if seq_heights != list(range(LITE_TOP, LITE_TARGET - 1, -1)):
+        raise AssertionError(f"run 2 persisted {seq_heights}")
+    log(f"  run 2: {LITE_TOP - LITE_TARGET} adjacent headers; "
+        + run_summary(run2, LITE_TOP - LITE_TARGET, card))
+    for b in builds[len(met):]:
+        log(f"    new set, epoch {b['epoch']}: host rows {b['rows_ms']:.3f} ms, window tables "
+            f"(kernel 2) {b['build_ms']} ms ({card})")
+    log(f"  run 2: {card_memory(dev, cache)}")
+
+    # runs 3 and 4: the node's engine settings, one AsyncBatchVerifier on the loop
+    rec3 = FlightRecorder(size=1 << 17)
+    bv3 = bvm.BatchVerifier(device=dev, min_device_batch=16, recorder=rec3)
+    bv3.start_warmup()
+    bvm.TableCache(bv3, tabulated=None).install()
+    bv3.install()
+
+    async def engine_lane():
+        abv = bvm.AsyncBatchVerifier(bv3)
+        await abv.start()
+        try:
+            run3 = await lite_run(chain, rec3, preverify=EngineCommitPreverify(abv))
+            vcache = VerifyCache(async_verifier=abv)
+            hook, calls = vcache.preverify(), []
+
+            async def counted(sh, vals_sets):
+                calls.append(sh.height)
+                return await hook(sh, vals_sets)
+
+            tenants = [lite2.Client(CHAIN_ID, chain.trust(1), chain.provider(),
+                                    commit_preverify=counted, now_fn=chain.now)
+                       for _ in range(LITE_TENANTS)]
+            seq4, t0 = next_seq(rec3), time.perf_counter()
+            got = await asyncio.gather(*(t.verify_header_at_height(LITE_TARGET, chain.now())
+                                         for t in tenants))
+            wall4 = time.perf_counter() - t0
+            disp4 = sum(e["device_ms"] for e in rec3.events(since=seq4, kinds=["verify.dispatch"]))
+            return run3, vcache, calls, tenants, got, wall4, disp4
+        finally:
+            await abv.stop()
+
+    before = counters()
+    seq3 = next_seq(rec3)
+    run3, vcache, calls, tenants, got, wall4, disp4 = asyncio.run(engine_lane())
+    launches_34 = since(before)
+    log("  run 3, bisection through EngineCommitPreverify (AsyncBatchVerifier):")
+    print_steps(run3, rec3, card)
+    check_bisection("run 3", run3, card)
+    disp = rec3.events(since=seq3, kinds=["verify.dispatch"])
+    by_path = collections.Counter(e["path"] for e in disp)
+    if any(e["path"] in ("host", "host-cold") for e in disp if e["n"] >= 16):
+        raise AssertionError("runs 3-4: a batch of 16 or more signatures went to the host")
+    stats = vcache.stats()
+    per_tenant = len(LITE_STEPS) + 1
+    primary = chain.headers[LITE_TARGET].hash()
+    log(f"  run 4, {LITE_TENANTS} tenants through one VerifyCache: {len(calls)} preverify calls, "
+        f"stats {stats}; {LITE_TENANTS * len(LITE_HEIGHTS)} headers in {wall4 * 1000:.3f} ms wall = "
+        f"{LITE_TENANTS * len(LITE_HEIGHTS) / wall4:.3f} headers/s; dispatches {disp4:.3f} ms = "
+        f"{disp4 / (wall4 * 1000) * 100:.2f} % of the wall ({card})")
+    host_breakdown(chain, card)
+    log(f"  runs 3-4: dispatches by path {dict(by_path)}, launches {launches_34} ({card})")
+    if len(calls) != LITE_TENANTS * per_tenant or stats["misses"] != LITE_DISTINCT \
+            or stats["hits"] + stats["coalesced"] != LITE_TENANTS * per_tenant - LITE_DISTINCT:
+        raise AssertionError("the shared VerifyCache's calls or stats differ from the expected ones")
+    if any(sh.hash() != primary for sh in got) or any(
+            t.store.heights() != LITE_HEIGHTS for t in tenants):
+        raise AssertionError("a tenant's trusted header or heights differ from the primary's")
+
+    # run 5: the failures, on run 1's engine
+    bv.install()
+    cache.install()
+    trusted_h = LITE_STEPS[-1][0]
+    honest = chain.signed_header(LITE_TARGET)
+    bad = next(i for i, cs in enumerate(honest.commit.signatures)
+               if chain.vals(trusted_h).has_address(cs.validator_address))
+    sigs = list(honest.commit.signatures)
+    flipped = bytearray(sigs[bad].signature)
+    flipped[0] ^= 1
+    sigs[bad] = dataclasses.replace(sigs[bad], signature=bytes(flipped))
+    forged = SignedHeader(honest.header, Commit(LITE_TARGET, 0, honest.commit.block_id, sigs))
+    lying = SignedHeader(dataclasses.replace(honest.header, app_hash=b"\xee" * 32), honest.commit)
+
+    async def failures():
+        client = lite2.Client(CHAIN_ID, chain.trust(trusted_h),
+                              chain.provider({LITE_TARGET: forged}), now_fn=chain.now)
+        try:
+            await client.verify_header_at_height(LITE_TARGET, chain.now())
+            raise AssertionError("a header with a flipped signature verified")
+        except ValueError as e:
+            if not str(e).startswith(f"wrong signature (#{bad})"):
+                raise
+            log(f"  run 5: primary with a flipped signature #{bad} in header {LITE_TARGET}: "
+                f"raised ValueError '{str(e)[:40]}...'; persisted {client.store.heights()}")
+        client = lite2.Client(CHAIN_ID, chain.trust(trusted_h), chain.provider(),
+                              [chain.provider({LITE_TARGET: lying})], now_fn=chain.now)
+        await client.initialize()
+        held = client.store.heights()
+        try:
+            await client.verify_header_at_height(LITE_TARGET, chain.now())
+            raise AssertionError("a diverging witness went unnoticed")
+        except lite2.DivergedHeaderError as e:
+            if client.store.heights() != held:
+                raise AssertionError(f"the store kept {client.store.heights()}, not {held}")
+            log(f"  run 5: witness serving another header {LITE_TARGET}: raised "
+                f"DivergedHeaderError '{e}'; store rolled back to {held}")
+
+    asyncio.run(failures())
+    batch_hook.set_verifier(None)
+    batch_hook.set_indexed_verifier(None)
+
+    built_ms = [b["build_ms"] for b in builds if b["build_ms"] is not None]
+    if built_ms and "ms" in report["ed25519_tabulated"]:
+        saving = report["ed25519_ladder"]["ms"] - report["ed25519_tabulated"]["ms"]
+        log(f"  window tables on this path: build (kernel 2) {min(built_ms):.3f}-{max(built_ms):.3f} "
+            f"ms per set, rows {min(b['rows_ms'] for b in builds):.3f}-"
+            f"{max(b['rows_ms'] for b in builds):.3f} ms; phase 4's per-commit kernel saving "
+            f"(ladder - tabulated at 10k) {saving:.4f} ms; each set serves at most two commits "
+            f"here ({card})")
+    return launches_run1, launches_34
 
 
 def kernel_device_ms(fn, names) -> dict:
@@ -917,6 +1425,25 @@ def main() -> int:
     log(f"  launches in phase 5: {counts}; phase 5 took {time.perf_counter() - t0:.3f} s")
     if counts["ed25519_ladder"] == 0:
         raise AssertionError("the ladder was not launched during vote ingress")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+    log("[6] light client: bisection, sequence, engine lane and shared cache at 10k validators")
+    ed25519_cuda.LAUNCHES = 0
+    ed25519_table.BUILD_LAUNCHES = 0
+    ed25519_table.SUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    _, launches_34 = phase_light(keys, card, dev, report)
+    counts = {
+        "ed25519_ladder": ed25519_cuda.LAUNCHES,
+        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
+    }
+    log(f"  launches in phase 6: {counts}; phase 6 took {time.perf_counter() - t0:.3f} s")
+    if counts["ed25519_window_tables"] == 0:
+        raise AssertionError("kernel 2 (window tables) was not launched in phase 6")
+    if launches_34["ed25519_ladder"] == 0:
+        raise AssertionError("the ladder was not launched in phase 6's engine lane")
     for name, c in counts.items():
         report[name]["launches"] += c
 

@@ -45,6 +45,9 @@ class Ed25519PubKey:
     def bytes(self) -> bytes:
         return self._data
 
+    def to_dict(self) -> dict:
+        return {"type": self.TYPE, "value": self._data}
+
     def verify(self, msg: bytes, sig: bytes) -> bool:
         """Single host verify, cofactorless, non-canonical S rejected."""
         if len(sig) != self.SIG_SIZE or not em.sc_minimal(sig[32:]):
@@ -101,3 +104,12 @@ class Ed25519PrivKey:
 
     def pub_key(self) -> Ed25519PubKey:
         return self._pub
+
+
+def pubkey_from_dict(d: dict) -> Ed25519PubKey:
+    """Route a {"type", "value"} dict to its key; this slice carries
+    ed25519 keys only, and any other type raises as an unknown one."""
+    t = d.get("type")
+    if t == Ed25519PubKey.TYPE:
+        return Ed25519PubKey(d["value"])
+    raise ValueError(f"unknown pubkey type {t!r}")

@@ -1,3 +1,3 @@
-"""Service lifecycle, flight recorder, metrics and bit arrays: the port's
-copies of the parts of tendermint_tpu/libs the verify engine and VoteSet
-use."""
+"""Service lifecycle, flight recorder, metrics, bit arrays and structured
+logging: the port's copies of the parts of tendermint_tpu/libs the verify
+engine, VoteSet and the light client use."""

@@ -1,0 +1,32 @@
+"""Light client (reference: lite2/) on the port's batch verifier.
+
+The verification core is ValidatorSet.verify_commit /
+verify_commit_trusting (types/validator.py), which route every signature
+batch through the crypto.batch hooks — so a light client syncing a
+10,000-validator chain verifies each header's commit as ONE kernel launch
+on the card (BASELINE config #5).  The RPC-backed providers, the database
+store and the proxy are not part of the port yet.
+"""
+
+from .client import (  # noqa: F401
+    BISECTION,
+    SEQUENCE,
+    Client,
+    DivergedHeaderError,
+    LightClientError,
+    TrustOptions,
+)
+from .provider import (  # noqa: F401
+    MockProvider,
+    Provider,
+    ProviderError,
+)
+from .store import MemStore  # noqa: F401
+from .verifier import (  # noqa: F401
+    ErrNewValSetCantBeTrusted,
+    InvalidHeaderError,
+    header_expired,
+    verify,
+    verify_adjacent,
+    verify_non_adjacent,
+)

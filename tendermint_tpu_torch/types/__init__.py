@@ -1,3 +1,3 @@
-"""Domain types needed for batched commit verification: canonical vote
-sign-bytes, BlockID / CommitSig / Commit, Vote, Validator and
-ValidatorSet."""
+"""Domain types needed for batched commit verification and the light
+client: canonical vote sign-bytes, BlockID / CommitSig / Commit, Header /
+SignedHeader, Vote, VoteSet, Validator and ValidatorSet."""

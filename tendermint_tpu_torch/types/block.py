@@ -1,8 +1,10 @@
-"""PartSetHeader, BlockID, CommitSig and Commit: what commit verification
-reads (a subset of tendermint_tpu/types/block.py).
+"""PartSetHeader, BlockID, CommitSig, Commit, Header and SignedHeader:
+what commit verification and the light client read (a subset of
+tendermint_tpu/types/block.py, with its to_dict / from_dict layout).
 
-Reference parity: types/block.go (CommitSig:452, Commit:556, BlockID:893).
-Times are integer unix nanoseconds throughout (deterministic, no tz).
+Reference parity: types/block.go (Header:323, CommitSig:452, Commit:556,
+SignedHeader:748, BlockID:893).  Times are integer unix nanoseconds
+throughout (deterministic, no tz).
 """
 
 from __future__ import annotations
@@ -10,7 +12,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List
 
-from ..encoding.proto import field_bytes, field_varint
+from ..crypto import merkle
+from ..encoding.proto import field_bytes, field_time, field_varint
 from . import canonical
 from .params import MAX_SIGNATURE_SIZE, MAX_VOTES_COUNT
 
@@ -27,6 +30,23 @@ def validate_hash(h: bytes) -> None:
     """Hashes are either empty or tmhash-sized (types/validation.go:32)."""
     if h and len(h) != HASH_SIZE:
         raise ValueError(f"expected size to be {HASH_SIZE} bytes, got {len(h)} bytes")
+
+
+def _enc_bytes(v: bytes) -> bytes:
+    """Deterministic single-value encoding for merkle leaves (cdcEncode-like)."""
+    return field_bytes(1, v) if v else b""
+
+
+def _enc_varint(v: int) -> bytes:
+    return field_varint(1, v)
+
+
+def _enc_str(v: str) -> bytes:
+    return field_bytes(1, v)
+
+
+def _enc_time(ns: int) -> bytes:
+    return field_time(1, ns)
 
 
 @dataclass(frozen=True)
@@ -46,6 +66,13 @@ class PartSetHeader:
 
     def encode(self) -> bytes:
         return field_varint(1, self.total) + field_bytes(2, self.hash)
+
+    def to_dict(self) -> dict:
+        return {"total": self.total, "hash": self.hash}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PartSetHeader":
+        return cls(d["total"], d["hash"])
 
     def __str__(self) -> str:
         return f"{self.total}:{self.hash.hex()[:12]}"
@@ -75,6 +102,20 @@ class BlockID:
     def validate_basic(self) -> None:
         validate_hash(self.hash)
         self.parts_header.validate_basic()
+
+    def encode(self) -> bytes:
+        inner = field_bytes(1, self.hash)
+        psh = self.parts_header.encode()
+        if self.parts_header != PartSetHeader():
+            inner += field_bytes(2, psh)
+        return inner
+
+    def to_dict(self) -> dict:
+        return {"hash": self.hash, "parts": self.parts_header.to_dict()}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BlockID":
+        return cls(d["hash"], PartSetHeader.from_dict(d["parts"]))
 
     def __str__(self) -> str:
         return f"{self.hash.hex()[:12]}:{self.parts_header}"
@@ -125,6 +166,26 @@ class CommitSig:
                 raise ValueError("signature is missing")
             if len(self.signature) > MAX_SIGNATURE_SIZE:
                 raise ValueError(f"signature is too big (max: {MAX_SIGNATURE_SIZE})")
+
+    def encode(self) -> bytes:
+        return (
+            field_varint(1, self.block_id_flag)
+            + field_bytes(2, self.validator_address)
+            + field_time(3, self.timestamp_ns)
+            + field_bytes(4, self.signature)
+        )
+
+    def to_dict(self) -> dict:
+        return {
+            "block_id_flag": self.block_id_flag,
+            "validator_address": self.validator_address,
+            "timestamp_ns": self.timestamp_ns,
+            "signature": self.signature,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CommitSig":
+        return cls(d["block_id_flag"], d["validator_address"], d["timestamp_ns"], d["signature"])
 
 
 class Commit:
@@ -178,5 +239,150 @@ class Commit:
             except ValueError as e:
                 raise ValueError(f"wrong CommitSig #{i}: {e}") from e
 
+    def to_dict(self) -> dict:
+        return {
+            "height": self.height,
+            "round": self.round,
+            "block_id": self.block_id.to_dict(),
+            "signatures": [cs.to_dict() for cs in self.signatures],
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Commit":
+        return cls(
+            d["height"],
+            d["round"],
+            BlockID.from_dict(d["block_id"]),
+            [CommitSig.from_dict(s) for s in d["signatures"]],
+        )
+
     def __repr__(self) -> str:
         return f"Commit(H={self.height} R={self.round} sigs={len(self.signatures)})"
+
+
+@dataclass(frozen=True)
+class Header:
+    """types/block.go:323.  version is (block, app) protocol ints."""
+
+    version_block: int = 10
+    version_app: int = 0
+    chain_id: str = ""
+    height: int = 0
+    time_ns: int = 0
+    last_block_id: BlockID = field(default_factory=BlockID)
+    last_commit_hash: bytes = b""
+    data_hash: bytes = b""
+    validators_hash: bytes = b""
+    next_validators_hash: bytes = b""
+    consensus_hash: bytes = b""
+    app_hash: bytes = b""
+    last_results_hash: bytes = b""
+    evidence_hash: bytes = b""
+    proposer_address: bytes = b""
+
+    def hash(self) -> bytes:
+        """Merkle root over the 14 encoded fields in declaration order
+        (types/block.go:377).  Empty if ValidatorsHash missing."""
+        if not self.validators_hash:
+            return b""
+        version = field_varint(1, self.version_block) + field_varint(2, self.version_app)
+        return merkle.hash_from_byte_slices(
+            [
+                version,
+                _enc_str(self.chain_id),
+                _enc_varint(self.height),
+                _enc_time(self.time_ns),
+                self.last_block_id.encode(),
+                _enc_bytes(self.last_commit_hash),
+                _enc_bytes(self.data_hash),
+                _enc_bytes(self.validators_hash),
+                _enc_bytes(self.next_validators_hash),
+                _enc_bytes(self.consensus_hash),
+                _enc_bytes(self.app_hash),
+                _enc_bytes(self.last_results_hash),
+                _enc_bytes(self.evidence_hash),
+                _enc_bytes(self.proposer_address),
+            ]
+        )
+
+    def to_dict(self) -> dict:
+        return {
+            "version": {"block": self.version_block, "app": self.version_app},
+            "chain_id": self.chain_id,
+            "height": self.height,
+            "time_ns": self.time_ns,
+            "last_block_id": self.last_block_id.to_dict(),
+            "last_commit_hash": self.last_commit_hash,
+            "data_hash": self.data_hash,
+            "validators_hash": self.validators_hash,
+            "next_validators_hash": self.next_validators_hash,
+            "consensus_hash": self.consensus_hash,
+            "app_hash": self.app_hash,
+            "last_results_hash": self.last_results_hash,
+            "evidence_hash": self.evidence_hash,
+            "proposer_address": self.proposer_address,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Header":
+        return cls(
+            version_block=d["version"]["block"],
+            version_app=d["version"]["app"],
+            chain_id=d["chain_id"],
+            height=d["height"],
+            time_ns=d["time_ns"],
+            last_block_id=BlockID.from_dict(d["last_block_id"]),
+            last_commit_hash=d["last_commit_hash"],
+            data_hash=d["data_hash"],
+            validators_hash=d["validators_hash"],
+            next_validators_hash=d["next_validators_hash"],
+            consensus_hash=d["consensus_hash"],
+            app_hash=d["app_hash"],
+            last_results_hash=d["last_results_hash"],
+            evidence_hash=d["evidence_hash"],
+            proposer_address=d["proposer_address"],
+        )
+
+
+@dataclass(frozen=True)
+class SignedHeader:
+    """Header + the commit that proves it — the light-client unit
+    (types/block.go:748)."""
+
+    header: Header
+    commit: Commit
+
+    def validate_basic(self, chain_id: str) -> None:
+        if self.header is None:
+            raise ValueError("signedHeader missing header")
+        if self.commit is None:
+            raise ValueError("signedHeader missing commit")
+        if self.header.chain_id != chain_id:
+            raise ValueError(
+                f"signedHeader belongs to another chain {self.header.chain_id!r} not {chain_id!r}"
+            )
+        if self.commit.height != self.header.height:
+            raise ValueError(
+                f"signedHeader header and commit height mismatch: {self.header.height} vs {self.commit.height}"
+            )
+        if self.header.hash() != self.commit.block_id.hash:
+            raise ValueError("signedHeader commit signs a different block")
+        self.commit.validate_basic()
+
+    @property
+    def height(self) -> int:
+        return self.header.height
+
+    @property
+    def time_ns(self) -> int:
+        return self.header.time_ns
+
+    def hash(self) -> bytes:
+        return self.header.hash()
+
+    def to_dict(self) -> dict:
+        return {"header": self.header.to_dict(), "commit": self.commit.to_dict()}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SignedHeader":
+        return cls(Header.from_dict(d["header"]), Commit.from_dict(d["commit"]))

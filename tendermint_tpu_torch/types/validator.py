@@ -5,6 +5,10 @@ types/validator.go (Validator:16), types/validator_set.go
 (ValidatorSet:42, VerifyCommit:629, VerifyFutureCommit:703,
 VerifyCommitTrusting:754).
 
+ValidatorSet.hash is the merkle root over Validator.bytes, which the light
+client checks headers against; to_dict / from_dict keep the JAX package's
+layout, so a trusted store carries across.
+
 VerifyCommit* gather (pubkey, msg, sig) triples for ALL non-absent
 signatures and hand them to the installed batch hooks (crypto/batch.py) as
 one batch, then tally voting power from the boolean mask.  The reference's
@@ -12,7 +16,8 @@ early exit at 2/3 becomes whole-batch verification — strictly stricter (a
 bad signature after the 2/3 mark fails the commit) and deterministic.
 
 Proposer rotation and validator-set change sets are not part of this
-slice: a set is built once from its validators, sorted by address.
+slice: a set is built once from its validators, sorted by address, and
+carries the proposer and priorities only through to_dict / from_dict.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
 
 from ..crypto import batch as crypto_batch
-from ..crypto.keys import Ed25519PubKey
+from ..crypto import merkle
+from ..crypto.keys import Ed25519PubKey, pubkey_from_dict
+from ..encoding.proto import field_bytes, field_varint
 from .block import BlockID, Commit
 
 INT64_MAX = (1 << 63) - 1
@@ -74,18 +81,40 @@ class NotEnoughVotingPowerError(Exception):
 
 @dataclass
 class Validator:
-    """types/validator.go:16."""
+    """types/validator.go:16.  ProposerPriority is volatile per-round state."""
 
     address: bytes
     pub_key: Ed25519PubKey
     voting_power: int
+    proposer_priority: int = 0
 
     @classmethod
     def new(cls, pub_key: Ed25519PubKey, voting_power: int) -> "Validator":
-        return cls(pub_key.address(), pub_key, voting_power)
+        return cls(pub_key.address(), pub_key, voting_power, 0)
 
     def copy(self) -> "Validator":
-        return Validator(self.address, self.pub_key, self.voting_power)
+        return Validator(self.address, self.pub_key, self.voting_power, self.proposer_priority)
+
+    def bytes(self) -> bytes:
+        """Hash input: pubkey + power, excluding address and priority
+        (types/validator.go:83)."""
+        pk = self.pub_key.to_dict()
+        inner = field_bytes(1, pk["type"]) + field_bytes(2, pk["value"])
+        return field_bytes(1, inner) + field_varint(2, self.voting_power)
+
+    def to_dict(self) -> dict:
+        return {
+            "address": self.address,
+            "pub_key": self.pub_key.to_dict(),
+            "voting_power": self.voting_power,
+            "proposer_priority": self.proposer_priority,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Validator":
+        return cls(
+            d["address"], pubkey_from_dict(d["pub_key"]), d["voting_power"], d["proposer_priority"]
+        )
 
 
 class ValidatorSet:
@@ -116,6 +145,7 @@ class ValidatorSet:
                 )
             prev = v.address
         self.validators: List[Validator] = vals
+        self.proposer: Optional[Validator] = None
         self._total_voting_power = total
         self._pk_digest: Optional[bytes] = None
 
@@ -139,6 +169,13 @@ class ValidatorSet:
 
     def total_voting_power(self) -> int:
         return self._total_voting_power
+
+    def hash(self) -> bytes:
+        """Merkle root over validator bytes (types/validator_set.go:315)."""
+        return merkle.hash_from_byte_slices([v.bytes() for v in self.validators])
+
+    def has_address(self, address: bytes) -> bool:
+        return self._index_of(address) is not None
 
     def _index_of(self, address: bytes) -> Optional[int]:
         lo, hi = 0, len(self.validators)
@@ -306,6 +343,18 @@ class ValidatorSet:
                 tallied += powers[pos]
         if tallied <= needed:
             raise NotEnoughVotingPowerError(got=tallied, needed=needed)
+
+    def to_dict(self) -> dict:
+        return {
+            "validators": [v.to_dict() for v in self.validators],
+            "proposer": self.proposer.to_dict() if self.proposer else None,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ValidatorSet":
+        new = cls([Validator.from_dict(v) for v in d["validators"]])
+        new.proposer = Validator.from_dict(d["proposer"]) if d["proposer"] else None
+        return new
 
     def __repr__(self) -> str:
         return f"ValidatorSet(n={len(self.validators)} tvp={self.total_voting_power()})"
