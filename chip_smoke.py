@@ -18,8 +18,10 @@
 3. The main path at full size: a 10,000-validator set signs a full commit;
    ValidatorSet.verify_commit runs through the crypto.batch hooks on the
    ladder, on the tabulated path and under the auto profile, then the
-   failure cases and a flat 512-vote batch.  Launch counters are zeroed
-   just before this phase and read just after it.
+   failure cases and a flat 512-vote batch.  The installed recorder must
+   hold one verify.tabulated_profile event with the JAX package's fields.
+   Launch counters are zeroed just before this phase and read just after
+   it.
 4. Each kernel at the main path's shapes (B = V = 10,000): its output held
    against its plain version's on the same inputs, tolerance 0 (verdicts
    and R' encodings of the commit, window tables bit for bit), its time
@@ -50,7 +52,8 @@
    1 -> 1,000 through the installed BatchVerifier and TableCache (tabulated
    auto) with an honest witness; it must make the 12 expected steps, persist
    {1, 250, 437, 577, 788, 1000} and build tables for each new set.  Run 2:
-   sequence 1,000 -> 1,005 on the next set.  Run 3: the same bisection with
+   sequence 1,000 -> 1,005 on the next set, persisted to a sqlite DBStore
+   that is reopened and read back.  Run 3: the same bisection with
    the node's engine settings and EngineCommitPreverify (each commit one
    verify_many arrival).  Run 4: eight tenants bisect concurrently through
    one VerifyCache(async_verifier=...): 9 misses, 95 hits or coalesced
@@ -63,6 +66,30 @@
    kernels line.  Fails on any other step, height, stat or error, or when
    kernel 2, the kernel serving the trusted commits (run 1) or the ladder
    (runs 3-4) was not launched.
+7. Fast-sync replay from the stores at full width (BASELINE config #5):
+   phase 3's 10,000 keys at power 10 sign a chain of 13 blocks (100 txs of
+   250 bytes each, from height 2 on the previous height's commit); the
+   height-5 state takes a change set that replaces the 2,500 oldest
+   validators by new keys, so heights 1-6 carry set A and 7-13 set B.
+   States go to a sqlite StateStore, blocks with their part sets and seen
+   commits to a sqlite BlockStore.  Both are closed and reopened, then:
+   (a) blocks 1-13 load into a fast-sync Processor; each peek_two pair's
+   block id (hash and part set) must equal the stored meta's, and
+   StateStore.load_validators verifies the pair's commit through the
+   installed BatchVerifier and TableCache (tabulated auto): 12 checks, 2
+   table misses and 10 hits; (b) one verify_commit_run per set over its
+   six heights, 60,000 signatures in one flat ladder batch, all True;
+   (c) a copy of block 5 whose last_commit has one flipped signature: the
+   pair check raises the JAX package's "wrong signature (#i)" message and
+   drop_invalid returns (4, 5), and the run is False at height 4 only.
+   Prints the block's size and parts, the codec's encode and decode ms,
+   per block the store write, load_block, hash with its part set and
+   load_validators ms, per check verify_commit ms with host prep, dispatch
+   and the table's hit or miss, per new set the host rows and kernel 2,
+   per run ms and signatures/s, (a)'s blocks/s and the card's memory.
+   Fails on any other verdict, message, height, id or hit count, or when
+   the ladder, kernel 2 (twice) or the auto-profile's pick in (a) was not
+   launched.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -109,6 +136,14 @@ LITE_STEPS = [(1, 1000, False), (1, 500, False), (1, 250, True), (250, 1000, Fal
               (437, 577, True), (577, 1000, False), (577, 788, True), (788, 1000, True)]
 LITE_HEIGHTS = [1000, 788, 577, 437, 250, 1]  # what it persists, descending
 LITE_DISTINCT = 9  # distinct headers a bisection asks for: 1 and the 8 untrusted heights
+
+# Phase 7: fast-sync replay from the stores (BASELINE config #5 widths)
+REPLAY_TOP = 13  # heights 1 .. 13; block 13's own commit is stored as its seen commit
+REPLAY_ROTATE_AT = 7  # the first height on set B
+REPLAY_ROTATE = 2500  # set B replaces set A's oldest validators by new keys
+REPLAY_TXS, REPLAY_TX_BYTES = 100, 250  # per block
+REPLAY_BAD = 5  # a copy of this block carries one flipped signature in its last_commit
+REPLAY_BAD_SIG = 1234  # the flipped slot (mod the set size)
 
 # Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s
 # float32 outside the tensor cores.  The integer multiply rate is not in the
@@ -392,13 +427,15 @@ def phase_main(keys, card, dev):
 
     from tendermint_tpu_torch.crypto import batch as batch_hook
     from tendermint_tpu_torch.crypto import batch_verifier as bvm
+    from tendermint_tpu_torch.libs.tracing import FlightRecorder
     from tendermint_tpu_torch.types.block import CommitSig, Commit
     from tendermint_tpu_torch.types.validator import NotEnoughVotingPowerError
 
     t0 = time.perf_counter()
     vset, bid, commit, msgs = build_commit(keys)
     log(f"  built and signed a {vset.size()}-validator commit in {(time.perf_counter() - t0):.3f} s")
-    bv = bvm.BatchVerifier(device=dev).install()
+    rec = FlightRecorder(size=1 << 12)
+    bv = bvm.BatchVerifier(device=dev, recorder=rec).install()
 
     def run(label, cache):
         cache.install()
@@ -421,6 +458,12 @@ def phase_main(keys, card, dev):
         f"{'engaged' if prof['tab_ms'] < prof['ladder_ms'] else 'off'} "
         f"tab_ms={prof['tab_ms']:.3f} ladder_ms={prof['ladder_ms']:.3f} "
         f"table_build_ms={prof['table_build_ms']:.3f} at B={int(prof['batch'])} ({card})")
+    events = rec.events(kinds=["verify.tabulated_profile"])
+    fields = {"engaged", "tab_ms", "ladder_ms", "table_build_ms", "bucket", "validators"}
+    log(f"  recorder: {len(events)} verify.tabulated_profile event(s) {events}")
+    if dev.type == "cuda" and (len(events) != 1 or not fields <= set(events[0])
+                               or events[0]["engaged"] != (prof["tab_ms"] < prof["ladder_ms"])):
+        raise AssertionError("the auto-profile did not record one verify.tabulated_profile event")
     # the host work of verify_commit outside host prep and the dispatch
     t0 = time.perf_counter()
     commit.validate_basic()
@@ -818,6 +861,24 @@ def phase_ingress(keys, vset, commit, msgs, card, dev):
     return modes
 
 
+def sign_commit(vset, key_of, height, bid, ts):
+    """A round-0 commit of `height` for `bid` by every validator of `vset`,
+    validator i stamped ts + i, signed on SIGN_THREADS threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_COMMIT, Commit, CommitSig
+
+    sigs = [CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts + i, b"")
+            for i, v in enumerate(vset.validators)]
+    unsigned = Commit(height, 0, bid, sigs)
+    jobs = [(key_of[cs.validator_address], unsigned.vote_sign_bytes(CHAIN_ID, i))
+            for i, cs in enumerate(sigs)]
+    with ThreadPoolExecutor(SIGN_THREADS) as ex:
+        raw = list(ex.map(lambda job: job[0].sign(job[1]), jobs, chunksize=512))
+    return Commit(height, 0, bid, [CommitSig(BLOCK_ID_FLAG_COMMIT, cs.validator_address,
+                                             cs.timestamp_ns, r) for cs, r in zip(sigs, raw)])
+
+
 class LiteChain:
     """Phase 6's chain: heights 1 .. top; the validator set of epoch e =
     (h - 1) // epoch is keys[rotate * e : rotate * e + n] at power 10, so
@@ -869,26 +930,14 @@ class LiteChain:
         return TrustOptions(10 * self.top * SEC, h, self.headers[h].hash())
 
     def signed_header(self, h: int):
-        from concurrent.futures import ThreadPoolExecutor
-
-        from tendermint_tpu_torch.types.block import (
-            BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig, PartSetHeader, SignedHeader)
+        from tendermint_tpu_torch.types.block import BlockID, PartSetHeader, SignedHeader
 
         if h not in self.signed:
             t0 = time.perf_counter()
-            header, vset = self.headers[h], self.vals(h)
+            header = self.headers[h]
             bid = BlockID(header.hash(), PartSetHeader(1, header.hash()))
-            ts = self.time_ns(h)
-            sigs = [CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts + i, b"")
-                    for i, v in enumerate(vset.validators)]
-            unsigned = Commit(h, 0, bid, sigs)
-            jobs = [(self.key_of[cs.validator_address], unsigned.vote_sign_bytes(CHAIN_ID, i))
-                    for i, cs in enumerate(sigs)]
-            with ThreadPoolExecutor(SIGN_THREADS) as ex:
-                raw = list(ex.map(lambda job: job[0].sign(job[1]), jobs, chunksize=512))
-            sigs = [CommitSig(BLOCK_ID_FLAG_COMMIT, cs.validator_address, cs.timestamp_ns, r)
-                    for cs, r in zip(sigs, raw)]
-            self.signed[h] = SignedHeader(header, Commit(h, 0, bid, sigs))
+            commit = sign_commit(self.vals(h), self.key_of, h, bid, self.time_ns(h))
+            self.signed[h] = SignedHeader(header, commit)
             self.sign_s += time.perf_counter() - t0
         return self.signed[h]
 
@@ -1103,9 +1152,12 @@ def phase_light(keys, card, dev, report):
     import asyncio
     import dataclasses
 
+    import tempfile
+
     from tendermint_tpu_torch import lite2
     from tendermint_tpu_torch.crypto import batch as batch_hook
     from tendermint_tpu_torch.crypto import batch_verifier as bvm
+    from tendermint_tpu_torch.libs.kvstore import open_db
     from tendermint_tpu_torch.libs.tracing import FlightRecorder
     from tendermint_tpu_torch.liteserve import VerifyCache
     from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
@@ -1157,15 +1209,37 @@ def phase_light(keys, card, dev, report):
         if paths & {"indexed", "chunked"} and not launches_run1["ed25519_ladder"]:
             raise AssertionError("run 1 took the ladder path without launching kernel 1")
 
-    # run 2: sequence on from the stored header at 1000 into the next set
+    # run 2: sequence on from the stored header at 1000 into the next set,
+    # persisted to a sqlite DBStore that starts as a copy of run 1's store
+    light_home = tempfile.TemporaryDirectory(prefix="chip-smoke-light-")
+    db = open_db("light", light_home.name)
+    db_store = lite2.DBStore(db)
+    for h in run1["client"].store.heights():
+        db_store.save_signed_header_and_validator_set(
+            run1["client"].store.signed_header(h), run1["client"].store.validator_set(h))
     with table_timing(chain, builds, dev):
         run2 = asyncio.run(lite_run(chain, rec, mode=lite2.SEQUENCE, trust_h=LITE_TARGET,
-                                       target=LITE_TOP, store=run1["client"].store))
-    log(f"  run 2, sequence {LITE_TARGET} -> {LITE_TOP}:")
+                                       target=LITE_TOP, store=db_store))
+    log(f"  run 2, sequence {LITE_TARGET} -> {LITE_TOP} (sqlite DBStore):")
     print_steps(run2, rec, card)
-    seq_heights = run2["client"].store.heights()[: LITE_TOP - LITE_TARGET + 1]
+    persisted = run2["client"].store.heights()
+    seq_heights = persisted[: LITE_TOP - LITE_TARGET + 1]
     if seq_heights != list(range(LITE_TOP, LITE_TARGET - 1, -1)):
         raise AssertionError(f"run 2 persisted {seq_heights}")
+    db.close()
+    db = open_db("light", light_home.name)
+    reopened = lite2.DBStore(db)
+    t0 = time.perf_counter()
+    back = {h: (reopened.signed_header(h), reopened.validator_set(h)) for h in seq_heights}
+    read_ms = _ms(t0)
+    if reopened.heights() != persisted or any(
+            sh.hash() != chain.headers[h].hash() or vals.hash() != chain.vals(h).hash()
+            or vals.to_dict() != chain.vals(h).to_dict() for h, (sh, vals) in back.items()):
+        raise AssertionError("the reopened DBStore does not hold what run 2 persisted")
+    log(f"  run 2: reopened DBStore holds {reopened.heights()}; headers and sets "
+        f"{LITE_TARGET}-{LITE_TOP} read back equal in {read_ms:.3f} ms ({card})")
+    db.close()
+    light_home.cleanup()
     log(f"  run 2: {LITE_TOP - LITE_TARGET} adjacent headers; "
         + run_summary(run2, LITE_TOP - LITE_TARGET, card))
     for b in builds[len(met):]:
@@ -1284,6 +1358,275 @@ def phase_light(keys, card, dev, report):
     return launches_run1, launches_34
 
 
+def next_state(state, block_id, block, changes=None):
+    """The state after `block` (state/execution.py update_state without the
+    app: no txs results but code 0, no param updates): validator changes
+    land in the next set and take effect two heights on."""
+    import dataclasses
+
+    from tendermint_tpu_torch.types.tx import ABCIResult, results_hash
+
+    nxt = state.next_validators.copy()
+    changed = state.last_height_validators_changed
+    if changes:
+        nxt.update_with_change_set(changes)
+        changed = block.height + 2
+    nxt.increment_proposer_priority(1)
+    return dataclasses.replace(
+        state, last_block_height=block.height, last_block_id=block_id,
+        last_block_time_ns=block.time_ns, next_validators=nxt,
+        validators=state.next_validators.copy(), last_validators=state.validators.copy(),
+        last_height_validators_changed=changed,
+        last_results_hash=results_hash([ABCIResult(0, b"") for _ in block.txs]), app_hash=b"")
+
+
+def build_replay_chain(keys, new_keys, home):
+    """Phase 7's chain on disk: genesis with `keys` at power 10, then blocks
+    1 .. REPLAY_TOP of REPLAY_TXS txs each, from height 2 on carrying the
+    previous height's commit; the height REPLAY_ROTATE_AT - 2 state takes a
+    change set removing the REPLAY_ROTATE oldest keys and adding `new_keys`
+    (set B from height REPLAY_ROTATE_AT on).  States go to a sqlite
+    StateStore, blocks (with their part sets and seen commits) to a sqlite
+    BlockStore, both under `home`.  Returns the blocks, the per-block write
+    times and the signing seconds."""
+    import numpy as np
+
+    from tendermint_tpu_torch.libs.kvstore import open_db
+    from tendermint_tpu_torch.state import StateStore, make_genesis_state
+    from tendermint_tpu_torch.store import BlockStore
+    from tendermint_tpu_torch.types.block import BlockID
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
+    from tendermint_tpu_torch.types.validator import Validator
+
+    gen = GenesisDoc(CHAIN_ID, genesis_time_ns=LITE_T0, validators=[
+        GenesisValidator(k.pub_key().address(), k.pub_key(), 10) for k in keys])
+    state = make_genesis_state(gen)
+    state_db, block_db = open_db("state", home), open_db("blockstore", home)
+    state_store, block_store = StateStore(state_db), BlockStore(block_db)
+    state_store.save(state)
+    key_of = {k.pub_key().address(): k for k in list(keys) + list(new_keys)}
+    changes = ([Validator.new(k.pub_key(), 0) for k in keys[:len(new_keys)]]
+               + [Validator.new(k.pub_key(), 10) for k in new_keys])
+    rng = np.random.default_rng(7)
+    blocks, write_ms, sign_s, last_commit = {}, {}, 0.0, None
+    for h in range(1, REPLAY_TOP + 1):
+        txs = [row.tobytes() for row in
+               rng.integers(0, 256, (REPLAY_TXS, REPLAY_TX_BYTES), dtype=np.uint8)]
+        block = state.make_block(h, txs, last_commit, [], state.validators.get_proposer().address)
+        part_set = block.make_part_set(BLOCK_PART_SIZE_BYTES)
+        bid = BlockID(block.hash(), part_set.header())
+        t0 = time.perf_counter()
+        commit = sign_commit(state.validators, key_of, h, bid, block.time_ns + SEC)
+        sign_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        block_store.save_block(block, part_set, commit)
+        write_ms[h] = _ms(t0)
+        state = next_state(state, bid, block, changes if h == REPLAY_ROTATE_AT - 2 else None)
+        state_store.save(state)
+        blocks[h], last_commit = block, commit
+    state_db.close()
+    block_db.close()
+    return blocks, write_ms, sign_s
+
+
+def phase_replay(keys, card, dev):
+    """Fast-sync replay from the stores (see the module docstring, 7).
+    Returns the launches of (a) by counter."""
+    import dataclasses
+    import tempfile
+    import types
+
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+    from tendermint_tpu_torch.encoding import codec
+    from tendermint_tpu_torch.fastsync import Processor, Scheduler, verify_commit_run
+    from tendermint_tpu_torch.libs.kvstore import open_db
+    from tendermint_tpu_torch.libs.tracing import FlightRecorder
+    from tendermint_tpu_torch.libs.watchdog import StorageHealth
+    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
+    from tendermint_tpu_torch.state import StateStore
+    from tendermint_tpu_torch.store import BlockStore
+    from tendermint_tpu_torch.types.block import Block, BlockID, Commit
+    from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
+
+    def counters():
+        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
+                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
+
+    n = len(keys)
+    new_keys = make_keys(REPLAY_ROTATE, prefix="replay")
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-replay-")
+    try:
+        t0 = time.perf_counter()
+        blocks, write_ms, sign_s = build_replay_chain(keys, new_keys, tmp.name)
+        build_s = time.perf_counter() - t0
+        raw = blocks[REPLAY_TOP].serialize()
+        t0 = time.perf_counter()
+        codec.dumps(blocks[REPLAY_TOP])
+        enc_ms = _ms(t0)
+        t0 = time.perf_counter()
+        codec.loads(raw)
+        dec_ms = _ms(t0)
+        parts = blocks[REPLAY_TOP].make_part_set(BLOCK_PART_SIZE_BYTES).total
+        log(f"  chain: {REPLAY_TOP} blocks of {REPLAY_TXS} txs x {REPLAY_TX_BYTES} B, set A of {n} "
+            f"until height {REPLAY_ROTATE_AT - 1}, set B ({len(new_keys)} replaced) from "
+            f"{REPLAY_ROTATE_AT}, built in {build_s * 1000:.3f} ms of which signing "
+            f"{sign_s * 1000:.3f} ms; block {REPLAY_TOP}: {len(raw)} B serialized, {parts} parts; "
+            f"codec encode {enc_ms:.3f} ms, decode {dec_ms:.3f} ms ({card})")
+        log(f"  store writes per block (save_block, ms): "
+            f"{[round(write_ms[h], 3) for h in sorted(write_ms)]} ({card})")
+
+        # reopen both stores with new handles
+        state_db, block_db = open_db("state", tmp.name), open_db("blockstore", tmp.name)
+        state_store, block_store = StateStore(state_db), BlockStore(block_db)
+        health = StorageHealth(data_dir=os.path.join(tmp.name, "data"))  # as node.py builds it
+        block_store.storage_health = health
+        if (block_store.base(), block_store.height()) != (1, REPLAY_TOP):
+            raise AssertionError(f"reopened block store holds {block_store.base()}..{block_store.height()}")
+
+        rec = FlightRecorder(size=1 << 16)
+        bv = bvm.BatchVerifier(device=dev, recorder=rec).install()
+        cache = bvm.TableCache(bv, tabulated=None).install()
+        builds = []
+        ident = types.SimpleNamespace(index_of={k.pub_key().bytes(): i for i, k in
+                                                enumerate(list(keys) + list(new_keys))},
+                                      rotate=len(new_keys))
+
+        # (a) per pair, as the fast-sync reactor's _try_sync does, without apply_block
+        before = counters()
+        t_a = time.perf_counter()
+        proc, sched = Processor(1), Scheduler(1)
+        sched.set_peer_range("store", 1, REPLAY_TOP)
+        for peer, h in sched.next_requests(0.0):
+            sched.mark_requested(peer, h, 0.0)
+        load_ms, loaded = {}, {}
+        for h in range(1, REPLAY_TOP + 1):
+            t0 = time.perf_counter()
+            block = block_store.load_block(h)
+            load_ms[h] = _ms(t0)
+            if block is None or block.hash() != blocks[h].hash() or not sched.block_received("store", h):
+                raise AssertionError(f"block {h} did not load back as written")
+            proc.add_block(h, block, "store")
+            loaded[h] = block
+        checks, hash_ms, vals_ms, sets = [], {}, {}, {}
+        with table_timing(ident, builds, dev):
+            while (pair := proc.peek_two()) is not None:
+                first, second = pair
+                t0 = time.perf_counter()
+                first_id = BlockID(first.hash(), first.make_part_set(BLOCK_PART_SIZE_BYTES).header())
+                hash_ms[first.height] = _ms(t0)
+                if first_id != block_store.load_block_meta(first.height).block_id:
+                    raise AssertionError(f"block {first.height}'s id differs from its stored meta")
+                t0 = time.perf_counter()
+                vals = state_store.load_validators(first.height)
+                vals_ms[first.height] = _ms(t0)
+                sets[first.height] = vals
+                seq = next_seq(rec)
+                t0 = time.perf_counter()
+                vals.verify_commit(CHAIN_ID, first_id, first.height, second.last_commit)
+                ms = _ms(t0)
+                evs = rec.events(since=seq, kinds=["verify.table", "verify.dispatch"])
+                checks.append({"height": first.height, "ms": ms, "id": first_id,
+                               "hit": [e["hit"] for e in evs if e["kind"] == "verify.table"],
+                               "disp": [e for e in evs if e["kind"] == "verify.dispatch"]})
+                proc.pop_processed()
+                sched.block_processed(first.height)
+        wall_a = time.perf_counter() - t_a
+        launches_a = {k: v - before[k] for k, v in counters().items()}
+        for h in range(1, REPLAY_TOP + 1):
+            log(f"    block {h}: store write {write_ms[h]:.3f} ms, load_block (sqlite + unseal + decode) "
+                f"{load_ms[h]:.3f} ms" + (f", hash with its part set {hash_ms[h]:.3f} ms, "
+                                         f"load_validators {vals_ms[h]:.3f} ms" if h in hash_ms else "")
+                + f" ({card})")
+        for c in checks:
+            d = c["disp"][-1] if c["disp"] else {}
+            log(f"    verify_commit {c['height']}: {c['ms']:.3f} ms, path={d.get('path')} "
+                f"host_prep_ms={d.get('host_prep_ms')} device_ms={d.get('device_ms')}, table "
+                f"{'hit' if c['hit'] == [True] else 'miss'} ({card})")
+        for b in builds:
+            log(f"    new set ({'B' if b['epoch'] else 'A'}, {b['validators']} validators): host rows "
+                f"(decompression and upload) {b['rows_ms']:.3f} ms, window tables (kernel 2) "
+                f"{'not built' if b['build_ms'] is None else format(b['build_ms'], '.3f') + ' ms'} ({card})")
+        hits = [h for c in checks for h in c["hit"]]
+        log(f"  (a) per pair: {len(checks)} checks, tables hit {hits.count(True)} / missed "
+            f"{hits.count(False)}, {len(checks)} blocks in {wall_a * 1000:.3f} ms = "
+            f"{len(checks) / wall_a:.3f} blocks/s (loads and checks; signing apart); launches "
+            f"{launches_a}; {card_memory(dev, cache)} ({card})")
+        if [c["height"] for c in checks] != list(range(1, REPLAY_TOP)) or proc.height != REPLAY_TOP \
+                or sched.height != REPLAY_TOP or not sched.only_tip_outstanding():
+            raise AssertionError("the processor or scheduler did not step through every pair")
+        if any(len(c["hit"]) != 1 for c in checks) or hits.count(False) != 2 \
+                or [c["height"] for c in checks if c["hit"] == [False]] != [1, REPLAY_ROTATE_AT]:
+            raise AssertionError(f"table hits and misses differ from 2 misses at 1 and "
+                                 f"{REPLAY_ROTATE_AT}: {[c['hit'] for c in checks]}")
+        for h in range(2, REPLAY_TOP):
+            same_set = (h < REPLAY_ROTATE_AT) == (h - 1 < REPLAY_ROTATE_AT)
+            if (sets[h].pubkeys_digest() == sets[h - 1].pubkeys_digest()) != same_set:
+                raise AssertionError(f"load_validators({h}) has the wrong members")
+
+        # (b) cross-height: one verify_commit_run per set, the commits in one flat batch
+        runs = [(1, REPLAY_ROTATE_AT - 1), (REPLAY_ROTATE_AT, REPLAY_TOP - 1)]
+        run_pairs = {lo: [(c["id"], c["height"], loaded[c["height"] + 1].last_commit)
+                          for c in checks if lo <= c["height"] <= hi] for lo, hi in runs}
+        for lo, hi in runs:
+            pairs = run_pairs[lo]
+            n_sigs = sum(len(p[2].signatures) for p in pairs)
+            seq = next_seq(rec)
+            t0 = time.perf_counter()
+            ok = verify_commit_run(sets[lo], CHAIN_ID, pairs)
+            ms = _ms(t0)
+            d = rec.events(since=seq, kinds=["verify.dispatch"])
+            rest = ms - sum(e["host_prep_ms"] + e["device_ms"] for e in d)
+            log(f"  (b) verify_commit_run heights {lo}-{hi}: {n_sigs} signatures in {ms:.3f} ms = "
+                f"{n_sigs / ms * 1000:.1f} signatures/s, verdicts {ok}; dispatches "
+                f"{[(e['path'], e['n'], e['host_prep_ms'], e['device_ms']) for e in d]}, host "
+                f"outside prep and dispatch (validate_basic, sign-bytes) {rest:.3f} ms ({card})")
+            if ok != [True] * len(pairs) or [e["n"] for e in d] != [n_sigs]:
+                raise AssertionError(f"verify_commit_run {lo}-{hi} did not verify in one flat batch")
+
+        # (c) a copy of block REPLAY_BAD whose last_commit has one flipped signature
+        good = loaded[REPLAY_BAD].last_commit
+        bad_i = REPLAY_BAD_SIG % len(good.signatures)
+        sigs = list(good.signatures)
+        flipped = bytearray(sigs[bad_i].signature)
+        flipped[0] ^= 1
+        sigs[bad_i] = dataclasses.replace(sigs[bad_i], signature=bytes(flipped))
+        bad = Block(loaded[REPLAY_BAD].header, loaded[REPLAY_BAD].txs, loaded[REPLAY_BAD].evidence,
+                    Commit(good.height, good.round, good.block_id, sigs))
+        h = REPLAY_BAD - 1
+        proc = Processor(h)
+        proc.add_block(h, loaded[h], "store")
+        proc.add_block(REPLAY_BAD, bad, "store")
+        first, second = proc.peek_two()
+        want = f"wrong signature (#{bad_i}): {bytes(flipped).hex()}"
+        try:
+            sets[h].verify_commit(CHAIN_ID, checks[h - 1]["id"], h, second.last_commit)
+            raise AssertionError("a commit with a flipped signature verified")
+        except ValueError as e:
+            if str(e) != want:
+                raise
+            dropped = proc.drop_invalid()
+        pairs = [p if p[1] != h else (p[0], h, bad.last_commit) for p in run_pairs[1]]
+        ok = verify_commit_run(sets[1], CHAIN_ID, pairs)
+        log(f"  (c) flipped signature #{bad_i} in the commit for {h}: per pair raised ValueError "
+            f"'{want[:40]}...', drop_invalid {dropped}; verify_commit_run {ok} ({card})")
+        if dropped != (h, REPLAY_BAD) or ok != [p[1] != h for p in pairs]:
+            raise AssertionError("the fault case's dropped heights or run verdicts differ")
+        log(f"  StorageHealth after the replay: {health.total_faults()} faults, "
+            f"{health.free_bytes()} bytes free on the store's disk")
+        if health.total_faults() or block_store.quarantined():
+            raise AssertionError("the replay's block store noted a fault")
+        batch_hook.set_verifier(None)
+        batch_hook.set_indexed_verifier(None)
+        state_db.close()
+        block_db.close()
+    finally:
+        tmp.cleanup()
+    return launches_a
+
+
 def kernel_device_ms(fn, names) -> dict:
     """Device ms of each named kernel in one run of fn, from torch.profiler;
     a name is missing where the profiler records no device time for it."""
@@ -1339,9 +1682,11 @@ def main() -> int:
 
     import numpy as np
 
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
     from tendermint_tpu_torch.crypto import hostprep
     from tendermint_tpu_torch.ops import _build, ed25519_cuda, ed25519_table
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
@@ -1447,7 +1792,31 @@ def main() -> int:
     for name, c in counts.items():
         report[name]["launches"] += c
 
-    keys_order =("name", "route", "source", "replaces", "launches", "max_abs_err",
+    log("[7] fast-sync replay from sqlite stores at 10k validators across a set rotation")
+    ed25519_cuda.LAUNCHES = 0
+    ed25519_table.BUILD_LAUNCHES = 0
+    ed25519_table.SUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    launches_a = phase_replay(keys, card, dev)
+    counts = {
+        "ed25519_ladder": ed25519_cuda.LAUNCHES,
+        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
+    }
+    log(f"  launches in phase 7: {counts}; phase 7 took {time.perf_counter() - t0:.3f} s")
+    prof = next(iter(bvm.tabulated_profiles.values()))
+    picked = "ed25519_tabulated" if prof["tab_ms"] < prof["ladder_ms"] else "ed25519_ladder"
+    if counts["ed25519_ladder"] == 0:
+        raise AssertionError("the ladder was not launched in phase 7")
+    if counts["ed25519_window_tables"] != 2:
+        raise AssertionError("kernel 2 (window tables) was not launched once per set in phase 7")
+    if launches_a[picked] == 0:
+        raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in phase 7 (a)")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+    log(f"whole run: {time.perf_counter() - t_start:.3f} s")
+    keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share",
                   "threads", "warps_per_sm", "resident_warps_per_sm", "regs", "stack_bytes",
                   "spill_bytes")

@@ -3,8 +3,10 @@
 It carries batched ed25519 commit verification: ValidatorSet
 .verify_commit through the crypto.batch hooks into a device-resident
 pubkey table and the hand-written Hopper kernels in csrc/; vote ingress
-(AsyncBatchVerifier, VoteSet); and the light client (lite2) with
-statesync's engine lane and liteserve's shared VerifyCache.  It imports
+(AsyncBatchVerifier, VoteSet); the light client (lite2) with statesync's
+engine lane and liteserve's shared VerifyCache; and the chain on disk
+(codec, kv stores, Block and part sets, State and StateStore, BlockStore)
+with fast sync's pure Processor and Scheduler.  It imports
 nothing of the JAX package; the host modules it needs are its own copies.
 Entry points run on the card (device=None means "cuda") and raise when no
 card is present unless the caller passes device="cpu".

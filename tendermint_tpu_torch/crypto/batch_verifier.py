@@ -603,9 +603,19 @@ class PubkeyTable:
             "tab_ms": tab_ms, "ladder_ms": ladder_ms, "table_build_ms": build_ms,
             "batch": float(n), "validators": float(len(self.pubkeys)),
         }
-        if tab_ms >= ladder_ms:
+        win = tab_ms < ladder_ms
+        self.verifier.recorder.record(
+            "verify.tabulated_profile",
+            engaged=win,
+            tab_ms=round(tab_ms, 3),
+            ladder_ms=round(ladder_ms, 3),
+            table_build_ms=round(build_ms, 3),
+            bucket=n,
+            validators=len(self.pubkeys),
+        )
+        if not win:
             self._window_tables = None  # the ladder serves: free 160 KB per validator
-        return tab_ms < ladder_ms
+        return win
 
     def verify_indexed(
         self, idxs: Sequence[int], msgs: Sequence[bytes], sigs: Sequence[bytes]

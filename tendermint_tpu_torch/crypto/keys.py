@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 
+from ..encoding.codec import register
 from . import ed25519_math as em
 from . import hostprep
 from .tmhash import sum_truncated
@@ -29,6 +30,7 @@ def _expand_seed(seed: bytes):
     return bytes(a), h[32:]
 
 
+@register("pk/ed25519")
 class Ed25519PubKey:
     TYPE = "tendermint/PubKeyEd25519"
     SIZE = 32
@@ -47,6 +49,10 @@ class Ed25519PubKey:
 
     def to_dict(self) -> dict:
         return {"type": self.TYPE, "value": self._data}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Ed25519PubKey":
+        return cls(d["value"])
 
     def verify(self, msg: bytes, sig: bytes) -> bool:
         """Single host verify, cofactorless, non-canonical S rejected."""

@@ -1,3 +1,4 @@
-"""Service lifecycle, flight recorder, metrics, bit arrays and structured
-logging: the port's copies of the parts of tendermint_tpu/libs the verify
-engine, VoteSet and the light client use."""
+"""Service lifecycle, flight recorder, metrics, bit arrays, structured
+logging, the kv store and StorageHealth: the port's copies of the parts of
+tendermint_tpu/libs the verify engine, VoteSet, the light client and the
+stores use."""

@@ -4,8 +4,8 @@ The verification core is ValidatorSet.verify_commit /
 verify_commit_trusting (types/validator.py), which route every signature
 batch through the crypto.batch hooks — so a light client syncing a
 10,000-validator chain verifies each header's commit as ONE kernel launch
-on the card (BASELINE config #5).  The RPC-backed providers, the database
-store and the proxy are not part of the port yet.
+on the card (BASELINE config #5).  The RPC-backed providers and the proxy
+are not part of the port yet.
 """
 
 from .client import (  # noqa: F401
@@ -21,7 +21,7 @@ from .provider import (  # noqa: F401
     Provider,
     ProviderError,
 )
-from .store import MemStore  # noqa: F401
+from .store import DBStore, MemStore  # noqa: F401
 from .verifier import (  # noqa: F401
     ErrNewValSetCantBeTrusted,
     InvalidHeaderError,

@@ -1,15 +1,16 @@
-"""Trusted store: persisted (SignedHeader, ValidatorSet) pairs.  The
-port's copy of the store interface and the in-memory store of
-tendermint_tpu/lite2/store.py; the database-backed store goes through a
-codec the port does not have yet.
+"""Trusted store: persisted (SignedHeader, ValidatorSet) pairs (the port's
+copy of tendermint_tpu/lite2/store.py).
 
-Reference parity: lite2/store/store.go (interface).
+Reference parity: lite2/store/store.go (interface), store/db (tm-db
+backed).  Keys are zero-padded heights so lexicographic order equals
+numeric order (same trick as store/db/db.go).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+from ..encoding import codec
 from ..types.block import SignedHeader
 from ..types.validator import ValidatorSet
 
@@ -72,3 +73,48 @@ class MemStore(LightStore):
 
     def heights(self) -> List[int]:
         return sorted(self._data, reverse=True)
+
+
+class DBStore(LightStore):
+    """lite2/store/db — persisted via the framework's kv backend."""
+
+    def __init__(self, db):
+        self.db = db
+
+    @staticmethod
+    def _k(prefix: bytes, height: int) -> bytes:
+        return prefix + b"%020d" % height
+
+    def save_signed_header_and_validator_set(self, sh, vals) -> None:
+        self.db.write_batch(
+            [
+                (self._k(b"sh/", sh.height), codec.dumps(sh)),
+                (self._k(b"vs/", sh.height), codec.dumps(vals)),
+            ]
+        )
+
+    def delete(self, height: int) -> None:
+        self.db.delete(self._k(b"sh/", height))
+        self.db.delete(self._k(b"vs/", height))
+
+    def signed_header(self, height: int):
+        raw = self.db.get(self._k(b"sh/", height))
+        return codec.loads(raw) if raw else None
+
+    def validator_set(self, height: int):
+        raw = self.db.get(self._k(b"vs/", height))
+        return codec.loads(raw) if raw else None
+
+    def heights(self) -> List[int]:
+        out = []
+        for k, _ in self.db.iterate_prefix(b"sh/"):
+            out.append(int(k[len(b"sh/"):]))
+        return sorted(out, reverse=True)
+
+    def latest_height(self) -> int:
+        hs = self.heights()
+        return hs[0] if hs else 0
+
+    def first_height(self) -> int:
+        hs = self.heights()
+        return hs[-1] if hs else 0

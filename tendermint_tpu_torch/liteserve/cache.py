@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Tuple
 from ..crypto import batch as crypto_batch
 from ..crypto.keys import Ed25519PubKey
 from ..crypto.tmhash import sum_sha256
-from ..encoding.proto import field_bytes, field_varint
+from ..encoding import codec
 from ..libs.log import get_logger
 from ..types.block import SignedHeader
 
@@ -50,17 +50,7 @@ class _Entry:
 
 
 def _commit_digest(commit) -> bytes:
-    """SHA-256 over every field of the commit in a fixed encoding.  The JAX
-    package hashes its msgpack codec's bytes; the port has no such codec,
-    so the bytes differ but the guard is the same: two commits share a
-    digest exactly when their contents are equal."""
-    body = (
-        field_varint(1, commit.height)
-        + field_varint(2, commit.round)
-        + field_bytes(3, commit.block_id.encode())
-        + b"".join(field_bytes(4, cs.encode(), emit_zero=True) for cs in commit.signatures)
-    )
-    return sum_sha256(body)
+    return sum_sha256(codec.dumps(commit))
 
 
 class VerifyCache:

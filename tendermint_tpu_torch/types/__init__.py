@@ -1,3 +1,6 @@
-"""Domain types needed for batched commit verification and the light
-client: canonical vote sign-bytes, BlockID / CommitSig / Commit, Header /
-SignedHeader, Vote, VoteSet, Validator and ValidatorSet."""
+"""Domain types: canonical vote sign-bytes, BlockID / CommitSig / Commit,
+Header / Block / SignedHeader, part sets, txs, evidence, consensus params,
+genesis, Vote, VoteSet, Validator and ValidatorSet."""
+
+# every module that registers a codec tag, so that codec.loads knows them
+from . import block, evidence, part_set, validator, vote  # noqa: F401,E402

@@ -1,6 +1,7 @@
-"""PartSetHeader, BlockID, CommitSig, Commit, Header and SignedHeader:
-what commit verification and the light client read (a subset of
-tendermint_tpu/types/block.py, with its to_dict / from_dict layout).
+"""PartSetHeader, BlockID, CommitSig, Commit, Header, Block and
+SignedHeader: the port's copy of tendermint_tpu/types/block.py, with its
+to_dict / from_dict layout and codec tags.  Aggregate (BLS) commits are not
+carried: a dict holding one raises TypeError (ROADMAP 1.9).
 
 Reference parity: types/block.go (Header:323, CommitSig:452, Commit:556,
 SignedHeader:748, BlockID:893).  Times are integer unix nanoseconds
@@ -9,13 +10,14 @@ throughout (deterministic, no tz).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import List
+from dataclasses import dataclass, field, replace
+from typing import List, Optional
 
 from ..crypto import merkle
+from ..encoding import codec
 from ..encoding.proto import field_bytes, field_time, field_varint
 from . import canonical
-from .params import MAX_SIGNATURE_SIZE, MAX_VOTES_COUNT
+from .params import MAX_CHAIN_ID_LEN, MAX_SIGNATURE_SIZE, MAX_VOTES_COUNT
 
 ADDRESS_SIZE = 20
 HASH_SIZE = 32
@@ -200,6 +202,7 @@ class Commit:
         self.round = round_
         self.block_id = block_id
         self.signatures = signatures
+        self._hash: Optional[bytes] = None
 
     def size(self) -> int:
         return len(self.signatures)
@@ -239,6 +242,11 @@ class Commit:
             except ValueError as e:
                 raise ValueError(f"wrong CommitSig #{i}: {e}") from e
 
+    def hash(self) -> bytes:
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices([cs.encode() for cs in self.signatures])
+        return self._hash
+
     def to_dict(self) -> dict:
         return {
             "height": self.height,
@@ -258,6 +266,22 @@ class Commit:
 
     def __repr__(self) -> str:
         return f"Commit(H={self.height} R={self.round} sigs={len(self.signatures)})"
+
+
+codec.register("tm/Commit")(Commit)
+
+
+def commit_from_dict(d: Optional[dict]) -> Optional[Commit]:
+    """Decode a stored or wire commit dict.  The JAX package also decodes
+    aggregate (BLS) commits here; the port carries none yet (ROADMAP 1.9)."""
+    if d is None:
+        return None
+    if "agg_sig" in d:
+        raise TypeError(
+            "aggregate (BLS) commits are not ported yet (ROADMAP 1.9): this slice carries "
+            "per-vote ed25519 commits only"
+        )
+    return Commit.from_dict(d)
 
 
 @dataclass(frozen=True)
@@ -344,6 +368,162 @@ class Header:
         )
 
 
+class Block:
+    """The atomic unit of the chain (types/block.go:38)."""
+
+    def __init__(
+        self,
+        header: Header,
+        txs: List[bytes],
+        evidence: Optional[list] = None,
+        last_commit: Optional[Commit] = None,
+    ):
+        self.header = header
+        self.txs = [bytes(t) for t in txs]
+        self.evidence = evidence or []
+        self.last_commit = last_commit
+        self._hash: Optional[bytes] = None
+
+    # -- header delegation -------------------------------------------------
+    @property
+    def height(self) -> int:
+        return self.header.height
+
+    @property
+    def chain_id(self) -> str:
+        return self.header.chain_id
+
+    @property
+    def time_ns(self) -> int:
+        return self.header.time_ns
+
+    def data_hash(self) -> bytes:
+        from .tx import txs_hash
+
+        return txs_hash(self.txs)
+
+    def evidence_hash(self) -> bytes:
+        from .evidence import evidence_list_hash
+
+        return evidence_list_hash(self.evidence)
+
+    def fill_header(self) -> None:
+        """Complete hash fields derived from the block data
+        (types/block.go:147)."""
+        h = self.header
+        updates = {}
+        if not h.last_commit_hash:
+            updates["last_commit_hash"] = self.last_commit.hash() if self.last_commit else merkle.hash_from_byte_slices([])
+        if not h.data_hash:
+            updates["data_hash"] = self.data_hash()
+        if not h.evidence_hash:
+            updates["evidence_hash"] = self.evidence_hash()
+        if updates:
+            self.header = replace(h, **updates)
+            self._hash = None
+
+    def hash(self) -> bytes:
+        """Nil for incomplete blocks (types/block.go:161)."""
+        if self.height > 1 and self.last_commit is None:
+            return b""
+        self.fill_header()
+        if self._hash is None:
+            self._hash = self.header.hash()
+        return self._hash
+
+    def hashes_to(self, h: bytes) -> bool:
+        return bool(h) and self.hash() == h
+
+    def serialize(self) -> bytes:
+        return codec.dumps(self)
+
+    @classmethod
+    def deserialize(cls, data: bytes) -> "Block":
+        blk = codec.loads(data)
+        if not isinstance(blk, cls):
+            raise ValueError("not a Block")
+        return blk
+
+    def make_part_set(self, part_size: int):
+        from .part_set import PartSet
+
+        return PartSet.from_data(self.serialize(), part_size)
+
+    def block_id(self, part_size: int) -> BlockID:
+        ps = self.make_part_set(part_size)
+        return BlockID(self.hash(), ps.header())
+
+    def size(self) -> int:
+        return len(self.serialize())
+
+    def validate_basic(self) -> None:
+        """Internal consistency checks (types/block.go:49); state-dependent
+        validation lives in state/validation.py."""
+        h = self.header
+        if len(h.chain_id) > MAX_CHAIN_ID_LEN:
+            raise ValueError(f"chainID is too long; max {MAX_CHAIN_ID_LEN}")
+        if h.height < 0:
+            raise ValueError("negative Header.Height")
+        if h.height == 0:
+            raise ValueError("zero Header.Height")
+        h.last_block_id.validate_basic()
+
+        if h.height > 1:
+            if self.last_commit is None:
+                raise ValueError("nil LastCommit")
+            self.last_commit.validate_basic()
+        # compare received header fields against recomputed values — no
+        # fill_header() here: an omitted hash must fail, and validation must
+        # not mutate a block whose bytes peers signed over
+        validate_hash(h.last_commit_hash)
+        expected_lc = self.last_commit.hash() if self.last_commit else merkle.hash_from_byte_slices([])
+        if h.last_commit_hash != expected_lc:
+            raise ValueError("wrong Header.LastCommitHash")
+        validate_hash(h.data_hash)
+        if h.data_hash != self.data_hash():
+            raise ValueError("wrong Header.DataHash")
+        validate_hash(h.validators_hash)
+        validate_hash(h.next_validators_hash)
+        validate_hash(h.consensus_hash)
+        validate_hash(h.last_results_hash)
+        validate_hash(h.evidence_hash)
+        for i, ev in enumerate(self.evidence):
+            try:
+                ev.validate_basic()
+            except ValueError as e:
+                raise ValueError(f"invalid evidence (#{i}): {e}") from e
+        if h.evidence_hash != self.evidence_hash():
+            raise ValueError("wrong Header.EvidenceHash")
+        if len(h.proposer_address) != ADDRESS_SIZE:
+            raise ValueError(
+                f"expected len(Header.ProposerAddress) to be {ADDRESS_SIZE}, got {len(h.proposer_address)}"
+            )
+
+    def to_dict(self) -> dict:
+        return {
+            "header": self.header.to_dict(),
+            "txs": list(self.txs),
+            "evidence": [codec.dumps(e) for e in self.evidence],
+            "last_commit": self.last_commit.to_dict() if self.last_commit else None,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Block":
+        return cls(
+            header=Header.from_dict(d["header"]),
+            txs=d["txs"],
+            evidence=[codec.loads(e) for e in d["evidence"]],
+            last_commit=commit_from_dict(d["last_commit"]),
+        )
+
+    def __repr__(self) -> str:
+        return f"Block(H={self.height} txs={len(self.txs)})#{self.hash().hex()[:12]}"
+
+
+codec.register("tm/Block")(Block)
+
+
+
 @dataclass(frozen=True)
 class SignedHeader:
     """Header + the commit that proves it — the light-client unit
@@ -385,4 +565,7 @@ class SignedHeader:
 
     @classmethod
     def from_dict(cls, d: dict) -> "SignedHeader":
-        return cls(Header.from_dict(d["header"]), Commit.from_dict(d["commit"]))
+        return cls(Header.from_dict(d["header"]), commit_from_dict(d["commit"]))
+
+
+codec.register("tm/SignedHeader")(SignedHeader)

@@ -1,16 +1,55 @@
-"""DuplicateVoteEvidence: what VoteSet raises on a double-sign (a subset of
-tendermint_tpu/types/evidence.py; its wire bytes and hash need the codec,
-which the port does not have).
+"""Evidence of validator misbehaviour: DuplicateVoteEvidence with its wire
+bytes and hash, and the evidence list's merkle root (the port's copy of
+tendermint_tpu/types/evidence.py, ed25519 votes only).
 
-Reference parity: types/evidence.go (DuplicateVoteEvidence:101).
+Reference parity: types/evidence.go (Evidence iface:59,
+DuplicateVoteEvidence:101, EvidenceList:320).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from abc import ABC, abstractmethod
+from typing import List, Optional
+
+from ..crypto import merkle, tmhash
+from ..crypto.keys import pubkey_from_dict
+from ..encoding import codec
 
 
-class DuplicateVoteEvidence:
+class Evidence(ABC):
+    @abstractmethod
+    def height(self) -> int: ...
+
+    @abstractmethod
+    def time_ns(self) -> int: ...
+
+    @abstractmethod
+    def address(self) -> bytes: ...
+
+    @abstractmethod
+    def bytes(self) -> bytes: ...
+
+    def hash(self) -> bytes:
+        return tmhash.sum(self.bytes())
+
+    @abstractmethod
+    def verify(self, chain_id: str, pub_key) -> None: ...
+
+    @abstractmethod
+    def validate_basic(self) -> None: ...
+
+    def equal(self, other: "Evidence") -> bool:
+        return type(self) is type(other) and self.hash() == other.hash()
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Evidence) and self.equal(other)
+
+    def __hash__(self) -> int:
+        return hash(self.hash())
+
+
+@codec.register("tm/DuplicateVoteEvidence")
+class DuplicateVoteEvidence(Evidence):
     """A validator signed two conflicting votes (types/evidence.go:101)."""
 
     def __init__(self, pub_key, vote_a, vote_b):
@@ -35,6 +74,9 @@ class DuplicateVoteEvidence:
 
     def address(self) -> bytes:
         return self.pub_key.address()
+
+    def bytes(self) -> bytes:
+        return codec.dumps(self.to_dict())
 
     def verify(self, chain_id: str, pub_key) -> None:
         """types/evidence.go:166 — same H/R/S + validator, different blocks,
@@ -65,5 +107,29 @@ class DuplicateVoteEvidence:
         if self.vote_a.block_id.key() >= self.vote_b.block_id.key():
             raise ValueError("duplicate votes in invalid order")
 
+    def to_dict(self) -> dict:
+        return {
+            "pub_key": self.pub_key.to_dict(),
+            "vote_a": self.vote_a.to_dict(),
+            "vote_b": self.vote_b.to_dict(),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DuplicateVoteEvidence":
+        from .vote import Vote
+
+        return cls(
+            pubkey_from_dict(d["pub_key"]), Vote.from_dict(d["vote_a"]), Vote.from_dict(d["vote_b"])
+        )
+
     def __repr__(self) -> str:
         return f"DuplicateVoteEvidence(VoteA: {self.vote_a}; VoteB: {self.vote_b})"
+
+
+def evidence_list_hash(evl: List[Evidence]) -> bytes:
+    """Merkle root of the evidence list (types/evidence.go:324)."""
+    return merkle.hash_from_byte_slices([ev.bytes() for ev in evl])
+
+
+def evidence_hash(ev: Evidence) -> bytes:
+    return ev.hash()

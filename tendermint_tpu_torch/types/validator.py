@@ -1,9 +1,13 @@
-"""Validator and ValidatorSet: batched commit verification.
+"""Validator and ValidatorSet: proposer-priority math, change sets and
+batched commit verification.
 
-The port's subset of tendermint_tpu/types/validator.py.  Reference parity:
-types/validator.go (Validator:16), types/validator_set.go
-(ValidatorSet:42, VerifyCommit:629, VerifyFutureCommit:703,
-VerifyCommitTrusting:754).
+The port's copy of tendermint_tpu/types/validator.py, ed25519 keys only.
+Reference parity: types/validator.go (Validator:16), types/validator_set.go
+(ValidatorSet:42, IncrementProposerPriority:86, UpdateWithChangeSet:624,
+VerifyCommit:629, VerifyFutureCommit:703, VerifyCommitTrusting:754).  The
+priority arithmetic is overflow-aware int64 math that must match the
+reference bit for bit across nodes — Python ints are unbounded, so
+clipping is explicit here.
 
 ValidatorSet.hash is the merkle root over Validator.bytes, which the light
 client checks headers against; to_dict / from_dict keep the JAX package's
@@ -14,10 +18,6 @@ signatures and hand them to the installed batch hooks (crypto/batch.py) as
 one batch, then tally voting power from the boolean mask.  The reference's
 early exit at 2/3 becomes whole-batch verification — strictly stricter (a
 bad signature after the 2/3 mark fails the commit) and deterministic.
-
-Proposer rotation and validator-set change sets are not part of this
-slice: a set is built once from its validators, sorted by address, and
-carries the proposer and priorities only through to_dict / from_dict.
 """
 
 from __future__ import annotations
@@ -29,13 +29,27 @@ from typing import Callable, List, Optional, Sequence, Tuple
 from ..crypto import batch as crypto_batch
 from ..crypto import merkle
 from ..crypto.keys import Ed25519PubKey, pubkey_from_dict
+from ..encoding import codec
 from ..encoding.proto import field_bytes, field_varint
 from .block import BlockID, Commit
 
 INT64_MAX = (1 << 63) - 1
+INT64_MIN = -(1 << 63)
 
-# types/validator_set.go:25
+# types/validator_set.go:25 — guards clipping/overflow in priority math
 MAX_TOTAL_VOTING_POWER = INT64_MAX // 8
+# types/validator_set.go:29
+PRIORITY_WINDOW_SIZE_FACTOR = 2
+
+
+def safe_add_clip(a: int, b: int) -> int:
+    c = a + b
+    return min(max(c, INT64_MIN), INT64_MAX)
+
+
+def safe_sub_clip(a: int, b: int) -> int:
+    c = a - b
+    return min(max(c, INT64_MIN), INT64_MAX)
 
 
 def mixed_batch_verify(
@@ -95,6 +109,19 @@ class Validator:
     def copy(self) -> "Validator":
         return Validator(self.address, self.pub_key, self.voting_power, self.proposer_priority)
 
+    def compare_proposer_priority(self, other: "Validator") -> "Validator":
+        """Higher priority wins; ties break toward the lower address
+        (types/validator.go:41)."""
+        if self.proposer_priority > other.proposer_priority:
+            return self
+        if self.proposer_priority < other.proposer_priority:
+            return other
+        if self.address < other.address:
+            return self
+        if self.address > other.address:
+            return other
+        raise ValueError("cannot compare identical validators")
+
     def bytes(self) -> bytes:
         """Hash input: pubkey + power, excluding address and priority
         (types/validator.go:83)."""
@@ -116,42 +143,28 @@ class Validator:
             d["address"], pubkey_from_dict(d["pub_key"]), d["voting_power"], d["proposer_priority"]
         )
 
+    def __repr__(self) -> str:
+        return f"Validator{{{self.address.hex()[:12]} VP:{self.voting_power} A:{self.proposer_priority}}}"
+
 
 class ValidatorSet:
-    """Validators sorted by address (types/validator_set.go:42), with the
-    same construction checks as the JAX package's set."""
+    """Validators sorted by address; proposer rotates by priority
+    (types/validator_set.go:42)."""
 
-    def __init__(self, validators: List[Validator]):
-        vals = sorted((v.copy() for v in validators), key=lambda v: v.address)
-        if not vals:
-            raise ValueError("applying the validator changes would result in empty set")
-        total = 0
-        prev = None
-        for v in vals:
-            if v.address == prev:
-                raise ValueError(f"duplicate entry {v} in changes")
-            if v.voting_power < 0:
-                raise ValueError(f"voting power can't be negative: {v.voting_power}")
-            if v.voting_power > MAX_TOTAL_VOTING_POWER:
-                raise ValueError(
-                    f"voting power can't be higher than {MAX_TOTAL_VOTING_POWER}: {v.voting_power}"
-                )
-            if v.voting_power == 0:
-                raise ValueError(f"cannot process validators with voting power 0: {[v]}")
-            total += v.voting_power
-            if total > MAX_TOTAL_VOTING_POWER:
-                raise OverflowError(
-                    f"total voting power must not exceed {MAX_TOTAL_VOTING_POWER}; got {total}"
-                )
-            prev = v.address
-        self.validators: List[Validator] = vals
+    def __init__(self, validators: Optional[List[Validator]] = None):
+        self.validators: List[Validator] = []
         self.proposer: Optional[Validator] = None
-        self._total_voting_power = total
+        self._total_voting_power = 0
         self._pk_digest: Optional[bytes] = None
+        if validators:
+            self._update_with_change_set(validators, allow_deletes=False)
+            self.increment_proposer_priority(1)
 
     def pubkeys_digest(self) -> bytes:
         """Stable key for this set's pubkey rows (device table cache key):
-        sha256 over the length-prefixed raw pubkeys, set order."""
+        sha256 over the length-prefixed raw pubkeys, set order, cached until
+        the membership changes.  Unlike hash() it ignores voting power and
+        priorities, which don't affect the pubkey table."""
         if self._pk_digest is None:
             h = hashlib.sha256()
             for v in self.validators:
@@ -161,18 +174,15 @@ class ValidatorSet:
             self._pk_digest = h.digest()
         return self._pk_digest
 
+    # -- basic accessors ---------------------------------------------------
+    def is_nil_or_empty(self) -> bool:
+        return len(self.validators) == 0
+
     def size(self) -> int:
         return len(self.validators)
 
     def __len__(self) -> int:
         return len(self.validators)
-
-    def total_voting_power(self) -> int:
-        return self._total_voting_power
-
-    def hash(self) -> bytes:
-        """Merkle root over validator bytes (types/validator_set.go:315)."""
-        return merkle.hash_from_byte_slices([v.bytes() for v in self.validators])
 
     def has_address(self, address: bytes) -> bool:
         return self._index_of(address) is not None
@@ -201,6 +211,228 @@ class ValidatorSet:
         v = self.validators[index]
         return v.address, v.copy()
 
+    def total_voting_power(self) -> int:
+        if self._total_voting_power == 0:
+            self._update_total_voting_power()
+        return self._total_voting_power
+
+    def _update_total_voting_power(self) -> None:
+        total = 0
+        for v in self.validators:
+            total = safe_add_clip(total, v.voting_power)
+            if total > MAX_TOTAL_VOTING_POWER:
+                raise OverflowError(
+                    f"total voting power must not exceed {MAX_TOTAL_VOTING_POWER}; got {total}"
+                )
+        self._total_voting_power = total
+
+    def copy(self) -> "ValidatorSet":
+        new = ValidatorSet()
+        new.validators = [v.copy() for v in self.validators]
+        new.proposer = self.proposer
+        new._total_voting_power = self._total_voting_power
+        new._pk_digest = self._pk_digest
+        return new
+
+    def hash(self) -> bytes:
+        """Merkle root over validator bytes (types/validator_set.go:315)."""
+        if not self.validators:
+            return b""
+        return merkle.hash_from_byte_slices([v.bytes() for v in self.validators])
+
+    # -- proposer rotation -------------------------------------------------
+    def get_proposer(self) -> Optional[Validator]:
+        if not self.validators:
+            return None
+        if self.proposer is None:
+            self.proposer = self._find_proposer()
+        return self.proposer.copy()
+
+    def _find_proposer(self) -> Validator:
+        proposer = None
+        for v in self.validators:
+            if proposer is None:
+                proposer = v
+            elif v.address != proposer.address:
+                proposer = proposer.compare_proposer_priority(v)
+        return proposer
+
+    def increment_proposer_priority(self, times: int) -> None:
+        """types/validator_set.go:86."""
+        if self.is_nil_or_empty():
+            raise ValueError("empty validator set")
+        if times <= 0:
+            raise ValueError("cannot call increment_proposer_priority with non-positive times")
+        diff_max = PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+        self.rescale_priorities(diff_max)
+        self._shift_by_avg_proposer_priority()
+        proposer = None
+        for _ in range(times):
+            proposer = self._increment_proposer_priority()
+        self.proposer = proposer
+
+    def _increment_proposer_priority(self) -> Validator:
+        for v in self.validators:
+            v.proposer_priority = safe_add_clip(v.proposer_priority, v.voting_power)
+        # compare_proposer_priority returns one of its operands, so `mostest`
+        # is the live list entry and the decrement below sticks.
+        mostest = self._get_val_with_most_priority()
+        mostest.proposer_priority = safe_sub_clip(
+            mostest.proposer_priority, self.total_voting_power()
+        )
+        return mostest
+
+    def _get_val_with_most_priority(self) -> Validator:
+        res = None
+        for v in self.validators:
+            res = v if res is None else res.compare_proposer_priority(v)
+        return res
+
+    def _compute_avg_proposer_priority(self) -> int:
+        n = len(self.validators)
+        total = sum(v.proposer_priority for v in self.validators)
+        # Go integer division truncates toward zero; Python's // floors
+        avg = abs(total) // n
+        return avg if total >= 0 else -avg
+
+    def _shift_by_avg_proposer_priority(self) -> None:
+        avg = self._compute_avg_proposer_priority()
+        for v in self.validators:
+            v.proposer_priority = safe_sub_clip(v.proposer_priority, avg)
+
+    def _compute_max_min_priority_diff(self) -> int:
+        prios = [v.proposer_priority for v in self.validators]
+        return abs(max(prios) - min(prios))
+
+    def rescale_priorities(self, diff_max: int) -> None:
+        """types/validator_set.go:112."""
+        if self.is_nil_or_empty():
+            raise ValueError("empty validator set")
+        if diff_max <= 0:
+            return
+        diff = self._compute_max_min_priority_diff()
+        ratio = (diff + diff_max - 1) // diff_max
+        if diff > diff_max:
+            for v in self.validators:
+                # Go truncates toward zero
+                q = abs(v.proposer_priority) // ratio
+                v.proposer_priority = q if v.proposer_priority >= 0 else -q
+
+    def copy_increment_proposer_priority(self, times: int) -> "ValidatorSet":
+        c = self.copy()
+        c.increment_proposer_priority(times)
+        return c
+
+    # -- updates (ABCI validator-set changes) ------------------------------
+    def update_with_change_set(self, changes: List[Validator]) -> None:
+        self._update_with_change_set(changes, allow_deletes=True)
+
+    def _update_with_change_set(self, changes: List[Validator], allow_deletes: bool) -> None:
+        """types/validator_set.go:561 — validate, split into updates/deletes,
+        compute priorities for new validators, merge, rescale, recenter."""
+        if not changes:
+            return
+        updates, deletes = self._process_changes(changes)
+        if not allow_deletes and deletes:
+            raise ValueError(f"cannot process validators with voting power 0: {deletes}")
+        num_new = sum(1 for u in updates if not self.has_address(u.address))
+        if num_new == 0 and len(self.validators) == len(deletes):
+            raise ValueError("applying the validator changes would result in empty set")
+        removed_power = self._verify_removals(deletes)
+        tvp_after_updates_before_removals = self._verify_updates(updates, removed_power)
+        self._compute_new_priorities(updates, tvp_after_updates_before_removals)
+        self._apply_updates(updates)
+        self._apply_removals(deletes)
+        self._pk_digest = None  # membership changed: table cache key rotates
+        self._update_total_voting_power()
+        self.rescale_priorities(PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power())
+        self._shift_by_avg_proposer_priority()
+        # The cached proposer may have been removed or replaced by
+        # _apply_updates: re-point it at the live entry, or clear it so
+        # get_proposer() recomputes from the new priorities.
+        if self.proposer is not None:
+            _, live = self.get_by_address(self.proposer.address)
+            self.proposer = live
+
+    @staticmethod
+    def _process_changes(orig_changes: List[Validator]) -> Tuple[List[Validator], List[Validator]]:
+        changes = sorted([v.copy() for v in orig_changes], key=lambda v: v.address)
+        updates, removals = [], []
+        prev_addr = None
+        for v in changes:
+            if v.address == prev_addr:
+                raise ValueError(f"duplicate entry {v} in changes")
+            if v.voting_power < 0:
+                raise ValueError(f"voting power can't be negative: {v.voting_power}")
+            if v.voting_power > MAX_TOTAL_VOTING_POWER:
+                raise ValueError(
+                    f"voting power can't be higher than {MAX_TOTAL_VOTING_POWER}: {v.voting_power}"
+                )
+            (removals if v.voting_power == 0 else updates).append(v)
+            prev_addr = v.address
+        return updates, removals
+
+    def _verify_removals(self, deletes: List[Validator]) -> int:
+        removed_power = 0
+        for v in deletes:
+            _, val = self.get_by_address(v.address)
+            if val is None:
+                raise ValueError(f"failed to find validator {v.address.hex()} to remove")
+            removed_power += val.voting_power
+        if len(deletes) > len(self.validators):
+            raise ValueError("more deletes than validators")
+        return removed_power
+
+    def _verify_updates(self, updates: List[Validator], removed_power: int) -> int:
+        """types/validator_set.go:395 — ensure max total power is never
+        exceeded, checking deltas smallest-first."""
+
+        def delta(u: Validator) -> int:
+            _, val = self.get_by_address(u.address)
+            return u.voting_power - val.voting_power if val else u.voting_power
+
+        tvp_after_removals = self.total_voting_power() - removed_power
+        for u in sorted(updates, key=delta):
+            tvp_after_removals += delta(u)
+            if tvp_after_removals > MAX_TOTAL_VOTING_POWER:
+                raise ValueError(
+                    f"failed to add/update validator {u.address.hex()}: "
+                    f"total voting power would exceed the max allowed {MAX_TOTAL_VOTING_POWER}"
+                )
+        return tvp_after_removals + removed_power
+
+    def _compute_new_priorities(self, updates: List[Validator], updated_tvp: int) -> None:
+        """New validators start at -1.125*tvp so they can't game rotation by
+        re-bonding (types/validator_set.go:447)."""
+        for u in updates:
+            _, val = self.get_by_address(u.address)
+            if val is None:
+                u.proposer_priority = -(updated_tvp + (updated_tvp >> 3))
+            else:
+                u.proposer_priority = val.proposer_priority
+
+    def _apply_updates(self, updates: List[Validator]) -> None:
+        existing = self.validators
+        merged: List[Validator] = []
+        i = j = 0
+        while i < len(existing) and j < len(updates):
+            if existing[i].address < updates[j].address:
+                merged.append(existing[i])
+                i += 1
+            else:
+                merged.append(updates[j])
+                if existing[i].address == updates[j].address:
+                    i += 1
+                j += 1
+        merged.extend(existing[i:])
+        merged.extend(updates[j:])
+        self.validators = merged
+
+    def _apply_removals(self, deletes: List[Validator]) -> None:
+        delete_addrs = {v.address for v in deletes}
+        self.validators = [v for v in self.validators if v.address not in delete_addrs]
+
+    # -- batched commit verification ---------------------------------------
     def _indexed(self, row_idxs: List[int]):
         """The indexed-hook argument, or None when no table engine is
         installed.  Rows are passed lazily: a table-cache hit never builds
@@ -352,12 +584,18 @@ class ValidatorSet:
 
     @classmethod
     def from_dict(cls, d: dict) -> "ValidatorSet":
-        new = cls([Validator.from_dict(v) for v in d["validators"]])
+        """The set as it was stored: order, powers, priorities and proposer
+        as given, nothing checked (the JAX package's rule)."""
+        new = cls()
+        new.validators = [Validator.from_dict(v) for v in d["validators"]]
         new.proposer = Validator.from_dict(d["proposer"]) if d["proposer"] else None
         return new
 
     def __repr__(self) -> str:
         return f"ValidatorSet(n={len(self.validators)} tvp={self.total_voting_power()})"
+
+
+codec.register("tm/ValidatorSet")(ValidatorSet)
 
 
 def _verify_commit_basic(commit: Commit, height: int, block_id: BlockID) -> None:

@@ -1,5 +1,5 @@
-"""Vote type + errors (a subset of tendermint_tpu/types/vote.py: no codec,
-no BLS sign-bytes).
+"""Vote type + errors (a subset of tendermint_tpu/types/vote.py: no BLS
+sign-bytes).
 
 Reference parity: types/vote.go (Vote:48, CommitSig:60, Verify:124,
 ValidateBasic:136).
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from ..encoding import codec
 from . import canonical
 from .block import ADDRESS_SIZE, BLOCK_ID_FLAG_COMMIT, BLOCK_ID_FLAG_NIL, BlockID, CommitSig
 from .params import MAX_SIGNATURE_SIZE
@@ -111,6 +112,31 @@ class Vote:
             self.signature,
         )
 
+    def to_dict(self) -> dict:
+        return {
+            "type": self.type,
+            "height": self.height,
+            "round": self.round,
+            "block_id": self.block_id.to_dict(),
+            "timestamp_ns": self.timestamp_ns,
+            "validator_address": self.validator_address,
+            "validator_index": self.validator_index,
+            "signature": self.signature,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Vote":
+        return cls(
+            type=d["type"],
+            height=d["height"],
+            round=d["round"],
+            block_id=BlockID.from_dict(d["block_id"]),
+            timestamp_ns=d["timestamp_ns"],
+            validator_address=d["validator_address"],
+            validator_index=d["validator_index"],
+            signature=d["signature"],
+        )
+
     def __str__(self) -> str:
         tname = {canonical.PREVOTE_TYPE: "Prevote", canonical.PRECOMMIT_TYPE: "Precommit"}.get(
             self.type, "?"
@@ -119,3 +145,6 @@ class Vote:
             f"Vote{{{self.validator_index}:{self.validator_address.hex()[:12]} "
             f"{self.height}/{self.round:02d}/{tname} {self.block_id.hash.hex()[:12]}}}"
         )
+
+
+codec.register("tm/Vote")(Vote)

@@ -18,6 +18,8 @@ import dataclasses
 import types
 
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 import torch
 
 import tendermint_tpu.lite2 as jlite2
@@ -513,3 +515,73 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     count, bad = out.stdout.split(" ", 1)
     assert bad.strip() == "[]"
     assert int(count) > 40
+
+
+# ---------------------------------------------------------------------------
+# validator sets read back from a store, and proposer rotation
+# ---------------------------------------------------------------------------
+
+_RKEYS = {ns.name: [ns.PrivKey.from_secret(f"rotation-{i}".encode()).pub_key() for i in range(12)]
+          for ns in (PORT, JAX)}
+
+
+def _set(ns, powers):
+    return ns.ValidatorSet([ns.Validator.new(_RKEYS[ns.name][i], p) for i, p in enumerate(powers)])
+
+
+@pytest.mark.parametrize("variant", ["as stored", "reversed", "zero power"])
+def test_from_dict_keeps_the_stored_set(variant):
+    """A set read back through from_dict is the set that was written: its
+    order and powers as given, nothing re-sorted or refused (JAX
+    types/validator.py from_dict)."""
+    d = _set(JAX, [10, 11, 12, 13, 14]).to_dict()
+    if variant == "reversed":
+        d["validators"] = d["validators"][::-1]
+    elif variant == "zero power":
+        d["validators"][2]["voting_power"] = 0
+    ours = pvalidator.ValidatorSet.from_dict(d)
+    theirs = jtypes.ValidatorSet.from_dict(d)
+    assert ours.hash() == theirs.hash()
+    assert ours.total_voting_power() == theirs.total_voting_power()
+    assert ours.to_dict() == theirs.to_dict() == d
+    assert [v.address for v in ours.validators] == [v["address"] for v in d["validators"]]
+
+
+@pytest.mark.parametrize("powers", [[10], [10, 11, 12, 13, 14], [1, 1000, 7, 7, 300, 2, 2, 50]])
+def test_fresh_sets_match_jax(powers):
+    """A freshly built set has the JAX constructor's priorities and
+    proposer (one increment_proposer_priority at construction)."""
+    ours, theirs = _set(PORT, powers), _set(JAX, powers)
+    assert ours.to_dict() == theirs.to_dict()
+    assert ours.proposer is not None
+    assert ours.get_proposer().address == theirs.get_proposer().address
+    assert ours.copy_increment_proposer_priority(3).to_dict() == \
+        theirs.copy_increment_proposer_priority(3).to_dict()
+
+
+_round = st.tuples(
+    st.integers(1, 3),
+    st.lists(st.tuples(st.integers(0, 11), st.integers(0, 5000)), max_size=4),
+)
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.lists(st.integers(1, 5000), min_size=1, max_size=8), st.lists(_round, min_size=50,
+                                                                         max_size=50))
+def test_proposer_rotation_matches_jax(powers, rounds):
+    """50 rounds of increment_proposer_priority with change sets between
+    them (additions start at -1.125 x total power, so averages go
+    negative; removals and re-bonding included): every round the same
+    priorities, proposer and errors as the JAX package."""
+    ours, theirs = _set(PORT, powers), _set(JAX, powers)
+    for times, changes in rounds:
+        if changes:
+            res = [sync_outcome(lambda: s.update_with_change_set(
+                [ns.Validator.new(_RKEYS[ns.name][i], p) for i, p in changes]))
+                for ns, s in ((PORT, ours), (JAX, theirs))]
+            assert res[0] == res[1]
+        ours.increment_proposer_priority(times)
+        theirs.increment_proposer_priority(times)
+        assert ours.to_dict() == theirs.to_dict()
+        assert ours.get_proposer().address == theirs.get_proposer().address
+        assert ours.pubkeys_digest() == theirs.pubkeys_digest()
