@@ -89,7 +89,41 @@
    per run ms and signatures/s, (a)'s blocks/s and the card's memory.
    Fails on any other verdict, message, height, id or hit count, or when
    the ladder, kernel 2 (twice) or the auto-profile's pick in (a) was not
-   launched.
+   launched.  Its chain's states come from state.execution.update_state
+   fed code-0 responses.
+8. Blocks applied to the kvstore app at full width (BASELINE config #5):
+   genesis is phase 3's 10,000 keys at power 10.  (a) A producer node on
+   sqlite stores (StateStore, BlockStore, evidence, tx index) with a
+   KVStoreApplication behind AppConns(local_client_creator(app)), a
+   Handshaker sending InitChain, an EventBus with one NewBlock and one Tx
+   subscriber and an IndexerService, a Mempool (sig_precheck on, size
+   10,000, pre_check tx_pre_check) whose signed-tx lane is an
+   AsyncBatchVerifier on the node's engine settings, an EvidencePool and a
+   BlockExecutor.  Per height 1-9, 1,000 signed envelopes arrive as one
+   asyncio.gather of check_tx (the next height's while the block commits,
+   so that the commit's recheck has work); every 100th has a flipped
+   signature and must raise "invalid tx signature".  Height 4 also carries
+   5,000 val: txs, removing the 2,500 oldest keys and adding 2,500 new
+   ones, so set B serves from height 6.  Each block comes from
+   create_proposal_block, is signed by its set, saved with its part set and
+   seen commit, and applied with apply_block (validate_block verifies its
+   LastCommit through the installed TableCache: misses at 2 and 7, one per
+   set).  (b) A syncing node on fresh stores and a fresh app runs fast
+   sync's steps by hand with the Processor and Scheduler: verify_commit of
+   each pair, save_block, apply_block, for heights 1-8 (9 stays pending);
+   its state, app hash, events and tx index must equal the producer's.
+   (c) Its stores reopened, the Handshaker runs with (c1) its own app (no
+   replay), (c2) a fresh app (InitChain and 8 blocks replayed) and (c3)
+   block 9 saved with its seen commit but not applied (apply_block, whose
+   validate_block verifies 9's LastCommit).  Prints per height the
+   check_tx burst's txs/s and p50/p99 latency, the verify.flush sizes and
+   apply_block's split (validate_block with verify_commit, BeginBlock,
+   DeliverTx, EndBlock, Commit, mempool update with recheck, state save,
+   events, index drain); blocks/s of (a) and (b); (c)'s ms; the launches.
+   Fails on any other verdict, rejection, block content, state, app hash,
+   event count or index answer, or when the ladder (by the signed-tx
+   flushes), kernel 2 (twice, in (a)) or the auto-profile's pick in (a),
+   (b) and (c3) was not launched.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -144,6 +178,14 @@ REPLAY_ROTATE = 2500  # set B replaces set A's oldest validators by new keys
 REPLAY_TXS, REPLAY_TX_BYTES = 100, 250  # per block
 REPLAY_BAD = 5  # a copy of this block carries one flipped signature in its last_commit
 REPLAY_BAD_SIG = 1234  # the flipped slot (mod the set size)
+
+# Phase 8: blocks applied to the kvstore app (BASELINE config #5 widths)
+ABCI_TOP = 9  # the producer applies 1 .. 9, the syncer 1 .. 8 (9 stays pending, as at the tip)
+ABCI_TXS = 1000  # signed envelopes per height
+ABCI_CORRUPT = 100  # every 100th envelope carries a flipped signature byte
+ABCI_ROTATE_AT = 4  # this block delivers the val: txs; set B serves from ABCI_ROTATE_AT + 2
+ABCI_ROTATE = 2500  # val: txs remove this many of the oldest keys and add as many new ones
+ABCI_MEMPOOL = 10_000  # an operator's size: the rotation block's txs exceed the default 5,000
 
 # Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s
 # float32 outside the tensor cores.  The integer multiply rate is not in the
@@ -1359,25 +1401,15 @@ def phase_light(keys, card, dev, report):
 
 
 def next_state(state, block_id, block, changes=None):
-    """The state after `block` (state/execution.py update_state without the
-    app: no txs results but code 0, no param updates): validator changes
-    land in the next set and take effect two heights on."""
-    import dataclasses
+    """The state after `block`: state.execution.update_state fed code-0
+    DeliverTx responses and no EndBlock updates; validator `changes` land in
+    the next set and take effect two heights on."""
+    from tendermint_tpu_torch.abci import types as abci
+    from tendermint_tpu_torch.state.execution import update_state
 
-    from tendermint_tpu_torch.types.tx import ABCIResult, results_hash
-
-    nxt = state.next_validators.copy()
-    changed = state.last_height_validators_changed
-    if changes:
-        nxt.update_with_change_set(changes)
-        changed = block.height + 2
-    nxt.increment_proposer_priority(1)
-    return dataclasses.replace(
-        state, last_block_height=block.height, last_block_id=block_id,
-        last_block_time_ns=block.time_ns, next_validators=nxt,
-        validators=state.next_validators.copy(), last_validators=state.validators.copy(),
-        last_height_validators_changed=changed,
-        last_results_hash=results_hash([ABCIResult(0, b"") for _ in block.txs]), app_hash=b"")
+    responses = {"deliver_txs": [abci.ResponseDeliverTx() for _ in block.txs],
+                 "end_block": abci.ResponseEndBlock()}
+    return update_state(state, block_id, block, responses, list(changes or []))
 
 
 def build_replay_chain(keys, new_keys, home):
@@ -1627,6 +1659,499 @@ def phase_replay(keys, card, dev):
     return launches_a
 
 
+class StepTimer:
+    """Host ms of named steps: `wrap` replaces an object's method (sync or
+    async) by one that adds each call's wall time to ms[name] and counts it
+    in n[name]."""
+
+    def __init__(self):
+        self.ms = collections.defaultdict(float)
+        self.n = collections.defaultdict(int)
+
+    def add(self, name, t0):
+        self.ms[name] += _ms(t0)
+        self.n[name] += 1
+
+    def wrap(self, obj, attr, name=None):
+        import asyncio
+        import functools
+
+        fn, name = getattr(obj, attr), name or attr
+        if asyncio.iscoroutinefunction(fn):
+            @functools.wraps(fn)
+            async def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return await fn(*a, **k)
+                finally:
+                    self.add(name, t0)
+        else:
+            @functools.wraps(fn)
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.add(name, t0)
+        setattr(obj, attr, timed)
+
+    def reset(self) -> None:
+        self.ms.clear()
+        self.n.clear()
+
+    def split(self) -> str:
+        """apply_block's host ms by step since the last split; resets."""
+        t, n = dict(self.ms), dict(self.n)
+        self.reset()
+        g = t.get
+        abci = sum(g(k, 0.0) for k in ("begin_block", "deliver_tx", "end_block", "commit_abci"))
+        return (f"apply_block {g('apply_block', 0.0):.3f} ms = validate_block "
+                f"{g('validate_block', 0.0):.3f} (verify_commit {g('verify_commit', 0.0):.3f}) "
+                f"+ ABCI {abci:.3f} (BeginBlock {g('begin_block', 0.0):.3f}, DeliverTx x"
+                f"{n.get('deliver_tx', 0)} {g('deliver_tx', 0.0):.3f}, EndBlock "
+                f"{g('end_block', 0.0):.3f}, Commit {g('commit_abci', 0.0):.3f}) + mempool update "
+                f"with recheck {g('mempool_update', 0.0):.3f} + state save {g('state_save', 0.0):.3f}"
+                f" + events {g('events', 0.0):.3f}; index drain {g('index_drain', 0.0):.3f} ms")
+
+
+@contextlib.contextmanager
+def verify_commit_timing(timer):
+    """ValidatorSet.verify_commit's wall time into the timer's
+    "verify_commit" step while the block runs."""
+    from tendermint_tpu_torch.types.validator import ValidatorSet
+
+    orig = ValidatorSet.verify_commit
+
+    def timed(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *a, **k)
+        finally:
+            timer.add("verify_commit", t0)
+
+    ValidatorSet.verify_commit = timed
+    try:
+        yield
+    finally:
+        ValidatorSet.verify_commit = orig
+
+
+def abci_traffic(keys, new_keys):
+    """Phase 8's transactions, made in bulk before the run: per height
+    1 .. ABCI_TOP, ABCI_TXS signed-tx envelopes (payload "k<h>-<i>=" and 32
+    seeded random bytes in hex, signed by the validator keys in turn),
+    every ABCI_CORRUPT-th with a flipped signature byte; and the rotation's
+    val: txs, removing the len(new_keys) oldest keys and adding new_keys at
+    power 10."""
+    import base64
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from tendermint_tpu_torch.mempool import SIGNED_TX_PREFIX, make_signed_tx
+
+    rng = np.random.default_rng(8)
+    jobs = [(h, i, keys[((h - 1) * ABCI_TXS + i) % len(keys)],
+             b"k%d-%d=" % (h, i) + rng.bytes(32).hex().encode())
+            for h in range(1, ABCI_TOP + 1) for i in range(ABCI_TXS)]
+    with ThreadPoolExecutor(SIGN_THREADS) as ex:
+        envelopes = list(ex.map(lambda j: make_signed_tx(j[2], j[3]), jobs, chunksize=256))
+    bursts, bad = collections.defaultdict(list), set()
+    off = len(SIGNED_TX_PREFIX) + 32  # the signature's first byte
+    for (h, i, _, _), tx in zip(jobs, envelopes):
+        if i % ABCI_CORRUPT == ABCI_CORRUPT - 1:
+            tx = tx[:off] + bytes([tx[off] ^ 1]) + tx[off + 1:]
+            bad.add(tx)
+        bursts[h].append(tx)
+    val_txs = ([b"val:" + base64.b64encode(k.pub_key().bytes()) + b"!0"
+                for k in keys[:len(new_keys)]]
+               + [b"val:" + base64.b64encode(k.pub_key().bytes()) + b"!10" for k in new_keys])
+    return bursts, bad, val_txs
+
+
+async def abci_node(home, gen, app_db=None):
+    """A node's stores, app and services in `home` (sqlite), wired as
+    node.py wires them: StateStore, BlockStore, a KVStoreApplication
+    behind AppConns(local_client_creator(app)), an EventBus with an
+    IndexerService over a TxIndexer and one subscriber each on NewBlock and
+    Tx, then the Handshaker (InitChain at app height 0), timed.  `app_db`
+    puts the app on another store than the node's.  The namespace's close()
+    stops the services and closes the stores."""
+    import asyncio
+    import types
+
+    from tendermint_tpu_torch.abci.examples import KVStoreApplication
+    from tendermint_tpu_torch.consensus import Handshaker
+    from tendermint_tpu_torch.libs.kvstore import open_db
+    from tendermint_tpu_torch.proxy import AppConns, local_client_creator
+    from tendermint_tpu_torch.state import StateStore
+    from tendermint_tpu_torch.state.txindex import IndexerService, TxIndexer
+    from tendermint_tpu_torch.store import BlockStore
+    from tendermint_tpu_torch.types.events import (EVENT_NEW_BLOCK, EVENT_TX, EventBus,
+                                                   query_for_event)
+    from tendermint_tpu_torch.types.tx import tx_hash
+
+    node = types.SimpleNamespace(events={"NewBlock": [], "Tx": []})
+    node.dbs = {name: open_db(name, home)
+                for name in ("state", "blockstore", "app", "evidence", "txindex")}
+    node.state_store = StateStore(node.dbs["state"])
+    node.block_store = BlockStore(node.dbs["blockstore"])
+    node.app = KVStoreApplication(db=node.dbs["app"] if app_db is None else app_db)
+    node.conns = AppConns(local_client_creator(node.app))
+    node.bus = EventBus()
+    node.indexer = TxIndexer(node.dbs["txindex"])
+    node.svc = IndexerService(node.indexer, node.bus)
+    await node.conns.start()
+    await node.bus.start()
+    await node.svc.start()
+    buffer = 2 * (ABCI_TXS + 2 * ABCI_ROTATE)  # drained after every block
+    node.subs = {kind: await node.bus.subscribe("chip-smoke", query_for_event(q), buffer)
+                 for kind, q in (("NewBlock", EVENT_NEW_BLOCK), ("Tx", EVENT_TX))}
+    node.handshaker = Handshaker(node.state_store, node.state_store.load_from_db_or_genesis(gen),
+                                 node.block_store, gen)
+    t0 = time.perf_counter()
+    node.state = await node.handshaker.handshake(node.conns)
+    node.handshake_ms = _ms(t0)
+
+    async def settle(block):
+        """Drain the subscribers and wait (bounded) until the
+        IndexerService has indexed the block's last tx."""
+        for kind, sub in node.subs.items():
+            if sub.cancelled:
+                raise AssertionError(f"the {kind} subscription was cancelled: {sub.cancel_reason}")
+            while not sub.queue.empty():
+                node.events[kind].append(sub.queue.get_nowait().data.data)
+        for _ in range(100_000):
+            if not block.txs or node.indexer.get(tx_hash(block.txs[-1])) is not None:
+                return
+            await asyncio.sleep(0)
+        raise AssertionError(f"the indexer did not catch up with block {block.height}")
+
+    async def close():
+        await node.svc.stop()
+        await node.bus.stop()
+        await node.conns.stop()
+        for db in node.dbs.values():
+            db.close()
+
+    node.settle, node.close = settle, close
+    return node
+
+
+def instrument(timer, executor, node):
+    """Time apply_block's steps on this executor and node."""
+    timer.wrap(executor, "apply_block")
+    timer.wrap(executor, "validate_block")
+    timer.wrap(executor, "_fire_events", "events")
+    timer.wrap(executor.mempool, "update", "mempool_update")
+    timer.wrap(node.state_store, "save", "state_save")
+    client = node.conns.consensus()
+    for attr in ("begin_block", "deliver_tx", "end_block"):
+        timer.wrap(client, attr)
+    timer.wrap(client, "commit", "commit_abci")
+
+
+async def check_burst(mempool, txs):
+    """check_tx of every tx at once (asyncio.gather): per tx its outcome
+    (the response, or the exception) and its latency in ms, and the
+    burst's wall ms."""
+    import asyncio
+
+    t_start = time.perf_counter()
+
+    async def one(tx):
+        try:
+            res = await mempool.check_tx(tx)
+        except Exception as e:  # noqa: BLE001 - every outcome is checked by the caller
+            res = e
+        return res, _ms(t_start)
+
+    out = await asyncio.gather(*(one(tx) for tx in txs))
+    return out, _ms(t_start)
+
+
+def dispatch_share(rec, seq, wall_s) -> str:
+    """The engine's dispatches since `seq`: count, host prep and device ms
+    (host clock) and their share of `wall_s`, an upper bound on the card's
+    busy share."""
+    d = rec.events(since=seq, kinds=["verify.dispatch"])
+    prep = sum(e["host_prep_ms"] for e in d)
+    device = sum(e["device_ms"] for e in d)
+    return (f"{len(d)} dispatches, host prep {prep:.3f} ms, dispatch {device:.3f} ms "
+            f"({device / (wall_s * 1000) * 100:.3f} % of the wall time)")
+
+
+def phase_abci(keys, card, dev):
+    """Blocks applied to the kvstore app (see the module docstring, 8).
+    Returns the launches of (a), its signed-tx flushes, (b) and (c3), by
+    counter."""
+    import asyncio
+
+    return asyncio.run(abci_run(keys, card, dev))
+
+
+async def abci_run(keys, card, dev):
+    import tempfile
+
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+    from tendermint_tpu_torch.evidence import EvidencePool
+    from tendermint_tpu_torch.fastsync import Processor, Scheduler
+    from tendermint_tpu_torch.libs.kvstore import MemDB, open_db
+    from tendermint_tpu_torch.libs.tracing import FlightRecorder
+    from tendermint_tpu_torch.mempool import Mempool, MempoolError
+    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
+    from tendermint_tpu_torch.state.execution import BlockExecutor, tx_pre_check
+    from tendermint_tpu_torch.store import BlockStore
+    from tendermint_tpu_torch.types.block import BlockID
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
+
+    def counters():
+        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
+                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
+
+    def since(before):
+        return {k: v - before[k] for k, v in counters().items()}
+
+    t0 = time.perf_counter()
+    new_keys = make_keys(ABCI_ROTATE, prefix="abci")
+    bursts, bad, val_txs = abci_traffic(keys, new_keys)
+    key_of = {k.pub_key().address(): k for k in list(keys) + list(new_keys)}
+    gen = GenesisDoc(CHAIN_ID, genesis_time_ns=LITE_T0, validators=[
+        GenesisValidator(k.pub_key().address(), k.pub_key(), 10) for k in keys])
+    log(f"  traffic: {ABCI_TOP} bursts of {ABCI_TXS} signed envelopes ({len(bad)} corrupted), "
+        f"{len(val_txs)} val: txs at height {ABCI_ROTATE_AT}, {len(new_keys)} new keys; made in "
+        f"{(time.perf_counter() - t0) * 1000:.3f} ms")
+
+    rec = FlightRecorder(size=1 << 16)
+    commit_bv = bvm.BatchVerifier(device=dev, recorder=rec).install()
+    cache = bvm.TableCache(commit_bv, tabulated=None).install()
+    # the mempool's lane: the node's engine settings on its own verifier, so
+    # that its warmup mode leaves the commit checks' table builds synchronous
+    lane = bvm.AsyncBatchVerifier(bvm.BatchVerifier(device=dev, min_device_batch=16,
+                                                    recorder=rec))
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-abci-")
+    producer = syncer = None
+    try:
+        await lane.start()
+        # (a) the producer
+        producer = await abci_node(os.path.join(tmp.name, "producer"), gen)
+        state = producer.state
+        mempool = Mempool(producer.conns.mempool(), {"sig_precheck": True, "size": ABCI_MEMPOOL})
+        mempool.pre_check = tx_pre_check(state)
+        mempool.sig_verifier = lane
+        evpool = EvidencePool(producer.dbs["evidence"], producer.state_store, state)
+        executor = BlockExecutor(producer.state_store, producer.conns.consensus(), mempool,
+                                 evpool, producer.bus)
+        timer = StepTimer()
+        instrument(timer, executor, producer)
+        before_a, seq_a, t_a = counters(), next_seq(rec), time.perf_counter()
+        flush_launches = dict.fromkeys(before_a, 0)
+        rejected, blocks, parts, commits, states, app_hashes = [], {}, {}, {}, {}, {}
+        table_hits = {}
+        sign_s, wall_a = 0.0, 0.0
+
+        async def submit(h):
+            txs = list(bursts[h]) + (list(val_txs) if h == ABCI_ROTATE_AT else [])
+            before = counters()
+            seq = next_seq(rec)
+            out, ms = await check_burst(mempool, txs)
+            for k, v in since(before).items():
+                flush_launches[k] += v
+            lat = [lat for _, lat in out]
+            for tx, (res, _) in zip(txs, out):
+                if tx in bad:
+                    if not (isinstance(res, MempoolError) and str(res) == "invalid tx signature"):
+                        raise AssertionError(f"a corrupted envelope at {h} gave {res!r}")
+                    rejected.append(tx)
+                elif isinstance(res, Exception) or res.code != 0:
+                    raise AssertionError(f"a valid tx at {h} was rejected: {res!r}")
+            flushes = [e["batch"] for e in rec.events(since=seq, kinds=["verify.flush"])]
+            log(f"    burst {h}: {len(txs)} check_tx in {ms:.3f} ms = {len(txs) / ms * 1000:.1f} "
+                f"txs/s, latency p50 {percentile(lat, 50):.3f} ms p99 {percentile(lat, 99):.3f} ms, "
+                f"verify.flush sizes {flushes}, pool {mempool.size()} ({card})")
+
+        await submit(1)
+        with verify_commit_timing(timer):
+            last_commit = None
+            for h in range(1, ABCI_TOP + 1):
+                t_h = time.perf_counter()
+                block = executor.create_proposal_block(h, state, last_commit,
+                                                       state.validators.get_proposer().address)
+                part_set = block.make_part_set(BLOCK_PART_SIZE_BYTES)
+                bid = BlockID(block.hash(), part_set.header())
+                made_ms = _ms(t_h)
+                t0 = time.perf_counter()
+                commit = sign_commit(state.validators, key_of, h, bid, block.time_ns + SEC)
+                sign_s += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                producer.block_store.save_block(block, part_set, commit)
+                save_ms = _ms(t0)
+                wall_a += made_ms / 1000 + save_ms / 1000
+                if h < ABCI_TOP:  # the next burst arrives while this block commits
+                    await submit(h + 1)
+                seq = next_seq(rec)
+                t0 = time.perf_counter()
+                state, _ = await executor.apply_block(state, bid, block)
+                t1 = time.perf_counter()
+                await producer.settle(block)
+                timer.add("index_drain", t1)
+                wall_a += time.perf_counter() - t0
+                blocks[h], parts[h], commits[h] = block, part_set, commit
+                app_hashes[h] = producer.app.app_hash
+                if h in (ABCI_ROTATE_AT, ABCI_ROTATE_AT + 1, ABCI_TOP - 1, ABCI_TOP):
+                    states[h] = state.to_dict()
+                table_hits[h] = [e["hit"] for e in rec.events(since=seq, kinds=["verify.table"])]
+                log(f"    block {h}: {len(block.txs)} txs, create_proposal_block {made_ms:.3f} ms, "
+                    f"save_block {save_ms:.3f} ms, table {table_hits[h]}; {timer.split()} ({card})")
+                last_commit = commit
+        launches_a = since(before_a)
+        n_txs = sum(len(b.txs) for b in blocks.values())
+        log(f"  (a) producer: {ABCI_TOP} blocks, {n_txs} txs in {wall_a * 1000:.3f} ms = "
+            f"{ABCI_TOP / wall_a:.3f} blocks/s (signing {sign_s * 1000:.3f} ms and the bursts "
+            f"apart); over all of (a), with signing and the bursts, "
+            f"{dispatch_share(rec, seq_a, time.perf_counter() - t_a)}; "
+            f"launches {launches_a}, of which the signed-tx flushes {flush_launches}; "
+            f"{len(producer.events['NewBlock'])} NewBlock and {len(producer.events['Tx'])} Tx "
+            f"events; pool {mempool.size()} ({card})")
+        in_blocks = [tx for b in blocks.values() for tx in b.txs]
+        if len(rejected) != len(bad) or set(rejected) & set(in_blocks):
+            raise AssertionError("a corrupted envelope reached a block, or was not rejected")
+        for h, b in blocks.items():
+            want = {tx for tx in bursts[h] if tx not in bad}
+            if h == ABCI_ROTATE_AT:
+                want |= set(val_txs)
+            if set(b.txs) != want or len(b.txs) != len(want):
+                raise AssertionError(f"block {h} does not hold exactly burst {h}'s valid txs")
+        if mempool.size() != 0:
+            raise AssertionError(f"{mempool.size()} txs left in the pool")
+        if len(producer.events["NewBlock"]) != ABCI_TOP or len(producer.events["Tx"]) != n_txs:
+            raise AssertionError("the producer's NewBlock or Tx events differ from its blocks")
+        # states[h] holds the set of height h + 1: A until ABCI_ROTATE_AT + 1, B from + 2
+        # (kept at the heights compared below: the rotation, the syncer's top, the tip)
+        set_of = {h: {v["address"] for v in states[h]["validators"]["validators"]} for h in states}
+        old, new = keys[0].pub_key().address(), new_keys[0].pub_key().address()
+        if not (old in set_of[ABCI_ROTATE_AT] and new not in set_of[ABCI_ROTATE_AT]
+                and old not in set_of[ABCI_ROTATE_AT + 1] and new in set_of[ABCI_ROTATE_AT + 1]):
+            raise AssertionError(f"set B does not serve from height {ABCI_ROTATE_AT + 2}")
+        misses = [h for h, hits in table_hits.items() if False in hits]
+        if misses != [2, ABCI_ROTATE_AT + 3]:
+            raise AssertionError(f"the commit checks missed the table cache at {misses}, not at 2 "
+                                 f"(set A) and {ABCI_ROTATE_AT + 3} (set B)")
+        probe = ABCI_TOP // 2 + 1
+        found = producer.indexer.search(f"tx.height={probe}", limit=1 << 20)
+        if [r["tx"] for r in sorted(found, key=lambda r: r["index"])] != list(blocks[probe].txs):
+            raise AssertionError(f"search(tx.height={probe}) differs from block {probe}'s txs")
+        log(f"  search(\"tx.height={probe}\"): {len(found)} txs, block {probe}'s in order")
+
+        # (b) a syncing node: fast sync's steps by hand (fastsync/reactor.py _try_sync)
+        syncer = await abci_node(os.path.join(tmp.name, "syncer"), gen)
+        state_b = syncer.state
+        mempool_b = Mempool(syncer.conns.mempool(), {"size": ABCI_MEMPOOL})
+        executor_b = BlockExecutor(syncer.state_store, syncer.conns.consensus(), mempool_b,
+                                   EvidencePool(syncer.dbs["evidence"], syncer.state_store,
+                                                state_b), syncer.bus)
+        timer_b = StepTimer()
+        instrument(timer_b, executor_b, syncer)
+        proc, sched = Processor(1), Scheduler(1)
+        sched.set_peer_range("producer", 1, ABCI_TOP)
+        for peer, h in sched.next_requests(0.0):
+            sched.mark_requested(peer, h, 0.0)
+        for h in range(1, ABCI_TOP + 1):
+            block = producer.block_store.load_block(h)
+            if block is None or block.hash() != blocks[h].hash() or not sched.block_received(
+                    "producer", h):
+                raise AssertionError(f"block {h} did not load back from the producer's store")
+            proc.add_block(h, block, "producer")
+        before_b, seq_b = counters(), next_seq(rec)
+        t_b = time.perf_counter()
+        with verify_commit_timing(timer_b):
+            while (pair := proc.peek_two()) is not None:
+                first, second = pair
+                t0 = time.perf_counter()
+                first_parts = first.make_part_set(BLOCK_PART_SIZE_BYTES)
+                first_id = BlockID(first.hash(), first_parts.header())
+                state_b.validators.verify_commit(CHAIN_ID, first_id, first.height,
+                                                 second.last_commit)
+                pair_ms = _ms(t0)
+                timer_b.reset()  # the split below is apply_block's alone
+                t0 = time.perf_counter()
+                syncer.block_store.save_block(first, first_parts, second.last_commit)
+                save_ms = _ms(t0)
+                state_b, _ = await executor_b.apply_block(state_b, first_id, first)
+                t1 = time.perf_counter()
+                await syncer.settle(first)
+                timer_b.add("index_drain", t1)
+                proc.pop_processed()
+                sched.block_processed(first.height)
+                log(f"    synced {first.height}: pair check {pair_ms:.3f} ms, save_block "
+                    f"{save_ms:.3f} ms; {timer_b.split()} ({card})")
+        wall_b = time.perf_counter() - t_b
+        launches_b = since(before_b)
+        top_b = ABCI_TOP - 1
+        log(f"  (b) syncer: {top_b} blocks in {wall_b * 1000:.3f} ms = {top_b / wall_b:.3f} "
+            f"blocks/s (pair check, save, apply); {dispatch_share(rec, seq_b, wall_b)}; "
+            f"launches {launches_b}; "
+            f"{len(syncer.events['NewBlock'])} NewBlock and {len(syncer.events['Tx'])} Tx events; "
+            f"{card_memory(dev, cache)} ({card})")
+        if state_b.last_block_height != top_b or not sched.only_tip_outstanding():
+            raise AssertionError("the syncer did not stop with only the tip pending")
+        if state_b.to_dict() != states[top_b] or syncer.app.app_hash != app_hashes[top_b]:
+            raise AssertionError(f"the syncer's state or app hash at {top_b} differs")
+        n_txs_b = sum(len(blocks[h].txs) for h in range(1, top_b + 1))
+        if len(syncer.events["NewBlock"]) != top_b or len(syncer.events["Tx"]) != n_txs_b:
+            raise AssertionError("the syncer's NewBlock or Tx events differ from its blocks")
+        for h in range(1, top_b + 1):
+            q = f"tx.height={h}"
+            if syncer.indexer.search(q, limit=1 << 20) != producer.indexer.search(q, limit=1 << 20):
+                raise AssertionError(f"the tx indexes answer {q} differently")
+        await syncer.close()
+        syncer = None
+
+        # (c) restarts of the syncer's node, its stores reopened
+        home_b = os.path.join(tmp.name, "syncer")
+
+        async def restart(name, what, want_blocks, want_h, app_db=None):
+            before = counters()
+            node = await abci_node(home_b, gen, app_db)
+            try:
+                launches = since(before)
+                got = (node.handshaker.n_blocks, node.state.to_dict(), node.app.app_hash)
+                log(f"  ({name}) handshake, {what}: {got[0]} blocks replayed in "
+                    f"{node.handshake_ms:.3f} ms, app at {node.app.height}; launches {launches} "
+                    f"({card})")
+            finally:
+                await node.close()
+            if got != (want_blocks, states[want_h], app_hashes[want_h]):
+                raise AssertionError(f"({name}): replayed {got[0]} blocks, or the state or app "
+                                     f"hash differs from the producer's at {want_h}")
+            return launches
+
+        await restart("c1", f"the syncer's own app at {top_b}", 0, top_b)
+        await restart("c2", "a fresh app (InitChain, then every block without signature checks)",
+                      top_b, top_b, MemDB())
+        db = open_db("blockstore", home_b)
+        try:  # the tip saved with its seen commit, not applied
+            BlockStore(db).save_block(blocks[ABCI_TOP], parts[ABCI_TOP], commits[ABCI_TOP])
+        finally:
+            db.close()
+        launches_c3 = await restart("c3", f"block {ABCI_TOP} stored but not applied "
+                                    "(apply_block, validate_block)", 1, ABCI_TOP)
+        await producer.close()
+        producer = None
+    finally:
+        for node in (producer, syncer):
+            if node is not None:
+                await node.close()
+        await lane.stop()
+        batch_hook.set_verifier(None)
+        batch_hook.set_indexed_verifier(None)
+        tmp.cleanup()
+    return {"a": launches_a, "flushes": flush_launches, "b": launches_b, "c3": launches_c3}
+
+
 def kernel_device_ms(fn, names) -> dict:
     """Device ms of each named kernel in one run of fn, from torch.profiler;
     a name is missing where the profiler records no device time for it."""
@@ -1812,6 +2337,30 @@ def main() -> int:
         raise AssertionError("kernel 2 (window tables) was not launched once per set in phase 7")
     if launches_a[picked] == 0:
         raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in phase 7 (a)")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+    log("[8] blocks applied to the kvstore app at 10k validators: mempool, BlockExecutor, "
+        "fast sync, handshake")
+    ed25519_cuda.LAUNCHES = 0
+    ed25519_table.BUILD_LAUNCHES = 0
+    ed25519_table.SUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    launches = phase_abci(keys, card, dev)
+    counts = {
+        "ed25519_ladder": ed25519_cuda.LAUNCHES,
+        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
+    }
+    log(f"  launches in phase 8: {counts}; phase 8 took {time.perf_counter() - t0:.3f} s")
+    if launches["flushes"]["ed25519_ladder"] == 0:
+        raise AssertionError("the ladder was not launched by the mempool's signed-tx flushes")
+    if launches["a"]["ed25519_window_tables"] != 2:
+        raise AssertionError("kernel 2 (window tables) was not launched once per set in phase 8 (a)")
+    for part in ("a", "b", "c3"):
+        if launches[part][picked] == 0:
+            raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in phase 8 "
+                                 f"({part})")
     for name, c in counts.items():
         report[name]["launches"] += c
 

@@ -1,5 +1,6 @@
-"""The verify engine's Prometheus metrics (the `verify` subsystem of
-tendermint_tpu/libs/metrics.py, same metric names).
+"""Prometheus metrics of the ported subsystems (the `verify`, `mempool`,
+`state` and `evidence` subsystems of tendermint_tpu/libs/metrics.py, same
+metric names).
 
 Without a registry every metric is a no-op.  `prometheus_client` is
 imported only when a registry is passed, so the engine runs where that
@@ -118,3 +119,100 @@ class VerifyMetrics:
             "bls_tier",
             "Active BLS pairing tier: 1=C extension, 2=pure python reference.",
         )
+
+
+class MempoolMetrics:
+    """mempool/metrics.go + the priority-QoS series (no reference
+    counterpart: the reference mempool has no priority lane to observe).
+    `priority_evicted` counts txs displaced by better-paying arrivals when
+    the pool is full; `priority_floor` is the priority of the most recent
+    eviction victim — the going rate a tx must beat to enter a full pool."""
+
+    def __init__(self, registry=None, chain_id: str = ""):
+        if registry is None:
+            self.size = _NOP
+            self.tx_size_bytes = _NOP
+            self.failed_txs = _NOP
+            self.recheck_times = _NOP
+            self.priority_evicted = _NOP
+            self.priority_floor = _NOP
+            return
+        from prometheus_client import Counter, Gauge, Histogram
+
+        sub = "mempool"
+        kw = dict(namespace=NAMESPACE, subsystem=sub, registry=registry,
+                  labelnames=("chain_id",))
+        self.size = Gauge("size", "Size of the mempool (number of uncommitted transactions).", **kw).labels(chain_id=chain_id)
+        self.tx_size_bytes = Histogram(
+            "tx_size_bytes", "Transaction sizes in bytes.",
+            namespace=NAMESPACE, subsystem=sub, registry=registry,
+            labelnames=("chain_id",), buckets=[2**i for i in range(4, 21)],
+        ).labels(chain_id=chain_id)
+        # Gauges (not Counters) to keep the reference's exact series names —
+        # prometheus_client appends `_total` to Counter names
+        self.failed_txs = Gauge("failed_txs", "Number of failed transactions.", **kw).labels(chain_id=chain_id)
+        self.recheck_times = Gauge("recheck_times", "Number of times transactions are rechecked in the mempool.", **kw).labels(chain_id=chain_id)
+        # tendermint_mempool_priority_evicted_total / _priority_floor
+        self.priority_evicted = Counter(
+            "priority_evicted",
+            "Txs evicted from a full mempool to admit a higher-priority tx.",
+            **kw,
+        ).labels(chain_id=chain_id)
+        self.priority_floor = Gauge(
+            "priority_floor",
+            "Priority of the most recent eviction victim (the bar a tx "
+            "must clear to enter a full pool).",
+            **kw,
+        ).labels(chain_id=chain_id)
+
+
+class StateMetrics:
+    """state/metrics.go."""
+
+    def __init__(self, registry=None, chain_id: str = ""):
+        if registry is None:
+            self.block_processing_time = _NOP
+            self.valset_updates = _NOP
+            self.valset_size = _NOP
+            return
+        from prometheus_client import Counter, Gauge, Histogram
+
+        self.block_processing_time = Histogram(
+            "block_processing_time", "Time between BeginBlock and EndBlock in ms.",
+            namespace=NAMESPACE, subsystem="state", registry=registry,
+            labelnames=("chain_id",), buckets=[1 * i for i in range(1, 11)] + [20, 50, 100, 500],
+        ).labels(chain_id=chain_id)
+        kw = dict(namespace=NAMESPACE, subsystem="state", registry=registry,
+                  labelnames=("chain_id",))
+        self.valset_updates = Counter(
+            "valset_updates",
+            "ABCI validator-set update events applied (end_block → update_state).",
+            **kw,
+        ).labels(chain_id=chain_id)
+        self.valset_size = Gauge(
+            "valset_size", "Validators in the upcoming (next) validator set.", **kw
+        ).labels(chain_id=chain_id)
+
+
+class EvidenceMetrics:
+    """Evidence pool observability (subsystem `evidence`; the reference
+    has none — its pool is invisible).  `pending` tracks the number of
+    uncommitted evidence items in the pool; `committed` counts evidence
+    that made it into a block (the accountability pipeline's terminal
+    proof) — exposed as `tendermint_evidence_committed_total`."""
+
+    def __init__(self, registry=None, chain_id: str = ""):
+        if registry is None:
+            self.pending = _NOP
+            self.committed = _NOP
+            return
+        from prometheus_client import Counter, Gauge
+
+        kw = dict(namespace=NAMESPACE, subsystem="evidence", registry=registry,
+                  labelnames=("chain_id",))
+        self.pending = Gauge(
+            "pending", "Uncommitted evidence items in the pool.", **kw
+        ).labels(chain_id=chain_id)
+        self.committed = Counter(
+            "committed", "Evidence items committed into blocks.", **kw
+        ).labels(chain_id=chain_id)
