@@ -125,6 +125,51 @@
    flushes), kernel 2 (twice, in (a)) or the auto-profile's pick in (a),
    (b) and (c3) was not launched.
 
+9. The consensus core at full width: one validator node of phase 8's
+   genesis (phase 3's 10,000 keys at power 10) on phase 8's abci_node
+   (sqlite stores, the kvstore app, EventBus, IndexerService) with a
+   Mempool, an EvidencePool, a BlockExecutor and a ConsensusState at the
+   JAX defaults (TimeoutTicker, timeout_commit 1 s, pipelined delivery and
+   speculative assembly on), its WAL at <home>/data/cs.wal/wal and a
+   FilePV holding the key of the validator that the genesis set's rotation
+   makes round-0 proposer of height 3; a fresh installed TableCache serves
+   validate_block.  One AsyncBatchVerifier on its own BatchVerifier
+   (min_device_batch=16) is both the mempool's signed-tx lane and the
+   vote-frame verifier.  Heights 1-6: a burst of 1,000 signed envelopes
+   (1 in 100 corrupted) goes through check_tx before each height's
+   proposal; the round's proposer (a peer) builds its block with the node's
+   BlockExecutor from the node's LastCommit and hands over the signed
+   Proposal and its 64 KB parts; after the node's own prevote, then its own
+   precommit, the other 9,999 validators' votes (signed on SIGN_THREADS,
+   stamped by _vote_time's rule) arrive as vote_batch frames of at most
+   65,536 bytes of Vote.wire(), from 4 senders, each frame through
+   verify_direct and then add_vote_input(verified=True); one precommit
+   frame per round carries a flipped signature, must get exactly one
+   False, and is re-sent clean by another sender.  Height 3 is proposed by
+   the node (default_decide_proposal, signed by the FilePV).  At height 4
+   the round-0 proposer withholds its proposal: the node prevotes nil on
+   timeout_propose, the peers vote nil, and round 1 commits.  In height 6,
+   after the proposal, the prevotes and the node's own precommit are in the
+   WAL, the ConsensusState stops (on_stop drains height 5's delivery) and
+   the stores close; reopened, the Handshaker replays 0 blocks, the FilePV
+   loads from its files and a new ConsensusState runs
+   reconstruct_last_commit_if_needed and catchup_replay; the peers'
+   precommits then commit height 6, and the run stops at height 7's
+   NEW_HEIGHT.  Prints per height the burst, the proposal, proposal
+   complete -> own prevote, each vote kind's ingest (frames' verify_direct
+   host prep and device ms p50/p99, the receive routine's Python per vote),
+   vote-to-commit, validate_block with verify_commit, save_block, the
+   pipelined apply_block and commit-to-commit; the restart's handshake,
+   reconstruction and catchup ms; heights/s with signing and the timeouts
+   apart, the dispatches' share, card memory and launches.  Fails unless
+   heights 1-6 commit (4 in round 1, the others in round 0) with exactly
+   their bursts' valid txs, block 3 is ours, every LastCommit from height
+   2 on holds all 10,000 signatures, block 6 is the proposal gossiped
+   before the stop, the FilePV's re-signed votes equal what it signed
+   before, no ERROR is logged by consensus, and kernel 2 launched once, the
+   auto-profile's pick once per validate_block on heights >= 2 and the
+   ladder at least once per accepted frame.
+
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
 spill bytes from the ptxas log, and bound_ms / ms) and the card line; the last line is {"ok": true, "device": {...}}.  Exits non-zero,
@@ -1662,7 +1707,8 @@ def phase_replay(keys, card, dev):
 class StepTimer:
     """Host ms of named steps: `wrap` replaces an object's method (sync or
     async) by one that adds each call's wall time to ms[name] and counts it
-    in n[name]."""
+    in n[name], or under (name, height) with `height_of`, which reads the
+    height from the call's arguments."""
 
     def __init__(self):
         self.ms = collections.defaultdict(float)
@@ -1672,11 +1718,16 @@ class StepTimer:
         self.ms[name] += _ms(t0)
         self.n[name] += 1
 
-    def wrap(self, obj, attr, name=None):
+    def wrap(self, obj, attr, name=None, height_of=None):
+        """Returns the method it replaced."""
         import asyncio
         import functools
 
         fn, name = getattr(obj, attr), name or attr
+
+        def key(a, k):
+            return name if height_of is None else (name, height_of(*a, **k))
+
         if asyncio.iscoroutinefunction(fn):
             @functools.wraps(fn)
             async def timed(*a, **k):
@@ -1684,7 +1735,7 @@ class StepTimer:
                 try:
                     return await fn(*a, **k)
                 finally:
-                    self.add(name, t0)
+                    self.add(key(a, k), t0)
         else:
             @functools.wraps(fn)
             def timed(*a, **k):
@@ -1692,8 +1743,9 @@ class StepTimer:
                 try:
                     return fn(*a, **k)
                 finally:
-                    self.add(name, t0)
+                    self.add(key(a, k), t0)
         setattr(obj, attr, timed)
+        return fn
 
     def reset(self) -> None:
         self.ms.clear()
@@ -1736,13 +1788,13 @@ def verify_commit_timing(timer):
         ValidatorSet.verify_commit = orig
 
 
-def abci_traffic(keys, new_keys):
+def abci_traffic(keys, new_keys, top=None):
     """Phase 8's transactions, made in bulk before the run: per height
-    1 .. ABCI_TOP, ABCI_TXS signed-tx envelopes (payload "k<h>-<i>=" and 32
-    seeded random bytes in hex, signed by the validator keys in turn),
-    every ABCI_CORRUPT-th with a flipped signature byte; and the rotation's
-    val: txs, removing the len(new_keys) oldest keys and adding new_keys at
-    power 10."""
+    1 .. top (ABCI_TOP), ABCI_TXS signed-tx envelopes (payload "k<h>-<i>="
+    and 32 seeded random bytes in hex, signed by the validator keys in
+    turn), every ABCI_CORRUPT-th with a flipped signature byte; and the
+    rotation's val: txs, removing the len(new_keys) oldest keys and adding
+    new_keys at power 10."""
     import base64
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1753,7 +1805,7 @@ def abci_traffic(keys, new_keys):
     rng = np.random.default_rng(8)
     jobs = [(h, i, keys[((h - 1) * ABCI_TXS + i) % len(keys)],
              b"k%d-%d=" % (h, i) + rng.bytes(32).hex().encode())
-            for h in range(1, ABCI_TOP + 1) for i in range(ABCI_TXS)]
+            for h in range(1, (top or ABCI_TOP) + 1) for i in range(ABCI_TXS)]
     with ThreadPoolExecutor(SIGN_THREADS) as ex:
         envelopes = list(ex.map(lambda j: make_signed_tx(j[2], j[3]), jobs, chunksize=256))
     bursts, bad = collections.defaultdict(list), set()
@@ -2152,6 +2204,646 @@ async def abci_run(keys, card, dev):
     return {"a": launches_a, "flushes": flush_launches, "b": launches_b, "c3": launches_c3}
 
 
+CS_HEIGHTS = 6  # heights 1 .. 6 commit; the run stops at height 7's NEW_HEIGHT
+CS_OURS_AT = 3  # our validator is this height's round-0 proposer
+CS_WITHHELD_AT = 4  # the round-0 proposer withholds its proposal; round 1 commits
+CS_CRASH_AT = 6  # the node stops after its own precommit and recovers from its WAL
+CS_FRAME_BYTES = 65536  # a vote_batch frame's cap of Vote.wire() bytes
+CS_SENDERS = 4  # peers relaying vote frames, each under a fixed peer id
+CS_DIRECT_MIN = 16  # frames this large go through verify_direct (the reactor's rule)
+
+
+class CsWatch:
+    """Hooks on one node's ConsensusState, FilePV and EventBus: the time of
+    every step, of each vote our FilePV signs (with the signed vote) and of
+    each completed proposal block, and an event the phase waits on."""
+
+    def __init__(self, node):
+        import asyncio
+
+        self.node = node
+        self.steps = []  # (t, height, round, step)
+        self.signed = {}  # (height, round, type) -> (t, the signed vote's dict)
+        self.complete = {}  # (height, round) -> t
+        self.ev = asyncio.Event()
+        node.cs.on_new_round_step.append(self._step)
+        node.cs.on_vote.append(lambda vote: self.ev.set())
+        sign = node.pv.sign_vote
+
+        def sign_vote(chain_id, vote):
+            sign(chain_id, vote)
+            self.signed.setdefault((vote.height, vote.round, vote.type),
+                                   (time.perf_counter(), vote.to_dict()))
+            self.ev.set()
+
+        node.pv.sign_vote = sign_vote
+        publish = node.bus.publish_complete_proposal
+
+        async def complete(rs):
+            self.complete.setdefault((rs["height"], rs["round"]), time.perf_counter())
+            await publish(rs)
+
+        node.bus.publish_complete_proposal = complete
+
+    def _step(self, rs):
+        self.steps.append((time.perf_counter(), rs.height, rs.round, rs.step))
+        self.ev.set()
+
+    def at(self, h, r, step):
+        rs = self.node.cs.rs
+        return (rs.height, rs.round, rs.step) >= (h, r, step)
+
+    def t(self, h, r, step):
+        return next(t for t, *hrs in self.steps if tuple(hrs) == (h, r, step))
+
+    async def until(self, cond, what, timeout=300.0):
+        """Wait, woken by the hooks, until cond() holds; fail when consensus
+        stopped or after `timeout` s."""
+        import asyncio
+
+        deadline = time.perf_counter() + timeout
+        while not cond():
+            cs = self.node.cs
+            if cs._done.is_set():
+                raise AssertionError(f"consensus stopped while waiting for {what}")
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"timed out waiting for {what} at {cs.rs.height}/"
+                                     f"{cs.rs.round}/{cs.rs.step}")
+            self.ev.clear()
+            try:
+                await asyncio.wait_for(self.ev.wait(), 0.05)
+            except asyncio.TimeoutError:
+                pass
+
+
+@contextlib.contextmanager
+def consensus_errors():
+    """ERROR records of the consensus loggers while the block runs."""
+    import logging
+
+    class Keep(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.ERROR)
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record.getMessage())
+
+    keep = Keep()
+    loggers = [logging.getLogger(n) for n in ("consensus", "consensus-replay")]
+    for lg in loggers:
+        lg.addHandler(keep)
+    try:
+        yield keep.records
+    finally:
+        for lg in loggers:
+            lg.removeHandler(keep)
+
+
+async def cs_node(home, gen, lane, timer):
+    """Phase 9's validator node in `home`: phase 8's abci_node (sqlite
+    stores, the kvstore app, EventBus, IndexerService, the handshake), a
+    Mempool whose signed-tx lane is `lane`, an EvidencePool, a BlockExecutor
+    (validate_block, apply_block and save_block timed by height), the FilePV
+    from <home>/config and <home>/data, and a ConsensusState at the JAX
+    defaults with its TimeoutTicker and the WAL at <home>/data/cs.wal/wal.
+    Its _try_add_vote and WAL writes are timed per call, and `late[h]`
+    counts height h's precommits that arrive after height h + 1's round
+    began, which _add_vote refuses as "not a LastCommit straggler"."""
+    from tendermint_tpu_torch.config import ConsensusConfig
+    from tendermint_tpu_torch.consensus import WAL, ConsensusState
+    from tendermint_tpu_torch.consensus.types import RoundStep
+    from tendermint_tpu_torch.evidence import EvidencePool
+    from tendermint_tpu_torch.mempool import Mempool
+    from tendermint_tpu_torch.privval import FilePV
+    from tendermint_tpu_torch.state.execution import BlockExecutor, tx_pre_check
+
+    node = await abci_node(home, gen)
+    state = node.state
+    node.mempool = Mempool(node.conns.mempool(), {"sig_precheck": True, "size": ABCI_MEMPOOL},
+                           height=state.last_block_height)
+    node.mempool.pre_check = tx_pre_check(state)
+    node.mempool.sig_verifier = lane
+    node.evpool = EvidencePool(node.dbs["evidence"], node.state_store, state)
+    node.executor = BlockExecutor(node.state_store, node.conns.consensus(), node.mempool,
+                                  node.evpool, node.bus)
+    timer.wrap(node.executor, "validate_block", height_of=lambda s, b: b.height)
+    timer.wrap(node.executor, "apply_block", height_of=lambda s, bid, b: b.height)
+    timer.wrap(node.block_store, "save_block", height_of=lambda b, parts, c: b.height)
+    t0 = time.perf_counter()
+    node.cs = ConsensusState(ConsensusConfig(), state, node.executor, node.block_store,
+                             node.mempool, node.evpool, node.bus)
+    node.init_ms = _ms(t0)  # with reconstruct_last_commit_if_needed
+    node.pv = FilePV.load(os.path.join(home, "config", "priv_validator_key.json"),
+                          os.path.join(home, "data", "priv_validator_state.json"))
+    node.cs.set_priv_validator(node.pv)
+    node.cs.wal = WAL(os.path.join(home, "data", "cs.wal", "wal"))
+    node.add_ms, node.wal_ms = [], [0.0]
+    node.late = collections.Counter()
+    add, rs, write = node.cs._try_add_vote, node.cs.rs, node.cs.wal.write
+
+    async def try_add_vote(vote, *a, **k):
+        if vote.height + 1 == rs.height and rs.step != RoundStep.NEW_HEIGHT:
+            node.late[vote.height] += 1
+        t0 = time.perf_counter()
+        try:
+            return await add(vote, *a, **k)
+        finally:
+            node.add_ms.append(_ms(t0))
+
+    def wal_write(payload):
+        t0 = time.perf_counter()
+        try:
+            return write(payload)
+        finally:
+            node.wal_ms.append(_ms(t0))
+
+    node.cs._try_add_vote, node.cs.wal.write = try_add_vote, wal_write
+    node.watch = CsWatch(node)
+    return node
+
+
+def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns):
+    """The other validators' votes of `kind` for (h, r) on bid (the zero id
+    for nil), stamped as _vote_time stamps them, signed on SIGN_THREADS
+    threads, with their wire bytes; and their sign bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tendermint_tpu_torch.types.vote import Vote
+
+    now = time.time_ns()
+    ts = max(now, block.time_ns + iota_ns) if block is not None else now
+    votes = [Vote(kind, h, r, bid, ts, v.address, i) for i, v in enumerate(vals.validators)
+             if v.address != ours_addr]
+    msgs = [v.sign_bytes(CHAIN_ID) for v in votes]
+    with ThreadPoolExecutor(SIGN_THREADS) as ex:
+        sigs = list(ex.map(lambda j: key_of[j[0].validator_address].sign(j[1]),
+                           zip(votes, msgs), chunksize=512))
+    for v, s in zip(votes, sigs):
+        v.signature = s
+        v.wire()
+    return votes, msgs
+
+
+def cs_frames(vals, votes, msgs):
+    """vote_batch frames as the consensus reactor cuts them: at most
+    CS_FRAME_BYTES of Vote.wire() each; per frame its votes and the
+    (pubkey, sign bytes, signature) items the engine verifies."""
+    frames, cur, total = [], [], 0
+    for v, m in zip(votes, msgs):
+        w = len(v.wire())
+        if cur and total + w > CS_FRAME_BYTES:
+            frames.append(cur)
+            cur, total = [], 0
+        cur.append((v, m))
+        total += w
+    if cur:
+        frames.append(cur)
+    return [([v for v, _ in f],
+             [(vals.validators[v.validator_index].pub_key.bytes(), m, v.signature) for v, m in f])
+            for f in frames]
+
+
+async def cs_verify(lane, items):
+    """A frame's verdicts: verify_direct from CS_DIRECT_MIN votes on, else
+    verify_many (consensus/reactor.py's rule)."""
+    import asyncio
+
+    if len(items) >= CS_DIRECT_MIN:
+        return await lane.verify_direct(items)
+    return list(await asyncio.gather(*lane.verify_many(items)))
+
+
+async def cs_send(node, frames, bad=None):
+    """The frames from CS_SENDERS peers at once, each verified before its
+    votes go to add_vote_input(verified=True).  `bad` (a frame with one
+    flipped signature) goes first from sender-0 and must get exactly one
+    False; nothing of it enters, and its clean copy (frames[0]) is re-sent
+    by sender-1.  Returns the frames' count and the first send's time."""
+    import asyncio
+
+    lane = node.mempool.sig_verifier
+    t0 = time.perf_counter()
+    if bad is not None:
+        verdicts = await cs_verify(lane, bad)
+        if verdicts.count(False) != 1:
+            raise AssertionError(f"the frame with one flipped signature got {verdicts.count(False)} "
+                                 "False verdicts, not 1")
+    per = [frames[(k - 1) % CS_SENDERS::CS_SENDERS] for k in range(CS_SENDERS)]
+
+    async def sender(k):
+        for votes, items in per[k]:
+            if not all(await cs_verify(lane, items)):
+                raise AssertionError(f"a clean frame from sender-{k} was rejected")
+            for v in votes:
+                await node.cs.add_vote_input(v, f"sender-{k}", verified=True)
+
+    await asyncio.gather(*(sender(k) for k in range(CS_SENDERS)))
+    return t0
+
+
+def cs_flip(frame, j=7):
+    """A copy of a frame's items with one signature's first byte flipped."""
+    items = list(frame[1])
+    pk, m, s = items[j % len(items)]
+    items[j % len(items)] = (pk, m, bytes([s[0] ^ 1]) + s[1:])
+    return items
+
+
+def cs_ingest_line(node, rec, seq, t_sent, t_done, n_votes, add0, wal0, card):
+    """One vote kind's ingest: frames' verify split (p50/p99), the receive
+    routine's Python per vote, wall ms."""
+    d = [e for e in rec.events(since=seq, kinds=["verify.dispatch"])
+         if e["path"] in ("device", "host", "host-cold")]
+    slow = [e for e in d if e["path"] != "device" and e["n"] >= CS_DIRECT_MIN]
+    if slow:
+        raise AssertionError(f"vote frames of {slow[0]['n']} votes went to the {slow[0]['path']} "
+                             "path")
+    prep = [e["host_prep_ms"] for e in d]
+    dev = [e["device_ms"] for e in d]
+    add = node.add_ms[add0:]
+    wal = sum(node.wal_ms[wal0:])
+    return (f"{n_votes} votes in {len(d)} frames, {(t_done - t_sent) * 1000:.3f} ms; per frame "
+            f"host_prep p50 {percentile(prep, 50):.3f} p99 {percentile(prep, 99):.3f} ms, device "
+            f"p50 {percentile(dev, 50):.3f} p99 {percentile(dev, 99):.3f} ms; receive routine "
+            f"_try_add_vote p50 {percentile(add, 50) * 1000:.1f} us, mean "
+            f"{sum(add) / max(1, len(add)) * 1000:.1f} us + WAL write "
+            f"{wal / max(1, n_votes) * 1000:.1f} us per vote ({card})")
+
+
+def phase_consensus(keys, card, dev):
+    """The consensus core at full width (see the module docstring, 9).
+    Returns the phase's launches by counter, the validate_block calls on
+    heights >= 2, the indexed dispatches and the accepted vote frames."""
+    import asyncio
+
+    return asyncio.run(cs_run(keys, card, dev))
+
+
+async def cs_run(keys, card, dev):
+    import tempfile
+
+    from tendermint_tpu_torch.consensus.types import RoundStep
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+    from tendermint_tpu_torch.libs.tracing import FlightRecorder
+    from tendermint_tpu_torch.mempool import MempoolError
+    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
+    from tendermint_tpu_torch.privval import FilePV, FilePVKey, FilePVLastSignState
+    from tendermint_tpu_torch.state import make_genesis_state
+    from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_COMMIT, BlockID, Commit
+    from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
+    from tendermint_tpu_torch.types.proposal import Proposal
+    from tendermint_tpu_torch.types.validator import ValidatorSet
+
+    def counters():
+        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
+                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
+
+    n = len(keys)
+    t0 = time.perf_counter()
+    bursts, bad_txs, _ = abci_traffic(keys, [], top=CS_HEIGHTS)
+    key_of = {k.pub_key().address(): k for k in keys}
+    gen = GenesisDoc(CHAIN_ID, genesis_time_ns=LITE_T0, validators=[
+        GenesisValidator(k.pub_key().address(), k.pub_key(), 10) for k in keys])
+    vals = make_genesis_state(gen).validators.copy()
+    vals.increment_proposer_priority(CS_OURS_AT - 1)
+    ours = key_of[vals.get_proposer().address]
+    ours_addr = ours.pub_key().address()
+    log(f"  traffic: {CS_HEIGHTS} bursts of {ABCI_TXS} signed envelopes ({len(bad_txs)} corrupted) "
+        f"made in {_ms(t0):.3f} ms; our validator {ours_addr.hex()[:12]} (round-0 proposer of "
+        f"{CS_OURS_AT}) of {n}")
+
+    rec = FlightRecorder(size=1 << 16)
+    commit_bv = bvm.BatchVerifier(device=dev, recorder=rec).install()
+    cache = bvm.TableCache(commit_bv, tabulated=None).install()
+    # the node's engine: one lane for the signed-tx flushes and the vote frames
+    # (as node.py shares its AsyncBatchVerifier), on its own verifier so that
+    # its warmup mode leaves the commit checks' table builds synchronous
+    lane = bvm.AsyncBatchVerifier(bvm.BatchVerifier(device=dev, min_device_batch=16,
+                                                    recorder=rec))
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-cs-")
+    home = tmp.name
+    for d in ("config", "data"):
+        os.makedirs(os.path.join(home, d))
+    FilePV(FilePVKey(ours_addr, ours.pub_key(), ours,
+                     os.path.join(home, "config", "priv_validator_key.json")),
+           FilePVLastSignState(file_path=os.path.join(home, "data",
+                                                      "priv_validator_state.json"))).save()
+    timer = StepTimer()
+    verify_commit = timer.wrap(ValidatorSet, "verify_commit",
+                               height_of=lambda vs, chain_id, bid, height, *a, **k: height + 1)
+    node, old = None, None
+    before, seq0 = counters(), next_seq(rec)
+    sign_s, frames_ok, proposals = 0.0, 0, {}
+    try:
+        await lane.start()
+        with consensus_errors() as errors:
+            node = await cs_node(home, gen, lane, timer)
+            per_h = {h: {"lines": []} for h in range(1, CS_HEIGHTS + 1)}
+
+            async def burst(hb):
+                """Height hb's envelopes through check_tx, before its proposal
+                is made (height 1's before the node starts, the others while
+                the node waits for the precommits of hb - 1)."""
+                out, ms = await check_burst(node.mempool, bursts[hb])
+                for tx, (res, _) in zip(bursts[hb], out):
+                    if tx in bad_txs:
+                        if not (isinstance(res, MempoolError) and str(res) == "invalid tx signature"):
+                            raise AssertionError(f"a corrupted envelope for {hb} gave {res!r}")
+                    elif isinstance(res, Exception) or res.code != 0:
+                        raise AssertionError(f"a valid tx for {hb} was rejected: {res!r}")
+                lat = [lat for _, lat in out]
+                per_h[hb]["lines"].append(
+                    f"burst of {len(out)} check_tx {ms:.3f} ms, p50 {percentile(lat, 50):.3f} p99 "
+                    f"{percentile(lat, 99):.3f} ms")
+
+            await burst(1)
+            await node.cs.start()
+            w = node.watch
+            iota_ns = node.state.consensus_params.block.time_iota_ms * 1_000_000
+            for h in range(1, CS_HEIGHTS + 1):
+                st = per_h[h]
+                await w.until(lambda: w.at(h, 0, RoundStep.NEW_HEIGHT), f"height {h}")
+                r, built = 0, None
+                proposer = node.cs.rs.validators.get_proposer().address
+                if proposer != ours_addr and h != CS_WITHHELD_AT:
+                    built = await cs_build(node, key_of[proposer], h, 0, BlockID, Commit, Proposal,
+                                           BLOCK_PART_SIZE_BYTES)
+                while True:
+                    await w.until(lambda: w.at(h, r, RoundStep.PROPOSE), f"propose {h}/{r}")
+                    proposer = node.cs.rs.validators.get_proposer().address
+                    who = ("ours" if proposer == ours_addr else
+                           "withheld" if (h, r) == (CS_WITHHELD_AT, 0) else "peer")
+                    if who == "peer":
+                        if built is None:
+                            built = await cs_build(node, key_of[proposer], h, r, BlockID, Commit,
+                                                   Proposal, BLOCK_PART_SIZE_BYTES)
+                        prop, parts, build_ms = built
+                        proposals[h] = prop
+                        await node.cs.set_proposal_and_block(prop, parts, "sender-0")
+                        st["lines"].append(f"round {r}: proposal of {parts.total} parts by a peer "
+                                           f"(built in {build_ms:.3f} ms)")
+                    built = None
+                    await w.until(lambda: (h, r, PREVOTE_TYPE) in w.signed, f"our prevote {h}/{r}")
+                    rs = node.cs.rs
+                    block = rs.proposal_block
+                    if who == "ours":
+                        proposals[h] = rs.proposal
+                    bid = (BlockID(block.hash(), rs.proposal_block_parts.header())
+                           if block is not None else BlockID())
+                    t_own = w.signed[(h, r, PREVOTE_TYPE)][0]
+                    if block is not None:
+                        st["lines"].append(
+                            f"round {r} ({who}): {len(block.txs)} txs; proposal complete -> own "
+                            f"prevote {(t_own - w.complete[(h, r)]) * 1000:.3f} ms")
+                    else:
+                        st["lines"].append(f"round {r} ({who}): no proposal; timeout_propose -> "
+                                           f"own nil prevote")
+                    t_s = time.perf_counter()
+                    pv_votes = cs_votes(rs.validators, key_of, ours_addr, PREVOTE_TYPE, h, r, block,
+                                        bid, iota_ns)
+                    pc_votes = cs_votes(rs.validators, key_of, ours_addr, PRECOMMIT_TYPE, h, r,
+                                        block, bid, iota_ns)
+                    pv_frames = cs_frames(rs.validators, *pv_votes)
+                    pc_frames = cs_frames(rs.validators, *pc_votes)
+                    sign_s += time.perf_counter() - t_s
+                    # prevotes
+                    seq, add0, wal0 = next_seq(rec), len(node.add_ms), len(node.wal_ms)
+                    t_sent = await cs_send(node, pv_frames)
+                    frames_ok += len(pv_frames)
+                    prevotes = rs.votes.prevotes(r)
+                    await w.until(lambda: prevotes.bit_array().count() == n, f"prevotes {h}/{r}")
+                    line = cs_ingest_line(node, rec, seq, t_sent, time.perf_counter(), n - 1,
+                                             add0, wal0, card)
+                    st["lines"].append(f"round {r} prevotes: {line}")
+                    await w.until(lambda: (h, r, PRECOMMIT_TYPE) in w.signed
+                                  and node.cs.rs.votes.precommits(r).get_by_address(ours_addr)
+                                  is not None, f"our precommit {h}/{r}")
+                    if block is not None and h < CS_HEIGHTS:
+                        await burst(h + 1)
+                    if (h, r) == (CS_CRASH_AT, 0):
+                        old = node
+                        node, restart = await cs_restart(old, home, gen, lane, timer, h,
+                                                         ours_addr, card)
+                        w = node.watch
+                        per_h["restart"] = restart
+                        rs = node.cs.rs
+                    # precommits, one frame first with a flipped signature
+                    seq, add0, wal0 = next_seq(rec), len(node.add_ms), len(node.wal_ms)
+                    t_sent = await cs_send(node, pc_frames, bad=cs_flip(pc_frames[0]))
+                    frames_ok += len(pc_frames)
+                    if block is None:
+                        precommits = rs.votes.precommits(r)
+                        await w.until(lambda: precommits.bit_array().count() == n,
+                                      f"precommits {h}/{r}")
+                        t_done = time.perf_counter()
+                        line = cs_ingest_line(node, rec, seq, t_sent, t_done, n - 1, add0, wal0,
+                                                 card)
+                        st["lines"].append(f"round {r} nil precommits: {line}")
+                        st["nil_done"] = t_done
+                        r += 1
+                        continue
+                    # every precommit lands in the LastCommit or is refused as late
+                    await w.until(lambda: node.cs.rs.height == h + 1 and (
+                        node.cs.rs.last_commit.bit_array().count() + node.late[h] == n),
+                        f"height {h}'s precommits")
+                    t_done = time.perf_counter()
+                    st["last_commit"] = node.cs.rs.last_commit.bit_array().count()
+                    st["late"] = node.late[h]
+                    line = cs_ingest_line(node, rec, seq, t_sent, t_done, n - 1, add0, wal0, card)
+                    st["lines"].append(f"round {r} precommits (one bad frame rejected, re-sent "
+                                       f"clean): {line}; vote-to-commit "
+                                       f"{(w.t(h, r, RoundStep.COMMIT) - t_sent) * 1000:.3f} ms")
+                    st["round"], st["sent"] = r, t_sent
+                    break
+            await w.until(lambda: w.at(CS_HEIGHTS + 1, 0, RoundStep.NEW_HEIGHT), "the last height")
+            await node.cs.stop()  # drains the last height's delivery
+            launches = {k: v - before[k] for k, v in counters().items()}
+            await node.settle(node.block_store.load_block(CS_HEIGHTS))
+            cs_report(old, node, rec, seq0, per_h, timer, sign_s, launches, dev, cache, card)
+            cs_check(node, n, ours_addr, proposals, per_h, bursts, bad_txs, errors,
+                     BLOCK_ID_FLAG_COMMIT)
+        validate_blocks = sum(timer.n.get(("validate_block", h), 0)
+                              for h in range(2, CS_HEIGHTS + 1))
+        indexed = [e for e in rec.events(since=seq0, kinds=["verify.dispatch"])
+                   if e["path"] in ("tabulated", "indexed", "chunked")]
+        await node.close()
+        node = None
+    finally:
+        ValidatorSet.verify_commit = verify_commit
+        for nd in (node,):
+            if nd is not None:
+                if nd.cs.is_running:
+                    await nd.cs.stop()
+                await nd.close()
+        await lane.stop()
+        batch_hook.set_verifier(None)
+        batch_hook.set_indexed_verifier(None)
+        tmp.cleanup()
+    return {"launches": launches, "validate_blocks": validate_blocks,
+            "indexed_dispatches": len(indexed), "frames": frames_ok}
+
+
+async def cs_build(node, key, h, r, BlockID, Commit, Proposal, part_size):
+    """A peer's proposal for (h, r): its block made by the node's
+    BlockExecutor on the delivered state and the node's LastCommit, cut into
+    parts, the Proposal signed by its key.  Returns (proposal, parts, ms)."""
+    import asyncio
+
+    task = node.cs._delivery_task
+    if task is not None:
+        await asyncio.wait({task})
+    t0 = time.perf_counter()
+    state = node.state_store.load()
+    commit = node.cs.rs.last_commit.make_commit() if h > 1 else Commit(0, 0, BlockID(), [])
+    block = node.executor.create_proposal_block(h, state, commit, key.pub_key().address())
+    parts = block.make_part_set(part_size)
+    prop = Proposal(height=h, round=r, pol_round=-1,
+                    block_id=BlockID(block.hash(), parts.header()), timestamp_ns=time.time_ns())
+    prop.signature = key.sign(prop.sign_bytes(CHAIN_ID))
+    return prop, parts, _ms(t0)
+
+
+async def cs_restart(old, home, gen, lane, timer, h, ours_addr, card):
+    """Stop the node mid-height h (its own precommit in the WAL), close its
+    stores, then reopen them: the Handshaker (0 blocks to replay), the FilePV
+    from its files, a new ConsensusState (reconstruct_last_commit_if_needed)
+    whose start runs catchup_replay on the WAL.  Fails unless the WAL holds
+    no ENDHEIGHT h and every vote the FilePV re-signs equals what it signed
+    before.  Returns the new node and the restart's numbers."""
+    from tendermint_tpu_torch.consensus import ConsensusState
+    from tendermint_tpu_torch.consensus import replay as cs_replay
+
+    own = {k: v for k, v in old.watch.signed.items() if k[0] == h}
+    t0 = time.perf_counter()
+    await old.cs.stop()  # on_stop drains the previous height's delivery
+    stop_ms = _ms(t0)
+    await old.close()
+    rebuild, catchup, records = [], [], collections.Counter()
+    reconstruct = ConsensusState.reconstruct_last_commit_if_needed
+
+    def timed_reconstruct(self, state):
+        t = time.perf_counter()
+        try:
+            return reconstruct(self, state)
+        finally:
+            rebuild.append(_ms(t))
+
+    replay, replay_record = cs_replay.catchup_replay, cs_replay._replay_record
+
+    async def timed_catchup(cs, height):
+        t = time.perf_counter()
+        try:
+            return await replay(cs, height)
+        finally:
+            catchup.append(_ms(t))
+
+    async def counted_record(cs, rec):
+        records[rec.get("type")] += 1
+        return await replay_record(cs, rec)
+
+    t1 = time.perf_counter()
+    ConsensusState.reconstruct_last_commit_if_needed = timed_reconstruct
+    try:
+        node = await cs_node(home, gen, lane, timer)
+    finally:
+        ConsensusState.reconstruct_last_commit_if_needed = reconstruct
+    cs_replay.catchup_replay, cs_replay._replay_record = timed_catchup, counted_record
+    try:
+        await node.cs.start()  # catchup_replay raises (logged) on an ENDHEIGHT h in the WAL
+    finally:
+        cs_replay.catchup_replay, cs_replay._replay_record = replay, replay_record
+    await node.watch.until(lambda: node.cs.rs.votes.precommits(0).get_by_address(ours_addr)
+                           is not None, "the replayed precommit")
+    restart_ms = _ms(t0)
+    resigned = {k: v for k, v in node.watch.signed.items() if k[0] == h}
+    if not resigned or any(v[1] != own.get(k, (0, None))[1] for k, v in resigned.items()):
+        raise AssertionError(f"the FilePV re-signed {sorted(resigned)} differently from what it "
+                             f"signed before the stop ({sorted(own)})")
+    if node.handshaker.n_blocks != 0 or len(catchup) != 1 or not records["msg"]:
+        raise AssertionError(f"the handshake replayed {node.handshaker.n_blocks} blocks, or "
+                             f"catchup_replay ran {len(catchup)} times over {dict(records)}")
+    log(f"  restart in height {h}: stop {stop_ms:.3f} ms (drains height {h - 1}'s delivery); "
+        f"handshake {node.handshake_ms:.3f} ms, 0 blocks replayed; ConsensusState "
+        f"{node.init_ms:.3f} ms, of which reconstruct_last_commit_if_needed {rebuild[0]:.3f} ms "
+        f"(host verifies of the seen commit); catchup_replay {catchup[0]:.3f} ms over "
+        f"{sum(records.values())} WAL records {dict(records)}; the FilePV re-signed "
+        f"{len(resigned)} vote(s) byte-equal; down {_ms(t1) + stop_ms:.3f} ms in all ({card})")
+    return node, restart_ms
+
+
+def cs_check(node, n, ours_addr, proposals, per_h, bursts, bad_txs, errors, flag_commit):
+    """Phase 9's outcome on the node's stores (see the module docstring)."""
+    for h in range(1, CS_HEIGHTS + 1):
+        block, seen = node.block_store.load_block(h), node.block_store.load_seen_commit(h)
+        if block is None or seen is None:
+            raise AssertionError(f"height {h} did not commit")
+        want_round = 1 if h == CS_WITHHELD_AT else 0
+        if seen.round != want_round:
+            raise AssertionError(f"height {h} committed in round {seen.round}, not {want_round}")
+        if block.hash() != proposals[h].block_id.hash:
+            raise AssertionError(f"block {h} is not the proposal gossiped for it")
+        want = {tx for tx in bursts[h] if tx not in bad_txs}
+        if set(block.txs) != want:
+            raise AssertionError(f"block {h} does not hold exactly burst {h}'s valid txs: "
+                                 f"{len(block.txs)} txs, {len(set(block.txs) - want)} of other "
+                                 f"bursts, {len(want - set(block.txs))} missing")
+        signed = sum(cs.block_id_flag == flag_commit for cs in block.last_commit.signatures)
+        landed = per_h[h - 1]["last_commit"] if h > 1 else 0
+        if h > 1 and (signed != landed or 3 * signed <= 2 * n):
+            raise AssertionError(f"block {h}'s LastCommit has {signed} signatures, not the "
+                                 f"{landed} the node held, or not more than 2/3 of {n}")
+    if node.block_store.load_block(CS_OURS_AT).header.proposer_address != ours_addr:
+        raise AssertionError(f"height {CS_OURS_AT} was not proposed by our validator")
+    state = node.state_store.load()
+    if state.last_block_height != CS_HEIGHTS or state.app_hash != node.app.app_hash:
+        raise AssertionError("the state store and the app disagree after the last height")
+    if errors:
+        raise AssertionError(f"consensus logged errors: {errors[:3]}")
+
+
+def cs_report(old, node, rec, seq0, per_h, timer, sign_s, launches, dev, cache, card):
+    """Per height and for the phase (see the module docstring, 9)."""
+    from tendermint_tpu_torch.consensus.types import RoundStep
+
+    steps = {}
+    for t, *hrs in old.watch.steps + node.watch.steps:
+        steps.setdefault(tuple(hrs), t)
+    commit_t = {h: steps[(h, per_h[h]["round"], RoundStep.COMMIT)]
+                for h in range(1, CS_HEIGHTS + 1)}
+    t_first = steps[(1, 0, RoundStep.PROPOSE)]
+    waits = sum(steps[(h + 1, 0, RoundStep.PROPOSE)] - commit_t[h]
+                for h in range(1, CS_HEIGHTS))  # timeout_commit, the bursts inside it
+    w = CS_WITHHELD_AT
+    waits += steps[(w, 0, RoundStep.PREVOTE)] - steps[(w, 0, RoundStep.PROPOSE)]
+    waits += steps[(w, 1, RoundStep.PROPOSE)] - per_h[w]["nil_done"]
+    def at(name, h):
+        return timer.ms.get((name, h), 0.0), timer.n.get((name, h), 0)
+
+    for h in range(1, CS_HEIGHTS + 1):
+        v, c = at("validate_block", h), at("verify_commit", h)
+        gap = (f"{(commit_t[h] - commit_t[h - 1]) * 1000:.3f} ms" if h > 1 else "-")
+        log(f"    height {h}: " + "; ".join(per_h[h]["lines"]) + f"; LastCommit "
+            f"{per_h[h]['last_commit']} of {per_h[h]['last_commit'] + per_h[h]['late']} "
+            f"precommits, {per_h[h]['late']} refused as late")
+        log(f"    height {h}: validate_block x{v[1]} {v[0]:.3f} ms (verify_commit x{c[1]} "
+            f"{c[0]:.3f} ms), save_block {at('save_block', h)[0]:.3f} ms, pipelined "
+            f"apply_block {at('apply_block', h)[0]:.3f} ms; commit-to-commit {gap} ({card})")
+    span = commit_t[CS_HEIGHTS] - t_first
+    busy = span - sign_s - waits - per_h["restart"] / 1000
+    log(f"  heights 1-{CS_HEIGHTS}: {span * 1000:.3f} ms from height 1's propose to height "
+        f"{CS_HEIGHTS}'s commit = {CS_HEIGHTS / span:.3f} heights/s; apart from signing and "
+        f"framing {sign_s * 1000:.3f} ms, the timeouts {waits * 1000:.3f} ms (timeout_commit "
+        f"x{CS_HEIGHTS - 1}, height {w}'s timeout_propose and precommit wait) and the restart "
+        f"{per_h['restart']:.3f} ms: {busy * 1000:.3f} ms = {CS_HEIGHTS / busy:.3f} heights/s; "
+        f"{dispatch_share(rec, seq0, span)}; launches {launches}; {card_memory(dev, cache)} "
+        f"({card})")
+
+
 def kernel_device_ms(fn, names) -> dict:
     """Device ms of each named kernel in one run of fn, from torch.profiler;
     a name is missing where the profiler records no device time for it."""
@@ -2361,6 +3053,33 @@ def main() -> int:
         if launches[part][picked] == 0:
             raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in phase 8 "
                                  f"({part})")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+    log("[9] consensus at 10k validators: proposals, vote frames, a round change and a restart "
+        "from the WAL")
+    ed25519_cuda.LAUNCHES = 0
+    ed25519_table.BUILD_LAUNCHES = 0
+    ed25519_table.SUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = phase_consensus(keys, card, dev)
+    counts = {
+        "ed25519_ladder": ed25519_cuda.LAUNCHES,
+        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
+    }
+    log(f"  launches in phase 9: {counts}; {out['validate_blocks']} validate_block calls on heights "
+        f">= 2, {out['indexed_dispatches']} indexed dispatches, {out['frames']} vote frames "
+        f"accepted; phase 9 took {time.perf_counter() - t0:.3f} s")
+    if counts["ed25519_window_tables"] != 1:
+        raise AssertionError("kernel 2 (window tables) was not launched exactly once in phase 9")
+    if out["indexed_dispatches"] != out["validate_blocks"] or counts[picked] < out["validate_blocks"]:
+        raise AssertionError(f"the auto-profile's pick ({picked}) was not launched once per "
+                             "validate_block in phase 9")
+    if picked == "ed25519_tabulated" and counts[picked] != out["validate_blocks"]:
+        raise AssertionError("the tabulated sum launched other than once per validate_block")
+    if counts["ed25519_ladder"] < out["frames"]:
+        raise AssertionError("the ladder was not launched for every accepted vote frame in phase 9")
     for name, c in counts.items():
         report[name]["launches"] += c
 

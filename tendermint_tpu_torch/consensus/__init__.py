@@ -1,7 +1,25 @@
-"""Consensus: the ABCI handshake (Handshaker) so far.  The state machine,
-its WAL, the timeout ticker and the WAL catchup replay are not ported yet
-(ROADMAP 1.5)."""
+"""Consensus: the BFT state machine, WAL, timeout ticker, replay (the
+port's copy of tendermint_tpu/consensus; the reactor waits for p2p,
+ROADMAP 1.7, and replay_file.py for the node's Config, ROADMAP 1.6)."""
 
+from .types import (
+    HeightVoteSet,
+    RoundState,
+    RoundStep,
+)
+from .ticker import TimeoutInfo, TimeoutTicker
+from .wal import WAL, NilWAL
+from .state import ConsensusState
 from .replay import Handshaker
 
-__all__ = ["Handshaker"]
+__all__ = [
+    "ConsensusState",
+    "Handshaker",
+    "HeightVoteSet",
+    "NilWAL",
+    "RoundState",
+    "RoundStep",
+    "TimeoutInfo",
+    "TimeoutTicker",
+    "WAL",
+]

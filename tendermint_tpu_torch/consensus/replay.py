@@ -1,11 +1,9 @@
-"""Crash recovery, the ABCI handshake half: block replay into the app at
-startup (the port's copy of the Handshaker of
-tendermint_tpu/consensus/replay.py).  The WAL catchup replay of an
-unfinished height (catchup_replay) needs the consensus state machine and
-its WAL, which are not ported yet (ROADMAP 1.5).
+"""Crash recovery: WAL catchup replay + ABCI handshake block replay (the
+port's copy of tendermint_tpu/consensus/replay.py).
 
-Reference parity: consensus/replay.go (Handshaker:200, Handshake:241,
-ReplayBlocks:285, replayBlock:472, mockProxyApp:516).
+Reference parity: consensus/replay.go (catchupReplay:100,
+readReplayMessage:45, Handshaker:200, Handshake:241, ReplayBlocks:285,
+replayBlock:472, mockProxyApp:516).
 """
 
 from __future__ import annotations
@@ -13,9 +11,86 @@ from __future__ import annotations
 from ..abci import types as abci
 from ..libs.log import get_logger
 from ..state.state import State as SMState
+from ..types.part_set import Part
+from ..types.proposal import Proposal
+from ..types.vote import Vote
 from ..version import BLOCK_PROTOCOL, P2P_PROTOCOL, SOFTWARE_VERSION
 
 log = get_logger("consensus-replay")
+
+
+# ---------------------------------------------------------------------------
+# WAL catchup (the unfinished height)
+# ---------------------------------------------------------------------------
+
+
+async def catchup_replay(cs, cs_height: int) -> None:
+    """Replay WAL records after EndHeight(cs_height-1) through the state
+    machine (consensus/replay.go:100).  No re-signing, no WAL re-writes."""
+    # guard: we must NOT have an end-height marker for cs_height itself
+    records, found = cs.wal.search_for_end_height(cs_height)
+    if found:
+        raise RuntimeError(f"WAL should not contain #ENDHEIGHT {cs_height}")
+
+    records, found = cs.wal.search_for_end_height(cs_height - 1)
+    if records is None and cs_height > 1 and not found:
+        raise RuntimeError(f"cannot replay height {cs_height}: WAL has no #ENDHEIGHT {cs_height - 1}")
+    if records is None:
+        return
+
+    cs.replay_mode = True
+    real_wal = cs.wal
+    from .wal import NilWAL
+
+    cs.wal = NilWAL()  # don't re-log replayed messages
+    try:
+        for rec in records:
+            await _replay_record(cs, rec)
+    finally:
+        cs.wal = real_wal
+        cs.replay_mode = False
+    log.info("replay: done", height=cs_height, records=len(records))
+
+
+async def _replay_record(cs, rec: dict) -> None:
+    """consensus/replay.go:45 readReplayMessage dispatch."""
+    kind = rec.get("type")
+    if kind == "roundstate":
+        return  # informational; new round steps are recomputed
+    if kind == "timeout":
+        from .ticker import TimeoutInfo
+
+        ti = TimeoutInfo(rec["duration"], rec["height"], rec["round"], rec["step"])
+        await cs._handle_timeout(ti)
+        return
+    if kind == "msg":
+        msg = rec["msg"]
+        mk = msg["type"]
+        if mk == "vote":
+            await cs._handle_msg(
+                {"type": "vote", "vote": Vote.from_dict(msg["vote"]), "peer_id": rec.get("peer_id", "")}
+            )
+        elif mk == "proposal":
+            await cs._handle_msg(
+                {
+                    "type": "proposal",
+                    "proposal": Proposal.from_dict(msg["proposal"]),
+                    "peer_id": rec.get("peer_id", ""),
+                }
+            )
+        elif mk == "block_part":
+            await cs._handle_msg(
+                {
+                    "type": "block_part",
+                    "height": msg["height"],
+                    "round": msg["round"],
+                    "part": Part.from_dict(msg["part"]),
+                    "peer_id": rec.get("peer_id", ""),
+                }
+            )
+        return
+    if kind == "endheight":
+        return
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import os
 
 from ..encoding.codec import register
 from . import ed25519_math as em
@@ -78,6 +79,8 @@ class Ed25519PrivKey:
     SIZE = 32  # seed
 
     def __init__(self, seed: bytes):
+        if len(seed) == 64:  # tolerate golang-style seed||pub concatenation
+            seed = seed[:32]
         if len(seed) != self.SIZE:
             raise ValueError("ed25519 privkey must be a 32-byte seed")
         self._seed = bytes(seed)
@@ -90,6 +93,10 @@ class Ed25519PrivKey:
             scalar, _ = _expand_seed(self._seed)
             pub = em.compress(*em.to_affine(em.scalar_mult(int.from_bytes(scalar, "little"), em.BASE)))
         self._pub = Ed25519PubKey(pub)
+
+    @classmethod
+    def generate(cls) -> "Ed25519PrivKey":
+        return cls(os.urandom(cls.SIZE))
 
     @classmethod
     def from_secret(cls, secret: bytes) -> "Ed25519PrivKey":
@@ -111,6 +118,13 @@ class Ed25519PrivKey:
     def pub_key(self) -> Ed25519PubKey:
         return self._pub
 
+    def to_dict(self) -> dict:
+        return {"type": self.TYPE, "value": self._seed}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Ed25519PrivKey":
+        return cls(d["value"])
+
 
 def pubkey_from_dict(d: dict) -> Ed25519PubKey:
     """Route a {"type", "value"} dict to its key; this slice carries
@@ -119,3 +133,39 @@ def pubkey_from_dict(d: dict) -> Ed25519PubKey:
     if t == Ed25519PubKey.TYPE:
         return Ed25519PubKey(d["value"])
     raise ValueError(f"unknown pubkey type {t!r}")
+
+
+# the JAX package's other key types, each waiting for its slice
+_LATER_PRIV_TYPES = {
+    "tendermint/PrivKeySr25519": "1.8 (sr25519)",
+    "tendermint/PrivKeySecp256k1": "1.8 (secp256k1)",
+    "tendermint/PrivKeyBLS12381": "1.9 (bls12381)",
+}
+_LATER_KEY_TYPES = {"sr25519": "1.8", "secp256k1": "1.8", "bls12381": "1.9"}
+
+# key-type names the JAX package accepts (`testnet --key-type`,
+# FilePV.generate)
+KEY_TYPES = ("ed25519", "sr25519", "bls12381", "secp256k1")
+
+
+def privkey_from_dict(d: dict) -> Ed25519PrivKey:
+    """Route a {"type", "value"} dict to its key — the privval key-file
+    loader's dispatch.  This slice carries ed25519 keys only; the JAX
+    package's other types raise TypeError naming the ROADMAP item that
+    ports them."""
+    t = d.get("type")
+    if t == Ed25519PrivKey.TYPE:
+        return Ed25519PrivKey(d["value"])
+    if t in _LATER_PRIV_TYPES:
+        raise TypeError(f"{t} keys are not ported yet (ROADMAP {_LATER_PRIV_TYPES[t]})")
+    raise ValueError(f"unknown privkey type {t!r}")
+
+
+def generate_priv_key(key_type: str = "ed25519") -> Ed25519PrivKey:
+    if key_type == "ed25519":
+        return Ed25519PrivKey.generate()
+    if key_type in _LATER_KEY_TYPES:
+        raise TypeError(
+            f"{key_type} keys are not ported yet (ROADMAP {_LATER_KEY_TYPES[key_type]})"
+        )
+    raise ValueError(f"unknown key type {key_type!r} (want one of {KEY_TYPES})")

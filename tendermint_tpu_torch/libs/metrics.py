@@ -1,6 +1,6 @@
-"""Prometheus metrics of the ported subsystems (the `verify`, `mempool`,
-`state` and `evidence` subsystems of tendermint_tpu/libs/metrics.py, same
-metric names).
+"""Prometheus metrics of the ported subsystems (the `consensus`, `verify`,
+`mempool`, `state` and `evidence` subsystems of
+tendermint_tpu/libs/metrics.py, same metric names).
 
 Without a registry every metric is a no-op.  `prometheus_client` is
 imported only when a registry is passed, so the engine runs where that
@@ -32,6 +32,115 @@ class _Nop:
 
 
 _NOP = _Nop()
+
+
+class _ObservableGauge:
+    """Gauge with an `observe` alias — callers use histogram-style
+    .observe() while the exposed series stays a plain gauge, matching the
+    reference's go-kit Gauge semantics for e.g. block_interval_seconds."""
+
+    def __init__(self, gauge):
+        self._g = gauge
+
+    def observe(self, v) -> None:
+        self._g.set(v)
+
+    def set(self, v) -> None:
+        self._g.set(v)
+
+
+class ConsensusMetrics:
+    """consensus/metrics.go:18."""
+
+    def __init__(self, registry=None, chain_id: str = ""):
+        if registry is None:
+            for name in (
+                "height", "rounds", "validators", "validators_power",
+                "missing_validators", "missing_validators_power",
+                "byzantine_validators", "byzantine_validators_power",
+                "block_interval_seconds", "num_txs", "block_size_bytes",
+                "total_txs", "committed_height", "fast_syncing", "block_parts",
+                "gossip_wakeups", "vote_batch_size", "parts_per_burst",
+                "vote_summaries", "vote_pulls", "trace_clamps",
+            ):
+                setattr(self, name, _NOP)
+            return
+        from prometheus_client import Gauge, Histogram
+
+        sub = "consensus"
+        kw = dict(namespace=NAMESPACE, subsystem=sub, registry=registry,
+                  labelnames=("chain_id",))
+
+        def g(name, doc):
+            return Gauge(name, doc, **kw).labels(chain_id=chain_id)
+
+        self.height = g("height", "Height of the chain.")
+        self.rounds = g("rounds", "Number of rounds.")
+        self.validators = g("validators", "Number of validators.")
+        self.validators_power = g("validators_power", "Total power of all validators.")
+        self.missing_validators = g("missing_validators", "Number of validators who did not sign.")
+        self.missing_validators_power = g(
+            "missing_validators_power", "Total power of the missing validators."
+        )
+        self.byzantine_validators = g(
+            "byzantine_validators", "Number of validators who tried to double sign."
+        )
+        self.byzantine_validators_power = g(
+            "byzantine_validators_power", "Total power of the byzantine validators."
+        )
+        # Gauge in the reference too (consensus/metrics.go:46, v0.33.x);
+        # a python Histogram would also rename the series (_bucket/_count)
+        self.block_interval_seconds = _ObservableGauge(
+            g("block_interval_seconds", "Time between this and the last block.")
+        )
+        self.num_txs = g("num_txs", "Number of transactions.")
+        self.block_size_bytes = g("block_size_bytes", "Size of the block.")
+        self.total_txs = g("total_txs", "Total number of transactions.")
+        self.committed_height = g("latest_block_height", "The latest block height.")
+        self.fast_syncing = g("fast_syncing", "Whether or not a node is fast syncing. 1 if yes, 0 if no.")
+        # counters modeled as Gauges: prometheus_client appends `_total` to
+        # Counter names, which would break the reference's exact series name
+        self.block_parts = Gauge(
+            "block_parts", "Number of blockparts transmitted by peer.",
+            namespace=NAMESPACE, subsystem=sub, registry=registry,
+            labelnames=("chain_id", "peer_id"),
+        )
+        # Event-driven gossip series (no reference counterpart — the
+        # reference's gossip is a poll loop with nothing to count).
+        # Counter-like Gauge, same convention as above (no `_total` rename).
+        self.gossip_wakeups = g(
+            "gossip_wakeups",
+            "Gossip routine wakeups triggered by consensus events "
+            "(vs the fixed-sleep fallback).",
+        )
+        self.vote_batch_size = Histogram(
+            "vote_batch_size", "Votes per sent vote_batch gossip frame.",
+            namespace=NAMESPACE, subsystem=sub, registry=registry,
+            labelnames=("chain_id",), buckets=[2**i for i in range(0, 14)],
+        ).labels(chain_id=chain_id)
+        self.parts_per_burst = Histogram(
+            "parts_per_burst", "Block parts sent per gossip wakeup burst.",
+            namespace=NAMESPACE, subsystem=sub, registry=registry,
+            labelnames=("chain_id",), buckets=[1, 2, 4, 8, 16, 32, 64],
+        ).labels(chain_id=chain_id)
+        # maj23 aggregation exchange (relay topology, gossip_version >= 2)
+        self.vote_summaries = g(
+            "vote_summaries",
+            "have-maj23 vote summaries sent instead of streaming votes.",
+        )
+        self.vote_pulls = g(
+            "vote_pulls",
+            "vote_pull requests served with a targeted vote_batch.",
+        )
+        # wire-level trace context (gossip_version >= 3): received frames
+        # whose hop count / origin timestamp failed the sanity clamps —
+        # byzantine or badly skewed senders; the sample is discarded from
+        # skew estimation, so this series is the only place it shows up
+        self.trace_clamps = g(
+            "trace_clamps",
+            "Received trace-context fields clamped as implausible "
+            "(hop out of range or origin timestamp outside the sanity window).",
+        )
 
 
 class VerifyMetrics:

@@ -1,6 +1,5 @@
-"""Mempool: priority-ordered tx pool with app-side validation and recheck
-(the port's copy of tendermint_tpu/mempool.py; the tx journal is not
-ported yet, ROADMAP 1.5).
+"""Mempool: priority-ordered tx pool with app-side validation, recheck and
+the tx journal (the port's copy of tendermint_tpu/mempool.py).
 
 Reference parity: mempool/clist_mempool.go (CheckTx:213, Update:529,
 recheckTxs:591, ReapMaxBytesMaxGas:471, mapTxCache:641) + the
@@ -186,14 +185,109 @@ class Mempool:
 
         self.metrics = MempoolMetrics()  # nop; node swaps in prometheus
         self.recorder = _NOP_RECORDER  # node swaps in its flight recorder
+        self.wal_size_limit = cfg.get("wal_size_limit", 16 * 1024 * 1024)
+        self._wal = None  # optional tx journal (clist_mempool.go InitWAL)
+        #: node wires a libs.watchdog.StorageHealth (disk_fault alarm path)
+        self.storage_health = None
 
     # -- WAL (clist_mempool.go:137) ----------------------------------------
     def init_wal(self, wal_dir: str, size_limit: Optional[int] = None) -> None:
-        """The tx journal rides libs/autofile's rotating group, which is not
-        ported yet."""
-        raise NotImplementedError(
-            "the mempool WAL needs libs/autofile.py, not ported yet (ROADMAP 1.5)"
+        """Append every accepted tx to a size-capped rotating journal
+        under `<wal_dir>/wal` — operator-grade record of what entered the
+        mempool.  Records are crc-framed (libs/autofile frame format) so
+        replay survives torn tails AND mid-file bit-rot; journals written
+        by the old hex-line format still replay (see wal_txs).
+
+        Rotation reuses the consensus WAL's substrate (libs/autofile.Group,
+        the head-size-limit pattern): the head rotates into numbered
+        chunks and the OLDEST chunks are deleted past `size_limit` total —
+        under a sustained ingress firehose the journal is bounded instead
+        of growing without limit."""
+        import os
+
+        from .libs.autofile import Group
+
+        limit = self.wal_size_limit if size_limit is None else size_limit
+        os.makedirs(wal_dir, exist_ok=True)
+        self._wal = Group(
+            os.path.join(wal_dir, "wal"),
+            # several chunks inside the total bound so rotation sheds old
+            # entries gradually, not half the journal at once
+            head_size_limit=max(4096, limit // 8),
+            group_size_limit=limit,
         )
+
+    def close_wal(self) -> None:
+        if self._wal is not None:
+            try:
+                self._wal.close()
+            except OSError as e:  # a dying disk may refuse the close flush
+                self.log.error("mempool wal close failed", err=str(e))
+            self._wal = None
+
+    def _wal_write(self, tx: bytes) -> None:
+        if self._wal is not None:
+            try:
+                self._wal.append_record(tx)
+                self._wal.flush()
+                self._wal.maybe_rotate()
+            except OSError as e:
+                # tx journaling is best-effort by design (the reference
+                # logs and keeps serving too) — but the fault must reach
+                # the watchdog's disk_fault alarm, not just a log line
+                self.log.error("mempool wal write failed", err=str(e))
+                if self.storage_health is not None:
+                    self.storage_health.note_write_error("mempool-wal", e)
+
+    @staticmethod
+    def _legacy_hex_lines(raw: bytes) -> List[bytes]:
+        """Pre-CRC journal format: one hex line per tx; a torn tail line
+        ends the replay cleanly."""
+        out: List[bytes] = []
+        for line in raw.splitlines():
+            try:
+                out.append(bytes.fromhex(line.decode()))
+            except (ValueError, UnicodeDecodeError):
+                break
+        return out
+
+    def wal_txs(self) -> List[bytes]:
+        """Replay the retained journal (oldest chunk through head),
+        resyncing past corrupt regions (crc framing).  Old-format journals
+        (hex lines, pre-CRC) still replay: a file with no decodable frames
+        falls back to hex-line parsing, and a legacy file APPENDED to by
+        the framed writer recovers the legacy prefix from the skipped
+        region the frame walker reports."""
+        if self._wal is None:
+            return []
+        from .libs import autofile
+
+        raw = self._wal.read_all()
+        if not raw:
+            return []
+        out: List[bytes] = []
+        skipped: List[bytes] = []
+        frames = 0
+        for kind, pos, detail in autofile.walk_frames(raw, resync=True):
+            if kind == "record":
+                out.append(detail)
+                frames += 1
+            elif kind == autofile.SKIPPED:
+                skipped.append(raw[pos:detail])
+        if frames == 0:
+            # no framed records at all: a pure legacy journal
+            return self._legacy_hex_lines(raw)
+        if skipped:
+            # mixed file (legacy prefix + framed appends after an upgrade):
+            # recover hex lines from the skipped regions, oldest first
+            legacy = [tx for region in skipped for tx in self._legacy_hex_lines(region)]
+            out = legacy + out
+            if self.storage_health is not None and not legacy:
+                # skipped bytes that were NOT legacy lines = real rot
+                self.storage_health.note_corruption(
+                    "mempool-wal", f"{len(skipped)} corrupt region(s) skipped in replay"
+                )
+        return out
 
     # -- locking (commit window) ------------------------------------------
     def lock(self):
@@ -319,6 +413,7 @@ class Mempool:
             self.version += 1
             self._tx_log.append(mtx)
             self._new_tx_event.set()
+            self._wal_write(tx)
             self.log.debug("added good transaction", tx=tx_hash(tx).hex()[:16], res=res.code)
             self.metrics.size.set(len(self.txs))
             self.metrics.tx_size_bytes.observe(len(tx))

@@ -207,6 +207,23 @@ class Commit:
     def size(self) -> int:
         return len(self.signatures)
 
+    def get_vote(self, val_idx: int):
+        """Reconstruct the precommit Vote at a validator index
+        (types/block.go:603)."""
+        from .vote import Vote
+
+        cs = self.signatures[val_idx]
+        return Vote(
+            type=canonical.PRECOMMIT_TYPE,
+            height=self.height,
+            round=self.round,
+            block_id=cs.block_id(self.block_id),
+            timestamp_ns=cs.timestamp_ns,
+            validator_address=cs.validator_address,
+            validator_index=val_idx,
+            signature=cs.signature,
+        )
+
     def vote_sign_bytes(self, chain_id: str, val_idx: int, pub_key=None) -> bytes:
         """Sign-bytes for slot val_idx (types/block.go:621) — only the
         timestamp differs between validators.  `pub_key` keeps the JAX

@@ -1,8 +1,8 @@
-"""Canonical sign-bytes for votes.
+"""Canonical sign-bytes for votes and proposals.
 
-Reference parity: types/canonical.go (CanonicalVote),
-types/vote.go:83 (SignBytes).  Proposal and timestamp-free (BLS) sign-bytes
-are not part of this slice.
+Reference parity: types/canonical.go (CanonicalVote/CanonicalProposal),
+types/vote.go:83 (SignBytes).  The timestamp-free (BLS) vote sign-bytes
+wait for the BLS tier (ROADMAP 1.9).
 
 Batch-first layout choice: height/round/pol_round are fixed64 (as in the
 reference) and the embedded BlockID/timestamp have fixed shapes, so all vote
@@ -23,6 +23,7 @@ from ..encoding.proto import (
 # SignedMsgType byte values (reference types/signed_msg_type.go)
 PREVOTE_TYPE = 0x01
 PRECOMMIT_TYPE = 0x02
+PROPOSAL_TYPE = 0x20
 
 
 def is_vote_type_valid(t: int) -> bool:
@@ -68,4 +69,29 @@ def canonical_vote_sign_bytes(
     # one fixed-shape [N, L] array.
     payload += field_fixed64(5, timestamp_ns, emit_zero=True)
     payload += field_bytes(6, chain_id)
+    return length_prefixed(payload)
+
+
+def canonical_proposal_sign_bytes(
+    chain_id: str,
+    height: int,
+    round_: int,
+    pol_round: int,
+    block_id_hash: bytes,
+    block_id_psh_total: int,
+    block_id_psh_hash: bytes,
+    timestamp_ns: int,
+) -> bytes:
+    """Sign-bytes for a proposal (CanonicalizeProposal, types/canonical.go:60)."""
+    payload = field_varint(1, PROPOSAL_TYPE)
+    payload += field_fixed64(2, height)
+    payload += field_fixed64(3, round_)
+    # POLRound is -1 for "no POL"; encode as two's-complement fixed64 so the
+    # field is always present and the layout static.
+    payload += field_fixed64(4, pol_round & ((1 << 64) - 1), emit_zero=True)
+    bid = _canonical_block_id(block_id_hash, block_id_psh_total, block_id_psh_hash)
+    if bid:
+        payload += field_bytes(5, bid)
+    payload += field_fixed64(6, timestamp_ns, emit_zero=True)
+    payload += field_bytes(7, chain_id)
     return length_prefixed(payload)

@@ -1,5 +1,5 @@
-"""Vote type + errors (a subset of tendermint_tpu/types/vote.py: no BLS
-sign-bytes).
+"""Vote type + errors (a copy of tendermint_tpu/types/vote.py without the
+BLS sign-bytes, ROADMAP 1.9).
 
 Reference parity: types/vote.go (Vote:48, CommitSig:60, Verify:124,
 ValidateBasic:136).
@@ -8,6 +8,7 @@ ValidateBasic:136).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 from ..encoding import codec
 from . import canonical
@@ -17,6 +18,11 @@ from .params import MAX_SIGNATURE_SIZE
 
 class VoteError(Exception):
     pass
+
+
+def is_bls_key(pub_key) -> bool:
+    """True for BLS12-381 keys."""
+    return getattr(pub_key, "TYPE", None) == "tendermint/PubKeyBLS12381"
 
 
 class ErrVoteConflictingVotes(VoteError):
@@ -40,6 +46,17 @@ class Vote:
     validator_address: bytes = b""
     validator_index: int = -1
     signature: bytes = b""
+    # Encode-once cache (gossip hot path): a signed vote is immutable, so
+    # its canonical codec bytes are computed once and reused across every
+    # peer send.  Excluded from equality/repr; never serialized.
+    _wire: Optional[bytes] = field(default=None, repr=False, compare=False)
+
+    def wire(self) -> bytes:
+        """Canonical tagged codec encoding ('@t' form), cached.  vote_batch
+        frames embed these bytes verbatim."""
+        if self._wire is None:
+            self._wire = codec.dumps(self)
+        return self._wire
 
     def sign_bytes(self, chain_id: str) -> bytes:
         return canonical.canonical_vote_sign_bytes(
@@ -52,6 +69,14 @@ class Vote:
             self.block_id.parts_header.hash,
             self.timestamp_ns,
         )
+
+    def sign_bytes_for_key(self, chain_id: str, pub_key) -> bytes:
+        """Per-scheme sign-bytes routing.  Every key type this slice carries
+        signs the timestamped layout; a BLS key (timestamp-free domain)
+        raises until ROADMAP 1.9."""
+        if is_bls_key(pub_key):
+            raise TypeError("BLS vote sign-bytes are not ported yet (ROADMAP 1.9)")
+        return self.sign_bytes(chain_id)
 
     def commit_sig(self) -> CommitSig:
         """types/vote.go:60."""

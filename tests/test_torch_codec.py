@@ -18,7 +18,7 @@ from tendermint_tpu.encoding import codec as jcodec
 from tendermint_tpu_torch.encoding import codec as pcodec
 from tendermint_tpu_torch.encoding import msgpack as pmsgpack
 
-from test_torch_chain_types import HEIGHTS, JAX, PORT, PART, chain, evidence_pair
+from test_torch_chain_types import CHAIN, HEIGHTS, JAX, PORT, PART, chain, evidence_pair
 
 
 def _instances(ns):
@@ -28,6 +28,9 @@ def _instances(ns):
     blk = c["blocks"][3]
     ev = evidence_pair(ns)
     meta = ns.block_store.BlockMeta(c["ids"][3], len(blk.serialize()), blk.header, len(blk.txs))
+    proposal = ns.codec.class_for("tm/Proposal")(height=3, round=1, pol_round=0,
+                                                 block_id=c["ids"][3], timestamp_ns=blk.time_ns)
+    proposal.signature = c["keys"][0].sign(proposal.sign_bytes(CHAIN))
     return {
         "pk/ed25519": c["keys"][0].pub_key(),
         "tm/Vote": ev.vote_a,
@@ -39,6 +42,7 @@ def _instances(ns):
         "tm/Part": c["parts"][3].parts[1],
         "tm/BlockMeta": meta,
         "tm/State": c["states"][HEIGHTS],
+        "tm/Proposal": proposal,
     }
 
 

@@ -283,7 +283,7 @@ async def test_an_engine_error_propagates_where_jax_reads_invalid_signature():
         await jconns.stop()
 
 
-async def test_nop_mempool_and_deferred_wal():
+async def test_nop_mempool_and_deferred_wal(tmp_path):
     async def trace(ns):
         nop = ns.mempool.NopMempool()
         async with nop.lock():
@@ -298,9 +298,26 @@ async def test_nop_mempool_and_deferred_wal():
                 nop.txs_available())
 
     assert await trace(PORT) == await trace(JAX)
-    mp = pmempool.Mempool(None)
-    with pytest.raises(NotImplementedError, match="1.5"):
-        mp.init_wal("/nonexistent")
+
+    async def journal(ns, name):
+        """The tx journal, no longer deferred: the accepted txs replay from
+        the same file bytes in both packages."""
+        conns = ns.proxy.AppConns(ns.proxy.default_client_creator("kvstore"))
+        await conns.start()
+        try:
+            mp = ns.mempool.Mempool(conns.mempool())
+            mp.init_wal(str(tmp_path / name))
+            for tx in (b"a=1", b"b=2", b"a=1"):
+                await _try(mp.check_tx(tx))
+            replay = mp.wal_txs()
+            mp.close_wal()
+            return replay, (tmp_path / name / "wal").read_bytes()
+        finally:
+            await conns.stop()
+
+    ours = await journal(PORT, "port")
+    assert ours == await journal(JAX, "jax")
+    assert ours[0] == [b"a=1", b"b=2"]
 
 
 # ---------------------------------------------------------------------------
