@@ -163,12 +163,66 @@
    reconstruction and catchup ms; heights/s with signing and the timeouts
    apart, the dispatches' share, card memory and launches.  Fails unless
    heights 1-6 commit (4 in round 1, the others in round 0) with exactly
-   their bursts' valid txs, block 3 is ours, every LastCommit from height
-   2 on holds all 10,000 signatures, block 6 is the proposal gossiped
-   before the stop, the FilePV's re-signed votes equal what it signed
-   before, no ERROR is logged by consensus, and kernel 2 launched once, the
-   auto-profile's pick once per validate_block on heights >= 2 and the
-   ladder at least once per accepted frame.
+   their bursts' valid txs, block 3 is ours, every precommit either lands
+   in the LastCommit or is refused as late (it reached the node after the
+   next round began) and each block's LastCommit is what the node held
+   (more than 2/3), block 6 is the proposal gossiped before the stop, the
+   FilePV's re-signed votes equal what it signed before, no ERROR is
+   logged by consensus, and kernel 2 launched once, the auto-profile's
+   pick once per validate_block on heights >= 2 and the ladder at least
+   once per accepted frame.
+10. Node wiring at full width.  (a) One validator of a 10,000-validator
+   chain run as a Node from its home directory: config.toml written by
+   save_config at the JAX defaults but p2p.laddr "none", rpc.laddr "", the
+   signed-tx precheck with its journal at data/mempool.wal and a mempool of
+   10,000 (height 2 holds 6,000 txs; the default is 5,000); the genesis
+   file (phase 3's keys at power 10); the FilePV files of phase 9's
+   validator.  default_new_node(load_config(...)) builds everything: the
+   stores, StorageHealth, the kvstore app on its durable app db, the tx
+   index, the FlightRecorder, the loop profiler, one BatchVerifier on the
+   card installed as the flat hook, a TableCache on it (the indexed hook)
+   and the AsyncBatchVerifier on it (so in warmup mode: a set's first
+   commit check declines and the flat ladder serves it while its table
+   builds in the background), the handshake, the mempool with the engine as
+   its signed-tx lane, the evidence pool, the BlockExecutor, the
+   ConsensusState with its WAL, _valset_watch and the watchdog.  Phase 9's
+   traffic goes to node.mempool and node.consensus: heights 1-5, a burst of
+   1,000 envelopes each; height 2 also carries 5,000 val: txs that replace
+   the 2,500 oldest validators by new keys, so set B signs from height 4
+   and _valset_watch rebuilds its table before its first commit; height 3
+   is ours.  In height 5, after the proposal, the prevotes and our
+   precommit, the node stops and a second default_new_node on the same
+   home resumes (boot scan, a handshake replaying 0 blocks, the FilePV
+   from its files, catchup_replay); the peers' precommits commit height 5
+   and the run stops at height 6's NEW_HEIGHT.  Prints what phase 9 prints
+   per height, both starts' split (stores, boot scan, engine, handshake,
+   consensus start) and the RTT probe, _valset_watch's state load and each
+   table build (thread, host rows, kernel 2), the loop profiler's account
+   of each height's timeout_commit window (busy ms per category, GC, lag
+   p90 and max, shares), the watchdog's verdict and alarms, heights/s with
+   signing, timeout_commit and the restart apart, the dispatches' share
+   and the card's memory.  Fails unless the engine runs on the card with
+   the node's hooks installed (and uninstalled after each stop), heights
+   1-5 commit with exactly their bursts' valid txs (and height 2's val:
+   txs), block 3 is ours, set B holds from height 4 with one valset.update
+   event (5,000 updates, 10,000 validators), every validate_block on
+   heights >= 2 makes one table lookup, the genesis set's first check
+   declines and the flat path serves it, set B's first check is a table
+   hit, every precommit lands or is refused as late, the restart replays 0
+   blocks and reproduces block 5 and our votes, nothing is logged at ERROR
+   and the watchdog raises no critical alarm (no autodump); and, on the
+   card, kernel 2 launched once per table built (3: the genesis set after
+   its decline, set B by _valset_watch, set B again by the restarted
+   node's empty TableCache), the first node declined exactly once, the
+   profile's pick served every table hit and the ladder every accepted
+   frame and decline.  (b) The CLI in subprocesses: `python -m
+   tendermint_tpu_torch --home H2 init --chain-id chip-smoke-solo`, p2p and
+   RPC turned off through load_config/save_config, `node` until the block
+   store reaches height 3, SIGTERM (exit 0 within 30 s), `node` again from
+   height 3 to 5, and show_validator printing the genesis key; the "verify
+   engine" log line must name a CUDA device.  A solo validator's commits
+   carry one signature, below min_device_batch, so no kernel launches in
+   (b).
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -1053,9 +1107,12 @@ class LiteChain:
 
 @contextlib.contextmanager
 def table_timing(chain, builds: list, dev):
-    """Record each PubkeyTable built meanwhile: its set's epoch, the host
-    rows' ms (decompression and upload) and the window tables' ms (kernel
-    2), each between card synchronizations.  Restores the class after."""
+    """Record each PubkeyTable built meanwhile: its set's epoch in `chain`
+    (None without one), the building thread, the host rows' ms
+    (decompression and upload) and the window tables' ms (kernel 2), each
+    between card synchronizations.  Restores the class after."""
+    import threading
+
     import torch
 
     from tendermint_tpu_torch.crypto import batch_verifier as bvm
@@ -1072,8 +1129,10 @@ def table_timing(chain, builds: list, dev):
         t0 = time.perf_counter()
         orig_init(self, pubkeys, *args, **kwargs)
         sync()
-        first = min(chain.index_of[bytes(pk)] for pk in pubkeys)
-        by_table[id(self)] = {"epoch": first // chain.rotate, "validators": len(pubkeys),
+        epoch = (None if chain is None else
+                 min(chain.index_of[bytes(pk)] for pk in pubkeys) // chain.rotate)
+        by_table[id(self)] = {"epoch": epoch, "validators": len(pubkeys),
+                              "thread": threading.current_thread().name,
                               "rows_ms": _ms(t0), "build_ms": None}
         builds.append(by_table[id(self)])
 
@@ -2277,8 +2336,9 @@ class CsWatch:
 
 
 @contextlib.contextmanager
-def consensus_errors():
-    """ERROR records of the consensus loggers while the block runs."""
+def consensus_errors(names=("consensus", "consensus-replay")):
+    """ERROR records of the named loggers (the consensus ones by default)
+    while the block runs."""
     import logging
 
     class Keep(logging.Handler):
@@ -2290,7 +2350,7 @@ def consensus_errors():
             self.records.append(record.getMessage())
 
     keep = Keep()
-    loggers = [logging.getLogger(n) for n in ("consensus", "consensus-replay")]
+    loggers = [logging.getLogger(n) for n in names]
     for lg in loggers:
         lg.addHandler(keep)
     try:
@@ -2306,13 +2366,10 @@ async def cs_node(home, gen, lane, timer):
     Mempool whose signed-tx lane is `lane`, an EvidencePool, a BlockExecutor
     (validate_block, apply_block and save_block timed by height), the FilePV
     from <home>/config and <home>/data, and a ConsensusState at the JAX
-    defaults with its TimeoutTicker and the WAL at <home>/data/cs.wal/wal.
-    Its _try_add_vote and WAL writes are timed per call, and `late[h]`
-    counts height h's precommits that arrive after height h + 1's round
-    began, which _add_vote refuses as "not a LastCommit straggler"."""
+    defaults with its TimeoutTicker and the WAL at <home>/data/cs.wal/wal,
+    instrumented by instrument_cs."""
     from tendermint_tpu_torch.config import ConsensusConfig
     from tendermint_tpu_torch.consensus import WAL, ConsensusState
-    from tendermint_tpu_torch.consensus.types import RoundStep
     from tendermint_tpu_torch.evidence import EvidencePool
     from tendermint_tpu_torch.mempool import Mempool
     from tendermint_tpu_torch.privval import FilePV
@@ -2338,6 +2395,18 @@ async def cs_node(home, gen, lane, timer):
                           os.path.join(home, "data", "priv_validator_state.json"))
     node.cs.set_priv_validator(node.pv)
     node.cs.wal = WAL(os.path.join(home, "data", "cs.wal", "wal"))
+    instrument_cs(node)
+    return node
+
+
+def instrument_cs(node):
+    """Time `node.cs`'s _try_add_vote and WAL writes per call (node.add_ms,
+    node.wal_ms), count in node.late[h] height h's precommits that arrive
+    after height h + 1's round began (refused by _add_vote as "not a
+    LastCommit straggler"), and put a CsWatch on node.cs, node.pv and
+    node.bus."""
+    from tendermint_tpu_torch.consensus.types import RoundStep
+
     node.add_ms, node.wal_ms = [], [0.0]
     node.late = collections.Counter()
     add, rs, write = node.cs._try_add_vote, node.cs.rs, node.cs.wal.write
@@ -2360,7 +2429,6 @@ async def cs_node(home, gen, lane, timer):
 
     node.cs._try_add_vote, node.cs.wal.write = try_add_vote, wal_write
     node.watch = CsWatch(node)
-    return node
 
 
 def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns):
@@ -2844,6 +2912,675 @@ def cs_report(old, node, rec, seq0, per_h, timer, sign_s, launches, dev, cache, 
         f"({card})")
 
 
+NODE_HEIGHTS = 5  # phase 10: heights 1 .. 5 commit; the run stops at height 6's NEW_HEIGHT
+NODE_ROTATE_AT = 2  # this block carries the val: txs; set B serves from NODE_ROTATE_AT + 2
+NODE_ROTATE = 2500  # val: txs remove this many of the oldest keys and add as many new ones
+NODE_CRASH_AT = 5  # the node stops after its own precommit; a second node resumes the home
+NODE_LOGGERS = ("consensus", "consensus-replay", "node", "watchdog", "batch-verifier")
+CLI_CHAIN = "chip-smoke-solo"
+
+
+def phase_node(keys, card, dev):
+    """One validator of a 10,000-validator chain run as a Node from its home
+    directory (see the module docstring, 10 (a)).  Returns the launches'
+    denominators: validate_block calls on heights >= 2, table hits and
+    declines, and the accepted vote frames."""
+    import asyncio
+
+    return asyncio.run(node_run(keys, card, dev))
+
+
+def node_home(home, gen, ours):
+    """The phase's home: config.toml written by save_config at the JAX
+    defaults but p2p and RPC off, the signed-tx precheck with its journal,
+    and a mempool that holds height 2's 6,000 txs; the genesis file; the
+    FilePV files of `ours`.  Returns the config file's path."""
+    from tendermint_tpu_torch.config import Config, save_config
+    from tendermint_tpu_torch.privval import FilePV, FilePVKey, FilePVLastSignState
+
+    cfg = Config(home=home)
+    cfg.base.chain_id = CHAIN_ID
+    cfg.p2p.laddr, cfg.rpc.laddr = "none", ""
+    cfg.mempool.sig_precheck = True
+    cfg.mempool.wal_dir = "data/mempool.wal"
+    cfg.mempool.size = ABCI_MEMPOOL  # the default 5,000 cannot hold height 2's 6,000
+    cfg.ensure_dirs()
+    path = os.path.join(home, "config", "config.toml")
+    save_config(cfg, path)
+    gen.save_as(cfg.genesis_file())
+    addr = ours.pub_key().address()
+    FilePV(FilePVKey(addr, ours.pub_key(), ours, cfg.priv_validator_key_file()),
+           FilePVLastSignState(file_path=cfg.priv_validator_state_file())).save()
+    return path
+
+
+class NodeProbe:
+    """Class-level hooks for the phase's nodes, removed by close(): each
+    ConsensusState gets instrument_cs as it starts (views[-1]); a StepTimer
+    times validate_block (with the recorder's sequence numbers around each
+    call, for its verify.table events), verify_commit, save_block,
+    apply_block and the start's steps (boot scan, BatchVerifier.install,
+    the AsyncBatchVerifier's start, the handshake with its replayed blocks,
+    ConsensusState.start); the StateStore.load of `_valset_watch` is timed
+    apart."""
+
+    def __init__(self):
+        import asyncio
+        import types
+
+        from tendermint_tpu_torch.consensus import ConsensusState, Handshaker
+        from tendermint_tpu_torch.crypto import batch_verifier as bvm
+        from tendermint_tpu_torch.state import StateStore
+        from tendermint_tpu_torch.state.execution import BlockExecutor
+        from tendermint_tpu_torch.store import BlockStore
+        from tendermint_tpu_torch.types.validator import ValidatorSet
+
+        self.timer, self.start = StepTimer(), StepTimer()
+        self.views, self.vb, self.handshakes, self.watch_loads = [], [], [], []
+        self.rec = None  # the current node's FlightRecorder
+        self._restore = []
+        probe = self
+
+        def patch(obj, attr, fn):
+            self._restore.append((obj, attr, vars(obj).get(attr)))
+            setattr(obj, attr, fn)
+
+        def wrap(timer, obj, attr, name=None, height_of=None):
+            own = vars(obj).get(attr)  # None: inherited (Service.start)
+            timer.wrap(obj, attr, name, height_of)
+            self._restore.append((obj, attr, own))
+
+        cs_start, validate, handshake = ConsensusState.start, BlockExecutor.validate_block, \
+            Handshaker.handshake
+        load = StateStore.load
+
+        async def start(cs):
+            view = types.SimpleNamespace(
+                cs=cs, pv=cs.priv_validator, bus=cs.event_bus, executor=cs.block_exec,
+                state_store=cs.block_exec.state_store, mempool=cs.mempool)
+            instrument_cs(view)
+            probe.views.append(view)
+            t0 = time.perf_counter()
+            try:
+                await cs_start(cs)
+            finally:
+                probe.start.add("consensus_start", t0)
+
+        def validate_block(ex, state, block):
+            s0, t0 = next_seq(probe.rec), time.perf_counter()
+            try:
+                return validate(ex, state, block)
+            finally:
+                probe.timer.add(("validate_block", block.height), t0)
+                probe.vb.append((block.height, probe.rec, s0, next_seq(probe.rec)))
+
+        async def timed_handshake(hs, conns):
+            t0 = time.perf_counter()
+            try:
+                return await handshake(hs, conns)
+            finally:
+                probe.start.add("handshake", t0)
+                probe.handshakes.append(hs.n_blocks)
+
+        def state_load(store):
+            t0 = time.perf_counter()
+            try:
+                return load(store)
+            finally:
+                try:
+                    task = asyncio.current_task()
+                except RuntimeError:  # a thread without a loop
+                    task = None
+                if task is not None and task.get_name() == "valset-watch":
+                    probe.watch_loads.append(_ms(t0))
+
+        patch(ConsensusState, "start", start)
+        patch(BlockExecutor, "validate_block", validate_block)
+        patch(Handshaker, "handshake", timed_handshake)
+        patch(StateStore, "load", state_load)
+        wrap(self.timer, ValidatorSet, "verify_commit",
+             height_of=lambda vs, chain_id, bid, height, *a, **k: height + 1)
+        wrap(self.timer, BlockStore, "save_block", height_of=lambda bs, b, parts, c: b.height)
+        wrap(self.timer, BlockExecutor, "apply_block", height_of=lambda ex, s, bid, b: b.height)
+        wrap(self.start, BlockStore, "integrity_scan", "boot_scan")
+        wrap(self.start, bvm.BatchVerifier, "install")
+        wrap(self.start, bvm.AsyncBatchVerifier, "start", "lane_start")
+
+    def close(self):
+        for obj, attr, own in reversed(self._restore):
+            if own is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, own)
+        self._restore.clear()
+
+
+def loop_split(rec, t0, t1) -> str:
+    """The loop profiler's account of [t0, t1] (perf_counter seconds; the
+    recorder stamps time.monotonic_ns, the same clock on Linux): busy ms
+    per category, GC pauses, loop lag p90 and max, and the attribution's
+    shares."""
+    from tendermint_tpu_torch.libs import loopprof
+
+    off = time.monotonic_ns() - time.perf_counter_ns()
+    a, b = int(t0 * 1e9) + off, int(t1 * 1e9) + off
+    evs = [e for e in rec.events(kinds=["loop."]) if a < e["t_ns"] <= b]
+    busy = collections.Counter()
+    for e in evs:
+        if e["kind"] == "loop.busy":
+            busy.update(loopprof.busy_categories(e))
+    gc_ms = sum(e["ms"] for e in evs if e["kind"] == "loop.gc_pause")
+    lags = [e["lag_ms"] for e in evs if e["kind"] == "loop.lag"]
+    att = loopprof.attribution(evs, a, b) or {}
+    cats = ", ".join(f"{c} {busy[c]:.1f}" for c in ("consensus", "verify", "mempool", "other"))
+    return (f"{(t1 - t0) * 1000:.1f} ms: busy ms {cats}; GC {gc_ms:.1f} ms; loop lag p90 "
+            f"{percentile(lags, 90) if lags else 0.0:.1f} max {max(lags, default=0.0):.1f} ms "
+            f"over {len(lags)} probes; shares {att}")
+
+
+async def node_run(keys, card, dev):
+    import base64
+    import tempfile
+    import threading
+
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.consensus import replay as cs_replay
+    from tendermint_tpu_torch.consensus.types import RoundStep
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.libs import loopprof
+    from tendermint_tpu_torch.mempool import MempoolError
+    from tendermint_tpu_torch.node import default_new_node
+    from tendermint_tpu_torch.state import make_genesis_state
+    from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_COMMIT, BlockID, Commit
+    from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
+    from tendermint_tpu_torch.types.proposal import Proposal
+
+    t0 = time.perf_counter()
+    gen = GenesisDoc(CHAIN_ID, genesis_time_ns=LITE_T0, validators=[
+        GenesisValidator(k.pub_key().address(), k.pub_key(), 10) for k in keys])
+    vals = make_genesis_state(gen).validators.copy()
+    vals.increment_proposer_priority(CS_OURS_AT - 1)
+    key_of = {k.pub_key().address(): k for k in keys}
+    ours = key_of[vals.get_proposer().address]
+    ours_addr = ours.pub_key().address()
+    out_keys = [k for k in keys if k is not ours][:NODE_ROTATE]
+    new_keys = make_keys(NODE_ROTATE, prefix="node")
+    key_of.update((k.pub_key().address(), k) for k in new_keys)
+    val_txs = ([b"val:" + base64.b64encode(k.pub_key().bytes()) + b"!0" for k in out_keys]
+               + [b"val:" + base64.b64encode(k.pub_key().bytes()) + b"!10" for k in new_keys])
+    set_a = {k.pub_key().address() for k in keys}
+    set_b = (set_a - {k.pub_key().address() for k in out_keys}) | {
+        k.pub_key().address() for k in new_keys}
+    bursts, bad_txs, _ = abci_traffic(keys, [], top=NODE_HEIGHTS)
+    n = len(keys)
+    log(f"  traffic: {NODE_HEIGHTS} bursts of {ABCI_TXS} signed envelopes ({len(bad_txs)} "
+        f"corrupted), {len(val_txs)} val: txs at height {NODE_ROTATE_AT} ({len(new_keys)} new "
+        f"keys), made in {_ms(t0):.3f} ms; our validator {ours_addr.hex()[:12]} (round-0 "
+        f"proposer of {CS_OURS_AT}) of {n}")
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-node-")
+    home = tmp.name
+    cfg_path = node_home(home, gen, ours)
+    probe = NodeProbe()
+    builds, per_h, proposals, starts = [], {}, {}, []
+    recs, nodes, sign_s, frames_ok = [], [], 0.0, 0
+    device = None if dev.type == "cuda" else dev  # the entry point's default is the card
+
+    async def start_node(label):
+        """default_new_node on the home, started, its wiring checked."""
+        probe.start.reset()
+        t = time.perf_counter()
+        node = default_new_node(load_config(cfg_path), device=device)
+        new_ms = _ms(t)
+        probe.rec = node.flight_recorder
+        nodes.append(node)
+        recs.append(node.flight_recorder)
+        t = time.perf_counter()
+        await node.start()
+        start_ms = _ms(t)
+        bv = node.batch_verifier
+        if bv.device.type != dev.type:
+            raise AssertionError(f"the node's engine runs on {bv.device}, not {dev}")
+        if (batch_hook.get_verifier() != bv.verify
+                or batch_hook.get_indexed_verifier() != node.table_cache.verify_indexed):
+            raise AssertionError("the installed hooks are not the node's engine")
+        if node.mempool.sig_verifier is not node.async_verifier:
+            raise AssertionError("the mempool's signed-tx lane is not the node's AsyncBatchVerifier")
+        sm = probe.start.ms
+        starts.append(
+            f"{label}: default_new_node (stores, state, FilePV) {new_ms:.3f} ms; start "
+            f"{start_ms:.3f} ms: boot scan {sm.get('boot_scan', 0.0):.3f} ms, engine (install "
+            f"{sm.get('install', 0.0):.3f} ms + lane start {sm.get('lane_start', 0.0):.3f} ms), "
+            f"handshake {sm.get('handshake', 0.0):.3f} ms ({probe.handshakes[-1]} blocks "
+            f"replayed), consensus start {sm.get('consensus_start', 0.0):.3f} ms (with "
+            f"catchup_replay)")
+        return node
+
+    async def stop_node(node):
+        t = time.perf_counter()
+        await node.stop()
+        if (batch_hook.get_verifier() is not batch_hook.host_batch_verify
+                or batch_hook.get_indexed_verifier() is not None):
+            raise AssertionError("the node's hooks are still installed after its stop")
+        if loopprof.active() is not None:
+            raise AssertionError("the loop profiler's process hooks survived the node's stop")
+        return _ms(t)
+
+    async def burst(node, hb):
+        """Height hb's envelopes (and at NODE_ROTATE_AT the val: txs)
+        through node.mempool.check_tx, before its proposal is made."""
+        txs = list(bursts[hb]) + (val_txs if hb == NODE_ROTATE_AT else [])
+        out, ms = await check_burst(node.mempool, txs)
+        for tx, (res, _) in zip(txs, out):
+            if tx in bad_txs:
+                if not (isinstance(res, MempoolError) and str(res) == "invalid tx signature"):
+                    raise AssertionError(f"a corrupted envelope for {hb} gave {res!r}")
+            elif isinstance(res, Exception) or res.code != 0:
+                raise AssertionError(f"a valid tx for {hb} was rejected: {res!r}")
+        lat = [lat for _, lat in out]
+        per_h.setdefault(hb, {"lines": []})["lines"].append(
+            f"burst of {len(out)} check_tx {ms:.3f} ms, p50 {percentile(lat, 50):.3f} p99 "
+            f"{percentile(lat, 99):.3f} ms")
+
+    node = old = None
+    restart = {}
+    try:
+        with consensus_errors(NODE_LOGGERS) as errors, table_timing(None, builds, dev):
+            node = await start_node("first start")
+            v = probe.views[-1]
+            w = v.watch
+            await burst(node, 1)
+            iota_ns = node.state.consensus_params.block.time_iota_ms * 1_000_000
+            seq0 = next_seq(node.flight_recorder)
+            for h in range(1, NODE_HEIGHTS + 1):
+                st = per_h.setdefault(h, {"lines": []})
+                await w.until(lambda: w.at(h, 0, RoundStep.PROPOSE), f"propose {h}/0")
+                if h > 1:
+                    per_h[h - 1]["window"] = (w.t(h - 1, 0, RoundStep.COMMIT),
+                                              w.t(h, 0, RoundStep.PROPOSE))
+                    per_h[h - 1]["split"] = loop_split(node.flight_recorder,
+                                                       *per_h[h - 1]["window"])
+                proposer = v.cs.rs.validators.get_proposer().address
+                who = "ours" if proposer == ours_addr else "peer"
+                if who == "peer":
+                    prop, parts, build_ms = await cs_build(v, key_of[proposer], h, 0, BlockID,
+                                                           Commit, Proposal, BLOCK_PART_SIZE_BYTES)
+                    proposals[h] = prop
+                    await v.cs.set_proposal_and_block(prop, parts, "sender-0")
+                    st["lines"].append(f"proposal of {parts.total} parts by a peer (built in "
+                                       f"{build_ms:.3f} ms)")
+                await w.until(lambda: (h, 0, PREVOTE_TYPE) in w.signed, f"our prevote {h}")
+                rs = v.cs.rs
+                block = rs.proposal_block
+                if block is None:
+                    raise AssertionError(f"the node prevoted nil at height {h}")
+                if who == "ours":
+                    proposals[h] = rs.proposal
+                bid = BlockID(block.hash(), rs.proposal_block_parts.header())
+                st["lines"].append(
+                    f"{who}: {len(block.txs)} txs; proposal complete -> own prevote "
+                    f"{(w.signed[(h, 0, PREVOTE_TYPE)][0] - w.complete[(h, 0)]) * 1000:.3f} ms")
+                nv = rs.validators.size()
+                t_s = time.perf_counter()
+                pv_votes = cs_votes(rs.validators, key_of, ours_addr, PREVOTE_TYPE, h, 0, block,
+                                    bid, iota_ns)
+                pc_votes = cs_votes(rs.validators, key_of, ours_addr, PRECOMMIT_TYPE, h, 0,
+                                    block, bid, iota_ns)
+                pv_frames = cs_frames(rs.validators, *pv_votes)
+                pc_frames = cs_frames(rs.validators, *pc_votes)
+                sign_s += time.perf_counter() - t_s
+                seq, add0, wal0 = next_seq(node.flight_recorder), len(v.add_ms), len(v.wal_ms)
+                t_sent = await cs_send(v, pv_frames)
+                frames_ok += len(pv_frames)
+                prevotes = rs.votes.prevotes(0)
+                await w.until(lambda: prevotes.bit_array().count() == nv, f"prevotes {h}")
+                st["lines"].append("prevotes: " + cs_ingest_line(
+                    v, node.flight_recorder, seq, t_sent, time.perf_counter(), nv - 1, add0, wal0,
+                    card))
+                await w.until(lambda: (h, 0, PRECOMMIT_TYPE) in w.signed
+                              and v.cs.rs.votes.precommits(0).get_by_address(ours_addr)
+                              is not None, f"our precommit {h}")
+                if h < NODE_HEIGHTS:
+                    await burst(node, h + 1)
+                if h == NODE_CRASH_AT:
+                    own = {k: s for k, s in w.signed.items() if k[0] == h}
+                    old = node
+                    t_down = time.perf_counter()
+                    restart["stop_ms"] = await stop_node(old)
+                    restart["old_health"] = old.watchdog.health()
+                    replay, replay_record = cs_replay.catchup_replay, cs_replay._replay_record
+                    records, catchup = collections.Counter(), []
+
+                    async def timed_catchup(cs, height):
+                        t = time.perf_counter()
+                        try:
+                            return await replay(cs, height)
+                        finally:
+                            catchup.append(_ms(t))
+
+                    async def counted_record(cs, rec):
+                        records[rec.get("type")] += 1
+                        return await replay_record(cs, rec)
+
+                    cs_replay.catchup_replay = timed_catchup
+                    cs_replay._replay_record = counted_record
+                    try:
+                        node = await start_node("restart")
+                    finally:
+                        cs_replay.catchup_replay, cs_replay._replay_record = replay, replay_record
+                    v = probe.views[-1]
+                    w = v.watch
+                    await w.until(lambda: v.cs.rs.votes.precommits(0).get_by_address(ours_addr)
+                                  is not None, "the replayed precommit")
+                    restart["ms"] = _ms(t_down)
+                    resigned = {k: s for k, s in w.signed.items() if k[0] == h}
+                    if not resigned or any(s[1] != own.get(k, (0, None))[1]
+                                           for k, s in resigned.items()):
+                        raise AssertionError(f"the FilePV re-signed {sorted(resigned)} "
+                                             f"differently from before the stop ({sorted(own)})")
+                    if probe.handshakes[-1] != 0 or len(catchup) != 1 or not records["msg"]:
+                        raise AssertionError(f"the handshake replayed {probe.handshakes[-1]} "
+                                             f"blocks, or catchup_replay ran {len(catchup)} "
+                                             f"times over {dict(records)}")
+                    restart["line"] = (
+                        f"restart in height {h}: stop {restart['stop_ms']:.3f} ms; "
+                        f"catchup_replay {catchup[0]:.3f} ms over {sum(records.values())} WAL "
+                        f"records {dict(records)}; the FilePV re-signed {len(resigned)} vote(s) "
+                        f"byte-equal; the mempool reopened its journal "
+                        f"({len(node.mempool.wal_txs())} txs in it); down {restart['ms']:.3f} ms "
+                        f"in all")
+                    rs = v.cs.rs
+                seq, add0, wal0 = next_seq(node.flight_recorder), len(v.add_ms), len(v.wal_ms)
+                t_sent = await cs_send(v, pc_frames, bad=cs_flip(pc_frames[0]))
+                frames_ok += len(pc_frames)
+                await w.until(lambda: v.cs.rs.height == h + 1 and (
+                    v.cs.rs.last_commit.bit_array().count() + v.late[h] == nv),
+                    f"height {h}'s precommits")
+                t_done = time.perf_counter()
+                st["last_commit"] = v.cs.rs.last_commit.bit_array().count()
+                st["late"] = v.late[h]
+                st["lines"].append(
+                    "precommits (one bad frame rejected, re-sent clean): " + cs_ingest_line(
+                        v, node.flight_recorder, seq, t_sent, t_done, nv - 1, add0, wal0, card)
+                    + f"; vote-to-commit {(w.t(h, 0, RoundStep.COMMIT) - t_sent) * 1000:.3f} ms")
+                st["commit_t"] = w.t(h, 0, RoundStep.COMMIT)
+                if h == 1:
+                    st["first_propose"] = w.t(1, 0, RoundStep.PROPOSE)
+            await w.until(lambda: w.at(NODE_HEIGHTS + 1, 0, RoundStep.NEW_HEIGHT),
+                          "the last height")
+            restart["stop2_ms"] = await stop_node(node)
+            out = node_check(probe, nodes, recs, per_h, proposals, bursts, bad_txs, val_txs,
+                             set_a, set_b, ours_addr, errors, home, BLOCK_ID_FLAG_COMMIT)
+        node_report(probe, nodes, recs, per_h, starts, builds, restart, sign_s, seq0, dev,
+                    card)
+        out["frames"] = frames_ok
+        out["tables"] = [b["thread"] for b in builds]
+        out["window_builds"] = sum(1 for b in builds if b["build_ms"] is not None)
+        return out
+    finally:
+        probe.close()
+        for nd in nodes:
+            if nd.is_running:
+                await nd.stop()
+        for t in threading.enumerate():  # the engine's background builds and probe
+            if t.name in ("table-build", "table-rebuild", "bv-rtt-probe", "bv-warmup"):
+                t.join()
+        tmp.cleanup()
+
+
+def node_check(probe, nodes, recs, per_h, proposals, bursts, bad_txs, val_txs, set_a, set_b,
+               ours_addr, errors, home, flag_commit):
+    """Phase 10 (a)'s outcome (see the module docstring, 10).  Returns the
+    counts main() holds the launches to."""
+    node = nodes[-1]
+    n = len(set_a)
+    for h in range(1, NODE_HEIGHTS + 1):
+        block, seen = node.block_store.load_block(h), node.block_store.load_seen_commit(h)
+        if block is None or seen is None or seen.round != 0:
+            raise AssertionError(f"height {h} did not commit in round 0")
+        if block.hash() != proposals[h].block_id.hash:
+            raise AssertionError(f"block {h} is not the proposal gossiped for it")
+        want = {tx for tx in bursts[h] if tx not in bad_txs}
+        if h == NODE_ROTATE_AT:
+            want |= set(val_txs)
+        if set(block.txs) != want:
+            raise AssertionError(f"block {h} does not hold exactly its burst's valid txs")
+        signed = sum(cs.block_id_flag == flag_commit for cs in block.last_commit.signatures)
+        if h > 1:
+            landed = per_h[h - 1]["last_commit"]
+            if signed != landed or 3 * signed <= 2 * n:
+                raise AssertionError(f"block {h}'s LastCommit has {signed} signatures, not the "
+                                     f"{landed} the node held, or not more than 2/3 of {n}")
+    if node.block_store.load_block(CS_OURS_AT).header.proposer_address != ours_addr:
+        raise AssertionError(f"height {CS_OURS_AT} was not proposed by our validator")
+    for h in range(1, NODE_HEIGHTS + 2):
+        got = {v.address for v in node.state_store.load_validators(h).validators}
+        if got != (set_b if h >= NODE_ROTATE_AT + 2 else set_a):
+            raise AssertionError(f"the validators at height {h} are not set "
+                                 f"{'B' if h >= NODE_ROTATE_AT + 2 else 'A'}")
+    state = node.state_store.load()
+    if state.last_block_height != NODE_HEIGHTS:
+        raise AssertionError("the state store did not reach the last height")
+    updates = [e for rec in recs for e in rec.events(kinds=["valset.update"])]
+    if [(e["n_updates"], e["new_size"]) for e in updates] != [(len(val_txs), n)]:
+        raise AssertionError(f"valset.update events {updates}, not one with {len(val_txs)} "
+                             f"updates and {n} validators")
+    # each validate_block's verify.table events: one lookup each; a miss
+    # declines (the node's verifier is in warmup mode) and the flat path serves
+    checks = []
+    for h, rec, s0, s1 in probe.vb:
+        if h < 2:
+            continue
+        evs = [e for e in rec.events(since=s0, kinds=["verify.table", "verify.dispatch"])
+               if e["seq"] < s1]
+        table = [e["hit"] for e in evs if e["kind"] == "verify.table"]
+        if len(table) != 1:
+            raise AssertionError(f"a validate_block at height {h} made {len(table)} table "
+                                 "lookups, not 1")
+        flat = [e for e in evs if e["kind"] == "verify.dispatch" and e["path"] in ("device", "host")
+                and e["n"] >= 3 * n // 4]
+        if not table[0] and not flat:
+            raise AssertionError(f"a declined commit check at height {h} was not served by the "
+                                 "flat path")
+        checks.append((recs.index(rec), h, table[0]))
+    log("  validate_block on heights >= 2 (node, height, table hit): " + ", ".join(
+        f"({i + 1}, {h}, {hit})" for i, h, hit in checks))
+    if checks[0][1:] != (2, False):
+        raise AssertionError("the genesis set's first commit check was not declined")
+    first_b = [hit for i, h, hit in checks if i == 0 and h == NODE_ROTATE_AT + 3]
+    if not first_b or not first_b[0]:
+        raise AssertionError(f"set B's first commit check (height {NODE_ROTATE_AT + 3}) missed "
+                             "the table _valset_watch built")
+    if errors:
+        raise AssertionError(f"the node logged errors: {errors[:3]}")
+    for nd in nodes:
+        crit = [e for e in nd.flight_recorder.events(kinds=["health.alarm"])
+                if e["severity"] == "critical"]
+        if crit or nd.watchdog.autodumps:
+            raise AssertionError(f"the watchdog raised critical alarms {crit}")
+    if os.path.isdir(os.path.join(home, "data", "forensics")):
+        raise AssertionError("the watchdog wrote an autodump bundle")
+    declines = [sum(1 for i, _, hit in checks if i == k and not hit) for k in range(len(recs))]
+    return {"validate_blocks": len(checks), "hits": len(checks) - sum(declines),
+            "declines": declines}
+
+
+def node_report(probe, nodes, recs, per_h, starts, builds, restart, sign_s, seq0, dev, card):
+    """Per height and for the phase (see the module docstring, 10 (a))."""
+    t = probe.timer
+
+    def at(name, h):
+        return t.ms.get((name, h), 0.0), t.n.get((name, h), 0)
+
+    for line in starts:
+        log(f"  {line} ({card})")
+    for nd in nodes:
+        log(f"  dispatch RTT probe: {nd.batch_verifier.rtt_probe} ({card})")
+    for h in range(1, NODE_HEIGHTS + 1):
+        st = per_h[h]
+        vb, vc = at("validate_block", h), at("verify_commit", h)
+        gap = (f"{(st['commit_t'] - per_h[h - 1]['commit_t']) * 1000:.3f} ms" if h > 1 else "-")
+        log(f"    height {h}: " + "; ".join(st["lines"]) + f"; LastCommit {st['last_commit']} "
+            f"of {st['last_commit'] + st['late']} precommits, {st['late']} refused as late")
+        log(f"    height {h}: validate_block x{vb[1]} {vb[0]:.3f} ms (verify_commit x{vc[1]} "
+            f"{vc[0]:.3f} ms), save_block {at('save_block', h)[0]:.3f} ms, pipelined "
+            f"apply_block {at('apply_block', h)[0]:.3f} ms; commit-to-commit {gap} ({card})")
+        if "split" in st:
+            log(f"    height {h}: timeout_commit window, loop profiler: {st['split']} ({card})")
+    log(f"  {restart['line']} ({card})")
+    loads = ", ".join(f"{ms:.3f}" for ms in probe.watch_loads)
+    log(f"  _valset_watch: state load {loads} ms on the event loop ({card})")
+    for b in builds:
+        log(f"    table of {b['validators']} validators on {b['thread']}: host rows "
+            f"{b['rows_ms']:.3f} ms, window tables (kernel 2) "
+            + (f"{b['build_ms']:.3f} ms" if b["build_ms"] is not None else "not built")
+            + f" ({card})")
+    for i, nd in enumerate(nodes):
+        alarms = [(e["alarm"], e["severity"]) for e in nd.flight_recorder.events(
+            kinds=["health.alarm"])]
+        log(f"  watchdog of node {i + 1}: {nd.watchdog.ticks} ticks, verdict "
+            f"{nd.watchdog.verdict}, alarms raised {alarms}; loop profiler "
+            f"{nd.loop_profiler.snapshot()}")
+    first = per_h[1]["first_propose"]
+    span = per_h[NODE_HEIGHTS]["commit_t"] - first
+    waits = sum(per_h[h]["window"][1] - per_h[h]["window"][0] for h in range(1, NODE_HEIGHTS))
+    busy = span - sign_s - waits - restart["ms"] / 1000
+    d = [e for rec in recs for e in rec.events(kinds=["verify.dispatch"])]
+    device_ms = sum(e["device_ms"] for e in d)
+    log(f"  heights 1-{NODE_HEIGHTS}: {span * 1000:.3f} ms from height 1's propose to height "
+        f"{NODE_HEIGHTS}'s commit = {NODE_HEIGHTS / span:.3f} heights/s; apart from signing and "
+        f"framing {sign_s * 1000:.3f} ms, timeout_commit x{NODE_HEIGHTS - 1} "
+        f"{waits * 1000:.3f} ms and the restart {restart['ms']:.3f} ms: {busy * 1000:.3f} ms = "
+        f"{NODE_HEIGHTS / busy:.3f} heights/s; {len(d)} dispatches, host prep "
+        f"{sum(e['host_prep_ms'] for e in d):.3f} ms, dispatch {device_ms:.3f} ms "
+        f"({device_ms / (span * 1000) * 100:.3f} % of the wall time); "
+        f"{card_memory(dev, nodes[-1].table_cache)} ({card})")
+
+
+def store_height(home) -> int:
+    """The block store's height in `home`, read through a read-only sqlite
+    connection while another process writes it."""
+    import sqlite3
+
+    from tendermint_tpu_torch.encoding import codec
+    from tendermint_tpu_torch.store import unseal
+
+    path = os.path.join(home, "data", "blockstore.db")
+    if not os.path.exists(path):
+        return 0
+    con = sqlite3.connect(f"file:{path}?mode=ro", uri=True, timeout=5)
+    try:
+        row = con.execute("SELECT v FROM kv WHERE k = ?", (b"blockStore",)).fetchone()
+    except sqlite3.OperationalError:  # the table is not made yet
+        return 0
+    finally:
+        con.close()
+    if row is None:
+        return 0
+    payload, _ = unseal(bytes(row[0]))
+    return codec.loads(payload)["height"]
+
+
+def phase_cli(card):
+    """The CLI in a subprocess on the card (see the module docstring, 10 (b))."""
+    import base64
+    import re
+    import select
+    import signal
+    import tempfile
+
+    from tendermint_tpu_torch.config import load_config, save_config
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-cli-")
+    home = os.path.join(tmp.name, "h2")
+    env = dict(os.environ, PYTHONUNBUFFERED="1",
+               PYTHONPATH=os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    argv = [sys.executable, "-m", "tendermint_tpu_torch", "--home", home]
+
+    def cli(*args):
+        r = subprocess.run(argv + list(args), capture_output=True, text=True, timeout=300,
+                           env=env, cwd=tmp.name)
+        if r.returncode != 0:
+            raise AssertionError(f"{' '.join(args)} exited {r.returncode}: {r.stderr[-2000:]}")
+        return r.stdout
+
+    def run_node(until_height):
+        """`node` until the home's block store reaches until_height, then
+        SIGTERM; returns (s to "node started", the height it started
+        from, heights committed, exit code, its log)."""
+        log_path = os.path.join(tmp.name, f"node-{until_height}.log")
+        with open(log_path, "w") as err:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(argv + ["node"], stdout=subprocess.PIPE, stderr=err,
+                                    text=True, env=env, cwd=tmp.name)
+            try:
+                line, deadline = "", t0 + 300
+                while not line:  # "node started: chain=..." once started
+                    if select.select([proc.stdout], [], [], 1.0)[0]:
+                        line = proc.stdout.readline() or "exited"
+                    elif proc.poll() is not None or time.perf_counter() > deadline:
+                        break
+                started_s = time.perf_counter() - t0
+                if not line.startswith("node started"):
+                    raise AssertionError(f"node did not start (exit {proc.wait(30)})")
+                with open(log_path) as f:
+                    text = f.read()
+                m = re.search(r"node started chain_id=\S+ height=(\d+)", text)
+                from_h = int(m.group(1)) if m else -1
+                deadline = time.perf_counter() + 120
+                while store_height(home) < until_height:
+                    if proc.poll() is not None or time.perf_counter() > deadline:
+                        raise AssertionError(f"node did not reach height {until_height}")
+                    time.sleep(0.1)
+                proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(30)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        with open(log_path) as f:
+            text = f.read()
+        return started_s, from_h, store_height(home), rc, text
+
+    try:
+        t0 = time.perf_counter()
+        cli("init", "--chain-id", CLI_CHAIN)
+        path = os.path.join(home, "config", "config.toml")
+        cfg = load_config(path)
+        cfg.p2p.laddr, cfg.rpc.laddr = "none", ""
+        save_config(cfg, path)
+        init_ms = _ms(t0)
+        runs = [run_node(3), run_node(5)]
+        for i, (started_s, from_h, top, rc, text) in enumerate(runs):
+            engine = [ln for ln in text.splitlines() if "verify engine" in ln]
+            if not engine or "device=cuda" not in engine[0]:
+                raise AssertionError(f"the verify engine line names no CUDA device: {engine}")
+            if rc != 0:
+                raise AssertionError(f"node exited {rc} on SIGTERM: {text[-2000:]}")
+            want_from = 0 if i == 0 else runs[0][2]
+            if from_h != want_from:
+                raise AssertionError(f"node started from height {from_h}, not {want_from}")
+            log(f"    node run {i + 1}: 'node started' after {started_s:.3f} s (from height "
+                f"{from_h}), committed to height {top}, exit code {rc} on SIGTERM; "
+                f"{engine[0].split(': ', 1)[-1]} ({card})")
+        if runs[1][2] < 5:
+            raise AssertionError("the resumed node did not reach height 5")
+        shown = json.loads(cli("show_validator"))
+        with open(os.path.join(home, "config", "genesis.json")) as f:
+            (val,) = json.load(f)["validators"]
+        if (shown["type"], bytes.fromhex(shown["value"])) != (
+                val["pub_key"]["type"], base64.b64decode(val["pub_key"]["value"])):
+            raise AssertionError("show_validator does not print the genesis key")
+        log(f"  init and config edit {init_ms:.3f} ms; show_validator prints the genesis key. A "
+            f"solo validator's commits carry one signature, below min_device_batch (16): the "
+            f"engine serves them on the host and no kernel launches here; this part proves the "
+            f"entry point on the card ({card})")
+    finally:
+        tmp.cleanup()
+
+
 def kernel_device_ms(fn, names) -> dict:
     """Device ms of each named kernel in one run of fn, from torch.profiler;
     a name is missing where the profiler records no device time for it."""
@@ -3082,6 +3819,43 @@ def main() -> int:
         raise AssertionError("the ladder was not launched for every accepted vote frame in phase 9")
     for name, c in counts.items():
         report[name]["launches"] += c
+
+    log("[10] node wiring: a 10,000-validator node from its home directory, stopped and "
+        "resumed; then the CLI")
+    ed25519_cuda.LAUNCHES = 0
+    ed25519_table.BUILD_LAUNCHES = 0
+    ed25519_table.SUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = phase_node(keys, card, dev)
+    counts = {
+        "ed25519_ladder": ed25519_cuda.LAUNCHES,
+        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
+    }
+    log(f"  launches in phase 10 (a): {counts}; {out['validate_blocks']} validate_block calls on "
+        f"heights >= 2, {out['hits']} table hits, declines by node {out['declines']}, tables "
+        f"built {out['tables']}, {out['frames']} vote frames accepted; phase 10 (a) took "
+        f"{time.perf_counter() - t0:.3f} s")
+    if out["tables"] != ["table-build", "table-rebuild", "table-build"]:
+        raise AssertionError(f"phase 10 built tables {out['tables']}, not the genesis set's, set "
+                             "B's by _valset_watch and set B's by the restarted node")
+    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 3:
+        raise AssertionError("kernel 2 (window tables) was not launched once per table in "
+                             "phase 10")
+    if out["declines"][0] != 1:
+        raise AssertionError("the first node declined other than exactly once (the genesis "
+                             "set's first check)")
+    if counts[picked] < out["hits"]:
+        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
+                             "in phase 10")
+    if counts["ed25519_ladder"] < out["frames"] + sum(out["declines"]):
+        raise AssertionError("the ladder did not serve every accepted vote frame and declined "
+                             "check in phase 10")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+    t0 = time.perf_counter()
+    phase_cli(card)
+    log(f"  phase 10 (b) took {time.perf_counter() - t0:.3f} s")
 
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
     keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -10,7 +10,10 @@ with fast sync's pure Processor and Scheduler; and blocks applied to an
 ABCI app (abci's local client and example apps, proxy's AppConns, the
 event bus and tx index, the mempool with its signed-tx lane on the
 AsyncBatchVerifier, the evidence pool, validate_block and BlockExecutor,
-and the Handshaker).  It imports
+and the Handshaker); the consensus core (ConsensusState with its WAL and
+the FilePV); and the node (the whole Config and its TOML, Node without
+p2p, the loop profiler, the health watchdog and the CLI, `python -m
+tendermint_tpu_torch`).  It imports
 nothing of the JAX package; the host modules it needs are its own copies.
 Entry points run on the card (device=None means "cuda") and raise when no
 card is present unless the caller passes device="cpu".

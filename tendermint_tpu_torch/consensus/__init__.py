@@ -1,6 +1,6 @@
-"""Consensus: the BFT state machine, WAL, timeout ticker, replay (the
-port's copy of tendermint_tpu/consensus; the reactor waits for p2p,
-ROADMAP 1.7, and replay_file.py for the node's Config, ROADMAP 1.6)."""
+"""Consensus: the BFT state machine, WAL, timeout ticker, replay and the
+WAL replay console (the port's copy of tendermint_tpu/consensus; the
+reactor waits for p2p, ROADMAP 1.7)."""
 
 from .types import (
     HeightVoteSet,
@@ -11,6 +11,7 @@ from .ticker import TimeoutInfo, TimeoutTicker
 from .wal import WAL, NilWAL
 from .state import ConsensusState
 from .replay import Handshaker
+from .replay_file import run_replay_file
 
 __all__ = [
     "ConsensusState",
@@ -22,4 +23,5 @@ __all__ = [
     "TimeoutInfo",
     "TimeoutTicker",
     "WAL",
+    "run_replay_file",
 ]

@@ -1,12 +1,50 @@
-"""Structured key=value logging: the port's copy of get_logger from
-tendermint_tpu/libs/log.py (reference: libs/log/tm_logger.go), built on
-stdlib logging.
+"""Structured leveled logging with per-module filtering: the port's copy of
+tendermint_tpu/libs/log.py (reference: libs/log/tm_logger.go,
+libs/log/filter.go), built on stdlib logging.
 """
 
 from __future__ import annotations
 
 import logging
+import sys
 from typing import Optional
+
+_FORMAT = "%(asctime)s %(levelname).1s %(name)s: %(message)s"
+
+
+def setup(level: str = "info", module_levels: Optional[dict[str, str]] = None) -> None:
+    """Configure root logging. `module_levels` mirrors the reference's
+    ``log_level = "state:info,*:error"`` syntax (config/config.go BaseConfig)."""
+    module_levels = dict(module_levels or {})
+    default = module_levels.pop("*", level)
+    logging.basicConfig(
+        level=getattr(logging, default.upper(), logging.INFO),
+        format=_FORMAT,
+        stream=sys.stderr,
+        force=True,
+    )
+    for mod, lvl in module_levels.items():
+        logging.getLogger(mod).setLevel(getattr(logging, lvl.upper(), logging.INFO))
+
+
+def parse_log_level(spec: str, default: str = "info") -> dict[str, str]:
+    """Parse ``"state:info,consensus:debug,*:error"`` into module levels."""
+    out: dict[str, str] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" in part:
+            mod, lvl = part.split(":", 1)
+            out[mod] = lvl
+        else:
+            out["*"] = part
+    out.setdefault("*", default)
+    return out
+
+
+def get(name: str) -> logging.Logger:
+    return logging.getLogger(name)
 
 
 class TMLogger:

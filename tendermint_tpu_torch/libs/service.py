@@ -3,8 +3,6 @@
 Counterpart of the reference's `service.Service` / `BaseService`
 (reference: libs/service/service.go): one Start/Stop/Quit lifecycle where
 `on_start` may spawn asyncio tasks that are tracked and cancelled on stop.
-The scheduler profiler's wrapping of spawned tasks (libs/loopprof.py in the
-JAX package) is not part of the port.
 """
 
 from __future__ import annotations
@@ -12,6 +10,8 @@ from __future__ import annotations
 import asyncio
 import logging
 from typing import Coroutine, Optional
+
+from . import loopprof
 
 
 class AlreadyStartedError(RuntimeError):
@@ -101,7 +101,13 @@ class Service:
 
     def spawn(self, coro: Coroutine, name: str = "") -> asyncio.Task:
         """Spawn a task owned by this service; cancelled on stop.  Called
-        from the service's own coroutines, so a loop is running."""
+        from the service's own coroutines, so a loop is running.  When a
+        scheduler profiler is installed ([instrumentation] loop_profiler),
+        the coroutine is wrapped in its resume-timing trampoline and
+        accounted to a category derived from the service + task name;
+        without one this is one module-global None check."""
+        if loopprof._ACTIVE is not None:
+            coro = loopprof._ACTIVE.wrap(coro, loopprof.categorize(self._name, name))
         task = asyncio.get_running_loop().create_task(coro, name=name or self._name)
         if self._stopped:
             # stop already ran (or is running) its cancel pass: a task

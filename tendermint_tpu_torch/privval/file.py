@@ -328,3 +328,14 @@ class FilePV(PrivValidator):
 
     def __repr__(self) -> str:
         return f"FilePV({self.key.address.hex()[:12]})"
+
+
+def load_or_gen_file_pv(config) -> FilePV:
+    """DefaultNewNode's privval hook (node/node.go:115) from a Config.  A
+    `base.key_type` other than ed25519 raises generate_priv_key's TypeError
+    naming the ROADMAP item that ports it (1.8 or 1.9)."""
+    return FilePV.load_or_generate(
+        config.priv_validator_key_file(),
+        config.priv_validator_state_file(),
+        getattr(config.base, "key_type", "ed25519"),
+    )
