@@ -224,6 +224,71 @@
    carry one signature, below min_device_batch, so no kernel launches in
    (b).
 
+11. Two port nodes of the 10,000-validator chain over TCP (phase 3's keys at
+   power 10, the kvstore app, sqlite stores; no rotation).  Node A is built
+   by default_new_node from its home (config.toml at the JAX defaults but
+   p2p.laddr on a free local port, PEX off, duplicate IPs allowed since every
+   peer is on 127.0.0.1, RPC off, the signed-tx precheck and a mempool of
+   10,000; fast sync on; the FilePV of height 3's round-0 proposer) and
+   instrumented as phase 10's node.  Four relay peers in a process of their
+   own (so their packing and sealing is not charged to A), each with its own
+   NodeKey, Transport and Switch of the port, dial A as persistent peers;
+   each holds a quarter of the 9,998 validators that neither node holds,
+   and runs a driver reactor on channels 0x20-0x23 that follows A's
+   new_round_step (and ignores what A gossips back); each
+   relay's frames carry the possession bitmap of all 9,998 relayed votes
+   (it stands for a part of the network that has heard them), so A's
+   anti-echo sends the relays only A's and B's votes back.  With no
+   peer ahead, A's fast sync hands over to consensus after its 1 s grace.
+   Per height: a burst of 1,000 signed envelopes (1 in 100 corrupted) goes
+   to A's check_tx only; a relay whose validator proposes sends the Proposal
+   and its 64 KB parts on DATA_CHANNEL (built as phase 9's peers build
+   them); after A's own prevote, then its own precommit, each relay sends
+   its quarter of the votes (signed on SIGN_THREADS) as vote_batch frames of
+   at most 65,536 bytes in the consensus reactor's format.  Node B starts
+   through the CLI (`python -m tendermint_tpu_torch --home HB node`, a
+   subprocess) once A has committed height 3 (at height 2 the fast-sync
+   reactor's tip-1 rule lets B switch before it fetches a block), with A as
+   its only (persistent) peer: it fast-syncs at least one pair from A on
+   the BLOCKCHAIN channel (the pair checks on its own engine; on the card
+   one pair, switching at height 1), switches to consensus and gets the
+   blocks up to A's height (on the card 2-3) through A's catch-up gossip;
+   the relays hold height 4's votes until A sees B at height 4, so every
+   proposal, part and vote B sees from then on crosses A's consensus
+   reactor.  B's FilePV holds height 5's proposer: B proposes block 5 from
+   txs that reached it by mempool gossip, and the relays vote
+   for the block id A received from B.  In height 4 relay 1's last
+   precommit frame carries one flipped signature (A must stop relay 1 with
+   "invalid vote signature in batch"; relay 2 re-sends the frame clean and
+   relay 1 re-dials), and relay 0 sends a second, nil prevote of one of its
+   validators (A's DuplicateVoteEvidence must reach B by the evidence
+   reactor and commit in block 5 or 6).  The run stops once both nodes have
+   committed height 6: B gets SIGTERM (exit 0), its stores are opened here,
+   A stops.  Prints per height on A: proposal complete -> own prevote, each
+   vote kind's ingest (first frame to +2/3, verify_direct host prep and
+   device ms p50/p99, the receive routine's us per vote), vote-to-commit,
+   commit-to-commit, the consensus frames received by kind, A's link bytes
+   sent and received by peer class (relays, B) from the MConnection meters,
+   B's commit lag behind A (B's log timestamps, the same host clock) and the
+   loop profiler's account of each COMMIT -> PROPOSE window (the gossip
+   tasks their own category); on B, seconds to "node started", its
+   fast-synced blocks and their time and the height it switched at; heights/s
+   as run and apart from signing, timeout_commit and B's start; the
+   dispatches' share; the card's memory; one link's handshake ms, the AEAD's
+   seal and open MB/s on the C tier and 16 MB through a link in 1 KB
+   messages.  Fails unless heights 1-6 commit in round 0, A and B hold
+   byte-equal blocks 1-6 and equal app hashes, each valid envelope is
+   committed once, block 3 is A's and block 5 is B's with gossiped txs,
+   every LastCommit holds more than 2/3, B fast-synced a pair and then
+   committed every later height in consensus, A stopped relay 1 for exactly
+   that reason (and no other peer) and readmitted it, the evidence is
+   committed once and marked committed in both pools, neither node logs an
+   ERROR, B's output holds no traceback, every validate_block of A on
+   heights >= 2 makes one table lookup, and on the card kernel 2 built A's
+   genesis table, the profile's pick served every table hit and the ladder
+   every vote_batch frame of >= 16 entries and every declined check.  B's
+   launches happen in its own process and are not in the kernels line.
+
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
 spill bytes from the ptxas log, and bound_ms / ms) and the card line; the last line is {"ok": true, "device": {...}}.  Exits non-zero,
@@ -2431,10 +2496,11 @@ def instrument_cs(node):
     node.watch = CsWatch(node)
 
 
-def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns):
+def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns, skip=()):
     """The other validators' votes of `kind` for (h, r) on bid (the zero id
-    for nil), stamped as _vote_time stamps them, signed on SIGN_THREADS
-    threads, with their wire bytes; and their sign bytes."""
+    for nil), but those of the addresses in `skip`, stamped as _vote_time
+    stamps them, signed on SIGN_THREADS threads, with their wire bytes; and
+    their sign bytes."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tendermint_tpu_torch.types.vote import Vote
@@ -2442,7 +2508,7 @@ def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns):
     now = time.time_ns()
     ts = max(now, block.time_ns + iota_ns) if block is not None else now
     votes = [Vote(kind, h, r, bid, ts, v.address, i) for i, v in enumerate(vals.validators)
-             if v.address != ours_addr]
+             if v.address != ours_addr and v.address not in skip]
     msgs = [v.sign_bytes(CHAIN_ID) for v in votes]
     with ThreadPoolExecutor(SIGN_THREADS) as ex:
         sigs = list(ex.map(lambda j: key_of[j[0].validator_address].sign(j[1]),
@@ -2453,23 +2519,28 @@ def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns):
     return votes, msgs
 
 
-def cs_frames(vals, votes, msgs):
-    """vote_batch frames as the consensus reactor cuts them: at most
-    CS_FRAME_BYTES of Vote.wire() each; per frame its votes and the
-    (pubkey, sign bytes, signature) items the engine verifies."""
+def cut_frames(votes):
+    """The votes in vote_batch frames as the consensus reactor cuts them:
+    at most CS_FRAME_BYTES of Vote.wire() each."""
     frames, cur, total = [], [], 0
-    for v, m in zip(votes, msgs):
+    for v in votes:
         w = len(v.wire())
         if cur and total + w > CS_FRAME_BYTES:
             frames.append(cur)
             cur, total = [], 0
-        cur.append((v, m))
+        cur.append(v)
         total += w
     if cur:
         frames.append(cur)
-    return [([v for v, _ in f],
-             [(vals.validators[v.validator_index].pub_key.bytes(), m, v.signature) for v, m in f])
-            for f in frames]
+    return frames
+
+
+def cs_frames(vals, votes, msgs):
+    """vote_batch frames (cut_frames); per frame its votes and the
+    (pubkey, sign bytes, signature) items the engine verifies."""
+    msg_of = {id(v): m for v, m in zip(votes, msgs)}
+    return [(f, [(vals.validators[v.validator_index].pub_key.bytes(), msg_of[id(v)], v.signature)
+                 for v in f]) for f in cut_frames(votes)]
 
 
 async def cs_verify(lane, items):
@@ -2969,6 +3040,7 @@ class NodeProbe:
         import types
 
         from tendermint_tpu_torch.consensus import ConsensusState, Handshaker
+        from tendermint_tpu_torch.crypto import batch as batch_hook
         from tendermint_tpu_torch.crypto import batch_verifier as bvm
         from tendermint_tpu_torch.state import StateStore
         from tendermint_tpu_torch.state.execution import BlockExecutor
@@ -2977,7 +3049,9 @@ class NodeProbe:
 
         self.timer, self.start = StepTimer(), StepTimer()
         self.views, self.vb, self.handshakes, self.watch_loads = [], [], [], []
+        self.lookups = []  # (height, [hit, ...]) of each recorded validate_block
         self.rec = None  # the current node's FlightRecorder
+        self.executor = None  # when set, only its validate_block calls are recorded
         self._restore = []
         probe = self
 
@@ -3007,12 +3081,22 @@ class NodeProbe:
                 probe.start.add("consensus_start", t0)
 
         def validate_block(ex, state, block):
-            s0, t0 = next_seq(probe.rec), time.perf_counter()
+            if probe.executor is not None and ex is not probe.executor:
+                return validate(ex, state, block)
+            # the recorder of the installed TableCache's engine, which
+            # records the call's verify.table event (the current node's)
+            cache = getattr(batch_hook.get_indexed_verifier(), "__self__", None)
+            rec = getattr(getattr(cache, "verifier", None), "recorder", None) or probe.rec
+            s0, t0 = next_seq(rec), time.perf_counter()
             try:
                 return validate(ex, state, block)
             finally:
                 probe.timer.add(("validate_block", block.height), t0)
-                probe.vb.append((block.height, probe.rec, s0, next_seq(probe.rec)))
+                s1 = next_seq(rec)
+                probe.vb.append((block.height, rec, s0, s1))
+                probe.lookups.append((block.height, [
+                    e["hit"] for e in rec.events(since=s0, kinds=["verify.table"])
+                    if e["seq"] < s1]))
 
         async def timed_handshake(hs, conns):
             t0 = time.perf_counter()
@@ -3072,7 +3156,7 @@ def loop_split(rec, t0, t1) -> str:
     gc_ms = sum(e["ms"] for e in evs if e["kind"] == "loop.gc_pause")
     lags = [e["lag_ms"] for e in evs if e["kind"] == "loop.lag"]
     att = loopprof.attribution(evs, a, b) or {}
-    cats = ", ".join(f"{c} {busy[c]:.1f}" for c in ("consensus", "verify", "mempool", "other"))
+    cats = ", ".join(f"{c} {busy[c]:.1f}" for c in loopprof.CATEGORIES)
     return (f"{(t1 - t0) * 1000:.1f} ms: busy ms {cats}; GC {gc_ms:.1f} ms; loop lag p90 "
             f"{percentile(lags, 90) if lags else 0.0:.1f} max {max(lags, default=0.0):.1f} ms "
             f"over {len(lags)} probes; shares {att}")
@@ -3581,6 +3665,984 @@ def phase_cli(card):
         tmp.cleanup()
 
 
+NET_HEIGHTS = 6  # phase 11: heights 1 .. 6 commit on both nodes
+NET_B_START = 3  # node B starts once A has committed this height
+NET_JOIN_AT = 4  # the relays hold this height's votes until A sees B at it
+NET_B_AT = 5  # B's validator is this height's round-0 proposer
+NET_BAD_AT = 4  # a flipped precommit frame and a conflicting prevote
+NET_RELAYS = 4  # relay peers standing in for the other validators
+NET_LOGGERS = NODE_LOGGERS + ("p2p", "mconn", "cs-reactor", "fastsync", "mempool-reactor",
+                              "evidence-reactor", "evidence", "p2p-transport")
+
+
+class NetRelay:
+    """A relay peer of phase 11, in the relay process (relay_child): its own
+    NodeKey, Transport and Switch of the port, dialing A as a persistent
+    peer; a driver reactor on channels 0x20-0x23 that follows A's
+    new_round_step (and announces the same height, round and step back),
+    and a sink for A's mempool, evidence and fast-sync gossip, which the
+    relays ignore."""
+
+    def __init__(self, i):
+        from tendermint_tpu_torch.consensus import reactor as cs_reactor
+        from tendermint_tpu_torch.encoding import codec
+        from tendermint_tpu_torch.p2p import NodeInfo, NodeKey, Reactor, Switch, Transport
+        from tendermint_tpu_torch.p2p.conn.connection import ChannelDescriptor
+        from tendermint_tpu_torch.p2p.node_info import GOSSIP_TRACE_VERSION
+
+        self.i = i
+        nk = NodeKey.generate()
+        ni = NodeInfo(node_id=nk.id, network=CHAIN_ID, moniker=f"relay{i}",
+                      gossip_version=GOSSIP_TRACE_VERSION)
+        self.switch = Switch(Transport(nk, ni), allow_duplicate_ip=True)
+
+        class Driver(Reactor):
+            def get_channels(self):
+                return cs_reactor.ConsensusReactor.get_channels(None)
+
+            async def receive(self, chan_id, peer, msg_bytes):
+                if chan_id != cs_reactor.STATE_CHANNEL:
+                    return  # A's votes, parts and proposals: ignored
+                msg = codec.loads(msg_bytes)  # not _dec: the phase counts A's decodes there
+                if msg.pop("k") == "new_round_step":  # announce A's height, round and step back
+                    await peer.send(cs_reactor.STATE_CHANNEL, cs_reactor._enc(
+                        "new_round_step", dict(msg, seconds_since_start=0.0)))
+
+        class Sink(Reactor):
+            def get_channels(self):
+                return [ChannelDescriptor(id=c, priority=1, send_queue_capacity=8)
+                        for c in (0x30, 0x38, 0x40)]
+
+        self.switch.add_reactor("DRIVER", Driver(f"relay{i}-driver"))
+        self.switch.add_reactor("SINK", Sink(f"relay{i}-sink"))
+
+    @property
+    def node_id(self):
+        return self.switch.node_id
+
+    async def start(self, a_addr):
+        await self.switch.start()
+        await self.switch.dial_peers_async([a_addr], persistent=True)
+
+    def peer(self, a_id):
+        return self.switch.peers.get(a_id)
+
+    async def send(self, a_id, chan, frames):
+        """The frames to A in order, through the switch's peer."""
+        peer = self.peer(a_id)
+        if peer is None:
+            raise AssertionError(f"relay {self.i} is not connected to A")
+        for f in frames:
+            if not await peer.send(chan, f):
+                raise AssertionError(f"relay {self.i}'s send to A was refused")
+
+
+def relay_child() -> int:
+    """Phase 11's relay process (see NetRelays): NET_RELAYS NetRelays on
+    this process's own event loop, so their packing and sealing is not
+    charged to node A.  Requests come on stdin and replies go to stdout,
+    each a 4-byte big-endian length and a pickle: (id, op, args) in, (id,
+    ok, value) out.  Ops: "start" (A's id and address; returns the relays'
+    node ids), "load" (frames by (kind, relay)), "send" (relay, channel,
+    frames or a loaded kind, a replacement for the last frame, a frame to
+    append), "connected" (per relay, whether it holds a link to A) and
+    "stop" (returns the ERROR records of the relays' loggers)."""
+    import asyncio
+    import pickle
+
+    sys.path.insert(0, HERE)
+    out_fd = os.dup(1)
+    os.dup2(2, 1)  # stray prints go to the log, not into the replies
+
+    def reply(rid, ok, value):
+        data = pickle.dumps((rid, ok, value))
+        buf = memoryview(len(data).to_bytes(4, "big") + data)
+        while buf:
+            buf = buf[os.write(out_fd, buf):]
+
+    async def serve(errors):
+        loop = asyncio.get_running_loop()
+        reader = asyncio.StreamReader()
+        await loop.connect_read_pipe(lambda: asyncio.StreamReaderProtocol(reader),
+                                     sys.stdin.buffer)
+        relays = [NetRelay(k) for k in range(NET_RELAYS)]
+        loaded, tasks, a = {}, set(), {}
+
+        async def handle(rid, op, args):
+            try:
+                value = None
+                if op == "start":
+                    a["id"] = args[0]
+                    for r in relays:
+                        await r.start(args[1])
+                    value = [r.node_id for r in relays]
+                elif op == "load":
+                    loaded.update(args[0])
+                elif op == "send":
+                    k, chan, frames, last, extra = args
+                    frames = list(loaded.pop((frames, k)) if isinstance(frames, str) else frames)
+                    if last is not None:
+                        frames[-1] = last
+                    if extra is not None:
+                        frames.append(extra)
+                    await relays[k].send(a["id"], chan, frames)
+                elif op == "connected":
+                    value = [r.peer(a["id"]) is not None for r in relays]
+                elif op == "stop":
+                    for r in relays:
+                        await r.switch.stop()
+                    value = list(errors)
+                else:
+                    raise ValueError(f"unknown op {op!r}")
+                reply(rid, True, value)
+            except Exception as e:
+                reply(rid, False, f"{type(e).__name__}: {e}")
+
+        try:
+            while True:
+                n = int.from_bytes(await reader.readexactly(4), "big")
+                rid, op, args = pickle.loads(await reader.readexactly(n))
+                t = loop.create_task(handle(rid, op, args))
+                tasks.add(t)
+                t.add_done_callback(tasks.discard)
+                if op == "stop":
+                    await t
+                    return 0
+        finally:
+            for r in relays:
+                if r.switch.is_running:
+                    await r.switch.stop()
+
+    with consensus_errors(NET_LOGGERS) as errors:
+        return asyncio.run(serve(errors))
+
+
+class NetRelays:
+    """Phase 11's relay peers in a process of their own (relay_child, by
+    `python -c`): the packing and sealing of their ~10,000 votes a kind,
+    and their reading of what A gossips back, run on another core and
+    another event loop than node A's, so A's ingest, its heights/s and its
+    loop profiler's account are A's alone.  `call` sends one request and
+    awaits its reply; the frames of a height are loaded before the clock of
+    their ingest starts, then sent by kind."""
+
+    def __init__(self, log_path):
+        self.log_path, self.proc, self.ids = log_path, None, []
+        self._calls, self._n, self._reader, self._log = {}, 0, None, None
+
+    async def spawn(self):
+        import asyncio
+
+        env = dict(os.environ, PYTHONUNBUFFERED="1",
+                   PYTHONPATH=os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH"))
+                                              if p))
+        self._log = open(self.log_path, "w")
+        self.proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.relay_child())",
+            stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE, stderr=self._log,
+            env=env, cwd=HERE)
+        self._reader = asyncio.get_running_loop().create_task(self._read())
+
+    def read_log(self):
+        with open(self.log_path) as f:
+            return f.read()
+
+    async def _read(self):
+        import asyncio
+        import pickle
+
+        try:
+            while True:
+                n = int.from_bytes(await self.proc.stdout.readexactly(4), "big")
+                rid, ok, value = pickle.loads(await self.proc.stdout.readexactly(n))
+                fut = self._calls.pop(rid)
+                if ok:
+                    fut.set_result(value)
+                else:
+                    fut.set_exception(AssertionError(f"the relay process: {value}"))
+        except asyncio.IncompleteReadError:
+            pass
+        for fut in self._calls.values():
+            fut.set_exception(AssertionError(
+                f"the relay process exited: {self.read_log()[-3000:]}"))
+        self._calls.clear()
+
+    async def call(self, op, *args):
+        import asyncio
+        import pickle
+
+        if self._reader.done():
+            raise AssertionError(f"the relay process exited: {self.read_log()[-3000:]}")
+        self._n += 1
+        fut = asyncio.get_running_loop().create_future()
+        self._calls[self._n] = fut
+        data = pickle.dumps((self._n, op, args))
+        self.proc.stdin.write(len(data).to_bytes(4, "big") + data)
+        await self.proc.stdin.drain()
+        return await fut
+
+    async def start(self, a_id, a_addr):
+        self.ids = await self.call("start", a_id, a_addr)
+
+    async def send(self, k, chan, frames, last=None, extra=None):
+        await self.call("send", k, chan, frames, last, extra)
+
+    async def linked(self, a):
+        """Every relay holds a link to A, and A one to each relay."""
+        return all(await self.call("connected")) and all(i in a.switch.peers for i in self.ids)
+
+    async def stop(self):
+        """Stops the relays' switches and the process; returns the ERROR
+        records of the relays' loggers."""
+        errors = await self.call("stop")
+        rc = await self.proc.wait()
+        if rc != 0:
+            raise AssertionError(f"the relay process exited {rc}: {self.read_log()[-3000:]}")
+        return errors
+
+    async def close(self):
+        if self.proc is not None and self.proc.returncode is None:
+            self.proc.kill()
+            await self.proc.wait()
+        if self._reader is not None:
+            await self._reader
+        if self._log is not None:
+            self._log.close()
+
+
+def net_frames(votes, have):
+    """(votes, encoded vote_batch frame) in the consensus reactor's format
+    (consensus/reactor.py _send_vote_batch and _enc), cut by cut_frames,
+    with the sender's possession bitmap `have`."""
+    from tendermint_tpu_torch.consensus.reactor import _enc
+
+    return [(f, _enc("vote_batch", {"votes": [v.wire() for v in f], "h": f[0].height,
+                                    "r": f[0].round, "t": f[0].type, "have": have}))
+            for f in cut_frames(votes)]
+
+
+def net_home(home, gen, key, peers=""):
+    """A phase 11 node's home: config.toml by save_config at the JAX
+    defaults but p2p.laddr on a free local port, PEX off, duplicate IPs
+    allowed (every peer is on 127.0.0.1), RPC off, the signed-tx precheck
+    with its journal and a mempool of 10,000, and `peers` as persistent
+    peers; the genesis file; the FilePV files of
+    `key`; the node key.  Returns the config file's path and the node id."""
+    from tendermint_tpu_torch.config import Config, save_config
+    from tendermint_tpu_torch.p2p import NodeKey
+    from tendermint_tpu_torch.privval import FilePV, FilePVKey, FilePVLastSignState
+
+    cfg = Config(home=home)
+    cfg.base.chain_id = CHAIN_ID
+    cfg.p2p.laddr, cfg.p2p.pex, cfg.rpc.laddr = "127.0.0.1:0", False, ""
+    cfg.p2p.persistent_peers = peers
+    cfg.p2p.allow_duplicate_ip = True  # every peer dials from 127.0.0.1
+    cfg.mempool.sig_precheck = True
+    cfg.mempool.wal_dir = "data/mempool.wal"
+    cfg.mempool.size = ABCI_MEMPOOL
+    cfg.ensure_dirs()
+    path = os.path.join(home, "config", "config.toml")
+    save_config(cfg, path)
+    gen.save_as(cfg.genesis_file())
+    addr = key.pub_key().address()
+    FilePV(FilePVKey(addr, key.pub_key(), key, cfg.priv_validator_key_file()),
+           FilePVLastSignState(file_path=cfg.priv_validator_state_file())).save()
+    return path, NodeKey.load_or_gen(cfg.node_key_file()).id
+
+
+class NetB:
+    """Node B: through the CLI in a subprocess (`python -m
+    tendermint_tpu_torch --home HB node`), or in this process for the CPU
+    rehearsal.  Gives its start time, its stop's exit code and what it did:
+    the fast-sync hand-over (wall time, height, blocks synced) and the wall
+    time of each commit, read from its log (libs/log.py's format) or, in
+    this process, from its reactor and its ConsensusState's hooks."""
+
+    def __init__(self, home, cfg_path, dev, inproc):
+        self.home, self.cfg_path, self.dev, self.inproc = home, cfg_path, dev, inproc
+        self.node = self.proc = self.rc = self.started_s = None
+        self.t_start = time.time()
+        self.handover = None  # (wall s, height, blocks synced)
+        self.commits = {}  # height -> wall s of "finalizing commit of block"
+        self.errors, self.text = [], ""
+
+    async def start(self):
+        import asyncio
+
+        t0 = time.perf_counter()
+        self.t_start = time.time()
+        if self.inproc:
+            from tendermint_tpu_torch.config import load_config
+            from tendermint_tpu_torch.crypto.batch_verifier import BatchVerifier, TableCache
+            from tendermint_tpu_torch.node import default_new_node
+
+            self.node = default_new_node(load_config(self.cfg_path), device=self.dev)
+            # one process has one set of crypto.batch hooks: A's stay, so A's
+            # checks are served by A's engine as on the card (B's start would
+            # take the hooks over, and whether B's cold cache then declines
+            # one of A's checks is a race with B's own first check)
+            installs = BatchVerifier.install, TableCache.install
+            BatchVerifier.install = TableCache.install = lambda engine: engine
+            try:
+                await self.node.start()
+            finally:
+                BatchVerifier.install, TableCache.install = installs
+            reactor = self.node.blockchain_reactor
+            orig = reactor._switch_to_consensus
+
+            async def handover():
+                self.handover = (time.time(), reactor.state.last_block_height,
+                                 reactor.blocks_synced)
+                return await orig()
+
+            reactor._switch_to_consensus = handover
+            self.started_s = time.perf_counter() - t0
+            return
+        env = dict(os.environ, PYTHONUNBUFFERED="1",
+                   PYTHONPATH=os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH"))
+                                              if p))
+        self.err_path = os.path.join(self.home, "node.log")
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "tendermint_tpu_torch", "--home", self.home, "node"],
+            stdout=subprocess.PIPE, stderr=self._err, text=True, env=env, cwd=self.home)
+        line = await asyncio.get_running_loop().run_in_executor(None, self.proc.stdout.readline)
+        self.started_s = time.perf_counter() - t0
+        if not line.startswith("node started"):
+            raise AssertionError(f"node B did not start (exit {self.proc.wait(30)}): "
+                                 f"{self.read_log()[-3000:]}")
+
+    def read_log(self):
+        with open(self.err_path) as f:
+            return f.read()
+
+    def exited(self):
+        return self.proc is not None and self.proc.poll() is not None
+
+    def height(self):
+        return self.node.block_store.height() if self.inproc else store_height(self.home)
+
+    def watch_commits(self, view):
+        """In this process: B's commit times from its CsWatch."""
+        from tendermint_tpu_torch.consensus.types import RoundStep
+
+        off = time.time() - time.perf_counter()
+        for t, h, _, step in view.watch.steps:
+            if step == RoundStep.COMMIT:
+                self.commits.setdefault(h, t + off)
+
+    def parse_log(self):
+        import datetime
+        import re
+
+        self.text = self.read_log()
+        for ln in self.text.splitlines():
+            try:
+                t = datetime.datetime.strptime(ln[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+            except ValueError:
+                continue
+            body = ln[24:]
+            if body.startswith("E "):
+                self.errors.append(body)
+            m = re.search(r"switching to consensus height=(\d+) synced=(\d+)", body)
+            if m and self.handover is None:
+                self.handover = (t, int(m.group(1)), int(m.group(2)))
+            m = re.search(r"finalizing commit of block height=(\d+)", body)
+            if m:
+                self.commits.setdefault(int(m.group(1)), t)
+
+    async def stop(self):
+        import asyncio
+        import signal
+
+        if self.inproc:
+            if self.node is not None and self.node.is_running:
+                await self.node.stop()
+                self.rc = 0
+            return
+        if self.proc is None or self.rc is not None:
+            return
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            self.rc = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: self.proc.wait(60))
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self._err.close()
+            self.parse_log()
+
+
+def net_link(card) -> str:
+    """One SecretConnection link on 127.0.0.1: its handshake ms, the C
+    tier's seal and open rate on 1,024-byte frames, and 16 MB through the
+    link as MConnection moves it (1,024-byte messages by write_msg, read by
+    read_msg at the other end meanwhile)."""
+    import asyncio
+
+    from tendermint_tpu_torch.crypto import backend, hostprep
+    from tendermint_tpu_torch.p2p import NodeKey, SecretConnection
+
+    if hostprep._load_lib() is None:
+        raise AssertionError("the host C library (the AEAD's C tier) did not load")
+    key, nonce, frame = bytes(range(32)), bytes(12), bytes(1024)
+    reps = 20_000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sealed = backend.chacha20poly1305_seal(key, nonce, frame)
+    seal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        backend.chacha20poly1305_open(key, nonce, sealed)
+    open_s = time.perf_counter() - t0
+    mb = reps * len(frame) / 1e6
+
+    async def link():
+        ka, kb = NodeKey.generate(), NodeKey.generate()
+        got = asyncio.get_running_loop().create_future()
+
+        async def on_accept(r, w):
+            got.set_result(await SecretConnection.make(r, w, kb.priv_key))
+
+        server = await asyncio.start_server(on_accept, "127.0.0.1", 0)
+        try:
+            port = server.sockets[0].getsockname()[1]
+            t = time.perf_counter()
+            r, w = await asyncio.open_connection("127.0.0.1", port)
+            ca = await SecretConnection.make(r, w, ka.priv_key)
+            cb = await got
+            hs_ms = _ms(t)
+            msgs = [os.urandom(1024) for _ in range(16 << 10)]
+
+            async def send():
+                for m in msgs:
+                    await ca.write_msg(m)
+
+            async def recv():
+                return [await cb.read_msg() for _ in msgs]
+
+            t = time.perf_counter()
+            _, back = await asyncio.gather(send(), recv())
+            xfer_s = time.perf_counter() - t
+            if back != msgs:
+                raise AssertionError("the link did not carry the messages unchanged")
+            ca.close()
+            cb.close()
+            return hs_ms, xfer_s
+        finally:
+            server.close()
+            await server.wait_closed()
+
+    hs_ms, xfer_s = asyncio.run(link())
+    return (f"one link: handshake {hs_ms:.3f} ms (X25519 pure, ed25519 challenge); AEAD on the C "
+            f"tier, 1,024-byte frames: seal {mb / seal_s:.3f} MB/s, open {mb / open_s:.3f} MB/s; "
+            f"16 MB in 1,024-byte messages through write_msg/read_msg "
+            f"{16 * 1.048576 / xfer_s:.3f} MB/s "
+            f"({card})")
+
+
+def phase_net(keys, card, dev, b_inproc=False):
+    """Two port nodes of a 10,000-validator chain over TCP (see the module
+    docstring, 11).  `b_inproc` runs node B in this process (the CPU
+    rehearsal) instead of through the CLI.  Returns the launches'
+    denominators and the run's numbers."""
+    import asyncio
+
+    out = asyncio.run(net_run(keys, card, dev, b_inproc))
+    out["link"] = net_link(card)
+    log(f"  {out['link']}")
+    return out
+
+
+async def net_run(keys, card, dev, b_inproc):
+    import asyncio
+    import tempfile
+    import threading
+
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.consensus import reactor as cs_reactor
+    from tendermint_tpu_torch.consensus.types import RoundStep
+    from tendermint_tpu_torch.libs.bitarray import BitArray
+    from tendermint_tpu_torch.mempool import MempoolError
+    from tendermint_tpu_torch.node import default_new_node
+    from tendermint_tpu_torch.state import make_genesis_state
+    from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_COMMIT, BlockID, Commit
+    from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
+    from tendermint_tpu_torch.types.proposal import Proposal
+    from tendermint_tpu_torch.types.vote import Vote
+
+    t0 = time.perf_counter()
+    gen = GenesisDoc(CHAIN_ID, genesis_time_ns=LITE_T0, validators=[
+        GenesisValidator(k.pub_key().address(), k.pub_key(), 10) for k in keys])
+    key_of = {k.pub_key().address(): k for k in keys}
+
+    def proposer_at(h):
+        vals = make_genesis_state(gen).validators.copy()
+        vals.increment_proposer_priority(h - 1)
+        return key_of[vals.get_proposer().address]
+
+    ours, b_key = proposer_at(CS_OURS_AT), proposer_at(NET_B_AT)
+    if ours is b_key:
+        raise AssertionError("A's and B's validators coincide")
+    ours_addr, b_addr = ours.pub_key().address(), b_key.pub_key().address()
+    vals0 = make_genesis_state(gen).validators
+    others = [i for i, x in enumerate(vals0.validators) if x.address not in (ours_addr, b_addr)]
+    relay_of = {i: k % NET_RELAYS for k, i in enumerate(others)}
+    bursts, bad_txs, _ = abci_traffic(keys, [], top=NET_HEIGHTS)
+    valid = [tx for h in sorted(bursts) for tx in bursts[h] if tx not in bad_txs]
+    n = len(keys)
+    log(f"  traffic: {NET_HEIGHTS} bursts of {ABCI_TXS} signed envelopes ({len(bad_txs)} "
+        f"corrupted) made in {_ms(t0):.3f} ms; A's validator {ours_addr.hex()[:12]} (round-0 "
+        f"proposer of {CS_OURS_AT}), B's {b_addr.hex()[:12]} (of {NET_B_AT}); {NET_RELAYS} relays "
+        f"hold the other {len(others)} of {n}")
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-net-")
+    home_a, home_b = os.path.join(tmp.name, "a"), os.path.join(tmp.name, "b")
+    cfg_a, a_id = net_home(home_a, gen, ours)
+    probe = NodeProbe()
+    builds, per_h, proposals = [], {}, {}
+    sign_s, join_s = 0.0, 0.0
+    kinds = collections.Counter()  # consensus frames A's reactor decoded, by kind
+    kinds_seen = collections.Counter()
+    device = None if dev.type == "cuda" else dev  # the entry point's default is the card
+    relays = NetRelays(os.path.join(tmp.name, "relays.log"))
+    a = b = None
+    dec = cs_reactor._dec
+    stopped = []  # (peer id, reason) of A's stop_peer_for_error calls
+    admitted = collections.Counter()  # node id -> connections A admitted
+    meters = {}  # id(peer) -> (sent, received) at the last snapshot
+
+    def counted_dec(msg_bytes):
+        kind, msg = dec(msg_bytes)
+        kinds[kind] += 1
+        return kind, msg
+
+    async def burst(hb):
+        """Height hb's envelopes through A's check_tx only."""
+        txs = list(bursts[hb])
+        out, ms = await check_burst(a.mempool, txs)
+        for tx, (res, _) in zip(txs, out):
+            if tx in bad_txs:
+                if not (isinstance(res, MempoolError) and str(res) == "invalid tx signature"):
+                    raise AssertionError(f"a corrupted envelope for {hb} gave {res!r}")
+            elif isinstance(res, Exception) or res.code != 0:
+                raise AssertionError(f"a valid tx for {hb} was rejected: {res!r}")
+        lat = [lat for _, lat in out]
+        per_h.setdefault(hb, {"lines": []})["lines"].append(
+            f"burst of {len(out)} check_tx to A {ms:.3f} ms, p50 {percentile(lat, 50):.3f} p99 "
+            f"{percentile(lat, 99):.3f} ms")
+
+    def link_bytes(b_id):
+        """A's bytes sent and received since the last call, by peer class,
+        from the peers' MConnection meters."""
+        out = {"relays": [0, 0], "B": [0, 0]}
+        for p in list(a.switch.peers.values()):
+            s, r = p.mconn.send_meter.total, p.mconn.recv_meter.total
+            s0, r0 = meters.get(id(p), (0, 0))
+            meters[id(p)] = (s, r)
+            cls = out["B" if p.id == b_id else "relays"]
+            cls[0] += s - s0
+            cls[1] += r - r0
+        return out
+
+    async def until(cond, what, timeout=600.0):
+        t = time.perf_counter()
+        while not cond():
+            if b is not None and b.exited():
+                raise AssertionError(f"node B exited {b.proc.returncode} while waiting for {what}: "
+                                     f"{b.read_log()[-3000:]}")
+            if time.perf_counter() - t > timeout:
+                raise AssertionError(f"timed out waiting for {what}")
+            await asyncio.sleep(0.02)
+
+    async def relays_linked(what):
+        t = time.perf_counter()
+        while not await relays.linked(a):
+            if time.perf_counter() - t > 120:
+                raise AssertionError(f"timed out waiting for {what}")
+            await asyncio.sleep(0.05)
+
+    try:
+        with consensus_errors(NET_LOGGERS) as errors, table_timing(None, builds, dev):
+            cs_reactor._dec = counted_dec
+            await relays.spawn()  # its start overlaps A's
+            t = time.perf_counter()
+            a = default_new_node(load_config(cfg_a), device=device)
+            probe.rec = a.flight_recorder
+            await a.start()
+            a_start_ms = _ms(t)
+            probe.executor = a.consensus.block_exec  # B's calls (in this process) are not A's
+            a_addr = f"{a_id}@{a.switch.transport.listen_addr}"
+            sw_stop, sw_add = a.switch.stop_peer_for_error, a.switch._add_peer_conn_locked
+
+            async def stop_peer_for_error(peer, reason):
+                stopped.append((peer.id, reason))
+                return await sw_stop(peer, reason)
+
+            async def add_peer_conn(conn, ni, *args):
+                admitted[ni.node_id] += 1
+                return await sw_add(conn, ni, *args)
+
+            a.switch.stop_peer_for_error = stop_peer_for_error
+            a.switch._add_peer_conn_locked = add_peer_conn
+            await burst(1)
+            t = time.perf_counter()
+            await relays.start(a_id, a_addr)
+            await until(lambda: any(x.cs is a.consensus for x in probe.views),
+                        "A's switch to consensus", 60)
+            v = next(x for x in probe.views if x.cs is a.consensus)
+            w = v.watch
+            log(f"  A: default_new_node + start {a_start_ms:.3f} ms, listening on "
+                f"{a.switch.transport.listen_addr}; fast sync handed over to consensus "
+                f"{time.perf_counter() - t:.3f} s after the {NET_RELAYS} relays dialed (the "
+                f"reactor's 1 s grace) ({card})")
+            iota_ns = a.state.consensus_params.block.time_iota_ms * 1_000_000
+            seq0 = next_seq(a.flight_recorder)
+            b_id = None
+            tally = {"seq": seq0, "dispatch": [], "frames": 0}
+
+            def tally_events():
+                """A's dispatches and vote_batch frames of >= 16 entries since
+                the last call, read while the recorder's ring still holds them."""
+                evs = a.flight_recorder.events(since=tally["seq"], kinds=[
+                    "verify.dispatch", "gossip.vote_batch_recv"])
+                tally["seq"] = next_seq(a.flight_recorder)
+                tally["dispatch"] += [e for e in evs if e["kind"] == "verify.dispatch"]
+                tally["frames"] += sum(1 for e in evs if e["kind"] == "gossip.vote_batch_recv"
+                                       and e["n"] >= cs_reactor.DIRECT_VERIFY_MIN)
+
+            def round_start(h):
+                """When A's round 0 of height h began: its first step past
+                NEW_HEIGHT (PROPOSE is skipped when the proposal is complete)."""
+                return min(t for t, hh, r, step in w.steps
+                           if (hh, r) == (h, 0) and step > RoundStep.NEW_HEIGHT)
+            for h in range(1, NET_HEIGHTS + 1):
+                st = per_h.setdefault(h, {"lines": []})
+                await w.until(lambda: w.at(h, 0, RoundStep.NEW_HEIGHT), f"height {h}")
+                proposer = v.cs.rs.validators.get_proposer().address
+                who = "A" if proposer == ours_addr else "B" if proposer == b_addr else "relay"
+                t_prop = None
+                if who == "relay":
+                    # the relay proposes as soon as A has delivered h - 1 (a
+                    # proposer enters height h with everyone else)
+                    k = relay_of[v.cs.rs.validators.get_by_address(proposer)[0]]
+                    prop, parts, build_ms = await cs_build(v, key_of[proposer], h, 0, BlockID,
+                                                           Commit, Proposal, BLOCK_PART_SIZE_BYTES)
+                    proposals[h] = prop
+                    frames = [cs_reactor._enc("proposal", {"proposal": prop.to_dict()})] + [
+                        cs_reactor._enc("block_part", {"height": h, "round": 0,
+                                                       "part": parts.get_part(j).to_dict()})
+                        for j in range(parts.total)]
+                    await relays.send(k, cs_reactor.DATA_CHANNEL, frames)
+                    t_prop = time.perf_counter()
+                    st["lines"].append(f"proposal of {parts.total} parts by relay {k} over TCP "
+                                       f"(built in {build_ms:.3f} ms)")
+                if h == NET_B_START + 1:  # after the proposal: B's start takes seconds
+                    cfg_b, b_id = net_home(home_b, gen, b_key, peers=a_addr)
+                    b = NetB(home_b, cfg_b, device, b_inproc)
+                    await b.start()
+                    log(f"  B: 'node started' {b.started_s:.3f} s after its start "
+                        f"({'in this process' if b_inproc else 'python -m tendermint_tpu_torch node'}"
+                        f") ({card})")
+                await w.until(lambda: w.at(h, 0, RoundStep.PROPOSE), f"propose {h}/0")
+                if h > 1:
+                    prev = per_h[h - 1]
+                    prev["window"] = (w.t(h - 1, 0, RoundStep.COMMIT), round_start(h))
+                    prev["split"] = loop_split(a.flight_recorder, *prev["window"])
+                await w.until(lambda: (h, 0, PREVOTE_TYPE) in w.signed, f"A's prevote {h}", 600)
+                rs = v.cs.rs
+                block = rs.proposal_block
+                if block is None:
+                    t_pv, t_pr = w.signed[(h, 0, PREVOTE_TYPE)][0], round_start(h)
+                    raise AssertionError(
+                        f"A prevoted nil at height {h} (proposer {who}): round 0 began at +0, the "
+                        f"relay's frames sent at "
+                        f"{'-' if t_prop is None else f'{t_prop - t_pr:+.3f}'} s, A's prevote at "
+                        f"{t_pv - t_pr:+.3f} s; proposal held {rs.proposal is not None}, parts "
+                        f"{None if rs.proposal_block_parts is None else rs.proposal_block_parts.bit_array().count()}")
+                if who != "relay":
+                    proposals[h] = rs.proposal
+                bid = BlockID(block.hash(), rs.proposal_block_parts.header())
+                st["who"] = who
+                st["lines"].append(
+                    f"proposer {who}: {len(block.txs)} txs; proposal complete -> A's prevote "
+                    f"{(w.signed[(h, 0, PREVOTE_TYPE)][0] - w.complete[(h, 0)]) * 1000:.3f} ms")
+                if h == NET_JOIN_AT:
+                    # hold the votes until A sees B at this height: from here
+                    # on every vote and part B gets crosses A's reactor
+                    t = time.perf_counter()
+
+                    def b_here():
+                        ps = a.consensus_reactor.peer_states.get(b_id)
+                        return ps is not None and ps.height >= h
+
+                    await until(b_here, "B at A's height", 600)
+                    join_s = time.perf_counter() - t
+                    st["lines"].append(f"B at height {h} in A's view {join_s:.3f} s after A's "
+                                       "prevote (the relays held their votes)")
+                await relays_linked(f"the relays at height {h}")  # relay 1 is back after NET_BAD_AT
+                nv = rs.validators.size()
+                t_s = time.perf_counter()
+                pv, _ = cs_votes(rs.validators, key_of, ours_addr, PREVOTE_TYPE, h, 0, block, bid,
+                                 iota_ns, skip=(b_addr,))
+                pc, _ = cs_votes(rs.validators, key_of, ours_addr, PRECOMMIT_TYPE, h, 0, block,
+                                 bid, iota_ns, skip=(b_addr,))
+                frames = {}
+                for name, votes in (("pv", pv), ("pc", pc)):
+                    # each relay stands for a part of the network that has
+                    # heard all 9,998 relayed votes: its possession bitmap
+                    # says so, and A's anti-echo (the frame's `have`) sends
+                    # the relays back only A's and B's votes
+                    have = BitArray.from_indices(nv, [x.validator_index for x in votes]).to_bytes()
+                    for k in range(NET_RELAYS):
+                        mine = [x for x in votes if relay_of[x.validator_index] == k]
+                        frames[(name, k)] = net_frames(mine, have)
+                n_relay = len(pv)
+                conflict = None
+                if h == NET_BAD_AT:
+                    # relay 0 also sends a second, nil prevote of one of its
+                    # validators: evidence of a double sign
+                    x = frames[("pv", 0)][0][0][0]
+                    conflict = Vote(PREVOTE_TYPE, h, 0, BlockID(), x.timestamp_ns,
+                                    x.validator_address, x.validator_index)
+                    conflict.signature = key_of[x.validator_address].sign(
+                        conflict.sign_bytes(CHAIN_ID))
+                    st["conflict"] = (x.validator_address, x.validator_index)
+                await relays.call("load", {key: [f for _, f in fs] for key, fs in frames.items()})
+                sign_s += time.perf_counter() - t_s
+
+                async def send_all(name, last=None, extra=None):
+                    """Every relay's loaded frames of one kind at once; `last`
+                    replaces relay 1's last frame, `extra` follows relay 0's."""
+                    await asyncio.gather(*(relays.send(
+                        k, cs_reactor.VOTE_CHANNEL, name, last if k == 1 else None,
+                        extra if k == 0 else None) for k in range(NET_RELAYS)))
+
+                # prevotes
+                seq, add0, wal0 = next_seq(a.flight_recorder), len(v.add_ms), len(v.wal_ms)
+                t_sent = time.perf_counter()
+                await send_all("pv", extra=None if conflict is None else cs_reactor._enc(
+                    "vote_batch", {"votes": [conflict.wire()]}))
+                prevotes = rs.votes.prevotes(0)
+                await w.until(lambda: prevotes.bit_array().count() >= 1 + n_relay,
+                              f"prevotes {h}", 600)
+                st["lines"].append("prevotes: " + cs_ingest_line(
+                    v, a.flight_recorder, seq, t_sent, time.perf_counter(), n_relay, add0, wal0,
+                    card))
+                tally_events()
+                await w.until(lambda: (h, 0, PRECOMMIT_TYPE) in w.signed
+                              and v.cs.rs.votes.precommits(0).get_by_address(ours_addr)
+                              is not None, f"A's precommit {h}", 600)
+                if h < NET_HEIGHTS:
+                    await burst(h + 1)
+                # precommits; at NET_BAD_AT relay 1's last frame carries one
+                # flipped signature: A stops relay 1, relay 2 re-sends it clean
+                seq, add0, wal0 = next_seq(a.flight_recorder), len(v.add_ms), len(v.wal_ms)
+                t_sent = time.perf_counter()
+                if h == NET_BAD_AT:
+                    bad_votes = [Vote(x.type, x.height, x.round, x.block_id, x.timestamp_ns,
+                                      x.validator_address, x.validator_index, x.signature)
+                                 for x in frames[("pc", 1)][-1][0]]
+                    j = len(bad_votes) // 2
+                    bad_votes[j].signature = (bytes([bad_votes[j].signature[0] ^ 1])
+                                              + bad_votes[j].signature[1:])
+                    n_stop = len(stopped)
+                    await send_all("pc", last=cs_reactor._enc(
+                        "vote_batch", {"votes": [x.wire() for x in bad_votes]}))
+                    await until(lambda: len(stopped) > n_stop, "A's stop of relay 1", 120)
+                    st["stop"] = stopped[n_stop:]
+                    await relays.send(2, cs_reactor.VOTE_CHANNEL, [frames[("pc", 1)][-1][1]])
+                    st["lines"].append(f"relay 1's last precommit frame ({len(bad_votes)} votes, "
+                                       f"one flipped): A stopped relay 1 ({stopped[n_stop][1]!r}); "
+                                       "relay 2 re-sent the frame clean")
+                else:
+                    await send_all("pc")
+                await w.until(lambda: v.cs.rs.height == h + 1 and (
+                    v.cs.rs.last_commit.bit_array().count() + v.late[h] >= 1 + n_relay),
+                    f"height {h}'s precommits", 600)
+                t_done = time.perf_counter()
+                st["last_commit"] = v.cs.rs.last_commit.bit_array().count()
+                st["late"] = v.late[h]
+                st["lines"].append(
+                    "precommits: " + cs_ingest_line(v, a.flight_recorder, seq, t_sent, t_done,
+                                                    n_relay, add0, wal0, card)
+                    + f"; vote-to-commit {(w.t(h, 0, RoundStep.COMMIT) - t_sent) * 1000:.3f} ms"
+                    + f"; loop profiler over the precommits' ingest: "
+                    + loop_split(a.flight_recorder, t_sent, t_done))
+                st["commit_t"] = w.t(h, 0, RoundStep.COMMIT)
+                st["commit_wall"] = time.time() - (time.perf_counter() - st["commit_t"])
+                st["bytes"] = link_bytes(b_id)
+                tally_events()
+                st["kinds"] = dict(kinds - kinds_seen)
+                kinds_seen.update(st["kinds"])
+                log(f"    height {h}: " + "; ".join(st["lines"]) + f"; LastCommit "
+                    f"{st['last_commit']} of {st['last_commit'] + st['late']} precommits, "
+                    f"{st['late']} refused as late")
+                if h == 1:
+                    st["first_propose"] = round_start(1)
+            await until(lambda: b.height() >= NET_HEIGHTS, f"B's height {NET_HEIGHTS}", 300)
+            await relays_linked("the relays at the end")
+            if b_inproc:
+                b.watch_commits(next(x for x in probe.views if x.cs is b.node.consensus))
+            run_stops = list(stopped)  # the peers' stops below are the teardown's
+            await b.stop()
+            errors += [f"relay process: {e}" for e in await relays.stop()]
+            await a.stop()
+            out = net_check(a, b, per_h, proposals, valid, ours_addr, b_addr, errors, run_stops,
+                            relays, admitted, n, probe, BLOCK_ID_FLAG_COMMIT)
+            out["frames"] = tally["frames"]
+        net_report(a, b, per_h, builds, sign_s, join_s, tally["dispatch"], dev, card,
+                   dict(kinds), out, probe)
+        out["tables"] = [x["thread"] for x in builds]
+        return out
+    finally:
+        cs_reactor._dec = dec
+        probe.close()
+        await relays.close()
+        if b is not None:
+            await b.stop()
+        if a is not None and a.is_running:
+            await a.stop()
+        for t in threading.enumerate():  # the engine's background builds and probe
+            if t.name in ("table-build", "table-rebuild", "bv-rtt-probe", "bv-warmup"):
+                t.join()
+        tmp.cleanup()
+
+
+def net_check(a, b, per_h, proposals, valid, ours_addr, b_addr, errors, stopped, relays,
+              admitted, n, probe, flag_commit):
+    """Phase 11's outcome (see the module docstring, 11).  Returns the
+    counts main() holds A's launches to."""
+    from tendermint_tpu_torch.evidence import EvidencePool
+    from tendermint_tpu_torch.libs.kvstore import open_db
+    from tendermint_tpu_torch.state import StateStore
+    from tendermint_tpu_torch.store import BlockStore
+
+    dbs = {name: open_db(name, b.home) for name in ("blockstore", "state", "evidence")}
+    try:
+        store_b = BlockStore(dbs["blockstore"])
+        pool_b = EvidencePool(dbs["evidence"], StateStore(dbs["state"]))
+        txs, evidence = [], []
+        for h in range(1, NET_HEIGHTS + 1):
+            blk_a, blk_b = a.block_store.load_block(h), store_b.load_block(h)
+            seen = a.block_store.load_seen_commit(h)
+            if blk_a is None or blk_b is None or seen is None or seen.round != 0:
+                raise AssertionError(f"height {h} did not commit in round 0 on both nodes")
+            if blk_a.serialize() != blk_b.serialize():
+                raise AssertionError(f"A and B hold different blocks at height {h}")
+            if blk_a.hash() != proposals[h].block_id.hash:
+                raise AssertionError(f"block {h} is not the proposal gossiped for it")
+            if h > 1:
+                signed = sum(c.block_id_flag == flag_commit for c in blk_a.last_commit.signatures)
+                if 3 * signed <= 2 * n:
+                    raise AssertionError(f"block {h}'s LastCommit has {signed} of {n} signatures")
+            txs += blk_a.txs
+            evidence += [(h, ev) for ev in blk_a.evidence]
+        if sorted(txs) != sorted(valid):
+            raise AssertionError(f"blocks 1-{NET_HEIGHTS} hold {len(txs)} txs, not each of the "
+                                 f"{len(valid)} valid envelopes once")
+        if a.block_store.load_block(CS_OURS_AT).header.proposer_address != ours_addr:
+            raise AssertionError(f"block {CS_OURS_AT} is not A's")
+        blk5 = a.block_store.load_block(NET_B_AT)
+        if blk5.header.proposer_address != b_addr or not blk5.txs:
+            raise AssertionError(f"block {NET_B_AT} is not B's, or holds no gossiped txs")
+        state_a, state_b = a.state_store.load(), StateStore(dbs["state"]).load()
+        if not (state_a.last_block_height == state_b.last_block_height == NET_HEIGHTS):
+            raise AssertionError(f"A stopped at {state_a.last_block_height}, B at "
+                                 f"{state_b.last_block_height}, not {NET_HEIGHTS}")
+        if state_a.app_hash != state_b.app_hash:
+            raise AssertionError("A's and B's app hashes differ")
+        addr, _ = per_h[NET_BAD_AT]["conflict"]
+        if len(evidence) != 1 or evidence[0][0] not in (NET_B_AT, NET_B_AT + 1) or \
+                evidence[0][1].vote_a.validator_address != addr:
+            raise AssertionError(f"the double sign's evidence is not committed once at height "
+                                 f"{NET_B_AT} or {NET_B_AT + 1}: {[(h, e) for h, e in evidence]}")
+        ev = evidence[0][1]
+        if not (a.evidence_pool.is_committed(ev) and pool_b.is_committed(ev)):
+            raise AssertionError("the evidence is not marked committed in both pools")
+    finally:
+        for db in dbs.values():
+            db.close()
+    if b.handover is None or b.handover[2] < 1:
+        raise AssertionError(f"B did not fast-sync a pair before it switched: {b.handover}")
+    if sorted(b.commits) != list(range(b.handover[1] + 1, NET_HEIGHTS + 1)):
+        raise AssertionError(f"B committed {sorted(b.commits)} in consensus after switching at "
+                             f"{b.handover[1]}")
+    want = [(relays.ids[1], "invalid vote signature in batch")]
+    if per_h[NET_BAD_AT]["stop"] != want or [s for s in stopped if s not in want]:
+        raise AssertionError(f"A stopped {stopped}, not relay 1 for the flipped signature only")
+    if admitted[relays.ids[1]] < 2:
+        raise AssertionError("relay 1 was not readmitted after its stop")
+    if errors or b.errors:
+        raise AssertionError(f"errors logged: A and the relays {errors[:3]}, B {b.errors[:3]}")
+    if b.rc != 0 or "Traceback" in b.text:
+        raise AssertionError(f"node B exited {b.rc} on SIGTERM or printed a traceback: "
+                             f"{b.text[-3000:]}")
+    checks = []
+    for h, hits in probe.lookups:  # A's calls (probe.executor)
+        if h < 2:
+            continue
+        if len(hits) != 1:
+            raise AssertionError(f"a validate_block of A at height {h} made {len(hits)} table "
+                                 "lookups, not 1")
+        checks.append(hits[0])
+    return {"validate_blocks": len(checks), "hits": sum(checks),
+            "declines": len(checks) - sum(checks)}
+
+
+def net_report(a, b, per_h, builds, sign_s, join_s, d, dev, card, kinds, out, probe):
+    """Per height and for the phase (see the module docstring, 11)."""
+    t = probe.timer
+
+    def at(name, h):
+        return t.ms.get((name, h), 0.0), t.n.get((name, h), 0)
+
+    for h in range(1, NET_HEIGHTS + 1):
+        st = per_h[h]
+        vb, vc = at("validate_block", h), at("verify_commit", h)
+        gap = (f"{(st['commit_t'] - per_h[h - 1]['commit_t']) * 1000:.3f} ms" if h > 1 else "-")
+        lag = (f"{(b.commits[h] - st['commit_wall']) * 1000:.3f} ms"
+               + (" (catching up)" if h < NET_JOIN_AT else "") if h in b.commits
+               else "- (fast-synced)")
+        by = st["bytes"]
+        log(f"    height {h}: validate_block x{vb[1]} {vb[0]:.3f} ms (verify_commit x{vc[1]} "
+            f"{vc[0]:.3f} ms), save_block {at('save_block', h)[0]:.3f} ms, pipelined apply_block "
+            f"{at('apply_block', h)[0]:.3f} ms; commit-to-commit {gap}; A's link bytes sent / "
+            f"received: relays {by['relays'][0]} / {by['relays'][1]}, B {by['B'][0]} / "
+            f"{by['B'][1]}; consensus frames received by kind {st['kinds']}; B's commit lag "
+            f"behind A {lag} ({card})")
+        if "split" in st:
+            log(f"    height {h}: COMMIT -> PROPOSE window, loop profiler: {st['split']} ({card})")
+    log(f"  consensus frames A's reactor received, by kind: {kinds}; accepted vote_batch frames "
+        f"of >= 16 entries: {out['frames']}")
+    th, hh, synced = b.handover
+    log(f"  B: 'node started' {b.started_s:.3f} s; fast sync of {synced} block(s) "
+        f"in {th - b.t_start - b.started_s:.3f} s after 'node started', switched to consensus at "
+        f"height {hh}; exit code {b.rc} on SIGTERM ({card})")
+    for x in builds:
+        log(f"    table of {x['validators']} validators on {x['thread']}: host rows "
+            f"{x['rows_ms']:.3f} ms, window tables (kernel 2) "
+            + (f"{x['build_ms']:.3f} ms" if x["build_ms"] is not None else "not built")
+            + f" ({card})")
+    first = per_h[1]["first_propose"]
+    span = per_h[NET_HEIGHTS]["commit_t"] - first
+    waits = sum(per_h[h]["window"][1] - per_h[h]["window"][0] for h in range(1, NET_HEIGHTS))
+    busy = span - sign_s - waits - join_s
+    device_ms = sum(e["device_ms"] for e in d)
+    log(f"  heights 1-{NET_HEIGHTS} on A: {span * 1000:.3f} ms from height 1's propose to height "
+        f"{NET_HEIGHTS}'s commit = {NET_HEIGHTS / span:.3f} heights/s; apart from signing and "
+        f"framing {sign_s * 1000:.3f} ms, timeout_commit x{NET_HEIGHTS - 1} {waits * 1000:.3f} ms "
+        f"and the wait for B's start {join_s * 1000:.3f} ms: {busy * 1000:.3f} ms = "
+        f"{NET_HEIGHTS / busy:.3f} heights/s; {len(d)} dispatches on A, host prep "
+        f"{sum(e['host_prep_ms'] for e in d):.3f} ms, dispatch {device_ms:.3f} ms "
+        f"({device_ms / (span * 1000) * 100:.3f} % of the wall time); "
+        f"{card_memory(dev, a.table_cache)} ({card})")
+
+
 def kernel_device_ms(fn, names) -> dict:
     """Device ms of each named kernel in one run of fn, from torch.profiler;
     a name is missing where the profiler records no device time for it."""
@@ -3856,6 +4918,34 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_cli(card)
     log(f"  phase 10 (b) took {time.perf_counter() - t0:.3f} s")
+
+    log("[11] two port nodes of the 10,000-validator chain over TCP: four relays, node B "
+        "through the CLI fast-syncing from A and following it")
+    ed25519_cuda.LAUNCHES = 0
+    ed25519_table.BUILD_LAUNCHES = 0
+    ed25519_table.SUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = phase_net(keys, card, dev)
+    counts = {
+        "ed25519_ladder": ed25519_cuda.LAUNCHES,
+        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
+    }
+    log(f"  launches in phase 11 on A (node B's, in its own process, are not counted): {counts}; "
+        f"{out['validate_blocks']} validate_block calls of A on heights >= 2, {out['hits']} table "
+        f"hits, {out['declines']} declines, tables built {out['tables']}, {out['frames']} "
+        f"vote_batch frames of >= 16 entries received; phase 11 took "
+        f"{time.perf_counter() - t0:.3f} s")
+    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] < 1:
+        raise AssertionError("kernel 2 (window tables) did not build the genesis set's table on A")
+    if counts[picked] < out["hits"]:
+        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
+                             "of A in phase 11")
+    if counts["ed25519_ladder"] < out["frames"] + out["declines"]:
+        raise AssertionError("the ladder did not serve every vote_batch frame of >= 16 entries and "
+                             "declined check of A in phase 11")
+    for name, c in counts.items():
+        report[name]["launches"] += c
 
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
     keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

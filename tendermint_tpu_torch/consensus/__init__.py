@@ -1,6 +1,7 @@
-"""Consensus: the BFT state machine, WAL, timeout ticker, replay and the
-WAL replay console (the port's copy of tendermint_tpu/consensus; the
-reactor waits for p2p, ROADMAP 1.7)."""
+"""Consensus: the BFT state machine, WAL, timeout ticker, replay, the WAL
+replay console and the reactor (the port's copy of
+tendermint_tpu/consensus; the reactor is imported from consensus.reactor,
+as in the JAX package)."""
 
 from .types import (
     HeightVoteSet,

@@ -116,6 +116,17 @@ def _load_lib() -> Optional[ctypes.CDLL]:
         lib.ed25519_sign.restype = None
         lib.ed25519_pubkey.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
         lib.ed25519_pubkey.restype = None
+        # the secret connection's AEAD (crypto/backend.py)
+        lib.chacha20poly1305_seal.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_uint64,
+            ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p,
+        ]
+        lib.chacha20poly1305_seal.restype = None
+        lib.chacha20poly1305_open.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_uint64,
+            ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p,
+        ]
+        lib.chacha20poly1305_open.restype = ctypes.c_int
         _lib = lib
     except Exception:
         _lib = None

@@ -1,9 +1,10 @@
-"""Fast sync's pure parts: the Scheduler and the Processor with
-verify_commit_run's cross-height batch (the port's copies of
-tendermint_tpu/fastsync/scheduler.py and processor.py; the reactor needs
-p2p, ROADMAP 1.7)."""
+"""Fast sync: the Scheduler, the Processor with verify_commit_run's
+cross-height batch, and the BlockchainReactor that drives them over p2p
+(the port's copies of tendermint_tpu/fastsync/)."""
 
 from .processor import Processor, verify_commit_run
 from .scheduler import PeerInfo, Scheduler
+from .reactor import BLOCKCHAIN_CHANNEL, BlockchainReactor
 
-__all__ = ["PeerInfo", "Processor", "Scheduler", "verify_commit_run"]
+__all__ = ["BLOCKCHAIN_CHANNEL", "BlockchainReactor", "PeerInfo", "Processor", "Scheduler",
+           "verify_commit_run"]

@@ -1,9 +1,12 @@
-"""Node: dependency-injection assembly of the full node, without p2p (the
-port's copy of tendermint_tpu/node.py).
+"""Node: dependency-injection assembly of the full node (the port's copy of
+tendermint_tpu/node.py, with the p2p stack and the BLOCKCHAIN, CONSENSUS,
+MEMPOOL and EVIDENCE reactors; without state sync, PEX, RPC and the chaos
+layers).
 
 Reference parity: node/node.go (NewNode:556, DefaultNewNode:90,
 OnStart:752; createAndStartProxyAppConns:578, doHandshake:601,
-createMempool:634, NewBlockExecutor:643, onlyValidatorIsUs:314).
+createMempool:634, NewBlockExecutor:643, createConsensusReactor:659,
+onlyValidatorIsUs:314).
 
 The node builds what the JAX node builds, in its order, with the port's
 engine where the JAX node builds its own: one BatchVerifier on the card
@@ -17,8 +20,13 @@ raises at construction unless the caller passes device="cpu".
 A configuration that needs a part the port does not carry yet raises
 NotImplementedError at construction, before anything is opened, naming
 the ROADMAP item that ports it (see `check_ported`).  The JAX defaults turn
-p2p and RPC on, so a port node runs with `p2p.laddr = "none"` and
-`rpc.laddr = ""`.
+RPC and PEX on, so a port node runs with `rpc.laddr = ""` and
+`p2p.pex = false`; `p2p.laddr = "none"` runs it without p2p.
+
+Deviation (ROADMAP 3): the STATESYNC reactor is not registered until the
+state-sync slice, so the port's NodeInfo advertises the BLOCKCHAIN,
+CONSENSUS, MEMPOOL and EVIDENCE channels only.  A peer needs one common
+channel (p2p/node_info.py compatible_with), so port and JAX nodes connect.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import asyncio
 from typing import Optional
 
+from .abci import types as abci_types
 from .config import Config
 from .consensus import ConsensusState, Handshaker
 from .consensus.wal import WAL
@@ -46,10 +55,15 @@ def check_ported(config: Config) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a setting
     whose subsystem the port does not carry yet."""
     cfg = config
+    p2p_on = cfg.p2p.laddr not in ("", "none")
     unported = (
-        (cfg.p2p.laddr not in ("", "none"),
-         f"p2p.laddr = {cfg.p2p.laddr!r}: the p2p stack and its reactors", "1.7",
-         'p2p.laddr = "none"'),
+        (p2p_on and cfg.p2p.pex, "p2p.pex = true: peer exchange and the address book", "1.7",
+         "pex = false"),
+        (p2p_on and bool(cfg.p2p.seeds), f"p2p.seeds = {cfg.p2p.seeds!r}: peer exchange", "1.7",
+         'seeds = ""'),
+        (cfg.statesync.enable, "statesync.enable: the state-sync reactor", "1.7",
+         "statesync.enable = false"),
+        (cfg.p2p.test_fuzz, "p2p.test_fuzz: the p2p link policies", "1.8", "test_fuzz = false"),
         (bool(cfg.rpc.laddr), f"rpc.laddr = {cfg.rpc.laddr!r}: the RPC server", "1.7",
          'rpc.laddr = ""'),
         (bool(cfg.rpc.grpc_laddr), f"rpc.grpc_laddr = {cfg.rpc.grpc_laddr!r}: the gRPC server",
@@ -178,6 +192,10 @@ class Node(Service):
 
         self.mempool: Optional[Mempool] = None
         self.consensus: Optional[ConsensusState] = None
+        self.consensus_reactor = None
+        self.blockchain_reactor = None
+        self.switch = None
+        self.node_key = None
         self.evidence_pool = None
         self.batch_verifier = None
         self.async_verifier = None
@@ -351,8 +369,11 @@ class Node(Service):
         if cfg.base.db_backend != "memdb":
             self.consensus.wal = WAL(cfg.wal_file())
 
-        # without p2p (p2p.laddr "" or "none") consensus starts on its own
-        await self.consensus.start()
+        # p2p stack + reactors (node/node.go:653-709)
+        if cfg.p2p.laddr and cfg.p2p.laddr != "none":
+            await self._start_p2p(block_exec)
+        else:
+            await self.consensus.start()
         if self.loop_profiler is not None:
             self._register_queue_probes()
         # health watchdog, started LAST so every probed subsystem exists;
@@ -448,11 +469,118 @@ class Node(Service):
             except Exception as e:
                 self.log.error("valset watch failed", err=repr(e))
 
+    async def _start_p2p(self, block_exec) -> None:
+        """The JAX node's p2p block without state sync, PEX and the chaos
+        layers (check_ported refused them): NodeKey, NodeInfo with the
+        gossip version the knobs enable, Transport, Switch with the ABCI
+        peer filter, the BLOCKCHAIN, CONSENSUS, MEMPOOL and EVIDENCE
+        reactors, listen, the switch's start (which starts consensus unless
+        fast sync runs first), the quarantine refill and the persistent
+        peers."""
+        from .consensus.reactor import ConsensusReactor
+        from .evidence_reactor import EvidenceReactor
+        from .fastsync import BlockchainReactor
+        from .mempool_reactor import MempoolReactor
+        from .p2p import NodeInfo, NodeKey, Switch, Transport
+        from .p2p.node_info import (
+            GOSSIP_BATCH_VERSION,
+            GOSSIP_SUMMARY_VERSION,
+            GOSSIP_TRACE_VERSION,
+        )
+
+        cfg = self.config
+        self.node_key = NodeKey.load_or_gen(cfg.node_key_file())
+        # advertise the highest gossip capability the knobs enable; peers
+        # fall back per level (3 -> wire trace context, 2 -> summary+batch,
+        # 1 -> batch, 0 -> the reference's single-vote messages)
+        cc = cfg.consensus
+        if cc.gossip_vote_batch and cc.gossip_vote_summary and cc.gossip_trace_context:
+            gossip_version = GOSSIP_TRACE_VERSION
+        elif cc.gossip_vote_batch and cc.gossip_vote_summary:
+            gossip_version = GOSSIP_SUMMARY_VERSION
+        elif cc.gossip_vote_batch:
+            gossip_version = GOSSIP_BATCH_VERSION
+        else:
+            gossip_version = 0
+        node_info = NodeInfo(
+            node_id=self.node_key.id,
+            network=self.genesis_doc.chain_id,
+            moniker=cfg.base.moniker,
+            gossip_version=gossip_version,
+        )
+        transport = Transport(self.node_key, node_info)
+        self.switch = Switch(
+            transport,
+            max_inbound=cfg.p2p.max_num_inbound_peers,
+            max_outbound=cfg.p2p.max_num_outbound_peers,
+            unconditional_peer_ids={s for s in cfg.p2p.unconditional_peer_ids.split(",") if s},
+            allow_duplicate_ip=cfg.p2p.allow_duplicate_ip,
+        )
+        self.switch.metrics = self.metrics_provider.p2p
+        if cfg.base.filter_peers:
+            # ABCI peer filter (node/node.go:498): the app may veto a peer
+            # via Query at p2p/filter/id/<id>
+            query_conn = self.proxy_app.query()
+
+            async def abci_filter(ni, conn):
+                # bounded: a hung app query must not stall the accept loop;
+                # a timeout raises and the switch rejects (fail closed)
+                res = await asyncio.wait_for(
+                    query_conn.query(
+                        abci_types.RequestQuery(path=f"/p2p/filter/id/{ni.node_id}")
+                    ),
+                    5.0,
+                )
+                return None if res.code == 0 else f"abci filter code {res.code}"
+
+            self.switch.peer_filters.append(abci_filter)
+        do_fast_sync = cfg.base.fast_sync and not only_validator_is_us(
+            self.state, self.priv_validator
+        )
+        self.consensus_reactor = ConsensusReactor(
+            self.consensus, wait_sync=do_fast_sync, async_verifier=self.async_verifier
+        )
+        self.consensus.metrics.fast_syncing.set(1 if do_fast_sync else 0)
+        self.blockchain_reactor = BlockchainReactor(
+            self.state,
+            block_exec,
+            self.block_store,
+            fast_sync=do_fast_sync,
+            consensus_reactor=self.consensus_reactor,
+        )
+        self.blockchain_reactor.statesync_metrics = self.metrics_provider.statesync
+        if do_fast_sync:
+            self.metrics_provider.statesync.sync_phase.set(
+                self.metrics_provider.statesync.PHASE_FASTSYNC
+            )
+        self.switch.add_reactor("BLOCKCHAIN", self.blockchain_reactor)
+        self.switch.add_reactor("CONSENSUS", self.consensus_reactor)
+        # always registered: broadcast=false only disables outbound gossip,
+        # inbound txs must still be accepted (mempool/reactor.go)
+        self.switch.add_reactor(
+            "MEMPOOL",
+            MempoolReactor(self.mempool, broadcast=cfg.mempool.broadcast,
+                           config=cfg.mempool.as_dict()),
+        )
+        self.switch.add_reactor("EVIDENCE", EvidenceReactor(self.evidence_pool))
+        await transport.listen(cfg.p2p.laddr)
+        node_info.listen_addr = cfg.p2p.external_address or transport.listen_addr
+        await self.switch.start()  # starts reactors, incl. consensus
+        # heights the boot scan (or a previous run) quarantined are
+        # re-fetched from peers through the fast-sync channel
+        quarantined = self.block_store.quarantined()
+        if quarantined:
+            self.blockchain_reactor.request_refill(quarantined)
+        if cfg.p2p.persistent_peers:
+            await self.switch.dial_peers_async(
+                cfg.p2p.persistent_peers.split(","), persistent=True
+            )
+
     def _register_queue_probes(self) -> None:
         """Wire the known choke-point queues into the scheduler profiler's
-        per-tick `loop.queue` sampling: the consensus receive queue and the
-        AsyncBatchVerifier's pending list + flush-executor backlog (the
-        MConnection send queues come with p2p, ROADMAP 1.7)."""
+        per-tick `loop.queue` sampling: the consensus receive queue, the
+        AsyncBatchVerifier's pending list + flush-executor backlog, and the
+        aggregate MConnection send-queue depth across peers."""
         prof = self.loop_profiler
         if self.consensus is not None:
             prof.add_queue_probe("cs_recv", self.consensus.msg_queue.qsize)
@@ -466,13 +594,29 @@ class Node(Service):
                 return q.qsize() if q is not None else 0
 
             prof.add_queue_probe("flush_executor", _executor_backlog)
+        if self.switch is not None:
+            switch = self.switch
+
+            def _mconn_send_depth() -> int:
+                total = 0
+                for peer in list(switch.peers.values()):
+                    mconn = getattr(peer, "mconn", None)
+                    if mconn is None:
+                        continue
+                    for ch in mconn.channels.values():
+                        total += ch.send_queue.qsize()
+                return total
+
+            prof.add_queue_probe("mconn_send", _mconn_send_depth)
 
     async def on_stop(self) -> None:
         if self.watchdog is not None:
             await self.watchdog.stop()
         if self.loop_profiler is not None:
             await self.loop_profiler.stop()
-        if self.consensus is not None:
+        if self.switch is not None:
+            await self.switch.stop()  # stops reactors incl. consensus
+        elif self.consensus is not None:
             await self.consensus.stop()
         await self.indexer_service.stop()
         await self.event_bus.stop()

@@ -1,7 +1,30 @@
-"""Peer-to-peer: only the node identity key so far (the port's copy of
-tendermint_tpu/p2p/key.py).  The switch, transport, secret connection and
-reactors are ROADMAP 1.7."""
+"""P2P networking: authenticated encrypted multiplexed peer connections (the
+port's copy of tendermint_tpu/p2p/, without PEX, the address book, the
+trust metric and the chaos link layer, ROADMAP 1.7 and 1.8).
+
+Counterpart of the reference `p2p/` tree: Switch, Peer, Transport,
+SecretConnection, MConnection, NodeInfo/NodeKey, in-process test helpers.
+"""
 
 from .key import NodeKey, node_id_from_pubkey
+from .node_info import NodeInfo
+from .conn.secret_connection import SecretConnection
+from .conn.connection import ChannelDescriptor, LocalFault, MConnection
+from .base_reactor import Reactor
+from .peer import Peer
+from .transport import Transport
+from .switch import Switch
 
-__all__ = ["NodeKey", "node_id_from_pubkey"]
+__all__ = [
+    "ChannelDescriptor",
+    "LocalFault",
+    "MConnection",
+    "NodeInfo",
+    "NodeKey",
+    "Peer",
+    "Reactor",
+    "SecretConnection",
+    "Switch",
+    "Transport",
+    "node_id_from_pubkey",
+]

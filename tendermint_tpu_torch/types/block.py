@@ -16,6 +16,7 @@ from typing import List, Optional
 from ..crypto import merkle
 from ..encoding import codec
 from ..encoding.proto import field_bytes, field_time, field_varint
+from ..libs.bitarray import BitArray
 from . import canonical
 from .params import MAX_CHAIN_ID_LEN, MAX_SIGNATURE_SIZE, MAX_VOTES_COUNT
 
@@ -203,9 +204,19 @@ class Commit:
         self.block_id = block_id
         self.signatures = signatures
         self._hash: Optional[bytes] = None
+        self._bit_array = None
 
     def size(self) -> int:
         return len(self.signatures)
+
+    def bit_array(self) -> BitArray:
+        """Which validators signed (the consensus reactor's catchup gossip)."""
+        if self._bit_array is None:
+            ba = BitArray(len(self.signatures))
+            for i, cs in enumerate(self.signatures):
+                ba.set_index(i, not cs.is_absent())
+            self._bit_array = ba
+        return self._bit_array
 
     def get_vote(self, val_idx: int):
         """Reconstruct the precommit Vote at a validator index

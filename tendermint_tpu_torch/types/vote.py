@@ -46,10 +46,12 @@ class Vote:
     validator_address: bytes = b""
     validator_index: int = -1
     signature: bytes = b""
-    # Encode-once cache (gossip hot path): a signed vote is immutable, so
-    # its canonical codec bytes are computed once and reused across every
-    # peer send.  Excluded from equality/repr; never serialized.
+    # Encode-once caches (gossip hot path): a signed vote is immutable, so
+    # its canonical codec bytes, and the consensus reactor's single-vote
+    # frame, are computed once and reused across every peer send.  Excluded
+    # from equality/repr; never serialized.
     _wire: Optional[bytes] = field(default=None, repr=False, compare=False)
+    _legacy_frame: Optional[bytes] = field(default=None, repr=False, compare=False)
 
     def wire(self) -> bytes:
         """Canonical tagged codec encoding ('@t' form), cached.  vote_batch

@@ -247,7 +247,7 @@ def test_only_validator_is_us_equals_jax():
 
 
 UNPORTED = {
-    "p2p": ("p2p.laddr", "tcp://0.0.0.0:26656", "1.7"),
+    "p2p": ("p2p.laddr", "tcp://0.0.0.0:26656", "1.7"),  # with PEX on, the JAX default
     "rpc": ("rpc.laddr", "tcp://127.0.0.1:26657", "1.7"),
     "grpc": ("rpc.grpc_laddr", "tcp://127.0.0.1:36656", "1.7"),
     "remote_signer": ("base.priv_validator_laddr", "tcp://127.0.0.1:26659", "1.7"),
