@@ -288,6 +288,41 @@
    genesis table, the profile's pick served every table hit and the ladder
    every vote_batch frame of >= 16 entries and every declined check.  B's
    launches happen in its own process and are not in the kernels line.
+12. A third node joins the 10,000-validator chain by state sync.
+   Phase 11's nodes take app snapshots every 2 heights (the kvstore app
+   keeps the last 2, in chunks of 65,536 bytes: the 10,000 validators'
+   entries and phase 11's txs), and their homes outlive phase 11.  A and
+   B restart from them through the CLI (`node`, each in its own process),
+   with p2p and RPC on free local ports and B dialing A; the relays are
+   gone, so the chain stands at height 6.  Node C, `default_new_node` in
+   this process on the card with an empty home, has `[statesync] enable`,
+   A (primary) and B (witness) as its trust servers, A's header at height
+   6 (read from A's /commit through the port's HTTPClient) as its trust
+   root, A and B as persistent peers and its own RPC on.  Height 6 is the
+   trust height because it needs the fewest `/validators` fetches: each
+   is 100 pages, and each page decodes the whole set on A.  C must
+   discover A's and B's snapshots (4 and 6), try 6 five times and reject
+   it with the JAX messages (its header 7 does not exist), verify the
+   trust root of 4 (each commit one ladder flush through
+   EngineCommitPreverify), offer it, fetch and apply every chunk, pass
+   the Info check, bootstrap its stores at 4, hand over to fast sync
+   (which applies block 5 if it arrives within the reactor's 1 s grace,
+   else its tip-1 rule switches at once) and get the rest by catch-up
+   gossip.  Prints
+   C's time from its start to each milestone, the trust root's RPC calls
+   by route (bytes, ms p50/max) and its verify flushes (host prep and
+   device ms), the chunks and chunks/s, A's flight recorder over the sync
+   (read over A's RPC) and C's launches by stage.  Fails unless C
+   restored the snapshot at 4 after rejecting 6, its blocks 5-6 are
+   byte-equal to A's, its header at 4 and its sets at 4-8 hash as A's,
+   its state equals A's (but the two change heights, H + 1 on a restored
+   state, and the sets' proposer priorities, ROADMAP 3.6), its /status
+   says caught up, no ERROR comes from the statesync, rpc, fastsync or
+   p2p loggers of A, B or C, A and B exit 0 on SIGTERM, and on the card
+   the ladder launched for the trust root, kernel 2 once for the
+   restored set and the profile's pick in the tail.  A's and B's
+   launches happen in their own processes and are not in the kernels
+   line.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -3673,6 +3708,7 @@ NET_BAD_AT = 4  # a flipped precommit frame and a conflicting prevote
 NET_RELAYS = 4  # relay peers standing in for the other validators
 NET_LOGGERS = NODE_LOGGERS + ("p2p", "mconn", "cs-reactor", "fastsync", "mempool-reactor",
                               "evidence-reactor", "evidence", "p2p-transport")
+SS_SNAPSHOT_INTERVAL = 2  # phase 11's nodes leave app snapshots at even heights (phase 12)
 
 
 class NetRelay:
@@ -3925,9 +3961,11 @@ def net_home(home, gen, key, peers=""):
     """A phase 11 node's home: config.toml by save_config at the JAX
     defaults but p2p.laddr on a free local port, PEX off, duplicate IPs
     allowed (every peer is on 127.0.0.1), RPC off, the signed-tx precheck
-    with its journal and a mempool of 10,000, and `peers` as persistent
-    peers; the genesis file; the FilePV files of
-    `key`; the node key.  Returns the config file's path and the node id."""
+    with its journal and a mempool of 10,000, app snapshots every 2 heights
+    (the JAX defaults keep 2, in chunks of 65,536 bytes; phase 12 restores
+    one), and `peers` as persistent peers; the genesis file; the FilePV
+    files of `key`; the node key.  Returns the config file's path and the
+    node id."""
     from tendermint_tpu_torch.config import Config, save_config
     from tendermint_tpu_torch.p2p import NodeKey
     from tendermint_tpu_torch.privval import FilePV, FilePVKey, FilePVLastSignState
@@ -3940,6 +3978,7 @@ def net_home(home, gen, key, peers=""):
     cfg.mempool.sig_precheck = True
     cfg.mempool.wal_dir = "data/mempool.wal"
     cfg.mempool.size = ABCI_MEMPOOL
+    cfg.statesync.snapshot_interval = SS_SNAPSHOT_INTERVAL
     cfg.ensure_dirs()
     path = os.path.join(home, "config", "config.toml")
     save_config(cfg, path)
@@ -4143,20 +4182,22 @@ def net_link(card) -> str:
             f"({card})")
 
 
-def phase_net(keys, card, dev, b_inproc=False):
+def phase_net(keys, card, dev, b_inproc=False, keep_homes=False):
     """Two port nodes of a 10,000-validator chain over TCP (see the module
     docstring, 11).  `b_inproc` runs node B in this process (the CPU
     rehearsal) instead of through the CLI.  Returns the launches'
-    denominators and the run's numbers."""
+    denominators and the run's numbers; with `keep_homes`, also A's and B's
+    homes under out["net"] (phase 12 restarts them; its caller removes
+    them with out["net"]["tmp"].cleanup())."""
     import asyncio
 
-    out = asyncio.run(net_run(keys, card, dev, b_inproc))
+    out = asyncio.run(net_run(keys, card, dev, b_inproc, keep_homes))
     out["link"] = net_link(card)
     log(f"  {out['link']}")
     return out
 
 
-async def net_run(keys, card, dev, b_inproc):
+async def net_run(keys, card, dev, b_inproc, keep_homes=False):
     import asyncio
     import tempfile
     import threading
@@ -4210,7 +4251,7 @@ async def net_run(keys, card, dev, b_inproc):
     kinds_seen = collections.Counter()
     device = None if dev.type == "cuda" else dev  # the entry point's default is the card
     relays = NetRelays(os.path.join(tmp.name, "relays.log"))
-    a = b = None
+    a = b = out = None
     dec = cs_reactor._dec
     stopped = []  # (peer id, reason) of A's stop_peer_for_error calls
     admitted = collections.Counter()  # node id -> connections A admitted
@@ -4498,6 +4539,8 @@ async def net_run(keys, card, dev, b_inproc):
         net_report(a, b, per_h, builds, sign_s, join_s, tally["dispatch"], dev, card,
                    dict(kinds), out, probe)
         out["tables"] = [x["thread"] for x in builds]
+        if keep_homes:
+            out["net"] = {"tmp": tmp, "a": (home_a, cfg_a, a_id), "b": (home_b, cfg_b, b_id)}
         return out
     finally:
         cs_reactor._dec = dec
@@ -4510,7 +4553,13 @@ async def net_run(keys, card, dev, b_inproc):
         for t in threading.enumerate():  # the engine's background builds and probe
             if t.name in ("table-build", "table-rebuild", "bv-rtt-probe", "bv-warmup"):
                 t.join()
-        tmp.cleanup()
+        if a is not None:  # its sqlite files are reopened by phase 12's processes
+            for db in (a.block_store.db, a.state_db, getattr(a.tx_indexer, "db", None),
+                       a.evidence_pool.db if a.evidence_pool is not None else None):
+                if db is not None:
+                    db.close()
+        if "net" not in (out or {}):  # kept only for a phase 11 that passed
+            tmp.cleanup()
 
 
 def net_check(a, b, per_h, proposals, valid, ours_addr, b_addr, errors, stopped, relays,
@@ -4641,6 +4690,478 @@ def net_report(a, b, per_h, builds, sign_s, join_s, d, dev, card, kinds, out, pr
         f"{sum(e['host_prep_ms'] for e in d):.3f} ms, dispatch {device_ms:.3f} ms "
         f"({device_ms / (span * 1000) * 100:.3f} % of the wall time); "
         f"{card_memory(dev, a.table_cache)} ({card})")
+
+
+SS_TRUST_AT = NET_HEIGHTS  # C's trust height: A's tip (the module docstring, 12, says why)
+SS_LOGGERS = ("statesync", "rpc", "rpc.server", "fastsync", "p2p", "p2p-transport", "mconn")
+SS_CAUGHT_UP_S = 600.0  # C's start to caught up, at most
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ss_serving_config(cfg_path, p2p_port, rpc_port, peers=""):
+    """A phase 11 home's config.toml for phase 12: p2p and RPC on the given
+    local ports and `peers` as persistent peers; the rest as phase 11 left
+    it."""
+    from tendermint_tpu_torch.config import load_config, save_config
+
+    cfg = load_config(cfg_path)
+    cfg.p2p.laddr = f"tcp://127.0.0.1:{p2p_port}"
+    cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc_port}"
+    cfg.p2p.persistent_peers = peers
+    save_config(cfg, cfg_path)
+
+
+def ss_home(home, gen_file, rpc_port, servers, trust_hash, peers):
+    """C's home: config.toml by save_config at the JAX defaults but p2p on a
+    free local port, PEX off, duplicate IPs allowed, RPC on `rpc_port`, the
+    signed-tx precheck and a mempool of 10,000 as A's, state sync on with
+    `servers` as its trust servers and A's header at SS_TRUST_AT as its
+    root, A and B as persistent peers; phase 11's genesis; a new FilePV key
+    (C is no validator) and node key, made by default_new_node."""
+    import shutil
+
+    from tendermint_tpu_torch.config import Config, save_config
+
+    cfg = Config(home=home)
+    cfg.base.chain_id = CHAIN_ID
+    cfg.p2p.laddr, cfg.p2p.pex = "127.0.0.1:0", False
+    cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc_port}"
+    cfg.p2p.persistent_peers = peers
+    cfg.p2p.allow_duplicate_ip = True
+    cfg.mempool.sig_precheck = True
+    cfg.mempool.size = ABCI_MEMPOOL
+    cfg.statesync.enable = True
+    cfg.statesync.rpc_servers = servers
+    cfg.statesync.trust_height = SS_TRUST_AT
+    cfg.statesync.trust_hash = trust_hash.hex()
+    cfg.validate_basic()
+    cfg.ensure_dirs()
+    path = os.path.join(home, "config", "config.toml")
+    save_config(cfg, path)
+    shutil.copyfile(gen_file, cfg.genesis_file())
+    return path
+
+
+class SsProbe:
+    """Class-level hooks on the syncer, its providers' HTTP client, the
+    fast-sync reactor's hand-over and the engine's launch counters, for C
+    alone (A and B run in other processes on the card).  Every time is
+    perf_counter seconds; `launches()` reads the three counters."""
+
+    def __init__(self):
+        from tendermint_tpu_torch.fastsync.reactor import BlockchainReactor
+        from tendermint_tpu_torch.rpc.client import HTTPClient
+        from tendermint_tpu_torch.statesync.syncer import StateSyncer
+
+        self.t = {}  # milestone -> perf_counter s
+        self.trust = []  # (t0, t1, snapshot height, error or None, launches before, after)
+        self.rpc = []  # {"method", "ms", "bytes", "t"}
+        self.restores = []  # heights whose restore began
+        self._undo = []
+        probe = self
+
+        def wrap(cls, name, make):
+            orig = getattr(cls, name)
+            setattr(cls, name, make(orig))
+            self._undo.append((cls, name, orig))
+
+        def discover(orig):
+            async def hooked(syncer):
+                await orig(syncer)
+                probe.t.setdefault("discovery", time.perf_counter())
+            return hooked
+
+        def trust_root(orig):
+            async def hooked(syncer, height):
+                t0, l0 = time.perf_counter(), probe.launches()
+                try:
+                    out = await orig(syncer, height)
+                except Exception as e:
+                    probe.trust.append((t0, time.perf_counter(), height, e, l0, probe.launches()))
+                    raise
+                probe.trust.append((t0, time.perf_counter(), height, None, l0, probe.launches()))
+                probe.t["trust_root"] = time.perf_counter()
+                return out
+            return hooked
+
+        def fetch_and_apply(orig):
+            async def hooked(syncer, snap, sched, conn):
+                probe.restores.append(snap.height)
+                await orig(syncer, snap, sched, conn)
+                probe.t["last_chunk"] = time.perf_counter()
+                probe.l_restore = probe.launches()
+            return hooked
+
+        def call(orig):
+            async def hooked(client, method, params=None):
+                t0 = time.perf_counter()
+                rec = {"method": method, "bytes": 0, "t": t0}
+                probe.rpc.append(rec)
+                try:
+                    return await orig(client, method, params)
+                finally:
+                    rec["ms"] = _ms(t0)
+            return hooked
+
+        def roundtrip(orig):
+            async def hooked(client, body):
+                raw = await orig(client, body)
+                if probe.rpc:
+                    probe.rpc[-1]["bytes"] += len(body) + len(raw)
+                return raw
+            return hooked
+
+        def handover(orig):
+            async def hooked(reactor):
+                probe.t.setdefault("tail", time.perf_counter())
+                probe.tail_height = reactor.state.last_block_height
+                probe.tail_synced = reactor.blocks_synced
+                return await orig(reactor)
+            return hooked
+
+        wrap(StateSyncer, "_discover", discover)
+        wrap(StateSyncer, "_trust_root", trust_root)
+        wrap(StateSyncer, "_fetch_and_apply", fetch_and_apply)
+        wrap(HTTPClient, "_call", call)
+        wrap(HTTPClient, "_roundtrip", roundtrip)
+        wrap(BlockchainReactor, "_switch_to_consensus", handover)
+        self.l_restore = None
+        self.tail_height = self.tail_synced = None
+
+    @staticmethod
+    def launches():
+        from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
+
+        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
+                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
+
+    def on_node(self, node):
+        """Instance hooks on C once it is built: Info after the restore and
+        the two bootstraps."""
+        probe = self
+        conn = node.proxy_app.query()
+        info = conn.info
+
+        async def timed_info(req):
+            res = await info(req)
+            if "last_chunk" in probe.t:
+                probe.t.setdefault("info", time.perf_counter())
+            return res
+
+        conn.info = timed_info
+        for store, name in ((node.state_store, "bootstrap"),
+                            (node.block_store, "bootstrap_light_block")):
+            orig = getattr(store, name)
+
+            def timed(*args, orig=orig, key=name):
+                out = orig(*args)
+                probe.t[key] = time.perf_counter()
+                return out
+
+            setattr(store, name, timed)
+
+    def close(self):
+        for cls, name, orig in reversed(self._undo):
+            setattr(cls, name, orig)
+        self._undo = []
+
+
+def ss_rpc_line(calls, card) -> str:
+    """The trust root's RPC fetches: calls by route, pages of /validators,
+    bytes, ms per call p50/max."""
+    by = collections.defaultdict(list)
+    for c in calls:
+        by[c["method"]].append(c)
+    parts = []
+    for m, cs in sorted(by.items()):
+        ms = [c["ms"] for c in cs if "ms" in c]
+        parts.append(f"{m} x{len(cs)} {sum(c['bytes'] for c in cs) / 1e6:.3f} MB, ms p50 "
+                     f"{percentile(ms, 50):.3f} max {max(ms):.3f}")
+    total = sum(c.get("ms", 0.0) for c in calls) / 1000
+    return (f"{len(calls)} calls in {total:.3f} s: " + "; ".join(parts) + f" ({card})")
+
+
+def phase_statesync(keys, card, dev, net, inproc=False):
+    """A third node joins phase 11's chain by state sync (see the module
+    docstring, 12).  `net` is phase 11's out["net"]: A's and B's homes.
+    `inproc` runs A and B in this process (the CPU rehearsal) instead of
+    through the CLI.  Returns C's launches by stage and the run's numbers."""
+    import asyncio
+
+    return asyncio.run(ss_run(keys, card, dev, net, inproc))
+
+
+async def ss_run(keys, card, dev, net, inproc):
+    import asyncio
+    import logging
+    import tempfile
+    import threading
+
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.libs.kvstore import open_db
+    from tendermint_tpu_torch.node import default_new_node
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    from tendermint_tpu_torch.state import StateStore
+    from tendermint_tpu_torch.store import BlockStore
+
+    home_a, cfg_a, a_id = net["a"]
+    home_b, cfg_b, b_id = net["b"]
+    device = None if dev.type == "cuda" else dev
+    ports = {k: free_port() for k in ("a_p2p", "a_rpc", "b_p2p", "b_rpc", "c_rpc")}
+    a_peer = f"{a_id}@127.0.0.1:{ports['a_p2p']}"
+    b_peer = f"{b_id}@127.0.0.1:{ports['b_p2p']}"
+    ss_serving_config(cfg_a, ports["a_p2p"], ports["a_rpc"])
+    ss_serving_config(cfg_b, ports["b_p2p"], ports["b_rpc"], peers=a_peer)
+    a_rpc, b_rpc = f"127.0.0.1:{ports['a_rpc']}", f"127.0.0.1:{ports['b_rpc']}"
+    a, b = NetB(home_a, cfg_a, device, inproc), NetB(home_b, cfg_b, device, inproc)
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-ss-")
+    home_c = os.path.join(tmp.name, "c")
+    c = probe = client = None
+    ss_lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            ss_lines.append(record.getMessage())
+
+    keep = Keep(logging.INFO)
+    ss_log = logging.getLogger("statesync")
+    level = ss_log.level
+
+    async def until(cond, what, timeout):
+        t = time.perf_counter()
+        while not await cond():
+            for x in (a, b):
+                if x.exited():
+                    raise AssertionError(f"a serving node exited {x.proc.returncode} while "
+                                         f"waiting for {what}: {x.read_log()[-3000:]}")
+            if time.perf_counter() - t > timeout:
+                raise AssertionError(f"timed out waiting for {what}")
+            await asyncio.sleep(0.05)
+
+    try:
+        with consensus_errors(SS_LOGGERS) as errors:
+            ss_log.addHandler(keep)
+            ss_log.setLevel(logging.INFO)
+            t = time.perf_counter()
+            await asyncio.gather(a.start(), b.start())
+            client = HTTPClient(a_rpc, timeout=60.0)
+
+            async def served():
+                try:
+                    st = await client.status()
+                except OSError:
+                    return False
+                return st["sync_info"]["latest_block_height"] == NET_HEIGHTS
+
+            await until(served, "A's RPC", 120)
+            log(f"  A and B restarted from their homes in {time.perf_counter() - t:.3f} s "
+                f"({'in this process' if inproc else 'python -m tendermint_tpu_torch node, each in its own process'}); "
+                f"RPC {a_rpc} and {b_rpc}, chain at height {NET_HEIGHTS} ({card})")
+            root = (await client.commit(SS_TRUST_AT))["signed_header"]
+            a_seq = (await client._call("dump_flight_recorder", {"kinds": "none."}))["next_seq"]
+            cfg_c = ss_home(home_c, os.path.join(home_a, "config", "genesis.json"),
+                            ports["c_rpc"], f"{a_rpc},{b_rpc}", root.header.hash(),
+                            f"{a_peer},{b_peer}")
+            log(f"  C's trust root: A's /commit at height {SS_TRUST_AT}, header "
+                f"{root.header.hash().hex()[:16]}; trust servers A (primary) and B (witness)")
+            probe = SsProbe()
+            t_c = time.perf_counter()
+            c = default_new_node(load_config(cfg_c), device=device)
+            await c.start()
+            probe.on_node(c)
+            t_started = time.perf_counter()
+            if not c.statesync_reactor.syncing:
+                raise AssertionError("C did not start state sync")
+            c_client = HTTPClient(f"127.0.0.1:{ports['c_rpc']}", timeout=60.0)
+
+            async def caught_up():
+                if c.block_store.height() < NET_HEIGHTS or c.consensus_reactor.wait_sync:
+                    return False
+                st = await c_client.status()
+                return not st["sync_info"]["catching_up"]
+
+            try:
+                await until(caught_up, "C caught up", SS_CAUGHT_UP_S)
+                probe.t["caught_up"] = time.perf_counter()
+                status = await c_client.status()
+            finally:
+                await c_client.close()
+            dump = await client._call("dump_flight_recorder", {"since": a_seq})
+            l_end = probe.launches()
+            await c.stop()
+            await client.close()
+            await asyncio.gather(a.stop(), b.stop())
+            ss_log.removeHandler(keep)
+            ss_log.setLevel(level)
+            dbs_a = {n: open_db(n, home_a) for n in ("blockstore", "state")}
+            try:
+                out = ss_check(c, BlockStore(dbs_a["blockstore"]), StateStore(dbs_a["state"]),
+                               a, b, probe, ss_lines, errors, status)
+            finally:
+                for db in dbs_a.values():
+                    db.close()
+        out.update(ss_report(c, probe, t_c, t_started, dump, l_end, card))
+        return out
+    finally:
+        ss_log.removeHandler(keep)
+        ss_log.setLevel(level)
+        if probe is not None:
+            probe.close()
+        if client is not None:
+            await client.close()
+        if c is not None and c.is_running:
+            await c.stop()
+        for x in (a, b):
+            await x.stop()
+        if c is not None:
+            for db in (c.block_store.db, c.state_db, getattr(c.tx_indexer, "db", None)):
+                if db is not None:
+                    db.close()
+        for t in threading.enumerate():  # the engine's background builds and probe
+            if t.name in ("table-build", "table-rebuild", "bv-rtt-probe", "bv-warmup"):
+                t.join()
+        tmp.cleanup()
+        net["tmp"].cleanup()
+
+
+def ss_check(c, store_a, state_store_a, a, b, probe, ss_lines, errors, status):
+    """Phase 12's outcome (see the module docstring, 12).  Returns the
+    snapshot height and C's launches by stage."""
+    if len(probe.restores) != 1:
+        raise AssertionError(f"C began {len(probe.restores)} restores, not one: {probe.restores}")
+    snap_h = probe.restores[0]
+    if snap_h >= NET_HEIGHTS or snap_h % SS_SNAPSHOT_INTERVAL:
+        raise AssertionError(f"C restored the snapshot at {snap_h}, not one below the tip")
+    # the highest snapshot (at the tip) cannot verify: its H+1 header does
+    # not exist, so each of the syncer's 5 attempts fails and it is rejected
+    top = [x for x in probe.trust if x[2] == NET_HEIGHTS]
+    if len(top) != 5 or not all(x[3] is not None for x in top):
+        raise AssertionError(f"the tip's snapshot was tried {len(top)} times, not 5 failed times")
+    want = f"statesync: snapshot rejected height={NET_HEIGHTS}"
+    hits = [m for m in ss_lines if m.startswith(want)]
+    if len(hits) != 1 or "trust root unavailable: commit(" not in hits[0] or \
+            f"height {NET_HEIGHTS + 1} must be less than or equal to {NET_HEIGHTS}" not in hits[0]:
+        raise AssertionError(f"the tip's snapshot was not rejected with the JAX messages: {hits}")
+    for m in ("statesync: discovery complete", "statesync: restoring snapshot",
+              "statesync: snapshot restored", "statesync: handing over to fastsync"):
+        if not any(x.startswith(m) for x in ss_lines):
+            raise AssertionError(f"C's statesync log lacks {m!r}")
+    for k in ("discovery", "trust_root", "last_chunk", "info", "bootstrap",
+              "bootstrap_light_block", "tail", "caught_up"):
+        if k not in probe.t:
+            raise AssertionError(f"C never reached {k}")
+    if c.block_store.base() != snap_h or c.block_store.height() < NET_HEIGHTS:
+        raise AssertionError(f"C's block store holds {c.block_store.base()}..."
+                             f"{c.block_store.height()}, not {snap_h}..{NET_HEIGHTS}")
+    # the tip is H + 2: fast sync applies H + 1 if it arrives within the
+    # reactor's 1 s grace, else its tip-1 rule hands over at H and H + 1
+    # comes by catch-up gossip with H + 2 (both seen on the card)
+    if probe.tail_height not in (snap_h, snap_h + 1) or \
+            probe.tail_synced != probe.tail_height - snap_h:
+        raise AssertionError(f"C's fast sync switched at {probe.tail_height} after "
+                             f"{probe.tail_synced} blocks, not at {snap_h} or {snap_h + 1}")
+    meta_a, meta_c = store_a.load_block_meta(snap_h), c.block_store.load_block_meta(snap_h)
+    if meta_c.header.hash() != meta_a.header.hash():
+        raise AssertionError(f"C's header at {snap_h} is not A's")
+    for h in range(snap_h + 1, NET_HEIGHTS + 1):
+        if c.block_store.load_block(h).serialize() != store_a.load_block(h).serialize():
+            raise AssertionError(f"C's block {h} is not byte-equal to A's")
+    for h in range(snap_h, NET_HEIGHTS + 3):
+        va, vc = state_store_a.load_validators(h), c.state_store.load_validators(h)
+        if vc is None or va.hash() != vc.hash():
+            raise AssertionError(f"C's validators at {h} are not A's")
+    # A restored state dates its last set and params change at H + 1, and
+    # its sets are rebuilt from /validators pages by ValidatorSet(vals),
+    # which resets the proposer priorities (the JAX syncer's State and
+    # provider do both; ROADMAP 3.6).  Every other field must equal A's,
+    # and the sets their hashes (which leave the priorities out).
+    st_a, st_c = state_store_a.load(), c.state_store.load()
+    da, dc = st_a.to_dict(), st_c.to_dict()
+    since = ("last_height_validators_changed", "last_height_consensus_params_changed")
+    sets = ("validators", "next_validators", "last_validators")
+    diff = sorted(k for k in da if da[k] != dc.get(k) and k not in since + sets)
+    if st_c.last_block_height != NET_HEIGHTS or diff or any(dc[k] != snap_h + 1 for k in since) \
+            or any(getattr(st_a, k).hash() != getattr(st_c, k).hash() for k in sets):
+        raise AssertionError(f"C's state at {st_c.last_block_height} is not A's: {diff}, "
+                             f"{[(dc[k], da[k]) for k in since]}")
+    priorities = sum(x.proposer_priority != y.proposer_priority for x, y in
+                     zip(st_a.validators.validators, st_c.validators.validators))
+    if status["sync_info"]["catching_up"] or status["sync_info"]["sync_phase"] != "caught_up":
+        raise AssertionError(f"C's /status says {status['sync_info']}")
+    if status["sync_info"]["earliest_block_height"] != snap_h:
+        raise AssertionError("C's /status earliest height is not the snapshot's")
+    bad = [e for x in (a, b) for e in x.errors
+           if e.split(" ", 2)[1].rstrip(":") in SS_LOGGERS]
+    if errors or bad:
+        raise AssertionError(f"errors logged: C {errors[:3]}, A and B {bad[:3]}")
+    for x, name in ((a, "A"), (b, "B")):
+        if x.rc != 0 or "Traceback" in x.text:
+            raise AssertionError(f"node {name} exited {x.rc} on SIGTERM or printed a traceback: "
+                                 f"{x.text[-3000:]}")
+    return {"snapshot": snap_h, "priorities": priorities, "fast_synced": probe.tail_synced}
+
+
+def ss_report(c, probe, t_c, t_started, dump, l_end, card) -> dict:
+    """C's milestones, the trust root's split, the chunks and A's side (see
+    the module docstring, 12).  Returns C's launches by stage."""
+    t = probe.t
+    ok = [x for x in probe.trust if x[3] is None][-1]
+    marks = [("node start", t_started), ("end of discovery", t["discovery"]),
+             ("trust root", t["trust_root"])]
+    evs = c.flight_recorder.events()
+    off = time.perf_counter() - time.monotonic_ns() / 1e9
+    kinds = collections.Counter(e["kind"] for e in evs)
+    offer = [e for e in evs if e["kind"] == "statesync.offer"]
+    chunks = [e for e in evs if e["kind"] == "statesync.chunk"]
+    marks += [("offer", offer[-1]["t_ns"] / 1e9 + off), ("last chunk", t["last_chunk"]),
+              ("Info", t["info"]), ("bootstrap", max(t["bootstrap"], t["bootstrap_light_block"])),
+              ("tail (fast sync's hand-over)", t["tail"]), ("caught up", t["caught_up"])]
+    log("  C from its start: " + "; ".join(f"{k} +{v - t_c:.3f} s" for k, v in marks)
+        + f"; fast sync applied {probe.tail_synced} block(s) and handed over at height "
+        f"{probe.tail_height}, the rest came by catch-up gossip ({card})")
+    rpc = [x for x in probe.rpc if x["t"] <= ok[1]]
+    log(f"  trust root: {len(probe.trust)} attempts ({sum(1 for x in probe.trust if x[3])} "
+        f"failed), {ok[1] - probe.trust[0][0]:.3f} s from the first; RPC fetch " + ss_rpc_line(
+            rpc, card))
+    pages = sum(1 for x in rpc if x["method"] == "validators")
+    val_ms = [x["ms"] for x in rpc if x["method"] == "validators"]
+    log(f"  /validators: {pages} pages of at most 100 ({pages / 100:.2f} sets of 10,000), "
+        f"{sum(val_ms) / 1000:.3f} s, ms per page p50 {percentile(val_ms, 50):.3f} max "
+        f"{max(val_ms):.3f} (each page decodes the whole set in A's load_validators) ({card})")
+    t0_trust = probe.trust[0][0] - off
+    dispatch = [e for e in evs if e["kind"] == "verify.dispatch"
+                and t0_trust <= e["t_ns"] / 1e9 <= ok[1] - off]
+    flushes = [e for e in evs if e["kind"] == "verify.flush"
+               and t0_trust <= e["t_ns"] / 1e9 <= ok[1] - off]
+    log(f"  trust root verify: {len(flushes)} flushes of {[e['batch'] for e in flushes]}; "
+        f"dispatches " + ", ".join(f"{e['path']} n={e['n']} host_prep_ms {e['host_prep_ms']} "
+                                   f"device_ms {e['device_ms']}" for e in dispatch)
+        + f" ({card})")
+    if chunks:
+        span = (chunks[-1]["t_ns"] - offer[-1]["t_ns"]) / 1e9
+        log(f"  chunks: {len(chunks)} applied (of {c.statesync_reactor.syncer.chunks_total}), "
+            f"offer to last chunk {span:.3f} s, {len(chunks) / max(span, 1e-9):.3f} chunks/s; "
+            f"recorder events {dict((k, v) for k, v in kinds.items() if k.startswith('statesync.'))}"
+            f" ({card})")
+    akinds = collections.Counter(e["kind"] for e in dump["events"])
+    log(f"  A's flight recorder over C's sync (dump_flight_recorder over A's RPC): "
+        f"{len(dump['events'])} events, dropped {dump['dropped']}: "
+        + ", ".join(f"{k} {v}" for k, v in akinds.most_common(12)))
+    stages = {"trust_root": {k: ok[5][k] - probe.trust[0][4][k] for k in ok[5]}}
+    if probe.l_restore is not None:
+        stages["tail"] = {k: l_end[k] - probe.l_restore[k] for k in l_end}
+    stages["all"] = l_end
+    log(f"  C's launches: trust root {stages['trust_root']}, after the restore "
+        f"{stages.get('tail')}, in all {l_end}")
+    return {"stages": stages}
 
 
 def kernel_device_ms(fn, names) -> dict:
@@ -4925,25 +5446,55 @@ def main() -> int:
     ed25519_table.BUILD_LAUNCHES = 0
     ed25519_table.SUM_LAUNCHES = 0
     t0 = time.perf_counter()
-    out = phase_net(keys, card, dev)
+    out = phase_net(keys, card, dev, keep_homes=True)
+    net = out["net"]  # A's and B's homes, for phase 12
     counts = {
         "ed25519_ladder": ed25519_cuda.LAUNCHES,
         "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
         "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
     }
-    log(f"  launches in phase 11 on A (node B's, in its own process, are not counted): {counts}; "
-        f"{out['validate_blocks']} validate_block calls of A on heights >= 2, {out['hits']} table "
-        f"hits, {out['declines']} declines, tables built {out['tables']}, {out['frames']} "
-        f"vote_batch frames of >= 16 entries received; phase 11 took "
-        f"{time.perf_counter() - t0:.3f} s")
-    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] < 1:
-        raise AssertionError("kernel 2 (window tables) did not build the genesis set's table on A")
-    if counts[picked] < out["hits"]:
-        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
-                             "of A in phase 11")
-    if counts["ed25519_ladder"] < out["frames"] + out["declines"]:
-        raise AssertionError("the ladder did not serve every vote_batch frame of >= 16 entries and "
-                             "declined check of A in phase 11")
+    try:
+        log(f"  launches in phase 11 on A (node B's, in its own process, are not counted): {counts}; "
+            f"{out['validate_blocks']} validate_block calls of A on heights >= 2, {out['hits']} table "
+            f"hits, {out['declines']} declines, tables built {out['tables']}, {out['frames']} "
+            f"vote_batch frames of >= 16 entries received; phase 11 took "
+            f"{time.perf_counter() - t0:.3f} s")
+        if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] < 1:
+            raise AssertionError("kernel 2 (window tables) did not build the genesis set's table on A")
+        if counts[picked] < out["hits"]:
+            raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
+                                 "of A in phase 11")
+        if counts["ed25519_ladder"] < out["frames"] + out["declines"]:
+            raise AssertionError("the ladder did not serve every vote_batch frame of >= 16 entries and "
+                                 "declined check of A in phase 11")
+        for name, c in counts.items():
+            report[name]["launches"] += c
+    except BaseException:  # phase 12 does not run: remove A's and B's homes
+        net["tmp"].cleanup()
+        raise
+
+    log("[12] a third node joins the 10,000-validator chain by state sync: A and B serve it "
+        "through the CLI with RPC on; C restores a snapshot, fast-syncs the tail and follows")
+    ed25519_cuda.LAUNCHES = 0
+    ed25519_table.BUILD_LAUNCHES = 0
+    ed25519_table.SUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = phase_statesync(keys, card, dev, net)
+    counts = {
+        "ed25519_ladder": ed25519_cuda.LAUNCHES,
+        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
+    }
+    stages = out["stages"]
+    log(f"  launches in phase 12 on C (A's and B's, in their own processes, are not counted): "
+        f"{counts}; snapshot at {out['snapshot']}; phase 12 took {time.perf_counter() - t0:.3f} s")
+    if stages["trust_root"]["ed25519_ladder"] == 0:
+        raise AssertionError("the ladder was not launched for C's trust root")
+    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 1:
+        raise AssertionError("kernel 2 (window tables) was not launched exactly once, for the "
+                             "restored set, on C")
+    if stages["tail"][picked] == 0:
+        raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in C's tail")
     for name, c in counts.items():
         report[name]["launches"] += c
 

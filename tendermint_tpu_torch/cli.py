@@ -1,12 +1,13 @@
 """Command-line interface (the port's copy of tendermint_tpu/cli.py, with the
-commands a node without RPC can serve).
+commands of a node and its keys).
 
 Reference parity: cmd/tendermint/main.go:16-45 (init, node/run, replay,
 replay_console, gen_validator, gen_node_key, show_validator, show_node_id,
 unsafe_reset_all, version).  Each command takes the JAX CLI's arguments,
-prints its lines and returns its exit codes.  `testnet`, `light`,
-`liteserve` and `debug` come with RPC (ROADMAP 1.7), `trace` and
-`trace_net` with the flight spool (ROADMAP 1.8).
+prints its lines and returns its exit codes.  `node` serves RPC at the
+home's `rpc.laddr` (and state-syncs with `[statesync] enable`), as the JAX
+node does.  `testnet`, `light`, `liteserve` and `debug` wait for ROADMAP
+1.7.7, `trace` and `trace_net` for the flight spool (ROADMAP 1.8).
 
 argparse plays cobra's role; `python -m tendermint_tpu_torch <cmd>` is the
 binary.  `node` runs its verify engine on the card and raises without one.

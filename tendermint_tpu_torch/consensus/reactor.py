@@ -6,10 +6,13 @@ Two deviations from the JAX reactor (ROADMAP 3):
 
 - No fallback hides the engine.  The JAX reactor drops a vote_batch frame
   whose engine call raises, and reads a single vote whose engine call
-  raises as badly signed (the peer is stopped).  Here both log at ERROR
-  and raise p2p.LocalFault, which fails the connection's receive task: an
-  engine fault of this node is never read as the peer's.  A False verdict
-  keeps the JAX behaviour exactly.
+  raises as badly signed (the peer is stopped).  Here an error of the
+  engine itself (crypto.batch.EngineError) logs at ERROR and raises
+  p2p.LocalFault, which fails the connection's receive task: an engine
+  fault of this node is never read as the peer's.  Only the engine call
+  sits inside that `try`; any other exception is the peer's data and
+  reaches the connection, which stops the peer.  A False verdict keeps the
+  JAX behaviour exactly.
 - Aggregate (BLS) commits are not ported (ROADMAP 1.9): an `agg_commit`
   frame, and catchup over a folded height (`_send_agg_commit`), raise
   TypeError naming 1.9, as ConsensusState's aggregate inputs do.
@@ -79,6 +82,7 @@ import random
 import time
 from typing import Dict, List, Optional, Set, Tuple, Union
 
+from ..crypto.batch import EngineError
 from ..encoding import codec
 from ..libs.bitarray import BitArray
 from ..libs.log import get_logger
@@ -870,7 +874,7 @@ class ConsensusReactor(Reactor):
                     res = await asyncio.gather(
                         *self.async_verifier.verify_many(entries)
                     )
-            except Exception as e:
+            except EngineError as e:
                 # the engine's fault, not the peer's (the JAX reactor drops
                 # the frame here): fail the receive task with it
                 self.log.error(
@@ -1110,7 +1114,7 @@ class ConsensusReactor(Reactor):
         if self.async_verifier is not None and pk is not None:
             try:
                 return await self.async_verifier.verify_one(pk, sign_bytes, vote.signature)
-            except Exception as e:
+            except EngineError as e:
                 # the engine's fault: the JAX reactor reads it as a bad
                 # signature and stops the peer; here it fails the receive task
                 self.log.error("vote verify failed in the engine", err=repr(e))

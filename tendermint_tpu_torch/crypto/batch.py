@@ -19,6 +19,15 @@ from typing import Callable, List, Optional, Sequence
 
 BatchVerifyFn = Callable[[Sequence[bytes], Sequence[bytes], Sequence[bytes]], List[bool]]
 
+
+class EngineError(RuntimeError):
+    """The verify engine itself failed: its kernel library did not build, a
+    launch or a copy on the card raised.  This node's fault, never the
+    input's: a malformed signature or key reads False, and a value of the
+    wrong type raises TypeError or ValueError before the engine runs.  The
+    reactors turn only this type into p2p.LocalFault; every other exception
+    of a peer's data blames the peer."""
+
 _verifier: Optional[BatchVerifyFn] = None
 
 

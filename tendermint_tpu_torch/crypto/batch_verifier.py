@@ -204,6 +204,19 @@ def _ms_since(t0: float) -> float:
     return (time.perf_counter() - t0) * 1000
 
 
+@contextlib.contextmanager
+def _engine_call(what: str):
+    """Device work of the engine: whatever it raises is the engine's fault
+    (crypto.batch.EngineError), never the input's, whose checks all run on
+    the host before it."""
+    try:
+        yield
+    except batch_hook.EngineError:
+        raise
+    except Exception as e:
+        raise batch_hook.EngineError(f"{what} failed in the engine: {e!r}") from e
+
+
 # ---------------------------------------------------------------------------
 # the verifier
 # ---------------------------------------------------------------------------
@@ -399,7 +412,7 @@ class BatchVerifier:
             return out
         state = self._library_state(n)
         if state == "failed":
-            raise RuntimeError(
+            raise batch_hook.EngineError(
                 "the CUDA kernel library failed to build; device-routed batches "
                 f"are not served from the host: {self._build_error!r}"
             ) from self._build_error
@@ -413,10 +426,11 @@ class BatchVerifier:
         if not valid.any():
             return [False] * n
         t1 = time.perf_counter()
-        rows = torch.as_tensor(neg_a, device=self.device)
-        ok = ed25519_cuda.verify_indexed(
-            rows, *_device_rows(self.device, np.arange(n), h_digits, s_digits, r_y, r_sign)
-        ).cpu().numpy()
+        with _engine_call("ladder"):
+            rows = torch.as_tensor(neg_a, device=self.device)
+            ok = ed25519_cuda.verify_indexed(
+                rows, *_device_rows(self.device, np.arange(n), h_digits, s_digits, r_y, r_sign)
+            ).cpu().numpy()
         dev_s = time.perf_counter() - t1
         self.metrics.device_seconds.observe(dev_s)
         self._dispatch(n=n, bucket=n, path="device", host_prep_ms=round(prep_s * 1000, 3),
@@ -641,7 +655,8 @@ class PubkeyTable:
                 items[i] = (self.pubkeys[idx], msg, sig)
         idx_arr = np.clip(idx_arr, 0, max(pk_count - 1, 0))
 
-        tab = self._tabulated_active(n)
+        with _engine_call("tabulated profile"):
+            tab = self._tabulated_active(n)
 
         cs = self.verifier.effective_chunk()
         use_chunked = self.chunked_single_shot
@@ -658,12 +673,13 @@ class PubkeyTable:
         if not valid.any():
             return [False] * n
         t1 = time.perf_counter()
-        args = _device_rows(self.device, idx_arr, h_digits, s_digits, r_y, r_sign)
-        if tab:
-            ok = ed25519_table.verify_tabulated(self.build_tables(), *args)
-        else:
-            ok = ed25519_cuda.verify_indexed(self.neg_a_rows, *args)
-        ok = ok.cpu().numpy()
+        with _engine_call("tabulated sum" if tab else "indexed ladder"):
+            args = _device_rows(self.device, idx_arr, h_digits, s_digits, r_y, r_sign)
+            if tab:
+                ok = ed25519_table.verify_tabulated(self.build_tables(), *args)
+            else:
+                ok = ed25519_cuda.verify_indexed(self.neg_a_rows, *args)
+            ok = ok.cpu().numpy()
         dev_s = time.perf_counter() - t1
         self.verifier.metrics.device_seconds.observe(dev_s)
         self.verifier._dispatch(
@@ -689,23 +705,28 @@ class PubkeyTable:
         dev = self.device
         card = dev.type == "cuda"
         n_chunks = (n + cs - 1) // cs
-        slots = [_ChunkSlot(cs, card) for _ in range(min(max(1, self.verifier.chunk_depth), n_chunks))]
+        with _engine_call("chunked ladder"):
+            slots = [_ChunkSlot(cs, card)
+                     for _ in range(min(max(1, self.verifier.chunk_depth), n_chunks))]
         pending: "collections.deque" = collections.deque()
         out: List[bool] = []
 
         def collect():
             slot, cnt, valid_c = pending.popleft()
-            out.extend(np.logical_and(slot.verdicts(cnt), valid_c).tolist())
+            with _engine_call("chunked ladder"):
+                verdicts = slot.verdicts(cnt)
+            out.extend(np.logical_and(verdicts, valid_c).tolist())
 
         t0 = time.perf_counter()
         ctx = contextlib.nullcontext()
         stream = None
         if card:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(device=dev)
-            stream = self._stream
-            # the rows were uploaded on the caller's stream
-            stream.wait_stream(torch.cuda.current_stream(dev))
+            with _engine_call("chunked ladder"):
+                if self._stream is None:
+                    self._stream = torch.cuda.Stream(device=dev)
+                stream = self._stream
+                # the rows were uploaded on the caller's stream
+                stream.wait_stream(torch.cuda.current_stream(dev))
             ctx = torch.cuda.stream(stream)
         with ctx:
             for k, start in enumerate(range(0, n, cs)):
@@ -717,11 +738,12 @@ class PubkeyTable:
                     collect()
                 slot = slots[k % len(slots)]
                 slot.fill(cnt, idx_arr[start:end], _pack_digits(h), _pack_digits(s), ry, rs)
-                args = [t[:cnt].to(dev, non_blocking=True) for t in slot.inputs]
-                ok = ed25519_cuda.verify_indexed(self.neg_a_rows, *args)
-                slot.ok[:cnt].copy_(ok, non_blocking=True)
-                if card:
-                    slot.done.record(stream)
+                with _engine_call("chunked ladder"):
+                    args = [t[:cnt].to(dev, non_blocking=True) for t in slot.inputs]
+                    ok = ed25519_cuda.verify_indexed(self.neg_a_rows, *args)
+                    slot.ok[:cnt].copy_(ok, non_blocking=True)
+                    if card:
+                        slot.done.record(stream)
                 pending.append((slot, cnt, valid_c))
             while pending:
                 collect()
@@ -803,9 +825,10 @@ class TableCache:
             if tab is not None:
                 self._tables.move_to_end(set_key)
                 return tab
-        tab = PubkeyTable(pubkeys, verifier=self.verifier, tabulated=self.tabulated)
-        if tab.tabulated:
-            tab.build_tables()
+        with _engine_call("table build"):
+            tab = PubkeyTable(pubkeys, verifier=self.verifier, tabulated=self.tabulated)
+            if tab.tabulated:
+                tab.build_tables()
         with self._lock:
             self._tables[set_key] = tab
             if len(self._tables) > self.max_sets:
@@ -1170,9 +1193,10 @@ class AsyncBatchVerifier(Service):
             except Exception as e:
                 # a dead flusher would strand every pending and future
                 # caller: fail this batch's futures and keep the loop alive
+                err = batch_hook.EngineError if isinstance(e, batch_hook.EngineError) else RuntimeError
                 for _, _, _, fut, _ in batch:
                     if not fut.done():
-                        fut.set_exception(RuntimeError(f"batch verify failed: {e!r}"))
+                        fut.set_exception(err(f"batch verify failed: {e!r}"))
                 continue
             for (_, _, _, fut, _), ok in zip(batch, results):
                 if not fut.done():

@@ -6,10 +6,12 @@ broadcast, block request/response handling, poolRoutine:216 trySync,
 SwitchToConsensus handover :276) structured the v2 way (io separated from
 the pure FSMs).
 
-One deviation from the JAX reactor: only the validation errors of
-verify_commit (a bad block) blame the delivering peer.  Any other exception
-of that call is the verify engine's, this node's fault: it is logged at ERROR
-and raised as p2p.LocalFault, which fails the pool routine.
+One deviation from the JAX reactor: an exception of the verify engine
+itself (crypto.batch.EngineError: a kernel that did not build or launch) is
+this node's fault, not the delivering peer's: it is logged at ERROR and
+raised as p2p.LocalFault, which fails the pool routine.  Every other
+exception of the commit check (a bad signature, too little power, a nil or
+mistyped LastCommit) blames the peer, as in the JAX reactor.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import asyncio
 import time
 from typing import Optional
 
+from ..crypto.batch import EngineError
 from ..encoding import codec
 from ..libs.log import get_logger
 from ..libs.service import wait_event
@@ -25,7 +28,6 @@ from ..p2p import ChannelDescriptor, LocalFault, Reactor
 from ..p2p import behaviour
 from ..types.block import Block, BlockID
 from ..types.params import BLOCK_PART_SIZE_BYTES
-from ..types.validator import NotEnoughVotingPowerError
 from .processor import Processor
 from .scheduler import Scheduler
 
@@ -314,8 +316,16 @@ class BlockchainReactor(Reactor):
                 self.state.validators.verify_commit(
                     self.state.chain_id, first_id, first.height, second.last_commit
                 )
-            except (ValueError, NotEnoughVotingPowerError) as e:
-                # what verify_commit raises for a bad block: the peer's fault
+            except EngineError as e:
+                # the engine's fault, not the peer's (the JAX reactor blames
+                # the delivering peer here): fail the pool routine with it
+                self.log.error(
+                    "fast-sync commit verify failed in the engine", height=first.height, err=repr(e)
+                )
+                raise LocalFault(f"fast-sync commit verify failed in the engine: {e!r}") from e
+            except Exception as e:
+                # anything else is the block's: a bad signature, too little
+                # power, a nil or mistyped LastCommit -- the peer's fault
                 self.log.error("invalid block in fast sync", height=first.height, err=str(e))
                 for h in self.processor.drop_invalid():
                     # block_invalid clears scheduler.received[h], removes the
@@ -327,13 +337,6 @@ class BlockchainReactor(Reactor):
                     if pid:
                         await self._report(behaviour.bad_message(pid, "sent invalid block"))
                 return
-            except Exception as e:
-                # the engine's fault, not the peer's (the JAX reactor blames
-                # the delivering peer here): fail the pool routine with it
-                self.log.error(
-                    "fast-sync commit verify failed in the engine", height=first.height, err=repr(e)
-                )
-                raise LocalFault(f"fast-sync commit verify failed in the engine: {e!r}") from e
             self.block_store.save_block(
                 first, first.make_part_set(BLOCK_PART_SIZE_BYTES), second.last_commit
             )

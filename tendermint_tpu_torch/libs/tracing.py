@@ -149,3 +149,29 @@ class FlightRecorder:
     def dropped(self) -> int:
         """Events that have aged out of the ring since start."""
         return max(0, self._seq - self.size)
+
+
+#: The statesync bootstrap chain every snapshot restore must record, in
+#: order — the statesync-smoke acceptance gate.
+STATESYNC_CHAIN = ("statesync.offer", "statesync.chunk", "statesync.restore", "statesync.handover")
+
+
+def statesync_bootstrap_ms(events: List[dict]) -> Optional[float]:
+    """Wall milliseconds from the (first) snapshot offer to the fastsync
+    handover, measured from real recorder spans — the number bench.py
+    reports as `statesync_bootstrap_ms`.  None unless the full
+    offer→chunk→restore→handover chain is present in order."""
+    first: dict = {}
+    last: dict = {}
+    for ev in events:
+        k = ev.get("kind")
+        if k in STATESYNC_CHAIN:
+            first.setdefault(k, ev["t_ns"])
+            last[k] = ev["t_ns"]
+    if any(k not in first for k in STATESYNC_CHAIN):
+        return None
+    o, c, r, h = (first[STATESYNC_CHAIN[0]], first[STATESYNC_CHAIN[1]],
+                  last[STATESYNC_CHAIN[2]], last[STATESYNC_CHAIN[3]])
+    if not (o <= c <= r <= h):
+        return None
+    return (h - o) / 1e6

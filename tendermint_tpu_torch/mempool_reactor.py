@@ -11,11 +11,14 @@ QoS (overload robustness): outbound tx frames to each peer are capped at
 an ingress firehose fans out as a bounded stream per link instead of
 saturating every peer connection ahead of consensus traffic.
 
-Deviation (ROADMAP 3): a peer's tx whose check_tx fails with anything but a
-MempoolError (the signed-tx lane's engine, or the app) is this node's
-fault, not the peer's: it is logged at ERROR and raised as p2p.LocalFault,
-which fails the connection's receive task (the JAX reactor lets it stop
-the peer).
+A tx that is not bytes is the peer's fault and stops it before check_tx
+runs (in the JAX reactor check_tx raises TypeError on it, which stops the
+peer the same way).  Deviation (ROADMAP 3): a peer's tx whose check_tx
+fails in the verify engine itself (crypto.batch.EngineError, from the
+signed-tx lane) is this node's fault: it is logged at ERROR and raised as
+p2p.LocalFault, which fails the connection's receive task (the JAX
+mempool reads it as a bad signature).  Any other exception reaches the
+connection, which stops the peer, as in the JAX reactor.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import asyncio
 from typing import List
 
+from .crypto.batch import EngineError
 from .encoding import codec
 from .libs.flowrate import TokenBucket
 from .libs.log import get_logger
@@ -82,12 +86,15 @@ class MempoolReactor(Reactor):
         except Exception:
             await self.switch.stop_peer_for_error(peer, "malformed mempool message")
             return
+        if not isinstance(txs, list) or not all(isinstance(tx, bytes) for tx in txs):
+            await self.switch.stop_peer_for_error(peer, "malformed mempool message")
+            return
         for tx in txs:
             try:
                 await self.mempool.check_tx(tx, sender=peer.id)
             except MempoolError:
                 pass  # duplicates/full are not peer faults
-            except Exception as e:
+            except EngineError as e:
                 self.log.error("check_tx of a peer's tx failed", peer=peer.id[:12], err=repr(e))
                 raise LocalFault(f"check_tx of a peer's tx failed: {e!r}") from e
 

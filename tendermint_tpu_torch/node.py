@@ -1,12 +1,13 @@
 """Node: dependency-injection assembly of the full node (the port's copy of
-tendermint_tpu/node.py, with the p2p stack and the BLOCKCHAIN, CONSENSUS,
-MEMPOOL and EVIDENCE reactors; without state sync, PEX, RPC and the chaos
+tendermint_tpu/node.py, with the RPC server, the p2p stack and the
+STATESYNC, BLOCKCHAIN, CONSENSUS, MEMPOOL and EVIDENCE reactors; without
+PEX, the gRPC server, the /metrics listener, liteserve and the chaos
 layers).
 
 Reference parity: node/node.go (NewNode:556, DefaultNewNode:90,
 OnStart:752; createAndStartProxyAppConns:578, doHandshake:601,
 createMempool:634, NewBlockExecutor:643, createConsensusReactor:659,
-onlyValidatorIsUs:314).
+onlyValidatorIsUs:314, the RPC listeners:766).
 
 The node builds what the JAX node builds, in its order, with the port's
 engine where the JAX node builds its own: one BatchVerifier on the card
@@ -17,16 +18,17 @@ the background, and `_valset_watch` builds a rotated set's table before
 its first commit.  `device=None` means the card; without one the node
 raises at construction unless the caller passes device="cpu".
 
+A node whose stores are empty, with `[statesync] enable` and p2p on,
+bootstraps from a peer's app snapshot: the handshake is skipped, the
+StateSyncer's trust root is read through the HTTP providers on
+`statesync.rpc_servers`, and `_statesync_done` hands the restored state to
+fast sync (or, when every snapshot failed, replays from genesis).
+
 A configuration that needs a part the port does not carry yet raises
 NotImplementedError at construction, before anything is opened, naming
 the ROADMAP item that ports it (see `check_ported`).  The JAX defaults turn
-RPC and PEX on, so a port node runs with `rpc.laddr = ""` and
-`p2p.pex = false`; `p2p.laddr = "none"` runs it without p2p.
-
-Deviation (ROADMAP 3): the STATESYNC reactor is not registered until the
-state-sync slice, so the port's NodeInfo advertises the BLOCKCHAIN,
-CONSENSUS, MEMPOOL and EVIDENCE channels only.  A peer needs one common
-channel (p2p/node_info.py compatible_with), so port and JAX nodes connect.
+PEX on, so a port node runs with `p2p.pex = false`; `p2p.laddr = "none"`
+runs it without p2p and `rpc.laddr = ""` without RPC.
 """
 
 from __future__ import annotations
@@ -57,23 +59,19 @@ def check_ported(config: Config) -> None:
     cfg = config
     p2p_on = cfg.p2p.laddr not in ("", "none")
     unported = (
-        (p2p_on and cfg.p2p.pex, "p2p.pex = true: peer exchange and the address book", "1.7",
+        (p2p_on and cfg.p2p.pex, "p2p.pex = true: peer exchange and the address book", "1.7.2",
          "pex = false"),
-        (p2p_on and bool(cfg.p2p.seeds), f"p2p.seeds = {cfg.p2p.seeds!r}: peer exchange", "1.7",
-         'seeds = ""'),
-        (cfg.statesync.enable, "statesync.enable: the state-sync reactor", "1.7",
-         "statesync.enable = false"),
+        (p2p_on and bool(cfg.p2p.seeds), f"p2p.seeds = {cfg.p2p.seeds!r}: peer exchange",
+         "1.7.2", 'seeds = ""'),
         (cfg.p2p.test_fuzz, "p2p.test_fuzz: the p2p link policies", "1.8", "test_fuzz = false"),
-        (bool(cfg.rpc.laddr), f"rpc.laddr = {cfg.rpc.laddr!r}: the RPC server", "1.7",
-         'rpc.laddr = ""'),
         (bool(cfg.rpc.grpc_laddr), f"rpc.grpc_laddr = {cfg.rpc.grpc_laddr!r}: the gRPC server",
-         "1.7", 'rpc.grpc_laddr = ""'),
+         "1.7.3", 'rpc.grpc_laddr = ""'),
         (bool(cfg.base.priv_validator_laddr),
-         f"priv_validator_laddr = {cfg.base.priv_validator_laddr!r}: the remote signer", "1.7",
+         f"priv_validator_laddr = {cfg.base.priv_validator_laddr!r}: the remote signer", "1.7.4",
          'priv_validator_laddr = ""'),
         (cfg.instrumentation.prometheus, "instrumentation.prometheus: the /metrics listener",
-         "1.7", "prometheus = false"),
-        (cfg.liteserve.enable, "liteserve.enable: the light-client gateway", "1.7",
+         "1.7.6", "prometheus = false"),
+        (cfg.liteserve.enable, "liteserve.enable: the light-client gateway", "1.7.3",
          "liteserve.enable = false"),
         (cfg.chaos.enabled, "chaos.enabled: disk faults, the twin signer and link policies",
          "1.8", "chaos.enabled = false"),
@@ -194,6 +192,8 @@ class Node(Service):
         self.consensus: Optional[ConsensusState] = None
         self.consensus_reactor = None
         self.blockchain_reactor = None
+        self.statesync_reactor = None
+        self.rpc_server = None
         self.switch = None
         self.node_key = None
         self.evidence_pool = None
@@ -301,11 +301,25 @@ class Node(Service):
         await self.indexer_service.start()
         await self.proxy_app.start()
 
-        # handshake: sync app with block store (node/node.go:601)
-        handshaker = Handshaker(
-            self.state_store, self.state, self.block_store, self.genesis_doc
+        # statesync gate, decided BEFORE the handshake: a truly empty node
+        # (no state, no blocks) with [statesync] enable and p2p on will
+        # bootstrap from a snapshot.  The handshake is SKIPPED in that case
+        # (node/node.go: stateSync skips doHandshake): after a crash
+        # between app restore and state persist the app may legitimately
+        # be AHEAD of our empty stores, which the handshake would treat as
+        # corruption — statesync re-offers the snapshot instead.
+        do_state_sync = (
+            cfg.statesync.enable
+            and self.state.last_block_height == 0
+            and self.block_store.height() == 0
+            and bool(cfg.p2p.laddr and cfg.p2p.laddr != "none")
         )
-        self.state = await handshaker.handshake(self.proxy_app)
+        if not do_state_sync:
+            # handshake: sync app with block store (node/node.go:601)
+            handshaker = Handshaker(
+                self.state_store, self.state, self.block_store, self.genesis_doc
+            )
+            self.state = await handshaker.handshake(self.proxy_app)
 
         # mempool (node/node.go:634)
         self.mempool = Mempool(
@@ -369,9 +383,21 @@ class Node(Service):
         if cfg.base.db_backend != "memdb":
             self.consensus.wal = WAL(cfg.wal_file())
 
+        # RPC (node/node.go:766)
+        if cfg.rpc.laddr:
+            from .rpc.server import RPCServer
+
+            self.rpc_server = RPCServer(self, cfg.rpc)
+            # ingress admission-control telemetry rides the node's own
+            # metrics registry + flight recorder (ingress.throttle events)
+            self.rpc_server.core.metrics = self.metrics_provider.rpc
+            self.rpc_server.core.recorder = self.flight_recorder
+            await self.rpc_server.start()
+            self.log.info("rpc listening", laddr=cfg.rpc.laddr)
+
         # p2p stack + reactors (node/node.go:653-709)
         if cfg.p2p.laddr and cfg.p2p.laddr != "none":
-            await self._start_p2p(block_exec)
+            await self._start_p2p(block_exec, do_state_sync)
         else:
             await self.consensus.start()
         if self.loop_profiler is not None:
@@ -469,18 +495,19 @@ class Node(Service):
             except Exception as e:
                 self.log.error("valset watch failed", err=repr(e))
 
-    async def _start_p2p(self, block_exec) -> None:
-        """The JAX node's p2p block without state sync, PEX and the chaos
-        layers (check_ported refused them): NodeKey, NodeInfo with the
-        gossip version the knobs enable, Transport, Switch with the ABCI
-        peer filter, the BLOCKCHAIN, CONSENSUS, MEMPOOL and EVIDENCE
-        reactors, listen, the switch's start (which starts consensus unless
-        fast sync runs first), the quarantine refill and the persistent
-        peers."""
+    async def _start_p2p(self, block_exec, do_state_sync: bool) -> None:
+        """The JAX node's p2p block without PEX and the chaos layers
+        (check_ported refused them): NodeKey, NodeInfo with the gossip
+        version the knobs enable, Transport, Switch with the ABCI peer
+        filter, the STATESYNC (with a StateSyncer only when bootstrapping),
+        BLOCKCHAIN, CONSENSUS, MEMPOOL and EVIDENCE reactors, listen, the
+        switch's start (which starts consensus unless a sync runs first),
+        the quarantine refill and the persistent peers."""
         from .consensus.reactor import ConsensusReactor
         from .evidence_reactor import EvidenceReactor
         from .fastsync import BlockchainReactor
         from .mempool_reactor import MempoolReactor
+        from .statesync import StateSyncer, StateSyncReactor
         from .p2p import NodeInfo, NodeKey, Switch, Transport
         from .p2p.node_info import (
             GOSSIP_BATCH_VERSION,
@@ -538,21 +565,47 @@ class Node(Service):
             self.state, self.priv_validator
         )
         self.consensus_reactor = ConsensusReactor(
-            self.consensus, wait_sync=do_fast_sync, async_verifier=self.async_verifier
+            self.consensus,
+            wait_sync=do_fast_sync or do_state_sync,
+            async_verifier=self.async_verifier,
         )
-        self.consensus.metrics.fast_syncing.set(1 if do_fast_sync else 0)
+        self.consensus.metrics.fast_syncing.set(1 if (do_fast_sync or do_state_sync) else 0)
         self.blockchain_reactor = BlockchainReactor(
             self.state,
             block_exec,
             self.block_store,
-            fast_sync=do_fast_sync,
+            # while statesync runs, fastsync stays dormant — it must NOT
+            # start replaying from genesis under the restore
+            fast_sync=do_fast_sync and not do_state_sync,
             consensus_reactor=self.consensus_reactor,
+            wait_statesync=do_state_sync,
+        )
+        syncer = None
+        if do_state_sync:
+            syncer = StateSyncer(
+                cfg.statesync,
+                self.genesis_doc,
+                self.state_store,
+                self.block_store,
+                self.proxy_app,
+                async_verifier=self.async_verifier,
+                metrics=self.metrics_provider.statesync,
+                recorder=self.flight_recorder,
+            )
+            self.metrics_provider.statesync.sync_phase.set(
+                self.metrics_provider.statesync.PHASE_STATESYNC
+            )
+        # every node registers the reactor: full nodes SERVE their app's
+        # snapshots on 0x60/0x61 even when not bootstrapping
+        self.statesync_reactor = StateSyncReactor(
+            self.proxy_app, syncer=syncer, on_done=self._statesync_done
         )
         self.blockchain_reactor.statesync_metrics = self.metrics_provider.statesync
-        if do_fast_sync:
+        if do_fast_sync and not do_state_sync:
             self.metrics_provider.statesync.sync_phase.set(
                 self.metrics_provider.statesync.PHASE_FASTSYNC
             )
+        self.switch.add_reactor("STATESYNC", self.statesync_reactor)
         self.switch.add_reactor("BLOCKCHAIN", self.blockchain_reactor)
         self.switch.add_reactor("CONSENSUS", self.consensus_reactor)
         # always registered: broadcast=false only disables outbound gossip,
@@ -609,6 +662,29 @@ class Node(Service):
 
             prof.add_queue_probe("mconn_send", _mconn_send_depth)
 
+    async def _statesync_done(self, state) -> None:
+        """Statesync → fastsync handover (or fallback).  `state` is the
+        snapshot-restored state, or None when every candidate failed — in
+        which case fastsync replays from the pre-statesync state (genesis
+        on an empty node) so the node still joins, just slower."""
+        ss_metrics = self.metrics_provider.statesync
+        if state is not None:
+            self.state = state
+            # fresh statesync node: there is no WAL for the restored
+            # height, so consensus must not demand an #ENDHEIGHT marker
+            self.consensus.do_wal_catchup = False
+        else:
+            # fallback to replay-from-genesis: the handshake was SKIPPED
+            # at startup (statesync path), so the app has never seen
+            # InitChain — run it now or the first replayed block executes
+            # against an uninitialized app
+            handshaker = Handshaker(
+                self.state_store, self.state, self.block_store, self.genesis_doc
+            )
+            self.state = await handshaker.handshake(self.proxy_app)
+        ss_metrics.sync_phase.set(ss_metrics.PHASE_FASTSYNC)
+        await self.blockchain_reactor.switch_to_fastsync(self.state)
+
     async def on_stop(self) -> None:
         if self.watchdog is not None:
             await self.watchdog.stop()
@@ -618,6 +694,8 @@ class Node(Service):
             await self.switch.stop()  # stops reactors incl. consensus
         elif self.consensus is not None:
             await self.consensus.stop()
+        if self.rpc_server is not None:
+            await self.rpc_server.stop()
         await self.indexer_service.stop()
         await self.event_bus.stop()
         await self.proxy_app.stop()

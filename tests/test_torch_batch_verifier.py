@@ -6,7 +6,8 @@ plain torch versions).
 Same inputs through both packages; verdicts, host-prep arrays, exceptions
 and their messages must be identical.  Also: the JAX package's device
 state carries across (from_jax_state), entry points never drift onto the
-CPU, and the port imports neither jax nor the JAX package.
+CPU, the port imports neither jax nor the JAX package, and only a failure
+of the engine's device work is its own crypto.batch.EngineError.
 """
 
 import ast
@@ -393,6 +394,32 @@ def test_chunked_slot_reuse_waits_for_its_chunk(monkeypatch):
     monkeypatch.setattr(bvm._ChunkSlot, "fill", spy)
     assert table.verify_indexed(idxs[:24], ms[:24], ss[:24]) == [i != 11 for i in range(24)]
     assert len(seen) == 3 and len(set(seen)) == 1
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_only_device_failures_are_engine_errors(chunked, monkeypatch):
+    """A signature of the wrong type (a peer's str) fails the host prep with
+    TypeError on the monolithic and the chunked path alike; a launch that
+    raises is the engine's own crypto.batch.EngineError on both."""
+    from tendermint_tpu_torch.crypto.batch import EngineError
+    from tendermint_tpu_torch.ops import ed25519_cuda
+
+    monkeypatch.setattr(bvm, "_CHUNK", 8)
+    pks, idxs, ms, ss = _chunked_batch()
+    table = bvm.PubkeyTable(pks, bvm.BatchVerifier(device=CPU))
+    table.chunked_single_shot = chunked
+    bad = list(ss[:24])
+    bad[5] = "x" * 64
+    with pytest.raises(TypeError) as ei:
+        table.verify_indexed(idxs[:24], ms[:24], bad)
+    assert not isinstance(ei.value, EngineError)
+
+    def launch_fails(*args, **kw):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(ed25519_cuda, "verify_indexed", launch_fails)
+    with pytest.raises(EngineError, match="kernel launch failed"):
+        table.verify_indexed(idxs[:24], ms[:24], ss[:24])
 
 
 def test_rtt_probe_shape_and_caching():

@@ -11,10 +11,11 @@ tests/test_gossip.py unit cases run on the port.
   votes, a bad signature stops the peer with the JAX reason, oversized and
   malformed frames, summary -> pull -> batch, capability gating,
   rarest-first parts, maj23 dedupe, the belief tables' bounds.
-- The deviation (ROADMAP 3): an engine that raises in `verify_direct`,
-  `verify_many` or `verify_one` raises p2p.LocalFault out of `receive`
-  (the JAX reactor drops the frame, or stops the peer for a bad
-  signature), and through a real connection the receive task fails.
+- The deviation (ROADMAP 3): an engine that raises its own error
+  (crypto.batch.EngineError) in `verify_direct`, `verify_many` or
+  `verify_one` raises p2p.LocalFault out of `receive` (the JAX reactor
+  drops the frame, or stops the peer for a bad signature), and through a
+  real connection the receive task fails.
 """
 
 import asyncio
@@ -35,6 +36,7 @@ from tendermint_tpu.types.part_set import PartSet as JPartSet
 from tendermint_tpu_torch import config as pconfig
 from tendermint_tpu_torch.consensus import reactor as preactor
 from tendermint_tpu_torch.consensus import types as ptypes
+from tendermint_tpu_torch.crypto.batch import EngineError
 from tendermint_tpu_torch.crypto.batch_verifier import AsyncBatchVerifier, BatchVerifier
 from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
 from tendermint_tpu_torch.encoding import codec
@@ -508,26 +510,26 @@ async def test_aggregate_commit_frames_are_not_ported():
 
 
 class _BrokenLane:
-    """An AsyncBatchVerifier whose engine raises."""
+    """An AsyncBatchVerifier whose engine raises its own error type."""
 
     def __init__(self):
         self.calls = []
 
     async def verify_direct(self, entries):
         self.calls.append(("direct", len(entries)))
-        raise RuntimeError("the card fell off the bus")
+        raise EngineError("the card fell off the bus")
 
     def verify_many(self, entries):
         self.calls.append(("many", len(entries)))
         loop = asyncio.get_running_loop()
         futs = [loop.create_future() for _ in entries]
         for f in futs:
-            f.set_exception(RuntimeError("the card fell off the bus"))
+            f.set_exception(EngineError("the card fell off the bus"))
         return futs
 
     async def verify_one(self, pk, msg, sig):
         self.calls.append(("one", 1))
-        raise RuntimeError("the card fell off the bus")
+        raise EngineError("the card fell off the bus")
 
 
 @pytest.mark.parametrize("n", [4, preactor.DIRECT_VERIFY_MIN])

@@ -247,12 +247,11 @@ def test_only_validator_is_us_equals_jax():
 
 
 UNPORTED = {
-    "p2p": ("p2p.laddr", "tcp://0.0.0.0:26656", "1.7"),  # with PEX on, the JAX default
-    "rpc": ("rpc.laddr", "tcp://127.0.0.1:26657", "1.7"),
-    "grpc": ("rpc.grpc_laddr", "tcp://127.0.0.1:36656", "1.7"),
-    "remote_signer": ("base.priv_validator_laddr", "tcp://127.0.0.1:26659", "1.7"),
-    "prometheus": ("instrumentation.prometheus", True, "1.7"),
-    "liteserve": ("liteserve.enable", True, "1.7"),
+    "p2p": ("p2p.laddr", "tcp://0.0.0.0:26656", "1.7.2"),  # with PEX on, the JAX default
+    "grpc": ("rpc.grpc_laddr", "tcp://127.0.0.1:36656", "1.7.3"),
+    "remote_signer": ("base.priv_validator_laddr", "tcp://127.0.0.1:26659", "1.7.4"),
+    "prometheus": ("instrumentation.prometheus", True, "1.7.6"),
+    "liteserve": ("liteserve.enable", True, "1.7.3"),
     "chaos": ("chaos.enabled", True, "1.8"),
     "flight_spool": ("instrumentation.flight_spool", True, "1.8"),
     "mesh_on": ("tpu.mesh", "on", "2.2"),

@@ -556,9 +556,8 @@ async def test_stale_peer_stop_never_touches_replacement_state():
 # -- check_ported ------------------------------------------------------------------
 
 P2P_UNPORTED = {
-    "pex": (("p2p", "pex", True), "1.7"),
-    "seeds": (("p2p", "seeds", "ab@127.0.0.1:1"), "1.7"),
-    "statesync": (("statesync", "enable", True), "1.7"),
+    "pex": (("p2p", "pex", True), "1.7.2"),
+    "seeds": (("p2p", "seeds", "ab@127.0.0.1:1"), "1.7.2"),
     "test_fuzz": (("p2p", "test_fuzz", True), "1.8"),
 }
 
@@ -582,6 +581,20 @@ def test_check_ported_refuses_the_unported_p2p_parts(case, tmp_path):
         pnode.check_ported(cfg)
 
 
+def test_check_ported_accepts_statesync_and_the_default_rpc_laddr(tmp_path):
+    """State sync and the RPC server are ported: the JAX defaults of
+    `rpc.laddr` and `[statesync]` (enabled, with its trust servers) pass."""
+    cfg = _p2p_config(str(tmp_path / "h"))
+    cfg.rpc.laddr = pconfig.RPCConfig().laddr
+    assert cfg.rpc.laddr == "tcp://127.0.0.1:26657"
+    cfg.statesync.enable = True
+    cfg.statesync.rpc_servers = "127.0.0.1:26657,127.0.0.1:26658"
+    cfg.statesync.trust_height = 2
+    cfg.statesync.trust_hash = "ab" * 32
+    cfg.validate_basic()
+    pnode.check_ported(cfg)
+
+
 async def test_node_with_p2p_starts_and_registers_the_reactors(tmp_path):
     from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
     from tendermint_tpu_torch.types.priv_validator import MockPV
@@ -594,8 +607,10 @@ async def test_node_with_p2p_starts_and_registers_the_reactors(tmp_path):
     await node.start()
     try:
         assert node.switch.transport.listen_addr.startswith("127.0.0.1:")
-        assert sorted(node.switch.reactors) == ["BLOCKCHAIN", "CONSENSUS", "EVIDENCE", "MEMPOOL"]
-        assert node.switch.node_info.channels == bytes([0x40, 0x20, 0x21, 0x22, 0x23, 0x30, 0x38])
+        assert sorted(node.switch.reactors) == ["BLOCKCHAIN", "CONSENSUS", "EVIDENCE", "MEMPOOL",
+                                                "STATESYNC"]
+        assert node.switch.node_info.channels == bytes(
+            [0x60, 0x61, 0x40, 0x20, 0x21, 0x22, 0x23, 0x30, 0x38])
         assert node.switch.node_info.gossip_version == 3
         assert node.switch.node_info.network == "p2p-node"
         # a solo validator skips fast sync: consensus runs at once

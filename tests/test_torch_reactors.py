@@ -6,11 +6,14 @@ port (tests/test_consensus_net.py's evidence withholding,
 tests/test_fastsync.py's behaviour reporting and non-validator sync).
 
 The mempool and fast-sync reactors' deviations (ROADMAP 3) are pinned
-here: a peer's tx whose check_tx fails with anything but a MempoolError
-raises p2p.LocalFault, where the JAX reactor lets the error stop the peer;
-and a fast-sync pair whose commit check raises anything but verify_commit's
-validation errors raises p2p.LocalFault, where the JAX reactor reports the
-delivering peer for an invalid block.
+here: a peer's tx whose check_tx fails in the verify engine itself
+(crypto.batch.EngineError) raises p2p.LocalFault, where the JAX reactor
+lets the error stop the peer; and a fast-sync pair whose commit check
+raises EngineError raises p2p.LocalFault, where the JAX reactor reports the
+delivering peer for an invalid block.  Every other error of a peer's data
+blames the peer on both packages (ROADMAP faults 3.4 and 3.5, closed): a
+nil or mistyped LastCommit through the real ValidatorSet.verify_commit,
+and a str tx into the real Mempool with its signed-tx lane on.
 """
 
 import asyncio
@@ -34,6 +37,7 @@ from tendermint_tpu.types.evidence import DuplicateVoteEvidence as JDuplicateVot
 from tendermint_tpu_torch import evidence_reactor as pevidence_reactor
 from tendermint_tpu_torch import mempool_reactor as pmempool_reactor
 from tendermint_tpu_torch.config import test_config as ptest_config
+from tendermint_tpu_torch.crypto.batch import EngineError
 from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
 from tendermint_tpu_torch.encoding import codec
 from tendermint_tpu_torch.evidence import EvidencePool
@@ -107,7 +111,7 @@ class _Mempool:
         if tx.startswith(b"dup"):
             raise self.error("tx already exists in cache")
         if tx.startswith(b"engine"):
-            raise RuntimeError("the card fell off the bus")
+            raise EngineError("the card fell off the bus")
 
 
 class _Switch:
@@ -224,8 +228,9 @@ async def test_bad_and_unsolicited_block_responses_are_reported():
     assert [r.kind for r in reactor.reporter.get("peerX")] == [BAD_MESSAGE, BAD_MESSAGE]
 
 
-class _EngineFault(RuntimeError):
-    pass
+class _EngineFault(EngineError):
+    """The port engine's error type (a RuntimeError, as the JAX reactor
+    sees it)."""
 
 
 def _try_sync_reactor(mod, psh_cls, verify_error):
@@ -366,3 +371,122 @@ async def test_non_validator_fast_syncs_then_follows(tmp_path):
         for n in nodes + [syncer]:
             if n.is_running:
                 await n.stop()
+
+
+# -- faults 3.4 and 3.5: a peer's malformed data blames the peer ---------------
+
+
+def _real_try_sync_reactor(mod, ns, second, reporter, monkeypatch):
+    """A fast-sync reactor holding the pair (block 4, `second`) of the
+    7-validator chain of tests/test_torch_chain_types.py, its state the
+    real one after height 3 (so verify_commit runs for real), and the
+    chain's part size (so block 4's id is the one its commit signs)."""
+    import test_torch_chain_types as tct
+
+    monkeypatch.setattr(mod, "BLOCK_PART_SIZE_BYTES", tct.PART)
+    c = tct.chain(ns)
+    first = c["blocks"][4]
+    calls = []
+    reactor = mod.BlockchainReactor.__new__(mod.BlockchainReactor)
+    reactor.log = mod.get_logger("fastsync")
+    reactor.reporter = reporter
+    reactor.state = c["states"][3]
+    reactor.processor = SimpleNamespace(
+        peek_two=lambda: (first, second),
+        drop_invalid=lambda: calls.append("drop_invalid") or [4, 5],
+        drop_heights=lambda hs: calls.append(("drop_heights", list(hs))))
+    reactor.scheduler = SimpleNamespace(
+        block_invalid=lambda h: calls.append(("block_invalid", h)) or ("peer-sync-0", []))
+    return reactor, calls, c
+
+
+@pytest.mark.parametrize("fault", ["nil-last-commit", "str-round"])
+async def test_try_sync_blames_the_peer_for_a_malformed_last_commit(fault, monkeypatch):
+    """Fault 3.4: block 5 with a nil LastCommit, or with a str round, goes
+    through the real ValidatorSet.verify_commit on both packages' _try_sync.
+    Neither raises; both drop the pair and report the delivering peer."""
+    import copy
+
+    import test_torch_chain_types as tct
+    from tendermint_tpu.p2p.behaviour import MockReporter as JMockReporter
+
+    for mod, ns, rep in ((pfs_reactor, tct.PORT, MockReporter()),
+                         (jfs_reactor, tct.JAX, JMockReporter())):
+        c = tct.chain(ns)
+        second = copy.copy(c["blocks"][5])
+        if fault == "nil-last-commit":
+            second.last_commit = None
+        else:
+            d = c["blocks"][5].last_commit.to_dict()
+            d["round"] = "0"
+            second.last_commit = type(c["commits"][4]).from_dict(d)
+        reactor, calls, _ = _real_try_sync_reactor(mod, ns, second, rep, monkeypatch)
+        await reactor._try_sync()
+        assert calls[0] == "drop_invalid", mod.__name__
+        # the commit itself is sound: only the injected field fails
+        c["states"][3].validators.verify_commit(
+            tct.CHAIN, c["ids"][4], 4, c["blocks"][5].last_commit)
+        assert [b.explanation for b in rep.get("peer-sync-0")] == ["sent invalid block"] * 2
+
+
+async def test_try_sync_turns_only_an_engine_error_into_local_fault(monkeypatch):
+    """The engine raising inside the real verify_commit (a kernel launch
+    that fails, wrapped as crypto.batch.EngineError by the engine) is the
+    one exception the port's _try_sync raises as LocalFault; the pair and
+    the peer are untouched."""
+    import test_torch_chain_types as tct
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto.batch_verifier import BatchVerifier
+    from tendermint_tpu_torch.ops import ed25519_cuda
+
+    def launch_fails(*args, **kw):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(ed25519_cuda, "verify_indexed", launch_fails)
+    c = tct.chain(tct.PORT)
+    reactor, calls, _ = _real_try_sync_reactor(pfs_reactor, tct.PORT, c["blocks"][5],
+                                               MockReporter(), monkeypatch)
+    bv = BatchVerifier(device="cpu").install()
+    try:
+        with pytest.raises(LocalFault, match="kernel launch failed") as ei:
+            await reactor._try_sync()
+        assert isinstance(ei.value.__cause__, EngineError)
+    finally:
+        batch_hook.set_verifier(None)
+    assert calls == [] and reactor.reporter.get("peer-sync-0") == []
+    assert bv.last_dispatch == {}  # the launch raised before its dispatch record
+
+
+async def test_a_str_tx_from_a_peer_is_the_peers_fault():
+    """Fault 3.5: the frame {"txs": ["a=1"]} (a str tx) into both packages'
+    reactors on the real Mempool (kvstore app, sig_precheck on).  The JAX
+    check_tx raises TypeError, which its connection reads as the peer's
+    fault and stops it; the port's reactor stops the peer itself before
+    check_tx, and raises nothing."""
+    import tendermint_tpu.mempool as jmempool
+    import tendermint_tpu.proxy as jproxy
+    from tendermint_tpu_torch import mempool as pmempool
+    from tendermint_tpu_torch import proxy as pproxy
+
+    frame = codec.dumps({"txs": ["a=1"]})
+    assert frame == jcodec.dumps({"txs": ["a=1"]})
+    peer = SimpleNamespace(id="str-tx-peer-000")
+    for name, mp_mod, proxy_mod, r_mod in (
+            ("port", pmempool, pproxy, pmempool_reactor),
+            ("jax", jmempool, jproxy, jmempool_reactor)):
+        conns = proxy_mod.AppConns(proxy_mod.default_client_creator("kvstore"))
+        await conns.start()
+        try:
+            mp = mp_mod.Mempool(conns.mempool(), {"sig_precheck": True})
+            r = r_mod.MempoolReactor(mp)
+            r.switch = _Switch()
+            if name == "jax":
+                with pytest.raises(TypeError):
+                    await r.receive(0x30, peer, frame)
+                assert r.switch.stopped == []  # its connection stops the peer
+            else:
+                await r.receive(0x30, peer, frame)
+                assert r.switch.stopped == [(peer.id, "malformed mempool message")]
+            assert mp.size() == 0
+        finally:
+            await conns.stop()
