@@ -293,9 +293,11 @@
    keeps the last 2, in chunks of 65,536 bytes: the 10,000 validators'
    entries and phase 11's txs), and their homes outlive phase 11.  A and
    B restart from them through the CLI (`node`, each in its own process),
-   with p2p and RPC on free local ports and B dialing A; the relays are
-   gone, so the chain stands at height 6.  Node C, `default_new_node` in
-   this process on the card with an empty home, has `[statesync] enable`,
+   with p2p and RPC on free local ports, PEX on (the JAX default; the
+   address book not strict, every address being 127.0.0.1) and B dialing
+   A; the relays are gone, so the chain stands at height 6.  Node C,
+   `default_new_node` in this process on the card with an empty home and
+   PEX on, has `[statesync] enable`,
    A (primary) and B (witness) as its trust servers, A's header at height
    6 (read from A's /commit through the port's HTTPClient) as its trust
    root, A and B as persistent peers and its own RPC on.  Height 6 is the
@@ -322,7 +324,55 @@
    the ladder launched for the trust root, kernel 2 once for the
    restored set and the profile's pick in the tail.  A's and B's
    launches happen in their own processes and are not in the kernels
-   line.
+   line.  `phase_statesync(..., keep_running=True)`, as the run calls it,
+   hands A, B and C over to phase 13 alive once C has caught up (with the
+   event loop C runs on); phase 13's end stops them and makes the checks
+   above that need them stopped (exit codes, logs, A's stores).
+13. A node from a stock home joins the 10,000-validator chain.  Node D's
+   home is written by the port's `init` with its defaults kept (PEX on,
+   fast sync on, 10 outbound peers, no persistent peers); added are only
+   A as its one seed (`id@host:port`), p2p and RPC on local ports, the
+   address book not strict and duplicate IPs allowed (one host), and
+   phase 11's genesis.  D is `default_new_node` in this process on the
+   card.  As soon as its RPC listens, the port's WSClient subscribes on
+   D's /websocket to NewBlock.  D dials A, asks it for addresses, learns
+   B and C (source A) and ends connected to A, B and C (either end may
+   dial, since B and C learn D from A too); it fast-syncs blocks 1-5 from
+   them on the engine (its genesis table built once by kernel 2, the
+   first pair check declining onto the ladder while it builds, the later
+   ones on the profile's pick) and gets block 6 by catch-up gossip.
+   Every block it applies after the subscription must arrive as a
+   notification whose block is A's; `status` over the same socket must
+   give D's height.  Then the wiring Node.start runs for
+   `liteserve.enable` (`Node._start_liteserve`) starts D's gateway: its
+   LocalProvider primary, A and B as HTTP witnesses (quorum 2, a 30 s
+   witness timeout: each witness read is a 1.4 MB /commit), trust root
+   A's header at height 2 (read from A's /commit through the port's
+   HTTPClient), its VerifyCache on D's AsyncBatchVerifier.  Starting it
+   after catch-up is deliberate: at Node.start D's stores do not hold
+   header 2 yet, and the bootstrap gives up after five tries (the JAX
+   node does the same).  16 tenants each open a session
+   (`lite_session_new`) and ask for the commits of heights 2-6 at once
+   (80 `lite_commit` answers of ~1.4 MB of JSON).  Prints D's time from
+   its start to the subscription, `node started`, the seed dial, each
+   peer learned by PEX, each dial, each applied block, caught up and
+   meshed; its book and the PEX frames; the notifications and their lag
+   behind `apply_block`; the gateway's bootstrap, its provider reads
+   (the witnesses' cross-check ms) and verify flushes; the tenants'
+   ms p50/p99/max, bytes and requests/s; the gateway's hits, misses and
+   coalesced joins; D's launches by stage.  Fails unless D dialed A
+   first and asked it for addresses, holds B and C from A and ends
+   connected to A, B and C, its blocks 1-6 are A's byte for byte with
+   A's app hash, every notification is A's block, each tenant answer's
+   header is A's, the VerifyCache verified at most one commit per height,
+   `lite_status` shows 16 sessions and both witnesses without errors, no
+   ERROR comes from the pex, addrbook, rpc, liteserve, lite2, fastsync or
+   p2p loggers of A, B, C or D, D's stop saves its address book with A,
+   B and C, and A's addrbook.json after its SIGTERM holds B, C and D; and
+   on the card kernel 2 built D's table once, the ladder served D's
+   declined check and the gateway's forward step, the profile's pick
+   every table hit of D, and nothing launched for answers the gateway's
+   store served.  A's and B's launches are not in the kernels line.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -3997,6 +4047,9 @@ class NetB:
     time of each commit, read from its log (libs/log.py's format) or, in
     this process, from its reactor and its ConsensusState's hooks."""
 
+    _holding = 0  # in-process starts under way (their engines install no hooks)
+    _installs = None
+
     def __init__(self, home, cfg_path, dev, inproc):
         self.home, self.cfg_path, self.dev, self.inproc = home, cfg_path, dev, inproc
         self.node = self.proc = self.rc = self.started_s = None
@@ -4019,13 +4072,19 @@ class NetB:
             # one process has one set of crypto.batch hooks: A's stay, so A's
             # checks are served by A's engine as on the card (B's start would
             # take the hooks over, and whether B's cold cache then declines
-            # one of A's checks is a race with B's own first check)
-            installs = BatchVerifier.install, TableCache.install
-            BatchVerifier.install = TableCache.install = lambda engine: engine
+            # one of A's checks is a race with B's own first check).  Starts
+            # may overlap (phase 12 starts A and B at once): the first saves
+            # the real installs, the last puts them back.
+            if not NetB._holding:
+                NetB._installs = BatchVerifier.install, TableCache.install
+                BatchVerifier.install = TableCache.install = lambda engine: engine
+            NetB._holding += 1
             try:
                 await self.node.start()
             finally:
-                BatchVerifier.install, TableCache.install = installs
+                NetB._holding -= 1
+                if not NetB._holding:
+                    BatchVerifier.install, TableCache.install = NetB._installs
             reactor = self.node.blockchain_reactor
             orig = reactor._switch_to_consensus
 
@@ -4707,20 +4766,24 @@ def free_port() -> int:
 
 def ss_serving_config(cfg_path, p2p_port, rpc_port, peers=""):
     """A phase 11 home's config.toml for phase 12: p2p and RPC on the given
-    local ports and `peers` as persistent peers; the rest as phase 11 left
-    it."""
+    local ports, `peers` as persistent peers and PEX on (the JAX default),
+    with the address book not strict (every address is 127.0.0.1, as in the
+    JAX package's PEX tests); the rest as phase 11 left it."""
     from tendermint_tpu_torch.config import load_config, save_config
 
     cfg = load_config(cfg_path)
     cfg.p2p.laddr = f"tcp://127.0.0.1:{p2p_port}"
     cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc_port}"
     cfg.p2p.persistent_peers = peers
+    cfg.p2p.pex, cfg.p2p.addr_book_strict = True, False
     save_config(cfg, cfg_path)
 
 
 def ss_home(home, gen_file, rpc_port, servers, trust_hash, peers):
     """C's home: config.toml by save_config at the JAX defaults but p2p on a
-    free local port, PEX off, duplicate IPs allowed, RPC on `rpc_port`, the
+    free local port, PEX on with the address book not strict (A and B run
+    PEX, and a peer without the PEX channel is dropped by the first
+    pex_request it gets, ROADMAP 3.7), duplicate IPs allowed, RPC on `rpc_port`, the
     signed-tx precheck and a mempool of 10,000 as A's, state sync on with
     `servers` as its trust servers and A's header at SS_TRUST_AT as its
     root, A and B as persistent peers; phase 11's genesis; a new FilePV key
@@ -4731,7 +4794,8 @@ def ss_home(home, gen_file, rpc_port, servers, trust_hash, peers):
 
     cfg = Config(home=home)
     cfg.base.chain_id = CHAIN_ID
-    cfg.p2p.laddr, cfg.p2p.pex = "127.0.0.1:0", False
+    cfg.p2p.laddr = "127.0.0.1:0"
+    cfg.p2p.pex, cfg.p2p.addr_book_strict = True, False
     cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc_port}"
     cfg.p2p.persistent_peers = peers
     cfg.p2p.allow_duplicate_ip = True
@@ -4889,28 +4953,50 @@ def ss_rpc_line(calls, card) -> str:
     return (f"{len(calls)} calls in {total:.3f} s: " + "; ".join(parts) + f" ({card})")
 
 
-def phase_statesync(keys, card, dev, net, inproc=False):
+def phase_statesync(keys, card, dev, net, inproc=False, keep_running=False):
     """A third node joins phase 11's chain by state sync (see the module
     docstring, 12).  `net` is phase 11's out["net"]: A's and B's homes.
     `inproc` runs A and B in this process (the CPU rehearsal) instead of
-    through the CLI.  Returns C's launches by stage and the run's numbers."""
+    through the CLI.  Returns C's launches by stage and the run's numbers.
+    With `keep_running`, A, B and C stay up once C has caught up: out["live"]
+    holds them and the event loop they run on, phase 13 (phase_stockhome)
+    joins them, and its end stops them with this phase's checks."""
     import asyncio
 
-    return asyncio.run(ss_run(keys, card, dev, net, inproc))
+    if not keep_running:
+        return asyncio.run(ss_run(keys, card, dev, net, inproc))
+    loop = asyncio.new_event_loop()
+    try:
+        return loop.run_until_complete(ss_run(keys, card, dev, net, inproc, loop=loop))
+    except BaseException:
+        loop.close()
+        raise
 
 
-async def ss_run(keys, card, dev, net, inproc):
+async def until(cond, what, timeout, nodes=()):
+    """Poll the async `cond` every 50 ms; fail when it takes longer than
+    `timeout` s or a node of `nodes` (NetB) exited."""
+    import asyncio
+
+    t = time.perf_counter()
+    while not await cond():
+        for x in nodes:
+            if x.exited():
+                raise AssertionError(f"a serving node exited {x.proc.returncode} while "
+                                     f"waiting for {what}: {x.read_log()[-3000:]}")
+        if time.perf_counter() - t > timeout:
+            raise AssertionError(f"timed out waiting for {what}")
+        await asyncio.sleep(0.05)
+
+
+async def ss_run(keys, card, dev, net, inproc, loop=None):
     import asyncio
     import logging
     import tempfile
-    import threading
 
     from tendermint_tpu_torch.config import load_config
-    from tendermint_tpu_torch.libs.kvstore import open_db
     from tendermint_tpu_torch.node import default_new_node
     from tendermint_tpu_torch.rpc.client import HTTPClient
-    from tendermint_tpu_torch.state import StateStore
-    from tendermint_tpu_torch.store import BlockStore
 
     home_a, cfg_a, a_id = net["a"]
     home_b, cfg_b, b_id = net["b"]
@@ -4922,114 +5008,149 @@ async def ss_run(keys, card, dev, net, inproc):
     ss_serving_config(cfg_b, ports["b_p2p"], ports["b_rpc"], peers=a_peer)
     a_rpc, b_rpc = f"127.0.0.1:{ports['a_rpc']}", f"127.0.0.1:{ports['b_rpc']}"
     a, b = NetB(home_a, cfg_a, device, inproc), NetB(home_b, cfg_b, device, inproc)
-    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-ss-")
-    home_c = os.path.join(tmp.name, "c")
-    c = probe = client = None
     ss_lines = []
 
     class Keep(logging.Handler):
         def emit(self, record):
             ss_lines.append(record.getMessage())
 
-    keep = Keep(logging.INFO)
+    live = {"a": a, "b": b, "c": None, "probe": None, "client": None, "net": net,
+            "tmp": tempfile.TemporaryDirectory(prefix="chip-smoke-ss-"), "close": [],
+            "stack": contextlib.ExitStack(), "keep": Keep(logging.INFO), "ss_lines": ss_lines,
+            "home_a": home_a, "a_id": a_id, "b_id": b_id, "a_peer": a_peer, "b_peer": b_peer,
+            "a_rpc": a_rpc, "b_rpc": b_rpc}
+    home_c = os.path.join(live["tmp"].name, "c")
     ss_log = logging.getLogger("statesync")
-    level = ss_log.level
-
-    async def until(cond, what, timeout):
-        t = time.perf_counter()
-        while not await cond():
-            for x in (a, b):
-                if x.exited():
-                    raise AssertionError(f"a serving node exited {x.proc.returncode} while "
-                                         f"waiting for {what}: {x.read_log()[-3000:]}")
-            if time.perf_counter() - t > timeout:
-                raise AssertionError(f"timed out waiting for {what}")
-            await asyncio.sleep(0.05)
-
+    live["level"] = ss_log.level
+    handed_over = False
     try:
-        with consensus_errors(SS_LOGGERS) as errors:
-            ss_log.addHandler(keep)
-            ss_log.setLevel(logging.INFO)
-            t = time.perf_counter()
-            await asyncio.gather(a.start(), b.start())
-            client = HTTPClient(a_rpc, timeout=60.0)
+        live["errors"] = live["stack"].enter_context(consensus_errors(SS_LOGGERS))
+        ss_log.addHandler(live["keep"])
+        ss_log.setLevel(logging.INFO)
+        t = time.perf_counter()
+        await asyncio.gather(a.start(), b.start())
+        client = live["client"] = HTTPClient(a_rpc, timeout=60.0)
 
-            async def served():
-                try:
-                    st = await client.status()
-                except OSError:
-                    return False
-                return st["sync_info"]["latest_block_height"] == NET_HEIGHTS
-
-            await until(served, "A's RPC", 120)
-            log(f"  A and B restarted from their homes in {time.perf_counter() - t:.3f} s "
-                f"({'in this process' if inproc else 'python -m tendermint_tpu_torch node, each in its own process'}); "
-                f"RPC {a_rpc} and {b_rpc}, chain at height {NET_HEIGHTS} ({card})")
-            root = (await client.commit(SS_TRUST_AT))["signed_header"]
-            a_seq = (await client._call("dump_flight_recorder", {"kinds": "none."}))["next_seq"]
-            cfg_c = ss_home(home_c, os.path.join(home_a, "config", "genesis.json"),
-                            ports["c_rpc"], f"{a_rpc},{b_rpc}", root.header.hash(),
-                            f"{a_peer},{b_peer}")
-            log(f"  C's trust root: A's /commit at height {SS_TRUST_AT}, header "
-                f"{root.header.hash().hex()[:16]}; trust servers A (primary) and B (witness)")
-            probe = SsProbe()
-            t_c = time.perf_counter()
-            c = default_new_node(load_config(cfg_c), device=device)
-            await c.start()
-            probe.on_node(c)
-            t_started = time.perf_counter()
-            if not c.statesync_reactor.syncing:
-                raise AssertionError("C did not start state sync")
-            c_client = HTTPClient(f"127.0.0.1:{ports['c_rpc']}", timeout=60.0)
-
-            async def caught_up():
-                if c.block_store.height() < NET_HEIGHTS or c.consensus_reactor.wait_sync:
-                    return False
-                st = await c_client.status()
-                return not st["sync_info"]["catching_up"]
-
+        async def served():
             try:
-                await until(caught_up, "C caught up", SS_CAUGHT_UP_S)
-                probe.t["caught_up"] = time.perf_counter()
-                status = await c_client.status()
-            finally:
-                await c_client.close()
-            dump = await client._call("dump_flight_recorder", {"since": a_seq})
-            l_end = probe.launches()
-            await c.stop()
-            await client.close()
-            await asyncio.gather(a.stop(), b.stop())
-            ss_log.removeHandler(keep)
-            ss_log.setLevel(level)
-            dbs_a = {n: open_db(n, home_a) for n in ("blockstore", "state")}
-            try:
-                out = ss_check(c, BlockStore(dbs_a["blockstore"]), StateStore(dbs_a["state"]),
-                               a, b, probe, ss_lines, errors, status)
-            finally:
-                for db in dbs_a.values():
-                    db.close()
-        out.update(ss_report(c, probe, t_c, t_started, dump, l_end, card))
+                st = await client.status()
+            except OSError:
+                return False
+            return st["sync_info"]["latest_block_height"] == NET_HEIGHTS
+
+        await until(served, "A's RPC", 120, (a, b))
+        log(f"  A and B restarted from their homes in {time.perf_counter() - t:.3f} s "
+            f"({'in this process' if inproc else 'python -m tendermint_tpu_torch node, each in its own process'}, "
+            f"PEX on); RPC {a_rpc} and {b_rpc}, chain at height {NET_HEIGHTS} ({card})")
+        root = (await client.commit(SS_TRUST_AT))["signed_header"]
+        a_seq = (await client._call("dump_flight_recorder", {"kinds": "none."}))["next_seq"]
+        cfg_c = ss_home(home_c, os.path.join(home_a, "config", "genesis.json"),
+                        ports["c_rpc"], f"{a_rpc},{b_rpc}", root.header.hash(),
+                        f"{a_peer},{b_peer}")
+        log(f"  C's trust root: A's /commit at height {SS_TRUST_AT}, header "
+            f"{root.header.hash().hex()[:16]}; trust servers A (primary) and B (witness)")
+        probe = live["probe"] = SsProbe()
+        t_c = time.perf_counter()
+        c = live["c"] = default_new_node(load_config(cfg_c), device=device)
+        await c.start()
+        probe.on_node(c)
+        t_started = time.perf_counter()
+        if not c.statesync_reactor.syncing:
+            raise AssertionError("C did not start state sync")
+        c_client = HTTPClient(f"127.0.0.1:{ports['c_rpc']}", timeout=60.0)
+
+        async def caught_up():
+            if c.block_store.height() < NET_HEIGHTS or c.consensus_reactor.wait_sync:
+                return False
+            st = await c_client.status()
+            return not st["sync_info"]["catching_up"]
+
+        try:
+            await until(caught_up, "C caught up", SS_CAUGHT_UP_S, (a, b))
+            probe.t["caught_up"] = time.perf_counter()
+            live["status"] = await c_client.status()
+        finally:
+            await c_client.close()
+        dump = await client._call("dump_flight_recorder", {"since": a_seq})
+        l_end = probe.launches()
+        out = ss_report(c, probe, t_c, t_started, dump, l_end, card)
+        if loop is not None:
+            probe.close()  # C's milestones are in; phase 13's nodes must not add to them
+            handed_over = True
+            out["live"] = dict(live, loop=loop)
+            return out
+        out.update(await ss_finish(live))
         return out
     finally:
-        ss_log.removeHandler(keep)
-        ss_log.setLevel(level)
-        if probe is not None:
-            probe.close()
-        if client is not None:
-            await client.close()
-        if c is not None and c.is_running:
-            await c.stop()
-        for x in (a, b):
-            await x.stop()
-        if c is not None:
-            for db in (c.block_store.db, c.state_db, getattr(c.tx_indexer, "db", None)):
-                if db is not None:
-                    db.close()
-        for t in threading.enumerate():  # the engine's background builds and probe
-            if t.name in ("table-build", "table-rebuild", "bv-rtt-probe", "bv-warmup"):
-                t.join()
-        tmp.cleanup()
-        net["tmp"].cleanup()
+        if not handed_over:
+            await ss_cleanup(live)
+
+
+async def ss_finish(live, extra=None):
+    """Phase 12's end: C stops, then A and B (SIGTERM through the CLI), then
+    its checks on A's reopened stores; `extra(store_a, state_store_a)`, when
+    given, runs with them open and its result is under "extra"."""
+    import asyncio
+
+    from tendermint_tpu_torch.libs.kvstore import open_db
+    from tendermint_tpu_torch.state import StateStore
+    from tendermint_tpu_torch.store import BlockStore
+
+    a, b, c = live["a"], live["b"], live["c"]
+    try:
+        await c.stop()
+        await live["client"].close()
+        await asyncio.gather(a.stop(), b.stop())
+        live["stack"].close()  # the ERROR capture ends with the nodes
+        dbs_a = {n: open_db(n, live["home_a"]) for n in ("blockstore", "state")}
+        try:
+            store_a, state_store_a = BlockStore(dbs_a["blockstore"]), StateStore(dbs_a["state"])
+            out = ss_check(c, store_a, state_store_a, a, b, live["probe"], live["ss_lines"],
+                           live["errors"], live["status"])
+            if extra is not None:
+                out["extra"] = extra(store_a, state_store_a)
+        finally:
+            for db in dbs_a.values():
+                db.close()
+        return out
+    finally:
+        await ss_cleanup(live)
+
+
+async def ss_cleanup(live):
+    """Stop whatever still runs of phase 12 (and 13), close the stores this
+    process opened and remove every home.  Runs once."""
+    import logging
+    import threading
+
+    if live.get("cleaned"):
+        return
+    live["cleaned"] = True
+    ss_log = logging.getLogger("statesync")
+    ss_log.removeHandler(live["keep"])
+    ss_log.setLevel(live["level"])
+    live["stack"].close()
+    if live["probe"] is not None:
+        live["probe"].close()
+    if live["client"] is not None:
+        await live["client"].close()
+    c = live["c"]
+    if c is not None and c.is_running:
+        await c.stop()
+    for x in (live["a"], live["b"]):
+        await x.stop()
+    nodes = [c] + live["close"]
+    for node in nodes:
+        if node is None:
+            continue
+        for db in (node.block_store.db, node.state_db, getattr(node.tx_indexer, "db", None)):
+            if db is not None:
+                db.close()
+    for t in threading.enumerate():  # the engine's background builds and probe
+        if t.name in ("table-build", "table-rebuild", "bv-rtt-probe", "bv-warmup"):
+            t.join()
+    live["tmp"].cleanup()
+    live["net"]["tmp"].cleanup()
 
 
 def ss_check(c, store_a, state_store_a, a, b, probe, ss_lines, errors, status):
@@ -5161,7 +5282,486 @@ def ss_report(c, probe, t_c, t_started, dump, l_end, card) -> dict:
     stages["all"] = l_end
     log(f"  C's launches: trust root {stages['trust_root']}, after the restore "
         f"{stages.get('tail')}, in all {l_end}")
-    return {"stages": stages}
+    return {"stages": stages, "snapshot": probe.restores[0] if probe.restores else None}
+
+
+SH_TENANTS = 16  # phase 13: light-client tenants of the gateway
+SH_ROOT = 2  # the gateway's trust height; tenants ask for SH_ROOT .. NET_HEIGHTS
+SH_WITNESS_TIMEOUT = 30.0  # s: a witness /commit of the 10k set is ~1.4 MB (see sh_gateway)
+SH_CAUGHT_UP_S = 300.0  # D's start to caught up, at most
+SH_LOGGERS = ("pex", "addrbook", "rpc", "rpc.server", "liteserve", "liteserve.cache",
+              "liteserve.witness", "liteserve.sessions", "liteserve.bootstrap", "lite2",
+              "fastsync", "p2p", "p2p-transport", "mconn")
+
+
+class ShProbe:
+    """Class-level hooks for phase 13: the switch's dials, the address
+    book's adds, the PEX reactor's frames, apply_block's end by height and
+    the gateway's provider reads (each kept with the object it ran on, so
+    D's are told from A's, B's and C's where those run in this process).
+    Times are perf_counter seconds."""
+
+    def __init__(self):
+        from tendermint_tpu_torch.encoding import codec
+        from tendermint_tpu_torch.lite2.provider import _RPCProvider
+        from tendermint_tpu_torch.p2p import AddrBook, PEXReactor, Switch
+        from tendermint_tpu_torch.state.execution import BlockExecutor
+
+        self.dials = []  # (t, switch, addr)
+        self.adds = []  # (t, book, addr, src, accepted)
+        self.pex_in = []  # (t, reactor, kind)
+        self.pex_req = []  # (t, reactor, peer id): requests sent
+        self.applied = {}  # height -> t of apply_block's end (first)
+        self.reads = []  # (t0, t1, provider, height)
+        self._undo = []
+        probe = self
+
+        def wrap(cls, name, make):
+            orig = getattr(cls, name)
+            setattr(cls, name, make(orig))
+            self._undo.append((cls, name, orig))
+
+        def dial(orig):
+            async def hooked(sw, addr, persistent=False):
+                probe.dials.append((time.perf_counter(), sw, addr))
+                return await orig(sw, addr, persistent)
+            return hooked
+
+        def add(orig):
+            def hooked(book, addr, src=""):
+                ok = orig(book, addr, src)
+                probe.adds.append((time.perf_counter(), book, addr, src, ok))
+                return ok
+            return hooked
+
+        def receive(orig):
+            async def hooked(r, chan_id, peer, msg_bytes):
+                try:
+                    kind = codec.loads(msg_bytes).get("t")
+                except Exception:
+                    kind = None
+                probe.pex_in.append((time.perf_counter(), r, kind))
+                return await orig(r, chan_id, peer, msg_bytes)
+            return hooked
+
+        def request(orig):
+            async def hooked(r, peer):
+                before = peer.id in r._requests_sent
+                await orig(r, peer)
+                if not before and peer.id in r._requests_sent:
+                    probe.pex_req.append((time.perf_counter(), r, peer.id))
+            return hooked
+
+        def apply(orig):
+            async def hooked(ex, state, block_id, block, *a, **k):
+                out = await orig(ex, state, block_id, block, *a, **k)
+                probe.applied.setdefault(block.height, time.perf_counter())
+                return out
+            return hooked
+
+        def read(orig):
+            async def hooked(prov, height):
+                t0 = time.perf_counter()
+                try:
+                    return await orig(prov, height)
+                finally:
+                    probe.reads.append((t0, time.perf_counter(), prov, height))
+            return hooked
+
+        wrap(Switch, "dial_peer", dial)
+        wrap(AddrBook, "add_address", add)
+        wrap(PEXReactor, "receive", receive)
+        wrap(PEXReactor, "_request_addrs", request)
+        wrap(BlockExecutor, "apply_block", apply)
+        wrap(_RPCProvider, "signed_header", read)
+
+    launches = staticmethod(SsProbe.launches)
+
+    def close(self):
+        for cls, name, orig in reversed(self._undo):
+            setattr(cls, name, orig)
+        self._undo = []
+
+
+def sh_home(home, gen_file, seed, rpc_port):
+    """D's home as an operator makes it: the port's `init` (the JAX defaults:
+    PEX on, fast sync on, 10 outbound peers), then `seed` as its one seed,
+    p2p and RPC on local ports, the address book not strict and duplicate
+    IPs allowed (every node is on 127.0.0.1), and phase 11's genesis."""
+    import io
+    import shutil
+
+    from tendermint_tpu_torch import cli
+    from tendermint_tpu_torch.config import load_config, save_config
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(["--home", home, "init", "--chain-id", CHAIN_ID]) != 0:
+            raise AssertionError("init failed for D's home")
+    path = os.path.join(home, "config", "config.toml")
+    cfg = load_config(path)
+    got = (cfg.p2p.pex, cfg.base.fast_sync, cfg.p2p.max_num_outbound_peers,
+           cfg.p2p.persistent_peers, cfg.p2p.seeds)
+    if got != (True, True, 10, "", ""):
+        raise AssertionError(f"init's home is not the stock one: {got}")
+    cfg.p2p.seeds = seed
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc_port}"
+    cfg.p2p.addr_book_strict = False
+    cfg.p2p.allow_duplicate_ip = True
+    save_config(cfg, path)
+    shutil.copyfile(gen_file, cfg.genesis_file())
+    return path
+
+
+def phase_stockhome(keys, card, dev, ss):
+    """A node from a stock home joins the 10,000-validator chain by PEX,
+    fast-syncs it, streams NewBlock over /websocket and serves light-client
+    tenants from its gateway (see the module docstring, 13).  `ss` is
+    phase 12's out with keep_running: A, B and C, alive, and their loop.
+    Stops them with phase 12's checks.  Returns D's launches by stage and
+    its table checks."""
+    loop = ss["live"]["loop"]
+    try:
+        return loop.run_until_complete(sh_run(keys, card, dev, ss["live"]))
+    finally:
+        loop.run_until_complete(loop.shutdown_asyncgens())
+        loop.run_until_complete(loop.shutdown_default_executor())
+        loop.close()
+
+
+async def sh_run(keys, card, dev, live):
+    import asyncio
+
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.node import default_new_node
+    from tendermint_tpu_torch.rpc.client import HTTPClient, WSClient
+
+    device = None if dev.type == "cuda" else dev
+    a, b, c = live["a"], live["b"], live["c"]
+    nodes = (a, b)
+    t_phase = time.perf_counter()
+    d = ws = probe = client_a = drain = None
+    stack = contextlib.ExitStack()
+    finished = False
+    try:
+        errors = stack.enter_context(consensus_errors(SH_LOGGERS))
+        cfg_d = sh_home(os.path.join(live["tmp"].name, "d"),
+                        os.path.join(live["home_a"], "config", "genesis.json"),
+                        live["a_peer"], free_port())
+        probe = ShProbe()
+        t_d = time.perf_counter()
+        d = default_new_node(load_config(cfg_d), device=device)
+        live["close"].append(d)
+        starting = asyncio.ensure_future(d.start())
+        while d.rpc_server is None or not d.rpc_server.listen_addr:
+            if starting.done():
+                starting.result()
+                break
+            await asyncio.sleep(0.002)
+        # the WebSocket subscription, as soon as D's RPC listens
+        ws = WSClient(d.rpc_server.listen_addr, timeout=120.0)
+        await ws.connect()
+        events = await ws.subscribe("tm.event = 'NewBlock'")
+        h_sub = d.block_store.height()
+        t_sub = time.perf_counter()
+        notes = []  # (t, height, block hash) per NewBlock notification
+
+        async def consume():
+            async for ev in events:
+                blk = ev["data"]["value"]["block"]
+                notes.append((time.perf_counter(), blk.header.height, blk.hash()))
+
+        drain = asyncio.ensure_future(consume())
+        await starting
+        t_started = time.perf_counter()
+        rec = d.flight_recorder
+
+        async def caught_up():
+            if d.block_store.height() < NET_HEIGHTS or d.consensus_reactor.wait_sync:
+                return False
+            st = await ws.status()
+            return not st["sync_info"]["catching_up"]
+
+        await until(caught_up, "D caught up", SH_CAUGHT_UP_S, nodes)
+        t_caught = time.perf_counter()
+        status = await ws.status()  # over the same socket
+        want = set(range(h_sub + 1, NET_HEIGHTS + 1))
+
+        async def notified():
+            return want <= {h for _, h, _ in notes}
+
+        await until(notified, "D's NewBlock notifications", 30, nodes)
+        mesh = {live["a_id"], live["b_id"], c.node_key.id}
+
+        async def meshed():
+            return mesh <= set(d.switch.peers)
+
+        # PEX's ensure-peers loop dials what A gossiped every 2 s; a sync
+        # faster than that (the CPU rehearsal's) finishes first
+        await until(meshed, "D connected to A, B and C", 60, nodes)
+        t_meshed = time.perf_counter()
+        l_sync = probe.launches()
+        tables = [e["hit"] for e in rec.events(kinds=["verify.table"])
+                  if e["kind"] == "verify.table"]
+        client_a = HTTPClient(live["a_rpc"], timeout=120.0)
+        metas = (await client_a.blockchain(1, NET_HEIGHTS))["block_metas"]
+        a_hash = {m.header.height: m.block_id.hash for m in metas}
+        gw = await sh_gateway(d, client_a, live, probe, card)
+        l_tenants = probe.launches()
+        await ws.close()
+        drain.cancel()
+        t_stop = time.perf_counter()
+        await d.stop()  # with the gateway; saves D's address book
+        stop_s = time.perf_counter() - t_stop
+        probe.close()
+
+        def on_a_stores(store_a, state_store_a):
+            return sh_check(d, live, store_a, state_store_a, a_hash, status, notes, h_sub,
+                            tables, errors, probe, gw)
+
+        finished = True
+        ss_out = await ss_finish(live, extra=on_a_stores)
+        stack.close()
+        out = ss_out.pop("extra")
+        out["ss"] = ss_out
+        out["stages"] = {"sync": l_sync,
+                         "gateway": {k: gw["l_gw"][k] - l_sync[k] for k in l_sync},
+                         "tenants": {k: l_tenants[k] - gw["l_gw"][k] for k in l_sync}}
+        sh_report(d, live, probe, out, gw, notes, h_sub, t_d, t_sub, t_started, t_caught,
+                  t_meshed, stop_s, card)
+        log(f"  phase 13 took {time.perf_counter() - t_phase:.3f} s ({card})")
+        return out
+    finally:
+        if probe is not None:
+            probe.close()
+        if drain is not None:
+            drain.cancel()
+        if ws is not None and ws._ws is not None and not ws._ws.closed:
+            await ws.close()
+        if client_a is not None:
+            await client_a.close()
+        if d is not None and d.is_running:
+            await d.stop()
+        stack.close()
+        if not finished:
+            await ss_cleanup(live)
+
+
+async def sh_gateway(d, client_a, live, probe, card) -> dict:
+    """D's gateway through the wiring Node.start runs for liteserve.enable,
+    rooted at A's header 2 with A and B as witnesses, then 16 tenants: each
+    opens a session and asks for the commits of heights 2-6 at once.  The
+    witness timeout is 30 s, not the JAX default 3 s: each witness read is a
+    1.4 MB /commit, and this loop also serves the tenants' answers."""
+    import asyncio
+
+    from tendermint_tpu_torch.rpc.http import read_response
+    from tendermint_tpu_torch.rpc.jsonrpc import from_jsonable
+    from tendermint_tpu_torch.types.block import Header
+
+    root = (await client_a.commit(SH_ROOT))["signed_header"]
+    ls = d.config.liteserve
+    ls.enable = True
+    ls.laddr = f"tcp://127.0.0.1:{free_port()}"
+    ls.trust_height, ls.trust_hash = SH_ROOT, root.header.hash().hex()
+    ls.witnesses = f"{live['a_rpc']},{live['b_rpc']}"
+    ls.witness_quorum = 2
+    ls.witness_timeout = SH_WITNESS_TIMEOUT
+    rec = d.flight_recorder
+    seq = next_seq(rec)
+    n_reads = len(probe.reads)
+    t0 = time.perf_counter()
+    await d._start_liteserve()
+    start_s = time.perf_counter() - t0
+    l_gw = probe.launches()
+    reads = probe.reads[n_reads:]
+    evs = rec.events(since=seq, kinds=["verify.", "liteserve."])
+    host, port = d.liteserve.listen_addr.rsplit(":", 1)
+
+    async def post(method, **params):
+        body = json.dumps({"jsonrpc": "2.0", "id": 1, "method": method,
+                           "params": params}).encode()
+        t = time.perf_counter()
+        r, w = await asyncio.open_connection(host, int(port), limit=1 << 20)
+        try:
+            w.write(b"POST / HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\n"
+                    b"Content-Length: %d\r\n\r\n" % len(body) + body)
+            status, _, raw = await read_response(r)
+        finally:
+            w.close()
+        ms = _ms(t)
+        d_ = json.loads(raw)
+        if status != 200 or "result" not in d_:
+            raise AssertionError(f"the gateway answered {method} {params} with {status} "
+                                 f"{str(d_)[:300]}")
+        return d_["result"], ms, len(raw)
+
+    async def tenant():
+        res, ms, n = await post("lite_session_new", trust_height=SH_ROOT,
+                                trust_hash=root.header.hash().hex())
+        sid = res["session"]
+        answers = await asyncio.gather(*(post("lite_commit", session=sid, height=h)
+                                         for h in range(SH_ROOT, NET_HEIGHTS + 1)))
+        out = []
+        for h, (res, ms_h, n_h) in zip(range(SH_ROOT, NET_HEIGHTS + 1), answers):
+            header = Header.from_dict(from_jsonable(res["signed_header"]["header"]))
+            out.append((h, header.hash(), ms_h, n_h))
+        return ms, out
+
+    t1 = time.perf_counter()
+    tenants = await asyncio.gather(*(tenant() for _ in range(SH_TENANTS)))
+    tenants_s = time.perf_counter() - t1
+    status = (await post("lite_status"))[0]
+    return {"peers": {pid: p.outbound for pid, p in d.switch.peers.items()},
+            "start_s": start_s, "l_gw": l_gw, "events": evs, "tenants": tenants,
+            "tenants_s": tenants_s, "status": status, "reads": reads,
+            "cache": d.liteserve.cache.stats(),
+            "lookups": (d.liteserve.lookup_hits, d.liteserve.lookup_misses,
+                        d.liteserve.coalesced_requests)}
+
+
+def sh_check(d, live, store_a, state_store_a, a_hash, status, notes, h_sub, tables, errors,
+             probe, gw) -> dict:
+    """Phase 13's outcome (see the module docstring, 13), with A's stores
+    open after every node stopped.  Returns D's table checks."""
+    from tendermint_tpu_torch.p2p import AddrBook
+
+    a_id, b_id = live["a_id"], live["b_id"]
+    c_id = live["c"].node_key.id
+    d_id = d.node_key.id
+    seed_dials = [x for x in probe.dials if x[1] is d.switch]
+    if not seed_dials or seed_dials[0][2] != live["a_peer"]:
+        raise AssertionError(f"D's first dial was not its seed A: {[x[2] for x in seed_dials]}")
+    if not any(r is d.pex_reactor and pid == a_id for _, r, pid in probe.pex_req):
+        raise AssertionError("D did not ask its seed A for addresses")
+    book = d.addr_book
+    for pid, name in ((b_id, "B"), (c_id, "C")):
+        ka = book.addrs.get(pid)
+        if ka is None or ka.src != a_id:
+            raise AssertionError(f"D's book holds {name} from {ka and ka.src}, not from A")
+    # B and C learned D from A too, so either end may dial first; D ends
+    # connected to both (PEX's own rule, not a persistent peer)
+    if not {a_id, b_id, c_id} <= set(gw["peers"]):
+        raise AssertionError(f"D's peers at the end are {sorted(gw['peers'])}, not A, B and C")
+    saved = AddrBook(d.config.addr_book_file(), strict=False)
+    if not {a_id, b_id, c_id} <= set(saved.addrs):
+        raise AssertionError("D's stop did not save its address book with A, B and C")
+    saved_a = AddrBook(os.path.join(live["home_a"], "config", "addrbook.json"), strict=False)
+    if not {b_id, c_id, d_id} <= set(saved_a.addrs):
+        raise AssertionError(f"A's addrbook.json holds {sorted(saved_a.addrs)}, not B, C and D")
+    # fast sync and catch-up: D's blocks are A's, byte for byte
+    if d.block_store.height() < NET_HEIGHTS or d.block_store.base() != 1:
+        raise AssertionError(f"D's store holds {d.block_store.base()}..{d.block_store.height()}")
+    for h in range(1, NET_HEIGHTS + 1):
+        if d.block_store.load_block(h).serialize() != store_a.load_block(h).serialize():
+            raise AssertionError(f"D's block {h} is not byte-equal to A's")
+    st_a, st_d = state_store_a.load(), d.state_store.load()
+    if st_d.last_block_height != NET_HEIGHTS or st_d.app_hash != st_a.app_hash:
+        raise AssertionError("D's state or app hash is not A's")
+    if status["sync_info"]["latest_block_height"] != NET_HEIGHTS or \
+            status["sync_info"]["catching_up"]:
+        raise AssertionError(f"D's /status over /websocket says {status['sync_info']}")
+    # every block D applied after the subscription was notified, as A's
+    got = {}
+    for _, h, hsh in notes:
+        if h in got:
+            raise AssertionError(f"two NewBlock notifications of height {h}")
+        got[h] = hsh
+    if set(got) != set(range(h_sub + 1, NET_HEIGHTS + 1)) or NET_HEIGHTS not in got:
+        raise AssertionError(f"NewBlock notified {sorted(got)} after subscribing at {h_sub}")
+    for h, hsh in got.items():
+        if hsh != a_hash[h]:
+            raise AssertionError(f"the NewBlock notification of {h} is not A's block")
+    # the gateway: every answer A's, each header verified at most once
+    answers = [x for _, per in gw["tenants"] for x in per]
+    if len(answers) != SH_TENANTS * (NET_HEIGHTS - SH_ROOT + 1):
+        raise AssertionError(f"{len(answers)} tenant answers")
+    for h, hsh, _, _ in answers:
+        if hsh != a_hash[h]:
+            raise AssertionError(f"a tenant's header {h} is not A's")
+    cache = gw["cache"]
+    if cache["misses"] > NET_HEIGHTS - SH_ROOT + 1:
+        raise AssertionError(f"the gateway's VerifyCache verified {cache['misses']} commits")
+    st = gw["status"]
+    if st["sessions"]["sessions"] != SH_TENANTS or st["witnesses"]["active"] != 2 or \
+            any(w["errors"] for w in st["witnesses"]["witnesses"]):
+        raise AssertionError(f"lite_status: sessions {st['sessions']}, witnesses "
+                             f"{st['witnesses']}")
+    bad = [e for x in (live["a"], live["b"]) for e in x.errors
+           if e.split(" ", 2)[1].rstrip(":") in SH_LOGGERS]
+    if errors or bad:
+        raise AssertionError(f"errors logged: C and D {errors[:3]}, A and B {bad[:3]}")
+    return {"declines": sum(1 for hit in tables if not hit),
+            "hits": sum(1 for hit in tables if hit)}
+
+
+def sh_report(d, live, probe, out, gw, notes, h_sub, t_d, t_sub, t_started, t_caught, t_meshed,
+              stop_s, card):
+    """Phase 13's prints (see the module docstring, 13)."""
+    a_id = live["a_id"]
+    dials = [(t, addr) for t, sw, addr in probe.dials if sw is d.switch]
+    learned = [(t, addr.split("@")[0]) for t, book, addr, src, ok in probe.adds
+               if book is d.addr_book and ok and src == a_id]
+    names = {live["b_id"]: "B", live["c"].node_key.id: "C", a_id: "A"}
+    marks = [("RPC up and NewBlock subscribed", t_sub), ("node started", t_started)]
+    if dials:
+        marks.append(("seed dial", dials[0][0]))
+    seen = set()
+    for t, pid in learned:
+        if pid not in seen:
+            seen.add(pid)
+            marks.append((f"{names.get(pid, pid[:8])} learned by PEX", t))
+    for t, addr in dials[1:]:
+        marks.append((f"dial {names.get(addr.split('@')[0], addr[:8])}", t))
+    for h in sorted(probe.applied):
+        marks.append((f"block {h} applied", probe.applied[h]))
+    marks += [("caught up", t_caught), ("connected to A, B and C", t_meshed)]
+    marks.sort(key=lambda m: m[1])
+    log("  D from its start: " + "; ".join(f"{k} +{v - t_d:.3f} s" for k, v in marks)
+        + f" ({card})")
+    book = d.addr_book
+    n_old = sum(1 for ka in book.addrs.values() if ka.is_old())
+    mine_in = collections.Counter(k for _, r, k in probe.pex_in if r is d.pex_reactor)
+    mine_out = sum(1 for _, r, _ in probe.pex_req if r is d.pex_reactor)
+    log(f"  D's book: {book.size()} addresses ({book.size() - n_old} new, {n_old} old); PEX "
+        f"frames: D sent {mine_out} pex_request and {mine_in['pex_request']} pex_addrs, "
+        f"received {dict(mine_in)}; peers at the end (outbound = D dialed) "
+        + ", ".join(f"{names.get(p, p[:8])} {'outbound' if o else 'inbound'}"
+                    for p, o in sorted(gw["peers"].items())))
+    lags = [(h, (t - probe.applied[h]) * 1000) for t, h, _ in notes if h in probe.applied]
+    log(f"  /websocket NewBlock: subscribed at height {h_sub}, {len(notes)} notifications "
+        f"{[h for _, h, _ in notes]}, lag behind apply_block ms "
+        + ", ".join(f"{h}: {ms:.3f}" for h, ms in lags) + f" ({card})")
+    evs = gw["events"]
+    boot = [e for e in evs if e["kind"] == "liteserve.bootstrap"]
+    flushes = [e for e in evs if e["kind"] == "verify.flush"]
+    dispatch = [e for e in evs if e["kind"] == "verify.dispatch"]
+    by_prov = collections.defaultdict(list)
+    for t0, t1, prov, h in gw["reads"]:
+        url = getattr(prov.client, "url", "local")
+        by_prov[url].append((h, (t1 - t0) * 1000))
+    log(f"  gateway start {gw['start_s']:.3f} s: bootstrap {boot[0]['ms'] if boot else '?'} ms "
+        f"(root {SH_ROOT}, tip {boot[0]['tip'] if boot else '?'}); provider reads "
+        + "; ".join(f"{u}: " + ", ".join(f"h{h} {ms:.3f} ms" for h, ms in v)
+                    for u, v in by_prov.items())
+        + f"; verify flushes {[e['batch'] for e in flushes]}, dispatches "
+        + ", ".join(f"{e['path']} n={e['n']} host_prep_ms {e['host_prep_ms']} device_ms "
+                    f"{e['device_ms']}" for e in dispatch) + f" ({card})")
+    ms = [x[2] for _, per in gw["tenants"] for x in per]
+    nbytes = [x[3] for _, per in gw["tenants"] for x in per]
+    new_ms = [t for t, _ in gw["tenants"]]
+    log(f"  tenants: {SH_TENANTS} sessions (lite_session_new ms p50 {percentile(new_ms, 50):.3f} "
+        f"max {max(new_ms):.3f}), {len(ms)} lite_commit answers in {gw['tenants_s']:.3f} s "
+        f"({len(ms) / gw['tenants_s']:.3f} requests/s): ms p50 {percentile(ms, 50):.3f} p99 "
+        f"{percentile(ms, 99):.3f} max {max(ms):.3f}, bytes p50 {percentile(nbytes, 50):.0f} "
+        f"max {max(nbytes)} ({card})")
+    hits, misses, coalesced = gw["lookups"]
+    log(f"  gateway lookups: {hits} hits, {misses} misses, {coalesced} coalesced joins; "
+        f"VerifyCache {gw['cache']}; lite_status sessions {gw['status']['sessions']['sessions']}, "
+        f"witnesses {gw['status']['witnesses']['active']} active")
+    log(f"  D's launches: discovery and fast sync {out['stages']['sync']}, gateway start "
+        f"{out['stages']['gateway']}, tenants {out['stages']['tenants']}; table checks "
+        f"{out['hits']} hits, {out['declines']} declines; D's stop {stop_s:.3f} s")
 
 
 def kernel_device_ms(fn, names) -> dict:
@@ -5474,27 +6074,67 @@ def main() -> int:
         raise
 
     log("[12] a third node joins the 10,000-validator chain by state sync: A and B serve it "
-        "through the CLI with RPC on; C restores a snapshot, fast-syncs the tail and follows")
+        "through the CLI with RPC and PEX on; C restores a snapshot, fast-syncs the tail and "
+        "follows")
     ed25519_cuda.LAUNCHES = 0
     ed25519_table.BUILD_LAUNCHES = 0
     ed25519_table.SUM_LAUNCHES = 0
     t0 = time.perf_counter()
-    out = phase_statesync(keys, card, dev, net)
+    ss = phase_statesync(keys, card, dev, net, keep_running=True)
+    counts = {
+        "ed25519_ladder": ed25519_cuda.LAUNCHES,
+        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
+    }
+    stages = ss["stages"]
+    try:
+        log(f"  launches in phase 12 on C (A's and B's, in their own processes, are not counted): "
+            f"{counts}; snapshot at {ss['snapshot']}; phase 12 took {time.perf_counter() - t0:.3f} s "
+            f"to C's catch-up (A, B and C stay up for phase 13, whose end runs phase 12's "
+            f"remaining checks)")
+        if stages["trust_root"]["ed25519_ladder"] == 0:
+            raise AssertionError("the ladder was not launched for C's trust root")
+        if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 1:
+            raise AssertionError("kernel 2 (window tables) was not launched exactly once, for the "
+                                 "restored set, on C")
+        if stages["tail"][picked] == 0:
+            raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in C's tail")
+        for name, c in counts.items():
+            report[name]["launches"] += c
+    except BaseException:  # phase 13 does not run: stop A, B and C
+        ss["live"]["loop"].run_until_complete(ss_cleanup(ss["live"]))
+        ss["live"]["loop"].close()
+        raise
+
+    log("[13] a node from a stock home: D knows only seed A, meshes by PEX, fast-syncs the "
+        "10,000-validator chain, streams NewBlock over /websocket and serves 16 light-client "
+        "tenants from its gateway")
+    ed25519_cuda.LAUNCHES = 0
+    ed25519_table.BUILD_LAUNCHES = 0
+    ed25519_table.SUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = phase_stockhome(keys, card, dev, ss)
     counts = {
         "ed25519_ladder": ed25519_cuda.LAUNCHES,
         "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
         "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
     }
     stages = out["stages"]
-    log(f"  launches in phase 12 on C (A's and B's, in their own processes, are not counted): "
-        f"{counts}; snapshot at {out['snapshot']}; phase 12 took {time.perf_counter() - t0:.3f} s")
-    if stages["trust_root"]["ed25519_ladder"] == 0:
-        raise AssertionError("the ladder was not launched for C's trust root")
-    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 1:
-        raise AssertionError("kernel 2 (window tables) was not launched exactly once, for the "
-                             "restored set, on C")
-    if stages["tail"][picked] == 0:
-        raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in C's tail")
+    log(f"  launches in phase 13 on D (A's and B's, in their own processes, are not counted): "
+        f"{counts}; phase 12's checks passed (snapshot at {out['ss']['snapshot']}); phase 13 "
+        f"took {time.perf_counter() - t0:.3f} s")
+    if picked == "ed25519_tabulated" and stages["sync"]["ed25519_window_tables"] != 1:
+        raise AssertionError("kernel 2 (window tables) did not build D's genesis table exactly once")
+    if out["declines"] < 1 or stages["sync"]["ed25519_ladder"] < out["declines"]:
+        raise AssertionError("the ladder did not serve D's declined first check")
+    if stages["sync"][picked] < out["hits"]:
+        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
+                             "of D's fast sync")
+    if stages["gateway"]["ed25519_ladder"] == 0:
+        raise AssertionError("the ladder was not launched for the gateway's forward step")
+    if any(stages["tenants"].values()):
+        raise AssertionError(f"a kernel launched for answers served from the gateway's store: "
+                             f"{stages['tenants']}")
     for name, c in counts.items():
         report[name]["launches"] += c
 

@@ -3,14 +3,16 @@ commands of a node and its keys).
 
 Reference parity: cmd/tendermint/main.go:16-45 (init, node/run, replay,
 replay_console, gen_validator, gen_node_key, show_validator, show_node_id,
-unsafe_reset_all, version).  Each command takes the JAX CLI's arguments,
-prints its lines and returns its exit codes.  `node` serves RPC at the
-home's `rpc.laddr` (and state-syncs with `[statesync] enable`), as the JAX
-node does.  `testnet`, `light`, `liteserve` and `debug` wait for ROADMAP
-1.7.7, `trace` and `trace_net` for the flight spool (ROADMAP 1.8).
+unsafe_reset_all, version) and the light-client gateway (`liteserve`).
+Each command takes the JAX CLI's arguments, prints its lines and returns
+its exit codes.  `node` serves RPC at the home's `rpc.laddr` (and
+state-syncs with `[statesync] enable`), as the JAX node does.  `testnet`
+and `debug` wait for ROADMAP 1.7.7, `light` for 1.7.3, `trace` and
+`trace_net` for the flight spool (ROADMAP 1.8).
 
 argparse plays cobra's role; `python -m tendermint_tpu_torch <cmd>` is the
-binary.  `node` runs its verify engine on the card and raises without one.
+binary.  `node` and `liteserve` run their verify engine on the card: `node`
+raises without one, `liteserve` exits 1.
 """
 
 from __future__ import annotations
@@ -186,6 +188,76 @@ def cmd_replay(args) -> int:
     return 0
 
 
+def cmd_liteserve(args) -> int:
+    """Run the standalone multi-tenant light-client verification gateway
+    (liteserve/service.py): lite_* JSON-RPC routes off one shared
+    verification engine with witness rotation and a bounded session table.
+
+    The engine is the card's, built as the node builds it (node.build_engine:
+    the flat and indexed crypto.batch hooks and the AsyncBatchVerifier
+    the gateway's cache verifies through); without a card the command
+    exits 1 before anything starts."""
+    from .config import Config
+    from .crypto.batch_verifier import resolve_device
+    from .liteserve.service import run_service
+    from .node import build_engine, uninstall_engine
+
+    try:
+        device = resolve_device(None)
+    except RuntimeError as e:
+        print(f"liteserve: {e}", file=sys.stderr)
+        return 1
+    kwargs = {}
+    if args.metrics_laddr:
+        from .libs.metrics import MetricsProvider
+
+        provider = MetricsProvider(True, args.chain_id)
+        kwargs["metrics"] = provider.liteserve
+        kwargs["metrics_provider"] = provider
+
+    async def _main() -> None:
+        bv, table_cache, abv = build_engine(Config().tpu, device)
+        await abv.start()
+        service = asyncio.ensure_future(
+            run_service(
+                chain_id=args.chain_id,
+                primary_addr=args.primary,
+                witness_addrs=[w for w in (args.witnesses or "").split(",") if w],
+                laddr=args.laddr,
+                trust_height=args.height,
+                trust_hash=bytes.fromhex(args.hash),
+                trusting_period_s=args.trusting_period,
+                cache_capacity=args.cache_capacity,
+                max_sessions=args.max_sessions,
+                session_rate=args.session_rate,
+                session_burst=args.session_burst,
+                create_rate=args.create_rate,
+                create_burst=args.create_burst,
+                witness_quorum=args.witness_quorum,
+                witness_timeout_s=args.witness_timeout,
+                rotation_seed=args.rotation_seed,
+                async_verifier=abv,
+                **kwargs,
+            )
+        )
+        loop = asyncio.get_event_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                loop.add_signal_handler(sig, service.cancel)
+            except NotImplementedError:  # pragma: no cover — non-unix
+                pass
+        try:
+            await service
+        except asyncio.CancelledError:
+            pass
+        finally:
+            await abv.stop()
+            uninstall_engine(bv, table_cache)
+
+    asyncio.run(_main())
+    return 0
+
+
 def cmd_version(args) -> int:
     from . import version
 
@@ -232,6 +304,32 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("replay", help="replay the consensus WAL")
     sp.add_argument("--console", action="store_true", help="step interactively")
     sp.set_defaults(fn=cmd_replay)
+
+    sp = sub.add_parser(
+        "liteserve",
+        help="run the multi-tenant light-client verification gateway",
+    )
+    sp.add_argument("--chain-id", required=True)
+    sp.add_argument("--primary", required=True, help="primary node RPC address")
+    sp.add_argument("--witnesses", default="", help="comma-separated witness RPC addresses")
+    sp.add_argument("--laddr", default="tcp://127.0.0.1:8899")
+    sp.add_argument("--height", type=int, required=True, help="trusted height")
+    sp.add_argument("--hash", required=True, help="trusted header hash (hex)")
+    sp.add_argument("--trusting-period", type=float, default=168 * 3600)
+    sp.add_argument("--cache-capacity", type=int, default=4096)
+    sp.add_argument("--max-sessions", type=int, default=4096)
+    sp.add_argument("--session-rate", type=float, default=0.0,
+                    help="per-session requests/sec (0 = unlimited)")
+    sp.add_argument("--session-burst", type=int, default=50)
+    sp.add_argument("--create-rate", type=float, default=0.0,
+                    help="per-source session creates/sec (0 = unlimited)")
+    sp.add_argument("--create-burst", type=int, default=20)
+    sp.add_argument("--witness-quorum", type=int, default=2)
+    sp.add_argument("--witness-timeout", type=float, default=3.0)
+    sp.add_argument("--rotation-seed", type=int, default=0)
+    sp.add_argument("--metrics-laddr", default="",
+                    help="serve /metrics on the gateway listener (any value enables)")
+    sp.set_defaults(fn=cmd_liteserve)
 
     sp = sub.add_parser("version", help="print version")
     sp.set_defaults(fn=cmd_version)

@@ -1,13 +1,13 @@
 """Node: dependency-injection assembly of the full node (the port's copy of
-tendermint_tpu/node.py, with the RPC server, the p2p stack and the
-STATESYNC, BLOCKCHAIN, CONSENSUS, MEMPOOL and EVIDENCE reactors; without
-PEX, the gRPC server, the /metrics listener, liteserve and the chaos
-layers).
+tendermint_tpu/node.py, with the RPC server and its /websocket, the p2p
+stack with PEX and the address book, the STATESYNC, BLOCKCHAIN, CONSENSUS,
+MEMPOOL and EVIDENCE reactors and the embedded liteserve gateway; without
+the gRPC server, the /metrics listener and the chaos layers).
 
 Reference parity: node/node.go (NewNode:556, DefaultNewNode:90,
 OnStart:752; createAndStartProxyAppConns:578, doHandshake:601,
 createMempool:634, NewBlockExecutor:643, createConsensusReactor:659,
-onlyValidatorIsUs:314, the RPC listeners:766).
+createPEXReactor:381, onlyValidatorIsUs:314, the RPC listeners:766).
 
 The node builds what the JAX node builds, in its order, with the port's
 engine where the JAX node builds its own: one BatchVerifier on the card
@@ -22,13 +22,15 @@ A node whose stores are empty, with `[statesync] enable` and p2p on,
 bootstraps from a peer's app snapshot: the handshake is skipped, the
 StateSyncer's trust root is read through the HTTP providers on
 `statesync.rpc_servers`, and `_statesync_done` hands the restored state to
-fast sync (or, when every snapshot failed, replays from genesis).
+fast sync (or, when every snapshot failed, replays from genesis).  With
+`p2p.pex` (the default) the address book lives at `addr_book_file()` and
+the PEX reactor dials `p2p.seeds` and what they gossip; with
+`liteserve.enable` the gateway serves `lite_*` off this node's engine.
 
 A configuration that needs a part the port does not carry yet raises
 NotImplementedError at construction, before anything is opened, naming
-the ROADMAP item that ports it (see `check_ported`).  The JAX defaults turn
-PEX on, so a port node runs with `p2p.pex = false`; `p2p.laddr = "none"`
-runs it without p2p and `rpc.laddr = ""` without RPC.
+the ROADMAP item that ports it (see `check_ported`).  `p2p.laddr = "none"`
+runs the node without p2p and `rpc.laddr = ""` without RPC.
 """
 
 from __future__ import annotations
@@ -57,12 +59,7 @@ def check_ported(config: Config) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a setting
     whose subsystem the port does not carry yet."""
     cfg = config
-    p2p_on = cfg.p2p.laddr not in ("", "none")
     unported = (
-        (p2p_on and cfg.p2p.pex, "p2p.pex = true: peer exchange and the address book", "1.7.2",
-         "pex = false"),
-        (p2p_on and bool(cfg.p2p.seeds), f"p2p.seeds = {cfg.p2p.seeds!r}: peer exchange",
-         "1.7.2", 'seeds = ""'),
         (cfg.p2p.test_fuzz, "p2p.test_fuzz: the p2p link policies", "1.8", "test_fuzz = false"),
         (bool(cfg.rpc.grpc_laddr), f"rpc.grpc_laddr = {cfg.rpc.grpc_laddr!r}: the gRPC server",
          "1.7.3", 'rpc.grpc_laddr = ""'),
@@ -71,8 +68,6 @@ def check_ported(config: Config) -> None:
          'priv_validator_laddr = ""'),
         (cfg.instrumentation.prometheus, "instrumentation.prometheus: the /metrics listener",
          "1.7.6", "prometheus = false"),
-        (cfg.liteserve.enable, "liteserve.enable: the light-client gateway", "1.7.3",
-         "liteserve.enable = false"),
         (cfg.chaos.enabled, "chaos.enabled: disk faults, the twin signer and link policies",
          "1.8", "chaos.enabled = false"),
         (cfg.instrumentation.flight_spool,
@@ -100,6 +95,46 @@ def engine_device(config: Config, device=None):
     from .crypto.batch_verifier import resolve_device
 
     return resolve_device(device)
+
+
+def build_engine(tpu, device, metrics=None, recorder=None):
+    """The verify engine on `device` as the node builds it from its `[tpu]`
+    section: one BatchVerifier installed as the flat crypto.batch hook, a
+    TableCache on it installed as the indexed hook (tabulated windows
+    auto-profiled on the card) and an AsyncBatchVerifier on it, not yet
+    started (its start puts the verifier in warmup mode)."""
+    from .crypto.batch_verifier import AsyncBatchVerifier, BatchVerifier, TableCache
+
+    bv = BatchVerifier(
+        device=device,
+        min_device_batch=tpu.min_device_batch,
+        metrics=metrics,
+        recorder=recorder,
+        chunk_size=tpu.chunk_size,
+        chunk_depth=tpu.chunk_depth,
+    ).install()
+    table_cache = TableCache(
+        bv, tabulated={"auto": None, "on": True, "off": False}[tpu.tabulated],
+    ).install()
+    abv = AsyncBatchVerifier(
+        bv,
+        max_batch=tpu.max_batch,
+        flush_interval=tpu.flush_interval,
+        flush_min=tpu.flush_min,
+        adaptive=tpu.flush_adaptive,
+    )
+    return bv, table_cache, abv
+
+
+def uninstall_engine(bv, table_cache) -> None:
+    """Give the crypto.batch hooks back, only where they are still this
+    engine's — another live node may have installed its own meanwhile."""
+    from .crypto import batch as batch_hook
+
+    if batch_hook.get_verifier() == bv.verify:
+        batch_hook.set_verifier(None)
+    if table_cache is not None and batch_hook.get_indexed_verifier() == table_cache.verify_indexed:
+        batch_hook.set_indexed_verifier(None)
 
 
 def only_validator_is_us(state, priv_val) -> bool:
@@ -195,6 +230,9 @@ class Node(Service):
         self.statesync_reactor = None
         self.rpc_server = None
         self.switch = None
+        self.addr_book = None
+        self.pex_reactor = None
+        self.liteserve = None
         self.node_key = None
         self.evidence_pool = None
         self.batch_verifier = None
@@ -263,8 +301,6 @@ class Node(Service):
         # crypto.batch hooks (handshake replay, verify_commit in block
         # validation) must already see the device path
         if cfg.tpu.enabled:
-            from .crypto.batch_verifier import AsyncBatchVerifier, BatchVerifier, TableCache
-
             # one card: [tpu] mesh "auto" and "off" give one shard ("on"
             # raised at construction)
             self.metrics_provider.verify.shards.set(1)
@@ -275,26 +311,9 @@ class Node(Service):
                 device=self.device,
                 host_tier=_crypto_backend.active_tier(),
             )
-            self.batch_verifier = BatchVerifier(
-                device=self.device,
-                min_device_batch=cfg.tpu.min_device_batch,
-                metrics=self.metrics_provider.verify,
+            self.batch_verifier, self.table_cache, self.async_verifier = build_engine(
+                cfg.tpu, self.device, metrics=self.metrics_provider.verify,
                 recorder=self.flight_recorder,
-                chunk_size=cfg.tpu.chunk_size,
-                chunk_depth=cfg.tpu.chunk_depth,
-            ).install()
-            # steady-state commit path: per-valset device tables (tabulated
-            # windows auto-profiled on the card)
-            self.table_cache = TableCache(
-                self.batch_verifier,
-                tabulated={"auto": None, "on": True, "off": False}[cfg.tpu.tabulated],
-            ).install()
-            self.async_verifier = AsyncBatchVerifier(
-                self.batch_verifier,
-                max_batch=cfg.tpu.max_batch,
-                flush_interval=cfg.tpu.flush_interval,
-                flush_min=cfg.tpu.flush_min,
-                adaptive=cfg.tpu.flush_adaptive,
             )
             await self.async_verifier.start()
         await self.event_bus.start()
@@ -402,6 +421,12 @@ class Node(Service):
             await self.consensus.start()
         if self.loop_profiler is not None:
             self._register_queue_probes()
+        # embedded light-client gateway: lite_* routes served off this
+        # node's own engine — the LocalProvider primary reads the node's
+        # stores in-proc, and cache misses verify through the node's
+        # shared AsyncBatchVerifier lane instead of a private batch
+        if cfg.liteserve.enable:
+            await self._start_liteserve()
         # health watchdog, started LAST so every probed subsystem exists;
         # emits health.alarm/clear recorder events, auto-bundles on critical
         if cfg.instrumentation.watchdog:
@@ -496,13 +521,14 @@ class Node(Service):
                 self.log.error("valset watch failed", err=repr(e))
 
     async def _start_p2p(self, block_exec, do_state_sync: bool) -> None:
-        """The JAX node's p2p block without PEX and the chaos layers
-        (check_ported refused them): NodeKey, NodeInfo with the gossip
-        version the knobs enable, Transport, Switch with the ABCI peer
-        filter, the STATESYNC (with a StateSyncer only when bootstrapping),
-        BLOCKCHAIN, CONSENSUS, MEMPOOL and EVIDENCE reactors, listen, the
-        switch's start (which starts consensus unless a sync runs first),
-        the quarantine refill and the persistent peers."""
+        """The JAX node's p2p block without the chaos layers (check_ported
+        refused them): NodeKey, NodeInfo with the gossip version the knobs
+        enable, Transport, Switch with the ABCI peer filter, the STATESYNC
+        (with a StateSyncer only when bootstrapping), BLOCKCHAIN,
+        CONSENSUS, MEMPOOL, EVIDENCE and (with `p2p.pex`) PEX reactors with
+        the address book, listen, the switch's start (which starts
+        consensus unless a sync runs first), the quarantine refill and the
+        persistent peers."""
         from .consensus.reactor import ConsensusReactor
         from .evidence_reactor import EvidenceReactor
         from .fastsync import BlockchainReactor
@@ -616,6 +642,25 @@ class Node(Service):
                            config=cfg.mempool.as_dict()),
         )
         self.switch.add_reactor("EVIDENCE", EvidenceReactor(self.evidence_pool))
+        # PEX + address book: peer discovery (node/node.go:381 createPEXReactor);
+        # the reactor saves the book when it stops
+        if cfg.p2p.pex:
+            from .p2p.pex import AddrBook, PEXReactor
+
+            book_path = cfg.addr_book_file() if cfg.base.db_backend != "memdb" else ""
+            self.addr_book = AddrBook(
+                book_path,
+                strict=cfg.p2p.addr_book_strict,
+                our_ids={self.node_key.id},
+                private_ids={s for s in cfg.p2p.private_peer_ids.split(",") if s},
+            )
+            self.switch.addr_book = self.addr_book
+            self.pex_reactor = PEXReactor(
+                self.addr_book,
+                seeds=[s for s in cfg.p2p.seeds.split(",") if s],
+                seed_mode=cfg.p2p.seed_mode,
+            )
+            self.switch.add_reactor("PEX", self.pex_reactor)
         await transport.listen(cfg.p2p.laddr)
         node_info.listen_addr = cfg.p2p.external_address or transport.listen_addr
         await self.switch.start()  # starts reactors, incl. consensus
@@ -628,6 +673,61 @@ class Node(Service):
             await self.switch.dial_peers_async(
                 cfg.p2p.persistent_peers.split(","), persistent=True
             )
+
+    async def _start_liteserve(self) -> None:
+        from .lite2 import HTTPProvider, LocalProvider, TrustOptions
+        from .liteserve import LiteServe, trust_root_from_rpc
+
+        cfg = self.config
+        ls = cfg.liteserve
+        primary = LocalProvider(self)
+        if ls.trust_height > 0 and ls.trust_hash:
+            root = TrustOptions(
+                int(ls.trust_period * 1e9), ls.trust_height, bytes.fromhex(ls.trust_hash)
+            )
+        else:
+            # embedded dev convenience: root at our own near-tip header —
+            # the gateway's subjective root IS this node's chain.  At boot
+            # the chain may still be at height 0; wait for the first commit
+            root = None
+            for _ in range(100):
+                try:
+                    root = await trust_root_from_rpc(primary)
+                    break
+                except Exception:  # noqa: BLE001 — no header yet
+                    await asyncio.sleep(0.1)
+            if root is None:
+                root = await trust_root_from_rpc(primary)
+        chain_id = self.genesis_doc.chain_id
+        witnesses = [
+            HTTPProvider(chain_id, w.strip())
+            for w in ls.witnesses.split(",") if w.strip()
+        ]
+        self.liteserve = LiteServe(
+            chain_id,
+            root,
+            primary,
+            witnesses,
+            laddr=ls.laddr,
+            cache_capacity=ls.cache_capacity,
+            max_sessions=ls.max_sessions,
+            idle_timeout_s=ls.idle_timeout,
+            session_rate=ls.session_rate,
+            session_burst=ls.session_burst,
+            create_rate=ls.create_rate,
+            create_burst=ls.create_burst,
+            witness_quorum=ls.witness_quorum,
+            witness_timeout_s=ls.witness_timeout,
+            rotation_seed=ls.rotation_seed,
+            max_body_bytes=ls.max_body_bytes,
+            async_verifier=self.async_verifier,
+            metrics=self.metrics_provider.liteserve,
+            recorder=self.flight_recorder,
+            primary_addr="local",
+            witness_addrs=[w.strip() for w in ls.witnesses.split(",") if w.strip()],
+        )
+        await self.liteserve.start()
+        self.log.info("liteserve gateway", laddr=self.liteserve.listen_addr)
 
     def _register_queue_probes(self) -> None:
         """Wire the known choke-point queues into the scheduler profiler's
@@ -688,6 +788,8 @@ class Node(Service):
     async def on_stop(self) -> None:
         if self.watchdog is not None:
             await self.watchdog.stop()
+        if self.liteserve is not None:
+            await self.liteserve.stop()
         if self.loop_profiler is not None:
             await self.loop_profiler.stop()
         if self.switch is not None:
@@ -704,14 +806,4 @@ class Node(Service):
         if self.async_verifier is not None:
             await self.async_verifier.stop()
         if self.batch_verifier is not None:
-            from .crypto import batch as batch_hook
-
-            # uninstall only if the process-wide hook is still ours — another
-            # live node may have installed its own engine meanwhile
-            if batch_hook.get_verifier() == self.batch_verifier.verify:
-                batch_hook.set_verifier(None)
-            if (
-                self.table_cache is not None
-                and batch_hook.get_indexed_verifier() == self.table_cache.verify_indexed
-            ):
-                batch_hook.set_indexed_verifier(None)
+            uninstall_engine(self.batch_verifier, self.table_cache)

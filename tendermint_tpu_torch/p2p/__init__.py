@@ -1,9 +1,10 @@
 """P2P networking: authenticated encrypted multiplexed peer connections (the
-port's copy of tendermint_tpu/p2p/, without PEX, the address book, the
-trust metric and the chaos link layer, ROADMAP 1.7 and 1.8).
+port's copy of tendermint_tpu/p2p/, without the chaos link layer, ROADMAP
+1.8).
 
 Counterpart of the reference `p2p/` tree: Switch, Peer, Transport,
-SecretConnection, MConnection, NodeInfo/NodeKey, in-process test helpers.
+SecretConnection, MConnection, NodeInfo/NodeKey, PEX with the address book
+and the trust metric, in-process test helpers.
 """
 
 from .key import NodeKey, node_id_from_pubkey
@@ -14,13 +15,16 @@ from .base_reactor import Reactor
 from .peer import Peer
 from .transport import Transport
 from .switch import Switch
+from .pex import AddrBook, PEXReactor
 
 __all__ = [
+    "AddrBook",
     "ChannelDescriptor",
     "LocalFault",
     "MConnection",
     "NodeInfo",
     "NodeKey",
+    "PEXReactor",
     "Peer",
     "Reactor",
     "SecretConnection",

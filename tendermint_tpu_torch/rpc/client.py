@@ -1,23 +1,26 @@
-"""RPC clients: HTTP on asyncio streams, and in-proc Local (the port's copy
-of tendermint_tpu/rpc/client.py, whose HTTPClient runs on aiohttp; the
-card's machine has no aiohttp).
+"""RPC clients: HTTP, WebSocket, and in-proc Local (the port's copy of
+tendermint_tpu/rpc/client.py, whose HTTPClient and WSClient run on aiohttp;
+the card's machine has no aiohttp, so these run on rpc/http.py and
+rpc/websocket.py).
 
-Reference parity: rpc/client/http (HTTPClient), rpc/client/local (Local
-wraps the node directly — used by lite2's provider and tests).  Both expose
-the same method surface so callers (lite2, state sync, tests) are
-transport-agnostic.  The WebSocket client waits with the server's
-/websocket endpoint (ROADMAP 1.7.3).
+Reference parity: rpc/client/http (HTTPClient), rpc/lib/client/ws_client.go
+(WSClient with request/response correlation + event delivery),
+rpc/client/local (Local wraps the node directly — used by lite2's provider
+and tests).  All three expose the same method surface so callers (lite2,
+state sync, the liteserve gateway, tests) are transport-agnostic.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
-from typing import Any, AsyncIterator, Dict, Optional, Tuple
+from typing import Any, AsyncIterator, Dict, Optional
 from urllib.parse import urlsplit
 
+from . import websocket
 from .core import RPCCore
-from .jsonrpc import make_request, parse_response
+from .http import read_response as _read_response
+from .jsonrpc import RPCError, from_jsonable, make_request, parse_response
 
 # bound on a response head; a body is read to its Content-Length
 _MAX_RESPONSE_HEAD = 1 << 20
@@ -193,29 +196,99 @@ class HTTPClient(BaseClient):
         raise AssertionError("unreachable")
 
 
-async def _read_response(reader: asyncio.StreamReader) -> Tuple[int, Dict[str, str], bytes]:
-    """One HTTP/1.1 response: status, lower-cased headers, body (by
-    Content-Length, or to the end of the connection; the RPC servers of
-    both packages send Content-Length)."""
-    try:
-        raw = await reader.readuntil(b"\r\n\r\n")
-    except asyncio.LimitOverrunError:
-        raise ConnectionError("response head too large")
-    line, *rest = raw[:-4].decode("latin-1").split("\r\n")
-    parts = line.split(" ", 2)
-    if len(parts) < 2 or not parts[0].startswith("HTTP/"):
-        raise ConnectionError(f"malformed status line {line!r}")
-    status = int(parts[1])
-    headers: Dict[str, str] = {}
-    for h in rest:
-        k, _, v = h.partition(":")
-        headers[k.strip().lower()] = v.strip()
-    if status == 100:  # an interim answer: the real one follows
-        return await _read_response(reader)
-    if "content-length" in headers:
-        return status, headers, await reader.readexactly(int(headers["content-length"]))
-    headers["connection"] = "close"
-    return status, headers, await reader.read()
+class WSClient(BaseClient):
+    """JSON-RPC over one WebSocket connection with subscription streaming
+    (rpc/lib/client/ws_client.go).  Responses correlate by request id;
+    ``id:"N#event"`` notifications route to the matching subscription's
+    async iterator.  `timeout` bounds the connect and each call."""
+
+    def __init__(self, addr: str, timeout: float = 30.0):
+        base = addr.split("://", 1)[-1].rstrip("/")
+        self.url = f"ws://{base}/websocket"
+        u = urlsplit(self.url)
+        self._host = u.hostname or "127.0.0.1"
+        self._port = u.port or 80
+        self.timeout = timeout
+        self._ws: Optional[websocket.WebSocket] = None
+        self._recv_task: Optional[asyncio.Task] = None
+        self._req_id = 0
+        self._waiting: Dict[Any, asyncio.Future] = {}
+        self._event_queues: Dict[str, asyncio.Queue] = {}
+
+    async def connect(self) -> "WSClient":
+        self._ws = await asyncio.wait_for(
+            websocket.connect(self._host, self._port, "/websocket"), self.timeout)
+        self._recv_task = asyncio.create_task(self._recv_loop())
+        return self
+
+    async def close(self) -> None:
+        if self._recv_task is not None:
+            self._recv_task.cancel()
+            try:
+                await self._recv_task
+            except asyncio.CancelledError:
+                pass
+        if self._ws is not None:
+            await self._ws.close()
+        for fut in self._waiting.values():
+            if not fut.done():
+                fut.cancel()
+        self._waiting.clear()
+
+    async def __aenter__(self) -> "WSClient":
+        return await self.connect()
+
+    async def __aexit__(self, *exc) -> None:
+        await self.close()
+
+    async def _recv_loop(self) -> None:
+        while True:
+            msg = await self._ws.receive()
+            if msg is None or msg[0] != websocket.TEXT:
+                break
+            d = json.loads(msg[1])
+            rid = d.get("id")
+            if isinstance(rid, str) and rid.endswith("#event"):
+                result = from_jsonable(d.get("result") or {})
+                q = self._event_queues.get(result.get("query", ""))
+                if q is not None:
+                    q.put_nowait(result)
+                continue
+            fut = self._waiting.pop(rid, None)
+            if fut is not None and not fut.done():
+                fut.set_result(d)
+
+    async def _call(self, method: str, params: Optional[dict] = None) -> Any:
+        self._req_id += 1
+        rid = self._req_id
+        fut: asyncio.Future = asyncio.get_event_loop().create_future()
+        self._waiting[rid] = fut
+        await self._ws.send_str(json.dumps(make_request(method, params, rid)))
+        d = await asyncio.wait_for(fut, self.timeout)
+        return parse_response(d)
+
+    async def subscribe(self, query: str) -> AsyncIterator[dict]:
+        """Subscribe and return an async iterator of event payloads
+        ({"query", "data": {"type", "value"}, "events"})."""
+        if query in self._event_queues:
+            raise RPCError(-32603, f"already subscribed to {query!r}")
+        q: asyncio.Queue = asyncio.Queue()
+        self._event_queues[query] = q
+        await self._call("subscribe", {"query": query})
+
+        async def gen():
+            while True:
+                yield await q.get()
+
+        return gen()
+
+    async def unsubscribe(self, query: str) -> None:
+        await self._call("unsubscribe", {"query": query})
+        self._event_queues.pop(query, None)
+
+    async def unsubscribe_all(self) -> None:
+        await self._call("unsubscribe_all")
+        self._event_queues.clear()
 
 
 class LocalClient(BaseClient):

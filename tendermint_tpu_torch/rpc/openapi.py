@@ -1,6 +1,6 @@
 """OpenAPI spec for the JSON-RPC surface, generated from the route table
-(the port's copy of tendermint_tpu/rpc/openapi.py; its `paths` equal the
-JAX spec's, and its description names the one deviation, /websocket).
+(the port's copy of tendermint_tpu/rpc/openapi.py; the spec equals the JAX
+spec).
 
 Reference parity: rpc/swagger/swagger.yaml — the reference maintains a
 ~3k-line hand-written spec; here the spec derives from RPCCore itself
@@ -83,8 +83,8 @@ def generate_spec(version: str = "") -> Dict[str, Any]:
         "info": {
             "title": "tendermint_tpu RPC",
             "description": (
-                "JSON-RPC 2.0 over HTTP GET (URI params) and HTTP POST; "
-                "/websocket answers 501 until its port (ROADMAP 1.7.3). "
+                "JSON-RPC 2.0 over HTTP GET (URI params), HTTP POST and "
+                "WebSocket (/websocket, incl. subscribe/unsubscribe). "
                 "Generated from the live route table."
             ),
             "version": version or "dev",

@@ -1,37 +1,36 @@
-"""HTTP JSON-RPC server on asyncio streams (the port's copy of
+"""HTTP + WebSocket JSON-RPC server on asyncio streams (the port's copy of
 tendermint_tpu/rpc/server.py, which runs on aiohttp; the card's machine has
-no aiohttp, so this one speaks HTTP/1.1 itself).
+no aiohttp, so this one speaks HTTP/1.1 through rpc/http.py and RFC 6455
+through rpc/websocket.py).
 
 Reference parity: rpc/lib/server/http_server.go (listener, body and header
 limits, max open connections), http_json_handler.go (POST JSON-RPC incl.
-batches), http_uri_handler.go (GET with URI params).
+batches), http_uri_handler.go (GET with URI params), ws_handler.go
+(WebSocket endpoint with per-client subscription management —
+subscribe/unsubscribe/unsubscribe_all run only in WS context, events
+stream as JSON-RPC notifications).
 
 For the same request the answers equal the JAX server's: status, and the
-JSON body byte for byte (`json.dumps` of the same envelope).  Requests that
-match no route get aiohttp's 404/405 text answers.  Keep-alive follows
-HTTP/1.1 (HTTP/1.0 only with `Connection: keep-alive`); a body is read
-through `read_bounded_body` up to `max_body_bytes` + 1 bytes, a request
-head is capped at `max_header_bytes` (431), and at most
-`max_open_connections` connections are served at once (the rest wait for
-a slot, as Go's LimitListener makes them wait).
-
-Deviation (ROADMAP 1.7.3): `/websocket` answers HTTP 501 with a JSON-RPC
-error naming that item.  The JAX server serves the whole route table and
-event subscriptions there.
+JSON body byte for byte (`json.dumps` of the same envelope), over HTTP and
+over /websocket.  Requests that match no route get aiohttp's 404/405 text
+answers, a refused upgrade aiohttp's 400 texts and a full client table its
+503.  The HTTP bounds are rpc/http.py's; a WebSocket message is bound at
+`max_body_bytes`, as the JAX server's `max_msg_size`.
 """
 
 from __future__ import annotations
 
 import asyncio
-import email.utils
 import json
-from typing import Any, Dict, Optional, Tuple
-from urllib.parse import parse_qsl, unquote, urlsplit
+from typing import Any
+from urllib.parse import parse_qsl
 
 from ..libs.log import get_logger
 from ..libs.service import Service
+from . import http, websocket
 from .core import RPCCore
 from .jsonrpc import (
+    INTERNAL_ERROR,
     INVALID_PARAMS,
     INVALID_REQUEST,
     METHOD_NOT_FOUND,
@@ -41,23 +40,6 @@ from .jsonrpc import (
     make_response,
     read_bounded_body,
 )
-
-_REASONS = {
-    200: "OK", 400: "Bad Request", 404: "Not Found",
-    405: "Method Not Allowed", 431: "Request Header Fields Too Large",
-    501: "Not Implemented",
-}
-WEBSOCKET_DEVIATION = (
-    "the /websocket endpoint is not ported yet (ROADMAP 1.7.3); "
-    "use HTTP GET or POST"
-)
-
-
-def _parse_laddr(laddr: str) -> tuple[str, int]:
-    """tcp://host:port (or host:port) -> (host, port)."""
-    addr = laddr.split("://", 1)[-1]
-    host, _, port = addr.rpartition(":")
-    return host or "127.0.0.1", int(port)
 
 
 def _coerce_uri_param(v: str) -> Any:
@@ -74,61 +56,6 @@ def _coerce_uri_param(v: str) -> Any:
         except ValueError:
             return v
     return v
-
-
-class _BadRequest(Exception):
-    def __init__(self, status: int, text: str):
-        super().__init__(text)
-        self.status = status
-        self.text = text
-
-
-class _Body:
-    """The request body as a stream with `read(n)`: Content-Length bytes,
-    or a chunked transfer decoded as it is read."""
-
-    def __init__(self, reader: asyncio.StreamReader, length: int, chunked: bool):
-        self.reader = reader
-        self.left = length
-        self.chunked = chunked
-        self.done = not chunked and length == 0
-
-    async def read(self, n: int) -> bytes:
-        if self.done or n <= 0:
-            return b""
-        if self.chunked and self.left == 0:
-            line = await self.reader.readline()
-            try:
-                size = int(line.split(b";", 1)[0].strip() or b"x", 16)
-            except ValueError:
-                raise _BadRequest(400, "400: Bad Request")
-            if size == 0:
-                while (await self.reader.readline()) not in (b"\r\n", b"\n", b""):
-                    pass  # trailers
-                self.done = True
-                return b""
-            self.left = size
-        data = await self.reader.read(min(n, self.left))
-        if not data:
-            raise ConnectionError("connection closed inside the request body")
-        self.left -= len(data)
-        if self.left == 0:
-            if self.chunked:
-                await self.reader.readline()  # the chunk's CRLF
-            else:
-                self.done = True
-        return data
-
-    async def drain(self, limit: int) -> bool:
-        """Read and drop what is left, up to `limit` bytes: True when the
-        whole body was consumed (the connection can serve another request)."""
-        seen = 0
-        while not self.done and seen <= limit:
-            chunk = await self.read(65536)
-            if not chunk:
-                break
-            seen += len(chunk)
-        return self.done
 
 
 class RPCServer(Service):
@@ -148,189 +75,49 @@ class RPCServer(Service):
             max_commit_waiters=rpc_cfg.max_commit_waiters,
         )
         self.log = get_logger("rpc.server")
-        self._server: Optional[asyncio.base_events.Server] = None
-        self._conns: set = set()
-        self._slots: Optional[asyncio.Semaphore] = None
+        self._http = http.HTTPServer(
+            self._route,
+            max_header_bytes=rpc_cfg.max_header_bytes,
+            max_body_bytes=rpc_cfg.max_body_bytes,
+            max_open_connections=rpc_cfg.max_open_connections,
+        )
         self.listen_addr: str = ""
+        self._ws_clients: set = set()
+        self._ws_seq = 0
 
     async def on_start(self) -> None:
-        host, port = _parse_laddr(self.cfg.laddr)
-        if self.cfg.max_open_connections > 0:
-            self._slots = asyncio.Semaphore(self.cfg.max_open_connections)
-        self._server = await asyncio.start_server(
-            self._serve_conn, host, port, limit=max(self.cfg.max_header_bytes, 1 << 16) + 1
-        )
-        sock = self._server.sockets[0]
-        # resolve the ephemeral port for tests (laddr ...:0)
-        self.listen_addr = "%s:%d" % sock.getsockname()[:2]
+        self.listen_addr = await self._http.start(self.cfg.laddr)
 
     async def on_stop(self) -> None:
-        if self._server is not None:
-            self._server.close()
-        for task in list(self._conns):
-            task.cancel()
-        if self._conns:
-            await asyncio.gather(*self._conns, return_exceptions=True)
-        if self._server is not None:
-            await self._server.wait_closed()
-
-    # -- connections -------------------------------------------------------
-
-    async def _serve_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
-        task = asyncio.current_task()
-        self._conns.add(task)
-        peer = writer.get_extra_info("peername")
-        source = peer[0] if isinstance(peer, tuple) and peer else ""
-        try:
-            if self._slots is not None:
-                async with self._slots:
-                    await self._requests(reader, writer, source)
-            else:
-                await self._requests(reader, writer, source)
-        except (ConnectionError, asyncio.IncompleteReadError, asyncio.LimitOverrunError):
-            pass
-        except Exception as e:  # noqa: BLE001 — one connection, not the server
-            self.log.error("rpc connection failed", err=repr(e))
-        finally:
-            self._conns.discard(task)
-            writer.close()
-            try:
-                await writer.wait_closed()
-            except (ConnectionError, asyncio.CancelledError):
-                pass
-
-    async def _read_head(self, reader: asyncio.StreamReader) -> Optional[bytes]:
-        """The request line and headers, without the blank line; None at a
-        clean end of the connection."""
-        limit = self.cfg.max_header_bytes
-        try:
-            head = await reader.readuntil(b"\r\n\r\n")
-        except asyncio.IncompleteReadError as e:
-            if not e.partial.strip():
-                return None
-            raise
-        except asyncio.LimitOverrunError:
-            raise _BadRequest(431, "431: Request Header Fields Too Large")
-        if len(head) > limit + 4:
-            raise _BadRequest(431, "431: Request Header Fields Too Large")
-        return head[:-4]
-
-    async def _requests(self, reader, writer, source: str) -> None:
-        while True:
-            try:
-                head = await self._read_head(reader)
-            except _BadRequest as e:
-                await self._send_text(writer, e.status, e.text)
-                return
-            if head is None:
-                return
-            try:
-                method, target, version, headers = self._parse_head(head)
-            except _BadRequest as e:
-                await self._send_text(writer, e.status, e.text)
-                return
-            conn_hdr = headers.get("connection", "").lower()
-            keep = (version == "HTTP/1.1" and conn_hdr != "close") or (
-                version == "HTTP/1.0" and conn_hdr == "keep-alive"
-            )
-            try:
-                length = int(headers.get("content-length", "0") or 0)
-            except ValueError:
-                await self._send_text(writer, 400, "400: Bad Request")
-                return
-            chunked = "chunked" in headers.get("transfer-encoding", "").lower()
-            if length < 0:
-                await self._send_text(writer, 400, "400: Bad Request")
-                return
-            body = _Body(reader, length, chunked)
-            if headers.get("expect", "").lower() == "100-continue":
-                writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
-            try:
-                status, payload, ctype = await self._route(method, target, body, source)
-            except _BadRequest as e:
-                await self._send_text(writer, e.status, e.text)
-                return
-            # a body the handler left unread (an over-cap POST, a GET with
-            # a body) is drained if small, else the connection closes
-            if not body.done and not await body.drain(self.cfg.max_body_bytes):
-                keep = False
-            await self._send(writer, status, payload, ctype, keep, version,
-                             head_only=method == "HEAD")
-            if not keep:
-                return
-
-    @staticmethod
-    def _parse_head(head: bytes) -> Tuple[str, str, str, Dict[str, str]]:
-        try:
-            text = head.decode("latin-1")
-            line, *rest = text.split("\r\n")
-            method, target, version = line.split(" ")
-        except ValueError:
-            raise _BadRequest(400, "400: Bad Request")
-        if not version.startswith("HTTP/1."):
-            raise _BadRequest(400, "400: Bad Request")
-        headers: Dict[str, str] = {}
-        for h in rest:
-            k, sep, v = h.partition(":")
-            if not sep:
-                raise _BadRequest(400, "400: Bad Request")
-            headers[k.strip().lower()] = v.strip()
-        return method.upper(), target, version, headers
-
-    async def _send(self, writer, status: int, payload: bytes, ctype: str, keep: bool,
-                    version: str, head_only: bool = False) -> None:
-        lines = [
-            f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}",
-            f"Content-Type: {ctype}",
-            f"Content-Length: {len(payload)}",
-            f"Date: {email.utils.formatdate(usegmt=True)}",
-            "Server: tendermint_tpu_torch",
-        ]
-        if not keep:
-            lines.append("Connection: close")
-        elif version == "HTTP/1.0":
-            lines.append("Connection: keep-alive")
-        writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
-                     + (b"" if head_only else payload))
-        await writer.drain()
-
-    async def _send_text(self, writer, status: int, text: str) -> None:
-        """A refused request's text answer; the connection then closes."""
-        await self._send(writer, status, text.encode(), "text/plain; charset=utf-8",
-                         False, "HTTP/1.1")
+        for ws in list(self._ws_clients):
+            await ws.close(websocket.CLOSE_GOING_AWAY)
+        await self._http.stop()
 
     # -- routing (the JAX server's aiohttp routes) --------------------------
 
-    async def _route(self, method: str, target: str, body: _Body, source: str):
-        url = urlsplit(target)
-        path = unquote(url.path or "/")
+    async def _route(self, req: http.Request):
+        path, method = req.path, req.method
         get = method in ("GET", "HEAD")
         if path == "/":
             if method != "POST":
-                return 405, b"405: Method Not Allowed", "text/plain; charset=utf-8"
-            return 200, *self._json(await self._handle_post(body, source))
+                return http.NOT_ALLOWED
+            return http.json_answer(await self._handle_post(req.body, req.source))
         segment = path[1:]
         if "/" in segment or not segment:
-            return 404, b"404: Not Found", "text/plain; charset=utf-8"
+            return http.NOT_FOUND
         if not get:
-            return 405, b"405: Method Not Allowed", "text/plain; charset=utf-8"
+            return http.NOT_ALLOWED
         if segment == "websocket":
-            return 501, *self._json(
-                make_response(None, error=RPCError(METHOD_NOT_FOUND, WEBSOCKET_DEVIATION))
-            )
+            return await self._handle_ws(req)
         if segment == "openapi.json":
-            return 200, *self._json(self._openapi())
+            return http.json_answer(self._openapi())
         params = {k: _coerce_uri_param(v)
-                  for k, v in parse_qsl(url.query, keep_blank_values=True)}
-        return 200, *self._json(await self._handle_get(segment, params, source))
-
-    @staticmethod
-    def _json(data: Any) -> Tuple[bytes, str]:
-        return json.dumps(data).encode(), "application/json; charset=utf-8"
+                  for k, v in parse_qsl(req.query, keep_blank_values=True)}
+        return http.json_answer(await self._handle_get(segment, params, req.source))
 
     # -- HTTP POST: JSON-RPC (single or batch) ----------------------------
 
-    async def _handle_post(self, body: _Body, source: str) -> Any:
+    async def _handle_post(self, body: http.Body, source: str) -> Any:
         try:
             raw = await read_bounded_body(body, self.cfg.max_body_bytes)
         except RPCError as e:
@@ -393,3 +180,124 @@ class RPCServer(Service):
             return make_response(-1, result)
         except RPCError as e:
             return make_response(-1, error=e)
+
+    # -- WebSocket: full surface + subscriptions --------------------------
+
+    async def _handle_ws(self, req: http.Request):
+        if (
+            self.cfg.max_subscription_clients > 0
+            and len(self._ws_clients) >= self.cfg.max_subscription_clients
+        ):
+            raise http.BadRequest(503, "max subscription clients reached")
+        # frame-size bound on the receive path: a client must not be able
+        # to stream an arbitrarily large text message into json.loads below
+        # (same budget as the HTTP body cap)
+        ws = await websocket.server_upgrade(req, max_size=self.cfg.max_body_bytes)
+        self._ws_clients.add(ws)
+        self._ws_seq += 1
+        subscriber = f"ws-{self._ws_seq}"
+        source = req.source or subscriber
+        # query string -> pump task streaming matching events to this client
+        subs: dict[str, asyncio.Task] = {}
+        try:
+            while True:
+                text = await ws.receive_text()
+                if text is None:
+                    break
+                try:
+                    msg = json.loads(text)
+                except ValueError:
+                    await ws.send_json(
+                        make_response(None, error=RPCError(PARSE_ERROR, "invalid JSON"))
+                    )
+                    continue
+                await self._ws_dispatch(ws, subscriber, subs, msg, source)
+        except ConnectionError:
+            pass
+        finally:
+            for task in subs.values():
+                task.cancel()
+            await self.node.event_bus.unsubscribe_all(subscriber)
+            self._ws_clients.discard(ws)
+            await ws.close()
+        return http.HIJACKED
+
+    async def _ws_dispatch(
+        self, ws, subscriber: str, subs: dict, req: Any, source: str = ""
+    ) -> None:
+        if not isinstance(req, dict) or "method" not in req:
+            await ws.send_json(
+                make_response(None, error=RPCError(INVALID_REQUEST, "malformed request"))
+            )
+            return
+        req_id = req.get("id")
+        method = req["method"]
+        params = from_jsonable(req.get("params") or {})
+        try:
+            if method == "subscribe":
+                query = params.get("query", "")
+                if not query:
+                    raise RPCError(INVALID_PARAMS, "missing query")
+                if len(subs) >= self.cfg.max_subscriptions_per_client > 0:
+                    raise RPCError(INTERNAL_ERROR, "max subscriptions per client reached")
+                if query in subs:
+                    raise RPCError(INTERNAL_ERROR, f"already subscribed to {query!r}")
+                sub = await self.node.event_bus.subscribe(subscriber, query)
+                subs[query] = asyncio.create_task(self._pump(ws, req_id, query, sub))
+                await ws.send_json(make_response(req_id, {}))
+            elif method == "unsubscribe":
+                query = params.get("query", "")
+                task = subs.pop(query, None)
+                if task is None:
+                    raise RPCError(INVALID_PARAMS, f"not subscribed to {query!r}")
+                task.cancel()
+                await self.node.event_bus.unsubscribe(subscriber, query)
+                await ws.send_json(make_response(req_id, {}))
+            elif method == "unsubscribe_all":
+                for task in subs.values():
+                    task.cancel()
+                subs.clear()
+                await self.node.event_bus.unsubscribe_all(subscriber)
+                await ws.send_json(make_response(req_id, {}))
+            else:
+                result = await self.core.call(
+                    method, params if isinstance(params, dict) else {}, source=source
+                )
+                await ws.send_json(make_response(req_id, result))
+        except RPCError as e:
+            try:
+                await ws.send_json(make_response(req_id, error=e))
+            except ConnectionError:
+                pass
+
+    async def _pump(self, ws, req_id, query: str, sub) -> None:
+        """Stream matching events to the client as JSON-RPC notifications
+        (ws_handler.go: id = original id + '#event').  A subscriber that
+        stops draining gets its subscription cancelled by the bus
+        (ErrOutOfCapacity flavor) — tell it so explicitly instead of going
+        silent: the fan-out limit that keeps one hot client from stalling
+        the bus must never look like a quiet stream."""
+        try:
+            async for msg in sub:
+                await ws.send_json(
+                    make_response(
+                        f"{req_id}#event",
+                        {
+                            "query": query,
+                            "data": {"type": msg.data.type, "value": msg.data.data},
+                            "events": msg.events,
+                        },
+                    )
+                )
+            if getattr(sub, "cancelled", False):
+                await ws.send_json(
+                    make_response(
+                        f"{req_id}#event",
+                        error=RPCError(
+                            INTERNAL_ERROR,
+                            f"subscription cancelled: {sub.cancel_reason}",
+                        ),
+                    )
+                )
+        except (ConnectionError, asyncio.CancelledError):
+            pass

@@ -4,10 +4,20 @@ responses (the port's copy of tendermint_tpu/state/store.py).
 Reference parity: state/store.go (SaveState:97, LoadState:71,
 LoadValidators:295 with the "last height changed" pointer scheme,
 SaveABCIResponses:276, PruneStates).
+
+The port keeps the last few decoded validator records, keyed by their
+stored bytes, and the last few fast-forwarded sets, keyed by the full
+record's bytes and the heights they were moved on: the RPC `validators` route pages a set
+100 entries at a time and loads the whole set for each page, and decoding
+a 10,000-validator record and replaying its priorities is most of a
+page's time.  The bytes are the key, so a rewritten record is loaded
+afresh.
 """
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import Optional
 
 from ..encoding import codec
@@ -33,8 +43,12 @@ def _k_abci_responses(height: int) -> bytes:
 
 
 class StateStore:
+    DECODED_RECORDS = 8  # decoded validator records and fast-forwarded sets kept
+
     def __init__(self, db: KVStore):
         self.db = db
+        self._decoded: "OrderedDict[object, dict]" = OrderedDict()
+        self._decoded_lock = threading.Lock()
 
     # -- whole state -------------------------------------------------------
     def save(self, state: State) -> None:
@@ -124,23 +138,55 @@ class StateStore:
                 (height // self.VALSET_CHECKPOINT_INTERVAL)
                 * self.VALSET_CHECKPOINT_INTERVAL,
             )
-            d2 = self._load_validators_info(stored)
+            raw_full, d2 = self._load_record(stored)
             if d2 is None or d2["validators"] is None:
                 # no checkpoint at that height (e.g. records written before
                 # checkpointing existed): fall back to the change record
                 stored = last_changed
-                d2 = self._load_validators_info(stored)
+                raw_full, d2 = self._load_record(stored)
             if d2 is None or d2["validators"] is None:
                 return None
-            vals = ValidatorSet.from_dict(d2["validators"])
-            if height > stored:
+            if height == stored:
+                return ValidatorSet.from_dict(d2["validators"])
+            # the fast-forwarded set, kept by the full record's bytes and
+            # the delta (pointer records of different heights are equal)
+            key = (raw_full, height - stored)
+            cached = self._cached(key)
+            if cached is None:
+                vals = ValidatorSet.from_dict(d2["validators"])
                 vals.increment_proposer_priority(height - stored)
-            return vals
+                self._keep(key, vals.to_dict())
+                return vals
+            return ValidatorSet.from_dict(cached)
         return ValidatorSet.from_dict(d["validators"])
 
     def _load_validators_info(self, height: int) -> Optional[dict]:
+        return self._load_record(height)[1]
+
+    def _load_record(self, height: int):
+        """(stored bytes, decoded record) at `height`, (None, None) when
+        absent; the record is shared, so callers only read it."""
         raw = self.db.get(_k_validators(height))
-        return codec.loads(raw) if raw else None
+        if not raw:
+            return None, None
+        d = self._cached(raw)
+        if d is None:
+            d = codec.loads(raw)
+            self._keep(raw, d)
+        return raw, d
+
+    def _cached(self, key):
+        with self._decoded_lock:
+            d = self._decoded.get(key)
+            if d is not None:
+                self._decoded.move_to_end(key)
+            return d
+
+    def _keep(self, key, d) -> None:
+        with self._decoded_lock:
+            self._decoded[key] = d
+            while len(self._decoded) > self.DECODED_RECORDS:
+                self._decoded.popitem(last=False)
 
     # -- historical consensus params --------------------------------------
     def _stage_params(

@@ -14,7 +14,9 @@ the WAL records without their wall-clock time_ns, and the `valset.update`
 recorder event's fields.  Then each package's node restarts from the
 other's home and commits two more heights, and the two resumed chains
 must agree.  Each configuration the port does not carry raises
-NotImplementedError naming its ROADMAP item, before anything is opened.
+NotImplementedError naming its ROADMAP item, before anything is opened; a
+stock `init` home (PEX on) with a seed starts, and so does a node with
+`liteserve.enable`.
 """
 
 import asyncio
@@ -247,11 +249,9 @@ def test_only_validator_is_us_equals_jax():
 
 
 UNPORTED = {
-    "p2p": ("p2p.laddr", "tcp://0.0.0.0:26656", "1.7.2"),  # with PEX on, the JAX default
     "grpc": ("rpc.grpc_laddr", "tcp://127.0.0.1:36656", "1.7.3"),
     "remote_signer": ("base.priv_validator_laddr", "tcp://127.0.0.1:26659", "1.7.4"),
     "prometheus": ("instrumentation.prometheus", True, "1.7.6"),
-    "liteserve": ("liteserve.enable", True, "1.7.3"),
     "chaos": ("chaos.enabled", True, "1.8"),
     "flight_spool": ("instrumentation.flight_spool", True, "1.8"),
     "mesh_on": ("tpu.mesh", "on", "2.2"),
@@ -275,6 +275,50 @@ def test_unported_configuration_raises_before_opening(case, tmp_path):
             build()
     assert sorted(os.listdir(os.path.join(home, "data"))) == ["priv_validator_state.json"]
     assert not os.path.exists(cfg.priv_validator_key_file())
+
+
+async def test_stock_init_home_with_a_seed_starts(tmp_path):
+    """A home from the port's `init` keeps the JAX defaults (PEX on, fast
+    sync on, 10 outbound peers); with a seed added (and local listeners) it
+    builds and starts: the PEX reactor dials the seed (here a closed port,
+    so the dial fails and the book scores it), and the stop saves the
+    address book at addr_book_file()."""
+    from tendermint_tpu_torch import cli as pcli
+    from tendermint_tpu_torch.p2p.key import NodeKey
+
+    home = str(tmp_path / "stock")
+    assert pcli.main(["--home", home, "init", "--chain-id", "stock-home"]) == 0
+    cfg = load_cfg(PORT, home)
+    assert (cfg.p2p.pex, cfg.base.fast_sync, cfg.p2p.max_num_outbound_peers) == (True, True, 10)
+    seed_id = NodeKey.load_or_gen(str(tmp_path / "seed_key.json")).id
+    cfg.p2p.seeds = f"{seed_id}@127.0.0.1:1"
+    cfg.p2p.laddr, cfg.rpc.laddr = "tcp://127.0.0.1:0", "tcp://127.0.0.1:0"
+    node = pnode.default_new_node(cfg, device="cpu")
+    await node.start()
+    try:
+        assert node.pex_reactor.seeds == [cfg.p2p.seeds]
+        assert node.switch.addr_book is node.addr_book
+        assert "PEX" in node.switch.reactors
+        await until(lambda: node.addr_book.trust_value(seed_id) < 1.0, "the seed dial")
+    finally:
+        await node.stop()
+    batch_hook.set_verifier(None)
+    batch_hook.set_indexed_verifier(None)
+    assert os.path.exists(cfg.addr_book_file())
+
+
+async def test_liteserve_enable_builds(tmp_path):
+    """`liteserve.enable` is ported: the node builds (the gateway starts
+    with Node.start, tests/test_torch_liteserve.py drives it)."""
+    home = str(tmp_path / "h")
+    make_home(PORT, home)
+    cfg = load_cfg(PORT, home)
+    cfg.liteserve.enable = True
+    gen = pgenesis.GenesisDoc.from_file(cfg.genesis_file())
+    node = pnode.Node(cfg, gen, device="cpu")
+    assert node.liteserve is None and node.config.liteserve.enable
+    for db in (node.block_store.db, node.state_db):
+        db.close()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without a card")

@@ -556,8 +556,6 @@ async def test_stale_peer_stop_never_touches_replacement_state():
 # -- check_ported ------------------------------------------------------------------
 
 P2P_UNPORTED = {
-    "pex": (("p2p", "pex", True), "1.7.2"),
-    "seeds": (("p2p", "seeds", "ab@127.0.0.1:1"), "1.7.2"),
     "test_fuzz": (("p2p", "test_fuzz", True), "1.8"),
 }
 
@@ -592,6 +590,17 @@ def test_check_ported_accepts_statesync_and_the_default_rpc_laddr(tmp_path):
     cfg.statesync.trust_height = 2
     cfg.statesync.trust_hash = "ab" * 32
     cfg.validate_basic()
+    pnode.check_ported(cfg)
+
+
+def test_check_ported_accepts_pex_and_seeds(tmp_path):
+    """PEX and the address book are ported: the JAX default `pex = true`,
+    a seed list and seed mode pass."""
+    cfg = _p2p_config(str(tmp_path / "h"))
+    cfg.p2p.pex = pconfig.P2PConfig().pex
+    assert cfg.p2p.pex is True
+    cfg.p2p.seeds = "ab@127.0.0.1:1,cd@127.0.0.1:2"
+    cfg.p2p.seed_mode = True
     pnode.check_ported(cfg)
 
 

@@ -1,6 +1,6 @@
 """The port's JSON-RPC layer (tendermint_tpu_torch/rpc: jsonrpc.py, core.py,
-openapi.py, server.py, client.py) against the JAX package's rpc, tolerance
-0.
+openapi.py, http.py, server.py, client.py) against the JAX package's rpc,
+tolerance 0 (the WebSocket side is tests/test_torch_websocket.py).
 
 Each package builds the same 6-height chain with
 tests/test_torch_execution.run_chain on sqlite stores, and a node-shaped
@@ -15,9 +15,8 @@ switch and no consensus).  Then:
   core's;
 - raw HTTP requests (GET URI params, POST single and batch, a batch over
   the cap, a body over `max_body_bytes`, junk bytes, keep-alive, unrouted
-  paths) to the port's server and the JAX server: equal statuses and equal
-  JSON bodies; `/websocket` is the one deviation (HTTP 501 naming ROADMAP
-  1.7.3);
+  paths, a plain GET of /websocket) to the port's server and the JAX
+  server: equal statuses and equal JSON bodies; `/websocket` upgrades;
 - the JAX HTTPClient reads the port's server and the port's HTTPClient
   reads the JAX server, with the results each reads from its own package's
   server; the port's LocalClient gives what its HTTPClient gives;
@@ -315,7 +314,8 @@ def test_jsonable_round_trip_equals_jax():
 def test_openapi_paths_equal_jax():
     p, j = popenapi.generate_spec("0.1.0"), jopenapi.generate_spec("0.1.0")
     assert p["paths"] == j["paths"] and p["openapi"] == j["openapi"]
-    assert "ROADMAP 1.7.3" in p["info"]["description"]
+    # no deviation named: the whole spec equals the JAX spec
+    assert "ROADMAP" not in p["info"]["description"] and p == j
 
 
 # -- the HTTP servers ----------------------------------------------------------
@@ -395,6 +395,8 @@ async def test_http_answers_equal_the_jax_server(homes, tmp_path):
             [_get("/health"), _post(single)],
             # routes that do not exist
             [_get("/")], [_post(single, path="/status")], [_get("/a/b")],
+            # /websocket without an upgrade: aiohttp's 400 text
+            [_get("/websocket")],
         ]
         srv = await _servers(nodes)
         try:
@@ -402,24 +404,39 @@ async def test_http_answers_equal_the_jax_server(homes, tmp_path):
                 got = {name: [_view(r) for r in await _raw(s.listen_addr, *reqs)]
                        for name, s in srv.items()}
                 assert got["port"] == got["jax"], reqs
-                assert all(status in (200, 404, 405) for status, _ in got["port"])
-            # the spec, byte for byte but for the description naming the deviation
+                assert all(status in (200, 400, 404, 405) for status, _ in got["port"])
+            # the spec, byte for byte
             (p,), (j,) = [await _raw(s.listen_addr, _get("/openapi.json")) for s in
                           (srv["port"], srv["jax"])]
             assert p[0] == j[0] == 200
-            assert json.loads(p[2])["paths"] == json.loads(j[2])["paths"]
+            assert json.loads(p[2]) == json.loads(j[2])
         finally:
             await _stop(srv)
 
 
-async def test_websocket_is_the_one_deviation(homes, tmp_path):
+async def test_websocket_upgrades(homes, tmp_path):
+    """/websocket answers an upgrade with 101 and the RFC 6455 accept key,
+    then serves JSON-RPC: the port's answer to `status` over a WebSocket
+    equals its answer over HTTP POST (both servers' WebSocket surfaces are
+    held against each other in tests/test_torch_websocket.py)."""
+    from tendermint_tpu_torch.rpc import websocket as pws
+
     async with open_nodes(homes, tmp_path) as nodes:
         srv = await _servers(nodes)
         try:
-            (status, headers, body), = await _raw(srv["port"].listen_addr, _get("/websocket"))
-            assert status == 501
-            err = json.loads(body)["error"]
-            assert err["code"] == -32601 and "ROADMAP 1.7.3" in err["message"]
+            host, port = srv["port"].listen_addr.rsplit(":", 1)
+            ws = await pws.connect(host, int(port))
+            try:
+                await ws.send_json({"jsonrpc": "2.0", "id": 5, "method": "commit",
+                                    "params": {"height": 3}})
+                kind, text = await asyncio.wait_for(ws.receive(), 10.0)
+            finally:
+                await ws.close()
+            assert kind == pws.TEXT and ws.close_code == 1000
+            body = json.dumps({"jsonrpc": "2.0", "id": 5, "method": "commit",
+                               "params": {"height": 3}}).encode()
+            (status, _, http_body), = await _raw(srv["port"].listen_addr, _post(body))
+            assert status == 200 and json.loads(text) == json.loads(http_body)
         finally:
             await _stop(srv)
 
