@@ -175,9 +175,9 @@
    chain run as a Node from its home directory: config.toml written by
    save_config at the JAX defaults but p2p.laddr "none", rpc.laddr "", the
    signed-tx precheck with its journal at data/mempool.wal and a mempool of
-   10,000 (height 2 holds 6,000 txs; the default is 5,000); the genesis
-   file (phase 3's keys at power 10); the FilePV files of phase 9's
-   validator.  default_new_node(load_config(...)) builds everything: the
+   10,000 (height 1 holds 6,000 txs; the default is 5,000); the genesis
+   file (phase 3's keys at power 10); the FilePV files of our validator
+   (below).  default_new_node(load_config(...)) builds everything: the
    stores, StorageHealth, the kvstore app on its durable app db, the tx
    index, the FlightRecorder, the loop profiler, one BatchVerifier on the
    card installed as the flat hook, a TableCache on it (the indexed hook)
@@ -186,15 +186,16 @@
    builds in the background), the handshake, the mempool with the engine as
    its signed-tx lane, the evidence pool, the BlockExecutor, the
    ConsensusState with its WAL, _valset_watch and the watchdog.  Phase 9's
-   traffic goes to node.mempool and node.consensus: heights 1-5, a burst of
-   1,000 envelopes each; height 2 also carries 5,000 val: txs that replace
-   the 2,500 oldest validators by new keys, so set B signs from height 4
-   and _valset_watch rebuilds its table before its first commit; height 3
-   is ours.  In height 5, after the proposal, the prevotes and our
-   precommit, the node stops and a second default_new_node on the same
-   home resumes (boot scan, a handshake replaying 0 blocks, the FilePV
-   from its files, catchup_replay); the peers' precommits commit height 5
-   and the run stops at height 6's NEW_HEIGHT.  Prints what phase 9 prints
+   traffic goes to node.mempool and node.consensus: heights 1-4, a burst of
+   1,000 envelopes each; height 1 also carries 5,000 val: txs that replace
+   the 2,500 oldest validators by new keys, so set B signs from height 3
+   and _valset_watch rebuilds its table before its first commit (height
+   3's, checked at 4); height 3 is ours (the validator is set B's round-0
+   proposer there, its priorities derived as update_state derives them).
+   In height 4, after the proposal, the prevotes and our precommit, the
+   node stops and a second default_new_node on the same home resumes (boot
+   scan, a handshake replaying 0 blocks, the FilePV from its files,
+   catchup_replay); the peers' precommits commit height 4 and the run stops at height 5's NEW_HEIGHT.  Prints what phase 9 prints
    per height, both starts' split (stores, boot scan, engine, handshake,
    consensus start) and the RTT probe, _valset_watch's state load and each
    table build (thread, host rows, kernel 2), the loop profiler's account
@@ -203,13 +204,13 @@
    signing, timeout_commit and the restart apart, the dispatches' share
    and the card's memory.  Fails unless the engine runs on the card with
    the node's hooks installed (and uninstalled after each stop), heights
-   1-5 commit with exactly their bursts' valid txs (and height 2's val:
-   txs), block 3 is ours, set B holds from height 4 with one valset.update
+   1-4 commit with exactly their bursts' valid txs (and height 1's val:
+   txs), block 3 is ours, set B holds from height 3 with one valset.update
    event (5,000 updates, 10,000 validators), every validate_block on
    heights >= 2 makes one table lookup, the genesis set's first check
    declines and the flat path serves it, set B's first check is a table
    hit, every precommit lands or is refused as late, the restart replays 0
-   blocks and reproduces block 5 and our votes, nothing is logged at ERROR
+   blocks and reproduces block 4 and our votes, nothing is logged at ERROR
    and the watchdog raises no critical alarm (no autodump); and, on the
    card, kernel 2 launched once per table built (3: the genesis set after
    its decline, set B by _valset_watch, set B again by the restarted
@@ -373,6 +374,63 @@
    declined check and the gateway's forward step, the profile's pick
    every table hit of D, and nothing launched for answers the gateway's
    store served.  A's and B's launches are not in the kernels line.
+14. A validator across its process boundaries.  Genesis: phase 3's 10,000
+   keys at power 10 under a chain id of its own, its time the run's start
+   (so `light` keeps its default trusting period of a week).  The node's
+   home is phase 10's (config.toml by save_config at the JAX defaults, p2p
+   off, the signed-tx precheck with its journal, a mempool of 10,000) with
+   RPC on a local port, `proxy_app` an ABCI socket address,
+   `priv_validator_laddr` a local tcp address and `instrumentation
+   .prometheus` on with its listener on a local port; no FilePV in it.
+   Processes: `python -m tendermint_tpu_torch.abci_cli --address
+   tcp://127.0.0.1:<a> kvstore` (the phase waits for its "serving" line);
+   a signer (signer_child, by `python -c`) running the port's SignerServer
+   over the FilePV files of phase 9's validator (the round-0 proposer of
+   height 3), copied to a directory of its own, dialing the node over a
+   SecretConnection; the node, default_new_node(load_config(...)) in this
+   process on the card, whose start waits for the signer and sends
+   InitChain with the 10,000 validators over the socket.  Heights 1-3 run
+   phase 10's traffic (a burst of 1,000 signed envelopes before each
+   proposal, 1 in 100 corrupted: check_tx verifies on the engine, then
+   crosses the socket; the peers' proposals and 64 KB vote_batch frames
+   of the other 9,999 validators, one precommit frame a round flipped and
+   re-sent clean); height 3 is ours, its proposal and every vote of ours
+   signed by the signer process; the run stops at height 4's NEW_HEIGHT.
+   Then, the node up: `python -m tendermint_tpu_torch light` (its own
+   process and engine, trusting header 1) in front of the node's RPC,
+   read for /status, /commit at 2 and 3, /validators at 3 (its 10k set
+   paged from the node), /block at 3, an unknown route and /status again;
+   /metrics from the node's listener; `abci_cli info` and a `query` of one
+   key of height 2's burst against the app; `python -m
+   tendermint_tpu_torch.tools.signer_harness` against a second signer
+   process on a fresh FilePV.  Then the node stops (hooks given back,
+   SignerClient stopped), the signer exits 0 on the closed connection,
+   `light` exits 0 on SIGTERM, the app server on SIGINT.  Prints the
+   node's start split (the signer's connect wait and InitChain over the
+   socket apart), per height what phase 10 prints with the ABCI socket's
+   round trips by kind and check_tx over the socket p50/p99, the remote
+   signer's ms per vote and per proposal (p50, max), light's start and
+   each route's ms and bytes, /metrics' size and ms, the harness's checks,
+   the node's launches by stage and the account light logs at its exit
+   (its own launches, dispatch paths and table lookups).  Fails unless heights 1-3 commit
+   with exactly their bursts' valid txs, block 3 is ours with a proposal
+   signature that verifies under the validator key, our precommits in the
+   LastCommits of blocks 2-3 and in block 3's seen commit verify, every
+   precommit lands or is refused as late, `abci_cli info` gives height 3
+   and the node's app hash, the query gives its tx's value, every header,
+   block and set light serves equals the node's (JSON; a set but its
+   proposer priorities, which the light client's ValidatorSet derives
+   itself), its last /status trusts height 3 or more, the unknown route
+   gets the JAX error, light's "verify engine" line names a CUDA device
+   and its exit account shows launches, a window-table build and no
+   dispatch on the host path ("host" or "host-cold"), /metrics has the JAX content type, height 3 and the engine's table
+   hits and misses, the harness passes its four checks, every child exits
+   0, nothing is logged at ERROR by the node's loggers (consensus,
+   privval, abci, mempool, state, lite2, rpc, metrics) or the children,
+   and on the card kernel 2 built the node's genesis table once, the
+   ladder served every accepted frame and the genesis set's decline and
+   the profile's pick every table hit.  light's launches happen in its own
+   process and are not in the kernels line.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -2423,9 +2481,10 @@ CS_DIRECT_MIN = 16  # frames this large go through verify_direct (the reactor's 
 
 
 class CsWatch:
-    """Hooks on one node's ConsensusState, FilePV and EventBus: the time of
-    every step, of each vote our FilePV signs (with the signed vote) and of
-    each completed proposal block, and an event the phase waits on."""
+    """Hooks on one node's ConsensusState, signer (a FilePV, or a remote
+    signer's SignerClient) and EventBus: the time of every step, of each
+    vote our signer signs (with the signed vote) and of each completed
+    proposal block, and an event the phase waits on."""
 
     def __init__(self, node):
         import asyncio
@@ -2439,11 +2498,19 @@ class CsWatch:
         node.cs.on_vote.append(lambda vote: self.ev.set())
         sign = node.pv.sign_vote
 
-        def sign_vote(chain_id, vote):
-            sign(chain_id, vote)
+        def signed(vote):
             self.signed.setdefault((vote.height, vote.round, vote.type),
                                    (time.perf_counter(), vote.to_dict()))
             self.ev.set()
+
+        if asyncio.iscoroutinefunction(sign):  # a remote signer
+            async def sign_vote(chain_id, vote):
+                await sign(chain_id, vote)
+                signed(vote)
+        else:
+            def sign_vote(chain_id, vote):
+                sign(chain_id, vote)
+                signed(vote)
 
         node.pv.sign_vote = sign_vote
         publish = node.bus.publish_complete_proposal
@@ -2581,7 +2648,8 @@ def instrument_cs(node):
     node.watch = CsWatch(node)
 
 
-def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns, skip=()):
+def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns, skip=(),
+             chain_id=CHAIN_ID):
     """The other validators' votes of `kind` for (h, r) on bid (the zero id
     for nil), but those of the addresses in `skip`, stamped as _vote_time
     stamps them, signed on SIGN_THREADS threads, with their wire bytes; and
@@ -2594,7 +2662,7 @@ def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns, skip=()):
     ts = max(now, block.time_ns + iota_ns) if block is not None else now
     votes = [Vote(kind, h, r, bid, ts, v.address, i) for i, v in enumerate(vals.validators)
              if v.address != ours_addr and v.address not in skip]
-    msgs = [v.sign_bytes(CHAIN_ID) for v in votes]
+    msgs = [v.sign_bytes(chain_id) for v in votes]
     with ThreadPoolExecutor(SIGN_THREADS) as ex:
         sigs = list(ex.map(lambda j: key_of[j[0].validator_address].sign(j[1]),
                            zip(votes, msgs), chunksize=512))
@@ -2912,7 +2980,7 @@ async def cs_run(keys, card, dev):
             "indexed_dispatches": len(indexed), "frames": frames_ok}
 
 
-async def cs_build(node, key, h, r, BlockID, Commit, Proposal, part_size):
+async def cs_build(node, key, h, r, BlockID, Commit, Proposal, part_size, chain_id=CHAIN_ID):
     """A peer's proposal for (h, r): its block made by the node's
     BlockExecutor on the delivered state and the node's LastCommit, cut into
     parts, the Proposal signed by its key.  Returns (proposal, parts, ms)."""
@@ -2928,7 +2996,7 @@ async def cs_build(node, key, h, r, BlockID, Commit, Proposal, part_size):
     parts = block.make_part_set(part_size)
     prop = Proposal(height=h, round=r, pol_round=-1,
                     block_id=BlockID(block.hash(), parts.header()), timestamp_ns=time.time_ns())
-    prop.signature = key.sign(prop.sign_bytes(CHAIN_ID))
+    prop.signature = key.sign(prop.sign_bytes(chain_id))
     return prop, parts, _ms(t0)
 
 
@@ -3068,10 +3136,10 @@ def cs_report(old, node, rec, seq0, per_h, timer, sign_s, launches, dev, cache, 
         f"({card})")
 
 
-NODE_HEIGHTS = 5  # phase 10: heights 1 .. 5 commit; the run stops at height 6's NEW_HEIGHT
-NODE_ROTATE_AT = 2  # this block carries the val: txs; set B serves from NODE_ROTATE_AT + 2
+NODE_HEIGHTS = 4  # phase 10: heights 1 .. 4 commit; the run stops at height 5's NEW_HEIGHT
+NODE_ROTATE_AT = 1  # this block carries the val: txs; set B serves from NODE_ROTATE_AT + 2
 NODE_ROTATE = 2500  # val: txs remove this many of the oldest keys and add as many new ones
-NODE_CRASH_AT = 5  # the node stops after its own precommit; a second node resumes the home
+NODE_CRASH_AT = 4  # the node stops after its own precommit; a second node resumes the home
 NODE_LOGGERS = ("consensus", "consensus-replay", "node", "watchdog", "batch-verifier")
 CLI_CHAIN = "chip-smoke-solo"
 
@@ -3089,7 +3157,7 @@ def phase_node(keys, card, dev):
 def node_home(home, gen, ours):
     """The phase's home: config.toml written by save_config at the JAX
     defaults but p2p and RPC off, the signed-tx precheck with its journal,
-    and a mempool that holds height 2's 6,000 txs; the genesis file; the
+    and a mempool that holds height 1's 6,000 txs; the genesis file; the
     FilePV files of `ours`.  Returns the config file's path."""
     from tendermint_tpu_torch.config import Config, save_config
     from tendermint_tpu_torch.privval import FilePV, FilePVKey, FilePVLastSignState
@@ -3099,7 +3167,7 @@ def node_home(home, gen, ours):
     cfg.p2p.laddr, cfg.rpc.laddr = "none", ""
     cfg.mempool.sig_precheck = True
     cfg.mempool.wal_dir = "data/mempool.wal"
-    cfg.mempool.size = ABCI_MEMPOOL  # the default 5,000 cannot hold height 2's 6,000
+    cfg.mempool.size = ABCI_MEMPOOL  # the default 5,000 cannot hold height 1's 6,000
     cfg.ensure_dirs()
     path = os.path.join(home, "config", "config.toml")
     save_config(cfg, path)
@@ -3247,6 +3315,105 @@ def loop_split(rec, t0, t1) -> str:
             f"over {len(lags)} probes; shares {att}")
 
 
+async def drive_heights(node, v, top, key_of, ours_addr, burst, per_h, proposals, card,
+                        chain_id=CHAIN_ID, on_precommitted=None):
+    """Heights 1 .. top of one node's consensus (`v` its CsWatch view)
+    under phase 9's traffic, phases 10 (a) and 14; height 1's burst is
+    already in its mempool.  Each height: a peer's proposal (built by
+    cs_build) or the node's own; the other validators' prevote frames;
+    once our precommit is signed, `burst(node, h + 1)` of the next
+    height's envelopes; their precommit frames, one flipped and re-sent
+    clean.  Stops at height top + 1's NEW_HEIGHT.  Into per_h[h]: the
+    lines phase 10 prints, the LastCommit and the precommits refused as
+    late, the COMMIT time and, for h < top, the COMMIT -> PROPOSE window
+    with the loop profiler's split.  `on_precommitted(h, node, v)`,
+    awaited once our precommit for h is signed and the next burst is in,
+    may replace the node (phase 10's restart) by returning the (node,
+    view) to go on with.  Returns (node, view, the s spent signing and
+    framing the peers' votes, the frames sent)."""
+    from tendermint_tpu_torch.consensus.types import RoundStep
+    from tendermint_tpu_torch.types.block import BlockID, Commit
+    from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
+    from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
+    from tendermint_tpu_torch.types.proposal import Proposal
+
+    w = v.watch
+    iota_ns = node.state.consensus_params.block.time_iota_ms * 1_000_000
+    sign_s, frames_ok = 0.0, 0
+    for h in range(1, top + 1):
+        st = per_h.setdefault(h, {"lines": []})
+        await w.until(lambda: w.at(h, 0, RoundStep.PROPOSE), f"propose {h}/0")
+        if h > 1:
+            per_h[h - 1]["window"] = (w.t(h - 1, 0, RoundStep.COMMIT),
+                                      w.t(h, 0, RoundStep.PROPOSE))
+            per_h[h - 1]["split"] = loop_split(node.flight_recorder, *per_h[h - 1]["window"])
+        proposer = v.cs.rs.validators.get_proposer().address
+        who = "ours" if proposer == ours_addr else "peer"
+        if who == "peer":
+            prop, parts, build_ms = await cs_build(v, key_of[proposer], h, 0, BlockID, Commit,
+                                                   Proposal, BLOCK_PART_SIZE_BYTES,
+                                                   chain_id=chain_id)
+            proposals[h] = prop
+            await v.cs.set_proposal_and_block(prop, parts, "sender-0")
+            st["lines"].append(f"proposal of {parts.total} parts by a peer (built in "
+                               f"{build_ms:.3f} ms)")
+        await w.until(lambda: (h, 0, PREVOTE_TYPE) in w.signed, f"our prevote {h}")
+        rs = v.cs.rs
+        block = rs.proposal_block
+        if block is None:
+            raise AssertionError(f"the node prevoted nil at height {h}")
+        if who == "ours":
+            proposals[h] = rs.proposal
+        bid = BlockID(block.hash(), rs.proposal_block_parts.header())
+        st["lines"].append(
+            f"{who}: {len(block.txs)} txs; proposal complete -> own prevote "
+            f"{(w.signed[(h, 0, PREVOTE_TYPE)][0] - w.complete[(h, 0)]) * 1000:.3f} ms")
+        nv = rs.validators.size()
+        t_s = time.perf_counter()
+        pv_frames = cs_frames(rs.validators, *cs_votes(
+            rs.validators, key_of, ours_addr, PREVOTE_TYPE, h, 0, block, bid, iota_ns,
+            chain_id=chain_id))
+        pc_frames = cs_frames(rs.validators, *cs_votes(
+            rs.validators, key_of, ours_addr, PRECOMMIT_TYPE, h, 0, block, bid, iota_ns,
+            chain_id=chain_id))
+        sign_s += time.perf_counter() - t_s
+        seq, add0, wal0 = next_seq(node.flight_recorder), len(v.add_ms), len(v.wal_ms)
+        t_sent = await cs_send(v, pv_frames)
+        frames_ok += len(pv_frames)
+        prevotes = rs.votes.prevotes(0)
+        await w.until(lambda: prevotes.bit_array().count() == nv, f"prevotes {h}")
+        st["lines"].append("prevotes: " + cs_ingest_line(
+            v, node.flight_recorder, seq, t_sent, time.perf_counter(), nv - 1, add0, wal0, card))
+        await w.until(lambda: (h, 0, PRECOMMIT_TYPE) in w.signed
+                      and v.cs.rs.votes.precommits(0).get_by_address(ours_addr) is not None,
+                      f"our precommit {h}")
+        if h < top:
+            await burst(node, h + 1)
+        if on_precommitted is not None:
+            swapped = await on_precommitted(h, node, v)
+            if swapped is not None:
+                node, v = swapped
+                w = v.watch
+        seq, add0, wal0 = next_seq(node.flight_recorder), len(v.add_ms), len(v.wal_ms)
+        t_sent = await cs_send(v, pc_frames, bad=cs_flip(pc_frames[0]))
+        frames_ok += len(pc_frames)
+        await w.until(lambda: v.cs.rs.height == h + 1 and (
+            v.cs.rs.last_commit.bit_array().count() + v.late[h] == nv),
+            f"height {h}'s precommits")
+        t_done = time.perf_counter()
+        st["last_commit"] = v.cs.rs.last_commit.bit_array().count()
+        st["late"] = v.late[h]
+        st["lines"].append(
+            "precommits (one bad frame rejected, re-sent clean): " + cs_ingest_line(
+                v, node.flight_recorder, seq, t_sent, t_done, nv - 1, add0, wal0, card)
+            + f"; vote-to-commit {(w.t(h, 0, RoundStep.COMMIT) - t_sent) * 1000:.3f} ms")
+        st["commit_t"] = w.t(h, 0, RoundStep.COMMIT)
+        if h == 1:
+            st["first_propose"] = w.t(1, 0, RoundStep.PROPOSE)
+    await w.until(lambda: w.at(top + 1, 0, RoundStep.NEW_HEIGHT), "the last height")
+    return node, v, sign_s, frames_ok
+
+
 async def node_run(keys, card, dev):
     import base64
     import tempfile
@@ -3254,29 +3421,36 @@ async def node_run(keys, card, dev):
 
     from tendermint_tpu_torch.config import load_config
     from tendermint_tpu_torch.consensus import replay as cs_replay
-    from tendermint_tpu_torch.consensus.types import RoundStep
     from tendermint_tpu_torch.crypto import batch as batch_hook
     from tendermint_tpu_torch.libs import loopprof
     from tendermint_tpu_torch.mempool import MempoolError
     from tendermint_tpu_torch.node import default_new_node
     from tendermint_tpu_torch.state import make_genesis_state
-    from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_COMMIT, BlockID, Commit
-    from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
+    from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_COMMIT
     from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
-    from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
-    from tendermint_tpu_torch.types.proposal import Proposal
+    from tendermint_tpu_torch.types.validator import Validator
 
     t0 = time.perf_counter()
     gen = GenesisDoc(CHAIN_ID, genesis_time_ns=LITE_T0, validators=[
         GenesisValidator(k.pub_key().address(), k.pub_key(), 10) for k in keys])
-    vals = make_genesis_state(gen).validators.copy()
-    vals.increment_proposer_priority(CS_OURS_AT - 1)
     key_of = {k.pub_key().address(): k for k in keys}
-    ours = key_of[vals.get_proposer().address]
-    ours_addr = ours.pub_key().address()
-    out_keys = [k for k in keys if k is not ours][:NODE_ROTATE]
+    out_keys = keys[:NODE_ROTATE]
     new_keys = make_keys(NODE_ROTATE, prefix="node")
     key_of.update((k.pub_key().address(), k) for k in new_keys)
+    # our validator: the round-0 proposer of CS_OURS_AT in set B, whose
+    # priorities are derived as update_state derives them in the node
+    vals = make_genesis_state(gen).validators
+    changes = ([Validator.new(k.pub_key(), 0) for k in out_keys]
+               + [Validator.new(k.pub_key(), 10) for k in new_keys])
+    for h in range(1, CS_OURS_AT):
+        vals = vals.copy()
+        if h == NODE_ROTATE_AT + 1:
+            vals.update_with_change_set(changes)
+        vals.increment_proposer_priority(1)
+    ours = key_of[vals.get_proposer().address]
+    if ours in new_keys:
+        raise AssertionError(f"set B's proposer of height {CS_OURS_AT} is one of its new keys")
+    ours_addr = ours.pub_key().address()
     val_txs = ([b"val:" + base64.b64encode(k.pub_key().bytes()) + b"!0" for k in out_keys]
                + [b"val:" + base64.b64encode(k.pub_key().bytes()) + b"!10" for k in new_keys])
     set_a = {k.pub_key().address() for k in keys}
@@ -3294,7 +3468,7 @@ async def node_run(keys, card, dev):
     cfg_path = node_home(home, gen, ours)
     probe = NodeProbe()
     builds, per_h, proposals, starts = [], {}, {}, []
-    recs, nodes, sign_s, frames_ok = [], [], 0.0, 0
+    recs, nodes = [], []
     device = None if dev.type == "cuda" else dev  # the entry point's default is the card
 
     async def start_node(label):
@@ -3353,132 +3527,67 @@ async def node_run(keys, card, dev):
             f"burst of {len(out)} check_tx {ms:.3f} ms, p50 {percentile(lat, 50):.3f} p99 "
             f"{percentile(lat, 99):.3f} ms")
 
-    node = old = None
+    async def restart_at(h, old, v):
+        """In height NODE_CRASH_AT, once our precommit is signed: the node
+        stops and a second one resumes its home (catchup_replay timed, its
+        WAL records counted, our re-signed votes held to what the first
+        signed)."""
+        if h != NODE_CRASH_AT:
+            return None
+        own = {k: s for k, s in v.watch.signed.items() if k[0] == h}
+        t_down = time.perf_counter()
+        restart["stop_ms"] = await stop_node(old)
+        restart["old_health"] = old.watchdog.health()
+        replay, replay_record = cs_replay.catchup_replay, cs_replay._replay_record
+        records, catchup = collections.Counter(), []
+
+        async def timed_catchup(cs, height):
+            t = time.perf_counter()
+            try:
+                return await replay(cs, height)
+            finally:
+                catchup.append(_ms(t))
+
+        async def counted_record(cs, rec):
+            records[rec.get("type")] += 1
+            return await replay_record(cs, rec)
+
+        cs_replay.catchup_replay = timed_catchup
+        cs_replay._replay_record = counted_record
+        try:
+            node = await start_node("restart")
+        finally:
+            cs_replay.catchup_replay, cs_replay._replay_record = replay, replay_record
+        v = probe.views[-1]
+        w = v.watch
+        await w.until(lambda: v.cs.rs.votes.precommits(0).get_by_address(ours_addr)
+                      is not None, "the replayed precommit")
+        restart["ms"] = _ms(t_down)
+        resigned = {k: s for k, s in w.signed.items() if k[0] == h}
+        if not resigned or any(s[1] != own.get(k, (0, None))[1] for k, s in resigned.items()):
+            raise AssertionError(f"the FilePV re-signed {sorted(resigned)} differently from "
+                                 f"before the stop ({sorted(own)})")
+        if probe.handshakes[-1] != 0 or len(catchup) != 1 or not records["msg"]:
+            raise AssertionError(f"the handshake replayed {probe.handshakes[-1]} blocks, or "
+                                 f"catchup_replay ran {len(catchup)} times over {dict(records)}")
+        restart["line"] = (
+            f"restart in height {h}: stop {restart['stop_ms']:.3f} ms; catchup_replay "
+            f"{catchup[0]:.3f} ms over {sum(records.values())} WAL records {dict(records)}; the "
+            f"FilePV re-signed {len(resigned)} vote(s) byte-equal; the mempool reopened its "
+            f"journal ({len(node.mempool.wal_txs())} txs in it); down {restart['ms']:.3f} ms in "
+            f"all")
+        return node, v
+
+    node = None
     restart = {}
     try:
         with consensus_errors(NODE_LOGGERS) as errors, table_timing(None, builds, dev):
             node = await start_node("first start")
-            v = probe.views[-1]
-            w = v.watch
             await burst(node, 1)
-            iota_ns = node.state.consensus_params.block.time_iota_ms * 1_000_000
             seq0 = next_seq(node.flight_recorder)
-            for h in range(1, NODE_HEIGHTS + 1):
-                st = per_h.setdefault(h, {"lines": []})
-                await w.until(lambda: w.at(h, 0, RoundStep.PROPOSE), f"propose {h}/0")
-                if h > 1:
-                    per_h[h - 1]["window"] = (w.t(h - 1, 0, RoundStep.COMMIT),
-                                              w.t(h, 0, RoundStep.PROPOSE))
-                    per_h[h - 1]["split"] = loop_split(node.flight_recorder,
-                                                       *per_h[h - 1]["window"])
-                proposer = v.cs.rs.validators.get_proposer().address
-                who = "ours" if proposer == ours_addr else "peer"
-                if who == "peer":
-                    prop, parts, build_ms = await cs_build(v, key_of[proposer], h, 0, BlockID,
-                                                           Commit, Proposal, BLOCK_PART_SIZE_BYTES)
-                    proposals[h] = prop
-                    await v.cs.set_proposal_and_block(prop, parts, "sender-0")
-                    st["lines"].append(f"proposal of {parts.total} parts by a peer (built in "
-                                       f"{build_ms:.3f} ms)")
-                await w.until(lambda: (h, 0, PREVOTE_TYPE) in w.signed, f"our prevote {h}")
-                rs = v.cs.rs
-                block = rs.proposal_block
-                if block is None:
-                    raise AssertionError(f"the node prevoted nil at height {h}")
-                if who == "ours":
-                    proposals[h] = rs.proposal
-                bid = BlockID(block.hash(), rs.proposal_block_parts.header())
-                st["lines"].append(
-                    f"{who}: {len(block.txs)} txs; proposal complete -> own prevote "
-                    f"{(w.signed[(h, 0, PREVOTE_TYPE)][0] - w.complete[(h, 0)]) * 1000:.3f} ms")
-                nv = rs.validators.size()
-                t_s = time.perf_counter()
-                pv_votes = cs_votes(rs.validators, key_of, ours_addr, PREVOTE_TYPE, h, 0, block,
-                                    bid, iota_ns)
-                pc_votes = cs_votes(rs.validators, key_of, ours_addr, PRECOMMIT_TYPE, h, 0,
-                                    block, bid, iota_ns)
-                pv_frames = cs_frames(rs.validators, *pv_votes)
-                pc_frames = cs_frames(rs.validators, *pc_votes)
-                sign_s += time.perf_counter() - t_s
-                seq, add0, wal0 = next_seq(node.flight_recorder), len(v.add_ms), len(v.wal_ms)
-                t_sent = await cs_send(v, pv_frames)
-                frames_ok += len(pv_frames)
-                prevotes = rs.votes.prevotes(0)
-                await w.until(lambda: prevotes.bit_array().count() == nv, f"prevotes {h}")
-                st["lines"].append("prevotes: " + cs_ingest_line(
-                    v, node.flight_recorder, seq, t_sent, time.perf_counter(), nv - 1, add0, wal0,
-                    card))
-                await w.until(lambda: (h, 0, PRECOMMIT_TYPE) in w.signed
-                              and v.cs.rs.votes.precommits(0).get_by_address(ours_addr)
-                              is not None, f"our precommit {h}")
-                if h < NODE_HEIGHTS:
-                    await burst(node, h + 1)
-                if h == NODE_CRASH_AT:
-                    own = {k: s for k, s in w.signed.items() if k[0] == h}
-                    old = node
-                    t_down = time.perf_counter()
-                    restart["stop_ms"] = await stop_node(old)
-                    restart["old_health"] = old.watchdog.health()
-                    replay, replay_record = cs_replay.catchup_replay, cs_replay._replay_record
-                    records, catchup = collections.Counter(), []
-
-                    async def timed_catchup(cs, height):
-                        t = time.perf_counter()
-                        try:
-                            return await replay(cs, height)
-                        finally:
-                            catchup.append(_ms(t))
-
-                    async def counted_record(cs, rec):
-                        records[rec.get("type")] += 1
-                        return await replay_record(cs, rec)
-
-                    cs_replay.catchup_replay = timed_catchup
-                    cs_replay._replay_record = counted_record
-                    try:
-                        node = await start_node("restart")
-                    finally:
-                        cs_replay.catchup_replay, cs_replay._replay_record = replay, replay_record
-                    v = probe.views[-1]
-                    w = v.watch
-                    await w.until(lambda: v.cs.rs.votes.precommits(0).get_by_address(ours_addr)
-                                  is not None, "the replayed precommit")
-                    restart["ms"] = _ms(t_down)
-                    resigned = {k: s for k, s in w.signed.items() if k[0] == h}
-                    if not resigned or any(s[1] != own.get(k, (0, None))[1]
-                                           for k, s in resigned.items()):
-                        raise AssertionError(f"the FilePV re-signed {sorted(resigned)} "
-                                             f"differently from before the stop ({sorted(own)})")
-                    if probe.handshakes[-1] != 0 or len(catchup) != 1 or not records["msg"]:
-                        raise AssertionError(f"the handshake replayed {probe.handshakes[-1]} "
-                                             f"blocks, or catchup_replay ran {len(catchup)} "
-                                             f"times over {dict(records)}")
-                    restart["line"] = (
-                        f"restart in height {h}: stop {restart['stop_ms']:.3f} ms; "
-                        f"catchup_replay {catchup[0]:.3f} ms over {sum(records.values())} WAL "
-                        f"records {dict(records)}; the FilePV re-signed {len(resigned)} vote(s) "
-                        f"byte-equal; the mempool reopened its journal "
-                        f"({len(node.mempool.wal_txs())} txs in it); down {restart['ms']:.3f} ms "
-                        f"in all")
-                    rs = v.cs.rs
-                seq, add0, wal0 = next_seq(node.flight_recorder), len(v.add_ms), len(v.wal_ms)
-                t_sent = await cs_send(v, pc_frames, bad=cs_flip(pc_frames[0]))
-                frames_ok += len(pc_frames)
-                await w.until(lambda: v.cs.rs.height == h + 1 and (
-                    v.cs.rs.last_commit.bit_array().count() + v.late[h] == nv),
-                    f"height {h}'s precommits")
-                t_done = time.perf_counter()
-                st["last_commit"] = v.cs.rs.last_commit.bit_array().count()
-                st["late"] = v.late[h]
-                st["lines"].append(
-                    "precommits (one bad frame rejected, re-sent clean): " + cs_ingest_line(
-                        v, node.flight_recorder, seq, t_sent, t_done, nv - 1, add0, wal0, card)
-                    + f"; vote-to-commit {(w.t(h, 0, RoundStep.COMMIT) - t_sent) * 1000:.3f} ms")
-                st["commit_t"] = w.t(h, 0, RoundStep.COMMIT)
-                if h == 1:
-                    st["first_propose"] = w.t(1, 0, RoundStep.PROPOSE)
-            await w.until(lambda: w.at(NODE_HEIGHTS + 1, 0, RoundStep.NEW_HEIGHT),
-                          "the last height")
+            node, _, sign_s, frames_ok = await drive_heights(
+                node, probe.views[-1], NODE_HEIGHTS, key_of, ours_addr, burst, per_h, proposals,
+                card, on_precommitted=restart_at)
             restart["stop2_ms"] = await stop_node(node)
             out = node_check(probe, nodes, recs, per_h, proposals, bursts, bad_txs, val_txs,
                              set_a, set_b, ours_addr, errors, home, BLOCK_ID_FLAG_COMMIT)
@@ -3664,8 +3773,7 @@ def phase_cli(card):
 
     tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-cli-")
     home = os.path.join(tmp.name, "h2")
-    env = dict(os.environ, PYTHONUNBUFFERED="1",
-               PYTHONPATH=os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    env = child_env()
     argv = [sys.executable, "-m", "tendermint_tpu_torch", "--home", home]
 
     def cli(*args):
@@ -3903,6 +4011,90 @@ def relay_child() -> int:
         return asyncio.run(serve(errors))
 
 
+CHILD_READY_S = 300.0  # a child's ready line (light's is after its trust root's ~100 pages)
+CHILD_STOP_S = 30.0  # a child's exit after its signal (or, a signer's, after the node's stop)
+
+
+def child_env() -> dict:
+    """The environment of a process the phases start: this checkout first
+    on PYTHONPATH, output unbuffered."""
+    return dict(os.environ, PYTHONUNBUFFERED="1",
+                PYTHONPATH=os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+
+
+class Child:
+    """One Python process of a phase (phase 11's relays, phase 14's app
+    server, signers, `light`, harness and one-shot abci_cli): stdout piped
+    (stdin too with `stdin`), stderr in `log_dir`/`name`.log."""
+
+    def __init__(self, name, argv, log_dir, stdin=False):
+        self.name, self.argv, self.stdin = name, argv, stdin
+        self.log_path = os.path.join(log_dir, f"{name}.log")
+        self.proc = self._log = None
+        self.rc, self.out = None, ""
+
+    async def start(self, ready=None):
+        """Spawn; with `ready`, wait for the first stdout line and require
+        it to start with `ready`.  Returns the seconds to that line."""
+        import asyncio
+
+        self._log = open(self.log_path, "w")
+        t0 = time.perf_counter()
+        self.proc = await asyncio.create_subprocess_exec(
+            sys.executable, *self.argv, stdout=asyncio.subprocess.PIPE, stderr=self._log,
+            stdin=asyncio.subprocess.PIPE if self.stdin else None, env=child_env(), cwd=HERE)
+        if ready is None:
+            return 0.0
+        try:
+            line = (await asyncio.wait_for(self.proc.stdout.readline(), CHILD_READY_S)).decode()
+        except asyncio.TimeoutError:
+            line = ""
+        if not line.startswith(ready):
+            raise AssertionError(f"{self.name} did not start ({line!r}): {self.read_log()[-3000:]}")
+        return time.perf_counter() - t0
+
+    async def wait_log(self, text, timeout=CHILD_READY_S):
+        """Wait until the log holds `text` (the process must stay up)."""
+        import asyncio
+
+        deadline = time.perf_counter() + timeout
+        while text not in self.read_log():
+            if self.proc.returncode is not None:
+                raise AssertionError(f"{self.name} exited {self.proc.returncode}: "
+                                     f"{self.read_log()[-3000:]}")
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{self.name} logged no {text!r}: {self.read_log()[-3000:]}")
+            await asyncio.sleep(0.05)
+
+    def read_log(self):
+        with open(self.log_path) as f:
+            return f.read()
+
+    async def finish(self, sig=None, timeout=CHILD_STOP_S):
+        """Signal (or not) and wait for the exit; the exit code and stdout."""
+        import asyncio
+
+        if self.proc is None or self.rc is not None:
+            return self.rc
+        if sig is not None and self.proc.returncode is None:
+            self.proc.send_signal(sig)
+        try:
+            out, _ = await asyncio.wait_for(self.proc.communicate(), timeout)
+            self.out = out.decode()
+            self.rc = self.proc.returncode
+        finally:
+            if self.proc.returncode is None:
+                self.proc.kill()
+                await self.proc.wait()
+            self._log.close()
+        return self.rc
+
+    def errors(self):
+        """Tracebacks, and ERROR lines of libs/log.py's format."""
+        return [ln for ln in self.read_log().splitlines()
+                if ln.startswith("Traceback") or ln[24:26] == "E " or "abci app error" in ln]
+
+
 class NetRelays:
     """Phase 11's relay peers in a process of their own (relay_child, by
     `python -c`): the packing and sealing of their ~10,000 votes a kind,
@@ -3912,26 +4104,21 @@ class NetRelays:
     awaits its reply; the frames of a height are loaded before the clock of
     their ingest starts, then sent by kind."""
 
-    def __init__(self, log_path):
-        self.log_path, self.proc, self.ids = log_path, None, []
-        self._calls, self._n, self._reader, self._log = {}, 0, None, None
+    def __init__(self, log_dir):
+        self.child = Child("relays", ["-c", "import sys, chip_smoke; "
+                                      "sys.exit(chip_smoke.relay_child())"], log_dir, stdin=True)
+        self.proc, self.ids = None, []
+        self._calls, self._n, self._reader = {}, 0, None
 
     async def spawn(self):
         import asyncio
 
-        env = dict(os.environ, PYTHONUNBUFFERED="1",
-                   PYTHONPATH=os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH"))
-                                              if p))
-        self._log = open(self.log_path, "w")
-        self.proc = await asyncio.create_subprocess_exec(
-            sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.relay_child())",
-            stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE, stderr=self._log,
-            env=env, cwd=HERE)
+        await self.child.start()
+        self.proc = self.child.proc
         self._reader = asyncio.get_running_loop().create_task(self._read())
 
     def read_log(self):
-        with open(self.log_path) as f:
-            return f.read()
+        return self.child.read_log()
 
     async def _read(self):
         import asyncio
@@ -3992,8 +4179,8 @@ class NetRelays:
             await self.proc.wait()
         if self._reader is not None:
             await self._reader
-        if self._log is not None:
-            self._log.close()
+        if self.child._log is not None:
+            self.child._log.close()
 
 
 def net_frames(votes, have):
@@ -4096,14 +4283,11 @@ class NetB:
             reactor._switch_to_consensus = handover
             self.started_s = time.perf_counter() - t0
             return
-        env = dict(os.environ, PYTHONUNBUFFERED="1",
-                   PYTHONPATH=os.pathsep.join(p for p in (HERE, os.environ.get("PYTHONPATH"))
-                                              if p))
         self.err_path = os.path.join(self.home, "node.log")
         self._err = open(self.err_path, "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "tendermint_tpu_torch", "--home", self.home, "node"],
-            stdout=subprocess.PIPE, stderr=self._err, text=True, env=env, cwd=self.home)
+            stdout=subprocess.PIPE, stderr=self._err, text=True, env=child_env(), cwd=self.home)
         line = await asyncio.get_running_loop().run_in_executor(None, self.proc.stdout.readline)
         self.started_s = time.perf_counter() - t0
         if not line.startswith("node started"):
@@ -4309,7 +4493,7 @@ async def net_run(keys, card, dev, b_inproc, keep_homes=False):
     kinds = collections.Counter()  # consensus frames A's reactor decoded, by kind
     kinds_seen = collections.Counter()
     device = None if dev.type == "cuda" else dev  # the entry point's default is the card
-    relays = NetRelays(os.path.join(tmp.name, "relays.log"))
+    relays = NetRelays(tmp.name)
     a = b = out = None
     dec = cs_reactor._dec
     stopped = []  # (peer id, reason) of A's stop_peer_for_error calls
@@ -5764,6 +5948,568 @@ def sh_report(d, live, probe, out, gw, notes, h_sub, t_d, t_sub, t_started, t_ca
         f"{out['hits']} hits, {out['declines']} declines; D's stop {stop_s:.3f} s")
 
 
+BD_HEIGHTS = 3  # phase 14: heights 1 .. 3 commit; the run stops at height 4's NEW_HEIGHT
+BD_CHAIN = "chip-smoke-boundary"
+BD_LOGGERS = NODE_LOGGERS + ("privval.client", "abci-server", "mempool", "state", "lite2",
+                             "lite2.proxy", "rpc", "rpc.server", "metrics")
+BD_ROUTES = (("status", "/status"), ("commit 2", "/commit?height=2"),
+             ("commit 3", "/commit?height=3"), ("validators 3", "/validators?height=3"),
+             ("block 3", "/block?height=3"), ("nope", "/nope"), ("status after", "/status"))
+
+
+def signer_child(key_dir, laddr) -> int:
+    """Phase 14's remote signer process: the port's SignerServer over the
+    FilePV files in `key_dir` (made there when absent), dialing `laddr`
+    until it answers; serves until the node closes the connection, then
+    exits 0."""
+    import asyncio
+
+    sys.path.insert(0, HERE)
+    from tendermint_tpu_torch.libs.log import setup
+    from tendermint_tpu_torch.privval import FilePV, SignerServer
+
+    setup()
+    pv = FilePV.load_or_generate(os.path.join(key_dir, "priv_validator_key.json"),
+                                 os.path.join(key_dir, "priv_validator_state.json"))
+
+    async def run():
+        server = SignerServer(laddr, pv, retries=int(CHILD_READY_S * 10), retry_interval=0.1)
+        await server.start()
+        print("signer connected", flush=True)
+        try:
+            await server._task
+        finally:
+            await server.stop()
+        return 0
+
+    return asyncio.run(run())
+
+
+def bd_home(home, gen, ports):
+    """Phase 14's node home: config.toml by save_config at the JAX defaults
+    but p2p off, RPC, the app's socket, the signer's listener and /metrics
+    on local ports, the signed-tx precheck with its journal and a mempool of
+    10,000 as phase 10's; the genesis file.  No FilePV: the key is the
+    signer's."""
+    from tendermint_tpu_torch.config import Config, save_config
+
+    cfg = Config(home=home)
+    cfg.base.chain_id = BD_CHAIN
+    cfg.p2p.laddr = "none"
+    cfg.rpc.laddr = f"tcp://127.0.0.1:{ports['rpc']}"
+    cfg.base.proxy_app = f"tcp://127.0.0.1:{ports['app']}"
+    cfg.base.priv_validator_laddr = f"tcp://127.0.0.1:{ports['signer']}"
+    cfg.instrumentation.prometheus = True
+    cfg.instrumentation.prometheus_listen_addr = f"tcp://127.0.0.1:{ports['metrics']}"
+    cfg.mempool.sig_precheck = True
+    cfg.mempool.wal_dir = "data/mempool.wal"
+    cfg.mempool.size = ABCI_MEMPOOL
+    cfg.ensure_dirs()
+    path = os.path.join(home, "config", "config.toml")
+    save_config(cfg, path)
+    gen.save_as(cfg.genesis_file())
+    return path
+
+
+async def http_get(addr, path):
+    """One GET over a fresh connection: status, content type, body, ms."""
+    import asyncio
+
+    from tendermint_tpu_torch.rpc.http import read_response
+
+    host, port = addr.split("://", 1)[-1].rsplit(":", 1)
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection(host, int(port))
+    try:
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: {host}\r\nConnection: close\r\n\r\n"
+                     .encode())
+        await writer.drain()
+        status, headers, body = await read_response(reader)
+    finally:
+        writer.close()
+    return status, headers.get("content-type", ""), body, _ms(t0)
+
+
+def phase_boundary(keys, card, dev, inproc_light=False):
+    """One validator of the 10,000-validator chain across its process
+    boundaries (see the module docstring, 14).  `inproc_light` runs the
+    light proxy in this process (the CPU rehearsal: `light` needs a card).
+    Returns the launches' denominators and the stages' launches."""
+    import asyncio
+
+    return asyncio.run(boundary_run(keys, card, dev, inproc_light))
+
+
+async def boundary_run(keys, card, dev, inproc_light):
+    import asyncio
+    import json
+    import signal
+    import tempfile
+    import threading
+
+    from tendermint_tpu_torch.abci.client import SocketClient
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.mempool import MempoolError
+    from tendermint_tpu_torch.node import default_new_node
+    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
+    from tendermint_tpu_torch.privval import FilePV, FilePVKey, FilePVLastSignState, SignerClient
+    from tendermint_tpu_torch.state import make_genesis_state
+    from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_COMMIT
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    def counters():
+        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
+                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
+
+    def since(c0):
+        return {k: v - c0[k] for k, v in counters().items()}
+
+    t0 = time.perf_counter()
+    # genesis now: `light` keeps its default trusting period of a week
+    gen = GenesisDoc(BD_CHAIN, genesis_time_ns=time.time_ns(), validators=[
+        GenesisValidator(k.pub_key().address(), k.pub_key(), 10) for k in keys])
+    vals = make_genesis_state(gen).validators.copy()
+    vals.increment_proposer_priority(CS_OURS_AT - 1)
+    key_of = {k.pub_key().address(): k for k in keys}
+    ours = key_of[vals.get_proposer().address]
+    ours_addr = ours.pub_key().address()
+    bursts, bad_txs, _ = abci_traffic(keys, [], top=BD_HEIGHTS)
+    n = len(keys)
+    log(f"  traffic: {BD_HEIGHTS} bursts of {ABCI_TXS} signed envelopes ({len(bad_txs)} "
+        f"corrupted) made in {_ms(t0):.3f} ms; our validator {ours_addr.hex()[:12]} (round-0 "
+        f"proposer of {CS_OURS_AT}) of {n}, its key in the signer process")
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-boundary-")
+    home, key_dir = os.path.join(tmp.name, "node"), os.path.join(tmp.name, "signer")
+    os.makedirs(key_dir)
+    FilePV(FilePVKey(ours_addr, ours.pub_key(), ours,
+                     os.path.join(key_dir, "priv_validator_key.json")),
+           FilePVLastSignState(file_path=os.path.join(key_dir, "priv_validator_state.json"))).save()
+    ports = {k: free_port() for k in ("rpc", "app", "signer", "metrics", "light", "harness")}
+    cfg_path = bd_home(home, gen, ports)
+    app = Child("app", ["-m", "tendermint_tpu_torch.abci_cli", "--address",
+                        f"tcp://127.0.0.1:{ports['app']}", "kvstore"], tmp.name)
+    signer = Child("signer", ["-c", "import sys, chip_smoke; sys.exit(chip_smoke.signer_child("
+                              f"{key_dir!r}, 'tcp://127.0.0.1:{ports['signer']}'))"], tmp.name)
+    children = [app, signer]
+    probe = NodeProbe()
+    builds, per_h, proposals, out = [], {}, {}, {}
+    sign_ms = collections.defaultdict(list)  # "vote" / "proposal" -> ms of each remote sign
+    rt = collections.defaultdict(list)  # (height or "check_tx", kind) -> ms of each round trip
+    cur = {"h": 0}
+    stages, light_stop_ms = {}, None
+    device = None if dev.type == "cuda" else dev  # the entry point's default is the card
+    restore = [(SocketClient, "_request", SocketClient._request),
+               (SignerClient, "sign_vote", SignerClient.sign_vote),
+               (SignerClient, "sign_proposal", SignerClient.sign_proposal)]
+    request, sign_vote, sign_proposal = (r[2] for r in restore)
+
+    async def timed_request(client, kind, req):
+        if kind == "begin_block":
+            cur["h"] = req.header["height"]
+        t = time.perf_counter()
+        try:
+            return await request(client, kind, req)
+        finally:
+            rt[("check_tx" if kind == "check_tx" else cur["h"], kind)].append(_ms(t))
+
+    async def timed_vote(client, chain_id, vote):
+        t = time.perf_counter()
+        await sign_vote(client, chain_id, vote)
+        sign_ms["vote"].append(_ms(t))
+
+    async def timed_proposal(client, chain_id, prop):
+        t = time.perf_counter()
+        await sign_proposal(client, chain_id, prop)
+        sign_ms["proposal"].append(_ms(t))
+
+    SocketClient._request = timed_request
+    SignerClient.sign_vote, SignerClient.sign_proposal = timed_vote, timed_proposal
+    start_t = StepTimer()
+    restore += [(SignerClient, "on_start", start_t.wrap(SignerClient, "on_start", "signer_wait")),
+                (SocketClient, "init_chain", start_t.wrap(SocketClient, "init_chain"))]
+
+    async def burst(node, hb):
+        """Height hb's envelopes through node.mempool.check_tx (verified on
+        the engine, then over the app's socket), before its proposal."""
+        txs = list(bursts[hb])
+        k0 = len(rt[("check_tx", "check_tx")])
+        res, ms = await check_burst(node.mempool, txs)
+        for tx, (r, _) in zip(txs, res):
+            if tx in bad_txs:
+                if not (isinstance(r, MempoolError) and str(r) == "invalid tx signature"):
+                    raise AssertionError(f"a corrupted envelope for {hb} gave {r!r}")
+            elif isinstance(r, Exception) or r.code != 0:
+                raise AssertionError(f"a valid tx for {hb} was rejected: {r!r}")
+        lat = [lat for _, lat in res]
+        sock = rt[("check_tx", "check_tx")][k0:]
+        per_h.setdefault(hb, {"lines": []})["lines"].append(
+            f"burst of {len(res)} check_tx {ms:.3f} ms, p50 {percentile(lat, 50):.3f} p99 "
+            f"{percentile(lat, 99):.3f} ms; {len(sock)} over the socket p50 "
+            f"{percentile(sock, 50):.3f} p99 {percentile(sock, 99):.3f} ms")
+
+    node = light = None
+    try:
+        with consensus_errors(BD_LOGGERS) as errors, table_timing(None, builds, dev):
+            app_s = await app.start(ready="ABCI KVStoreApplication serving on")
+            await signer.start()
+            c0 = counters()
+            probe.start.reset()
+            t = time.perf_counter()
+            node = default_new_node(load_config(cfg_path), device=device)
+            new_ms = _ms(t)
+            probe.rec = node.flight_recorder
+            t = time.perf_counter()
+            await node.start()
+            start_ms = _ms(t)
+            stages["start"] = since(c0)
+            c0 = counters()
+            bv = node.batch_verifier
+            if bv.device.type != dev.type:
+                raise AssertionError(f"the node's engine runs on {bv.device}, not {dev}")
+            if (batch_hook.get_verifier() != bv.verify
+                    or batch_hook.get_indexed_verifier() != node.table_cache.verify_indexed):
+                raise AssertionError("the installed hooks are not the node's engine")
+            if not isinstance(node.priv_validator, SignerClient):
+                raise AssertionError("the node does not sign through the remote signer")
+            if not all(isinstance(c, SocketClient) for c in (
+                    node.proxy_app.consensus(), node.proxy_app.mempool(), node.proxy_app.query())):
+                raise AssertionError("the node's app connections are not ABCI sockets")
+            if node.priv_validator.get_pub_key().bytes() != ours.pub_key().bytes():
+                raise AssertionError("the signer serves another key")
+            sm = probe.start.ms
+            out["start"] = (
+                f"app server ready in {app_s:.3f} s; default_new_node (stores, state, "
+                f"SignerClient) {new_ms:.3f} ms; start {start_ms:.3f} ms: engine (install "
+                f"{sm.get('install', 0.0):.3f} ms + lane start {sm.get('lane_start', 0.0):.3f} "
+                f"ms), the signer's connect wait and pubkey {start_t.ms['signer_wait']:.3f} ms, "
+                f"handshake {sm.get('handshake', 0.0):.3f} ms (InitChain of {n} validators over "
+                f"the socket {start_t.ms['init_chain']:.3f} ms), consensus start "
+                f"{sm.get('consensus_start', 0.0):.3f} ms")
+            v = probe.views[-1]
+            await burst(node, 1)
+            seq0 = next_seq(node.flight_recorder)
+            t_heights = time.perf_counter()
+            node, v, sign_s, frames_ok = await drive_heights(
+                node, v, BD_HEIGHTS, key_of, ours_addr, burst, per_h, proposals, card,
+                chain_id=BD_CHAIN)
+            heights_s = time.perf_counter() - t_heights
+            if v.cs._delivery_task is not None:  # block 3's pipelined apply
+                await asyncio.wait({v.cs._delivery_task})
+            stages["heights"] = since(c0)
+            c0 = counters()
+
+            # -- with the node up: light, /metrics, abci_cli, the harness --------
+            rpc_addr = node.rpc_server.listen_addr
+            trust = node.block_store.load_block(1).hash()
+            t = time.perf_counter()
+            if inproc_light:
+                from tendermint_tpu_torch.lite2 import BISECTION, Client, HTTPProvider, TrustOptions
+                from tendermint_tpu_torch.lite2.proxy import LightProxy
+
+                primary = HTTPProvider(BD_CHAIN, rpc_addr)
+                light = LightProxy(Client(BD_CHAIN, TrustOptions(168 * 3600 * SEC, 1, trust),
+                                          primary, mode=BISECTION),
+                                   f"tcp://127.0.0.1:{ports['light']}")
+                await light.start()
+            else:
+                light = Child("light", [
+                    "-m", "tendermint_tpu_torch", "light", "--chain-id", BD_CHAIN, "--primary",
+                    rpc_addr, "--laddr", f"tcp://127.0.0.1:{ports['light']}", "--height", "1",
+                    "--hash", trust.hex()], tmp.name)
+                children.append(light)
+                await light.start()
+                await light.wait_log("light proxy listening")
+            light_s = time.perf_counter() - t
+            light_addr = f"127.0.0.1:{ports['light']}"
+            served, direct = {}, {}
+            # /status again last: what light trusts after verifying 2 and 3
+            for name, route in BD_ROUTES:
+                served[name] = await http_get(light_addr, route)
+            for route in ("/commit?height=2", "/commit?height=3", "/block?height=3"):
+                direct[route] = await http_get(rpc_addr, route)
+            pages = []
+            for page in range(1, (n + 99) // 100 + 1):
+                st_, _, body, _ = await http_get(rpc_addr,
+                                                 f"/validators?height=3&page={page}&per_page=100")
+                pages += json.loads(body)["result"]["validators"]
+            metrics = await http_get(node.metrics_server.bound_addr, "/metrics")
+            stages["light"] = since(c0)
+            c0 = counters()
+            cli = {}
+            info = Child("abci-info", ["-m", "tendermint_tpu_torch.abci_cli", "--address",
+                                       f"tcp://127.0.0.1:{ports['app']}", "info"], tmp.name)
+            key_tx = next(tx for tx in bursts[2] if tx not in bad_txs and b"\n" not in tx
+                          and b"\r" not in tx)
+            key, value = key_tx.split(b"=", 1)
+            query = Child("abci-query", ["-m", "tendermint_tpu_torch.abci_cli", "--address",
+                                         f"tcp://127.0.0.1:{ports['app']}", "query",
+                                         "0x" + key.hex()], tmp.name)
+            for ch in (info, query):
+                t = time.perf_counter()
+                await ch.start()
+                cli[ch.name] = (await ch.finish(), ch.out, _ms(t))
+            cli["value"] = value.decode(errors="replace")
+            harness = Child("harness", ["-m", "tendermint_tpu_torch.tools.signer_harness",
+                                        "--laddr", f"tcp://127.0.0.1:{ports['harness']}"],
+                            tmp.name)
+            fresh = os.path.join(tmp.name, "fresh-signer")
+            os.makedirs(fresh)
+            signer2 = Child("signer2", ["-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+                                        f"signer_child({fresh!r}, "
+                                        f"'tcp://127.0.0.1:{ports['harness']}'))"], tmp.name)
+            children += [harness, signer2]
+            t = time.perf_counter()
+            await harness.start()
+            await signer2.start()
+            cli["harness"] = (await harness.finish(timeout=CHILD_READY_S), harness.out, _ms(t))
+            cli["signer2"] = (await signer2.finish(), signer2.out, 0.0)
+            stages["after"] = since(c0)
+
+            # -- stop ----------------------------------------------------------------
+            t = time.perf_counter()
+            await node.stop()
+            stop_ms = _ms(t)
+            if (batch_hook.get_verifier() is not batch_hook.host_batch_verify
+                    or batch_hook.get_indexed_verifier() is not None):
+                raise AssertionError("the node's hooks are still installed after its stop")
+            if node.priv_validator.is_running:
+                raise AssertionError("the node's SignerClient is still running after its stop")
+            rcs = {"signer": await signer.finish()}
+            if inproc_light:
+                await light.stop()
+                await primary.close()
+            else:
+                t = time.perf_counter()
+                rcs["light"] = await light.finish(signal.SIGTERM)
+                light_stop_ms = _ms(t)
+            rcs["app"] = await app.finish(signal.SIGINT)
+            out.update(bd_check(node, per_h, proposals, bursts, bad_txs, ours, errors, served,
+                                direct, pages, metrics, cli, rcs, children,
+                                None if inproc_light else light.read_log(),
+                                BLOCK_ID_FLAG_COMMIT, probe))
+        out.update(frames=frames_ok, stages=stages)
+        bd_report(node, per_h, out, rt, sign_ms, served, metrics, cli, rcs, builds, seq0,
+                  heights_s, sign_s, light_s, (stop_ms, light_stop_ms), dev, card)
+        return out
+    finally:
+        for obj, attr, fn in reversed(restore):
+            setattr(obj, attr, fn)
+        probe.close()
+        if node is not None and node.is_running:
+            await node.stop()
+        if inproc_light and light is not None:
+            await light.stop()
+        for ch in children:
+            if ch.proc is not None and ch.rc is None:
+                await ch.finish(signal.SIGKILL, timeout=10)
+        for th in threading.enumerate():  # the engine's background builds and probe
+            if th.name in ("table-build", "table-rebuild", "bv-rtt-probe", "bv-warmup"):
+                th.join()
+        tmp.cleanup()
+
+
+def bd_check(node, per_h, proposals, bursts, bad_txs, ours, errors, served, direct, pages,
+             metrics, cli, rcs, children, light_log, flag_commit, probe):
+    """Phase 14's outcome (see the module docstring, 14).  Returns the
+    counts main() holds the launches to."""
+    import json
+
+    from tendermint_tpu_torch.libs.metrics import MetricsServer
+
+    n = node.state.validators.size()
+    ours_addr, pub = ours.pub_key().address(), ours.pub_key()
+    for h in range(1, BD_HEIGHTS + 1):
+        block, seen = node.block_store.load_block(h), node.block_store.load_seen_commit(h)
+        if block is None or seen is None or seen.round != 0:
+            raise AssertionError(f"height {h} did not commit in round 0")
+        if block.hash() != proposals[h].block_id.hash:
+            raise AssertionError(f"block {h} is not the proposal made for it")
+        if set(block.txs) != {tx for tx in bursts[h] if tx not in bad_txs}:
+            raise AssertionError(f"block {h} does not hold exactly its burst's valid txs")
+        if h > 1:
+            signed = sum(cs.block_id_flag == flag_commit for cs in block.last_commit.signatures)
+            if signed != per_h[h - 1]["last_commit"] or 3 * signed <= 2 * n:
+                raise AssertionError(f"block {h}'s LastCommit has {signed} signatures, not "
+                                     f"what the node held, or not more than 2/3 of {n}")
+    if node.block_store.load_block(CS_OURS_AT).header.proposer_address != ours_addr:
+        raise AssertionError(f"height {CS_OURS_AT} was not proposed by our validator")
+    prop = proposals[CS_OURS_AT]
+    if not pub.verify(prop.sign_bytes(BD_CHAIN), prop.signature):
+        raise AssertionError("our proposal's signature does not verify under the validator key")
+    # our precommits in the LastCommits of blocks 2-3 and block 3's seen commit
+    idx, _ = node.state.validators.get_by_address(ours_addr)
+    for h, commit in [(h, node.block_store.load_block(h + 1).last_commit)
+                      for h in range(1, BD_HEIGHTS)] + [
+            (BD_HEIGHTS, node.block_store.load_seen_commit(BD_HEIGHTS))]:
+        sig = commit.signatures[idx]
+        if sig.validator_address != ours_addr or not pub.verify(
+                commit.vote_sign_bytes(BD_CHAIN, idx), sig.signature):
+            raise AssertionError(f"our precommit for height {h} does not verify")
+    for h in range(1, BD_HEIGHTS + 1):
+        if per_h[h]["last_commit"] + per_h[h]["late"] != n:
+            raise AssertionError(f"height {h}'s precommits did not all land or get refused late")
+    state = node.state_store.load()
+    # the app process, through abci_cli
+    rc, text, _ = cli["abci-info"]
+    want = ["-> last_block_height: 3", f"-> last_block_app_hash: 0x{state.app_hash.hex().upper()}"]
+    if rc != 0 or text.splitlines()[-2:] != want:
+        raise AssertionError(f"abci_cli info gave {rc}: {text!r}, not {want}")
+    rc, text, _ = cli["abci-query"]
+    if rc != 0 or cli_value(text) != cli["value"]:
+        raise AssertionError(f"abci_cli query gave {rc}: {text!r}, not the value "
+                             f"{cli['value']!r}")
+    # what light served is the node's own
+    res = {r: json.loads(s[2]) for r, s in served.items()}
+    if any(served[r][0] != 200 for r in served):
+        raise AssertionError(f"light answered {[(r, s[0]) for r, s in served.items()]}")
+    for name, route in (("commit 2", "/commit?height=2"), ("commit 3", "/commit?height=3")):
+        if (res[name]["result"]["signed_header"]
+                != json.loads(direct[route][2])["result"]["signed_header"]):
+            raise AssertionError(f"light's {route} is not the node's signed header")
+    if res["block 3"]["result"] != json.loads(direct["/block?height=3"][2])["result"]:
+        raise AssertionError("light's block 3 is not the node's")
+    got = res["validators 3"]["result"]
+
+    def no_priority(vs):
+        return [{k: x for k, x in v.items() if k != "proposer_priority"} for v in vs]
+
+    if ((got["block_height"], got["total"]) != (3, n)
+            or no_priority(got["validators"]) != no_priority(pages)):
+        raise AssertionError("light's validator set at 3 is not the node's")
+    status = res["status after"]["result"]
+    if status["chain_id"] != BD_CHAIN or status["latest_trusted_height"] < 3:
+        raise AssertionError(f"light's status is {status}")
+    if res["nope"] != {"jsonrpc": "2.0", "id": -1,
+                       "error": {"code": -32602, "message": "unknown route nope"}}:
+        raise AssertionError(f"light's unknown route gave {res['nope']}")
+    light_account = None
+    if light_log is not None:
+        engine = [ln for ln in light_log.splitlines() if "verify engine device=" in ln]
+        if not engine or "device=cuda" not in engine[0]:
+            raise AssertionError(f"light's engine line is {engine}")
+        light_account = engine_account_of(light_log)
+        launches, paths = light_account["launches"], light_account["paths"]
+        if (not paths or set(paths) & {"host", "host-cold"} or not sum(launches.values())
+                or not launches["ed25519_window_tables"]):
+            raise AssertionError(f"light's checks did not all run on the card: {light_account}")
+    # /metrics: the JAX content type, the node's height and its engine's counters
+    status_, ctype, body, _ = metrics
+    if (status_, ctype) != (200, MetricsServer.CONTENT_TYPE):
+        raise AssertionError(f"/metrics answered {status_} {ctype!r}")
+    series = metric_values(body.decode(), BD_CHAIN)
+    table = [e["hit"] for e in node.flight_recorder.events(kinds=["verify.table"])]
+    got = (series.get("tendermint_consensus_height"),
+           series.get("tendermint_verify_table_cache_hits_total"),
+           series.get("tendermint_verify_table_cache_misses_total"))
+    if got != (float(BD_HEIGHTS), float(sum(table)), float(len(table) - sum(table))):
+        raise AssertionError(f"/metrics says height, table hits, misses {got}, the node "
+                             f"{BD_HEIGHTS}, {sum(table)}, {len(table) - sum(table)}")
+    rc, text, _ = cli["harness"]
+    if rc != 0 or [ln.split(" ")[:2] for ln in text.splitlines()] != [
+            ["PASS", c] for c in ("PubKey", "SignProposal", "SignVote", "DoubleSign")]:
+        raise AssertionError(f"the signer harness gave {rc}: {text!r}")
+    bad_rcs = {k: v for k, v in rcs.items() if v != 0}
+    if bad_rcs or cli["signer2"][0] != 0:
+        raise AssertionError(f"children exited {bad_rcs} (second signer {cli['signer2'][0]})")
+    if errors:
+        raise AssertionError(f"the node logged errors: {errors[:3]}")
+    for ch in children:
+        if ch.errors():
+            raise AssertionError(f"{ch.name} logged errors: {ch.errors()[:3]}")
+    checks = []
+    for h, rec, s0, s1 in probe.vb:
+        if h < 2:
+            continue
+        table = [e["hit"] for e in rec.events(since=s0, kinds=["verify.table"]) if e["seq"] < s1]
+        if len(table) != 1:
+            raise AssertionError(f"a validate_block at height {h} made {len(table)} table "
+                                 "lookups, not 1")
+        checks.append((h, table[0]))
+    log("  validate_block on heights >= 2 (height, table hit): " + ", ".join(
+        f"({h}, {hit})" for h, hit in checks))
+    if checks[0] != (2, False):
+        raise AssertionError("the genesis set's first commit check was not declined")
+    declines = sum(1 for _, hit in checks if not hit)
+    return {"validate_blocks": len(checks), "hits": len(checks) - declines,
+            "declines": declines, "light": light_account}
+
+
+def engine_account_of(log_text) -> dict:
+    """The `verify engine account` line a `light` process logs at exit
+    (cli.engine_account): launches, dispatch paths and table lookups."""
+    import json
+    import re
+
+    lines = [ln for ln in log_text.splitlines() if "verify engine account " in ln]
+    if not lines:
+        raise AssertionError("light logged no engine account at its exit")
+    return {k: json.loads(v) for k, v in re.findall(r"(\w+)=(\{\S*\})", lines[-1])}
+
+
+def cli_value(text) -> str:
+    """The `-> value: ` line's value in abci_cli's output ('' if none)."""
+    for ln in text.splitlines():
+        if ln.startswith("-> value: "):
+            return ln[len("-> value: "):]
+    return ""
+
+
+def metric_values(text, chain_id) -> dict:
+    """Each unlabelled-but-chain_id series of an exposition: name -> value."""
+    out = {}
+    tag = f'{{chain_id="{chain_id}"}}'
+    for ln in text.splitlines():
+        if not ln.startswith("#") and tag in ln:
+            name, _, value = ln.partition(tag)
+            out[name] = float(value)
+    return out
+
+
+def bd_report(node, per_h, out, rt, sign_ms, served, metrics, cli, rcs, builds, seq0,
+              heights_s, sign_s, light_s, stops, dev, card):
+    """Per height and for the phase (see the module docstring, 14)."""
+    log(f"  {out['start']} ({card})")
+    for h in range(1, BD_HEIGHTS + 1):
+        st = per_h[h]
+        kinds = []
+        for kind in ("begin_block", "deliver_tx", "end_block", "commit"):
+            ms = rt.get((h, kind), [])
+            kinds.append(f"{kind} x{len(ms)} {sum(ms):.3f} ms" + (
+                f" (p50 {percentile(ms, 50):.3f} p99 {percentile(ms, 99):.3f})"
+                if len(ms) > 1 else ""))
+        log(f"    height {h}: " + "; ".join(st["lines"]) + f"; LastCommit {st['last_commit']} "
+            f"of {st['last_commit'] + st['late']} precommits, {st['late']} refused as late")
+        log(f"    height {h}: ABCI socket round trips " + ", ".join(kinds) + f" ({card})")
+    for kind in ("proposal", "vote"):
+        ms = sign_ms.get(kind, [])
+        log(f"  remote signer: {len(ms)} {kind}(s), p50 {percentile(ms, 50) if ms else 0:.3f} "
+            f"max {max(ms, default=0.0):.3f} ms ({card})")
+    for b in builds:
+        log(f"    table of {b['validators']} validators on {b['thread']}: host rows "
+            f"{b['rows_ms']:.3f} ms, window tables (kernel 2) "
+            + (f"{b['build_ms']:.3f} ms" if b["build_ms"] is not None else "not built")
+            + f" ({card})")
+    d = node.flight_recorder.events(since=seq0, kinds=["verify.dispatch"])
+    log(f"  heights 1-{BD_HEIGHTS}: {heights_s * 1000:.3f} ms = {BD_HEIGHTS / heights_s:.3f} "
+        f"heights/s (signing and framing the peers' votes {sign_s * 1000:.3f} ms of it); "
+        f"{len(d)} dispatches; {card_memory(dev, node.table_cache)} ({card})")
+    log(f"  light: up in {light_s:.3f} s (its trust root's set paged from the node and "
+        f"verified); " + ", ".join(f"{r} {s[0]} {len(s[2])} B {s[3]:.3f} ms"
+                                   for r, s in served.items()) + f" ({card})")
+    log(f"  /metrics: {len(metrics[2])} B in {metrics[3]:.3f} ms; abci_cli info "
+        f"{cli['abci-info'][2]:.3f} ms, query {cli['abci-query'][2]:.3f} ms (each a process); "
+        f"signer harness {cli['harness'][2]:.3f} ms: "
+        + "; ".join(cli["harness"][1].splitlines()) + f" ({card})")
+    node_ms, light_ms = stops
+    log(f"  stop: node {node_ms:.3f} ms" + (f", light {light_ms:.3f} ms from its SIGTERM"
+                                             if light_ms is not None else "")
+        + f"; exit codes {rcs}")
+    log(f"  launches by stage: {out['stages']}")
+
+
 def kernel_device_ms(fn, names) -> dict:
     """Device ms of each named kernel in one run of fn, from torch.profiler;
     a name is missing where the profiler records no device time for it."""
@@ -6019,7 +6765,7 @@ def main() -> int:
         f"heights >= 2, {out['hits']} table hits, declines by node {out['declines']}, tables "
         f"built {out['tables']}, {out['frames']} vote frames accepted; phase 10 (a) took "
         f"{time.perf_counter() - t0:.3f} s")
-    if out["tables"] != ["table-build", "table-rebuild", "table-build"]:
+    if sorted(out["tables"]) != ["table-build", "table-build", "table-rebuild"]:
         raise AssertionError(f"phase 10 built tables {out['tables']}, not the genesis set's, set "
                              "B's by _valset_watch and set B's by the restarted node")
     if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 3:
@@ -6135,6 +6881,38 @@ def main() -> int:
     if any(stages["tenants"].values()):
         raise AssertionError(f"a kernel launched for answers served from the gateway's store: "
                              f"{stages['tenants']}")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+    log("[14] a validator across its process boundaries: its app behind the ABCI socket "
+        "(abci_cli kvstore), its key in a remote signer process, /metrics, and `light` in "
+        "front of its RPC, at 10,000 validators")
+    ed25519_cuda.LAUNCHES = 0
+    ed25519_table.BUILD_LAUNCHES = 0
+    ed25519_table.SUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = phase_boundary(keys, card, dev)
+    counts = {
+        "ed25519_ladder": ed25519_cuda.LAUNCHES,
+        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
+    }
+    log(f"  launches in phase 14 on the node (light's, in its own process, are not counted): "
+        f"{counts}; {out['validate_blocks']} validate_block calls on heights >= 2, "
+        f"{out['hits']} table hits, {out['declines']} declines, {out['frames']} vote frames "
+        f"accepted; phase 14 took {time.perf_counter() - t0:.3f} s")
+    log(f"  light's engine in its own process (its exit line; not in the kernels line): "
+        f"launches {out['light']['launches']}, dispatch paths {out['light']['paths']}, "
+        f"table lookups {out['light']['tables']}")
+    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 1:
+        raise AssertionError("kernel 2 (window tables) did not build the node's genesis table "
+                             "exactly once in phase 14")
+    if counts[picked] < out["hits"]:
+        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
+                             "in phase 14")
+    if counts["ed25519_ladder"] < out["frames"] + out["declines"]:
+        raise AssertionError("the ladder did not serve every accepted vote frame and the "
+                             "genesis set's declined check in phase 14")
     for name, c in counts.items():
         report[name]["launches"] += c
 

@@ -1,10 +1,10 @@
 """ABCI: the application boundary (the port's copy of tendermint_tpu/abci,
-without the socket and gRPC transports).
+without the gRPC transport, ROADMAP 1.7.5).
 
 Counterpart of the reference `abci/` tree: typed request/response surface
-for the 12 methods (abci/types/types.proto), the in-proc client
-(abci/client/local_client.go), and the kvstore/counter example apps
-(abci/example/).
+for the 12 methods (abci/types/types.proto), in-proc and socket
+client/server (abci/client/, abci/server/), and the kvstore/counter
+example apps (abci/example/).
 """
 
 from .types import (
@@ -35,6 +35,7 @@ from .types import (
     CheckTxType,
     CODE_TYPE_OK,
 )
-from .client import Client, LocalClient
+from .client import Client, LocalClient, SocketClient
+from .server import SocketServer
 
 __all__ = [n for n in dir() if not n.startswith("_")]

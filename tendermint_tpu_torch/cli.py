@@ -3,16 +3,17 @@ commands of a node and its keys).
 
 Reference parity: cmd/tendermint/main.go:16-45 (init, node/run, replay,
 replay_console, gen_validator, gen_node_key, show_validator, show_node_id,
-unsafe_reset_all, version) and the light-client gateway (`liteserve`).
+unsafe_reset_all, lite, version) and the light-client gateway
+(`liteserve`).
 Each command takes the JAX CLI's arguments, prints its lines and returns
 its exit codes.  `node` serves RPC at the home's `rpc.laddr` (and
 state-syncs with `[statesync] enable`), as the JAX node does.  `testnet`
-and `debug` wait for ROADMAP 1.7.7, `light` for 1.7.3, `trace` and
-`trace_net` for the flight spool (ROADMAP 1.8).
+and `debug` wait for ROADMAP 1.7.7, `trace` and `trace_net` for the
+flight spool (ROADMAP 1.8).
 
 argparse plays cobra's role; `python -m tendermint_tpu_torch <cmd>` is the
-binary.  `node` and `liteserve` run their verify engine on the card: `node`
-raises without one, `liteserve` exits 1.
+binary.  `node`, `light` and `liteserve` run their verify engine on the
+card: `node` raises without one, `light` and `liteserve` exit 1.
 """
 
 from __future__ import annotations
@@ -188,6 +189,89 @@ def cmd_replay(args) -> int:
     return 0
 
 
+def _engine_device(command: str):
+    """The card for a command's verify engine, or None after telling the
+    operator that there is none."""
+    from .crypto.batch_verifier import resolve_device
+
+    try:
+        return resolve_device(None)
+    except RuntimeError as e:
+        print(f"{command}: {e}", file=sys.stderr)
+        return None
+
+
+def engine_account(recorder) -> dict:
+    """What a command's verify engine did, for its exit log line: the
+    kernels' launches in this process, its dispatches by path and its table
+    lookups (of the events still in `recorder`'s ring), as compact JSON."""
+    from collections import Counter
+
+    from .ops import ed25519_cuda, ed25519_table
+
+    launches = {"ed25519_ladder": ed25519_cuda.LAUNCHES,
+                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
+    paths = Counter(e["path"] for e in recorder.events(kinds=["verify.dispatch"]))
+    tables = Counter("hit" if e["hit"] else "miss"
+                     for e in recorder.events(kinds=["verify.table"]))
+    return {k: json.dumps(v, sort_keys=True, separators=(",", ":"))
+            for k, v in (("launches", launches), ("paths", dict(paths)),
+                         ("tables", dict(tables)))}
+
+
+def cmd_light(args) -> int:
+    """commands/lite.go — run a light-client proxy against a primary
+    (lite2/proxy.py).  Its client verifies through the crypto.batch hooks
+    of the card's engine (node.install_engine: no AsyncBatchVerifier, so no
+    warmup mode and no host path while the kernel library builds); without
+    a card the command exits 1 before anything starts.  At exit it logs the
+    engine's account (engine_account)."""
+    from .config import Config
+    from .libs.log import get_logger, setup as setup_logging
+    from .libs.tracing import FlightRecorder
+    from .lite2.proxy import run_proxy
+    from .node import install_engine, uninstall_engine
+
+    device = _engine_device("light")
+    if device is None:
+        return 1
+    setup_logging()
+
+    async def _main() -> None:
+        log = get_logger("light")
+        log.info("verify engine", device=device)
+        recorder = FlightRecorder()
+        bv, table_cache = install_engine(Config().tpu, device, recorder=recorder)
+        proxy = asyncio.ensure_future(
+            run_proxy(
+                chain_id=args.chain_id,
+                primary_addr=args.primary,
+                witness_addrs=[w for w in (args.witnesses or "").split(",") if w],
+                laddr=args.laddr,
+                trust_height=args.height,
+                trust_hash=bytes.fromhex(args.hash),
+                trusting_period_s=args.trusting_period,
+            )
+        )
+        loop = asyncio.get_event_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                loop.add_signal_handler(sig, proxy.cancel)
+            except NotImplementedError:  # pragma: no cover — non-unix
+                pass
+        try:
+            await proxy
+        except asyncio.CancelledError:
+            pass
+        finally:
+            uninstall_engine(bv, table_cache)
+            log.info("verify engine account", **engine_account(recorder))
+
+    asyncio.run(_main())
+    return 0
+
+
 def cmd_liteserve(args) -> int:
     """Run the standalone multi-tenant light-client verification gateway
     (liteserve/service.py): lite_* JSON-RPC routes off one shared
@@ -198,14 +282,11 @@ def cmd_liteserve(args) -> int:
     the gateway's cache verifies through); without a card the command
     exits 1 before anything starts."""
     from .config import Config
-    from .crypto.batch_verifier import resolve_device
     from .liteserve.service import run_service
     from .node import build_engine, uninstall_engine
 
-    try:
-        device = resolve_device(None)
-    except RuntimeError as e:
-        print(f"liteserve: {e}", file=sys.stderr)
+    device = _engine_device("liteserve")
+    if device is None:
         return 1
     kwargs = {}
     if args.metrics_laddr:
@@ -304,6 +385,16 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("replay", help="replay the consensus WAL")
     sp.add_argument("--console", action="store_true", help="step interactively")
     sp.set_defaults(fn=cmd_replay)
+
+    sp = sub.add_parser("light", help="run a verifying light-client RPC proxy")
+    sp.add_argument("--chain-id", required=True)
+    sp.add_argument("--primary", required=True, help="primary node RPC address")
+    sp.add_argument("--witnesses", default="", help="comma-separated witness RPC addresses")
+    sp.add_argument("--laddr", default="tcp://127.0.0.1:8888")
+    sp.add_argument("--height", type=int, required=True, help="trusted height")
+    sp.add_argument("--hash", required=True, help="trusted header hash (hex)")
+    sp.add_argument("--trusting-period", type=float, default=168 * 3600)
+    sp.set_defaults(fn=cmd_light)
 
     sp = sub.add_parser(
         "liteserve",

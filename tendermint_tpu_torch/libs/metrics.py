@@ -4,10 +4,12 @@ port's copy of tendermint_tpu/libs/metrics.py, same metric names).
 Without a registry every metric is a no-op.  `prometheus_client` is
 imported only when a registry is passed (a provider built enabled), so the
 node runs where that package is not installed.  The /metrics listener
-(MetricsServer) waits for the RPC stack (ROADMAP 1.7).
+(MetricsServer) serves the exposition over the port's rpc/http.py.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 NAMESPACE = "tendermint"
 
@@ -791,3 +793,47 @@ class MetricsProvider:
 
 def nop_provider(chain_id: str = "") -> MetricsProvider:
     return MetricsProvider(False, chain_id)
+
+
+class MetricsServer:
+    """Standalone /metrics HTTP listener (node/node.go:1121
+    startPrometheusServer flavor) on rpc/http.py: the JAX server's status,
+    body and Content-Type for each request."""
+
+    # the exposition content type Prometheus scrapers negotiate for (text
+    # format version 0.0.4), set verbatim as the JAX server sets it
+    CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+    def __init__(self, provider: MetricsProvider, listen_addr: str):
+        self.provider = provider
+        self.listen_addr = listen_addr
+        self._http = None
+        self.bound_addr: Optional[str] = None
+
+    async def _route(self, req):
+        from ..rpc import http
+
+        if req.path != "/metrics":
+            return http.NOT_FOUND
+        if req.method not in ("GET", "HEAD"):
+            return http.NOT_ALLOWED
+        return 200, self.provider.exposition(), self.CONTENT_TYPE
+
+    async def start(self) -> None:
+        from ..rpc.http import HTTPServer
+
+        server = HTTPServer(self._route, logger="metrics")
+        try:
+            self.bound_addr = await server.start(self.listen_addr)
+        except OSError as e:
+            # a bare EADDRINUSE without the address sends the operator
+            # hunting through every listener the node opens
+            raise OSError(f"metrics server failed to bind {self.listen_addr!r}: {e}") from e
+        self._http = server
+
+    async def stop(self) -> None:
+        # idempotent: node teardown paths may stop twice (error unwind +
+        # on_stop sweep); the second call must be a no-op
+        server, self._http = self._http, None
+        if server is not None:
+            await server.stop()

@@ -5,7 +5,8 @@ verify_commit_trusting (types/validator.py), which route every signature
 batch through the crypto.batch hooks — so a light client syncing a
 10,000-validator chain verifies each header's commit as ONE kernel launch
 on the card (BASELINE config #5).  The RPC-backed providers read a node
-through the port's rpc clients; the lite2 proxy waits for ROADMAP 1.7.3.
+through the port's rpc clients; lite2/proxy.py serves the verified routes
+over HTTP (the CLI's `light`).
 """
 
 from .client import (  # noqa: F401

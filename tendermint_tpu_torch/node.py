@@ -1,8 +1,9 @@
 """Node: dependency-injection assembly of the full node (the port's copy of
 tendermint_tpu/node.py, with the RPC server and its /websocket, the p2p
 stack with PEX and the address book, the STATESYNC, BLOCKCHAIN, CONSENSUS,
-MEMPOOL and EVIDENCE reactors and the embedded liteserve gateway; without
-the gRPC server, the /metrics listener and the chaos layers).
+MEMPOOL and EVIDENCE reactors, the embedded liteserve gateway, an app
+behind the ABCI socket, a remote signer on `priv_validator_laddr` and the
+/metrics listener; without the gRPC server and the chaos layers).
 
 Reference parity: node/node.go (NewNode:556, DefaultNewNode:90,
 OnStart:752; createAndStartProxyAppConns:578, doHandshake:601,
@@ -62,12 +63,7 @@ def check_ported(config: Config) -> None:
     unported = (
         (cfg.p2p.test_fuzz, "p2p.test_fuzz: the p2p link policies", "1.8", "test_fuzz = false"),
         (bool(cfg.rpc.grpc_laddr), f"rpc.grpc_laddr = {cfg.rpc.grpc_laddr!r}: the gRPC server",
-         "1.7.3", 'rpc.grpc_laddr = ""'),
-        (bool(cfg.base.priv_validator_laddr),
-         f"priv_validator_laddr = {cfg.base.priv_validator_laddr!r}: the remote signer", "1.7.4",
-         'priv_validator_laddr = ""'),
-        (cfg.instrumentation.prometheus, "instrumentation.prometheus: the /metrics listener",
-         "1.7.6", "prometheus = false"),
+         "1.7.3, 1.7.5", 'rpc.grpc_laddr = ""'),
         (cfg.chaos.enabled, "chaos.enabled: disk faults, the twin signer and link policies",
          "1.8", "chaos.enabled = false"),
         (cfg.instrumentation.flight_spool,
@@ -97,13 +93,13 @@ def engine_device(config: Config, device=None):
     return resolve_device(device)
 
 
-def build_engine(tpu, device, metrics=None, recorder=None):
-    """The verify engine on `device` as the node builds it from its `[tpu]`
-    section: one BatchVerifier installed as the flat crypto.batch hook, a
-    TableCache on it installed as the indexed hook (tabulated windows
-    auto-profiled on the card) and an AsyncBatchVerifier on it, not yet
-    started (its start puts the verifier in warmup mode)."""
-    from .crypto.batch_verifier import AsyncBatchVerifier, BatchVerifier, TableCache
+def install_engine(tpu, device, metrics=None, recorder=None):
+    """The verify hooks on `device` from a `[tpu]` section: one
+    BatchVerifier installed as the flat crypto.batch hook and a TableCache
+    on it installed as the indexed hook (tabulated windows auto-profiled on
+    the card).  Out of warmup mode: a missing kernel library builds at the
+    first launch and a set's first check builds its table, on the card."""
+    from .crypto.batch_verifier import BatchVerifier, TableCache
 
     bv = BatchVerifier(
         device=device,
@@ -116,6 +112,16 @@ def build_engine(tpu, device, metrics=None, recorder=None):
     table_cache = TableCache(
         bv, tabulated={"auto": None, "on": True, "off": False}[tpu.tabulated],
     ).install()
+    return bv, table_cache
+
+
+def build_engine(tpu, device, metrics=None, recorder=None):
+    """The verify engine as the node builds it: install_engine's hooks and
+    an AsyncBatchVerifier on them, not yet started (its start puts the
+    verifier in warmup mode)."""
+    from .crypto.batch_verifier import AsyncBatchVerifier
+
+    bv, table_cache = install_engine(tpu, device, metrics=metrics, recorder=recorder)
     abv = AsyncBatchVerifier(
         bv,
         max_batch=tpu.max_batch,
@@ -149,15 +155,20 @@ def default_new_node(
     config: Config, genesis_doc: Optional[GenesisDoc] = None, device=None
 ) -> "Node":
     """node/node.go:90 DefaultNewNode — genesis from the config tree, FilePV
-    for signing (the remote signer is ROADMAP 1.7)."""
+    (or a remote signer when priv_validator_laddr is set) for signing."""
     check_ported(config)
     device = engine_device(config, device)
     if genesis_doc is None:
         genesis_doc = GenesisDoc.from_file(config.genesis_file())
-    from .privval.file import load_or_gen_file_pv
+    if config.base.priv_validator_laddr:
+        from .privval import SignerClient
 
-    config.ensure_dirs()
-    pv = load_or_gen_file_pv(config)
+        pv = SignerClient(config.base.priv_validator_laddr)
+    else:
+        from .privval.file import load_or_gen_file_pv
+
+        config.ensure_dirs()
+        pv = load_or_gen_file_pv(config)
     return Node(config, genesis_doc, priv_validator=pv, device=device)
 
 
@@ -239,6 +250,7 @@ class Node(Service):
         self.async_verifier = None
         self.table_cache = None
         self.metrics_provider = None
+        self.metrics_server = None
         self.loop_profiler = None
         self.watchdog = None
         # flight recorder: always constructed (cheap); enabled/size/
@@ -316,6 +328,10 @@ class Node(Service):
                 recorder=self.flight_recorder,
             )
             await self.async_verifier.start()
+        # remote signer: wait for the external signer to dial in BEFORE
+        # consensus needs a pubkey (node/node.go:612-618)
+        if isinstance(self.priv_validator, Service) and not self.priv_validator.is_running:
+            await self.priv_validator.start()
         await self.event_bus.start()
         await self.indexer_service.start()
         await self.proxy_app.start()
@@ -419,6 +435,15 @@ class Node(Service):
             await self._start_p2p(block_exec, do_state_sync)
         else:
             await self.consensus.start()
+        # /metrics listener (node/node.go:1121)
+        if cfg.instrumentation.prometheus:
+            from .libs.metrics import MetricsServer
+
+            self.metrics_server = MetricsServer(
+                self.metrics_provider, cfg.instrumentation.prometheus_listen_addr
+            )
+            await self.metrics_server.start()
+            self.log.info("prometheus metrics", laddr=self.metrics_server.bound_addr)
         if self.loop_profiler is not None:
             self._register_queue_probes()
         # embedded light-client gateway: lite_* routes served off this
@@ -792,6 +817,8 @@ class Node(Service):
             await self.liteserve.stop()
         if self.loop_profiler is not None:
             await self.loop_profiler.stop()
+        if self.metrics_server is not None:
+            await self.metrics_server.stop()
         if self.switch is not None:
             await self.switch.stop()  # stops reactors incl. consensus
         elif self.consensus is not None:
@@ -803,6 +830,8 @@ class Node(Service):
         await self.proxy_app.stop()
         if self.mempool is not None:
             self.mempool.close_wal()
+        if isinstance(self.priv_validator, Service) and self.priv_validator.is_running:
+            await self.priv_validator.stop()
         if self.async_verifier is not None:
             await self.async_verifier.stop()
         if self.batch_verifier is not None:

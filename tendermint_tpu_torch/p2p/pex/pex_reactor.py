@@ -154,6 +154,11 @@ class PEXReactor(Reactor):
                 await self.switch.stop_peer_for_error(peer, "unsolicited pex response")
                 return
             self._requests_sent.discard(peer.id)
+            # the next request waits REQUEST_INTERVAL * 1.5 from this reply,
+            # not from the request: the peer stamped the request when its
+            # loop read it, maybe seconds late, and a send-time spacing then
+            # reaches it under REQUEST_INTERVAL (ROADMAP 3.9)
+            self._last_request_to[peer.id] = self._now()
             addrs = msg.get("addrs") or []
             if not isinstance(addrs, list) or len(addrs) > 250:
                 await self.switch.stop_peer_for_error(peer, "oversized pex response")

@@ -1,7 +1,7 @@
 """Validator signing: the file-backed PV with persisted double-sign
 protection and its Config hook load_or_gen_file_pv (the port's copy of
-tendermint_tpu/privval/file.py).  The remote-signer socket pair
-(privval/signer.py) is ROADMAP 1.7."""
+tendermint_tpu/privval/file.py), and the remote-signer socket pair
+(privval/signer.py)."""
 
 from .file import (  # noqa: F401
     DoubleSignError,
@@ -10,3 +10,4 @@ from .file import (  # noqa: F401
     FilePVLastSignState,
     load_or_gen_file_pv,
 )
+from .signer import RemoteSignerError, SignerClient, SignerServer  # noqa: F401

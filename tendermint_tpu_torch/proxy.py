@@ -1,5 +1,5 @@
 """Proxy: the node's three named connections to one app (the port's copy of
-tendermint_tpu/proxy.py, in-proc apps only).
+tendermint_tpu/proxy.py; the gRPC transport is ROADMAP 1.7.5).
 
 Reference parity: proxy/ (AppConns multi_app_conn.go — consensus/mempool/
 query connections; ClientCreator client.go with local in-proc creators for
@@ -12,7 +12,7 @@ from __future__ import annotations
 import asyncio
 from typing import Callable, Optional
 
-from .abci.client import Client, LocalClient
+from .abci.client import Client, LocalClient, SocketClient
 from .abci.examples import CounterApplication, KVStoreApplication
 from .abci.types import Application, BaseApplication
 from .libs.service import Service
@@ -27,6 +27,17 @@ def local_client_creator(app: Application) -> ClientCreator:
     return lambda: LocalClient(app, lock)
 
 
+def remote_client_creator(address: str, transport: str = "socket") -> ClientCreator:
+    """One SocketClient per connection to the app at `address`
+    (proxy/client.go NewRemoteClientCreator)."""
+    if transport == "grpc":
+        raise NotImplementedError(
+            f"the ABCI grpc client for {address!r} is not ported yet (ROADMAP 1.7.5); "
+            'set abci = "socket"'
+        )
+    return lambda: SocketClient(address)
+
+
 def default_client_creator(
     address: str,
     transport: str = "socket",
@@ -37,7 +48,7 @@ def default_client_creator(
 ) -> ClientCreator:
     """proxy/client.go DefaultClientCreator: builtin names get in-proc
     apps, anything else is a socket (or, per config `abci = "grpc"`,
-    gRPC) address, whose clients are not ported yet.  The node passes
+    gRPC) address.  The node passes
     `app_db` (a KVStore under home/data) so the builtin kvstore survives
     restarts — required for statesync crash recovery, where the restored
     app state must outlive the process — plus the `[statesync]
@@ -59,9 +70,7 @@ def default_client_creator(
         return local_client_creator(CounterApplication(serial=True))
     if address == "noop":
         return local_client_creator(BaseApplication())
-    raise NotImplementedError(
-        f"ABCI {transport} client for {address!r} is not ported yet (ROADMAP 1.7)"
-    )
+    return remote_client_creator(address, transport)
 
 
 class AppConns(Service):

@@ -246,12 +246,15 @@ def test_client_creators_not_ported_raise():
         pproxy.default_client_creator("bank")
     with pytest.raises(ValueError, match="1.8"):
         pproxy.default_client_creator("staking")
-    with pytest.raises(NotImplementedError, match="1.7"):
-        pproxy.default_client_creator("tcp://127.0.0.1:26658")
-    with pytest.raises(NotImplementedError, match="1.7"):
+    with pytest.raises(NotImplementedError, match="1.7.5"):
         pproxy.default_client_creator("unix:///tmp/app.sock", transport="grpc")
-    # the JAX package makes a socket client there
-    assert callable(jproxy.default_client_creator("tcp://127.0.0.1:26658"))
+    # a socket address gives a socket client per connection, as in the JAX
+    # package
+    for proxy, client_mod in ((pproxy, pclient), (jproxy, jclient)):
+        creator = proxy.default_client_creator("tcp://127.0.0.1:26658")
+        client = creator()
+        assert isinstance(client, client_mod.SocketClient) and client is not creator()
+        assert client.address == "tcp://127.0.0.1:26658"
 
 
 def test_port_abci_imports_neither_msgpack_nor_jax():

@@ -27,16 +27,18 @@ def test_phase10_node_end_to_end_on_cpu(monkeypatch):
     monkeypatch.setattr(cs, "NODE_ROTATE", 2)
     out = cs.phase_node(cs.make_keys(7), "cpu", torch.device("cpu"))
     # validate_block at prevote, lock, finalize and in apply_block: 4 per
-    # height at 2-4; at 5, 2 before the stop and 4 after (the replayed
+    # height at 2-3; at 4, 2 before the stop and 4 after (the replayed
     # proposal, lock, finalize, apply_block)
-    assert out["validate_blocks"] == 18
+    assert out["validate_blocks"] == 14
     # the first node declines once (the genesis set's first check); the
     # restarted node's empty TableCache declines set B at least once
     assert out["declines"][0] == 1 and out["declines"][1] >= 1
-    assert out["hits"] == 18 - sum(out["declines"])
-    assert out["tables"] == ["table-build", "table-rebuild", "table-build"]
+    assert out["hits"] == 14 - sum(out["declines"])
+    # set B's rebuild starts after block 1 and the genesis set's build at
+    # height 2's first check: either may finish its rows first
+    assert sorted(out["tables"]) == ["table-build", "table-build", "table-rebuild"]
     assert out["window_builds"] == 0  # the CPU never engages the tables
-    # one prevote and one precommit frame per height (6 peers), 5 heights
-    assert out["frames"] == 10
+    # one prevote and one precommit frame per height (6 peers), 4 heights
+    assert out["frames"] == 8
     assert batch_hook.get_indexed_verifier() is None
     assert loopprof.active() is None

@@ -12,7 +12,10 @@ the JAX package's, tolerance 0.
   other's file into the same buckets.
 - PEXReactor: the request and reply frames are byte-equal, each receiver
   rule stops the peer with the JAX reason, and the ensure-peers step dials
-  what the JAX step dials for the same book and seed.
+  what the JAX step dials for the same book and seed.  One named
+  deviation (ROADMAP 3.9): the port's sender spaces its next request from
+  the reply, so a receiver that read the previous request late does not
+  stop it for a flood, as the JAX pair does.
 - Live nets on 127.0.0.1: two JAX and two port nodes that know only the
   seed mesh by PEX and commit the same blocks (tests/test_pex.py
   test_net_bootstraps_from_single_seed on a mixed net), and a port node in
@@ -454,3 +457,45 @@ async def test_seed_mode_port_node_hangs_up_after_the_crawl(tmp_path, monkeypatc
     finally:
         await tnet._stop([joiner, seed])
         batch_hook.set_verifier(None)
+
+
+async def test_request_spacing_survives_a_late_reader_where_jax_floods(monkeypatch):
+    """ROADMAP 3.9: the receiver stamps a pex_request when its loop reads
+    it.  A first request read 6 s late and a second sent 15 s after the
+    first reach it 9 s apart, under REQUEST_INTERVAL: the JAX sender sends
+    it and is stopped for a flood; the port's sender spaces its next
+    request from the reply, so the receiver serves it."""
+    stopped, served = {}, {}
+    for name, mod, bmod in (("jax", jpexmod, jaddrbook), ("port", ppexmod, paddrbook)):
+        clock = Clock(1000.0)
+        if name == "jax":
+            monkeypatch.setattr(jpexmod, "time", types.SimpleNamespace(monotonic=clock))
+            sender, receiver = (mod.PEXReactor(bmod.AddrBook(strict=False)) for _ in range(2))
+        else:
+            sender, receiver = (mod.PEXReactor(bmod.AddrBook(strict=False), now_fn=clock)
+                                for _ in range(2))
+        for i in range(40, 50):
+            receiver.book.add_address(mk_addr(i), src="s")
+        to_r, to_s = FakePeer("b" * 40, outbound=True), FakePeer("a" * 40)
+        sender.switch, receiver.switch = FakeSwitch([to_r]), FakeSwitch([to_s])
+
+        served[name] = 0
+
+        async def deliver(src_peer, dst, dst_peer):
+            while src_peer.sent:
+                _, frame = src_peer.sent.pop(0)
+                served[name] += dst is sender
+                await dst.receive(0x00, dst_peer, frame)
+
+        await sender._request_addrs(to_r)
+        clock.t += 6.0  # the receiver's loop reads the request late
+        await deliver(to_r, receiver, to_s)
+        await deliver(to_s, sender, to_r)
+        for _ in range(2):
+            clock.t += 9.0  # 15 s after the first request, then 24 s
+            await sender._request_addrs(to_r)
+            await deliver(to_r, receiver, to_s)
+            await deliver(to_s, sender, to_r)
+        stopped[name] = receiver.switch.stopped
+    assert stopped["jax"] == [("a" * 40, "pex request flood")] and served["jax"] == 1
+    assert stopped["port"] == [] and served["port"] == 2
