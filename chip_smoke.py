@@ -230,7 +230,9 @@
    by default_new_node from its home (config.toml at the JAX defaults but
    p2p.laddr on a free local port, PEX off, duplicate IPs allowed since every
    peer is on 127.0.0.1, RPC off, the signed-tx precheck and a mempool of
-   10,000; fast sync on; the FilePV of height 3's round-0 proposer) and
+   10,000, timeout_propose 10 s (B proposes height 5 after hearing height
+   4's commit second-hand, see net_home); fast sync on; the FilePV of
+   height 3's round-0 proposer) and
    instrumented as phase 10's node.  Four relay peers in a process of their
    own (so their packing and sealing is not charged to A), each with its own
    NodeKey, Transport and Switch of the port, dial A as persistent peers;
@@ -431,6 +433,56 @@
    ladder served every accepted frame and the genesis set's decline and
    the profile's pick every table hit.  light's launches happen in its own
    process and are not in the kernels line.
+15. Transactions from outside.  Genesis: phase 3's 10,000 keys at power
+   10 under a chain id of its own (chip-smoke-grpc); our validator, the
+   round-0 proposer of height 2, signs with a FilePV in the node's home.
+   The home is phase 14's without the signer and /metrics (p2p off, the
+   signed-tx precheck, a mempool of 10,000) with `abci = "grpc"`,
+   `proxy_app` the app's address, `rpc.laddr` and `rpc.grpc_laddr` on local
+   ports and `[tpu] min_device_batch = 1` (so the signed-tx lane's flushes
+   of a few txs verify on the card).  Processes: `python -m
+   tendermint_tpu_torch.abci_cli --abci grpc --address tcp://127.0.0.1:<a>
+   kvstore`; the node, default_new_node(load_config(...)) in this process
+   on the card, whose handshake sends InitChain of the 10,000 validators
+   over gRPC; (a) `python -m tendermint_tpu_torch.tools.loadgen <rpc>
+   --connections 8 --rate 1000 --tx-bytes 250 --mode sync --json` (tm-bench's
+   rate and size) for 20 s, heights 1-2, which height 1's proposal waits
+   for (200 of its txs in the mempool); heights 1-4 with the peers'
+   proposals and 64 KB vote frames of the other 9,999 validators as in
+   phase 14, height 2 ours, `timeout_propose` 30 s (the peers' proposals
+   are built after the node's apply of the firehose's block, see gr_home);
+   loadgen's exit is awaited before height 2's precommits, so block 3
+   takes its whole backlog; (b) a BroadcastAPIClient in this process: at
+   height 4's PROPOSE with block 3 applied (an empty pool) and before the
+   proposal, Ping, then BroadcastTx of 8 signed txs with keys of their own
+   and of one envelope with a flipped signature byte, each in a task of
+   its own.
+   Under the firehose the JAX BroadcastTx's fixed 10 s wait for the commit
+   expired (10.2-10.6 s: a height at 10k plus DeliverTx and the recheck of
+   thousands of txs, each a gRPC round trip), and after it while a block
+   held the backlog (10.0 s with 5,959 txs), so (b) follows both.  The run
+   stops at height 5's NEW_HEIGHT.  Then (c) `abci_cli --abci grpc info` and
+   a `query` of one of (b)'s keys, the node stops and the app exits 0 on
+   SIGINT.  Prints the node's start split (InitChain over gRPC apart),
+   per height the txs in its block, what phase 14 prints and the ABCI gRPC
+   round trips by kind (DeliverTx sum, p50/p99), CheckTx over gRPC (new and
+   recheck) p50/p99, validate_block ms, loadgen's JSON line in full, (b)'s
+   round trips with the commit wait apart, each gRPC connection's HTTP/2
+   frames by type and bytes both ways, the signed-tx lane's verify.flush
+   sizes with the engine's dispatches by path, and the launches by stage.
+   Fails unless heights 1-4 commit in round 0 as proposed, every tx in
+   blocks 1-4 is byte for byte one loadgen sent or one of (b)'s 8, all 8
+   are in them, loadgen's accepted equals its txs in blocks 1-4 plus those
+   left in the mempool, its transport errors and rejections are 0 (its
+   throttled may not be), each of the 8 answers check_tx and deliver_tx
+   code 0, the flipped one is refused at CheckTx (the JAX BroadcastTx
+   answers the mempool's "invalid tx signature" as gRPC status 2 UNKNOWN),
+   Ping answers {}, `info` gives height 4 and the node's app hash, `query`
+   the tx's value, every child exits 0, nothing is logged at ERROR by the
+   node's loggers or the children, no flat check ran on the host, and on
+   the card kernel 2 built the genesis table once, the ladder served every
+   signed-tx flush, accepted frame and the genesis set's decline, and the
+   profile's pick every table hit.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -461,6 +513,7 @@ RELAY_SENDERS = 4
 CORRUPT_EVERY = 100  # phase 5: every 100th validator's precommit has a bad signature
 CHAIN_ID = "chip-smoke"
 SIGN_THREADS = min(8, os.cpu_count() or 1)  # key generation and commit signing
+SIGN_POOL_MIN = 2000  # from this many votes on, cs_votes signs in worker processes
 
 # Phase 6: the light client's chain (BASELINE config #5 widths)
 SEC = 1_000_000_000
@@ -1212,7 +1265,8 @@ def phase_ingress(keys, vset, commit, msgs, card, dev):
 
 def sign_commit(vset, key_of, height, bid, ts):
     """A round-0 commit of `height` for `bid` by every validator of `vset`,
-    validator i stamped ts + i, signed on SIGN_THREADS threads."""
+    validator i stamped ts + i, signed by pool_sign from SIGN_POOL_MIN
+    validators on, else on SIGN_THREADS threads."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_COMMIT, Commit, CommitSig
@@ -1220,10 +1274,14 @@ def sign_commit(vset, key_of, height, bid, ts):
     sigs = [CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts + i, b"")
             for i, v in enumerate(vset.validators)]
     unsigned = Commit(height, 0, bid, sigs)
-    jobs = [(key_of[cs.validator_address], unsigned.vote_sign_bytes(CHAIN_ID, i))
-            for i, cs in enumerate(sigs)]
-    with ThreadPoolExecutor(SIGN_THREADS) as ex:
-        raw = list(ex.map(lambda job: job[0].sign(job[1]), jobs, chunksize=512))
+    keys = [key_of[cs.validator_address] for cs in sigs]
+    msgs = [unsigned.vote_sign_bytes(CHAIN_ID, i) for i in range(len(sigs))]
+    if len(keys) >= SIGN_POOL_MIN:
+        raw = pool_sign(keys, msgs)
+    else:
+        with ThreadPoolExecutor(SIGN_THREADS) as ex:
+            raw = list(ex.map(lambda job: job[0].sign(job[1]), zip(keys, msgs),
+                              chunksize=512))
     return Commit(height, 0, bid, [CommitSig(BLOCK_ID_FLAG_COMMIT, cs.validator_address,
                                              cs.timestamp_ns, r) for cs, r in zip(sigs, raw)])
 
@@ -2652,8 +2710,10 @@ def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns, skip=(),
              chain_id=CHAIN_ID):
     """The other validators' votes of `kind` for (h, r) on bid (the zero id
     for nil), but those of the addresses in `skip`, stamped as _vote_time
-    stamps them, signed on SIGN_THREADS threads, with their wire bytes; and
-    their sign bytes."""
+    stamps them, signed (pool_sign from SIGN_POOL_MIN votes on, else on
+    SIGN_THREADS threads), with their wire bytes; and their sign bytes,
+    which are one message for them all (a vote's sign bytes name no
+    validator)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tendermint_tpu_torch.types.vote import Vote
@@ -2662,14 +2722,57 @@ def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns, skip=(),
     ts = max(now, block.time_ns + iota_ns) if block is not None else now
     votes = [Vote(kind, h, r, bid, ts, v.address, i) for i, v in enumerate(vals.validators)
              if v.address != ours_addr and v.address not in skip]
-    msgs = [v.sign_bytes(chain_id) for v in votes]
-    with ThreadPoolExecutor(SIGN_THREADS) as ex:
-        sigs = list(ex.map(lambda j: key_of[j[0].validator_address].sign(j[1]),
-                           zip(votes, msgs), chunksize=512))
+    msg = votes[0].sign_bytes(chain_id) if votes else b""
+    keys = [key_of[v.validator_address] for v in votes]
+    if len(votes) >= SIGN_POOL_MIN:
+        sigs = pool_sign(keys, [msg] * len(keys))
+    else:
+        with ThreadPoolExecutor(SIGN_THREADS) as ex:
+            sigs = list(ex.map(lambda k: k.sign(msg), keys, chunksize=512))
     for v, s in zip(votes, sigs):
         v.signature = s
         v.wire()
-    return votes, msgs
+    return votes, [msg] * len(votes)
+
+
+_SIGN_POOL = []  # the worker processes of pool_sign, made at its first call
+
+
+def pool_sign(keys, msgs):
+    """Each key's signature of its message, made by worker processes on
+    half the cores (spawned at the first call, shut down at exit; the
+    phases' other processes, B, the relays and the apps, keep the rest)
+    through the host-prep C library: threads scale poorly on the ctypes
+    call, and the node's loop runs meanwhile."""
+    import atexit
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    if not _SIGN_POOL:
+        _SIGN_POOL.append(ProcessPoolExecutor(
+            max(1, SIGN_THREADS // 2), mp_context=multiprocessing.get_context("spawn")))
+        atexit.register(_SIGN_POOL[0].shutdown)
+    jobs = [(k.bytes(), k.pub_key().bytes(), m) for k, m in zip(keys, msgs)]
+    n = -(-len(jobs) // (SIGN_THREADS * 4))
+    futs = [_SIGN_POOL[0].submit(sign_chunk, jobs[i:i + n]) for i in range(0, len(jobs), n)]
+    return [s for f in futs for s in f.result()]
+
+
+def sign_chunk(jobs):
+    """pool_sign's worker: the signature of each (seed, public key, message)."""
+    import ctypes
+
+    sys.path.insert(0, HERE)
+    from tendermint_tpu_torch.crypto import hostprep
+
+    lib = hostprep._load_lib()
+    if lib is None:
+        raise RuntimeError("the host-prep C library did not build")
+    out, buf = [], ctypes.create_string_buffer(64)
+    for seed, pub, msg in jobs:
+        lib.ed25519_sign(seed, pub, msg, len(msg), buf)
+        out.append(buf.raw)
+    return out
 
 
 def cut_frames(votes):
@@ -3316,7 +3419,7 @@ def loop_split(rec, t0, t1) -> str:
 
 
 async def drive_heights(node, v, top, key_of, ours_addr, burst, per_h, proposals, card,
-                        chain_id=CHAIN_ID, on_precommitted=None):
+                        chain_id=CHAIN_ID, on_precommitted=None, before_propose=None):
     """Heights 1 .. top of one node's consensus (`v` its CsWatch view)
     under phase 9's traffic, phases 10 (a) and 14; height 1's burst is
     already in its mempool.  Each height: a peer's proposal (built by
@@ -3329,8 +3432,13 @@ async def drive_heights(node, v, top, key_of, ours_addr, burst, per_h, proposals
     with the loop profiler's split.  `on_precommitted(h, node, v)`,
     awaited once our precommit for h is signed and the next burst is in,
     may replace the node (phase 10's restart) by returning the (node,
-    view) to go on with.  Returns (node, view, the s spent signing and
-    framing the peers' votes, the frames sent)."""
+    view) to go on with.  `before_propose(h, node, v)` is awaited once the
+    node is at height h's PROPOSE, before a peer's proposal is built.
+    Returns (node, view, the s spent signing and
+    framing the peers' votes (on a thread, the loop running), the frames
+    sent)."""
+    import asyncio
+
     from tendermint_tpu_torch.consensus.types import RoundStep
     from tendermint_tpu_torch.types.block import BlockID, Commit
     from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
@@ -3349,6 +3457,8 @@ async def drive_heights(node, v, top, key_of, ours_addr, burst, per_h, proposals
             per_h[h - 1]["split"] = loop_split(node.flight_recorder, *per_h[h - 1]["window"])
         proposer = v.cs.rs.validators.get_proposer().address
         who = "ours" if proposer == ours_addr else "peer"
+        if before_propose is not None:
+            await before_propose(h, node, v)
         if who == "peer":
             prop, parts, build_ms = await cs_build(v, key_of[proposer], h, 0, BlockID, Commit,
                                                    Proposal, BLOCK_PART_SIZE_BYTES,
@@ -3370,12 +3480,15 @@ async def drive_heights(node, v, top, key_of, ours_addr, burst, per_h, proposals
             f"{(w.signed[(h, 0, PREVOTE_TYPE)][0] - w.complete[(h, 0)]) * 1000:.3f} ms")
         nv = rs.validators.size()
         t_s = time.perf_counter()
-        pv_frames = cs_frames(rs.validators, *cs_votes(
-            rs.validators, key_of, ours_addr, PREVOTE_TYPE, h, 0, block, bid, iota_ns,
-            chain_id=chain_id))
-        pc_frames = cs_frames(rs.validators, *cs_votes(
-            rs.validators, key_of, ours_addr, PRECOMMIT_TYPE, h, 0, block, bid, iota_ns,
-            chain_id=chain_id))
+
+        def sign_frames(kind):
+            return cs_frames(rs.validators, *cs_votes(
+                rs.validators, key_of, ours_addr, kind, h, 0, block, bid, iota_ns,
+                chain_id=chain_id))
+
+        # on a thread: the node's loop goes on serving its RPC and apps meanwhile
+        pv_frames, pc_frames = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: (sign_frames(PREVOTE_TYPE), sign_frames(PRECOMMIT_TYPE)))
         sign_s += time.perf_counter() - t_s
         seq, add0, wal0 = next_seq(node.flight_recorder), len(v.add_ms), len(v.wal_ms)
         t_sent = await cs_send(v, pv_frames)
@@ -3864,6 +3977,7 @@ NET_JOIN_AT = 4  # the relays hold this height's votes until A sees B at it
 NET_B_AT = 5  # B's validator is this height's round-0 proposer
 NET_BAD_AT = 4  # a flipped precommit frame and a conflicting prevote
 NET_RELAYS = 4  # relay peers standing in for the other validators
+NET_TIMEOUT_PROPOSE = 10.0  # s: B proposes 5 after it hears height 4's commit through A (net_home)
 NET_LOGGERS = NODE_LOGGERS + ("p2p", "mconn", "cs-reactor", "fastsync", "mempool-reactor",
                               "evidence-reactor", "evidence", "p2p-transport")
 SS_SNAPSHOT_INTERVAL = 2  # phase 11's nodes leave app snapshots at even heights (phase 12)
@@ -4200,9 +4314,15 @@ def net_home(home, gen, key, peers=""):
     allowed (every peer is on 127.0.0.1), RPC off, the signed-tx precheck
     with its journal and a mempool of 10,000, app snapshots every 2 heights
     (the JAX defaults keep 2, in chunks of 65,536 bytes; phase 12 restores
-    one), and `peers` as persistent peers; the genesis file; the FilePV
-    files of `key`; the node key.  Returns the config file's path and the
-    node id."""
+    one), `timeout_propose = NET_TIMEOUT_PROPOSE` and `peers` as persistent
+    peers; the genesis file; the FilePV files of `key`; the node key.
+    Returns the config file's path and the node id.
+
+    B hears every vote of height 4 second-hand, through A's gossip, so it
+    commits 4 1-3.3 s after A does (on the H100's host), and then has its
+    own COMMIT -> PROPOSE window (~3 s at 10k) before it proposes 5: its
+    proposal reaches A 3-5.3 s into A's round, past the default 3 s
+    `timeout_propose`, at which A would prevote nil."""
     from tendermint_tpu_torch.config import Config, save_config
     from tendermint_tpu_torch.p2p import NodeKey
     from tendermint_tpu_torch.privval import FilePV, FilePVKey, FilePVLastSignState
@@ -4216,6 +4336,7 @@ def net_home(home, gen, key, peers=""):
     cfg.mempool.wal_dir = "data/mempool.wal"
     cfg.mempool.size = ABCI_MEMPOOL
     cfg.statesync.snapshot_interval = SS_SNAPSHOT_INTERVAL
+    cfg.consensus.timeout_propose = NET_TIMEOUT_PROPOSE
     cfg.ensure_dirs()
     path = os.path.join(home, "config", "config.toml")
     save_config(cfg, path)
@@ -4653,7 +4774,9 @@ async def net_run(keys, card, dev, b_inproc, keep_homes=False):
                 bid = BlockID(block.hash(), rs.proposal_block_parts.header())
                 st["who"] = who
                 st["lines"].append(
-                    f"proposer {who}: {len(block.txs)} txs; proposal complete -> A's prevote "
+                    f"proposer {who}: {len(block.txs)} txs; proposal complete "
+                    f"{w.complete[(h, 0)] - round_start(h):+.3f} s into A's round 0 (timeout_propose "
+                    f"{NET_TIMEOUT_PROPOSE} s); proposal complete -> A's prevote "
                     f"{(w.signed[(h, 0, PREVOTE_TYPE)][0] - w.complete[(h, 0)]) * 1000:.3f} ms")
                 if h == NET_JOIN_AT:
                     # hold the votes until A sees B at this height: from here
@@ -6196,7 +6319,7 @@ async def boundary_run(keys, card, dev, inproc_light):
                 node, v, BD_HEIGHTS, key_of, ours_addr, burst, per_h, proposals, card,
                 chain_id=BD_CHAIN)
             heights_s = time.perf_counter() - t_heights
-            if v.cs._delivery_task is not None:  # block 3's pipelined apply
+            if v.cs._delivery_task is not None:  # the last block's pipelined apply
                 await asyncio.wait({v.cs._delivery_task})
             stages["heights"] = since(c0)
             c0 = counters()
@@ -6507,6 +6630,494 @@ def bd_report(node, per_h, out, rt, sign_ms, served, metrics, cli, rcs, builds, 
     log(f"  stop: node {node_ms:.3f} ms" + (f", light {light_ms:.3f} ms from its SIGTERM"
                                              if light_ms is not None else "")
         + f"; exit codes {rcs}")
+    log(f"  launches by stage: {out['stages']}")
+
+
+GR_HEIGHTS = 4  # phase 15: heights 1 .. 4 commit; the run stops at height 5's NEW_HEIGHT
+GR_OURS_AT = 2  # our validator is this height's round-0 proposer
+GR_BROADCAST_AT = 4  # (b)'s txs go out before this height's proposal, after the firehose's
+                     # backlog went into the block before it
+GR_CHAIN = "chip-smoke-grpc"
+GR_RATE = 1000  # tm-bench's default -r (tx/s offered, all connections)
+GR_TX_BYTES = 250  # tm-bench's default -s
+GR_CONNECTIONS = 8  # loadgen's own default (tm-bench's is 1)
+GR_LOAD_S = 20.0  # loadgen's --duration: heights 1-2 (19.8-21.4 s at 10k on the H100)
+GR_FIRST = 200  # height 1's proposal waits for this many of loadgen's txs in the mempool
+GR_BROADCAST = 8  # BroadcastTx txs with keys of their own, plus one with a flipped signature byte
+GR_MIN_DEVICE_BATCH = 1  # [tpu] min_device_batch: every signed-tx flush verifies on the card
+GR_TIMEOUT_PROPOSE = 30.0  # s: the peers' proposals come after the node's apply (see gr_home)
+GR_LOGGERS = NODE_LOGGERS + ("abci-grpc", "http2", "mempool", "state", "rpc", "rpc.server",
+                             "rpc.grpc")
+
+
+def gr_home(home, gen, ours, ports):
+    """Phase 15's node home: config.toml by save_config at the JAX defaults
+    but p2p off, the app over gRPC (`abci = "grpc"`), RPC and the
+    BroadcastAPI on local ports, the signed-tx precheck and a mempool of
+    10,000 as phase 8's, and `[tpu] min_device_batch = GR_MIN_DEVICE_BATCH`
+    (1: the signed-tx lane's flushes of a few txs verify on the card, where
+    the JAX default of 16 sends them to the host), and `timeout_propose =
+    GR_TIMEOUT_PROPOSE`: a peer's proposal is built from the node's own
+    state once it has applied the previous block (cs_build), and the
+    firehose's block takes longer to apply over gRPC (~5,000 DeliverTx)
+    than the default 3 s; a flight recorder that holds the whole phase's
+    events; our validator's FilePV; the genesis file."""
+    from tendermint_tpu_torch.config import Config, save_config
+    from tendermint_tpu_torch.privval import FilePV, FilePVKey, FilePVLastSignState
+
+    cfg = Config(home=home)
+    cfg.base.chain_id = GR_CHAIN
+    cfg.base.abci = "grpc"
+    cfg.base.proxy_app = f"tcp://127.0.0.1:{ports['app']}"
+    cfg.p2p.laddr = "none"
+    cfg.rpc.laddr = f"tcp://127.0.0.1:{ports['rpc']}"
+    cfg.rpc.grpc_laddr = f"tcp://127.0.0.1:{ports['grpc']}"
+    cfg.mempool.sig_precheck = True
+    cfg.mempool.size = ABCI_MEMPOOL
+    cfg.tpu.min_device_batch = GR_MIN_DEVICE_BATCH
+    cfg.consensus.timeout_propose = GR_TIMEOUT_PROPOSE
+    cfg.instrumentation.flight_recorder_size = 1 << 17  # the phase counts every flush in it
+    cfg.ensure_dirs()
+    FilePV(FilePVKey(ours.pub_key().address(), ours.pub_key(), ours,
+                     cfg.priv_validator_key_file()),
+           FilePVLastSignState(file_path=cfg.priv_validator_state_file())).save()
+    path = os.path.join(home, "config", "config.toml")
+    save_config(cfg, path)
+    gen.save_as(cfg.genesis_file())
+    return path
+
+
+def loadgen_tx(tx):
+    """(worker, seq) when `tx` is byte for byte the envelope loadgen sends
+    as that worker's seq-th tx, else None."""
+    import re
+
+    from tendermint_tpu_torch.mempool import parse_signed_tx
+    from tendermint_tpu_torch.tools.loadgen import make_tx, worker_key
+
+    env = parse_signed_tx(tx)
+    m = env and re.match(rb"ld(\d+)\.(\d+)=", env[3])
+    if not m:
+        return None
+    w, seq = int(m.group(1)), int(m.group(2))
+    if w >= GR_CONNECTIONS or make_tx(worker_key(w), w, seq, GR_TX_BYTES) != tx:
+        return None
+    return w, seq
+
+
+def phase_grpc(keys, card, dev):
+    """One validator of the 10,000-validator set fed from outside (see the
+    module docstring, 15).  Returns the launches' denominators and the
+    stages' launches."""
+    import asyncio
+
+    return asyncio.run(grpc_run(keys, card, dev))
+
+
+async def grpc_run(keys, card, dev):
+    import asyncio
+    import signal
+    import tempfile
+    import threading
+
+    from tendermint_tpu_torch.abci.grpc import GRPCClient
+    from tendermint_tpu_torch.abci.types import CheckTxType
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
+    from tendermint_tpu_torch.mempool import SIGNED_TX_PREFIX, make_signed_tx
+    from tendermint_tpu_torch.node import default_new_node
+    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
+    from tendermint_tpu_torch.rpc.grpc import RpcError
+    from tendermint_tpu_torch.rpc.grpc_api import BroadcastAPIClient
+    from tendermint_tpu_torch.state import make_genesis_state
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.tx import tx_hash
+
+    def counters():
+        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
+                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
+
+    def since(c0):
+        return {k: v - c0[k] for k, v in counters().items()}
+
+    gen = GenesisDoc(GR_CHAIN, genesis_time_ns=time.time_ns(), validators=[
+        GenesisValidator(k.pub_key().address(), k.pub_key(), 10) for k in keys])
+    vals = make_genesis_state(gen).validators.copy()
+    vals.increment_proposer_priority(GR_OURS_AT - 1)
+    key_of = {k.pub_key().address(): k for k in keys}
+    ours = key_of[vals.get_proposer().address]
+    ours_addr = ours.pub_key().address()
+    btxs = [make_signed_tx(Ed25519PrivKey.from_secret(b"broadcast-%d" % i),
+                           b"bcast%d=value-%d" % (i, i)) for i in range(GR_BROADCAST)]
+    flipped = bytearray(make_signed_tx(Ed25519PrivKey.from_secret(b"broadcast-bad"),
+                                       b"bcastbad=value"))
+    flipped[len(SIGNED_TX_PREFIX) + 32 + 7] ^= 0x01  # a byte of the signature
+    flipped = bytes(flipped)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-grpc-")
+    ports = {k: free_port() for k in ("rpc", "grpc", "app")}
+    app_addr = f"tcp://127.0.0.1:{ports['app']}"
+    cfg_path = gr_home(os.path.join(tmp.name, "node"), gen, ours, ports)
+    app = Child("app", ["-m", "tendermint_tpu_torch.abci_cli", "--abci", "grpc", "--address",
+                        app_addr, "kvstore"], tmp.name)
+    children = [app]
+    probe = NodeProbe()
+    builds, per_h, proposals, out, stages = [], {}, {}, {}, {}
+    rt = collections.defaultdict(list)  # (height or "check_tx", kind) -> ms of each gRPC call
+    cur = {"h": 0}
+    device = None if dev.type == "cuda" else dev  # the entry point's default is the card
+    restore = [(GRPCClient, "_call", GRPCClient._call)]
+    call = restore[0][2]
+
+    async def timed_call(client, kind, req):
+        if kind == "begin_block":
+            cur["h"] = req.header["height"]
+        t = time.perf_counter()
+        try:
+            return await call(client, kind, req)
+        finally:
+            if kind == "check_tx":
+                rt[("check_tx", "recheck" if req.type == CheckTxType.RECHECK else "new")].append(
+                    _ms(t))
+            else:
+                rt[(cur["h"], kind)].append(_ms(t))
+
+    GRPCClient._call = timed_call
+    start_t = StepTimer()
+    restore.append((GRPCClient, "init_chain", start_t.wrap(GRPCClient, "init_chain")))
+    client = BroadcastAPIClient(f"tcp://127.0.0.1:{ports['grpc']}")
+    bcast, load = {"tasks": []}, {}
+
+    async def one_broadcast(tx):
+        t = time.perf_counter()
+        try:
+            res = await client.broadcast_tx(tx)
+        except RpcError as e:
+            res = e
+        return res, _ms(t)
+
+    async def burst(node, hb):
+        """drive_heights' hook after our precommit of hb - 1: before the
+        height ahead of GR_BROADCAST_AT, wait for the firehose's end
+        (loadgen's exit), so that height's block takes all its backlog."""
+        if hb == GR_BROADCAST_AT - 1:
+            load["rc"] = await load["child"].finish(timeout=GR_LOAD_S + CHILD_READY_S)
+            load["s"] = time.perf_counter() - load["t0"]
+
+    async def before_propose(h, node, v):
+        """(b): at GR_BROADCAST_AT's PROPOSE, once the previous block (the
+        firehose's backlog) is applied and before the proposal, so the
+        pool is empty, Ping, then BroadcastTx of the 8
+        and of the flipped envelope, each awaited in a task of its own;
+        returns once the 8 are in the mempool and the flipped one was
+        refused."""
+        if h != GR_BROADCAST_AT:
+            return
+        if v.cs._delivery_task is not None:
+            await asyncio.wait({v.cs._delivery_task})
+        t = time.perf_counter()
+        out["ping"] = (await client.ping(), _ms(t))
+        t = time.perf_counter()
+        bcast["pool_at_send"] = node.mempool.size()
+        bcast["tasks"] = [asyncio.ensure_future(one_broadcast(tx)) for tx in btxs + [flipped]]
+        want = {tx_hash(tx) for tx in btxs}
+
+        async def in_pool():
+            return want <= set(node.mempool.txs) and bcast["tasks"][-1].done()
+
+        await until(in_pool, "the BroadcastTx txs in the mempool", CHILD_READY_S)
+        bcast["in_pool_ms"] = _ms(t)
+
+    node = None
+    try:
+        with consensus_errors(GR_LOGGERS) as errors, table_timing(None, builds, dev):
+            app_s = await app.start(ready="ABCI KVStoreApplication serving on")
+            c0 = counters()
+            probe.start.reset()
+            t = time.perf_counter()
+            node = default_new_node(load_config(cfg_path), device=device)
+            new_ms = _ms(t)
+            probe.rec = node.flight_recorder
+            t = time.perf_counter()
+            await node.start()
+            start_ms = _ms(t)
+            stages["start"] = since(c0)
+            c0 = counters()
+            seq0 = next_seq(node.flight_recorder)
+            bv = node.batch_verifier
+            if bv.device.type != dev.type:
+                raise AssertionError(f"the node's engine runs on {bv.device}, not {dev}")
+            if (batch_hook.get_verifier() != bv.verify
+                    or batch_hook.get_indexed_verifier() != node.table_cache.verify_indexed):
+                raise AssertionError("the installed hooks are not the node's engine")
+            conns = {name: getattr(node.proxy_app, name)()
+                     for name in ("consensus", "mempool", "query")}
+            if not all(isinstance(c, GRPCClient) for c in conns.values()):
+                raise AssertionError("the node's app connections are not ABCI gRPC clients")
+            if node.grpc_server is None or not node.grpc_server.bound_addr:
+                raise AssertionError("the node serves no BroadcastAPI")
+            sm = probe.start.ms
+            out["start"] = (
+                f"app server (gRPC) ready in {app_s:.3f} s; default_new_node {new_ms:.3f} ms; "
+                f"start {start_ms:.3f} ms: engine (install {sm.get('install', 0.0):.3f} ms + lane "
+                f"start {sm.get('lane_start', 0.0):.3f} ms), handshake "
+                f"{sm.get('handshake', 0.0):.3f} ms (InitChain of {len(keys)} validators over gRPC "
+                f"{start_t.ms['init_chain']:.3f} ms), consensus start "
+                f"{sm.get('consensus_start', 0.0):.3f} ms")
+            v = probe.views[-1]
+            await client.start()
+            # (a) the firehose, in its own process
+            rpc_addr = node.rpc_server.listen_addr
+            loadgen = Child("loadgen", [
+                "-m", "tendermint_tpu_torch.tools.loadgen", rpc_addr, "--connections",
+                str(GR_CONNECTIONS), "--rate", str(GR_RATE), "--tx-bytes", str(GR_TX_BYTES),
+                "--mode", "sync", "--duration", str(GR_LOAD_S), "--json"], tmp.name)
+            children.append(loadgen)
+            load.update(child=loadgen, t0=time.perf_counter())
+            t = time.perf_counter()
+            await loadgen.start()
+            async def first_txs():
+                if loadgen.proc.returncode is not None:
+                    await loadgen.finish()
+                    raise AssertionError(f"loadgen exited {loadgen.rc}: {loadgen.out[-2000:]} "
+                                         f"{loadgen.read_log()[-3000:]}")
+                return node.mempool.size() >= GR_FIRST
+
+            await until(first_txs, f"{GR_FIRST} of loadgen's txs in the mempool", CHILD_READY_S)
+            out["first_s"] = time.perf_counter() - t
+            t_heights = time.perf_counter()
+            node, v, sign_s, frames_ok = await drive_heights(
+                node, v, GR_HEIGHTS, key_of, ours_addr, burst, per_h, proposals, card,
+                chain_id=GR_CHAIN, before_propose=before_propose)
+            heights_s = time.perf_counter() - t_heights
+            if v.cs._delivery_task is not None:  # the last block's pipelined apply
+                await asyncio.wait({v.cs._delivery_task})
+            answers = await asyncio.gather(*bcast["tasks"])
+            stages["heights"] = since(c0)
+            c0 = counters()
+            rcs = {"loadgen": load["rc"]}
+            load_line = loadgen.out.strip().splitlines()[-1] if loadgen.out.strip() else "{}"
+            load_s = load["s"]
+            pool = [m.tx for m in node.mempool.txs.values()]
+            # (c) abci_cli over gRPC against the app
+            cli = {}
+            # the kvstore's key is the whole tx up to its first "=" (envelope included)
+            key, value = next(tx.split(b"=", 1) for tx in btxs
+                              if tx.split(b"=", 1)[1].startswith(b"value-"))
+            for name, argv in (("abci-info", ["info"]), ("abci-query", ["query", "0x" + key.hex()])):
+                ch = Child(name, ["-m", "tendermint_tpu_torch.abci_cli", "--abci", "grpc",
+                                  "--address", app_addr] + argv, tmp.name)
+                children.append(ch)
+                t = time.perf_counter()
+                await ch.start()
+                cli[name] = (await ch.finish(), ch.out, _ms(t))
+            cli["value"] = value.decode()
+            h2 = {f"proxy {name}": c.channel.stats() for name, c in conns.items()}
+            h2["broadcast client"] = client.channel.stats()
+            h2["broadcast server"] = [c.stats() for c in node.grpc_server.server.connections]
+            await client.stop()
+            stages["after"] = since(c0)
+            if node.flight_recorder.dropped:
+                raise AssertionError("the flight recorder dropped events: the lane's counts "
+                                     "would be short")
+            lane = {"flushes": [e["batch"] for e in node.flight_recorder.events(
+                since=seq0, kinds=["verify.flush"])],
+                    "paths": collections.Counter(e["path"] for e in node.flight_recorder.events(
+                        since=seq0, kinds=["verify.dispatch"]))}
+            t = time.perf_counter()
+            await node.stop()
+            stop_ms = _ms(t)
+            if (batch_hook.get_verifier() is not batch_hook.host_batch_verify
+                    or batch_hook.get_indexed_verifier() is not None):
+                raise AssertionError("the node's hooks are still installed after its stop")
+            rcs["app"] = await app.finish(signal.SIGINT)
+            out.update(frames=frames_ok, stages=stages)
+            vb_ms = {k[1]: round(ms, 3) for k, ms in probe.timer.ms.items()
+                     if isinstance(k, tuple) and k[0] == "validate_block"}
+            try:
+                out.update(gr_check(node, per_h, proposals, btxs, flipped, answers, load_line,
+                                    pool, cli, rcs, children, errors, lane, out["ping"][0],
+                                    probe))
+            finally:  # the numbers, also of a run whose checks failed
+                gr_report(node, per_h, out, rt, answers, bcast, load_line, pool, cli, h2, lane,
+                          builds, vb_ms, heights_s, sign_s, load_s, stop_ms, dev, card)
+        return out
+    finally:
+        for obj, attr, fn in reversed(restore):
+            setattr(obj, attr, fn)
+        probe.close()
+        if client.is_running:
+            await client.stop()
+        if node is not None and node.is_running:
+            await node.stop()
+        for ch in children:
+            if ch.proc is not None and ch.rc is None:
+                await ch.finish(signal.SIGKILL, timeout=10)
+        for th in threading.enumerate():  # the engine's background builds and probe
+            if th.name in ("table-build", "table-rebuild", "bv-rtt-probe", "bv-warmup"):
+                th.join()
+        tmp.cleanup()
+
+
+def gr_check(node, per_h, proposals, btxs, flipped, answers, load_line, pool, cli, rcs,
+             children, errors, lane, ping, probe):
+    """Phase 15's outcome (see the module docstring, 15).  Returns the
+    counts main() holds the launches to."""
+    import json
+
+    from tendermint_tpu_torch.rpc.grpc import RpcError, StatusCode
+    from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_COMMIT
+
+    n = node.state.validators.size()
+    b_in, a_in = set(), 0
+    for h in range(1, GR_HEIGHTS + 1):
+        block, seen = node.block_store.load_block(h), node.block_store.load_seen_commit(h)
+        if block is None or seen is None or seen.round != 0:
+            raise AssertionError(f"height {h} did not commit in round 0")
+        if block.hash() != proposals[h].block_id.hash:
+            raise AssertionError(f"block {h} is not the proposal made for it")
+        for tx in block.txs:
+            if tx in btxs:
+                b_in.add(tx)
+            elif loadgen_tx(tx) is not None:
+                a_in += 1
+            else:
+                raise AssertionError(f"block {h} holds a tx neither loadgen nor BroadcastTx sent: "
+                                     f"{tx[:48]!r}")
+        if h > 1:
+            signed = sum(cs.block_id_flag == BLOCK_ID_FLAG_COMMIT
+                         for cs in block.last_commit.signatures)
+            if signed != per_h[h - 1]["last_commit"] or 3 * signed <= 2 * n:
+                raise AssertionError(f"block {h}'s LastCommit has {signed} signatures, not what "
+                                     f"the node held, or not more than 2/3 of {n}")
+    ours_addr = node.priv_validator.address()
+    if node.block_store.load_block(GR_OURS_AT).header.proposer_address != ours_addr:
+        raise AssertionError(f"height {GR_OURS_AT} was not proposed by our validator")
+    if b_in != set(btxs):
+        raise AssertionError(f"{len(b_in)} of the {len(btxs)} BroadcastTx txs are in blocks "
+                             f"1-{GR_HEIGHTS}")
+    for h in range(1, GR_HEIGHTS + 1):
+        if per_h[h]["last_commit"] + per_h[h]["late"] != n:
+            raise AssertionError(f"height {h}'s precommits did not all land or get refused late")
+    # (a): loadgen's split against the chain and the mempool
+    load = json.loads(load_line)
+    a_pool = sum(1 for tx in pool if loadgen_tx(tx) is not None)
+    if load.get("transport_errors") != 0 or load.get("rejected") != 0:
+        raise AssertionError(f"loadgen had transport errors or rejections: {load_line}")
+    if load.get("accepted") != a_in + a_pool:
+        raise AssertionError(f"loadgen's accepted {load.get('accepted')} is not its txs in blocks "
+                             f"1-{GR_HEIGHTS} ({a_in}) plus those in the mempool ({a_pool})")
+    # (b): the BroadcastAPI
+    if ping != {}:
+        raise AssertionError(f"Ping answered {ping!r}")
+    for tx, (res, _) in zip(btxs, answers):
+        if not isinstance(res, dict) or res["check_tx"]["code"] != 0 \
+                or res["deliver_tx"]["code"] != 0:
+            raise AssertionError(f"BroadcastTx of a valid tx answered {res!r}")
+    res = answers[-1][0]
+    if not (isinstance(res, RpcError) and res.code() == StatusCode.UNKNOWN
+            and "invalid tx signature" in res.details()):
+        raise AssertionError(f"BroadcastTx of the flipped envelope answered {res!r}")
+    if any(flipped in node.block_store.load_block(h).txs for h in range(1, GR_HEIGHTS + 1)):
+        raise AssertionError("the flipped envelope was committed")
+    # (c): the app process over gRPC
+    state = node.state_store.load()
+    rc, text, _ = cli["abci-info"]
+    want = [f"-> last_block_height: {GR_HEIGHTS}",
+            f"-> last_block_app_hash: 0x{state.app_hash.hex().upper()}"]
+    if rc != 0 or text.splitlines()[-2:] != want:
+        raise AssertionError(f"abci_cli --abci grpc info gave {rc}: {text!r}, not {want}")
+    rc, text, _ = cli["abci-query"]
+    if rc != 0 or cli_value(text) != cli["value"]:
+        raise AssertionError(f"abci_cli --abci grpc query gave {rc}: {text!r}, not the value "
+                             f"{cli['value']!r}")
+    bad_rcs = {k: v for k, v in rcs.items() if v != 0}
+    bad_rcs.update({ch.name: ch.rc for ch in children if ch.rc != 0})
+    if bad_rcs:
+        raise AssertionError(f"children exited {bad_rcs}")
+    if errors:
+        raise AssertionError(f"the node logged errors: {errors[:3]}")
+    for ch in children:
+        if ch.errors():
+            raise AssertionError(f"{ch.name} logged errors: {ch.errors()[:3]}")
+    # the engine: every flat check on the card, the tables as in phase 14
+    host = {"host-cold"} | ({"host"} if GR_MIN_DEVICE_BATCH <= 1 else set())
+    if set(lane["paths"]) & host or not lane["flushes"]:
+        raise AssertionError(f"the engine's dispatches {dict(lane['paths'])}, flushes "
+                             f"{len(lane['flushes'])}: not every signed-tx flush on the card")
+    checks = []
+    for h, rec, s0, s1 in probe.vb:
+        if h < 2:
+            continue
+        table = [e["hit"] for e in rec.events(since=s0, kinds=["verify.table"]) if e["seq"] < s1]
+        if len(table) != 1:
+            raise AssertionError(f"a validate_block at height {h} made {len(table)} table "
+                                 "lookups, not 1")
+        checks.append((h, table[0]))
+    log("  validate_block on heights >= 2 (height, table hit): " + ", ".join(
+        f"({h}, {hit})" for h, hit in checks))
+    if not checks or checks[0] != (2, False):
+        raise AssertionError("the genesis set's first commit check was not declined")
+    declines = sum(1 for _, hit in checks if not hit)
+    return {"validate_blocks": len(checks), "hits": len(checks) - declines,
+            "declines": declines, "flushes": len(lane["flushes"]), "a_blocks": a_in,
+            "a_pool": a_pool}
+
+
+def gr_report(node, per_h, out, rt, answers, bcast, load_line, pool, cli, h2, lane, builds,
+              vb_ms, heights_s, sign_s, load_s, stop_ms, dev, card):
+    """Per height and for the phase (see the module docstring, 15)."""
+    log(f"  {out['start']} ({card})")
+    log(f"  {GR_FIRST} of loadgen's txs in the mempool {out['first_s']:.3f} s after its start; "
+        f"Ping {out['ping'][1]:.3f} ms")
+    for h in range(1, GR_HEIGHTS + 1):
+        st = per_h[h]
+        kinds = []
+        for kind in ("begin_block", "deliver_tx", "end_block", "commit"):
+            ms = rt.get((h, kind), [])
+            kinds.append(f"{kind} x{len(ms)} {sum(ms):.3f} ms" + (
+                f" (p50 {percentile(ms, 50):.3f} p99 {percentile(ms, 99):.3f})"
+                if len(ms) > 1 else ""))
+        vb = node.block_store.load_block(h)
+        log(f"    height {h}: {len(vb.txs)} txs; " + "; ".join(st["lines"])
+            + f"; LastCommit {st['last_commit']} of {st['last_commit'] + st['late']} precommits, "
+            f"{st['late']} refused as late")
+        log(f"    height {h}: ABCI gRPC round trips " + ", ".join(kinds) + f" ({card})")
+    for k in ("new", "recheck"):
+        ms = rt.get(("check_tx", k), [])
+        log(f"  CheckTx ({k}) over gRPC: {len(ms)} calls"
+            + (f", p50 {percentile(ms, 50):.3f} p99 {percentile(ms, 99):.3f} ms, sum "
+               f"{sum(ms):.3f} ms" if ms else "") + f" ({card})")
+    for b in builds:
+        log(f"    table of {b['validators']} validators on {b['thread']}: host rows "
+            f"{b['rows_ms']:.3f} ms, window tables (kernel 2) "
+            + (f"{b['build_ms']:.3f} ms" if b["build_ms"] is not None else "not built")
+            + f" ({card})")
+    log(f"  heights 1-{GR_HEIGHTS}: {heights_s * 1000:.3f} ms = {GR_HEIGHTS / heights_s:.3f} "
+        f"heights/s (signing and framing the peers' votes {sign_s * 1000:.3f} ms of it); "
+        f"validate_block ms by height {vb_ms}; {card_memory(dev, node.table_cache)} ({card})")
+    log(f"  loadgen ({load_s:.3f} s from its start to its exit): {load_line}")
+    log(f"  {len(pool)} txs left in the mempool")
+    ms = [m for _, m in answers]
+    log(f"  BroadcastTx at height {GR_BROADCAST_AT}: {len(answers) - 1} valid txs and one "
+        f"flipped; in the mempool (the "
+        f"flipped refused) {bcast['in_pool_ms']:.3f} ms after the sends, with "
+        f"{bcast['pool_at_send']} txs in the pool; round trips ms "
+        + ", ".join(f"{m:.3f}" for m in ms[:-1]) + f"; commit wait after CheckTx p50 "
+        f"{percentile(ms[:-1], 50) - bcast['in_pool_ms']:.3f} ms; the flipped one "
+        f"{ms[-1]:.3f} ms: {answers[-1][0]!r} ({card})")
+    for name, conns in h2.items():  # each a list of one connection's stats
+        for conn in conns:
+            log(f"  HTTP/2 {name}: frames in {conn['frames_in']}, out {conn['frames_out']}; "
+                f"bytes in {conn['bytes_in']}, out {conn['bytes_out']}")
+    fl = lane["flushes"]
+    log(f"  signed-tx lane and vote frames: {len(fl)} verify.flush of {sum(fl)} txs (sizes "
+        f"min {min(fl)} p50 {percentile(fl, 50):.0f} max {max(fl)}), dispatches by path "
+        f"{dict(lane['paths'])}")
+    log(f"  abci_cli --abci grpc: info {cli['abci-info'][2]:.3f} ms, query "
+        f"{cli['abci-query'][2]:.3f} ms (each a process); node stop {stop_ms:.3f} ms")
     log(f"  launches by stage: {out['stages']}")
 
 
@@ -6913,6 +7524,35 @@ def main() -> int:
     if counts["ed25519_ladder"] < out["frames"] + out["declines"]:
         raise AssertionError("the ladder did not serve every accepted vote frame and the "
                              "genesis set's declined check in phase 14")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+    log("[15] transactions from outside at 10,000 validators: the app over ABCI gRPC "
+        "(abci_cli --abci grpc kvstore), a tm-bench firehose (loadgen) at the RPC, the "
+        "BroadcastAPI on rpc.grpc_laddr")
+    ed25519_cuda.LAUNCHES = 0
+    ed25519_table.BUILD_LAUNCHES = 0
+    ed25519_table.SUM_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = phase_grpc(keys, card, dev)
+    counts = {
+        "ed25519_ladder": ed25519_cuda.LAUNCHES,
+        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
+        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
+    }
+    log(f"  launches in phase 15 on the node: {counts}; {out['validate_blocks']} validate_block "
+        f"calls on heights >= 2, {out['hits']} table hits, {out['declines']} declines, "
+        f"{out['frames']} vote frames accepted, {out['flushes']} signed-tx flushes; phase 15 "
+        f"took {time.perf_counter() - t0:.3f} s")
+    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 1:
+        raise AssertionError("kernel 2 (window tables) did not build the node's genesis table "
+                             "exactly once in phase 15")
+    if counts[picked] < out["hits"]:
+        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
+                             "in phase 15")
+    if counts["ed25519_ladder"] < out["frames"] + out["declines"] + out["flushes"]:
+        raise AssertionError("the ladder did not serve every signed-tx flush, accepted vote frame "
+                             "and the genesis set's declined check in phase 15")
     for name, c in counts.items():
         report[name]["launches"] += c
 

@@ -1,5 +1,5 @@
-"""ABCI: the application boundary (the port's copy of tendermint_tpu/abci,
-without the gRPC transport, ROADMAP 1.7.5).
+"""ABCI: the application boundary (the port's copy of tendermint_tpu/abci;
+its gRPC transport, abci/grpc.py, runs on the port's own HTTP/2 and gRPC).
 
 Counterpart of the reference `abci/` tree: typed request/response surface
 for the 12 methods (abci/types/types.proto), in-proc and socket

@@ -12,7 +12,7 @@ from its single request queue) comes from an asyncio.Lock per client.
 Socket frames are a uvarint length and a msgpack body written by the
 port's own encoding/msgpack.py: the bytes equal the JAX package's, so
 either package's client talks to the other's server.  The gRPC transport
-is ROADMAP 1.7.5.
+is abci/grpc.py.
 """
 
 from __future__ import annotations

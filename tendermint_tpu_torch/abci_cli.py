@@ -2,15 +2,16 @@
 port's copy of tendermint_tpu/abci_cli.py; it prints the same lines).
 
 Reference parity: abci/cmd/abci-cli/abci-cli.go — serve the example apps
-(`kvstore`, `counter`) over the socket transport, drive a running server
-with one-shot commands (echo/info/deliver_tx/check_tx/commit/query), and
-run command scripts via `console` (interactive) / `batch` (stdin).  The
-gRPC transport is ROADMAP 1.7.5: `--abci grpc` exits 2 naming it.  `info`
+(`kvstore`, `counter`) over the socket or, with `--abci grpc`, the gRPC
+transport (abci/grpc.py), drive a running server with one-shot commands
+(echo/info/deliver_tx/check_tx/commit/query), and run command scripts via
+`console` (interactive) / `batch` (stdin).  `info`
 prints the app's data, last block height and app hash (the JAX CLI raises
 AttributeError on the string `data` of ResponseInfo: ROADMAP 3.8).
 
 Usage (the global flags come before the command):
     python -m tendermint_tpu_torch.abci_cli --address tcp://0.0.0.0:26658 kvstore
+    python -m tendermint_tpu_torch.abci_cli --abci grpc --address tcp://127.0.0.1:26658 kvstore
     python -m tendermint_tpu_torch.abci_cli --address ... deliver_tx 0x74783d31
     echo -e "deliver_tx 0x01\\ncommit" | python -m tendermint_tpu_torch.abci_cli batch
 """
@@ -24,7 +25,6 @@ import sys
 
 from .abci import types as t
 from .abci.client import SocketClient
-from .abci.server import SocketServer
 from .abci.examples import CounterApplication, KVStoreApplication
 
 DEFAULT_ADDR = "tcp://0.0.0.0:26658"
@@ -100,8 +100,16 @@ async def _run_command(client, cmd: str, args: list) -> bool:
     return True
 
 
+def _make_client(args):
+    if args.abci == "grpc":
+        from .abci.grpc import GRPCClient
+
+        return GRPCClient(args.address)
+    return SocketClient(args.address)
+
+
 async def _with_client(args, fn) -> int:
-    client = SocketClient(args.address)
+    client = _make_client(args)
     await client.start()
     try:
         return await fn(client)
@@ -111,7 +119,14 @@ async def _with_client(args, fn) -> int:
 
 def cmd_serve(args, app) -> int:
     async def main():
-        server = SocketServer(args.address, app)
+        if args.abci == "grpc":
+            from .abci.grpc import GRPCServer
+
+            server = GRPCServer(args.address, app)
+        else:
+            from .abci.server import SocketServer
+
+            server = SocketServer(args.address, app)
         await server.start()
         print(f"ABCI {type(app).__name__} serving on {args.address} ({args.abci})")
         try:
@@ -189,11 +204,6 @@ def main(argv=None) -> int:
         sp = sub.add_parser(name)
         sp.add_argument("args", nargs="*")
     args = p.parse_args(argv)
-    if args.abci == "grpc":
-        print("abci-cli: the grpc transport is not ported yet (ROADMAP 1.7.5); "
-              "use --abci socket", file=sys.stderr)
-        return 2
-
     if args.command == "kvstore":
         return cmd_serve(args, KVStoreApplication())
     if args.command == "counter":

@@ -1,15 +1,16 @@
 """Command-line interface (the port's copy of tendermint_tpu/cli.py, with the
 commands of a node and its keys).
 
-Reference parity: cmd/tendermint/main.go:16-45 (init, node/run, replay,
-replay_console, gen_validator, gen_node_key, show_validator, show_node_id,
-unsafe_reset_all, lite, version) and the light-client gateway
+Reference parity: cmd/tendermint/main.go:16-45 (init, node/run, testnet,
+replay, replay_console, gen_validator, gen_node_key, show_validator,
+show_node_id, unsafe_reset_all, lite, version), commands/testnet.go (the
+N-validator config-tree generator) and the light-client gateway
 (`liteserve`).
 Each command takes the JAX CLI's arguments, prints its lines and returns
 its exit codes.  `node` serves RPC at the home's `rpc.laddr` (and
-state-syncs with `[statesync] enable`), as the JAX node does.  `testnet`
-and `debug` wait for ROADMAP 1.7.7, `trace` and `trace_net` for the
-flight spool (ROADMAP 1.8).
+state-syncs with `[statesync] enable`), as the JAX node does.  `testnet`'s
+`--chaos` rig waits for the chaos layers (ROADMAP 1.8), `debug` for the
+flight spool it bundles, as do `trace` and `trace_net` (ROADMAP 1.8).
 
 argparse plays cobra's role; `python -m tendermint_tpu_torch <cmd>` is the
 binary.  `node`, `light` and `liteserve` run their verify engine on the
@@ -108,6 +109,144 @@ def cmd_run(args) -> int:
         await node.stop()
 
     asyncio.run(_main())
+    return 0
+
+
+def _testnet_peer_indices(i: int, n: int):
+    """Persistent-peer topology for an n-node testnet.  Small nets keep
+    the reference's full mesh; past 16 nodes a chordal ring (offsets
+    1, 2, 4, ... mod n) bounds per-node connections at O(log n) while
+    keeping diameter O(log n)."""
+    if n <= 16:
+        return [j for j in range(n) if j != i]
+    offsets, k = [], 1
+    while k < n:
+        offsets.append(k)
+        k *= 2
+    return sorted({(i + off) % n for off in offsets} - {i})
+
+
+def _load_or_draw_pv(cfg: Config, draw_key):
+    from .privval.file import FilePV, FilePVKey, FilePVLastSignState, load_or_gen_file_pv
+
+    if draw_key is None or os.path.exists(cfg.priv_validator_key_file()):
+        return load_or_gen_file_pv(cfg)
+    priv = draw_key()
+    pv = FilePV(FilePVKey(priv.pub_key().address(), priv.pub_key(), priv,
+                          cfg.priv_validator_key_file()),
+                FilePVLastSignState(file_path=cfg.priv_validator_state_file()))
+    pv.save()
+    return pv
+
+
+def _load_or_draw_node_key(cfg: Config, draw_key):
+    from .p2p.key import NodeKey
+
+    path = cfg.node_key_file()
+    if draw_key is None or os.path.exists(path):
+        return NodeKey.load_or_gen(path)
+    nk = NodeKey(draw_key())
+    nk.save_as(path)
+    return nk
+
+
+def cmd_testnet(args, draw_key=None) -> int:
+    """commands/testnet.go — an N-validator config tree under --output;
+    every node lists every other as a persistent peer (the docker-compose
+    localnet topology on localhost ports).
+
+    `--fast` writes throughput-rig configs: test-grade consensus timeouts
+    with skip_timeout_commit (the config.go:792 TestConfig shape) and a
+    genesis with time_iota_ms=1 so block time cannot outrun wall clock
+    when commits are sub-second.  `--chaos`, `--twin` and `--chaos-seed`
+    need the chaos layers (ROADMAP 1.8) and exit 2.
+
+    `draw_key` makes each new key, a validator's then its node key, node
+    by node (default: a fresh random key, as the JAX command draws)."""
+    n = args.validators
+    out = os.path.abspath(args.output)
+    chain_id = args.chain_id or f"testnet-{os.urandom(3).hex()}"
+    fast = getattr(args, "fast", False)
+    if getattr(args, "chaos", False) or getattr(args, "twin", -1) >= 0 or getattr(
+            args, "chaos_seed", 0):
+        print("--chaos, --twin and --chaos-seed need the chaos layers, which are not ported "
+              "yet (ROADMAP 1.8)", file=sys.stderr)
+        return 2
+    key_type = getattr(args, "key_type", "ed25519") or "ed25519"
+    homes, pvs, node_keys = [], [], []
+    for i in range(n):
+        home = os.path.join(out, f"node{i}")
+        cfg = Config(home=home)
+        cfg.base.chain_id = chain_id
+        cfg.base.key_type = key_type
+        cfg.ensure_dirs()
+        pvs.append(_load_or_draw_pv(cfg, draw_key))
+        node_keys.append(_load_or_draw_node_key(cfg, draw_key))
+        homes.append(home)
+
+    consensus_params = None
+    if fast:
+        from .types.params import BlockParams, ConsensusParams
+
+        consensus_params = ConsensusParams(block=BlockParams(time_iota_ms=1))
+    genesis = GenesisDoc(
+        chain_id=chain_id,
+        genesis_time_ns=time.time_ns(),
+        validators=[GenesisValidator(pv.address(), pv.get_pub_key(), 10) for pv in pvs],
+        consensus_params=consensus_params,
+    )
+    base_port = args.base_port
+    docker = getattr(args, "populate_docker_addresses", False)
+    for i, home in enumerate(homes):
+        cfg = Config(home=home)
+        cfg.base.chain_id = chain_id
+        cfg.base.key_type = key_type
+        cfg.base.moniker = f"node{i}"
+        if docker:
+            # networks/local topology: fixed container IPs, standard ports
+            cfg.p2p.laddr = "tcp://0.0.0.0:26656"
+            cfg.rpc.laddr = "tcp://0.0.0.0:26657"
+            cfg.p2p.persistent_peers = ",".join(
+                f"{node_keys[j].id}@192.167.10.{2 + j}:26656" for j in range(n) if j != i
+            )
+        else:
+            cfg.p2p.laddr = f"tcp://127.0.0.1:{base_port + 10 * i}"
+            cfg.rpc.laddr = f"tcp://127.0.0.1:{base_port + 10 * i + 1}"
+            cfg.p2p.persistent_peers = ",".join(
+                f"{node_keys[j].id}@127.0.0.1:{base_port + 10 * j}"
+                for j in _testnet_peer_indices(i, n)
+            )
+        cfg.p2p.allow_duplicate_ip = True
+        # peer-set sizing: a big testnet must not trip the reference's
+        # 40-inbound default
+        cfg.p2p.max_num_inbound_peers = max(cfg.p2p.max_num_inbound_peers, n + 8)
+        cfg.p2p.max_num_outbound_peers = max(
+            cfg.p2p.max_num_outbound_peers, len(_testnet_peer_indices(i, n))
+        )
+        if fast:
+            cfg.base.fast_sync = False
+            cfg.base.db_backend = args.db_backend or "memdb"
+            # small-net rig: every vote batch is below min_device_batch, so
+            # verification stays on the host path, as in the JAX rig
+            cfg.tpu.enabled = False
+            cfg.consensus.timeout_propose = 0.1
+            cfg.consensus.timeout_propose_delta = 0.002
+            cfg.consensus.timeout_prevote = 0.02
+            cfg.consensus.timeout_prevote_delta = 0.002
+            cfg.consensus.timeout_precommit = 0.02
+            cfg.consensus.timeout_precommit_delta = 0.002
+            cfg.consensus.timeout_commit = 0.0
+            cfg.consensus.skip_timeout_commit = True
+            cfg.consensus.peer_gossip_sleep_duration = 0.005
+            cfg.consensus.peer_query_maj23_sleep_duration = 0.25
+            cfg.instrumentation.loop_probe_interval = 0.02
+            cfg.instrumentation.watchdog_interval = 0.25
+            cfg.instrumentation.watchdog_stall_seconds = 3.0
+        elif args.db_backend:
+            cfg.base.db_backend = args.db_backend
+        _write_cfg(cfg)
+        genesis.save_as(cfg.genesis_file())
+    print(f"Successfully initialized {n} node directories in {out} (chain_id={chain_id})")
     return 0
 
 
@@ -366,6 +505,35 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("node", aliases=["run", "start"], help="run a node")
     sp.add_argument("--proxy-app", default="")
     sp.set_defaults(fn=cmd_run)
+
+    sp = sub.add_parser("testnet", help="generate an N-validator testnet config tree")
+    sp.add_argument("--validators", "-v", type=int, default=4)
+    sp.add_argument("--output", "-o", default="./mytestnet")
+    sp.add_argument("--chain-id", default="")
+    sp.add_argument("--base-port", type=int, default=26656)
+    sp.add_argument(
+        "--populate-docker-addresses",
+        action="store_true",
+        help="wire peers for the docker-compose localnet (192.167.10.x)",
+    )
+    sp.add_argument(
+        "--fast",
+        action="store_true",
+        help="throughput-rig configs: test-grade timeouts, skip_timeout_commit, "
+        "time_iota_ms=1 genesis, memdb",
+    )
+    sp.add_argument("--db-backend", choices=["sqlite", "memdb"], default="")
+    sp.add_argument("--chaos", action="store_true",
+                    help="chaos rig (needs the chaos layers: not ported yet, ROADMAP 1.8)")
+    sp.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed for every probabilistic fault decision (ROADMAP 1.8)")
+    sp.add_argument("--twin", type=int, default=-1,
+                    help="node index to run as a double-signing twin (ROADMAP 1.8)")
+    sp.add_argument(
+        "--key-type", choices=list(KEY_TYPES), default="ed25519",
+        help="consensus key scheme for every generated validator key (only ed25519 is ported)",
+    )
+    sp.set_defaults(fn=cmd_testnet)
 
     sp = sub.add_parser("gen_validator", help="generate a validator keypair")
     sp.set_defaults(fn=cmd_gen_validator)

@@ -2,8 +2,9 @@
 tendermint_tpu/node.py, with the RPC server and its /websocket, the p2p
 stack with PEX and the address book, the STATESYNC, BLOCKCHAIN, CONSENSUS,
 MEMPOOL and EVIDENCE reactors, the embedded liteserve gateway, an app
-behind the ABCI socket, a remote signer on `priv_validator_laddr` and the
-/metrics listener; without the gRPC server and the chaos layers).
+behind the ABCI socket or gRPC, a remote signer on `priv_validator_laddr`,
+the /metrics listener and the gRPC BroadcastAPI on `rpc.grpc_laddr`;
+without the chaos layers).
 
 Reference parity: node/node.go (NewNode:556, DefaultNewNode:90,
 OnStart:752; createAndStartProxyAppConns:578, doHandshake:601,
@@ -62,8 +63,6 @@ def check_ported(config: Config) -> None:
     cfg = config
     unported = (
         (cfg.p2p.test_fuzz, "p2p.test_fuzz: the p2p link policies", "1.8", "test_fuzz = false"),
-        (bool(cfg.rpc.grpc_laddr), f"rpc.grpc_laddr = {cfg.rpc.grpc_laddr!r}: the gRPC server",
-         "1.7.3, 1.7.5", 'rpc.grpc_laddr = ""'),
         (cfg.chaos.enabled, "chaos.enabled: disk faults, the twin signer and link policies",
          "1.8", "chaos.enabled = false"),
         (cfg.instrumentation.flight_spool,
@@ -240,6 +239,7 @@ class Node(Service):
         self.blockchain_reactor = None
         self.statesync_reactor = None
         self.rpc_server = None
+        self.grpc_server = None
         self.switch = None
         self.addr_book = None
         self.pex_reactor = None
@@ -429,6 +429,11 @@ class Node(Service):
             self.rpc_server.core.recorder = self.flight_recorder
             await self.rpc_server.start()
             self.log.info("rpc listening", laddr=cfg.rpc.laddr)
+        if cfg.rpc.grpc_laddr:
+            from .rpc.grpc_api import BroadcastAPIServer
+
+            self.grpc_server = BroadcastAPIServer(self, cfg.rpc.grpc_laddr)
+            await self.grpc_server.start()
 
         # p2p stack + reactors (node/node.go:653-709)
         if cfg.p2p.laddr and cfg.p2p.laddr != "none":
@@ -825,6 +830,8 @@ class Node(Service):
             await self.consensus.stop()
         if self.rpc_server is not None:
             await self.rpc_server.stop()
+        if self.grpc_server is not None:
+            await self.grpc_server.stop()
         await self.indexer_service.stop()
         await self.event_bus.stop()
         await self.proxy_app.stop()

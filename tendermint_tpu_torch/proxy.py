@@ -1,10 +1,12 @@
 """Proxy: the node's three named connections to one app (the port's copy of
-tendermint_tpu/proxy.py; the gRPC transport is ROADMAP 1.7.5).
+tendermint_tpu/proxy.py).
 
 Reference parity: proxy/ (AppConns multi_app_conn.go — consensus/mempool/
 query connections; ClientCreator client.go with local in-proc creators for
 the builtin kvstore/counter/noop apps and remote socket otherwise;
-interface-narrowing wrappers app_conn.go:11,23,33).
+interface-narrowing wrappers app_conn.go:11,23,33).  A remote app is
+reached over the ABCI socket or, with `abci = "grpc"`, over gRPC
+(abci/grpc.py).
 """
 
 from __future__ import annotations
@@ -28,13 +30,13 @@ def local_client_creator(app: Application) -> ClientCreator:
 
 
 def remote_client_creator(address: str, transport: str = "socket") -> ClientCreator:
-    """One SocketClient per connection to the app at `address`
-    (proxy/client.go NewRemoteClientCreator)."""
+    """One client per connection to the app at `address`: a SocketClient,
+    or a GRPCClient for transport "grpc" (proxy/client.go
+    NewRemoteClientCreator)."""
     if transport == "grpc":
-        raise NotImplementedError(
-            f"the ABCI grpc client for {address!r} is not ported yet (ROADMAP 1.7.5); "
-            'set abci = "socket"'
-        )
+        from .abci.grpc import GRPCClient
+
+        return lambda: GRPCClient(address)
     return lambda: SocketClient(address)
 
 

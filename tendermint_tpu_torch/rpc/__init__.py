@@ -7,6 +7,9 @@ tendermint_tpu/rpc on asyncio streams.
 - websocket: RFC 6455 framing and both handshakes
 - server:    HTTP + WebSocket server (rpc/lib/server/)
 - client:    HTTP / WebSocket / in-proc Local clients (rpc/client/, rpc/lib/client/)
+- hpack, http2, grpc: RFC 7541, RFC 9113 (h2c) and gRPC unary calls on
+             asyncio streams, under abci/grpc.py and grpc_api
+- grpc_api:  the BroadcastAPI (Ping, BroadcastTx) on rpc.grpc_laddr
 """
 
 from .client import HTTPClient, LocalClient, WSClient  # noqa: F401

@@ -1,2 +1,2 @@
 """Operator tools (the port's copy of tendermint_tpu/tools: the remote
-signer harness)."""
+signer harness and the tx-ingress load generator)."""

@@ -246,8 +246,14 @@ def test_client_creators_not_ported_raise():
         pproxy.default_client_creator("bank")
     with pytest.raises(ValueError, match="1.8"):
         pproxy.default_client_creator("staking")
-    with pytest.raises(NotImplementedError, match="1.7.5"):
-        pproxy.default_client_creator("unix:///tmp/app.sock", transport="grpc")
+    # abci = "grpc" gives a gRPC client per connection, as in the JAX package
+    import tendermint_tpu.abci.grpc as jgrpc
+    from tendermint_tpu_torch.abci import grpc as pgrpc
+
+    for proxy, grpc_mod in ((pproxy, pgrpc), (jproxy, jgrpc)):
+        creator = proxy.default_client_creator("tcp://127.0.0.1:26658", transport="grpc")
+        client = creator()
+        assert isinstance(client, grpc_mod.GRPCClient) and client is not creator()
     # a socket address gives a socket client per connection, as in the JAX
     # package
     for proxy, client_mod in ((pproxy, pclient), (jproxy, jclient)):

@@ -12,8 +12,9 @@ the JAX package's, tolerance exact.
   app's.  An app exception reaches the client as the JAX text; requests are
   answered FIFO; a socket that closes fails every request in flight.
 - abci_cli's one-shot commands and a `batch` script print the JAX lines,
-  each package's CLI against its own server; `--abci grpc` is refused
-  naming ROADMAP 1.7.5.
+  each package's CLI against its own server; `--abci grpc` and
+  `remote_client_creator(..., "grpc")` take the gRPC transport
+  (tests/test_torch_grpc.py holds it against the JAX package's).
 """
 
 import asyncio
@@ -295,10 +296,27 @@ async def test_closed_socket_fails_every_request_in_flight():
 
 
 def test_grpc_transport_is_refused_naming_the_roadmap_item(capsys):
-    assert pcli.main(["--abci", "grpc", "info"]) == 2
-    assert "ROADMAP 1.7.5" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.7\.5"):
-        pproxy.remote_client_creator("tcp://127.0.0.1:1", "grpc")
+    """The gRPC transport was refused naming ROADMAP 1.7.5 until it was
+    ported: `--abci grpc` now drives a gRPC server (exit 0, the socket's
+    lines) and remote_client_creator gives a GRPCClient per connection."""
+    from tendermint_tpu_torch.abci import grpc as pgrpc
+
+    creator = pproxy.remote_client_creator("tcp://127.0.0.1:1", "grpc")
+    assert isinstance(creator(), pgrpc.GRPCClient) and creator() is not creator()
+    loop = asyncio.new_event_loop()
+    server = pgrpc.GRPCServer("tcp://127.0.0.1:0", pexamples.KVStoreApplication())
+    loop.run_until_complete(server.start())
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+    try:
+        assert pcli.main(["--abci", "grpc", "--address", server.bound_addr, "echo", "hi"]) == 0
+        cap = capsys.readouterr()
+        assert cap.out == "-> code: OK\n-> message: hi\n" and "1.7.5" not in cap.err
+    finally:
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(30)
+        loop.close()
 
 
 # -- abci_cli ---------------------------------------------------------------------

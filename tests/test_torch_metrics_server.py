@@ -11,10 +11,11 @@ tolerance exact; and the node's wiring of it and of the remote signer.
   methods get the JAX server's 404 and 405 answers.
 - A listen address already taken gives the JAX OSError text; `bound_addr`
   resolves a `:0` port; a second `stop` does nothing.
-- `check_ported` accepts `priv_validator_laddr` and
-  `instrumentation.prometheus` and still refuses `rpc.grpc_laddr` (naming
-  1.7.3 and 1.7.5), `tpu.mesh = "on"` and `chaos.enabled`; a port node
-  with prometheus on serves its registry at the configured address.
+- `check_ported` accepts `priv_validator_laddr`,
+  `instrumentation.prometheus` and `rpc.grpc_laddr` (the BroadcastAPI)
+  and still refuses `instrumentation.flight_spool`, `tpu.mesh = "on"` and
+  `chaos.enabled`; a port node with prometheus on serves its registry at
+  the configured address.
 """
 
 import asyncio
@@ -149,9 +150,10 @@ BOUNDARY = {
     "priv_validator_laddr": ("base", "priv_validator_laddr", "tcp://127.0.0.1:26659"),
     "prometheus": ("instrumentation", "prometheus", True),
     "socket_app": ("base", "proxy_app", "tcp://127.0.0.1:26658"),
+    "grpc_laddr": ("rpc", "grpc_laddr", "tcp://127.0.0.1:36656"),
 }
 STILL_REFUSED = {
-    "grpc_laddr": (("rpc", "grpc_laddr", "tcp://127.0.0.1:36656"), r"1\.7\.3, 1\.7\.5"),
+    "flight_spool": (("instrumentation", "flight_spool", True), r"1\.8"),
     "mesh_on": (("tpu", "mesh", "on"), r"2\.2"),
     "chaos": (("chaos", "enabled", True), r"1\.8"),
 }

@@ -249,7 +249,7 @@ def test_only_validator_is_us_equals_jax():
 
 
 UNPORTED = {
-    "grpc": ("rpc.grpc_laddr", "tcp://127.0.0.1:36656", "1.7.3, 1.7.5"),
+    "test_fuzz": ("p2p.test_fuzz", True, "1.8"),
     "chaos": ("chaos.enabled", True, "1.8"),
     "flight_spool": ("instrumentation.flight_spool", True, "1.8"),
     "mesh_on": ("tpu.mesh", "on", "2.2"),
