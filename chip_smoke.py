@@ -228,11 +228,13 @@
 11. Two port nodes of the 10,000-validator chain over TCP (phase 3's keys at
    power 10, the kvstore app, sqlite stores; no rotation).  Node A is built
    by default_new_node from its home (config.toml at the JAX defaults but
-   p2p.laddr on a free local port, PEX off, duplicate IPs allowed since every
-   peer is on 127.0.0.1, RPC off, the signed-tx precheck and a mempool of
-   10,000, timeout_propose 10 s (B proposes height 5 after hearing height
-   4's commit second-hand, see net_home); fast sync on; the FilePV of
-   height 3's round-0 proposer) and
+   its moniker, p2p.laddr on a free local port, PEX off, duplicate IPs
+   allowed since every peer is on 127.0.0.1, RPC on a free local port (for
+   phase 16), the flight spool on with a 32,768-event recorder ring, the
+   signed-tx precheck and a mempool of 10,000, timeout_propose 120 s (B
+   proposes height 5 after hearing height 4's commit second-hand, and
+   height 4's proposal waits for B, see net_home); fast sync on; the FilePV
+   of height 3's round-0 proposer) and
    instrumented as phase 10's node.  Four relay peers in a process of their
    own (so their packing and sealing is not charged to A), each with its own
    NodeKey, Transport and Switch of the port, dial A as persistent peers;
@@ -244,9 +246,13 @@
    anti-echo sends the relays only A's and B's votes back.  With no
    peer ahead, A's fast sync hands over to consensus after its 1 s grace.
    Per height: a burst of 1,000 signed envelopes (1 in 100 corrupted) goes
-   to A's check_tx only; a relay whose validator proposes sends the Proposal
-   and its 64 KB parts on DATA_CHANNEL (built as phase 9's peers build
-   them); after A's own prevote, then its own precommit, each relay sends
+   to A's check_tx only; a relay whose validator proposes builds the
+   Proposal and its 64 KB parts as soon as A has delivered the previous
+   height (as phase 9's peers build them) and sends them on DATA_CHANNEL
+   once A, and from height 4 on B in A's view, is in its PROPOSE step (a
+   proposer proposes after its own timeout_commit; a node that holds the
+   proposal complete before its PROPOSE step skips the step, ROADMAP
+   3.10); after A's own prevote, then its own precommit, each relay sends
    its quarter of the votes (signed on SIGN_THREADS) as vote_batch frames of
    at most 65,536 bytes in the consensus reactor's format.  Node B starts
    through the CLI (`python -m tendermint_tpu_torch --home HB node`, a
@@ -256,8 +262,8 @@
    the BLOCKCHAIN channel (the pair checks on its own engine; on the card
    one pair, switching at height 1), switches to consensus and gets the
    blocks up to A's height (on the card 2-3) through A's catch-up gossip;
-   the relays hold height 4's votes until A sees B at height 4, so every
-   proposal, part and vote B sees from then on crosses A's consensus
+   height 4's proposal waits until A sees B in its PROPOSE step of 4, so
+   every proposal, part and vote B sees from then on crosses A's consensus
    reactor.  B's FilePV holds height 5's proposer: B proposes block 5 from
    txs that reached it by mempool gossip, and the relays vote
    for the block id A received from B.  In height 4 relay 1's last
@@ -265,9 +271,9 @@
    "invalid vote signature in batch"; relay 2 re-sends the frame clean and
    relay 1 re-dials), and relay 0 sends a second, nil prevote of one of its
    validators (A's DuplicateVoteEvidence must reach B by the evidence
-   reactor and commit in block 5 or 6).  The run stops once both nodes have
-   committed height 6: B gets SIGTERM (exit 0), its stores are opened here,
-   A stops.  Prints per height on A: proposal complete -> own prevote, each
+   reactor and commit in block 5 or 6).  Once both nodes have committed
+   height 6, phase 16 runs on the live net and ends with B SIGKILLed by
+   `debug kill` (exit -9); B's stores are opened here, A stops.  Prints per height on A: proposal complete -> own prevote, each
    vote kind's ingest (first frame to +2/3, verify_direct host prep and
    device ms p50/p99, the receive routine's us per vote), vote-to-commit,
    commit-to-commit, the consensus frames received by kind, A's link bytes
@@ -286,7 +292,7 @@
    committed every later height in consensus, A stopped relay 1 for exactly
    that reason (and no other peer) and readmitted it, the evidence is
    committed once and marked committed in both pools, neither node logs an
-   ERROR, B's output holds no traceback, every validate_block of A on
+   ERROR, B exits -9 and its output holds no traceback, every validate_block of A on
    heights >= 2 makes one table lookup, and on the card kernel 2 built A's
    genesis table, the profile's pick served every table hit and the ladder
    every vote_batch frame of >= 16 entries and every declined check.  B's
@@ -483,6 +489,36 @@
    the card kernel 2 built the genesis table once, the ladder served every
    signed-tx flush, accepted frame and the genesis set's decline, and the
    profile's pick every table hit.
+16. A node's flight record, on phase 11's net (inside phase 11, once both
+   nodes hold height 6 and before B's stop).  Every tool runs as `python -m
+   tendermint_tpu_torch ...` in a subprocess against A's and B's RPC or
+   homes: (1) `trace --check`, `trace --budget --json` and `trace
+   --net-budget --json` against each node, at once; (2) `trace-net --rpc
+   A,B --check --json`; (3) `debug watch --once --rpc A,B`; (4) `debug dump`
+   of A's home and RPC (a live bundle); (5) `debug kill <B's pid>` with B's
+   home and RPC: B's bundle, then SIGKILL; (6) `debug dump --offline` of
+   B's home; (7) `trace-net <A's recorder.json> <B's spool.json> --check`;
+   (8) `debug watch --once` again.  Prints the spool's cost on A over
+   heights 1-6 (flushes, events, ms per flush p50 and max, the flight-spool
+   task's busy ms by the loop profiler's trampoline, bytes on disk: its
+   task starts before the node's profiler, so SpoolProbe drives it through
+   the trampoline itself), each node's stage and net budgets, the merge's
+   offsets with their sources, the bundles' sections, B's replay (runs,
+   events, its newest anchor's age at B's death, writer_lost, torn, bytes),
+   each command's seconds and A's launches during the phase.  Fails unless
+   A shows at least 3 complete step chains and none broken, B at least 3
+   and broken ones only at heights it committed by catch-up before
+   NET_JOIN_AT (missing PROPOSE and/or PREVOTE: ROADMAP 3.10; trace-net's
+   failures likewise), each budget holds the six stages (A's each over
+   heights 2-5), both net budgets are there, the merge aligns heights 2-5,
+   the telescope shows both nodes up within a tip spread of 1 and then B
+   down and A up, A's bundle holds the JAX live sections, the kill bundle
+   is on disk before B dies with exit -9, B's replay holds one run, an
+   anchor at most 1 s older than B's death, every event of the kill
+   bundle's recorder.json up to its last seq unchanged, at least 3
+   complete chains and, on the card, verify.dispatch events of B's kernels
+   with their device ms.  Phase 11's checks then open B's SIGKILLed stores,
+   and phase 12 restarts B from that home.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -641,6 +677,20 @@ def wall_ms(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1000
+
+
+def launch_counts(zero=False, add=None) -> dict:
+    """The kernels' launch counters as {report name: count}; `zero` sets
+    them to 0 after reading, `add` adds to them."""
+    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
+
+    where = {"ed25519_ladder": (ed25519_cuda, "LAUNCHES"),
+             "ed25519_window_tables": (ed25519_table, "BUILD_LAUNCHES"),
+             "ed25519_tabulated": (ed25519_table, "SUM_LAUNCHES")}
+    counts = {k: getattr(m, attr) for k, (m, attr) in where.items()}
+    for k, (m, attr) in where.items():
+        setattr(m, attr, (0 if zero else counts[k]) + (add or {}).get(k, 0))
+    return counts
 
 
 def make_keys(n, prefix="val", start=0):
@@ -1572,17 +1622,11 @@ def phase_light(keys, card, dev, report):
     from tendermint_tpu_torch.libs.kvstore import open_db
     from tendermint_tpu_torch.libs.tracing import FlightRecorder
     from tendermint_tpu_torch.liteserve import VerifyCache
-    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
     from tendermint_tpu_torch.statesync import EngineCommitPreverify
     from tendermint_tpu_torch.types.block import Commit, SignedHeader
 
-    def counters():
-        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
-                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
-
     def since(before):
-        return {k: v - before[k] for k, v in counters().items()}
+        return {k: v - before[k] for k, v in launch_counts().items()}
 
     n = N_VALIDATORS
     t0 = time.perf_counter()
@@ -1597,7 +1641,7 @@ def phase_light(keys, card, dev, report):
     bv = bvm.BatchVerifier(device=dev, recorder=rec).install()
     cache = bvm.TableCache(bv, tabulated=None).install()
     builds = []
-    before = counters()
+    before = launch_counts()
     with table_timing(chain, builds, dev):
         run1 = asyncio.run(lite_run(chain, rec))
     launches_run1 = since(before)
@@ -1690,7 +1734,7 @@ def phase_light(keys, card, dev, report):
         finally:
             await abv.stop()
 
-    before = counters()
+    before = launch_counts()
     seq3 = next_seq(rec3)
     run3, vcache, calls, tenants, got, wall4, disp4 = asyncio.run(engine_lane())
     launches_34 = since(before)
@@ -1846,16 +1890,10 @@ def phase_replay(keys, card, dev):
     from tendermint_tpu_torch.libs.kvstore import open_db
     from tendermint_tpu_torch.libs.tracing import FlightRecorder
     from tendermint_tpu_torch.libs.watchdog import StorageHealth
-    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
     from tendermint_tpu_torch.state import StateStore
     from tendermint_tpu_torch.store import BlockStore
     from tendermint_tpu_torch.types.block import Block, BlockID, Commit
     from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
-
-    def counters():
-        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
-                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
 
     n = len(keys)
     new_keys = make_keys(REPLAY_ROTATE, prefix="replay")
@@ -1897,7 +1935,7 @@ def phase_replay(keys, card, dev):
                                       rotate=len(new_keys))
 
         # (a) per pair, as the fast-sync reactor's _try_sync does, without apply_block
-        before = counters()
+        before = launch_counts()
         t_a = time.perf_counter()
         proc, sched = Processor(1), Scheduler(1)
         sched.set_peer_range("store", 1, REPLAY_TOP)
@@ -1936,7 +1974,7 @@ def phase_replay(keys, card, dev):
                 proc.pop_processed()
                 sched.block_processed(first.height)
         wall_a = time.perf_counter() - t_a
-        launches_a = {k: v - before[k] for k, v in counters().items()}
+        launches_a = {k: v - before[k] for k, v in launch_counts().items()}
         for h in range(1, REPLAY_TOP + 1):
             log(f"    block {h}: store write {write_ms[h]:.3f} ms, load_block (sqlite + unseal + decode) "
                 f"{load_ms[h]:.3f} ms" + (f", hash with its part set {hash_ms[h]:.3f} ms, "
@@ -2277,20 +2315,14 @@ async def abci_run(keys, card, dev):
     from tendermint_tpu_torch.libs.kvstore import MemDB, open_db
     from tendermint_tpu_torch.libs.tracing import FlightRecorder
     from tendermint_tpu_torch.mempool import Mempool, MempoolError
-    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
     from tendermint_tpu_torch.state.execution import BlockExecutor, tx_pre_check
     from tendermint_tpu_torch.store import BlockStore
     from tendermint_tpu_torch.types.block import BlockID
     from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
     from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
 
-    def counters():
-        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
-                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
-
     def since(before):
-        return {k: v - before[k] for k, v in counters().items()}
+        return {k: v - before[k] for k, v in launch_counts().items()}
 
     t0 = time.perf_counter()
     new_keys = make_keys(ABCI_ROTATE, prefix="abci")
@@ -2324,7 +2356,7 @@ async def abci_run(keys, card, dev):
                                  evpool, producer.bus)
         timer = StepTimer()
         instrument(timer, executor, producer)
-        before_a, seq_a, t_a = counters(), next_seq(rec), time.perf_counter()
+        before_a, seq_a, t_a = launch_counts(), next_seq(rec), time.perf_counter()
         flush_launches = dict.fromkeys(before_a, 0)
         rejected, blocks, parts, commits, states, app_hashes = [], {}, {}, {}, {}, {}
         table_hits = {}
@@ -2332,7 +2364,7 @@ async def abci_run(keys, card, dev):
 
         async def submit(h):
             txs = list(bursts[h]) + (list(val_txs) if h == ABCI_ROTATE_AT else [])
-            before = counters()
+            before = launch_counts()
             seq = next_seq(rec)
             out, ms = await check_burst(mempool, txs)
             for k, v in since(before).items():
@@ -2442,7 +2474,7 @@ async def abci_run(keys, card, dev):
                     "producer", h):
                 raise AssertionError(f"block {h} did not load back from the producer's store")
             proc.add_block(h, block, "producer")
-        before_b, seq_b = counters(), next_seq(rec)
+        before_b, seq_b = launch_counts(), next_seq(rec)
         t_b = time.perf_counter()
         with verify_commit_timing(timer_b):
             while (pair := proc.peek_two()) is not None:
@@ -2491,7 +2523,7 @@ async def abci_run(keys, card, dev):
         home_b = os.path.join(tmp.name, "syncer")
 
         async def restart(name, what, want_blocks, want_h, app_db=None):
-            before = counters()
+            before = launch_counts()
             node = await abci_node(home_b, gen, app_db)
             try:
                 launches = since(before)
@@ -2883,7 +2915,6 @@ async def cs_run(keys, card, dev):
     from tendermint_tpu_torch.crypto import batch_verifier as bvm
     from tendermint_tpu_torch.libs.tracing import FlightRecorder
     from tendermint_tpu_torch.mempool import MempoolError
-    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
     from tendermint_tpu_torch.privval import FilePV, FilePVKey, FilePVLastSignState
     from tendermint_tpu_torch.state import make_genesis_state
     from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_COMMIT, BlockID, Commit
@@ -2892,11 +2923,6 @@ async def cs_run(keys, card, dev):
     from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
     from tendermint_tpu_torch.types.proposal import Proposal
     from tendermint_tpu_torch.types.validator import ValidatorSet
-
-    def counters():
-        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
-                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
 
     n = len(keys)
     t0 = time.perf_counter()
@@ -2932,7 +2958,7 @@ async def cs_run(keys, card, dev):
     verify_commit = timer.wrap(ValidatorSet, "verify_commit",
                                height_of=lambda vs, chain_id, bid, height, *a, **k: height + 1)
     node, old = None, None
-    before, seq0 = counters(), next_seq(rec)
+    before, seq0 = launch_counts(), next_seq(rec)
     sign_s, frames_ok, proposals = 0.0, 0, {}
     try:
         await lane.start()
@@ -3057,7 +3083,7 @@ async def cs_run(keys, card, dev):
                     break
             await w.until(lambda: w.at(CS_HEIGHTS + 1, 0, RoundStep.NEW_HEIGHT), "the last height")
             await node.cs.stop()  # drains the last height's delivery
-            launches = {k: v - before[k] for k, v in counters().items()}
+            launches = {k: v - before[k] for k, v in launch_counts().items()}
             await node.settle(node.block_store.load_block(CS_HEIGHTS))
             cs_report(old, node, rec, seq0, per_h, timer, sign_s, launches, dev, cache, card)
             cs_check(node, n, ours_addr, proposals, per_h, bursts, bad_txs, errors,
@@ -3977,10 +4003,11 @@ NET_JOIN_AT = 4  # the relays hold this height's votes until A sees B at it
 NET_B_AT = 5  # B's validator is this height's round-0 proposer
 NET_BAD_AT = 4  # a flipped precommit frame and a conflicting prevote
 NET_RELAYS = 4  # relay peers standing in for the other validators
-NET_TIMEOUT_PROPOSE = 10.0  # s: B proposes 5 after it hears height 4's commit through A (net_home)
+NET_TIMEOUT_PROPOSE = 120.0  # s: A's PROPOSE of 4 waits for B's start (net_home says why)
 NET_LOGGERS = NODE_LOGGERS + ("p2p", "mconn", "cs-reactor", "fastsync", "mempool-reactor",
                               "evidence-reactor", "evidence", "p2p-transport")
 SS_SNAPSHOT_INTERVAL = 2  # phase 11's nodes leave app snapshots at even heights (phase 12)
+NET_RECORDER_SIZE = 32768  # phase 11's flight recorder rings (net_home says why)
 
 
 class NetRelay:
@@ -4308,13 +4335,16 @@ def net_frames(votes, have):
             for f in cut_frames(votes)]
 
 
-def net_home(home, gen, key, peers=""):
+def net_home(home, gen, key, moniker, rpc_port, peers=""):
     """A phase 11 node's home: config.toml by save_config at the JAX
-    defaults but p2p.laddr on a free local port, PEX off, duplicate IPs
-    allowed (every peer is on 127.0.0.1), RPC off, the signed-tx precheck
-    with its journal and a mempool of 10,000, app snapshots every 2 heights
-    (the JAX defaults keep 2, in chunks of 65,536 bytes; phase 12 restores
-    one), `timeout_propose = NET_TIMEOUT_PROPOSE` and `peers` as persistent
+    defaults but `moniker`, p2p.laddr on a free local port, PEX off,
+    duplicate IPs allowed (every peer is on 127.0.0.1), RPC on `rpc_port`
+    (phase 16's tools read it), the flight spool on at its JAX defaults
+    (0.25 s flushes, a 4 MiB cap) and a flight recorder of
+    NET_RECORDER_SIZE events, the signed-tx precheck with its journal
+    and a mempool of 10,000, app snapshots every 2 heights (the JAX
+    defaults keep 2, in chunks of 65,536 bytes; phase 12 restores one),
+    `timeout_propose = NET_TIMEOUT_PROPOSE` and `peers` as persistent
     peers; the genesis file; the FilePV files of `key`; the node key.
     Returns the config file's path and the node id.
 
@@ -4322,14 +4352,24 @@ def net_home(home, gen, key, peers=""):
     commits 4 1-3.3 s after A does (on the H100's host), and then has its
     own COMMIT -> PROPOSE window (~3 s at 10k) before it proposes 5: its
     proposal reaches A 3-5.3 s into A's round, past the default 3 s
-    `timeout_propose`, at which A would prevote nil."""
+    `timeout_propose`, at which A would prevote nil.  And height 4's relay
+    proposal waits, with A in its PROPOSE step, until B has started,
+    fast-synced, caught up and entered its own PROPOSE step of 4: tens of
+    seconds on the card, hence 120 s.  A node of this net records about
+    13,000 events over heights 1-6 on the H100's host, past the default
+    ring of 8,192: B's then holds only heights 4-7, so `trace` reads two
+    of its chains.  The ring is sized to the run, as `trace
+    --check`'s warning tells an operator to size it."""
     from tendermint_tpu_torch.config import Config, save_config
     from tendermint_tpu_torch.p2p import NodeKey
     from tendermint_tpu_torch.privval import FilePV, FilePVKey, FilePVLastSignState
 
     cfg = Config(home=home)
-    cfg.base.chain_id = CHAIN_ID
-    cfg.p2p.laddr, cfg.p2p.pex, cfg.rpc.laddr = "127.0.0.1:0", False, ""
+    cfg.base.chain_id, cfg.base.moniker = CHAIN_ID, moniker
+    cfg.p2p.laddr, cfg.p2p.pex = "127.0.0.1:0", False
+    cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc_port}"
+    cfg.instrumentation.flight_spool = True
+    cfg.instrumentation.flight_recorder_size = NET_RECORDER_SIZE
     cfg.p2p.persistent_peers = peers
     cfg.p2p.allow_duplicate_ip = True  # every peer dials from 127.0.0.1
     cfg.mempool.sig_precheck = True
@@ -4607,7 +4647,8 @@ async def net_run(keys, card, dev, b_inproc, keep_homes=False):
 
     tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-net-")
     home_a, home_b = os.path.join(tmp.name, "a"), os.path.join(tmp.name, "b")
-    cfg_a, a_id = net_home(home_a, gen, ours)
+    rpc_a, rpc_b = f"127.0.0.1:{free_port()}", f"127.0.0.1:{free_port()}"
+    cfg_a, a_id = net_home(home_a, gen, ours, "a", rpc_a.rpartition(":")[2])
     probe = NodeProbe()
     builds, per_h, proposals = [], {}, {}
     sign_s, join_s = 0.0, 0.0
@@ -4615,6 +4656,7 @@ async def net_run(keys, card, dev, b_inproc, keep_homes=False):
     kinds_seen = collections.Counter()
     device = None if dev.type == "cuda" else dev  # the entry point's default is the card
     relays = NetRelays(tmp.name)
+    spool = SpoolProbe()
     a = b = out = None
     dec = cs_reactor._dec
     stopped = []  # (peer id, reason) of A's stop_peer_for_error calls
@@ -4731,9 +4773,22 @@ async def net_run(keys, card, dev, b_inproc, keep_homes=False):
                 proposer = v.cs.rs.validators.get_proposer().address
                 who = "A" if proposer == ours_addr else "B" if proposer == b_addr else "relay"
                 t_prop = None
+                if h == NET_B_START + 1:  # B's start takes seconds; the proposal waits for it
+                    cfg_b, b_id = net_home(home_b, gen, b_key, "b", rpc_b.rpartition(":")[2],
+                                           peers=a_addr)
+                    b = NetB(home_b, cfg_b, device, b_inproc)
+                    await b.start()
+                    log(f"  B: 'node started' {b.started_s:.3f} s after its start "
+                        f"({'in this process' if b_inproc else 'python -m tendermint_tpu_torch node'}"
+                        f") ({card})")
                 if who == "relay":
-                    # the relay proposes as soon as A has delivered h - 1 (a
-                    # proposer enters height h with everyone else)
+                    # the relay builds its proposal as soon as A has delivered
+                    # h - 1 and sends it once A, and from NET_JOIN_AT on B in
+                    # A's view, is in its PROPOSE step: a proposer enters
+                    # height h with everyone else and proposes after its own
+                    # timeout_commit, so no node holds the proposal complete
+                    # before its PROPOSE step (which it would then skip,
+                    # leaving the step out of its span chain: ROADMAP 3.10)
                     k = relay_of[v.cs.rs.validators.get_by_address(proposer)[0]]
                     prop, parts, build_ms = await cs_build(v, key_of[proposer], h, 0, BlockID,
                                                            Commit, Proposal, BLOCK_PART_SIZE_BYTES)
@@ -4742,17 +4797,23 @@ async def net_run(keys, card, dev, b_inproc, keep_homes=False):
                         cs_reactor._enc("block_part", {"height": h, "round": 0,
                                                        "part": parts.get_part(j).to_dict()})
                         for j in range(parts.total)]
+                    await w.until(lambda: w.at(h, 0, RoundStep.PROPOSE), f"propose {h}/0")
+                    if h >= NET_JOIN_AT:
+                        t = time.perf_counter()
+
+                        def b_here():
+                            ps = a.consensus_reactor.peer_states.get(b_id)
+                            return ps is not None and (ps.height, ps.round, ps.step) >= (
+                                h, 0, RoundStep.PROPOSE)
+
+                        await until(b_here, f"B in its PROPOSE step of height {h}", 600)
+                        join_s += time.perf_counter() - t
+                        st["lines"].append(f"B in its PROPOSE step {time.perf_counter() - t:.3f} s"
+                                           " after A's (the relay held its proposal)")
                     await relays.send(k, cs_reactor.DATA_CHANNEL, frames)
                     t_prop = time.perf_counter()
                     st["lines"].append(f"proposal of {parts.total} parts by relay {k} over TCP "
                                        f"(built in {build_ms:.3f} ms)")
-                if h == NET_B_START + 1:  # after the proposal: B's start takes seconds
-                    cfg_b, b_id = net_home(home_b, gen, b_key, peers=a_addr)
-                    b = NetB(home_b, cfg_b, device, b_inproc)
-                    await b.start()
-                    log(f"  B: 'node started' {b.started_s:.3f} s after its start "
-                        f"({'in this process' if b_inproc else 'python -m tendermint_tpu_torch node'}"
-                        f") ({card})")
                 await w.until(lambda: w.at(h, 0, RoundStep.PROPOSE), f"propose {h}/0")
                 if h > 1:
                     prev = per_h[h - 1]
@@ -4778,19 +4839,6 @@ async def net_run(keys, card, dev, b_inproc, keep_homes=False):
                     f"{w.complete[(h, 0)] - round_start(h):+.3f} s into A's round 0 (timeout_propose "
                     f"{NET_TIMEOUT_PROPOSE} s); proposal complete -> A's prevote "
                     f"{(w.signed[(h, 0, PREVOTE_TYPE)][0] - w.complete[(h, 0)]) * 1000:.3f} ms")
-                if h == NET_JOIN_AT:
-                    # hold the votes until A sees B at this height: from here
-                    # on every vote and part B gets crosses A's reactor
-                    t = time.perf_counter()
-
-                    def b_here():
-                        ps = a.consensus_reactor.peer_states.get(b_id)
-                        return ps is not None and ps.height >= h
-
-                    await until(b_here, "B at A's height", 600)
-                    join_s = time.perf_counter() - t
-                    st["lines"].append(f"B at height {h} in A's view {join_s:.3f} s after A's "
-                                       "prevote (the relays held their votes)")
                 await relays_linked(f"the relays at height {h}")  # relay 1 is back after NET_BAD_AT
                 nv = rs.validators.size()
                 t_s = time.perf_counter()
@@ -4895,13 +4943,19 @@ async def net_run(keys, card, dev, b_inproc, keep_homes=False):
             await relays_linked("the relays at the end")
             if b_inproc:
                 b.watch_commits(next(x for x in probe.views if x.cs is b.node.consensus))
-            run_stops = list(stopped)  # the peers' stops below are the teardown's
+            run_stops = list(stopped)  # the peers' stops below are phase 16's and the teardown's
+            before = launch_counts(zero=True)
+            fx = await fx_run(a, b, (rpc_a, rpc_b), (home_a, home_b),
+                              os.path.join(tmp.name, "forensics"), spool, card, b_inproc)
+            fx["launches"] = launch_counts(zero=True)
+            launch_counts(add={k: before[k] + fx["launches"][k] for k in before})
             await b.stop()
             errors += [f"relay process: {e}" for e in await relays.stop()]
             await a.stop()
             out = net_check(a, b, per_h, proposals, valid, ours_addr, b_addr, errors, run_stops,
                             relays, admitted, n, probe, BLOCK_ID_FLAG_COMMIT)
             out["frames"] = tally["frames"]
+            out["fx"] = fx
         net_report(a, b, per_h, builds, sign_s, join_s, tally["dispatch"], dev, card,
                    dict(kinds), out, probe)
         out["tables"] = [x["thread"] for x in builds]
@@ -4911,6 +4965,7 @@ async def net_run(keys, card, dev, b_inproc, keep_homes=False):
     finally:
         cs_reactor._dec = dec
         probe.close()
+        spool.close()
         await relays.close()
         if b is not None:
             await b.stop()
@@ -4994,9 +5049,9 @@ def net_check(a, b, per_h, proposals, valid, ours_addr, b_addr, errors, stopped,
         raise AssertionError("relay 1 was not readmitted after its stop")
     if errors or b.errors:
         raise AssertionError(f"errors logged: A and the relays {errors[:3]}, B {b.errors[:3]}")
-    if b.rc != 0 or "Traceback" in b.text:
-        raise AssertionError(f"node B exited {b.rc} on SIGTERM or printed a traceback: "
-                             f"{b.text[-3000:]}")
+    if b.rc != (0 if b.inproc else -9) or "Traceback" in b.text:
+        raise AssertionError(f"node B exited {b.rc} on phase 16's `debug kill` (SIGKILL) or "
+                             f"printed a traceback: {b.text[-3000:]}")
     checks = []
     for h, hits in probe.lookups:  # A's calls (probe.executor)
         if h < 2:
@@ -5037,7 +5092,7 @@ def net_report(a, b, per_h, builds, sign_s, join_s, d, dev, card, kinds, out, pr
     th, hh, synced = b.handover
     log(f"  B: 'node started' {b.started_s:.3f} s; fast sync of {synced} block(s) "
         f"in {th - b.t_start - b.started_s:.3f} s after 'node started', switched to consensus at "
-        f"height {hh}; exit code {b.rc} on SIGTERM ({card})")
+        f"height {hh}; exit code {b.rc} on phase 16's `debug kill` ({card})")
     for x in builds:
         log(f"    table of {x['validators']} validators on {x['thread']}: host rows "
             f"{x['rows_ms']:.3f} ms, window tables (kernel 2) "
@@ -5051,11 +5106,352 @@ def net_report(a, b, per_h, builds, sign_s, join_s, d, dev, card, kinds, out, pr
     log(f"  heights 1-{NET_HEIGHTS} on A: {span * 1000:.3f} ms from height 1's propose to height "
         f"{NET_HEIGHTS}'s commit = {NET_HEIGHTS / span:.3f} heights/s; apart from signing and "
         f"framing {sign_s * 1000:.3f} ms, timeout_commit x{NET_HEIGHTS - 1} {waits * 1000:.3f} ms "
-        f"and the wait for B's start {join_s * 1000:.3f} ms: {busy * 1000:.3f} ms = "
+        f"and the relays' holds for B's PROPOSE steps {join_s * 1000:.3f} ms: {busy * 1000:.3f} ms = "
         f"{NET_HEIGHTS / busy:.3f} heights/s; {len(d)} dispatches on A, host prep "
         f"{sum(e['host_prep_ms'] for e in d):.3f} ms, dispatch {device_ms:.3f} ms "
         f"({device_ms / (span * 1000) * 100:.3f} % of the wall time); "
         f"{card_memory(dev, a.table_cache)} ({card})")
+
+
+FX_SECTIONS = ("status.json", "net_info.json", "consensus_state.json", "recorder.json",
+               "health.json", "storage.json", "tasks.json", "config.toml", "cs_wal.tail",
+               "mempool_wal.tail", "flight.spool.tail", "spool.json", "span_report.json",
+               "loop_report.json", "manifest.json")  # the JAX live bundle's sections
+FX_RPC_SECTIONS = ("status", "net_info", "consensus_state", "recorder", "health", "storage",
+                   "tasks")
+FX_CHAINS = 3  # complete step chains each node's `trace --check` must show
+FX_HEIGHTS = range(2, NET_HEIGHTS)  # heights 2-5: the stage budget's and the merge's interior
+FX_ANCHOR_S = 1.0  # B's newest spool anchor is at most this long before its death
+FX_CLI_S = 120.0  # one forensics command, at most
+FX_STANDIN = "import time; time.sleep(600)"  # `debug kill`'s target in the CPU rehearsal
+
+
+class SpoolProbe:
+    """Class-level hooks for phase 16's account of the spool's cost: each
+    FlightSpool.flush timed (ms, per spool), and each node's `flight-spool`
+    task driven through the loop profiler's resume-timing trampoline
+    (loopprof._drive).  The node starts that task before its profiler (the
+    JAX order), so the node's own profiler never accounts it."""
+
+    def __init__(self):
+        from tendermint_tpu_torch.libs import loopprof
+        from tendermint_tpu_torch.libs.tracing import FlightSpool
+        from tendermint_tpu_torch.node import Node
+
+        self.flush_ms = collections.defaultdict(list)  # id(spool) -> [ms]
+        self.busy_ns = collections.Counter()  # id(node) -> ns
+        self._flush, self._loop = FlightSpool.flush, Node._spool_flush_loop
+        flush, loop, probe = self._flush, self._loop, self
+
+        def timed_flush(spool, sync=False):
+            t = time.perf_counter()
+            try:
+                return flush(spool, sync)
+            finally:
+                probe.flush_ms[id(spool)].append(_ms(t))
+
+        def timed_loop(node):
+            def acct(ns):
+                probe.busy_ns[id(node)] += ns
+
+            async def runner():
+                return await loopprof._drive(loop(node).__await__(), acct)
+
+            return runner()
+
+        FlightSpool.flush, Node._spool_flush_loop = timed_flush, timed_loop
+
+    def close(self):
+        from tendermint_tpu_torch.libs.tracing import FlightSpool
+        from tendermint_tpu_torch.node import Node
+
+        FlightSpool.flush, Node._spool_flush_loop = self._flush, self._loop
+
+    def line(self, node, card) -> str:
+        """The spool's cost on `node` so far."""
+        from tendermint_tpu_torch.libs.tracing import spool_paths
+
+        sp = node.flight_spool
+        ms = self.flush_ms[id(sp)]
+        size = sum(os.path.getsize(p) for p in spool_paths(node.config.flight_spool_file()))
+        return (f"{sp.flushes} flushes, {sp.spooled} events spooled ({sp.lost} lost to ring "
+                f"wrap), ms per flush p50 {percentile(ms, 50):.3f} max "
+                f"{max(ms, default=float('nan')):.3f} (sum {sum(ms):.3f}), the flight-spool "
+                f"task's busy ms by the loop profiler's trampoline "
+                f"{self.busy_ns[id(node)] / 1e6:.3f}, {size} bytes on disk ({card})")
+
+
+async def fx_cli(*argv, timeout=FX_CLI_S):
+    """`python -m tendermint_tpu_torch *argv` in a subprocess: its exit
+    code, stdout, stderr and seconds."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "tendermint_tpu_torch", *argv, stdout=asyncio.subprocess.PIPE,
+        stderr=asyncio.subprocess.PIPE, env=child_env(), cwd=HERE)
+    try:
+        out, err = await asyncio.wait_for(proc.communicate(), timeout)
+    except asyncio.TimeoutError:
+        proc.kill()
+        await proc.wait()
+        raise AssertionError(f"`{' '.join(argv)}` did not finish in {timeout} s") from None
+    return proc.returncode, out.decode(), err.decode(), time.perf_counter() - t0
+
+
+async def fx_ok(*argv):
+    """fx_cli that must exit 0: its stdout and seconds."""
+    rc, out, err, s = await fx_cli(*argv)
+    if rc != 0:
+        raise AssertionError(f"`{' '.join(argv)}` exited {rc}: {err[-3000:]}")
+    return out, s
+
+
+def fx_bundle(path) -> dict:
+    """A debug bundle's sections: {file name: bytes}."""
+    import tarfile
+
+    with tarfile.open(path) as tar:
+        return {os.path.basename(m.name): tar.extractfile(m).read() for m in tar.getmembers()}
+
+
+def fx_one(directory) -> str:
+    """The one bundle `debug dump` wrote into `directory`."""
+    names = [n for n in os.listdir(directory) if n.endswith(".tar.gz")]
+    if len(names) != 1:
+        raise AssertionError(f"debug dump wrote {names} into {directory}")
+    return os.path.join(directory, names[0])
+
+
+def fx_last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def fx_broken(text) -> dict:
+    """The broken chains named by a failed `trace --check` (its stderr) or
+    by a trace-net failure line: {height: missing steps}."""
+    import ast
+    import re
+
+    m = re.search(r"broken (?:span )?chains:? (\{.*\})", text)
+    return ast.literal_eval(m.group(1)) if m else {}
+
+
+def fx_caught_up(bad) -> bool:
+    """Every broken chain is one of a height B committed by catch-up,
+    before it joined A's rounds at NET_JOIN_AT: the +2/3 precommits came
+    from A's catch-up gossip, so B's state machine skipped its own prevote
+    (and its PROPOSE step when they came before it), which the JAX
+    span_report counts as broken (ROADMAP 3.10)."""
+    return all(int(h) < NET_JOIN_AT and set(miss) <= {"Propose", "Prevote"}
+               for h, miss in bad.items())  # a JSON report's heights are strings
+
+
+async def fx_check(who, rpc):
+    """`trace --check` against one node: its complete chains, its broken
+    ones and the tool's summary line.  A must pass; B may fail only on its
+    catch-up heights (fx_caught_up)."""
+    import re
+
+    rc, text, err, s = await fx_cli("trace", "--rpc-laddr", rpc, "--check")
+    if rc == 0:
+        m = re.search(r"trace check ok: (\d+) blocks with complete span chains(.*)", text)
+        return int(m.group(1)), {}, m.group(0), s
+    m = re.search(r"trace check FAILED: .*complete=(\d+).*", err)
+    bad = fx_broken(err)
+    if rc != 1 or m is None or who != "B" or not bad or not fx_caught_up(bad):
+        raise AssertionError(f"trace --check on {who} exited {rc}: {err[-3000:]}")
+    return int(m.group(1)), bad, m.group(0), s
+
+
+def fx_failures(failures):
+    """trace-net --check's failures, but for B's catch-up chains."""
+    return [f for f in failures if not (f.startswith("b: broken span chains ")
+                                        and fx_caught_up(fx_broken(f)))]
+
+
+async def fx_run(a, b, rpcs, homes, work, spool, card, inproc):
+    """Phase 16 (see the module docstring, 16) on phase 11's live net: A
+    in this process, B through the CLI (or, in the CPU rehearsal, in this
+    process with a stand-in child as `debug kill`'s target).  Every tool
+    runs as `python -m tendermint_tpu_torch ...`.  B is dead when it
+    returns: `b.stop()` then only reaps it."""
+    import asyncio
+
+    from tendermint_tpu_torch.libs.tracing import BUDGET_STAGES, spool_paths
+
+    t_phase = time.perf_counter()
+    rpc_a, rpc_b = rpcs
+    home_a, home_b = homes
+    both = f"{rpc_a},{rpc_b}"
+    out = {"secs": {}}
+    log(f"  [16] spool on A over heights 1-{NET_HEIGHTS}: {spool.line(a, card)}")
+    # 1. trace --check, --budget and --net-budget against each node, at once
+    argvs = {(who, what): ("trace", "--rpc-laddr", rpc) + extra
+             for who, rpc in (("A", rpc_a), ("B", rpc_b))
+             for what, extra in (("budget", ("--budget", "--json")),
+                                 ("net", ("--net-budget", "--json")))}
+    got = await asyncio.gather(fx_check("A", rpc_a), fx_check("B", rpc_b),
+                               *(fx_ok(*v) for v in argvs.values()))
+    checks = {"A": got[0], "B": got[1]}
+    got = dict(zip(argvs, got[2:]))
+    out["secs"]["trace"] = max([s for _, s in got.values()] + [c[3] for c in checks.values()])
+    for who in ("A", "B"):
+        complete, bad, summary, _ = checks[who]
+        if complete < FX_CHAINS:
+            raise AssertionError(f"trace --check on {who}: {summary}")
+        budget = fx_last_json(got[(who, "budget")][0])["budget"]
+        if budget is None or [s for s in BUDGET_STAGES if s not in budget["stages"]]:
+            raise AssertionError(f"{who}'s stage budget lacks stages: {budget}")
+        if who == "A" and min(st["n"] for st in budget["stages"].values()) < len(FX_HEIGHTS):
+            raise AssertionError(f"A's stage budget does not cover heights {FX_HEIGHTS[0]}-"
+                                 f"{FX_HEIGHTS[-1]}: {budget}")
+        net = fx_last_json(got[(who, "net")][0])["net_budget"]
+        if net is None:
+            raise AssertionError(f"{who}'s net budget is null")
+        out[who] = {"chains": complete, "caught_up": bad, "budget": budget, "net": net}
+        stages = "; ".join(f"{k} n={v['n']} p50 {v['p50_ms']} p90 {v['p90_ms']} max "
+                           f"{v['max_ms']} ms" for k, v in budget["stages"].items())
+        fan = "; ".join(f"{k} n={v['n']} p50 {v['p50_ms']} p90 {v['p90_ms']} ms"
+                        for k, v in net["stages"].items())
+        log(f"  [16] {who}: trace --check: {summary!r}; stage "
+            f"budget over {budget['blocks']} blocks, commit-to-commit p50 "
+            f"{budget['commit_to_commit_p50_ms']} p90 {budget['commit_to_commit_p90_ms']} ms: "
+            f"{stages}; net budget over {net['blocks']} blocks {net['heights']}: {fan}; hop "
+            f"latency {net.get('hop_lat_all_ms')} ({card})")
+    # 2. trace-net over both nodes' RPC
+    rc, text, err, out["secs"]["trace_net"] = await fx_cli("trace-net", "--rpc", both, "--check",
+                                                           "--json")
+    if rc not in (0, 1):
+        raise AssertionError(f"trace-net --rpc exited {rc}: {err[-3000:]}")
+    doc = fx_last_json(text)
+    merged = doc["merged"]
+    heights = sorted(int(h) for h in merged["heights"])
+    if fx_failures(doc["failures"]) or not set(FX_HEIGHTS) <= set(heights):
+        raise AssertionError(f"trace-net --rpc: failures {doc['failures']}, heights {heights}")
+    out["offsets"] = list(zip(merged["nodes"], merged["offsets_ms"], merged["offset_sources"],
+                              merged["offset_samples"]))
+    log(f"  [16] trace-net --rpc A,B --check: heights {heights} aligned, failures "
+        f"{doc['failures']}; offsets "
+        + ", ".join(f"{n} {o:+.3f} ms ({src}, n={k})" for n, o, src, k in out["offsets"])
+        + f"; commit skew p50/p90 {merged['commit_skew_ms_p50']}/{merged['commit_skew_ms_p90']}"
+        f" ms; part coverage p50/p90 {merged['coverage_ms_p50']}/{merged['coverage_ms_p90']} ms; "
+        f"attribution {doc['attribution']} ({card})")
+    # 3. the telescope, both alive
+    text, out["secs"]["watch"] = await fx_ok("debug", "watch", "--once", "--rpc", both)
+    snap = fx_last_json(text)
+    alive = {n["name"]: n["alive"] for n in snap["nodes"]}
+    if alive != {"a": True, "b": True} or not 0 <= (snap["fleet"]["tip_spread"] or 0) <= 1 \
+            or snap["fleet"]["tip_spread"] is None:
+        raise AssertionError(f"debug watch: nodes {alive}, fleet {snap['fleet']}")
+    log(f"  [16] debug watch --once: {alive}, tip {snap['fleet']['tip']} spread "
+        f"{snap['fleet']['tip_spread']}, quorum latency {snap['fleet'].get('quorum_latency_ms')}"
+        f", hop latency {snap['fleet'].get('hop_latency_ms')}")
+    # 4. a live bundle of A
+    _, out["secs"]["dump"] = await fx_ok("--home", home_a, "debug", "dump", "--rpc-laddr", rpc_a,
+                                         "--output", os.path.join(work, "a"))
+    live = fx_bundle(fx_one(os.path.join(work, "a")))
+    missing = [s for s in FX_SECTIONS if s not in live]
+    if missing:
+        raise AssertionError(f"A's live bundle lacks {missing}: {sorted(live)}")
+    gated = [s for s in FX_RPC_SECTIONS if "error" in json.loads(live[f"{s}.json"])]
+    log(f"  [16] debug dump of A: {len(live)} sections, {sum(map(len, live.values()))} bytes; "
+        f"routes answering with their error: {gated}")
+    # 5. debug kill B: its bundle first, then SIGKILL
+    loop = asyncio.get_running_loop()
+    target = (await asyncio.create_subprocess_exec(sys.executable, "-c", FX_STANDIN)
+              if inproc else b.proc)
+    died = loop.run_in_executor(None, lambda: (target.wait(), time.time_ns())) \
+        if not inproc else loop.create_task(target.wait())
+    kill_path = os.path.join(work, "kill-b.tar.gz")
+    text, out["secs"]["kill"] = await fx_ok("--home", home_b, "debug", "kill", str(target.pid),
+                                            "--rpc-laddr", rpc_b, "--output", kill_path)
+    if inproc:
+        rc = await asyncio.wait_for(died, 30)
+        # B in this process: its spool dropped as SIGKILL would drop it,
+        # without the final flush of its stop
+        sp = b.node.flight_spool
+        with sp._lock:
+            sp._closed = True
+            sp._group.close()
+        sp.remove_crash_hooks()
+        t_dead = time.time_ns()
+        await b.stop()
+    else:
+        rc, t_dead = await asyncio.wait_for(died, 30)
+    if rc != -9 or os.stat(kill_path).st_mtime_ns > t_dead:
+        raise AssertionError(f"debug kill: the target exited {rc}, bundle written "
+                             f"{(os.stat(kill_path).st_mtime_ns - t_dead) / 1e6:+.3f} ms after")
+    killed = fx_bundle(kill_path)
+    out["rc_b"] = rc
+    log(f"  [16] debug kill of B: {text.strip().splitlines()}, exit {rc}")
+    # 6. B's bundle from its home alone
+    _, out["secs"]["offline"] = await fx_ok("--home", home_b, "debug", "dump", "--offline",
+                                            "--output", os.path.join(work, "b"))
+    dead = fx_bundle(fx_one(os.path.join(work, "b")))
+    replay = json.loads(dead["spool.json"])
+    recorded = json.loads(killed["recorder.json"])["events"]
+    by_seq = {e["seq"]: e for e in replay["events"]}
+    last = replay["next_seq"] - 1
+    held = [e for e in recorded if e["seq"] <= last]
+    lag_ms = (t_dead - replay["anchor"]["wall_ns"]) / 1e6
+    span = json.loads(dead["span_report.json"])
+    dispatch = [e for e in replay["events"] if e["kind"] == "verify.dispatch"]
+    on_card = [e for e in dispatch if e["path"] not in ("host", "host-cold") and e["device_ms"] > 0]
+    size = sum(os.path.getsize(p) for p in spool_paths(os.path.join(home_b, "data",
+                                                                     "flight.spool")))
+    if replay["runs"] != 1:
+        raise AssertionError(f"B's spool holds {replay['runs']} runs, not its one session")
+    if not 0 <= lag_ms <= FX_ANCHOR_S * 1000:
+        raise AssertionError(f"B's newest spool anchor is {lag_ms:.3f} ms before its death")
+    if not held or any(by_seq.get(e["seq"]) != e for e in held):
+        bad = [e["seq"] for e in held if by_seq.get(e["seq"]) != e]
+        raise AssertionError(f"B's replay differs from its last live dump at seqs {bad[:10]} "
+                             f"({len(held)} compared)")
+    if not fx_caught_up(span["bad"]) or len(span["complete"]) < FX_CHAINS:
+        raise AssertionError(f"B's replayed span report: {span}")
+    if not dispatch or any("path" not in e or "device_ms" not in e for e in dispatch) or (
+            not inproc and not on_card):
+        raise AssertionError(f"B's replay holds {len(dispatch)} verify.dispatch events, "
+                             f"{len(on_card)} on the card")
+    out["replay"] = {"runs": replay["runs"], "events": len(replay["events"]),
+                     "compared": len(held), "anchor_ms": lag_ms, "dispatch": len(dispatch),
+                     "on_card": len(on_card), "writer_lost": replay["writer_lost"],
+                     "torn": replay["torn"], "bytes": size, "complete": span["complete"]}
+    paths = collections.Counter(e["path"] for e in dispatch)
+    log(f"  [16] debug dump --offline of B: {len(dead)} sections, manifest "
+        f"{json.loads(dead['manifest.json'])['event_source']}; the replay holds "
+        f"{replay['runs']} run, {len(replay['events'])} events, its newest anchor {lag_ms:.3f} ms "
+        f"before B's death; {len(held)} events of the kill bundle's recorder.json up to seq "
+        f"{last} all in it, identical; complete chains {span['complete']}, caught up "
+        f"{span['bad']}; verify.dispatch "
+        f"{len(dispatch)} by path {dict(paths)}, device ms "
+        f"{sum(e['device_ms'] for e in on_card):.3f} on {len(on_card)}; writer_lost "
+        f"{replay['writer_lost']}, torn {replay['torn']}, {size} bytes on disk ({card})")
+    # 7. A's live dump merged with B's dead spool
+    path_a, path_b = os.path.join(work, "a-recorder.json"), os.path.join(work, "b-spool.json")
+    for path, data in ((path_a, live["recorder.json"]), (path_b, dead["spool.json"])):
+        with open(path, "wb") as f:
+            f.write(data)
+    rc, text, err, out["secs"]["merge"] = await fx_cli("trace-net", path_a, path_b, "--check")
+    failures = [ln[4:] for ln in err.splitlines() if ln.startswith("  - ")]
+    if rc != 0 and (rc != 1 or not failures or fx_failures(failures)):
+        raise AssertionError(f"trace-net <A's recorder.json> <B's spool.json> exited {rc}: "
+                             f"{err[-3000:]}")
+    log(f"  [16] trace-net <A's recorder.json> <B's spool.json> --check: exit {rc}, "
+        f"{text.strip().splitlines()[-1] if rc == 0 else failures}")
+    # 8. the telescope with B dead
+    text, out["secs"]["watch_down"] = await fx_ok("debug", "watch", "--once", "--rpc", both)
+    snap = fx_last_json(text)
+    alive = {n["name"]: n["alive"] for n in snap["nodes"]}
+    if alive.get("a") is not True or [n for n in snap["nodes"] if n["name"] != "a" and n["alive"]]:
+        raise AssertionError(f"debug watch after the kill: {alive}")
+    log(f"  [16] debug watch --once after the kill: {alive} (B DOWN), fleet {snap['fleet']['alive']}"
+        f"/{snap['fleet']['total']} up")
+    out["s"] = time.perf_counter() - t_phase
+    log(f"  [16] phase 16 took {out['s']:.3f} s; per command (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["secs"].items()) + f" ({card})")
+    return out
 
 
 SS_TRUST_AT = NET_HEIGHTS  # C's trust height: A's tip (the module docstring, 12, says why)
@@ -5208,11 +5604,7 @@ class SsProbe:
 
     @staticmethod
     def launches():
-        from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
-
-        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
-                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
+        return launch_counts()
 
     def on_node(self, node):
         """Instance hooks on C once it is built: Info after the restore and
@@ -6175,19 +6567,13 @@ async def boundary_run(keys, card, dev, inproc_light):
     from tendermint_tpu_torch.crypto import batch as batch_hook
     from tendermint_tpu_torch.mempool import MempoolError
     from tendermint_tpu_torch.node import default_new_node
-    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
     from tendermint_tpu_torch.privval import FilePV, FilePVKey, FilePVLastSignState, SignerClient
     from tendermint_tpu_torch.state import make_genesis_state
     from tendermint_tpu_torch.types.block import BLOCK_ID_FLAG_COMMIT
     from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
 
-    def counters():
-        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
-                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
-
     def since(c0):
-        return {k: v - c0[k] for k, v in counters().items()}
+        return {k: v - c0[k] for k, v in launch_counts().items()}
 
     t0 = time.perf_counter()
     # genesis now: `light` keeps its default trusting period of a week
@@ -6278,7 +6664,7 @@ async def boundary_run(keys, card, dev, inproc_light):
         with consensus_errors(BD_LOGGERS) as errors, table_timing(None, builds, dev):
             app_s = await app.start(ready="ABCI KVStoreApplication serving on")
             await signer.start()
-            c0 = counters()
+            c0 = launch_counts()
             probe.start.reset()
             t = time.perf_counter()
             node = default_new_node(load_config(cfg_path), device=device)
@@ -6288,7 +6674,7 @@ async def boundary_run(keys, card, dev, inproc_light):
             await node.start()
             start_ms = _ms(t)
             stages["start"] = since(c0)
-            c0 = counters()
+            c0 = launch_counts()
             bv = node.batch_verifier
             if bv.device.type != dev.type:
                 raise AssertionError(f"the node's engine runs on {bv.device}, not {dev}")
@@ -6322,7 +6708,7 @@ async def boundary_run(keys, card, dev, inproc_light):
             if v.cs._delivery_task is not None:  # the last block's pipelined apply
                 await asyncio.wait({v.cs._delivery_task})
             stages["heights"] = since(c0)
-            c0 = counters()
+            c0 = launch_counts()
 
             # -- with the node up: light, /metrics, abci_cli, the harness --------
             rpc_addr = node.rpc_server.listen_addr
@@ -6360,7 +6746,7 @@ async def boundary_run(keys, card, dev, inproc_light):
                 pages += json.loads(body)["result"]["validators"]
             metrics = await http_get(node.metrics_server.bound_addr, "/metrics")
             stages["light"] = since(c0)
-            c0 = counters()
+            c0 = launch_counts()
             cli = {}
             info = Child("abci-info", ["-m", "tendermint_tpu_torch.abci_cli", "--address",
                                        f"tcp://127.0.0.1:{ports['app']}", "info"], tmp.name)
@@ -6727,20 +7113,14 @@ async def grpc_run(keys, card, dev):
     from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
     from tendermint_tpu_torch.mempool import SIGNED_TX_PREFIX, make_signed_tx
     from tendermint_tpu_torch.node import default_new_node
-    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
     from tendermint_tpu_torch.rpc.grpc import RpcError
     from tendermint_tpu_torch.rpc.grpc_api import BroadcastAPIClient
     from tendermint_tpu_torch.state import make_genesis_state
     from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
     from tendermint_tpu_torch.types.tx import tx_hash
 
-    def counters():
-        return {"ed25519_ladder": ed25519_cuda.LAUNCHES,
-                "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-                "ed25519_tabulated": ed25519_table.SUM_LAUNCHES}
-
     def since(c0):
-        return {k: v - c0[k] for k, v in counters().items()}
+        return {k: v - c0[k] for k, v in launch_counts().items()}
 
     gen = GenesisDoc(GR_CHAIN, genesis_time_ns=time.time_ns(), validators=[
         GenesisValidator(k.pub_key().address(), k.pub_key(), 10) for k in keys])
@@ -6834,7 +7214,7 @@ async def grpc_run(keys, card, dev):
     try:
         with consensus_errors(GR_LOGGERS) as errors, table_timing(None, builds, dev):
             app_s = await app.start(ready="ABCI KVStoreApplication serving on")
-            c0 = counters()
+            c0 = launch_counts()
             probe.start.reset()
             t = time.perf_counter()
             node = default_new_node(load_config(cfg_path), device=device)
@@ -6844,7 +7224,7 @@ async def grpc_run(keys, card, dev):
             await node.start()
             start_ms = _ms(t)
             stages["start"] = since(c0)
-            c0 = counters()
+            c0 = launch_counts()
             seq0 = next_seq(node.flight_recorder)
             bv = node.batch_verifier
             if bv.device.type != dev.type:
@@ -6896,7 +7276,7 @@ async def grpc_run(keys, card, dev):
                 await asyncio.wait({v.cs._delivery_task})
             answers = await asyncio.gather(*bcast["tasks"])
             stages["heights"] = since(c0)
-            c0 = counters()
+            c0 = launch_counts()
             rcs = {"loadgen": load["rc"]}
             load_line = loadgen.out.strip().splitlines()[-1] if loadgen.out.strip() else "{}"
             load_s = load["s"]
@@ -7178,7 +7558,7 @@ def main() -> int:
 
     from tendermint_tpu_torch.crypto import batch_verifier as bvm
     from tendermint_tpu_torch.crypto import hostprep
-    from tendermint_tpu_torch.ops import _build, ed25519_cuda, ed25519_table
+    from tendermint_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
     card = card_line()
@@ -7219,15 +7599,9 @@ def main() -> int:
     phase_kernels(np.random.default_rng(2024), keys[:TABLE_VALIDATORS], report, dev)
 
     log("[3] main path: 10k-validator commit through the hooks")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     vset, commit, msgs, tab_cache = phase_main(keys, card, dev)
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     log(f"  launches on the main path: {counts}")
     for name, c in counts.items():
         if c == 0:
@@ -7251,16 +7625,10 @@ def main() -> int:
     check_profile(report, card)
 
     log("[5] vote ingress: 10k precommits through AsyncBatchVerifier, VoteSet, commit")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     phase_ingress(keys, vset, commit, msgs, card, dev)
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     log(f"  launches in phase 5: {counts}; phase 5 took {time.perf_counter() - t0:.3f} s")
     if counts["ed25519_ladder"] == 0:
         raise AssertionError("the ladder was not launched during vote ingress")
@@ -7268,16 +7636,10 @@ def main() -> int:
         report[name]["launches"] += c
 
     log("[6] light client: bisection, sequence, engine lane and shared cache at 10k validators")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     _, launches_34 = phase_light(keys, card, dev, report)
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     log(f"  launches in phase 6: {counts}; phase 6 took {time.perf_counter() - t0:.3f} s")
     if counts["ed25519_window_tables"] == 0:
         raise AssertionError("kernel 2 (window tables) was not launched in phase 6")
@@ -7287,16 +7649,10 @@ def main() -> int:
         report[name]["launches"] += c
 
     log("[7] fast-sync replay from sqlite stores at 10k validators across a set rotation")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     launches_a = phase_replay(keys, card, dev)
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     log(f"  launches in phase 7: {counts}; phase 7 took {time.perf_counter() - t0:.3f} s")
     prof = next(iter(bvm.tabulated_profiles.values()))
     picked = "ed25519_tabulated" if prof["tab_ms"] < prof["ladder_ms"] else "ed25519_ladder"
@@ -7311,16 +7667,10 @@ def main() -> int:
 
     log("[8] blocks applied to the kvstore app at 10k validators: mempool, BlockExecutor, "
         "fast sync, handshake")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     launches = phase_abci(keys, card, dev)
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     log(f"  launches in phase 8: {counts}; phase 8 took {time.perf_counter() - t0:.3f} s")
     if launches["flushes"]["ed25519_ladder"] == 0:
         raise AssertionError("the ladder was not launched by the mempool's signed-tx flushes")
@@ -7335,16 +7685,10 @@ def main() -> int:
 
     log("[9] consensus at 10k validators: proposals, vote frames, a round change and a restart "
         "from the WAL")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     out = phase_consensus(keys, card, dev)
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     log(f"  launches in phase 9: {counts}; {out['validate_blocks']} validate_block calls on heights "
         f">= 2, {out['indexed_dispatches']} indexed dispatches, {out['frames']} vote frames "
         f"accepted; phase 9 took {time.perf_counter() - t0:.3f} s")
@@ -7362,16 +7706,10 @@ def main() -> int:
 
     log("[10] node wiring: a 10,000-validator node from its home directory, stopped and "
         "resumed; then the CLI")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     out = phase_node(keys, card, dev)
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     log(f"  launches in phase 10 (a): {counts}; {out['validate_blocks']} validate_block calls on "
         f"heights >= 2, {out['hits']} table hits, declines by node {out['declines']}, tables "
         f"built {out['tables']}, {out['frames']} vote frames accepted; phase 10 (a) took "
@@ -7399,17 +7737,11 @@ def main() -> int:
 
     log("[11] two port nodes of the 10,000-validator chain over TCP: four relays, node B "
         "through the CLI fast-syncing from A and following it")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     out = phase_net(keys, card, dev, keep_homes=True)
     net = out["net"]  # A's and B's homes, for phase 12
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     try:
         log(f"  launches in phase 11 on A (node B's, in its own process, are not counted): {counts}; "
             f"{out['validate_blocks']} validate_block calls of A on heights >= 2, {out['hits']} table "
@@ -7424,6 +7756,8 @@ def main() -> int:
         if counts["ed25519_ladder"] < out["frames"] + out["declines"]:
             raise AssertionError("the ladder did not serve every vote_batch frame of >= 16 entries and "
                                  "declined check of A in phase 11")
+        log(f"  launches in phase 16 on A (inside phase 11, and in its counts above): "
+            f"{out['fx']['launches']}; phase 16 took {out['fx']['s']:.3f} s ({card})")
         for name, c in counts.items():
             report[name]["launches"] += c
     except BaseException:  # phase 12 does not run: remove A's and B's homes
@@ -7433,16 +7767,10 @@ def main() -> int:
     log("[12] a third node joins the 10,000-validator chain by state sync: A and B serve it "
         "through the CLI with RPC and PEX on; C restores a snapshot, fast-syncs the tail and "
         "follows")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     ss = phase_statesync(keys, card, dev, net, keep_running=True)
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     stages = ss["stages"]
     try:
         log(f"  launches in phase 12 on C (A's and B's, in their own processes, are not counted): "
@@ -7466,16 +7794,10 @@ def main() -> int:
     log("[13] a node from a stock home: D knows only seed A, meshes by PEX, fast-syncs the "
         "10,000-validator chain, streams NewBlock over /websocket and serves 16 light-client "
         "tenants from its gateway")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     out = phase_stockhome(keys, card, dev, ss)
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     stages = out["stages"]
     log(f"  launches in phase 13 on D (A's and B's, in their own processes, are not counted): "
         f"{counts}; phase 12's checks passed (snapshot at {out['ss']['snapshot']}); phase 13 "
@@ -7498,16 +7820,10 @@ def main() -> int:
     log("[14] a validator across its process boundaries: its app behind the ABCI socket "
         "(abci_cli kvstore), its key in a remote signer process, /metrics, and `light` in "
         "front of its RPC, at 10,000 validators")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     out = phase_boundary(keys, card, dev)
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     log(f"  launches in phase 14 on the node (light's, in its own process, are not counted): "
         f"{counts}; {out['validate_blocks']} validate_block calls on heights >= 2, "
         f"{out['hits']} table hits, {out['declines']} declines, {out['frames']} vote frames "
@@ -7530,16 +7846,10 @@ def main() -> int:
     log("[15] transactions from outside at 10,000 validators: the app over ABCI gRPC "
         "(abci_cli --abci grpc kvstore), a tm-bench firehose (loadgen) at the RPC, the "
         "BroadcastAPI on rpc.grpc_laddr")
-    ed25519_cuda.LAUNCHES = 0
-    ed25519_table.BUILD_LAUNCHES = 0
-    ed25519_table.SUM_LAUNCHES = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     out = phase_grpc(keys, card, dev)
-    counts = {
-        "ed25519_ladder": ed25519_cuda.LAUNCHES,
-        "ed25519_window_tables": ed25519_table.BUILD_LAUNCHES,
-        "ed25519_tabulated": ed25519_table.SUM_LAUNCHES,
-    }
+    counts = launch_counts()
     log(f"  launches in phase 15 on the node: {counts}; {out['validate_blocks']} validate_block "
         f"calls on heights >= 2, {out['hits']} table hits, {out['declines']} declines, "
         f"{out['frames']} vote frames accepted, {out['flushes']} signed-tx flushes; phase 15 "

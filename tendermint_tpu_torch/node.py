@@ -3,8 +3,8 @@ tendermint_tpu/node.py, with the RPC server and its /websocket, the p2p
 stack with PEX and the address book, the STATESYNC, BLOCKCHAIN, CONSENSUS,
 MEMPOOL and EVIDENCE reactors, the embedded liteserve gateway, an app
 behind the ABCI socket or gRPC, a remote signer on `priv_validator_laddr`,
-the /metrics listener and the gRPC BroadcastAPI on `rpc.grpc_laddr`;
-without the chaos layers).
+the /metrics listener, the gRPC BroadcastAPI on `rpc.grpc_laddr` and the
+crash-persistent flight spool; without the chaos layers).
 
 Reference parity: node/node.go (NewNode:556, DefaultNewNode:90,
 OnStart:752; createAndStartProxyAppConns:578, doHandshake:601,
@@ -65,9 +65,6 @@ def check_ported(config: Config) -> None:
         (cfg.p2p.test_fuzz, "p2p.test_fuzz: the p2p link policies", "1.8", "test_fuzz = false"),
         (cfg.chaos.enabled, "chaos.enabled: disk faults, the twin signer and link policies",
          "1.8", "chaos.enabled = false"),
-        (cfg.instrumentation.flight_spool,
-         "instrumentation.flight_spool: the crash-persistent flight spool", "1.8",
-         "flight_spool = false"),
         (cfg.tpu.mesh == "on", 'tpu.mesh = "on": the multi-card verify mesh', "2.2",
          'tpu.mesh = "auto"'),
         (cfg.tpu.bls_jax_aggregation,
@@ -253,6 +250,7 @@ class Node(Service):
         self.metrics_server = None
         self.loop_profiler = None
         self.watchdog = None
+        self.flight_spool = None
         # flight recorder: always constructed (cheap); enabled/size/
         # high-rate sampling from the [instrumentation] config section
         from .libs.tracing import FlightRecorder
@@ -297,6 +295,25 @@ class Node(Service):
         from .crypto import backend as _crypto_backend
 
         self.metrics_provider.verify.backend_tier.set(_crypto_backend.active_tier())
+        # crash-persistent flight spool ([instrumentation] flight_spool):
+        # recorder events journal to disk on a cadence OFF the recording
+        # hot path, so a SIGKILL leaves the last seconds of spans for
+        # `debug dump` to replay offline.  Built before any service spawns
+        # so startup spans are covered too.  The JAX node wraps the spool's
+        # group in its chaos disk-fault layer; the port has no chaos layer
+        # yet (ROADMAP 1.8), so the group stays unwrapped until it lands.
+        if cfg.instrumentation.flight_spool and self.flight_recorder.enabled:
+            from .libs.tracing import FlightSpool
+
+            cfg.ensure_dirs()
+            self.flight_spool = FlightSpool(
+                cfg.flight_spool_file(),
+                self.flight_recorder,
+                size_limit=cfg.instrumentation.flight_spool_size_limit,
+                node=cfg.base.moniker,
+            )
+            self.flight_spool.install_crash_hooks()
+            self.spawn(self._spool_flush_loop(), name="flight-spool")
         # scheduler profiler, started BEFORE any service spawns tasks so
         # the spawn-path accounting trampoline covers them all.  The spawn
         # and GC hooks are process-wide first-wins (libs/loopprof.py).
@@ -792,6 +809,20 @@ class Node(Service):
 
             prof.add_queue_probe("mconn_send", _mconn_send_depth)
 
+    async def _spool_flush_loop(self) -> None:
+        """Cadence flush of the flight spool — small buffered appends, far
+        from the recording hot path (the recorder never knows the spool
+        exists).  Crash classes: this loop covers the steady state; the
+        excepthook/atexit hooks cover crashes; node stop does the final
+        synced flush; SIGKILL keeps everything up to the last cadence."""
+        interval = self.config.instrumentation.flight_spool_flush_interval
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                self.flight_spool.flush()
+            except Exception as e:  # noqa: BLE001 — a full disk must not kill consensus
+                self.log.error("flight spool flush failed", err=repr(e))
+
     async def _statesync_done(self, state) -> None:
         """Statesync → fastsync handover (or fallback).  `state` is the
         snapshot-restored state, or None when every candidate failed — in
@@ -843,3 +874,7 @@ class Node(Service):
             await self.async_verifier.stop()
         if self.batch_verifier is not None:
             uninstall_engine(self.batch_verifier, self.table_cache)
+        if self.flight_spool is not None:
+            # final synced flush AFTER everything above recorded its last
+            # events; an orderly stop leaves a complete spool
+            self.flight_spool.close()

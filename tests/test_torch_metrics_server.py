@@ -12,10 +12,10 @@ tolerance exact; and the node's wiring of it and of the remote signer.
 - A listen address already taken gives the JAX OSError text; `bound_addr`
   resolves a `:0` port; a second `stop` does nothing.
 - `check_ported` accepts `priv_validator_laddr`,
-  `instrumentation.prometheus` and `rpc.grpc_laddr` (the BroadcastAPI)
-  and still refuses `instrumentation.flight_spool`, `tpu.mesh = "on"` and
-  `chaos.enabled`; a port node with prometheus on serves its registry at
-  the configured address.
+  `instrumentation.prometheus`, `rpc.grpc_laddr` (the BroadcastAPI) and
+  `instrumentation.flight_spool` (the crash-persistent spool) and still
+  refuses `tpu.mesh = "on"` and `chaos.enabled`; a port node with
+  prometheus on serves its registry at the configured address.
 """
 
 import asyncio
@@ -151,9 +151,9 @@ BOUNDARY = {
     "prometheus": ("instrumentation", "prometheus", True),
     "socket_app": ("base", "proxy_app", "tcp://127.0.0.1:26658"),
     "grpc_laddr": ("rpc", "grpc_laddr", "tcp://127.0.0.1:36656"),
+    "flight_spool": ("instrumentation", "flight_spool", True),
 }
 STILL_REFUSED = {
-    "flight_spool": (("instrumentation", "flight_spool", True), r"1\.8"),
     "mesh_on": (("tpu", "mesh", "on"), r"2\.2"),
     "chaos": (("chaos", "enabled", True), r"1\.8"),
 }

@@ -15,8 +15,9 @@ recorder event's fields.  Then each package's node restarts from the
 other's home and commits two more heights, and the two resumed chains
 must agree.  Each configuration the port does not carry raises
 NotImplementedError naming its ROADMAP item, before anything is opened; a
-stock `init` home (PEX on) with a seed starts, and so does a node with
-`liteserve.enable`.
+node with the flight spool on flushes on its cadence and stops with a
+synced final flush; a stock `init` home (PEX on) with a seed starts, and
+so does a node with `liteserve.enable`.
 """
 
 import asyncio
@@ -251,7 +252,6 @@ def test_only_validator_is_us_equals_jax():
 UNPORTED = {
     "test_fuzz": ("p2p.test_fuzz", True, "1.8"),
     "chaos": ("chaos.enabled", True, "1.8"),
-    "flight_spool": ("instrumentation.flight_spool", True, "1.8"),
     "mesh_on": ("tpu.mesh", "on", "2.2"),
     "bls_jax_aggregation": ("tpu.bls_jax_aggregation", True, "2.1"),
 }
@@ -273,6 +273,55 @@ def test_unported_configuration_raises_before_opening(case, tmp_path):
             build()
     assert sorted(os.listdir(os.path.join(home, "data"))) == ["priv_validator_state.json"]
     assert not os.path.exists(cfg.priv_validator_key_file())
+
+
+async def test_flight_spool_flushes_on_its_cadence_and_stops_synced(tmp_path):
+    """`instrumentation.flight_spool` on (ported from the JAX node's
+    wiring): the spool is built at start with its crash hooks installed,
+    its task flushes every `flight_spool_flush_interval` without an fsync,
+    and the stop makes one synced final flush holding every recorded
+    event, closes the spool and removes its hooks."""
+    import sys
+
+    from tendermint_tpu_torch.libs import tracing as ptracing
+
+    home = str(tmp_path / "spool")
+    make_home(PORT, home)
+    cfg = load_cfg(PORT, home)
+    cfg.instrumentation.flight_spool = True
+    cfg.instrumentation.flight_spool_flush_interval = 0.05
+    cfg.instrumentation.loop_probe_interval = 0.02  # events for every flush to write
+    hook = sys.excepthook
+    node = pnode.default_new_node(cfg, device="cpu")
+    assert node.flight_spool is None
+    syncs = []
+    await node.start()
+    try:
+        sp = node.flight_spool
+        assert sp._hooks_installed and sys.excepthook is sp._hook_fn
+        assert "flight-spool" in {t.get_name() for t in node._tasks}
+        real_sync = sp._group.sync
+
+        def sync():
+            syncs.append(sp.recorder._seq)
+            real_sync()
+
+        sp._group.sync = sync
+        n0 = sp.flushes
+        t0 = time.monotonic()
+        await until(lambda: sp.flushes >= n0 + 3, "three cadence flushes")
+        assert time.monotonic() - t0 >= 2 * cfg.instrumentation.flight_spool_flush_interval
+        assert syncs == []
+        node.flight_recorder.record("test.stop")  # an event only the final flush can write
+    finally:
+        await node.stop()
+    assert len(syncs) == 1 and sp._closed and not sp._hooks_installed
+    assert sys.excepthook is hook
+    dump = ptracing.read_spool(cfg.flight_spool_file())
+    assert dump["runs"] == 1 and dump["node"] == cfg.base.moniker and dump["torn"] == 0
+    assert dump["next_seq"] == syncs[0] == node.flight_recorder._seq
+    assert "test.stop" in [e["kind"] for e in dump["events"]]
+    assert dump["events"][-50:] == node.flight_recorder.events()[-50:]
 
 
 async def test_stock_init_home_with_a_seed_starts(tmp_path):
