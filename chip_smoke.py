@@ -46,19 +46,19 @@
    fails on any wrong verdict, a batch of 16 or more votes on the host, or
    a ladder that was not launched.  Its launches add to the kernels line.
 6. The light client at full width (lite2, statesync's engine lane,
-   liteserve's VerifyCache): a chain of 1,005 heights whose 10,000-validator
+   liteserve's VerifyCache): a chain of 505 heights whose 10,000-validator
    set (power 10) replaces its 2,500 oldest validators by new keys every
-   100 heights; commits are signed on first request.  Run 1: bisection
-   1 -> 1,000 through the installed BatchVerifier and TableCache (tabulated
-   auto) with an honest witness; it must make the 12 expected steps, persist
-   {1, 250, 437, 577, 788, 1000} and build tables for each new set.  Run 2:
-   sequence 1,000 -> 1,005 on the next set, persisted to a sqlite DBStore
+   100 heights (5 replacements); commits are signed on first request.  Run 1: bisection
+   1 -> 500 through the installed BatchVerifier and TableCache (tabulated
+   auto) with an honest witness; it must make the 3 expected steps, persist
+   {1, 250, 500} and build tables for each new set.  Run 2:
+   sequence 500 -> 505 on the next set, persisted to a sqlite DBStore
    that is reopened and read back.  Run 3: the same bisection with
    the node's engine settings and EngineCommitPreverify (each commit one
    verify_many arrival).  Run 4: eight tenants bisect concurrently through
-   one VerifyCache(async_verifier=...): 9 misses, 95 hits or coalesced
-   joins.  Run 5: a flipped signature in header 1,000 (ValueError "wrong
-   signature (#i)") and a witness serving another header 1,000
+   one VerifyCache(async_verifier=...): 3 misses, 29 hits or coalesced
+   joins.  Run 5: a flipped signature in header 500 (ValueError "wrong
+   signature (#i)") and a witness serving another header 500
    (DivergedHeaderError, store rolled back).  Prints per step the path,
    batch, host prep and device ms and the table cache's hit or miss; per new
    set the table build (host rows, kernel 2); per run wall time and headers
@@ -360,9 +360,9 @@
    HTTPClient), its VerifyCache on D's AsyncBatchVerifier.  Starting it
    after catch-up is deliberate: at Node.start D's stores do not hold
    header 2 yet, and the bootstrap gives up after five tries (the JAX
-   node does the same).  16 tenants each open a session
+   node does the same).  8 tenants each open a session
    (`lite_session_new`) and ask for the commits of heights 2-6 at once
-   (80 `lite_commit` answers of ~1.4 MB of JSON).  Prints D's time from
+   (40 `lite_commit` answers of ~1.4 MB of JSON).  Prints D's time from
    its start to the subscription, `node started`, the seed dial, each
    peer learned by PEX, each dial, each applied block, caught up and
    meshed; its book and the PEX frames; the notifications and their lag
@@ -519,6 +519,39 @@
    complete chains and, on the card, verify.dispatch events of B's kernels
    with their device ms.  Phase 11's checks then open B's SIGKILLed stores,
    and phase 12 restarts B from that home.
+17. The chaos rig (the JAX networks/local/chaos_smoke.py and
+   disk_smoke.py on the port): two 4-validator localnets, run at the same
+   time (a thread each in this process), each made by
+   `python -m tendermint_tpu_torch testnet --validators 4 --fast
+   --db-backend sqlite --chaos --chaos-seed 7` (with `--twin 0` for (a)) on
+   free local ports, then `[tpu] enabled = true` and `min_device_batch = 1`
+   in each home (`--fast` turns the engine off, as in the JAX rigs; here
+   every vote batch, commit and refill verifies on the card) and /metrics
+   on; each node runs `python -m tendermint_tpu_torch --home H node` in its
+   own process.  Each scenario is parsed twice (equal fingerprints) and
+   staged through the `unsafe_chaos_*` routes and signals while the
+   port's InvariantChecker scrapes /status and /blockchain (agreement, no
+   height regression).  (a) `twin 0; partition 0,1|2,3 @2~0.5; heal
+   @8~0.5; kill 2 @11; restart 2 @13`: fails unless commits stop during
+   the partition, resume within 30 s of the heal and of the restart, the
+   twin's DuplicateVoteEvidence is committed and reaches the kvstore's
+   `__byzantine__` key, a non-twin node's watchdog raises consensus_stall
+   during the partition and every live one clears it after, and an honest
+   node counts the twin's forged trace fields as clamped.  (b) `rot 3
+   blockstore h=3 @2; disk 2 enospc @8~0.5; disk 2 heal @16; kill 2 @18;
+   restart 2 @20`: fails unless node 3's integrity scan finds and
+   quarantines height 3 and it is refilled from the peers and served
+   re-hashing within 45 s, node 2 under ENOSPC raises disk_fault CRITICAL
+   with /status and /health up and no CONSENSUS FAILURE (its log names the
+   storage halt) while the others commit, node 2 rejoins within 45 s of its
+   restart, and every scraped block re-hashes.  Each node's kernel
+   dispatches by path are read from its flight recorder over its RPC
+   (watermarked); on the card each honest node must have launched kernels
+   and verified no batch on the host.  Prints the fingerprints, the rigs'
+   numbers (chaos_partition_recovery_ms, disk_fault_recovery_ms,
+   store_integrity_scan_ms, enospc_recovery_ms, ...), each node's
+   dispatches and its chaos series from /metrics.  The nodes' launches are
+   in their own processes and not in the kernels line.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -556,16 +589,14 @@ SEC = 1_000_000_000
 LITE_T0 = 1_700_000_000 * SEC
 LITE_ROTATE = 2500  # validators replaced at each epoch boundary
 LITE_EPOCH = 100  # heights per epoch
-LITE_TOP = 1005  # the chain's last height
-LITE_TARGET = 1000  # what the bisections verify
+LITE_TOP = 505  # the chain's last height: 5 set replacements (every LITE_EPOCH heights)
+LITE_TARGET = 500  # what the bisections verify
 LITE_TENANTS = 8
-# bisection 1 -> 1000: (trusted height, untrusted height, trusted?); the
+# bisection 1 -> 500: (trusted height, untrusted height, trusted?); the
 # trust check passes when the two sets are at most two epochs apart
-LITE_STEPS = [(1, 1000, False), (1, 500, False), (1, 250, True), (250, 1000, False),
-              (250, 625, False), (250, 437, True), (437, 1000, False), (437, 718, False),
-              (437, 577, True), (577, 1000, False), (577, 788, True), (788, 1000, True)]
-LITE_HEIGHTS = [1000, 788, 577, 437, 250, 1]  # what it persists, descending
-LITE_DISTINCT = 9  # distinct headers a bisection asks for: 1 and the 8 untrusted heights
+LITE_STEPS = [(1, 500, False), (1, 250, True), (250, 500, True)]
+LITE_HEIGHTS = [500, 250, 1]  # what it persists, descending
+LITE_DISTINCT = 3  # distinct headers a bisection asks for: 1 and the 2 untrusted heights
 
 # Phase 7: fast-sync replay from the stores (BASELINE config #5 widths)
 REPLAY_TOP = 13  # heights 1 .. 13; block 13's own commit is stored as its seen commit
@@ -1571,7 +1602,7 @@ def print_steps(run, rec, card):
 
 def host_breakdown(chain, card):
     """Host ms of the parts of one skipping step at full width, on the
-    step 788 -> 1000 with a VerifyCache lookup serving the signatures (what
+    last step (250 -> 500) with a VerifyCache lookup serving the signatures (what
     a tenant of run 4 pays per call once the commit is verified)."""
     from tendermint_tpu_torch.liteserve.cache import _commit_digest
     from tendermint_tpu_torch.lite2 import verify_non_adjacent
@@ -1665,7 +1696,7 @@ def phase_light(keys, card, dev, report):
         if paths & {"indexed", "chunked"} and not launches_run1["ed25519_ladder"]:
             raise AssertionError("run 1 took the ladder path without launching kernel 1")
 
-    # run 2: sequence on from the stored header at 1000 into the next set,
+    # run 2: sequence on from the stored header at 500 into the next set,
     # persisted to a sqlite DBStore that starts as a copy of run 1's store
     light_home = tempfile.TemporaryDirectory(prefix="chip-smoke-light-")
     db = open_db("light", light_home.name)
@@ -5459,12 +5490,22 @@ SS_LOGGERS = ("statesync", "rpc", "rpc.server", "fastsync", "p2p", "p2p-transpor
 SS_CAUGHT_UP_S = 600.0  # C's start to caught up, at most
 
 
+_HELD_PORTS = []  # free_port's sockets, bound for the life of the process
+
+
 def free_port() -> int:
+    """A local port nobody else is handed: the socket that found it stays
+    bound (SO_REUSEADDR, never listening) until this process exits, so the
+    kernel gives the port to no other bind to port 0, while the server it
+    is meant for (asyncio's, SO_REUSEADDR too), here or in a child
+    process, still binds it."""
     import socket
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    sock = socket.socket()
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind(("127.0.0.1", 0))
+    _HELD_PORTS.append(sock)
+    return sock.getsockname()[1]
 
 
 def ss_serving_config(cfg_path, p2p_port, rpc_port, peers=""):
@@ -5984,7 +6025,7 @@ def ss_report(c, probe, t_c, t_started, dump, l_end, card) -> dict:
     return {"stages": stages, "snapshot": probe.restores[0] if probe.restores else None}
 
 
-SH_TENANTS = 16  # phase 13: light-client tenants of the gateway
+SH_TENANTS = 8  # phase 13: the gateway's light-client tenants (16 before phase 17)
 SH_ROOT = 2  # the gateway's trust height; tenants ask for SH_ROOT .. NET_HEIGHTS
 SH_WITNESS_TIMEOUT = 30.0  # s: a witness /commit of the 10k set is ~1.4 MB (see sh_gateway)
 SH_CAUGHT_UP_S = 300.0  # D's start to caught up, at most
@@ -6248,7 +6289,7 @@ async def sh_run(keys, card, dev, live):
 
 async def sh_gateway(d, client_a, live, probe, card) -> dict:
     """D's gateway through the wiring Node.start runs for liteserve.enable,
-    rooted at A's header 2 with A and B as witnesses, then 16 tenants: each
+    rooted at A's header 2 with A and B as witnesses, then 8 tenants: each
     opens a session and asks for the commits of heights 2-6 at once.  The
     witness timeout is 30 s, not the JAX default 3 s: each witness read is a
     1.4 MB /commit, and this loop also serves the tenants' answers."""
@@ -7501,6 +7542,668 @@ def gr_report(node, per_h, out, rt, answers, bcast, load_line, pool, cli, h2, la
     log(f"  launches by stage: {out['stages']}")
 
 
+# Phase 17: the chaos rig (the JAX networks/local/chaos_smoke.py and disk_smoke.py)
+CH_SCENARIO_A = "twin 0; partition 0,1|2,3 @2~0.5; heal @8~0.5; kill 2 @11; restart 2 @13"
+CH_SCENARIO_B = ("rot 3 blockstore h=3 @2; disk 2 enospc @8~0.5; disk 2 heal @16; kill 2 @18; "
+                 "restart 2 @20")
+CH_SEED = 7  # --chaos-seed of both nets and the scenarios' seed
+CH_ROT_HEIGHT = 3  # (b): the height whose stored block part rots on node 3
+CH_RECOVERY_A_S = 30.0  # (a): heal and restart to the next commit, at most (chaos_smoke's bound)
+CH_RECOVERY_B_S = 45.0  # (b): rot to refill and restart to rejoin, at most (disk_smoke's bound)
+CH_BUDGET_S = 90.0  # after the last fault, for recovery and accountability (both rigs' budget)
+CH_READY_S = 180.0  # the four node processes' start to their first commits, at most
+CH_MIN_DEVICE_BATCH = 1  # [tpu] min_device_batch: every vote batch and commit goes to the card
+CH_POLL_S = 0.4  # the rigs' scrape interval
+CH_LAUNCH_PATHS = ("device", "indexed", "chunked", "tabulated")  # dispatches that launch a kernel
+
+
+def ch_node_argv(home):
+    """A phase 17 node's process: the port's CLI `node` on its home."""
+    return ["-m", "tendermint_tpu_torch", "--home", home, "node"]
+
+
+def ch_rpc(port, path, timeout=5.0):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/{path}", timeout=timeout) as r:
+        return json.load(r)
+
+
+def ch_call(port, method, **params):
+    import urllib.parse
+
+    qs = urllib.parse.urlencode({k: str(v) for k, v in params.items()})
+    return ch_rpc(port, f"{method}?{qs}" if qs else method)
+
+
+def ch_height(port):
+    try:
+        return int(ch_rpc(port, "status")["result"]["sync_info"]["latest_block_height"])
+    except Exception:  # noqa: BLE001 — a node down or starting is not a fault here
+        return None
+
+
+def ch_health(port):
+    try:
+        return ch_rpc(port, "health")["result"]
+    except Exception:  # noqa: BLE001
+        return None
+
+
+def ch_base_port(avoid=()):
+    """A base port whose 4 x 10 ports are free now (testnet takes p2p at
+    base + 10 i, RPC at + 1; the phase puts /metrics at + 2), 40 or more
+    from each base in `avoid`."""
+    import random
+    import socket
+
+    rng = random.Random()
+    for _ in range(100):
+        base = rng.randrange(20000, 30000, 10)
+        if any(abs(base - other) < 40 for other in avoid):
+            continue
+        try:
+            for i in range(40):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", base + i))
+        except OSError:
+            continue
+        return base
+    raise AssertionError("no free range of 40 local ports for phase 17")
+
+
+class ChNet:
+    """One 4-validator localnet of phase 17: homes by the port's `testnet
+    --fast --db-backend sqlite --chaos`, the engine on at
+    CH_MIN_DEVICE_BATCH and /metrics on, each node through the CLI in a
+    process of its own (stdout and stderr in its home's node.log); polls
+    each node's flight recorder (watermarked) for its kernel dispatches and
+    gossip.hop events."""
+
+    def __init__(self, root, part, twin, avoid=()):
+        self.root, self.part, self.twin = root, part, twin
+        self.base = ch_base_port(avoid)
+        self.homes = [os.path.join(root, f"node{i}") for i in range(4)]
+        self.rpc = [self.base + 10 * i + 1 for i in range(4)]
+        self.metrics = [self.base + 10 * i + 2 for i in range(4)]
+        self.procs = [None] * 4
+        self.live = [False] * 4
+        self.wm = [0] * 4
+        self.dispatch = [collections.Counter() for _ in range(4)]
+        self.lost = [0] * 4
+        self.hops = self.clamps = 0
+        self.last_poll = 0.0
+        self.before_kill = {}  # node -> its chaos series read just before its SIGKILL
+
+    def build(self):
+        from tendermint_tpu_torch.config import load_config, save_config
+
+        argv = [sys.executable, "-m", "tendermint_tpu_torch", "testnet", "--validators", "4",
+                "--output", self.root, "--base-port", str(self.base), "--fast",
+                "--db-backend", "sqlite", "--chaos", "--chaos-seed", str(CH_SEED)]
+        if self.twin is not None:
+            argv += ["--twin", str(self.twin)]
+        res = subprocess.run(argv, env=child_env(), cwd=HERE, capture_output=True, text=True,
+                             timeout=120)
+        if res.returncode != 0:
+            raise AssertionError(f"testnet exited {res.returncode}: {res.stderr[-2000:]}")
+        for i, home in enumerate(self.homes):
+            path = os.path.join(home, "config", "config.toml")
+            cfg = load_config(path)
+            if not (cfg.chaos.enabled and cfg.chaos.seed == CH_SEED and cfg.rpc.unsafe
+                    and cfg.chaos.twin == (i == self.twin) and not cfg.tpu.enabled):
+                raise AssertionError(f"testnet --chaos wrote another [chaos] for node{i}")
+            # the one deviation from the JAX rigs: --fast turns the engine
+            # off (4-vote batches are below the default min_device_batch of
+            # 16); here every batch, commit and refill verifies on the card
+            cfg.tpu.enabled = True
+            cfg.tpu.min_device_batch = CH_MIN_DEVICE_BATCH
+            # the chaos counters are read from /metrics
+            cfg.instrumentation.prometheus = True
+            cfg.instrumentation.prometheus_listen_addr = f"127.0.0.1:{self.metrics[i]}"
+            save_config(cfg, path)
+
+    def say(self, msg):
+        log(f"  ({self.part}) {msg}")
+
+    def start(self, i):
+        log_f = open(os.path.join(self.homes[i], "node.log"), "ab")
+        self.procs[i] = subprocess.Popen([sys.executable, *ch_node_argv(self.homes[i])],
+                                         env=child_env(), cwd=HERE, stdout=log_f,
+                                         stderr=subprocess.STDOUT)
+        log_f.close()
+        self.live[i], self.wm[i] = True, 0
+
+    def kill(self, i):
+        self.poll_recorders(force=True)
+        self.before_kill[i] = self.chaos_metrics(i)
+        self.procs[i].send_signal(9)
+        self.procs[i].wait(30)
+        self.live[i] = False
+
+    def stop(self):
+        for p in self.procs:
+            if p is not None and p.poll() is None:
+                p.send_signal(15)
+        for p in self.procs:
+            if p is None:
+                continue
+            try:
+                p.wait(30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+    def wait_ready(self, check, what):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < CH_READY_S:
+            hs = [ch_height(p) for p in self.rpc]
+            if check(hs):
+                return hs, time.perf_counter() - t0
+            dead = [i for i, p in enumerate(self.procs) if p.poll() is not None]
+            if dead:
+                raise AssertionError(f"node{dead[0]} exited {self.procs[dead[0]].returncode} "
+                                     f"during startup: {self.log(dead[0])[-3000:]}")
+            time.sleep(0.5)
+        raise AssertionError(f"phase 17 startup timeout ({what}): heights "
+                             f"{[ch_height(p) for p in self.rpc]}")
+
+    def log(self, i):
+        with open(os.path.join(self.homes[i], "node.log"), "rb") as f:
+            return f.read().decode(errors="replace")
+
+    def poll_recorders(self, force=False):
+        """Each live node's verify.dispatch and gossip.hop events since the
+        last poll: dispatches by path, and the hops' clamped trace fields
+        (a twin's forged hop count and origin time must be clamped)."""
+        if not force and time.perf_counter() - self.last_poll < 1.0:
+            return
+        self.last_poll = time.perf_counter()
+        for i, port in enumerate(self.rpc):
+            if not self.live[i]:
+                continue
+            try:
+                snap = ch_call(port, "dump_flight_recorder", since=self.wm[i],
+                               kinds="verify.dispatch,gossip.hop")["result"]
+            except Exception:  # noqa: BLE001 — read again at the next poll
+                continue
+            if not snap.get("enabled", True):
+                continue
+            nxt = snap["next_seq"]
+            self.lost[i] += max(0, nxt - self.wm[i] - snap["size"])
+            self.wm[i] = nxt
+            for ev in snap["events"]:
+                if ev["kind"] == "verify.dispatch":
+                    self.dispatch[i][ev["path"]] += 1
+                elif i != self.twin:
+                    self.hops += 1
+                    self.clamps += 1 if ev.get("clamped") else 0
+
+    def launches(self, i):
+        return sum(self.dispatch[i][p] for p in CH_LAUNCH_PATHS)
+
+    def chaos_metrics(self, i):
+        """The node's chaos series from /metrics, by name and labels."""
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{self.metrics[i]}/metrics",
+                                        timeout=5.0) as r:
+                text = r.read().decode()
+        except Exception as e:  # noqa: BLE001
+            return {"error": repr(e)}
+        out = {}
+        for line in text.splitlines():
+            if not line.startswith("tendermint_chaos_"):
+                continue
+            series, _, value = line.rpartition(" ")
+            name, _, labels = series[len("tendermint_chaos_"):].partition("{")
+            if name.endswith("_created"):
+                continue
+            labels = ",".join(kv for kv in labels.rstrip("}").split(",")
+                              if kv and not kv.startswith("chain_id="))
+            out[f"{name}{{{labels}}}" if labels else name] = float(value)
+        return out
+
+    def node_lines(self, card):
+        for i in range(4):
+            self.say(f"node{i}: kernel dispatches by path {dict(self.dispatch[i])} "
+                f"({self.launches(i)} launches; {self.lost[i]} events aged out of the ring "
+                f"unread); chaos series from /metrics {self.chaos_metrics(i)}"
+                + (f", before its kill {self.before_kill[i]}" if i in self.before_kill else "")
+                + f" ({card})")
+
+
+def ch_scrape(net, checker, window=19):
+    """Every node's height and its last `window` + 1 block hashes (/status,
+    /blockchain) into the checker; returns the heights."""
+    from tendermint_tpu_torch.rpc.jsonrpc import from_jsonable
+
+    hs = []
+    for i, p in enumerate(net.rpc):
+        h = ch_height(p)
+        hs.append(h)
+        checker.observe_height(i, h)
+        if h is None or h < 1:
+            continue
+        try:
+            metas = from_jsonable(ch_rpc(p, f"blockchain?min_height={max(1, h - window)}"
+                                            f"&max_height={h}")["result"])["block_metas"]
+        except Exception:  # noqa: BLE001
+            continue
+        for meta in metas:
+            checker.observe_block_hash(i, meta.header.height, meta.block_id.hash)
+    return hs
+
+
+def ch_tip(net, checker, idxs):
+    known = [h for h in (ch_height(net.rpc[i]) for i in idxs) if h is not None]
+    if known:
+        return max(known)
+    seen = [checker.last_height.get(i) for i in idxs]
+    return max((h for h in seen if h is not None), default=1)
+
+
+def ch_partition(net, groups, node_ids):
+    for gi, g1 in enumerate(groups):
+        for g2 in groups[gi + 1:]:
+            for a in g1:
+                for b in g2:
+                    ch_call(net.rpc[a], "unsafe_chaos_link", peer_id=node_ids[b], drop=1.0)
+                    ch_call(net.rpc[b], "unsafe_chaos_link", peer_id=node_ids[a], drop=1.0)
+
+
+def phase_chaos(card, dev, parts="ab"):
+    """Phase 17: (a) partition, crash and twin and (b) disk faults, each on
+    its own 4-validator localnet, run at the same time (a thread each: the
+    phase's time is the longer part's); returns the parts' numbers."""
+    import tempfile
+    import threading
+
+    import tendermint_tpu_torch.store  # noqa: F401 — registers BlockMeta with the codec
+    import tendermint_tpu_torch.types  # noqa: F401 — registers Block and evidence types
+    from tendermint_tpu_torch.chaos.scenario import Scenario
+
+    runs = {"a": (CH_SCENARIO_A, 0, ch_run_a), "b": (CH_SCENARIO_B, None, ch_run_b)}
+    out, errors, threads, nets = {}, {}, [], []
+    with contextlib.ExitStack() as stack:
+        for part in parts:
+            text, twin, run = runs[part]
+            scenario = Scenario.parse(text, seed=CH_SEED)
+            if scenario.fingerprint() != Scenario.parse(text, seed=CH_SEED).fingerprint():
+                raise AssertionError(f"phase 17 ({part}): the scenario's resolution is not "
+                                     "deterministic")
+            log(f"  ({part}) scenario fingerprint {scenario.fingerprint()} (seed {CH_SEED}):")
+            for ev in scenario.timeline():
+                log(f"  ({part})   {ev.describe()}")
+            root = stack.enter_context(tempfile.TemporaryDirectory(prefix=f"phase17{part}-"))
+            net = ChNet(os.path.join(root, "net"), part, twin, [n.base for n in nets])
+            net.build()
+            nets.append(net)
+            stack.callback(net.stop)
+
+            def body(part=part, net=net, run=run, scenario=scenario):
+                t0 = time.perf_counter()
+                try:
+                    for i in range(4):
+                        net.start(i)
+                    out[part] = run(net, scenario, card, dev)
+                    out[part]["s"] = time.perf_counter() - t0
+                    net.say(f"took {out[part]['s']:.3f} s ({card})")
+                except BaseException as e:  # noqa: BLE001 — re-raised below, after both parts
+                    errors[part] = e
+
+            threads.append(threading.Thread(target=body, name=f"phase17{part}"))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    for part in parts:
+        if part in errors:
+            raise errors[part]
+    return out
+
+
+def ch_run_a(net, scenario, card, dev):
+    """(a), the JAX chaos_smoke.py's run: readiness, the timeline staged
+    through the unsafe_chaos_* routes and signals with scrapes between
+    events, then recovery and accountability within CH_BUDGET_S."""
+    from tendermint_tpu_torch.chaos.checker import InvariantChecker, RecoveryTimer
+    from tendermint_tpu_torch.rpc.jsonrpc import from_jsonable
+
+    hs, ready_s = net.wait_ready(
+        lambda hs: all(h is not None for h in hs) and all(h >= 1 for h in hs[1:]),
+        "every RPC up, nodes 1-3 at height 1")
+    node_ids = [ch_rpc(p, "status")["result"]["node_info"]["id"] for p in net.rpc]
+    twin_addr = from_jsonable(ch_rpc(net.rpc[0], "status")["result"]["validator_info"]["address"])
+    net.say(f"ready in {ready_s:.3f} s at heights {hs}; twin address {twin_addr.hex()[:12]}")
+    checker = InvariantChecker(4, liveness_exempt=[0])  # the twin halts by design
+    heal_timer, restart_timer = RecoveryTimer(), RecoveryTimer()
+    hstate = {"phase": "quiet", "t_partition": None, "detect_t": None, "quiet": set(),
+              "clear_t": None}
+    failures = []
+
+    def poll_health():
+        stall_free = True
+        for i, p in enumerate(net.rpc):
+            if i == 0 or not net.live[i]:
+                continue
+            h = ch_health(p)
+            if h is None:
+                stall_free = False
+                continue
+            alarms = set(h.get("alarms", {}))
+            if hstate["phase"] == "quiet" and alarms:
+                hstate["quiet"].update(f"node{i}:{a}" for a in alarms)
+            if hstate["phase"] == "partition" and hstate["detect_t"] is None \
+                    and "consensus_stall" in alarms:
+                hstate["detect_t"] = time.perf_counter()
+                net.say(f"watchdog: node{i} raised consensus_stall "
+                    f"{hstate['detect_t'] - hstate['t_partition']:.3f} s after the partition")
+            if "consensus_stall" in alarms:
+                stall_free = False
+        return stall_free
+
+    def scrape():
+        hs = ch_scrape(net, checker)
+        known = [h for h in hs if h is not None]
+        if known:
+            heal_timer.observe(max(known))
+        live_non_twin = [h for j, h in enumerate(hs) if j != 0 and net.live[j] and h is not None]
+        if live_non_twin and all(net.live[j] and hs[j] is not None for j in range(1, 4)):
+            restart_timer.observe(min(live_non_twin))
+        net.poll_recorders()
+
+    t0 = time.perf_counter()
+    stall = None
+    for ev in scenario.timeline():
+        while time.perf_counter() < t0 + ev.t:
+            scrape()
+            poll_health()
+            time.sleep(CH_POLL_S)
+        net.say(f"+{time.perf_counter() - t0:.3f} s executing {ev.describe()}")
+        if ev.action == "twin":
+            continue  # installed from genesis by the node's config
+        if ev.action == "partition":
+            ch_partition(net, ev.args["groups"], node_ids)
+            time.sleep(1.0)  # drain in-flight gossip
+            stall = (time.perf_counter(), ch_tip(net, checker, range(4)))
+            hstate["phase"], hstate["t_partition"] = "partition", time.perf_counter()
+        elif ev.action == "heal":
+            if stall is not None:
+                tip = ch_tip(net, checker, range(4))
+                if tip > stall[1] + 1:
+                    checker.violations.append(f"commits continued during the partition: "
+                                              f"{stall[1]} -> {tip}")
+                net.say(f"the partition held the net at {stall[1]} for "
+                    f"{time.perf_counter() - stall[0]:.3f} s (tip {tip})")
+            if hstate["detect_t"] is None:
+                poll_health()
+            hstate["phase"] = "post_heal"
+            baseline = ch_tip(net, checker, range(4))
+            for i, p in enumerate(net.rpc):
+                if net.live[i]:
+                    ch_call(p, "unsafe_chaos_heal")
+            heal_timer.mark("heal", baseline)
+        elif ev.action == "kill":
+            net.kill(ev.args["node"])
+        elif ev.action == "restart":
+            i = ev.args["node"]
+            baseline = ch_tip(net, checker, [j for j in range(1, 4) if net.live[j]])
+            net.start(i)
+            restart_timer.mark("restart", baseline)
+
+    evidence_height, byz = None, False
+    scanned = set()
+    deadline = time.perf_counter() + CH_BUDGET_S
+    while time.perf_counter() < deadline:
+        scrape()
+        if poll_health() and hstate["clear_t"] is None:
+            hstate["clear_t"] = time.perf_counter()
+            net.say(f"watchdog: consensus_stall clear on every live non-twin node at "
+                f"+{hstate['clear_t'] - t0:.3f} s")
+        if evidence_height is None:
+            for h in range(1, (ch_height(net.rpc[1]) or 0) + 1):
+                if h in scanned:
+                    continue
+                try:
+                    blk = from_jsonable(ch_rpc(net.rpc[1], f"block?height={h}")["result"])["block"]
+                except Exception:  # noqa: BLE001
+                    continue
+                scanned.add(h)
+                if blk is not None and blk.evidence:
+                    if blk.evidence[0].address() != twin_addr:
+                        failures.append("the committed evidence names another validator")
+                    evidence_height = h
+                    break
+        if not byz:
+            try:
+                res = ch_call(net.rpc[1], "abci_query", data='"__byzantine__"')
+                val = from_jsonable(res["result"]["response"]).get("value") or b""
+                byz = twin_addr.hex().encode() in val
+            except Exception:  # noqa: BLE001
+                pass
+        if (not heal_timer.unrecovered() and not restart_timer.unrecovered()
+                and evidence_height is not None and byz and hstate["clear_t"] is not None):
+            break
+        time.sleep(CH_POLL_S)
+    net.poll_recorders(force=True)
+    status = ch_call(net.rpc[0], "unsafe_chaos_status")["result"]
+    heights = [ch_height(p) for p in net.rpc]
+    res = {
+        "fingerprint": scenario.fingerprint(),
+        "chaos_partition_recovery_ms": heal_timer.recovery_ms.get("heal", -1.0),
+        "restart_recovery_ms": restart_timer.recovery_ms.get("restart", -1.0),
+        "health_detect_latency_ms": ((hstate["detect_t"] - hstate["t_partition"]) * 1000
+                                     if hstate["detect_t"] is not None else -1.0),
+        "health_quiet_alarms": sorted(hstate["quiet"]),
+        "evidence_height": evidence_height,
+        "byzantine_validators_delivered": byz,
+        "twin_equivocations": status["equivocations"],
+        "trace_clamps": net.clamps,
+        "gossip_hop_events": net.hops,
+        "heights": heights,
+        "launches": [net.launches(i) for i in range(4)],
+        **checker.summary(),
+    }
+    net.say(f"{json.dumps(res, sort_keys=True)} ({card})")
+    net.node_lines(card)
+    for name, tmr in (("heal", heal_timer), ("restart", restart_timer)):
+        ms = tmr.recovery_ms.get(name)
+        if ms is None:
+            failures.append(f"the net never recovered after the {name}")
+        elif ms > CH_RECOVERY_A_S * 1000:
+            failures.append(f"{name} recovery {ms:.3f} ms exceeds {CH_RECOVERY_A_S} s")
+    if evidence_height is None:
+        failures.append("the twin's evidence was never committed into a block")
+    if not byz:
+        failures.append("byzantine_validators never reached the app by BeginBlock")
+    if len(checker.agreed_heights()) < 3:
+        failures.append("too few heights cross-checked for agreement")
+    if hstate["detect_t"] is None:
+        failures.append("the watchdog never raised consensus_stall during the partition")
+    if hstate["clear_t"] is None:
+        failures.append("consensus_stall never cleared on every live non-twin node")
+    if net.clamps < 1:
+        failures.append("no honest node clamped the twin's forged trace fields")
+    if status["equivocations"] < 1:
+        failures.append("the twin never equivocated")
+    ch_launch_failures(net, range(1, 4), dev, failures)
+    failures += [f"invariant: {v}" for v in checker.violations]
+    if failures:
+        raise AssertionError("phase 17 (a) failed: " + "; ".join(failures))
+    return res
+
+
+def ch_launch_failures(net, honest, dev, failures):
+    """Each honest node's dispatches: on the card at least one kernel
+    launch, and none on the host (min_device_batch = 1)."""
+    for i in honest:
+        host = net.dispatch[i]["host"] + net.dispatch[i]["host-cold"]
+        if dev.type == "cuda" and net.launches(i) == 0:
+            failures.append(f"node{i} launched no kernel")
+        if dev.type == "cuda" and host:
+            failures.append(f"node{i} verified {host} batches on the host")
+
+
+def ch_run_b(net, scenario, card, dev):
+    """(b), the JAX disk_smoke.py's run: rot, scan and refill on node 3,
+    ENOSPC on node 2 (a clean halt with the read path up), heal, kill and
+    restart, every served block re-hashed."""
+    from tendermint_tpu_torch.chaos.checker import InvariantChecker, RecoveryTimer
+    from tendermint_tpu_torch.rpc.jsonrpc import from_jsonable
+
+    hs, ready_s = net.wait_ready(
+        lambda hs: all(h is not None and h >= CH_ROT_HEIGHT + 1 for h in hs),
+        f"every node past height {CH_ROT_HEIGHT}")
+    net.say(f"ready in {ready_s:.3f} s at heights {hs}")
+    checker = InvariantChecker(4)
+    restart_timer = RecoveryTimer()
+    st = {"scan": None, "rot_t": None, "rot_launches": 0, "refill_t": None, "refill_launches": None,
+          "enospc_t": None, "enospc_tip": None, "halt": False, "heal_tip": None}
+    failures = []
+
+    def served(i, height):
+        p = net.rpc[i]
+        try:
+            blk = from_jsonable(ch_rpc(p, f"block?height={height}")["result"])["block"]
+            meta = from_jsonable(ch_rpc(p, f"blockchain?min_height={height}"
+                                           f"&max_height={height}")["result"])["block_metas"]
+        except Exception:  # noqa: BLE001
+            return False
+        if blk is None or not meta:
+            return False
+        checker.observe_served_block(i, height, meta[0].block_id.hash, blk.hash())
+        return True
+
+    def scrape():
+        hs = ch_scrape(net, checker, window=9)
+        if all(net.live[j] and hs[j] is not None for j in range(4)):
+            restart_timer.observe(min(hs))
+        net.poll_recorders()
+        return hs
+
+    def poll_faults(now):
+        if st["rot_t"] is not None and st["refill_t"] is None:
+            try:
+                sinfo = ch_rpc(net.rpc[3], "storage_info")["result"]
+            except Exception:  # noqa: BLE001
+                sinfo = None
+            if sinfo is not None and not sinfo.get("refill", {}).get("pending") \
+                    and not sinfo["blockstore"]["quarantined"] and served(3, CH_ROT_HEIGHT):
+                st["refill_t"] = now
+                net.poll_recorders(force=True)
+                st["refill_launches"] = net.launches(3) - st["rot_launches"]
+                net.say(f"node3 refilled height {CH_ROT_HEIGHT} from its peers "
+                    f"{(now - st['rot_t']) * 1000:.3f} ms after the rot, "
+                    f"{st['refill_launches']} kernel launches on node3 since the rot")
+        if st["enospc_t"] is not None and not st["halt"]:
+            h2, health = ch_height(net.rpc[2]), ch_health(net.rpc[2])
+            if h2 is not None and health is not None:
+                alarm = health.get("alarms", {}).get("disk_fault")
+                if alarm is not None and alarm["severity"] == "critical":
+                    st["halt"] = True
+                    net.say(f"watchdog: node2 disk_fault CRITICAL with /status (height {h2}) "
+                        f"and /health answering, "
+                        f"{(now - st['enospc_t']) * 1000:.3f} ms after the fault")
+
+    t0 = time.perf_counter()
+    for ev in scenario.timeline():
+        while time.perf_counter() < t0 + ev.t:
+            scrape()
+            poll_faults(time.perf_counter())
+            time.sleep(CH_POLL_S)
+        net.say(f"+{time.perf_counter() - t0:.3f} s executing {ev.describe()}")
+        i = ev.args["node"]
+        if ev.action == "rot":
+            net.poll_recorders(force=True)
+            st["rot_launches"] = net.launches(3)
+            info = ch_call(net.rpc[i], "unsafe_chaos_rot", height=ev.args["height"])["result"]
+            st["rot_t"] = time.perf_counter()
+            report = ch_call(net.rpc[i], "unsafe_store_integrity_scan")["result"]
+            st["scan"] = report
+            net.say(f"rot {info['rotted']}; integrity scan: checked {report['checked']}, "
+                f"corrupt {report['corrupt']}, quarantined {report['quarantined']} in "
+                f"{report['ms']} ms")
+            if ev.args["height"] not in report["corrupt"]:
+                checker.violations.append(f"the integrity scan missed the rot at height "
+                                          f"{ev.args['height']}: {report}")
+        elif ev.action == "disk":
+            if ev.args["kind"] == "heal":
+                ch_call(net.rpc[i], "unsafe_chaos_disk", kind="heal", store=ev.args["store"])
+                st["heal_tip"] = ch_tip(net, checker, [0, 1, 3])
+            else:
+                ch_call(net.rpc[i], "unsafe_chaos_disk", kind=ev.args["kind"],
+                        store=ev.args["store"], p=ev.args["p"])
+                st["enospc_t"] = time.perf_counter()
+                st["enospc_tip"] = ch_tip(net, checker, [0, 1, 3])
+        elif ev.action == "kill":
+            net.kill(i)
+        elif ev.action == "restart":
+            baseline = ch_tip(net, checker, [j for j in range(4) if net.live[j]])
+            net.start(i)
+            restart_timer.mark("restart", baseline)
+
+    deadline = time.perf_counter() + CH_BUDGET_S
+    while time.perf_counter() < deadline:
+        scrape()
+        poll_faults(time.perf_counter())
+        if st["refill_t"] is not None and "restart" in restart_timer.recovery_ms:
+            health = ch_health(net.rpc[2])
+            if health is not None and "disk_fault" not in health.get("alarms", {}):
+                break
+        time.sleep(CH_POLL_S)
+
+    if st["scan"] is None:
+        failures.append("the integrity scan never ran")
+    if st["refill_t"] is None:
+        failures.append(f"the quarantined block {CH_ROT_HEIGHT} was never refilled from peers")
+    elif st["refill_t"] - st["rot_t"] > CH_RECOVERY_B_S:
+        failures.append(f"the refill took {st['refill_t'] - st['rot_t']:.3f} s")
+    if not st["halt"]:
+        failures.append("node2 never raised a critical disk_fault alarm under ENOSPC")
+    if st["heal_tip"] is None or st["enospc_tip"] is None or st["heal_tip"] <= st["enospc_tip"]:
+        failures.append(f"nodes 0, 1 and 3 did not commit while node2's disk was full "
+                        f"({st['enospc_tip']} -> {st['heal_tip']})")
+    if "restart" not in restart_timer.recovery_ms:
+        failures.append("node2 never rejoined consensus after the heal and the restart")
+    elif restart_timer.recovery_ms["restart"] > CH_RECOVERY_B_S * 1000:
+        failures.append(f"node2's rejoin took {restart_timer.recovery_ms['restart']:.3f} ms")
+    log2 = net.log(2)
+    if "CONSENSUS FAILURE" in log2:
+        failures.append("node2 hit CONSENSUS FAILURE!!! under ENOSPC")
+    if "consensus halted on storage fault" not in log2:
+        failures.append("node2's log holds no attributed storage halt")
+    heights = [ch_height(p) for p in net.rpc]
+    tip = min(h for h in heights if h is not None)
+    for i in range(4):
+        for h in range(max(1, tip - 4), tip + 1):
+            served(i, h)
+    net.poll_recorders(force=True)
+    res = {
+        "fingerprint": scenario.fingerprint(),
+        "disk_fault_recovery_ms": ((st["refill_t"] - st["rot_t"]) * 1000
+                                   if st["refill_t"] is not None else -1.0),
+        "store_integrity_scan_ms": st["scan"]["ms"] if st["scan"] else -1.0,
+        "scan_checked": st["scan"]["checked"] if st["scan"] else 0,
+        "enospc_recovery_ms": restart_timer.recovery_ms.get("restart", -1.0),
+        "refill_launches": st["refill_launches"],
+        "heights": heights,
+        "heights_checked": len(checker.agreed_heights()),
+        "launches": [net.launches(i) for i in range(4)],
+        "violations": list(checker.violations),
+    }
+    net.say(f"{json.dumps(res, sort_keys=True)} ({card})")
+    net.node_lines(card)
+    ch_launch_failures(net, range(4), dev, failures)
+    if dev.type == "cuda" and not st["refill_launches"]:
+        failures.append("node3 launched no kernel between the rot and its refill")
+    failures += [f"invariant: {v}" for v in checker.violations]
+    if failures:
+        raise AssertionError("phase 17 (b) failed: " + "; ".join(failures))
+    return res
+
+
 def kernel_device_ms(fn, names) -> dict:
     """Device ms of each named kernel in one run of fn, from torch.profiler;
     a name is missing where the profiler records no device time for it."""
@@ -7792,7 +8495,7 @@ def main() -> int:
         raise
 
     log("[13] a node from a stock home: D knows only seed A, meshes by PEX, fast-syncs the "
-        "10,000-validator chain, streams NewBlock over /websocket and serves 16 light-client "
+        "10,000-validator chain, streams NewBlock over /websocket and serves 8 light-client "
         "tenants from its gateway")
     launch_counts(zero=True)
     t0 = time.perf_counter()
@@ -7865,6 +8568,18 @@ def main() -> int:
                              "and the genesis set's declined check in phase 15")
     for name, c in counts.items():
         report[name]["launches"] += c
+
+    log("[17] the chaos rig on the card: two 4-validator localnets at once through the CLI "
+        "(testnet --fast --chaos, the engine on at min_device_batch 1), (a) partition, crash "
+        "and a double-signing twin, (b) block-store rot, ENOSPC, heal and restart")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    out = phase_chaos(card, dev)
+    counts = launch_counts()
+    log(f"  launches in phase 17 in this process: {counts} (each node's, in its own process, "
+        f"are on its line above: (a) {out['a']['launches']}, (b) {out['b']['launches']}, "
+        f"node3's refill window {out['b']['refill_launches']}); phase 17 took "
+        f"{time.perf_counter() - t0:.3f} s ({card})")
 
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
     keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

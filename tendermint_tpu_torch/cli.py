@@ -8,8 +8,9 @@ N-validator config-tree generator) and the light-client gateway
 (`liteserve`).
 Each command takes the JAX CLI's arguments, prints its lines and returns
 its exit codes.  `node` serves RPC at the home's `rpc.laddr` (and
-state-syncs with `[statesync] enable`), as the JAX node does.  `testnet`'s
-`--chaos` rig waits for the chaos layers (ROADMAP 1.8).  The forensics
+state-syncs with `[statesync] enable`), as the JAX node does.  `testnet
+--chaos` writes the chaos rig's homes (the fault layers and the unsafe
+chaos routes on, `--twin` a double-signer).  The forensics
 commands read a node's RPC or its home directory: `trace` (a node's flight
 recorder, its span check and its stage and network budgets), `trace-net`
 (dumps, spools or live nodes merged into one timeline, libs/tracemerge.py)
@@ -163,8 +164,9 @@ def cmd_testnet(args, draw_key=None) -> int:
     `--fast` writes throughput-rig configs: test-grade consensus timeouts
     with skip_timeout_commit (the config.go:792 TestConfig shape) and a
     genesis with time_iota_ms=1 so block time cannot outrun wall clock
-    when commits are sub-second.  `--chaos`, `--twin` and `--chaos-seed`
-    need the chaos layers (ROADMAP 1.8) and exit 2.
+    when commits are sub-second.  `--chaos` turns on the fault layers and
+    the unsafe chaos routes on every node, seeded by `--chaos-seed`; node
+    `--twin` double-signs from genesis.
 
     `draw_key` makes each new key, a validator's then its node key, node
     by node (default: a fresh random key, as the JAX command draws)."""
@@ -172,10 +174,14 @@ def cmd_testnet(args, draw_key=None) -> int:
     out = os.path.abspath(args.output)
     chain_id = args.chain_id or f"testnet-{os.urandom(3).hex()}"
     fast = getattr(args, "fast", False)
-    if getattr(args, "chaos", False) or getattr(args, "twin", -1) >= 0 or getattr(
-            args, "chaos_seed", 0):
-        print("--chaos, --twin and --chaos-seed need the chaos layers, which are not ported "
-              "yet (ROADMAP 1.8)", file=sys.stderr)
+    chaos = getattr(args, "chaos", False)
+    twin = getattr(args, "twin", -1)
+    if not chaos and (twin >= 0 or getattr(args, "chaos_seed", 0)):
+        # fail NOW, not minutes later with "twin evidence never committed"
+        print("--twin / --chaos-seed require --chaos", file=sys.stderr)
+        return 2
+    if twin >= n:
+        print(f"--twin {twin} out of range for {n} validators", file=sys.stderr)
         return 2
     key_type = getattr(args, "key_type", "ed25519") or "ed25519"
     homes, pvs, node_keys = [], [], []
@@ -249,6 +255,13 @@ def cmd_testnet(args, draw_key=None) -> int:
             cfg.instrumentation.watchdog_stall_seconds = 3.0
         elif args.db_backend:
             cfg.base.db_backend = args.db_backend
+        if chaos:
+            # chaos rig: fault layer + guarded control routes on every
+            # node; node --twin becomes a double-signer from genesis
+            cfg.chaos.enabled = True
+            cfg.chaos.seed = getattr(args, "chaos_seed", 0)
+            cfg.chaos.twin = i == twin
+            cfg.rpc.unsafe = True
         _write_cfg(cfg)
         genesis.save_as(cfg.genesis_file())
     print(f"Successfully initialized {n} node directories in {out} (chain_id={chain_id})")
@@ -1005,12 +1018,20 @@ def build_parser() -> argparse.ArgumentParser:
         "time_iota_ms=1 genesis, memdb",
     )
     sp.add_argument("--db-backend", choices=["sqlite", "memdb"], default="")
-    sp.add_argument("--chaos", action="store_true",
-                    help="chaos rig (needs the chaos layers: not ported yet, ROADMAP 1.8)")
-    sp.add_argument("--chaos-seed", type=int, default=0,
-                    help="seed for every probabilistic fault decision (ROADMAP 1.8)")
-    sp.add_argument("--twin", type=int, default=-1,
-                    help="node index to run as a double-signing twin (ROADMAP 1.8)")
+    sp.add_argument(
+        "--chaos",
+        action="store_true",
+        help="chaos rig: enable the fault-injection layer and the unsafe "
+        "chaos control RPC routes on every node",
+    )
+    sp.add_argument(
+        "--chaos-seed", type=int, default=0,
+        help="seed for every probabilistic fault decision (replayable runs)",
+    )
+    sp.add_argument(
+        "--twin", type=int, default=-1,
+        help="node index to run as a double-signing twin (requires --chaos)",
+    )
     sp.add_argument(
         "--key-type", choices=list(KEY_TYPES), default="ed25519",
         help="consensus key scheme for every generated validator key (only ed25519 is ported)",

@@ -3,8 +3,10 @@ tendermint_tpu/node.py, with the RPC server and its /websocket, the p2p
 stack with PEX and the address book, the STATESYNC, BLOCKCHAIN, CONSENSUS,
 MEMPOOL and EVIDENCE reactors, the embedded liteserve gateway, an app
 behind the ABCI socket or gRPC, a remote signer on `priv_validator_laddr`,
-the /metrics listener, the gRPC BroadcastAPI on `rpc.grpc_laddr` and the
-crash-persistent flight spool; without the chaos layers).
+the /metrics listener, the gRPC BroadcastAPI on `rpc.grpc_laddr`, the
+crash-persistent flight spool and, with `[chaos] enabled`, the chaos layers:
+the twin signer, a DiskFaultTable over every store and WAL, the skewed
+clock and the p2p link policies).
 
 Reference parity: node/node.go (NewNode:556, DefaultNewNode:90,
 OnStart:752; createAndStartProxyAppConns:578, doHandshake:601,
@@ -62,9 +64,6 @@ def check_ported(config: Config) -> None:
     whose subsystem the port does not carry yet."""
     cfg = config
     unported = (
-        (cfg.p2p.test_fuzz, "p2p.test_fuzz: the p2p link policies", "1.8", "test_fuzz = false"),
-        (cfg.chaos.enabled, "chaos.enabled: disk faults, the twin signer and link policies",
-         "1.8", "chaos.enabled = false"),
         (cfg.tpu.mesh == "on", 'tpu.mesh = "on": the multi-card verify mesh', "2.2",
          'tpu.mesh = "auto"'),
         (cfg.tpu.bls_jax_aggregation,
@@ -186,10 +185,26 @@ class Node(Service):
         genesis_doc.validate_and_complete()
         self.genesis_doc = genesis_doc
         self.priv_validator = priv_validator
+        if config.chaos.enabled and config.chaos.twin and priv_validator is not None:
+            # chaos: this node is a byzantine TWIN — its privval bypasses
+            # the double-sign guard; install_twin (on_start) makes it
+            # equivocate on prevotes from genesis
+            from .chaos.twin import TwinSigner
+
+            self.priv_validator = TwinSigner(priv_validator)
         self.log = get_logger("node")
 
         backend = db_backend or config.base.db_backend
         home = None if backend == "memdb" else config.home
+        # chaos: the disk as a fault domain — every store/WAL is wrapped
+        # so per-store seeded ENOSPC/EIO/torn/fsync-lie/bitrot policies
+        # can be injected at runtime (scenario DSL, InProcRig, the
+        # unsafe_chaos_disk RPC)
+        self.disk_faults = None
+        if config.chaos.enabled:
+            from .chaos.disk import DiskFaultTable
+
+            self.disk_faults = DiskFaultTable(seed=config.chaos.seed)
         # one sink for every storage-fault observation (write errors,
         # detected corruption, quarantines, persistence halts) + the
         # free-space probe — the watchdog's disk_fault/disk_pressure
@@ -199,9 +214,11 @@ class Node(Service):
         self.storage_health = StorageHealth(
             data_dir=config.db_dir() if home is not None else None
         )
-        self.block_store = BlockStore(open_db("blockstore", home, backend))
+        self.block_store = BlockStore(
+            self._wrap_db(open_db("blockstore", home, backend), "blockstore")
+        )
         self.block_store.storage_health = self.storage_health
-        self.state_db = open_db("state", home, backend)
+        self.state_db = self._wrap_db(open_db("state", home, backend), "state")
         self.state_store = StateStore(self.state_db)
 
         self.event_bus = EventBus()
@@ -211,7 +228,7 @@ class Node(Service):
             config.base.proxy_app,
             config.base.abci,
             app_db=(
-                open_db("app", home, backend)
+                self._wrap_db(open_db("app", home, backend), "app")
                 if config.base.proxy_app in ("kvstore", "bank", "staking")
                 else None
             ),
@@ -261,6 +278,21 @@ class Node(Service):
             sample_high_rate=config.instrumentation.trace_sample_high_rate,
         )
 
+    def _wrap_db(self, db, store: str):
+        """Chaos disk-fault wrapper (identity when chaos is off)."""
+        if self.disk_faults is None:
+            return db
+        from .chaos.disk import FaultyDB
+
+        return FaultyDB(db, self.disk_faults, store)
+
+    def _wrap_group(self, group, store: str):
+        if self.disk_faults is None:
+            return group
+        from .chaos.disk import FaultyGroup
+
+        return FaultyGroup(group, self.disk_faults, store)
+
     async def on_start(self) -> None:
         cfg = self.config
         # metrics provider (node/node.go:128) — per-node registry; built
@@ -271,6 +303,9 @@ class Node(Service):
             cfg.instrumentation.prometheus, self.genesis_doc.chain_id
         )
         self.storage_health.metrics = self.metrics_provider.storage
+        if self.disk_faults is not None:
+            self.disk_faults.metrics = self.metrics_provider.chaos
+            self.disk_faults.recorder = self.flight_recorder
         # boot-time store integrity sweep: turn latent bit-rot into
         # quarantine entries BEFORE anything reads the store as truth.
         # Off the event loop — an archive-node sweep is real IO+hashing.
@@ -299,9 +334,7 @@ class Node(Service):
         # recorder events journal to disk on a cadence OFF the recording
         # hot path, so a SIGKILL leaves the last seconds of spans for
         # `debug dump` to replay offline.  Built before any service spawns
-        # so startup spans are covered too.  The JAX node wraps the spool's
-        # group in its chaos disk-fault layer; the port has no chaos layer
-        # yet (ROADMAP 1.8), so the group stays unwrapped until it lands.
+        # so startup spans are covered too.
         if cfg.instrumentation.flight_spool and self.flight_recorder.enabled:
             from .libs.tracing import FlightSpool
 
@@ -312,6 +345,7 @@ class Node(Service):
                 size_limit=cfg.instrumentation.flight_spool_size_limit,
                 node=cfg.base.moniker,
             )
+            self.flight_spool._group = self._wrap_group(self.flight_spool._group, "spool")
             self.flight_spool.install_crash_hooks()
             self.spawn(self._spool_flush_loop(), name="flight-spool")
         # scheduler profiler, started BEFORE any service spawns tasks so
@@ -380,6 +414,7 @@ class Node(Service):
         self.mempool.storage_health = self.storage_health
         if cfg.mempool.wal_dir and cfg.base.db_backend != "memdb":
             self.mempool.init_wal(cfg.mempool_wal_dir())
+            self.mempool._wal = self._wrap_group(self.mempool._wal, "mempool-wal")
         if cfg.consensus.wait_for_txs():
             self.mempool.enable_txs_available()
         if cfg.mempool.sig_precheck and self.async_verifier is not None:
@@ -423,6 +458,21 @@ class Node(Service):
         )
         self.consensus.metrics = self.metrics_provider.consensus
         self.consensus.recorder = self.flight_recorder
+        self.chaos_clock = None
+        if cfg.chaos.enabled and cfg.chaos.clock_skew != 0.0:
+            # chaos: this node's consensus reads a skewed wall clock
+            from .chaos.clock import SkewedClock
+
+            self.chaos_clock = SkewedClock(
+                cfg.chaos.clock_skew,
+                metrics=self.metrics_provider.chaos,
+                recorder=self.flight_recorder,
+            )
+            self.consensus.clock = self.chaos_clock
+            # the recorder's monotonic→wall dump anchor reads the SAME
+            # skewed wall clock, so cross-node trace alignment sees the
+            # fault the scenario injected
+            self.flight_recorder._wall_ns_fn = self.chaos_clock.time_ns
         if self.priv_validator is not None:
             self.consensus.set_priv_validator(self.priv_validator)
         self.consensus.storage_health = self.storage_health
@@ -434,6 +484,7 @@ class Node(Service):
         cfg.ensure_dirs()
         if cfg.base.db_backend != "memdb":
             self.consensus.wal = WAL(cfg.wal_file())
+            self.consensus.wal.group = self._wrap_group(self.consensus.wal.group, "wal")
 
         # RPC (node/node.go:766)
         if cfg.rpc.laddr:
@@ -568,14 +619,15 @@ class Node(Service):
                 self.log.error("valset watch failed", err=repr(e))
 
     async def _start_p2p(self, block_exec, do_state_sync: bool) -> None:
-        """The JAX node's p2p block without the chaos layers (check_ported
-        refused them): NodeKey, NodeInfo with the gossip version the knobs
-        enable, Transport, Switch with the ABCI peer filter, the STATESYNC
+        """The JAX node's p2p block: NodeKey, NodeInfo with the gossip
+        version the knobs enable, Transport, Switch with the chaos link
+        layer (a LinkPolicyTable with `[chaos] enabled`, a wildcard fuzz
+        table with `p2p.test_fuzz`) and the ABCI peer filter, the STATESYNC
         (with a StateSyncer only when bootstrapping), BLOCKCHAIN,
         CONSENSUS, MEMPOOL, EVIDENCE and (with `p2p.pex`) PEX reactors with
         the address book, listen, the switch's start (which starts
-        consensus unless a sync runs first), the quarantine refill and the
-        persistent peers."""
+        consensus unless a sync runs first), the quarantine refill, the twin
+        and the persistent peers."""
         from .consensus.reactor import ConsensusReactor
         from .evidence_reactor import EvidenceReactor
         from .fastsync import BlockchainReactor
@@ -609,10 +661,42 @@ class Node(Service):
             gossip_version=gossip_version,
         )
         transport = Transport(self.node_key, node_info)
+        fuzz_config = None
+        link_policies = None
+        if cfg.chaos.enabled:
+            # chaos: runtime-controllable per-link fault layer; starts with
+            # healthy links (a legacy test_fuzz config seeds the wildcard
+            # loss policy on top)
+            from .chaos.link import LinkPolicyTable
+            from .p2p.fuzz import table_from_fuzz_config
+
+            if cfg.p2p.test_fuzz:
+                link_policies = table_from_fuzz_config(
+                    {
+                        "prob_drop_rw": cfg.p2p.test_fuzz_prob_drop,
+                        "max_delay": cfg.p2p.test_fuzz_max_delay,
+                        "seed": cfg.chaos.seed,
+                    },
+                    metrics=self.metrics_provider.chaos,
+                    recorder=self.flight_recorder,
+                )
+            else:
+                link_policies = LinkPolicyTable(
+                    seed=cfg.chaos.seed,
+                    metrics=self.metrics_provider.chaos,
+                    recorder=self.flight_recorder,
+                )
+        elif cfg.p2p.test_fuzz:  # p2p/fuzz.go — soak-test chaos wrapper
+            fuzz_config = {
+                "prob_drop_rw": cfg.p2p.test_fuzz_prob_drop,
+                "max_delay": cfg.p2p.test_fuzz_max_delay,
+            }
         self.switch = Switch(
             transport,
             max_inbound=cfg.p2p.max_num_inbound_peers,
             max_outbound=cfg.p2p.max_num_outbound_peers,
+            fuzz_config=fuzz_config,
+            link_policies=link_policies,
             unconditional_peer_ids={s for s in cfg.p2p.unconditional_peer_ids.split(",") if s},
             allow_duplicate_ip=cfg.p2p.allow_duplicate_ip,
         )
@@ -716,6 +800,12 @@ class Node(Service):
         quarantined = self.block_store.quarantined()
         if quarantined:
             self.blockchain_reactor.request_refill(quarantined)
+        if cfg.chaos.enabled and cfg.chaos.twin and self.priv_validator is not None:
+            # arm the twin AFTER the switch is live: its equivocations
+            # broadcast over the consensus vote channel
+            from .chaos.twin import install_twin
+
+            install_twin(self)
         if cfg.p2p.persistent_peers:
             await self.switch.dial_peers_async(
                 cfg.p2p.persistent_peers.split(","), persistent=True

@@ -1,6 +1,5 @@
 """P2P networking: authenticated encrypted multiplexed peer connections (the
-port's copy of tendermint_tpu/p2p/, without the chaos link layer, ROADMAP
-1.8).
+port's copy of tendermint_tpu/p2p/, with the fuzz layer of chaos/link.py).
 
 Counterpart of the reference `p2p/` tree: Switch, Peer, Transport,
 SecretConnection, MConnection, NodeInfo/NodeKey, PEX with the address book

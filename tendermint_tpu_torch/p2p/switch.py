@@ -1,6 +1,6 @@
 """Switch: the peer-lifecycle hub owning reactors and connections (the
-port's copy of tendermint_tpu/p2p/switch.py without the chaos link layer,
-ROADMAP 1.8: no `fuzz_config` or `link_policies`).
+port's copy of tendermint_tpu/p2p/switch.py, with the chaos link layer:
+`fuzz_config` or a `link_policies` table wraps every added peer's sends).
 
 Reference parity: p2p/switch.go (Switch:69, AddReactor:158, OnStart:224,
 Broadcast:262, StopPeerForError:323, reconnectToPeer:376 with exponential
@@ -35,11 +35,20 @@ class Switch(Service):
         transport: Transport,
         max_inbound: int = 40,
         max_outbound: int = 10,
+        fuzz_config: Optional[dict] = None,
+        link_policies=None,  # chaos.link.LinkPolicyTable (runtime fault layer)
         unconditional_peer_ids: Optional[set] = None,
         allow_duplicate_ip: bool = True,  # node passes config (default false)
     ):
         super().__init__("p2p-switch")
         self.transport = transport
+        # chaos layer: an explicit LinkPolicyTable wins; a legacy
+        # [p2p] test_fuzz config maps to a wildcard-policy table
+        self.link_policies = link_policies
+        if self.link_policies is None and fuzz_config is not None:
+            from .fuzz import table_from_fuzz_config
+
+            self.link_policies = table_from_fuzz_config(fuzz_config)
         # switch.go:69 policies: unconditional peers bypass the caps;
         # dup-IP inbound is rejected unless allowed (transport.go:376)
         self.unconditional_peer_ids = unconditional_peer_ids or set()
@@ -224,6 +233,8 @@ class Switch(Service):
             socket_addr=addr,
             on_send_bytes=_count_send_bytes,
         )
+        if self.link_policies is not None:
+            self.link_policies.install(peer)
         for reactor in self.reactors.values():
             await reactor.init_peer(peer)
         await peer.start()
@@ -243,6 +254,9 @@ class Switch(Service):
         self.metrics.peer_receive_bytes_total.labels(
             chain_id=self.node_info.network, peer_id=peer.id, chID=str(chan_id)
         ).inc(len(msg))
+        fuzz = getattr(peer, "fuzz", None)
+        if fuzz is not None and fuzz.drop_recv():
+            return  # chaos: inbound message lost
         await reactor.receive(chan_id, peer, msg)
 
     async def _on_peer_error(self, peer: Peer, err: Exception) -> None:

@@ -2,9 +2,8 @@
 copy of tendermint_tpu/rpc/core.py: the same routes, parameters, results,
 error codes and messages).
 
-The chaos routes answer as the JAX ones do with `[chaos] enabled` false,
-the only setting a port node accepts (node.check_ported refuses the chaos
-layers until ROADMAP 1.8 ports them).
+The chaos routes (`unsafe_chaos_*`) are gated as in JAX: `[chaos] enabled`
+and `rpc.unsafe`.
 
 Reference parity: rpc/core/routes.go:10-56 (route table),
 rpc/core/status.go, blocks.go, mempool.go (BroadcastTxCommit:56),
@@ -763,13 +762,17 @@ class RPCCore:
 
     def _require_chaos(self) -> None:
         """The ONE config gate for every chaos route (on top of the
-        rpc.unsafe gate `call` already enforces).  A port node never has
-        `[chaos] enabled` (check_ported refuses it), so every chaos route
-        answers with this error, as the JAX routes do with chaos off; the
-        fault layers themselves wait for ROADMAP 1.8."""
+        rpc.unsafe gate `call` already enforces) — kept in one place so a
+        future tightening cannot silently miss a route."""
         if not getattr(self.node.config.chaos, "enabled", False):
             raise RPCError(INTERNAL_ERROR, "chaos routes require [chaos] enabled")
-        raise RPCError(INTERNAL_ERROR, "the chaos layers are not ported yet (ROADMAP 1.8)")
+
+    def _chaos_table(self, required: bool = True):
+        self._require_chaos()
+        table = getattr(self.node.switch, "link_policies", None) if self.node.switch else None
+        if table is None and required:
+            raise RPCError(INTERNAL_ERROR, "no link-policy table (p2p disabled?)")
+        return table
 
     async def unsafe_chaos_link(
         self,
@@ -780,25 +783,53 @@ class RPCCore:
         rate: float = 0.0,
     ) -> dict:
         """Set this node's OUTBOUND link policy toward `peer_id` ("*" =
-        every peer).  drop=1.0 partitions the link; all-zero heals it."""
-        self._require_chaos()
-        return {}
+        every peer).  drop=1.0 partitions the link; all-zero heals it.
+        A scenario orchestrator (`chip_smoke.py` phase 17) stages
+        partitions by setting drop=1.0 symmetrically on both nodes."""
+        from ..chaos.link import degraded
+
+        table = self._chaos_table()
+        table.set_policy(peer_id, degraded(drop=drop, delay=delay, jitter=jitter, rate=rate))
+        return {"policies": table.policies()}
 
     async def unsafe_chaos_heal(self) -> dict:
         """Clear every link policy — the partition heals."""
-        self._require_chaos()
-        return {}
+        table = self._chaos_table()
+        table.heal()
+        return {"policies": table.policies()}
 
     async def unsafe_chaos_clock_skew(self, skew: float = 0.0) -> dict:
         """Skew this node's consensus wall clock by `skew` seconds."""
         self._require_chaos()
-        return {}
+        from ..chaos.clock import SkewedClock
+
+        clock = getattr(self.node, "chaos_clock", None)
+        if clock is None:
+            clock = SkewedClock(
+                skew,
+                metrics=getattr(self.node.metrics_provider, "chaos", None),
+                recorder=self.node.flight_recorder,
+            )
+            self.node.chaos_clock = clock
+            self.node.consensus.clock = clock
+        else:
+            clock.set_skew(skew)
+        return {"skew": clock.skew_s}
 
     async def unsafe_chaos_status(self) -> dict:
         """Active fault state: link policies, fault counters, clock skew,
         twin equivocation count — the rig's view of what is injected."""
-        self._require_chaos()
-        return {}
+        table = self._chaos_table(required=False)
+        clock = getattr(self.node, "chaos_clock", None)
+        pv = self.node.priv_validator
+        return {
+            "enabled": True,
+            "twin": bool(self.node.config.chaos.twin),
+            "equivocations": getattr(pv, "equivocations", 0),
+            "clock_skew_s": clock.skew_s if clock is not None else 0.0,
+            "policies": table.policies() if table is not None else {},
+            "counters": table.counters() if table is not None else {},
+        }
 
     async def unsafe_chaos_disk(
         self, kind: str, store: str = "*", p: float = 1.0
@@ -808,7 +839,19 @@ class RPCCore:
         in enospc|eio|eio_fsync|torn|fsync_lie|bitrot|heal; store names a
         single store or "*"."""
         self._require_chaos()
-        return {}
+        table = getattr(self.node, "disk_faults", None)
+        if table is None:
+            raise RPCError(INTERNAL_ERROR, "no disk-fault table ([chaos] enabled?)")
+        from ..chaos.disk import policy_for
+
+        if kind == "heal":
+            table.heal(None if store == "*" else store)
+        else:
+            try:
+                table.set_policy(store, policy_for(kind, p))
+            except ValueError as e:
+                raise RPCError(INVALID_PARAMS, str(e))
+        return {"policies": table.policies(), "counters": table.counters()}
 
     async def unsafe_chaos_rot(
         self, height: int, store: str = "blockstore", part: int = 0
@@ -817,7 +860,16 @@ class RPCCore:
         block part (height, part) — restart-surviving cell damage the
         integrity scan must detect and quarantine."""
         self._require_chaos()
-        return {}
+        if store != "blockstore":
+            raise RPCError(INVALID_PARAMS, f"rot supports 'blockstore' only, got {store!r}")
+        from ..chaos.disk import rot_block_store
+
+        seed = getattr(self.node.config.chaos, "seed", 0)
+        try:
+            info = rot_block_store(self.node.block_store, height, seed=seed, part_index=part)
+        except ValueError as e:
+            raise RPCError(INVALID_PARAMS, str(e))
+        return {"rotted": info, "height": height}
 
     # -- store integrity ----------------------------------------------------
 
@@ -854,7 +906,7 @@ class RPCCore:
         if spool_stats is not None:
             wals["flight_spool"] = spool_stats
         out["wals"] = wals
-        if getattr(node, "disk_faults", None) is not None:
+        if node.disk_faults is not None:
             out["chaos"] = {
                 "policies": node.disk_faults.policies(),
                 "injected": node.disk_faults.counters(),

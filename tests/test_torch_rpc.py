@@ -10,7 +10,7 @@ switch and no consensus).  Then:
 
 - every route of the JAX `RPCCore.ROUTES` through each package's
   `RPCCore.call`, with paging, height errors, an unknown method, bad
-  parameters, the unsafe gate and the chaos routes' answer: the port's
+  parameters, the unsafe gate and the chaos routes' gate: the port's
   jsonable result, or its error code, message and data, equals the JAX
   core's;
 - raw HTTP requests (GET URI params, POST single and batch, a batch over

@@ -1,6 +1,6 @@
 """chip_smoke.py phase 13 (a node from a stock home: D, made by the port's
 `init` with one seed added, discovers phase 11's chain by PEX from A,
-fast-syncs it, streams NewBlock over /websocket, then serves 16
+fast-syncs it, streams NewBlock over /websocket, then serves 8
 light-client tenants from its gateway) end to end at 7 validators on the
 CPU, after the rehearsals of phases 11 and 12 (run with keep_running, so A,
 B and C are still up), the kernels' plain versions behind every node's

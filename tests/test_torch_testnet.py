@@ -6,8 +6,9 @@ With the same chain id, genesis time and key draws (the JAX command draws
 takes the same sequence as `draw_key`), `testnet --validators 4`, with and
 without `--fast`, and a 20-node tree (the chordal peer topology) write
 byte-identical config.toml, genesis.json, node keys and priv_validator
-files per home.  `--chaos`, `--twin` and `--chaos-seed` exit 2 naming
-ROADMAP 1.8; the parsers take the same flags.
+files per home, `--chaos --chaos-seed 7 --twin 0` included.  `--twin` or
+`--chaos-seed` without `--chaos` exit 2 with the JAX line and write
+nothing; the parsers take the same flags.
 """
 
 import os
@@ -30,8 +31,10 @@ def _draws(mod):
 
 
 @pytest.mark.parametrize("extra", [[], ["--fast"], ["--validators", "20", "--base-port", "30000"],
-                                   ["--db-backend", "sqlite"]],
-                         ids=["default", "fast", "chordal-20", "sqlite"])
+                                   ["--db-backend", "sqlite"],
+                                   ["--fast", "--db-backend", "sqlite", "--chaos",
+                                    "--chaos-seed", "7", "--twin", "0"]],
+                         ids=["default", "fast", "chordal-20", "sqlite", "chaos"])
 def test_testnet_tree_equals_jax(extra, tmp_path, monkeypatch):
     monkeypatch.setattr(time, "time_ns", lambda: 1_700_000_000_123_456_789)
     monkeypatch.setattr(jkeys.Ed25519PrivKey, "generate", staticmethod(_draws(jkeys)))
@@ -61,8 +64,27 @@ def test_testnet_prints_the_jax_line_and_keeps_existing_keys(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--chaos"], ["--twin", "1"], ["--chaos-seed", "5"]])
 def test_chaos_flags_exit_2_naming_the_roadmap_item(flags, tmp_path, capsys):
-    assert pcli.main(["testnet", "--output", str(tmp_path / "t"), *flags]) == 2
-    assert "ROADMAP 1.8" in capsys.readouterr().err
+    """The chaos flags as the JAX command takes them: `--chaos` alone
+    writes the tree (exit 0); `--twin` or `--chaos-seed` without it exit 2
+    with the JAX line, before anything is written."""
+    rcs, errs = [], []
+    for name, mod in (("j", jcli), ("p", pcli)):
+        rcs.append(mod.main(["testnet", "--validators", "2", "--output", str(tmp_path / name),
+                             *flags]))
+        errs.append(capsys.readouterr().err)
+    assert rcs[0] == rcs[1] == (0 if flags == ["--chaos"] else 2)
+    assert errs[0] == errs[1]
+    if rcs[1] == 2:
+        assert errs[1] == "--twin / --chaos-seed require --chaos\n"
+        assert not os.path.exists(tmp_path / "p")
+
+
+def test_twin_index_out_of_range_exits_2_as_jax(tmp_path, capsys):
+    for mod in (jcli, pcli):
+        argv = ["testnet", "--validators", "4", "--output", str(tmp_path / "t"), "--chaos",
+                "--twin", "4"]
+        assert mod.main(argv) == 2
+        assert capsys.readouterr().err == "--twin 4 out of range for 4 validators\n"
     assert not os.path.exists(tmp_path / "t")
 
 

@@ -490,3 +490,23 @@ def test_torn_spool_loads_and_junk_is_refused(writer, tmp_path):
     for mod in MODS.values():
         with pytest.raises(ValueError):
             mod.load_dump(str(junk))
+
+
+def test_landmark_offsets_fold_a_followers_commit_lag_in_both_packages():
+    """ROADMAP 3.11, pinned as the JAX package gives it: two nodes on one
+    clock (anchor wall_ns = mono_ns = 0), B committing every height 2 s
+    after A, no gossip hops.  With too few measured samples, merge takes
+    each node's clock offset from the commit landmarks, which assume
+    near-simultaneous commits, so B's 2 s lag becomes ±1 s of offset and
+    the commit skew reads 0 where it is 2,000 ms."""
+    sec = 1_000_000_000
+
+    def dump(name, lag_ns):
+        return {"node": name, "anchor": {"mono_ns": 0, "wall_ns": 0},
+                "events": [{"seq": h, "t_ns": 10 * h * sec + lag_ns, "kind": "commit",
+                            "height": h, "block": f"hash{h}"} for h in range(1, 7)]}
+
+    merged = both(lambda m, d: m.merge(d), [dump("a", 0), dump("b", 2 * sec)])
+    assert merged["offset_sources"] == ["landmark:commit", "landmark:commit"]
+    assert merged["offsets_ms"] == [-1000.0, 1000.0]
+    assert merged["commit_skew_ms_p50"] == 0
