@@ -94,12 +94,13 @@
 8. Blocks applied to the kvstore app at full width (BASELINE config #5):
    genesis is phase 3's 10,000 keys at power 10.  (a) A producer node on
    sqlite stores (StateStore, BlockStore, evidence, tx index) with a
-   KVStoreApplication behind AppConns(local_client_creator(app)), a
+   KVStoreApplication from proxy.default_client_creator behind AppConns, a
    Handshaker sending InitChain, an EventBus with one NewBlock and one Tx
    subscriber and an IndexerService, a Mempool (sig_precheck on, size
    10,000, pre_check tx_pre_check) whose signed-tx lane is an
    AsyncBatchVerifier on the node's engine settings, an EvidencePool and a
-   BlockExecutor.  Per height 1-9, 1,000 signed envelopes arrive as one
+   BlockExecutor.  Per height 1-7 (9 before phase 18 needed the time),
+   1,000 signed envelopes arrive as one
    asyncio.gather of check_tx (the next height's while the block commits,
    so that the commit's recheck has work); every 100th has a flipped
    signature and must raise "invalid tx signature".  Height 4 also carries
@@ -110,12 +111,12 @@
    LastCommit through the installed TableCache: misses at 2 and 7, one per
    set).  (b) A syncing node on fresh stores and a fresh app runs fast
    sync's steps by hand with the Processor and Scheduler: verify_commit of
-   each pair, save_block, apply_block, for heights 1-8 (9 stays pending);
+   each pair, save_block, apply_block, for heights 1-6 (7 stays pending);
    its state, app hash, events and tx index must equal the producer's.
    (c) Its stores reopened, the Handshaker runs with (c1) its own app (no
-   replay), (c2) a fresh app (InitChain and 8 blocks replayed) and (c3)
-   block 9 saved with its seen commit but not applied (apply_block, whose
-   validate_block verifies 9's LastCommit).  Prints per height the
+   replay), (c2) a fresh app (InitChain and 6 blocks replayed) and (c3)
+   block 7 saved with its seen commit but not applied (apply_block, whose
+   validate_block verifies 7's LastCommit).  Prints per height the
    check_tx burst's txs/s and p50/p99 latency, the verify.flush sizes and
    apply_block's split (validate_block with verify_commit, BeginBlock,
    DeliverTx, EndBlock, Commit, mempool update with recheck, state save,
@@ -135,7 +136,8 @@
    makes round-0 proposer of height 3; a fresh installed TableCache serves
    validate_block.  One AsyncBatchVerifier on its own BatchVerifier
    (min_device_batch=16) is both the mempool's signed-tx lane and the
-   vote-frame verifier.  Heights 1-6: a burst of 1,000 signed envelopes
+   vote-frame verifier.  Heights 1-4 (cut from 6 to pay for phase 18's
+   time): a burst of 1,000 signed envelopes
    (1 in 100 corrupted) goes through check_tx before each height's
    proposal; the round's proposer (a peer) builds its block with the node's
    BlockExecutor from the node's LastCommit and hands over the signed
@@ -146,15 +148,15 @@
    verify_direct and then add_vote_input(verified=True); one precommit
    frame per round carries a flipped signature, must get exactly one
    False, and is re-sent clean by another sender.  Height 3 is proposed by
-   the node (default_decide_proposal, signed by the FilePV).  At height 4
+   the node (default_decide_proposal, signed by the FilePV).  At height 2
    the round-0 proposer withholds its proposal: the node prevotes nil on
-   timeout_propose, the peers vote nil, and round 1 commits.  In height 6,
+   timeout_propose, the peers vote nil, and round 1 commits.  In height 4,
    after the proposal, the prevotes and the node's own precommit are in the
    WAL, the ConsensusState stops (on_stop drains height 5's delivery) and
    the stores close; reopened, the Handshaker replays 0 blocks, the FilePV
    loads from its files and a new ConsensusState runs
    reconstruct_last_commit_if_needed and catchup_replay; the peers'
-   precommits then commit height 6, and the run stops at height 7's
+   precommits then commit height 4, and the run stops at height 5's
    NEW_HEIGHT.  Prints per height the burst, the proposal, proposal
    complete -> own prevote, each vote kind's ingest (frames' verify_direct
    host prep and device ms p50/p99, the receive routine's Python per vote),
@@ -162,11 +164,11 @@
    pipelined apply_block and commit-to-commit; the restart's handshake,
    reconstruction and catchup ms; heights/s with signing and the timeouts
    apart, the dispatches' share, card memory and launches.  Fails unless
-   heights 1-6 commit (4 in round 1, the others in round 0) with exactly
+   heights 1-4 commit (2 in round 1, the others in round 0) with exactly
    their bursts' valid txs, block 3 is ours, every precommit either lands
    in the LastCommit or is refused as late (it reached the node after the
    next round began) and each block's LastCommit is what the node held
-   (more than 2/3), block 6 is the proposal gossiped before the stop, the
+   (more than 2/3), block 4 is the proposal gossiped before the stop, the
    FilePV's re-signed votes equal what it signed before, no ERROR is
    logged by consensus, and kernel 2 launched once, the auto-profile's
    pick once per validate_block on heights >= 2 and the ladder at least
@@ -552,6 +554,61 @@
    store_integrity_scan_ms, enospc_recovery_ms, ...), each node's
    dispatches and its chaos series from /metrics.  The nodes' launches are
    in their own processes and not in the kernels line.
+18. Validator sets that change while the card verifies (the bank and
+   staking apps).  (a) Full width, after phase 15: phase 8's harness
+   (abci_node on sqlite stores, the mempool's signed-tx lane on an
+   AsyncBatchVerifier at min_device_batch 16, the installed BatchVerifier
+   and TableCache for validate_block) with the app taken through
+   proxy.default_client_creator("staking", app_db=<the sqlite app db>);
+   genesis: the first 9,985 of phase 3's keys, validator i at power 10 +
+   (i mod 7), app_state {"staking": {"epoch_length": 3}} (9,985, so that
+   height 4's set is 10,000 strong: the reference refuses a commit of more
+   than MaxVotesCount = 10,000 signatures, and a 10,015-validator set
+   halts the chain at its first commit).  Per height 1-6, one
+   asyncio.gather of check_tx: 990 bank transfers of 1 unit to loadgen's
+   hot account from 990 keys outside the set, each at nonce h - 1 (so each
+   sends one tx per block; the burst goes in after the previous block
+   committed, as CheckTx reads committed nonces, ROADMAP 3.13), an
+   overdraft of 2^62 (from a key of its own) in every 50 txs, which CheckTx
+   answers 13, and 10 envelopes with a flipped signature byte, which the
+   lane refuses.  Height 2 also carries 16 bonds from fresh keys, an edit
+   of genesis validator 1 to 25, a leave (edit 0) of validator 2 and an
+   ed25519 rotation of validator 3 to a fresh key: height 4's set has
+   10,000 validators and new pubkeys.  At the epoch boundary 3 the app's
+   barrel shift gives ~8,600 power-only updates: height 5's set keeps
+   height 4's pubkeys, so its table comes from the cache (keyed by the
+   pubkey digest).  A syncer replays blocks 1-6 by fast sync's Processor
+   (block 7 carries 6's commit), and the producer restarts from its sqlite
+   stores and app db (0 blocks replayed; the staking records and
+   __stk_epoch__ reloaded).  Fails unless each block holds exactly its
+   burst's accepted txs, every set's members and powers and EndBlock's
+   update counts equal what the harness computes from the txs
+   (stk_sets), the hot account's balance and every sender's nonce are the
+   harness's, the commit checks miss the table cache only at 2 and 5,
+   the app hashes agree on producer, syncer and restart, no flush of 16 or
+   more envelopes verifies on the host, all three kernels launch, kernel 2
+   exactly twice, and the auto-profile's pick in the producer and the
+   syncer.  Prints per height the burst (codes, flush sizes), the
+   apply_block split, EndBlock ms with its updates, validator_updates_
+   from_abci and update_state ms, each new table's host rows and kernel 2.
+   (b) At the same time as phase 17 (a thread of its own): the JAX
+   networks/local/rotation_smoke.py on 7 in-process port nodes (the
+   staking app, powers 10/20/30/40, epoch 16, blocks paced at 0.25 s, node
+   4 the twin, [tpu] enabled at min_device_batch 1): growth 4 -> 7 through
+   InProcRig.valset and the JAX scenario (a partition across the set
+   change), the twin's evidence committed, the epoch shift, the twin voted
+   out; in place of the JAX BLS migration (ROADMAP 1.9) node 0, a
+   RotatingPV of two ed25519 keys, rotates live to its second key by a
+   stake tx the harness builds; a fresh node fast-syncs the rotated
+   history and lite2 bisects from height 2 to the tip; then `python -m
+   tendermint_tpu_torch.tools.loadgen --mode bank` runs 5 s at 200 tx/s
+   over 8 connections against node 0's RPC.  Fails on a checker violation
+   (the twin exempt), a missing step, no valset.update or
+   verify.table_rebuild event, or when the nodes launched no ladder, no
+   pick or (tabulated) no kernel 2.  Prints valset_update_latency_ms,
+   lite2_skip_across_rotation_ok, the joiner's height, loadgen's counters
+   (its app:12 share is fault 3.13) and the rebuild events beside kernel
+   2's launches.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -607,7 +664,7 @@ REPLAY_BAD = 5  # a copy of this block carries one flipped signature in its last
 REPLAY_BAD_SIG = 1234  # the flipped slot (mod the set size)
 
 # Phase 8: blocks applied to the kvstore app (BASELINE config #5 widths)
-ABCI_TOP = 9  # the producer applies 1 .. 9, the syncer 1 .. 8 (9 stays pending, as at the tip)
+ABCI_TOP = 7  # the producer applies 1 .. 7, the syncer 1 .. 6 (7 stays pending, as at the tip)
 ABCI_TXS = 1000  # signed envelopes per height
 ABCI_CORRUPT = 100  # every 100th envelope carries a flipped signature byte
 ABCI_ROTATE_AT = 4  # this block delivers the val: txs; set B serves from ABCI_ROTATE_AT + 2
@@ -2215,10 +2272,11 @@ def abci_traffic(keys, new_keys, top=None):
     return bursts, bad, val_txs
 
 
-async def abci_node(home, gen, app_db=None):
+async def abci_node(home, gen, app_db=None, app_name="kvstore"):
     """A node's stores, app and services in `home` (sqlite), wired as
-    node.py wires them: StateStore, BlockStore, a KVStoreApplication
-    behind AppConns(local_client_creator(app)), an EventBus with an
+    node.py wires them: StateStore, BlockStore, the builtin app that
+    proxy.default_client_creator gives for `app_name` on the app store,
+    behind AppConns, an EventBus with an
     IndexerService over a TxIndexer and one subscriber each on NewBlock and
     Tx, then the Handshaker (InitChain at app height 0), timed.  `app_db`
     puts the app on another store than the node's.  The namespace's close()
@@ -2226,10 +2284,9 @@ async def abci_node(home, gen, app_db=None):
     import asyncio
     import types
 
-    from tendermint_tpu_torch.abci.examples import KVStoreApplication
     from tendermint_tpu_torch.consensus import Handshaker
     from tendermint_tpu_torch.libs.kvstore import open_db
-    from tendermint_tpu_torch.proxy import AppConns, local_client_creator
+    from tendermint_tpu_torch.proxy import AppConns, default_client_creator
     from tendermint_tpu_torch.state import StateStore
     from tendermint_tpu_torch.state.txindex import IndexerService, TxIndexer
     from tendermint_tpu_torch.store import BlockStore
@@ -2242,8 +2299,9 @@ async def abci_node(home, gen, app_db=None):
                 for name in ("state", "blockstore", "app", "evidence", "txindex")}
     node.state_store = StateStore(node.dbs["state"])
     node.block_store = BlockStore(node.dbs["blockstore"])
-    node.app = KVStoreApplication(db=node.dbs["app"] if app_db is None else app_db)
-    node.conns = AppConns(local_client_creator(node.app))
+    creator = default_client_creator(app_name, app_db=node.dbs["app"] if app_db is None else app_db)
+    node.app = creator().app  # every connection's client shares this app
+    node.conns = AppConns(creator)
     node.bus = EventBus()
     node.indexer = TxIndexer(node.dbs["txindex"])
     node.svc = IndexerService(node.indexer, node.bus)
@@ -2592,10 +2650,10 @@ async def abci_run(keys, card, dev):
     return {"a": launches_a, "flushes": flush_launches, "b": launches_b, "c3": launches_c3}
 
 
-CS_HEIGHTS = 6  # heights 1 .. 6 commit; the run stops at height 7's NEW_HEIGHT
+CS_HEIGHTS = 4  # heights 1 .. 4 commit; the run stops at height 5's NEW_HEIGHT
 CS_OURS_AT = 3  # our validator is this height's round-0 proposer
-CS_WITHHELD_AT = 4  # the round-0 proposer withholds its proposal; round 1 commits
-CS_CRASH_AT = 6  # the node stops after its own precommit and recovers from its WAL
+CS_WITHHELD_AT = 2  # the round-0 proposer withholds its proposal; round 1 commits
+CS_CRASH_AT = 4  # the node stops after its own precommit and recovers from its WAL
 CS_FRAME_BYTES = 65536  # a vote_batch frame's cap of Vote.wire() bytes
 CS_SENDERS = 4  # peers relaying vote frames, each under a fixed peer id
 CS_DIRECT_MIN = 16  # frames this large go through verify_direct (the reactor's rule)
@@ -8204,6 +8262,802 @@ def ch_run_b(net, scenario, card, dev):
     return res
 
 
+STK_TOP = 6  # phase 18 (a): heights 1 .. 6 applied; block 7 goes to the syncer unapplied
+STK_SENDERS = 990  # bank senders outside the set: one transfer of 1 unit each per height
+STK_OVERDRAFT_EVERY = 50  # every 50th tx of a burst overdraws (2^62): CheckTx code 13
+STK_CORRUPT = 10  # envelopes per height with a flipped signature byte
+STK_EPOCH = 3  # the staking app's epoch_length: powers shift at 3 (serving from 5) and 6
+STK_STAKE_AT = 2  # the stake txs' height; the new set serves from STK_STAKE_AT + 2
+STK_BONDS = 16  # bonds from fresh keys at STK_STAKE_AT, of power 10 + j
+# genesis holds the run's first len(keys) - STK_BONDS + 1 keys, so that the
+# set with the bonds and the leave is MAX_VOTES_COUNT (10,000) strong: a
+# commit of more signatures is invalid (types/vote_set.go MaxVotesCount)
+STK_EDIT, STK_LEAVE, STK_ROTATE = 1, 2, 3  # genesis validators edited to 25, leaving, rotating
+
+
+def stk_power(i: int) -> int:
+    """Genesis validator i's power: 10 + (i mod 7), so the shift changes most."""
+    return 10 + i % 7
+
+
+def stk_traffic(keys, hot):
+    """Phase 18 (a)'s transactions, made in bulk before the run: per height
+    h, STK_SENDERS transfers of 1 unit to `hot` at nonce h - 1, an
+    overdraft (2^62, from a key of its own at nonce 0) in every
+    STK_OVERDRAFT_EVERY txs and STK_CORRUPT transfers with a flipped
+    signature byte; at STK_STAKE_AT the stake txs.  Returns the bursts,
+    the overdrafts, the corrupted envelopes, the stake txs and the keys
+    they bring (senders, bonds, the rotation's new key)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tendermint_tpu_torch.apps.bank import make_transfer_tx
+    from tendermint_tpu_torch.apps.staking import (make_bond_tx, make_edit_power_tx,
+                                                   make_rotate_key_tx)
+    from tendermint_tpu_torch.mempool import SIGNED_TX_PREFIX
+
+    senders = make_keys(STK_SENDERS, prefix="bank")
+    n_over = STK_SENDERS // (STK_OVERDRAFT_EVERY - 1)
+    over = make_keys(STK_TOP * n_over, prefix="overdraft")
+    forge = make_keys(STK_TOP * STK_CORRUPT, prefix="forge")
+    bonds = make_keys(STK_BONDS, prefix="bond")
+    rotated = make_keys(1, prefix="rotated")[0]
+    jobs = [(h, "send", (k, hot, 1, h - 1)) for h in range(1, STK_TOP + 1) for k in senders]
+    jobs += [(h, "over", (over[(h - 1) * n_over + j], hot, 1 << 62, 0))
+             for h in range(1, STK_TOP + 1) for j in range(n_over)]
+    jobs += [(h, "bad", (forge[(h - 1) * STK_CORRUPT + j], hot, 1, 0))
+             for h in range(1, STK_TOP + 1) for j in range(STK_CORRUPT)]
+    with ThreadPoolExecutor(SIGN_THREADS) as ex:
+        txs = list(ex.map(lambda j: make_transfer_tx(*j[2]), jobs, chunksize=256))
+    off = len(SIGNED_TX_PREFIX) + 32  # the signature's first byte
+    by_h = collections.defaultdict(lambda: collections.defaultdict(list))
+    for (h, kind, _), tx in zip(jobs, txs):
+        if kind == "bad":
+            tx = tx[:off] + bytes([tx[off] ^ 1]) + tx[off + 1:]
+        by_h[h][kind].append(tx)
+    stake = ([make_bond_tx(k, 10 + j, 0) for j, k in enumerate(bonds)]
+             + [make_edit_power_tx(keys[STK_EDIT], 25, 0),
+                make_edit_power_tx(keys[STK_LEAVE], 0, 0),
+                make_rotate_key_tx(keys[STK_ROTATE], "ed25519", rotated.pub_key().bytes(), 0)])
+    bursts, overdrafts, bad = {}, set(), set()
+    for h in range(1, STK_TOP + 1):
+        sends, overs = list(by_h[h]["send"]), list(by_h[h]["over"])
+        burst = []
+        while sends:
+            burst.append(overs.pop() if len(burst) % STK_OVERDRAFT_EVERY ==
+                         STK_OVERDRAFT_EVERY - 1 and overs else sends.pop(0))
+        burst += overs
+        for j, tx in enumerate(by_h[h]["bad"]):
+            burst.insert((j * len(burst)) // STK_CORRUPT, tx)
+        if h == STK_STAKE_AT:
+            burst += stake
+        bursts[h] = burst
+        overdrafts |= set(by_h[h]["over"])
+        bad |= set(by_h[h]["bad"])
+    return bursts, overdrafts, bad, stake, senders, bonds, rotated
+
+
+def stk_sets(keys, bonds, rotated):
+    """The sets the harness expects from the txs, as {pubkey: power}: the
+    genesis set, the set serving from STK_STAKE_AT + 2 (bonds, the edit,
+    the leave, the rotation in place) and the one serving from STK_EPOCH +
+    2 (the staking app's barrel shift: powers in owner order moved one
+    place, the last to the first), with the number of updates it takes."""
+    power = {k.pub_key().bytes(): stk_power(i) for i, k in enumerate(keys)}
+    owner = {k.pub_key().bytes(): k.pub_key().address() for k in keys}
+    genesis = dict(power)
+    for j, k in enumerate(bonds):
+        power[k.pub_key().bytes()] = 10 + j
+        owner[k.pub_key().bytes()] = k.pub_key().address()
+    power[keys[STK_EDIT].pub_key().bytes()] = 25
+    del power[keys[STK_LEAVE].pub_key().bytes()]
+    p = power.pop(keys[STK_ROTATE].pub_key().bytes())
+    power[rotated.pub_key().bytes()] = p
+    owner[rotated.pub_key().bytes()] = keys[STK_ROTATE].pub_key().address()
+    staked = dict(power)
+    order = sorted(power, key=lambda pk: owner[pk])
+    powers = [power[pk] for pk in order]
+    shifted = dict(zip(order, powers[-1:] + powers[:-1]))
+    n_updates = sum(1 for pk in order if shifted[pk] != power[pk])
+    return genesis, staked, shifted, n_updates
+
+
+def stk_powers(state_dict) -> dict:
+    """{pubkey: power} of a state dict's current set."""
+    return {v["pub_key"]["value"]: v["voting_power"]
+            for v in state_dict["validators"]["validators"]}
+
+
+def phase_staking(keys, card, dev):
+    """Phase 18 (a): one validator of the 10,000-validator chain on the
+    staking app (see the module docstring, 18).  Returns the launches of
+    the producer, its signed-tx flushes, the syncer and the restart."""
+    import asyncio
+
+    return asyncio.run(stk_run(keys, card, dev))
+
+
+async def stk_run(keys, card, dev):
+    import tempfile
+
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+    from tendermint_tpu_torch.evidence import EvidencePool
+    from tendermint_tpu_torch.fastsync import Processor, Scheduler
+    from tendermint_tpu_torch.libs.tracing import FlightRecorder
+    from tendermint_tpu_torch.mempool import Mempool, MempoolError
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.state.execution import BlockExecutor, tx_pre_check
+    from tendermint_tpu_torch.tools.loadgen import _HOT_ACCOUNT
+    from tendermint_tpu_torch.types.block import BlockID
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
+
+    def since(before):
+        return {k: v - before[k] for k, v in launch_counts().items()}
+
+    t0 = time.perf_counter()
+    keys = keys[:len(keys) - STK_BONDS + 1]
+    bursts, overdrafts, bad, stake, senders, bonds, rotated = stk_traffic(keys, _HOT_ACCOUNT)
+    genesis_set, staked_set, shifted_set, n_shift = stk_sets(keys, bonds, rotated)
+    key_of = {k.pub_key().address(): k for k in list(keys) + list(bonds) + [rotated]}
+    gen = GenesisDoc(CHAIN_ID, genesis_time_ns=LITE_T0, validators=[
+        GenesisValidator(k.pub_key().address(), k.pub_key(), stk_power(i))
+        for i, k in enumerate(keys)], app_state={"staking": {"epoch_length": STK_EPOCH}})
+    log(f"  traffic: {STK_TOP} bursts of {len(bursts[1])} envelopes ({STK_SENDERS} transfers to "
+        f"loadgen's hot account, {len(overdrafts) // STK_TOP} overdrafts, {STK_CORRUPT} "
+        f"corrupted), {len(stake)} stake txs at height {STK_STAKE_AT} ({STK_BONDS} bonds, an "
+        f"edit to 25, a leave, a rotation); expected sets: {len(genesis_set)} -> "
+        f"{len(staked_set)} validators from {STK_STAKE_AT + 2}, {n_shift} power-only updates "
+        f"at the epoch {STK_EPOCH} (serving from {STK_EPOCH + 2}); made in "
+        f"{_ms(t0):.3f} ms")
+
+    rec = FlightRecorder(size=1 << 16)
+    commit_bv = bvm.BatchVerifier(device=dev, recorder=rec).install()
+    cache = bvm.TableCache(commit_bv, tabulated=None).install()
+    lane = bvm.AsyncBatchVerifier(bvm.BatchVerifier(device=dev, min_device_batch=16,
+                                                    recorder=rec))
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-staking-")
+    producer = syncer = None
+    timer = StepTimer()
+    orig = {name: getattr(execution, name) for name in ("update_state",
+                                                        "validator_updates_from_abci")}
+    try:
+        await lane.start()
+        home_a = os.path.join(tmp.name, "producer")
+        producer = await abci_node(home_a, gen, app_name="staking")
+        log(f"  (a) producer: InitChain of {len(keys)} staking records through the handshake "
+            f"in {producer.handshake_ms:.3f} ms, epoch_length {producer.app.epoch_length}")
+        state = producer.state
+        mempool = Mempool(producer.conns.mempool(), {"sig_precheck": True, "size": ABCI_MEMPOOL})
+        mempool.pre_check = tx_pre_check(state)
+        mempool.sig_verifier = lane
+        executor = BlockExecutor(producer.state_store, producer.conns.consensus(), mempool,
+                                 EvidencePool(producer.dbs["evidence"], producer.state_store,
+                                              state), producer.bus)
+        instrument(timer, executor, producer)
+        for name in orig:
+            timer.wrap(execution, name)
+        before_a, seq_a, t_a = launch_counts(), next_seq(rec), time.perf_counter()
+        flush_launches = dict.fromkeys(before_a, 0)
+        blocks, commits, states, app_hashes, table_hits, builds = {}, {}, {}, {}, {}, []
+        n_updates, sign_s = {}, 0.0
+
+        async def submit(h):
+            txs = bursts[h]
+            before, seq = launch_counts(), next_seq(rec)
+            out, ms = await check_burst(mempool, txs)
+            for k, v in since(before).items():
+                flush_launches[k] += v
+            codes = collections.Counter()
+            for tx, (res, _) in zip(txs, out):
+                if tx in bad:
+                    if not (isinstance(res, MempoolError) and str(res) == "invalid tx signature"):
+                        raise AssertionError(f"a corrupted envelope at {h} gave {res!r}")
+                    codes["bad signature"] += 1
+                elif isinstance(res, Exception):
+                    raise AssertionError(f"a tx at {h} raised {res!r}")
+                elif res.code != (13 if tx in overdrafts else 0):
+                    raise AssertionError(f"a tx at {h} gave code {res.code}: {res.log}")
+                else:
+                    codes[res.code] += 1
+            flushes = rec.events(since=seq, kinds=["verify.flush"])
+            big = [e for e in rec.events(since=seq, kinds=["verify.dispatch"]) if e["n"] >= 16]
+            if any(e["path"] in ("host", "host-cold") for e in big):
+                raise AssertionError(f"a flush of >= 16 envelopes verified on the host at {h}")
+            lat = [lat for _, lat in out]
+            log(f"    burst {h}: {len(txs)} check_tx in {ms:.3f} ms = {len(txs) / ms * 1000:.1f} "
+                f"txs/s, latency p50 {percentile(lat, 50):.3f} ms p99 {percentile(lat, 99):.3f} ms, "
+                f"codes {dict(codes)}, verify.flush sizes {[e['batch'] for e in flushes]}, "
+                f"dispatch paths {dict(collections.Counter(e['path'] for e in big))} ({card})")
+
+        with verify_commit_timing(timer), table_timing(None, builds, dev):
+            last_commit = None
+            for h in range(1, STK_TOP + 1):
+                await submit(h)
+                t_h = time.perf_counter()
+                block = executor.create_proposal_block(h, state, last_commit,
+                                                       state.validators.get_proposer().address)
+                part_set = block.make_part_set(BLOCK_PART_SIZE_BYTES)
+                bid = BlockID(block.hash(), part_set.header())
+                made_ms = _ms(t_h)
+                t0 = time.perf_counter()
+                commit = sign_commit(state.validators, key_of, h, bid, block.time_ns + SEC)
+                sign_s += time.perf_counter() - t0
+                producer.block_store.save_block(block, part_set, commit)
+                seq, n_builds = next_seq(rec), len(builds)
+                state, _ = await executor.apply_block(state, bid, block)
+                t1 = time.perf_counter()
+                await producer.settle(block)
+                timer.add("index_drain", t1)
+                blocks[h], commits[h] = block, commit
+                states[h], app_hashes[h] = state.to_dict(), producer.app.app_hash
+                table_hits[h] = [e["hit"] for e in rec.events(since=seq, kinds=["verify.table"])]
+                eb = producer.state_store.load_abci_responses(h)["end_block"]
+                n_updates[h] = len(eb["validator_updates"])
+                g = timer.ms.get
+                extra = (f"; EndBlock {g('end_block', 0.0):.3f} ms with {n_updates[h]} updates, "
+                         f"validator_updates_from_abci {g('validator_updates_from_abci', 0.0):.3f}"
+                         f" ms, update_state {g('update_state', 0.0):.3f} ms; the set serving "
+                         f"{h + 1}: {state.validators.size()} validators")
+                for b in builds[n_builds:]:
+                    extra += (f"; new table of {b['validators']} validators: host rows "
+                              f"{b['rows_ms']:.3f} ms, kernel 2 {b['build_ms']} ms")
+                log(f"    block {h}: {len(block.txs)} txs, create_proposal_block {made_ms:.3f} ms, "
+                    f"table {table_hits[h]}; {timer.split()}{extra} ({card})")
+                last_commit = commit
+        launches_a = since(before_a)
+        log(f"  (a) producer: {STK_TOP} blocks; signing {sign_s * 1000:.3f} ms; "
+            f"{dispatch_share(rec, seq_a, time.perf_counter() - t_a)}; launches {launches_a}, of which the "
+            f"signed-tx flushes {flush_launches} ({card})")
+        stk_check_producer(producer, mempool, blocks, states, table_hits, n_updates, bursts,
+                           overdrafts, bad, stake, senders, genesis_set, staked_set, shifted_set,
+                           n_shift)
+        # block 7 for the syncer's last pair: it carries block 6's commit, not applied
+        block7 = executor.create_proposal_block(STK_TOP + 1, state, commits[STK_TOP],
+                                                state.validators.get_proposer().address)
+        saved = producer.app.validators, producer.app._state_digest()
+        await producer.close()
+        producer = None
+
+        # (b) a syncing node: fast sync's steps by hand over blocks 1 .. 7
+        syncer = await abci_node(os.path.join(tmp.name, "syncer"), gen, app_name="staking")
+        state_b = syncer.state
+        executor_b = BlockExecutor(syncer.state_store, syncer.conns.consensus(),
+                                   Mempool(syncer.conns.mempool(), {"size": ABCI_MEMPOOL}),
+                                   EvidencePool(syncer.dbs["evidence"], syncer.state_store,
+                                                state_b), syncer.bus)
+        proc, sched = Processor(1), Scheduler(1)
+        sched.set_peer_range("producer", 1, STK_TOP + 1)
+        for peer, h in sched.next_requests(0.0):
+            sched.mark_requested(peer, h, 0.0)
+        for h in range(1, STK_TOP + 2):
+            if not sched.block_received("producer", h):
+                raise AssertionError(f"the scheduler refused block {h}")
+            proc.add_block(h, blocks.get(h, block7), "producer")
+        before_b, seq_b, t_b = launch_counts(), next_seq(rec), time.perf_counter()
+        while (pair := proc.peek_two()) is not None:
+            first, second = pair
+            first_parts = first.make_part_set(BLOCK_PART_SIZE_BYTES)
+            first_id = BlockID(first.hash(), first_parts.header())
+            state_b.validators.verify_commit(CHAIN_ID, first_id, first.height, second.last_commit)
+            syncer.block_store.save_block(first, first_parts, second.last_commit)
+            state_b, _ = await executor_b.apply_block(state_b, first_id, first)
+            await syncer.settle(first)
+            proc.pop_processed()
+            sched.block_processed(first.height)
+        launches_b = since(before_b)
+        hits_b = [e["hit"] for e in rec.events(since=seq_b, kinds=["verify.table"])]
+        log(f"  (b) syncer: {STK_TOP} blocks in {_ms(t_b):.3f} ms (pair check, save, apply); "
+            f"table {hits_b}; launches {launches_b}; {card_memory(dev, cache)} ({card})")
+        if state_b.to_dict() != states[STK_TOP] or syncer.app.app_hash != app_hashes[STK_TOP]:
+            raise AssertionError(f"the syncer's state or app hash at {STK_TOP} differs")
+        if False in hits_b or len(hits_b) != 2 * STK_TOP - 1:  # 6 pairs, 5 LastCommits
+            raise AssertionError(f"the syncer's commit checks missed the table cache: {hits_b}")
+        await syncer.close()
+        syncer = None
+
+        # (c) the producer restarted from its sqlite stores and app db
+        before_c = launch_counts()
+        restarted = await abci_node(home_a, gen, app_name="staking")
+        try:
+            app = restarted.app
+            got = (restarted.handshaker.n_blocks, restarted.state.to_dict(), app.app_hash,
+                   app.epoch_length, app.validators, app._state_digest())
+            log(f"  (c) restart: handshake replayed {got[0]} blocks in "
+                f"{restarted.handshake_ms:.3f} ms; app at {app.height} with {len(app.validators)} "
+                f"records, epoch_length {app.epoch_length}; launches {since(before_c)} ({card})")
+        finally:
+            await restarted.close()
+        if got != (0, states[STK_TOP], app_hashes[STK_TOP], STK_EPOCH) + saved:
+            raise AssertionError("the restarted producer's state, app hash, epoch or staking "
+                                 "records differ")
+    finally:
+        for name, fn in orig.items():
+            setattr(execution, name, fn)
+        for node in (producer, syncer):
+            if node is not None:
+                await node.close()
+        await lane.stop()
+        batch_hook.set_verifier(None)
+        batch_hook.set_indexed_verifier(None)
+        tmp.cleanup()
+    return {"a": launches_a, "flushes": flush_launches, "b": launches_b,
+            "misses": [h for h, hits in table_hits.items() if False in hits]}
+
+
+def stk_check_producer(node, mempool, blocks, states, table_hits, n_updates, bursts, overdrafts,
+                       bad, stake, senders, genesis_set, staked_set, shifted_set, n_shift):
+    """Phase 18 (a)'s producer against what the harness computes from its
+    txs: each block's txs, each set's members and powers, the epoch's
+    updates, the table misses, the hot account's balance, every sender's
+    nonce."""
+    from tendermint_tpu_torch.abci.types import RequestQuery
+    from tendermint_tpu_torch.apps.bank import DEFAULT_FAUCET
+    from tendermint_tpu_torch.tools.loadgen import _HOT_ACCOUNT
+
+    for h, b in blocks.items():
+        want = [tx for tx in bursts[h] if tx not in bad and tx not in overdrafts]
+        if sorted(b.txs) != sorted(want):
+            raise AssertionError(f"block {h} does not hold exactly burst {h}'s accepted txs")
+    if mempool.size() != 0:
+        raise AssertionError(f"{mempool.size()} txs left in the pool")
+    # states[h] holds the set serving h + 1
+    want_sets = {h: genesis_set if h + 1 < STK_STAKE_AT + 2 else
+                 staked_set if h + 1 < STK_EPOCH + 2 else shifted_set for h in states}
+    for h, st in states.items():
+        if stk_powers(st) != want_sets[h]:
+            raise AssertionError(f"the set serving {h + 1} differs from the harness's")
+    if n_updates[STK_STAKE_AT] != len(stake) + 1 or n_updates[STK_EPOCH] != n_shift:
+        raise AssertionError(f"EndBlock's updates {n_updates} differ: want {len(stake) + 1} at "
+                             f"{STK_STAKE_AT} and {n_shift} at {STK_EPOCH}")
+    misses = [h for h, hits in table_hits.items() if False in hits]
+    if misses != [2, STK_STAKE_AT + 3]:
+        raise AssertionError(f"the commit checks missed the table cache at {misses}, not at 2 "
+                             f"(the genesis set) and {STK_STAKE_AT + 3} (the new pubkeys); the "
+                             f"epoch's power-only set must hit")
+    hot = int(node.app.query(RequestQuery(path="balance", data=_HOT_ACCOUNT)).value)
+    if hot != DEFAULT_FAUCET + STK_SENDERS * STK_TOP:
+        raise AssertionError(f"the hot account holds {hot}")
+    nonces = {int(node.app.query(RequestQuery(path="nonce", data=k.pub_key().address())).value)
+              for k in senders}
+    if nonces != {STK_TOP}:
+        raise AssertionError(f"the senders' nonces are {nonces}, not {STK_TOP}")
+    log(f"  (a) checks: blocks hold the accepted txs; sets {len(genesis_set)} -> "
+        f"{len(staked_set)} (from {STK_STAKE_AT + 2}) -> powers shifted by {n_shift} updates "
+        f"(from {STK_EPOCH + 2}); table misses at {misses}; hot account {hot}; "
+        f"{len(senders)} senders at nonce {STK_TOP}")
+
+
+RT_GENESIS = [0, 1, 2, 3]  # the genesis validators' nodes (networks/local/rotation_smoke.py)
+RT_POWERS = [10, 20, 30, 40]
+RT_TWIN = 4  # the configured double-signer; bonds in through the DSL
+RT_JOINER_A = 5  # bonds in through the rig (the latency measurement)
+RT_JOINER_B = 6  # bonds in through the DSL
+RT_FRESH = 7  # the fast-sync bootstrapper over the rotated history
+RT_EPOCH = 16  # the staking app's epoch_length (the JAX rig's default)
+RT_PACE = 0.25  # s: timeout_commit (the JAX rig's --block-pace)
+RT_SEED = 7  # the chaos seed and the scenario's (the JAX rig's --seed)
+RT_BUDGET_S = 120.0  # a step's wait, at most (the JAX rig's --budget)
+RT_SCENARIO = "\n".join([  # the JAX rig's scenario (rotation_smoke.py:335-341)
+    f"valset join {RT_JOINER_B} power=10 @0",
+    f"valset join {RT_TWIN} power=5 @3",
+    f"partition {RT_TWIN},{RT_JOINER_A}|0,1,2,3,{RT_JOINER_B} @6",
+    "heal @12",
+    "valset power 1=25 @15",
+])
+RT_MIN_DEVICE_BATCH = 1  # [tpu] min_device_batch: every batch verifies on the card
+RT_LOAD_S = 5.0  # loadgen --mode bank's --duration against node 0's RPC
+RT_LOAD_RATE = 200  # its --rate (tx/s over all connections)
+RT_LOAD_CONNECTIONS = 8  # loadgen's default
+
+
+def rt_config(tmp, i, dev, rpc_port=None):
+    """Node i's config, as the JAX rig's _node_cfg: the staking app, memdb,
+    p2p on 127.0.0.1 without PEX, the engine on at RT_MIN_DEVICE_BATCH (on
+    the CPU at 65,536, the host path, as the JAX rig on a host without an
+    accelerator), chaos on (node RT_TWIN the twin), blocks paced at RT_PACE,
+    fast sync as the launch gate, no watchdog and a 2^17-event recorder."""
+    from tendermint_tpu_torch.config import test_config
+
+    cfg = test_config(os.path.join(tmp, f"n{i}"))
+    cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc_port}" if rpc_port else ""
+    cfg.base.db_backend = "memdb"
+    cfg.base.proxy_app = "staking"
+    cfg.p2p.laddr = "127.0.0.1:0"
+    cfg.p2p.pex = False
+    cfg.p2p.dial_timeout = 20.0
+    cfg.p2p.max_num_inbound_peers = 16
+    cfg.p2p.max_num_outbound_peers = 16
+    cfg.tpu.enabled = True
+    cfg.tpu.min_device_batch = RT_MIN_DEVICE_BATCH if dev.type == "cuda" else 1 << 16
+    cfg.chaos.enabled = True
+    cfg.chaos.seed = RT_SEED
+    cfg.chaos.twin = i == RT_TWIN
+    cfg.consensus.timeout_commit = RT_PACE
+    cfg.consensus.skip_timeout_commit = False
+    cfg.base.fast_sync = True
+    cfg.instrumentation.watchdog = False
+    cfg.instrumentation.flight_recorder_size = 1 << 17
+    return cfg
+
+
+async def rt_build(tmp, dev, rpc_port):
+    """Seven nodes: 0-3 the genesis validators (powers 10/20/30/40, sorted by
+    address), 4 the twin (a MockPV, which TwinSigner wraps), 5 and 6
+    followers; every node but the twin holds a RotatingPV of two ed25519
+    keys (the JAX rig's second candidate is a BLS key: ROADMAP 1.9).  The
+    nodes start behind the fast-sync gate while the mesh forms."""
+    import asyncio
+
+    from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
+    from tendermint_tpu_torch.fastsync import reactor as fs_reactor
+    from tendermint_tpu_torch.node import Node
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.params import BlockParams, ConsensusParams
+    from tendermint_tpu_torch.types.priv_validator import MockPV, RotatingPV
+
+    def key(tag, i):
+        return Ed25519PrivKey.from_secret(f"rotation-{tag}-{i}".encode())
+
+    pvs = [MockPV(key("id", i)) if i == RT_TWIN else
+           RotatingPV(MockPV(key("id", i)), MockPV(key("next", i))) for i in range(7)]
+    pvs[:4] = sorted(pvs[:4], key=lambda pv: pv.get_pub_key().address())
+    gen = GenesisDoc(
+        chain_id="rotation-smoke", genesis_time_ns=time.time_ns(),
+        validators=[GenesisValidator(pv.get_pub_key().address(), pv.get_pub_key(), power)
+                    for pv, power in zip(pvs[:4], RT_POWERS)],
+        consensus_params=ConsensusParams(block=BlockParams(time_iota_ms=1)),
+        app_state={"staking": {"epoch_length": RT_EPOCH}})
+    nodes = [Node(rt_config(tmp, i, dev, rpc_port if i == 0 else None), gen,
+                  priv_validator=pvs[i], db_backend="memdb", device=dev) for i in range(7)]
+    orig = fs_reactor.SWITCH_TO_CONSENSUS_INTERVAL
+    fs_reactor.SWITCH_TO_CONSENSUS_INTERVAL = 3600.0
+    t0 = time.perf_counter()
+    try:
+        for node in nodes:
+            await node.start()
+        for _ in range(4):
+            dials = [(i, f"{nodes[j].node_key.id}@{nodes[j].switch.transport.listen_addr}")
+                     for i in range(7) for j in range(i + 1, 7)
+                     if nodes[j].node_key.id not in nodes[i].switch.peers]
+            if not dials:
+                break
+            await asyncio.gather(*(nodes[i].switch.dial_peer(a) for i, a in dials),
+                                 return_exceptions=True)
+            await asyncio.sleep(0.5)
+        await rt_wait(lambda: all(n.switch.num_peers() >= 6 for n in nodes), 60.0,
+                      "the 7-node mesh")
+    finally:
+        fs_reactor.SWITCH_TO_CONSENSUS_INTERVAL = orig
+    await rt_wait(lambda: all(n.consensus is not None and n.consensus.is_running for n in nodes),
+                  30.0, "every node's switch from fast sync to consensus")
+    return nodes, gen, time.perf_counter() - t0
+
+
+async def rt_wait(pred, budget, what, tick=0.1):
+    import asyncio
+
+    deadline = time.monotonic() + budget
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 18 (b): timed out after {budget:.0f} s waiting for {what}")
+        await asyncio.sleep(tick)
+
+
+async def rt_mesh_keeper(nodes, interval=2.0):
+    """The JAX rig's keeper: redial dropped links (i < j); partitions are
+    drop policies on live links, so a redial never bypasses one."""
+    import asyncio
+
+    while True:
+        await asyncio.sleep(interval)
+        dials = [a.switch.dial_peer(f"{b.node_key.id}@{b.switch.transport.listen_addr}")
+                 for i, a in enumerate(nodes) if a.is_running
+                 for b in nodes[i + 1:] if b.is_running and b.node_key.id not in a.switch.peers]
+        if dials:
+            await asyncio.gather(*dials, return_exceptions=True)
+
+
+def rt_set(node):
+    return node.state_store.load().validators
+
+
+def rt_powers(vset) -> dict:
+    return {v.address.hex(): v.voting_power for v in vset.validators}
+
+
+def rt_recorder_counts(nodes) -> dict:
+    """networks/local/rotation_smoke.py's recorder_counts."""
+    out = collections.Counter()
+    for node in nodes:
+        for e in node.flight_recorder.events():
+            if e["kind"] == "valset.update":
+                out["valset_update_events"] += 1
+            elif e["kind"] == "verify.table_rebuild":
+                out["table_rebuild_events"] += 1
+                out["table_rebuild_ok_events"] += 1 if e.get("ok") else 0
+    return out
+
+
+def phase_rotation(card, dev):
+    """Phase 18 (b): the JAX rotation rig on 7 in-process port nodes (see
+    the module docstring, 18); returns its numbers."""
+    import asyncio
+
+    return asyncio.run(rt_run(card, dev))
+
+
+async def rt_run(card, dev):
+    import asyncio
+    import tempfile
+
+    from tendermint_tpu_torch.apps.staking import make_rotate_key_tx
+    from tendermint_tpu_torch.chaos import InProcRig, InvariantChecker, Scenario, ScenarioRunner
+    from tendermint_tpu_torch.chaos.checker import scan_committed_evidence
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.lite2 import BISECTION, Client, LocalProvider, TrustOptions
+    from tendermint_tpu_torch.node import Node
+    from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+    from tendermint_tpu_torch.types.priv_validator import MockPV
+
+    def say(msg):
+        log(f"  [18 b] {msg}")
+
+    out = {}
+    t_start = time.perf_counter()
+    rpc_port = free_port()
+    with tempfile.TemporaryDirectory(prefix="phase18b-") as tmp:
+        nodes, gen, startup_s = await rt_build(tmp, dev, rpc_port)
+        out["startup_s"] = startup_s
+        say(f"net up: 4 genesis validators + 3 followers in {startup_s:.3f} s")
+        pvs = [n.priv_validator for n in nodes]
+        ids = [pv.get_pub_key().address() for pv in pvs]  # each node's first key
+        fresh = None
+        keeper_nodes = list(nodes)
+        keeper = asyncio.ensure_future(rt_mesh_keeper(keeper_nodes))
+        loadgen = None
+        try:
+            # 1. growth: a join through the rig, timed to the set's change
+            await rt_wait(lambda: min(n.block_store.height() for n in nodes) >= 3, RT_BUDGET_S,
+                          "3 commits everywhere")
+            rig = InProcRig(nodes)
+            t = time.monotonic()
+            await rig.valset("join", RT_JOINER_A, power=15)
+            await rt_wait(lambda: rt_set(nodes[0]).has_address(ids[RT_JOINER_A]), RT_BUDGET_S,
+                          f"node {RT_JOINER_A} joining the set")
+            out["valset_update_latency_ms"] = (time.monotonic() - t) * 1000
+            say(f"node {RT_JOINER_A} bonded in: the set changed "
+                f"{out['valset_update_latency_ms']:.1f} ms after the tx")
+            # 2. the DSL: two joins (the twin's), a partition across the set
+            # change, the heal and a power edit
+            scenario = Scenario.parse(RT_SCENARIO, seed=RT_SEED)
+            out["scenario_fingerprint"] = scenario.fingerprint()[:16]
+            t = time.perf_counter()
+            await ScenarioRunner(scenario, rig).run()
+            await rt_wait(lambda: (rt_set(nodes[0]).has_address(ids[RT_JOINER_B])
+                                   and rt_set(nodes[0]).has_address(ids[RT_TWIN])
+                                   and 25 in rt_powers(rt_set(nodes[0])).values()),
+                          RT_BUDGET_S, "the DSL's joins and power edit")
+            out["set_size_after_growth"] = rt_set(nodes[0]).size()
+            if out["set_size_after_growth"] != 7:
+                raise AssertionError(f"phase 18 (b): {out['set_size_after_growth']} validators "
+                                     "after the growth, not 7")
+            say(f"scenario {out['scenario_fingerprint']} ran in {time.perf_counter() - t:.3f} s: "
+                f"the set grew to 7 across a partition; twin armed")
+
+            # 3. the twin's evidence committed
+            def twin_evidence():
+                for h, ev in scan_committed_evidence(nodes[0].block_store, max_back=500):
+                    if (isinstance(ev, DuplicateVoteEvidence)
+                            and ev.vote_a.validator_address == ids[RT_TWIN]):
+                        out["twin_evidence_height"] = h
+                        return True
+                return False
+
+            await rt_wait(twin_evidence, RT_BUDGET_S, "the twin's DuplicateVoteEvidence")
+            say(f"twin evidence committed at height {out['twin_evidence_height']}")
+            # 4. the epoch's barrel shift, with no client traffic
+            before = rt_powers(rt_set(nodes[0]))
+            h0 = nodes[0].state_store.load().last_block_height
+            boundary = (h0 // RT_EPOCH + 1) * RT_EPOCH
+            await rt_wait(lambda: nodes[0].state_store.load().last_block_height >= boundary + 3,
+                          RT_BUDGET_S, f"epoch boundary {boundary} + 2")
+            after = rt_powers(rt_set(nodes[0]))
+            if not (set(before) == set(after) and before != after):
+                raise AssertionError(f"phase 18 (b): epoch boundary {boundary} did not shift the "
+                                     f"powers: {before} -> {after}")
+            out["epoch_rotation_observed"] = boundary
+            say(f"epoch shift observed at boundary {boundary}")
+            # 5. the twin voted out by its owner key, through a live node
+            await rig.valset("leave", RT_TWIN)
+            await rt_wait(lambda: not rt_set(nodes[0]).has_address(ids[RT_TWIN]), RT_BUDGET_S,
+                          "the twin leaving the set")
+            out["set_size_after_leave"] = rt_set(nodes[0]).size()
+            say(f"twin voted out: {out['set_size_after_leave']} validators")
+            counts_mid = rt_recorder_counts(nodes)
+            # 6. (the JAX rig's BLS migration waits for ROADMAP 1.9) node 0
+            # rotates live to its second ed25519 key; `valset migrate 0
+            # ed25519` would pick the key in use, so the harness builds the tx
+            owner = pvs[0].candidates[0].priv_key
+            new_pub = pvs[0].candidates[1].get_pub_key()
+            nonce = await rig._next_nonce(nodes[0], owner.pub_key().address())
+            res = await nodes[0].mempool.check_tx(make_rotate_key_tx(owner, "ed25519",
+                                                                     new_pub.bytes(), nonce))
+            if res.code != 0:
+                raise AssertionError(f"phase 18 (b): node 0's rotation was refused: {res.log}")
+            t = time.monotonic()
+            await rt_wait(lambda: (rt_set(nodes[0]).has_address(new_pub.address())
+                                   and not rt_set(nodes[0]).has_address(ids[0])),
+                          RT_BUDGET_S, "node 0's rotation to its second key")
+            h_rot = nodes[0].state_store.load().last_block_height
+            await rt_wait(lambda: nodes[0].block_store.height() >= h_rot + 3, RT_BUDGET_S,
+                          "3 commits on node 0's new key")
+            last = nodes[0].block_store.load_block_commit(nodes[0].block_store.height() - 1)
+            if not any(cs.validator_address == new_pub.address() and not cs.is_absent()
+                       for cs in last.signatures):
+                raise AssertionError("phase 18 (b): node 0's new key signs no commit")
+            out["rotation_ms"] = (time.monotonic() - t) * 1000
+            say(f"node 0 rotated live to its second ed25519 key in {out['rotation_ms']:.1f} ms; "
+                f"its new key signs the commits")
+            # 7. a fresh node fast-syncs the rotated history
+            tip = max(n.block_store.height() for n in nodes)
+            cfg = rt_config(tmp, RT_FRESH, dev)
+            cfg.chaos.twin = False
+            fresh = Node(cfg, gen, priv_validator=MockPV(), db_backend="memdb", device=dev)
+            t = time.perf_counter()
+            await fresh.start()
+            keeper_nodes.append(fresh)
+            for j in range(7):
+                if j != RT_TWIN:
+                    with contextlib.suppress(Exception):
+                        await fresh.switch.dial_peer(
+                            f"{nodes[j].node_key.id}@{nodes[j].switch.transport.listen_addr}")
+            await rt_wait(lambda: fresh.block_store.height() >= tip, RT_BUDGET_S,
+                          f"the fresh node fast-syncing {tip} heights", tick=0.25)
+            out["fastsync_joiner_height"] = fresh.block_store.height()
+            say(f"fresh node fast-synced to {out['fastsync_joiner_height']} in "
+                f"{time.perf_counter() - t:.3f} s across every set change")
+            # 8. lite2 bisects from height 2 to the tip across the rotations
+            root = nodes[0].block_store.load_block(2)
+            lite_tip = nodes[0].block_store.height() - 1
+            client = Client(gen.chain_id, TrustOptions(period_ns=3600 * SEC, height=2,
+                                                       hash=root.header.hash()),
+                            LocalProvider(nodes[0]), witnesses=[LocalProvider(nodes[1])],
+                            mode=BISECTION)
+            t = time.perf_counter()
+            await client.initialize()
+            sh = await client.verify_header_at_height(lite_tip, time.time_ns())
+            out["lite2_skip_across_rotation_ok"] = sh is not None and sh.height == lite_tip
+            if not out["lite2_skip_across_rotation_ok"]:
+                raise AssertionError("phase 18 (b): lite2 returned a bogus header")
+            say(f"lite2 bisected 2 -> {lite_tip} across the rotations in "
+                f"{time.perf_counter() - t:.3f} s")
+            # bank load at node 0's RPC (fault 3.13 shows as app:12)
+            loadgen = Child("loadgen", [
+                "-m", "tendermint_tpu_torch.tools.loadgen", f"127.0.0.1:{rpc_port}",
+                "--connections", str(RT_LOAD_CONNECTIONS), "--rate", str(RT_LOAD_RATE),
+                "--mode", "bank", "--duration", str(RT_LOAD_S), "--json"], tmp)
+            t = time.perf_counter()
+            await loadgen.start()
+            rc = await loadgen.finish(timeout=RT_LOAD_S + CHILD_READY_S)
+            lines = loadgen.out.strip().splitlines()
+            if rc != 0 or not lines:
+                raise AssertionError(f"loadgen --mode bank exited {rc}: "
+                                     f"{loadgen.read_log()[-3000:]}")
+            out["bank_load"] = json.loads(lines[-1])
+            load = out["bank_load"]
+            say(f"loadgen --mode bank ({time.perf_counter() - t:.3f} s with its start): offered "
+                f"{load['offered']}, accepted {load['accepted']}, rejected {load['rejected']} "
+                f"{load['reject_codes']}, throttled {load['throttled']}, transport "
+                f"{load['transport_errors']}; {load['commits_under_load']} commits under load "
+                f"(app:12 is ROADMAP 3.13)")
+            if load["accepted"] == 0 or load["offered"] != (
+                    load["accepted"] + load["rejected"] + load["throttled"]
+                    + load["transport_errors"]):
+                raise AssertionError(f"phase 18 (b): the bank load's split is off: {load}")
+            # 9. the judgement
+            checker = InvariantChecker(8, liveness_exempt=[RT_TWIN])
+            for i, node in enumerate(nodes + [fresh]):
+                checker.observe_node(i, node)
+            out["agreed_heights"] = len(checker.agreed_heights())
+            out["max_height"] = max(n.block_store.height() for n in nodes)
+            if checker.violations:
+                raise AssertionError(f"phase 18 (b): invariant violations {checker.violations}")
+            counts = rt_recorder_counts(nodes + [fresh])
+            out.update({k: max(counts_mid[k], counts[k]) for k in counts | counts_mid})
+            if not out.get("valset_update_events") or not out.get("table_rebuild_events"):
+                raise AssertionError(f"phase 18 (b): no valset.update or verify.table_rebuild "
+                                     f"event: {dict(counts)}")
+        finally:
+            keeper.cancel()
+            if loadgen is not None:
+                await loadgen.finish(sig=15)
+            stopping = [n for n in nodes + [fresh] if n is not None and n.is_running]
+            await asyncio.gather(*(n.stop() for n in stopping), return_exceptions=True)
+            batch_hook.set_verifier(None)
+            batch_hook.set_indexed_verifier(None)
+    out["s"] = time.perf_counter() - t_start
+    say(f"0 violations over {out['agreed_heights']} agreed heights (tip {out['max_height']}); "
+        f"{out['valset_update_events']} valset.update and {out['table_rebuild_events']} "
+        f"verify.table_rebuild events ({out['table_rebuild_ok_events']} ok); took "
+        f"{out['s']:.3f} s ({card})")
+    return out
+
+
+def run_staking(keys, card, dev, picked, report):
+    """Phase 18 (a) with its launch checks, its launches added to `report`."""
+    log("[18] (a) validator sets that change while the card verifies: one validator of the "
+        "10,000-validator chain on the staking app (bank transfers, bonds, an edit, a leave, a "
+        "key rotation, an epoch's power shift), a syncer and a restart")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    out = phase_staking(keys, card, dev)
+    counts = launch_counts()
+    log(f"  launches in phase 18 (a): {counts}; the producer's {out['a']}, of which the "
+        f"signed-tx flushes {out['flushes']}; the syncer's {out['b']}; table misses at "
+        f"{out['misses']}; phase 18 (a) took {time.perf_counter() - t0:.3f} s ({card})")
+    if out["flushes"]["ed25519_ladder"] == 0:
+        raise AssertionError("the ladder was not launched by phase 18's signed-tx flushes")
+    if any(c == 0 for c in counts.values()):
+        raise AssertionError(f"a kernel was not launched in phase 18 (a): {counts}")
+    if counts["ed25519_window_tables"] != 2 or out["a"]["ed25519_window_tables"] != 2:
+        raise AssertionError("kernel 2 (window tables) was not launched exactly for the genesis "
+                             "set and the set with new pubkeys in phase 18 (a)")
+    for part in ("a", "b"):
+        if out[part][picked] == 0:
+            raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in phase "
+                                 f"18 (a)'s {'producer' if part == 'a' else 'syncer'}")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+
+def run_chaos_rotation(card, dev, picked, report):
+    """Phase 17 and, at the same time, phase 18 (b), with their launch
+    checks (phase 17 launches nothing in this process), the launches added
+    to `report`."""
+    import threading
+
+    log("[17] the chaos rig on the card: two 4-validator localnets at once through the CLI "
+        "(testnet --fast --chaos, the engine on at min_device_batch 1), (a) partition, crash "
+        "and a double-signing twin, (b) block-store rot, ENOSPC, heal and restart; at the same "
+        "time [18] (b), the JAX rotation rig on 7 in-process port nodes on the staking app")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    rot = {}
+
+    def rotation():
+        try:
+            rot["out"] = phase_rotation(card, dev)
+        except BaseException as e:  # noqa: BLE001 — re-raised below, after phase 17
+            rot["error"] = e
+
+    rot_thread = threading.Thread(target=rotation, name="phase18b")
+    rot_thread.start()
+    try:
+        out = phase_chaos(card, dev)
+    finally:
+        rot_thread.join()
+    counts = launch_counts()
+    if "error" in rot:
+        raise rot["error"]
+    log(f"  launches in phase 17 and 18 (b) in this process: {counts}, all 18 (b)'s (each phase "
+        f"17 node's, in its own process, are on its line above: (a) {out['a']['launches']}, (b) "
+        f"{out['b']['launches']}, node3's refill window {out['b']['refill_launches']}); phase 17 "
+        f"took {out['a']['s']:.3f} / {out['b']['s']:.3f} s ((a) / (b)), 18 (b) "
+        f"{rot['out']['s']:.3f} s, both {time.perf_counter() - t0:.3f} s ({card})")
+    log(f"  phase 18 (b): {rot['out']['table_rebuild_ok_events']} verify.table_rebuild events "
+        f"beside {counts['ed25519_window_tables']} kernel-2 launches; "
+        f"valset_update_latency_ms {rot['out']['valset_update_latency_ms']:.1f}, "
+        f"lite2_skip_across_rotation_ok {rot['out']['lite2_skip_across_rotation_ok']}, the "
+        f"joiner at {rot['out']['fastsync_joiner_height']} ({card})")
+    if counts["ed25519_ladder"] == 0 or counts[picked] == 0:
+        raise AssertionError(f"phase 18 (b)'s nodes did not verify on the card: {counts}")
+    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] == 0:
+        raise AssertionError("kernel 2 (window tables) was not launched for phase 18 (b)'s sets")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+
 def kernel_device_ms(fn, names) -> dict:
     """Device ms of each named kernel in one run of fn, from torch.profiler;
     a name is missing where the profiler records no device time for it."""
@@ -8569,17 +9423,8 @@ def main() -> int:
     for name, c in counts.items():
         report[name]["launches"] += c
 
-    log("[17] the chaos rig on the card: two 4-validator localnets at once through the CLI "
-        "(testnet --fast --chaos, the engine on at min_device_batch 1), (a) partition, crash "
-        "and a double-signing twin, (b) block-store rot, ENOSPC, heal and restart")
-    launch_counts(zero=True)
-    t0 = time.perf_counter()
-    out = phase_chaos(card, dev)
-    counts = launch_counts()
-    log(f"  launches in phase 17 in this process: {counts} (each node's, in its own process, "
-        f"are on its line above: (a) {out['a']['launches']}, (b) {out['b']['launches']}, "
-        f"node3's refill window {out['b']['refill_launches']}); phase 17 took "
-        f"{time.perf_counter() - t0:.3f} s ({card})")
+    run_staking(keys, card, dev, picked, report)
+    run_chaos_rotation(card, dev, picked, report)
 
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
     keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

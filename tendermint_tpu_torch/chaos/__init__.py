@@ -16,9 +16,8 @@ Pieces:
                pipeline (VoteSet conflict -> EvidencePool -> block ->
                BeginBlock byzantine_validators)
   scenario.py  declarative seeded fault timelines + the async runner and
-               the in-process rig (its `valset` clauses parse, but raise
-               NotImplementedError until the staking app is ported,
-               ROADMAP 1.8.2)
+               the in-process rig (its `valset` clauses run through the
+               staking app; a bls migration raises naming ROADMAP 1.9)
   checker.py   Jepsen-flavor invariant checker: agreement, no height
                regression, bounded recovery, accountability, no serving
                of corrupted blocks

@@ -64,9 +64,8 @@ mutate the validator set THROUGH the staking app's tx path (bond/edit/
 rotate), so every assumption downstream — verify-table identity, BLS
 aggregation uniformity, lite-client bisection — gets exercised exactly
 the way a production set change would exercise it.
-In the port they parse and fingerprint as in JAX; executing one raises
-NotImplementedError until the staking app lands (ROADMAP 1.8.2; a `bls`
-migration also needs 1.9).
+In the port a `bls` migration raises NotImplementedError naming ROADMAP
+1.9 (BLS keys) before any tx is made.
 
 The executor (`ScenarioRunner`) drives any object satisfying the Rig
 surface; `InProcRig` adapts a list of in-process Nodes (the test path),
@@ -456,15 +455,99 @@ class InProcRig:
 
     # -- validator-set actions (staking-app tx path) -------------------------
     #
-    # In the JAX rig every action is a signed stake tx submitted through a
-    # running node's mempool (proxy_app = "staking").  The port has no
-    # staking app yet, so the clauses parse and fingerprint as in JAX but
-    # cannot be executed.
+    # Requires proxy_app = "staking".  Every action is a real signed stake
+    # tx submitted through a running node's mempool — the set change then
+    # flows tx -> end_block.validator_updates -> update_state exactly like
+    # production, which is the point: no backdoor set surgery.
+
+    def _privval_keys(self, i: int):
+        """All candidate privkeys node i holds (RotatingPV-aware).  Also
+        unwraps TwinSigner (`._priv`) and FilePV (`.key.priv_key`) so a
+        twin's owner key can still sign stake txs — e.g. `valset leave`
+        for a halted equivocator."""
+        pv = getattr(self.nodes[i], "priv_validator", None)
+        out = []
+        for cand in getattr(pv, "candidates", None) or [pv]:
+            pk = (
+                getattr(cand, "priv_key", None)
+                or getattr(cand, "_priv", None)
+                or getattr(getattr(cand, "key", None), "priv_key", None)
+            )
+            if pk is not None:
+                out.append(pk)
+        return out
+
+    def _owner_key(self, i: int):
+        """Node i's ed25519 control key — the envelope signer for every
+        stake tx.  Stays fixed across consensus-key migrations (that
+        separation is what makes live migration possible)."""
+        for pk in self._privval_keys(i):
+            if getattr(pk.pub_key(), "TYPE", "") == "tendermint/PubKeyEd25519":
+                return pk
+        raise RuntimeError(f"node {i} has no ed25519 privval key to sign stake txs")
+
+    def _candidate_key(self, i: int, scheme: str):
+        want = (
+            "tendermint/PubKeyBLS12381" if scheme == "bls12381"
+            else "tendermint/PubKeyEd25519"
+        )
+        for pk in self._privval_keys(i):
+            if getattr(pk.pub_key(), "TYPE", "") == want:
+                return pk
+        raise RuntimeError(
+            f"node {i} holds no {scheme} consensus key — give it a RotatingPV "
+            f"with a {scheme} candidate before migrating"
+        )
+
+    def _submit_via(self, i: int):
+        """Prefer the target node's own mempool; any running node works
+        (gossip carries it) when the target is down or partitioned."""
+        if self.nodes[i].is_running:
+            return self.nodes[i]
+        for node in self.nodes:
+            if node.is_running:
+                return node
+        raise RuntimeError("no running node to submit a stake tx through")
+
+    async def _next_nonce(self, node, owner_addr: bytes) -> int:
+        from ..abci import types as abci
+
+        res = await node.proxy_app.query().query(
+            abci.RequestQuery(path="nonce", data=owner_addr)
+        )
+        return int(res.value or b"0")
 
     async def valset(self, op: str, i: int, **kv) -> None:
-        needs = "the staking app (ROADMAP 1.8.2)"
         if op == "migrate" and kv.get("scheme") == "bls12381":
-            needs += " and BLS12-381 keys (ROADMAP 1.9)"
-        raise NotImplementedError(
-            f"valset {op} node {i}: the valset clauses need {needs}, which is not ported yet"
+            raise NotImplementedError(
+                f"valset migrate node {i}: a bls12381 migration needs BLS12-381 keys "
+                "(ROADMAP 1.9), which are not ported yet"
+            )
+        from ..apps.staking import (
+            make_bond_tx,
+            make_edit_power_tx,
+            make_rotate_key_tx,
         )
+
+        owner = self._owner_key(i)
+        via = self._submit_via(i)
+        nonce = await self._next_nonce(via, owner.pub_key().address())
+        if op == "join":
+            tx = make_bond_tx(owner, int(kv["power"]), nonce)
+        elif op == "leave":
+            tx = make_edit_power_tx(owner, 0, nonce)
+        elif op == "power":
+            tx = make_edit_power_tx(owner, int(kv["power"]), nonce)
+        elif op == "migrate":
+            scheme = kv["scheme"]
+            new_key = self._candidate_key(i, scheme)
+            pop = new_key.pop() if scheme == "bls12381" else b""
+            tx = make_rotate_key_tx(
+                owner, scheme, new_key.pub_key().bytes(), nonce, pop=pop
+            )
+        else:
+            raise RuntimeError(f"unknown valset op {op!r}")
+        res = await via.mempool.check_tx(tx)
+        if res.code != 0:
+            raise RuntimeError(f"valset {op} node {i}: stake tx rejected: {res.log}")
+        self.log.info("valset tx submitted", op=op, node=i, nonce=nonce)

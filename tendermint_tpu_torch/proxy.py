@@ -64,8 +64,14 @@ def default_client_creator(
                 snapshot_keep_recent=snapshot_keep_recent,
             )
         )
-    if address in ("bank", "staking"):
-        raise ValueError(f"the {address} app is not ported yet (ROADMAP 1.8)")
+    if address == "bank":
+        from .apps.bank import BankApplication
+
+        return local_client_creator(BankApplication(db=app_db))
+    if address == "staking":
+        from .apps.staking import StakingApplication
+
+        return local_client_creator(StakingApplication(db=app_db))
     if address == "counter":
         return local_client_creator(CounterApplication())
     if address == "counter_serial":

@@ -20,8 +20,8 @@ rate/size, and reports the numbers the overload layer is judged by:
 
 Each connection is one rpc.client.HTTPClient (a keep-alive HTTP/1.1
 connection, opened again after a transport error); the commit monitor
-reads the flight recorder by JSON-RPC.  `--mode bank` needs the bank app,
-which is ROADMAP 1.8: it exits 2 naming it.
+reads the flight recorder by JSON-RPC.  `--mode bank` sends contended
+signed transfers to one hot account (needs proxy_app = bank or staking).
 
 Programmatic entry: `await run_load(targets, ...)`; CLI:
 
@@ -95,6 +95,43 @@ def make_tx(key: Ed25519PrivKey, worker: int, seq: int, tx_bytes: int,
     return make_signed_tx(key, payload) if signed else payload
 
 
+# All bank-mode workers credit ONE hot account: maximal write contention
+# on a single balance while each sender keeps its own nonce lane.
+_HOT_ACCOUNT = Ed25519PrivKey.from_secret(b"loadgen-hot-account").pub_key().address()
+
+# 1-in-N bank txs deliberately overdraft, so the run exercises REAL
+# app-level rejections (CODE_INSUFFICIENT_FUNDS) — not just happy-path
+# accepts — and the classifier's app:<code> split is visibly non-empty.
+_BANK_OVERDRAFT_EVERY = 50
+
+
+def make_bank_tx(key: Ed25519PrivKey, seq: int, fee: int = 0) -> bytes:
+    """A signed bank transfer to the shared hot account.  The overdraft
+    probe sends an impossible amount on a schedule; its nonce is REUSED by
+    the next real transfer (a rejected tx never burns a nonce)."""
+    from ..apps.bank import make_transfer_tx
+
+    nonce = seq - seq // _BANK_OVERDRAFT_EVERY if _BANK_OVERDRAFT_EVERY else seq
+    if _BANK_OVERDRAFT_EVERY and seq % _BANK_OVERDRAFT_EVERY == _BANK_OVERDRAFT_EVERY - 1:
+        return make_transfer_tx(key, _HOT_ACCOUNT, 1 << 62, nonce, fee=fee)
+    return make_transfer_tx(key, _HOT_ACCOUNT, 1, nonce, fee=fee)
+
+
+async def _bank_start_seq(client: HTTPClient, key: Ed25519PrivKey) -> int:
+    """Resume a worker's nonce lane from the chain (abci_query path=nonce)
+    so back-to-back loadgen runs against one chain keep accepting."""
+    try:
+        res = await client.abci_query("nonce", key.pub_key().address())
+        nonce = int(((res or {}).get("response") or {}).get("value") or b"0")
+    except (RPCError, TypeError, AttributeError, *TRANSPORT_ERRORS):
+        return 0
+    # invert nonce -> seq: every full overdraft period consumes one extra
+    # seq without consuming a nonce
+    if _BANK_OVERDRAFT_EVERY:
+        return nonce + nonce // (_BANK_OVERDRAFT_EVERY - 1)
+    return nonce
+
+
 def worker_key(wid: int) -> Ed25519PrivKey:
     return Ed25519PrivKey.from_secret(b"loadgen-%d" % wid)
 
@@ -113,21 +150,27 @@ async def _worker(
 ) -> None:
     key = worker_key(wid)
     clients = {t: HTTPClient(t, timeout=request_timeout) for t in targets}
-    seq = 0
+    bank = mode == "bank"
+    method = "broadcast_tx_sync" if bank else f"broadcast_tx_{mode}"
     next_send = time.monotonic()
     try:
+        seq = await _bank_start_seq(clients[targets[0]], key) if bank else 0
         while time.monotonic() < deadline:
             if per_worker_rate > 0:
                 now = time.monotonic()
                 if now < next_send:
                     await asyncio.sleep(next_send - now)
                 next_send += 1.0 / per_worker_rate
-            tx = make_tx(key, wid, seq, tx_bytes, fee=fee, signed=signed)
+            tx = (
+                make_bank_tx(key, seq, fee=fee)
+                if bank
+                else make_tx(key, wid, seq, tx_bytes, fee=fee, signed=signed)
+            )
             seq += 1
             client = clients[targets[seq % len(targets)]]
             counters.offered += 1
             try:
-                res = await getattr(client, f"broadcast_tx_{mode}")(tx)
+                res = await getattr(client, method)(tx)
             except RPCError as e:
                 if e.code == SERVER_OVERLOADED:
                     counters.throttled += 1
@@ -199,8 +242,6 @@ async def run_load(
     """Fire the firehose; returns the acceptance split + latency report.
     `rate` is the TOTAL offered tx/sec across all connections (0 = as
     fast as the connections can go)."""
-    if mode == "bank":
-        raise ValueError("--mode bank needs the bank app, which is not ported yet (ROADMAP 1.8)")
     counters = Counters()
     monitor: dict = {}
     deadline = time.monotonic() + duration
@@ -338,7 +379,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tx-bytes", type=int, default=192)
     ap.add_argument("--mode", choices=["sync", "async", "bank"], default="sync",
                     help="broadcast flavor; 'bank' sends contended signed "
-                         "transfers (needs the bank app: not ported yet, ROADMAP 1.8)")
+                         "transfers (needs proxy_app = bank or staking)")
     ap.add_argument("--fee", type=int, default=0,
                     help="fee:<n>: priority prefix on every payload")
     ap.add_argument("--plain", action="store_true",
@@ -378,10 +419,6 @@ def main(argv=None) -> int:
             )
         return 0
 
-    if args.mode == "bank":
-        print("loadgen: --mode bank needs the bank app, which is not ported yet (ROADMAP 1.8)",
-              file=sys.stderr)
-        return 2
     result = asyncio.run(
         run_load(
             [t for t in args.targets.split(",") if t],

@@ -242,10 +242,16 @@ async def test_local_clients_share_one_lock_and_noop_app():
 
 
 def test_client_creators_not_ported_raise():
-    with pytest.raises(ValueError, match="1.8"):
-        pproxy.default_client_creator("bank")
-    with pytest.raises(ValueError, match="1.8"):
-        pproxy.default_client_creator("staking")
+    # bank and staking are builtin local apps, as in the JAX package: one
+    # app behind every connection, on the app db when one is given
+    for proxy, client_mod in ((pproxy, pclient), (jproxy, jclient)):
+        for name, cls in (("bank", "BankApplication"), ("staking", "StakingApplication")):
+            db = pkvstore.MemDB() if proxy is pproxy else jkvstore.MemDB()
+            creator = proxy.default_client_creator(name, app_db=db)
+            client = creator()
+            assert isinstance(client, client_mod.LocalClient)
+            assert type(client.app).__name__ == cls and client.app.db is db
+            assert creator().app is client.app and creator()._lock is client._lock
     # abci = "grpc" gives a gRPC client per connection, as in the JAX package
     import tendermint_tpu.abci.grpc as jgrpc
     from tendermint_tpu_torch.abci import grpc as pgrpc
@@ -277,8 +283,8 @@ def test_port_abci_imports_neither_msgpack_nor_jax():
 
 def test_phase8_abci_end_to_end_on_cpu(monkeypatch):
     """chip_smoke.py phase 8 at 7 validators, 2 rotated by val: txs at
-    height 4: the producer's 9 blocks through the mempool's signed-tx lane
-    and BlockExecutor, the syncer's 8, and the three handshakes, all checked
+    height 4: the producer's 7 blocks through the mempool's signed-tx lane
+    and BlockExecutor, the syncer's 6, and the three handshakes, all checked
     inside the phase."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     monkeypatch.syspath_prepend(root)

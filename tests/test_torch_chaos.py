@@ -8,8 +8,10 @@ through both packages.
   scenarios (`chip_smoke.py` phase 17), the JAX docstring's full schedule
   with its `valset` clauses, and a mixed one; garbage is refused with the
   same ScenarioError text; the runner drives a recording rig with the same
-  calls.  Executing a `valset` clause raises NotImplementedError naming
-  ROADMAP 1.8.2 (and 1.9 for a bls migration).
+  calls.  `valset join`/`leave`/`power`/`migrate ed25519` submit the same
+  stake tx bytes, at the same nonces and through the same node, as the JAX
+  InProcRig on recording nodes; `valset migrate N bls` raises
+  NotImplementedError naming ROADMAP 1.9 before any tx is made.
 - Link policies: a seeded LinkPolicyTable gives the same drop, delay and
   throttle decisions over 10,000 sends and try_sends to four peers (the
   loop's sleep and clock injected, so no test sleeps), and the same
@@ -20,7 +22,9 @@ through both packages.
   clock the same recovery ms.
 - The twin: TwinSigner's conflicting vote is byte-identical (block id and
   signature) to the JAX one.
-- In-process port Nodes (device="cpu", memdb, 127.0.0.1): a {0,1}|{2,3}
+- In-process port Nodes (device="cpu", memdb, 127.0.0.1): on the staking
+  app, `valset join 4 power=5` and `valset leave 4` change the set at
+  H+2 with zero checker violations; a {0,1}|{2,3}
   partition stalls the net and heals within the bound; a twin's double
   sign is committed as evidence and reaches BeginBlock's
   byzantine_validators; the six `unsafe_chaos_*` routes answer as the JAX
@@ -173,15 +177,64 @@ async def test_runner_drives_the_rig_with_the_jax_calls(monkeypatch):
     assert calls[0] == calls[1] and len(calls[1]) == 12
 
 
-@pytest.mark.parametrize("clause, item", [("valset join 1 power=5", "1.8.2"),
-                                          ("valset leave 0", "1.8.2"),
-                                          ("valset power 1=50", "1.8.2"),
-                                          ("valset migrate 0 bls", "1.9"),
-                                          ("valset migrate 0 ed25519", "1.8.2")])
+@pytest.mark.parametrize("clause, item", [("valset migrate 0 bls", "1.9")])
 async def test_valset_clauses_raise_naming_the_staking_app(clause, item):
     rig = pscenario.InProcRig([types.SimpleNamespace(is_running=False)] * 2)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
         await pscenario.ScenarioRunner(pscenario.Scenario.parse(clause), rig).run()
+
+
+class _StakeRecNode:
+    """A running node as InProcRig.valset sees it: a privval, a query
+    connection answering `nonce`, and a mempool that records each tx."""
+
+    def __init__(self, pv, nonce, running=True):
+        self.priv_validator, self.nonce, self.is_running = pv, nonce, running
+        self.sent, self.queries = [], []
+        self.proxy_app = types.SimpleNamespace(query=lambda: self)
+        self.mempool = types.SimpleNamespace(check_tx=self._check_tx)
+
+    async def query(self, req):
+        self.queries.append((req.path, req.data))
+        return types.SimpleNamespace(value=str(self.nonce).encode())
+
+    async def _check_tx(self, tx):
+        self.sent.append(tx)
+        return types.SimpleNamespace(code=0, log="")
+
+
+def _stake_rig_nodes(pkg, pv_kind, down):
+    """Two recording nodes of one package: node 0's privval is a MockPV, a
+    RotatingPV of two ed25519 keys or a TwinSigner; node 1's a MockPV."""
+    if pkg == "jax":
+        from tendermint_tpu.types import RotatingPV
+        Key, MockPV, Twin = JPrivKey, JMockPV, jtwin.TwinSigner
+    else:
+        from tendermint_tpu_torch.types.priv_validator import RotatingPV
+        Key, MockPV, Twin = PPrivKey, PMockPV, ptwin.TwinSigner
+    k0, k0b, k1 = (Key.from_secret(b"valset-%d" % i) for i in range(3))
+    pv0 = {"mock": lambda: MockPV(k0), "rotating": lambda: RotatingPV(MockPV(k0), MockPV(k0b)),
+           "twin": lambda: Twin(MockPV(k0))}[pv_kind]()
+    return [_StakeRecNode(pv0, 3, running=not down), _StakeRecNode(MockPV(k1), 7)]
+
+
+@pytest.mark.parametrize("clause, pv_kind, down", [
+    ("valset join 0 power=5", "mock", False), ("valset join 1 power=20", "mock", False),
+    ("valset leave 0", "twin", False), ("valset leave 0", "mock", True),
+    ("valset power 0=50", "rotating", False), ("valset power 1=1", "mock", False),
+    ("valset migrate 0 ed25519", "rotating", False), ("valset migrate 0 ed25519", "mock", True)])
+async def test_valset_clauses_make_the_jax_stake_txs(clause, pv_kind, down):
+    """Each clause signs its stake tx with the node's ed25519 owner key
+    (unwrapped from a RotatingPV or TwinSigner), at the nonce the submitting
+    node's app answers, through the node itself or, when it is down, the
+    first running one; `migrate ed25519` picks the ed25519 key in use."""
+    seen = {}
+    for pkg, mod in (("jax", jscenario), ("port", pscenario)):
+        nodes = _stake_rig_nodes(pkg, pv_kind, down)
+        await mod.ScenarioRunner(mod.Scenario.parse(clause), mod.InProcRig(nodes)).run()
+        seen[pkg] = [(n.sent, n.queries) for n in nodes]
+    assert seen["port"] == seen["jax"]
+    assert sum(len(sent) for sent, _ in seen["port"]) == 1
 
 
 # -- link policies -------------------------------------------------------------------
@@ -428,8 +481,9 @@ def _jgenesis(seeds):
                                                      JPrivKey(s).pub_key(), 10) for s in seeds])
 
 
-def _cfg(test_config, home, twin=False, enabled=True):
+def _cfg(test_config, home, twin=False, enabled=True, app="kvstore"):
     cfg = test_config(home)
+    cfg.base.proxy_app = app
     cfg.rpc.laddr = ""
     cfg.base.db_backend = "memdb"
     cfg.p2p.laddr = "127.0.0.1:0"
@@ -442,10 +496,13 @@ def _cfg(test_config, home, twin=False, enabled=True):
     return cfg
 
 
-async def _chaos_net(tmp_path, n, name, twin_idx=None):
+async def _chaos_net(tmp_path, n, name, twin_idx=None, validators=None, app="kvstore"):
     seeds = _seeds(n, name)
-    gen = _pgenesis(seeds)
-    nodes = [pnode.Node(_cfg(ptest_config, str(tmp_path / f"{name}{i}"), twin=twin_idx == i),
+    gen = _pgenesis(seeds[:validators or n])
+    if app == "staking":
+        gen.app_state = {"staking": {"epoch_length": 0}}
+    nodes = [pnode.Node(_cfg(ptest_config, str(tmp_path / f"{name}{i}"), twin=twin_idx == i,
+                             app=app),
                         gen, priv_validator=PMockPV(PPrivKey(s)), db_backend="memdb",
                         device="cpu") for i, s in enumerate(seeds)]
     for node in nodes:
@@ -475,6 +532,61 @@ async def _wait_heights(nodes, h, timeout=30.0):
             await asyncio.sleep(0.05)
 
     await asyncio.wait_for(reached(), timeout)
+
+
+def _stake_tx_height(node, owner_pub: bytes, verb: bytes) -> int:
+    """The height of the block holding `owner_pub`'s stake tx with `verb`."""
+    from tendermint_tpu_torch.mempool import parse_signed_tx
+
+    for h in range(1, node.block_store.height() + 1):
+        for tx in node.block_store.load_block(h).txs:
+            parsed = parse_signed_tx(tx)
+            if parsed and parsed[0] == owner_pub and parsed[3].startswith(b"stake:" + verb):
+                return h
+    raise AssertionError(f"no stake:{verb.decode()} tx of the node in a block")
+
+
+async def test_valset_join_and_leave_change_the_set_at_h_plus_2(tmp_path):
+    """Four port validators and a follower (node 4) on the staking app: the
+    DSL's `valset join 4 power=5` bonds node 4 in and `valset leave 4` takes
+    it out, each through its own mempool, and each takes effect exactly at
+    H+2 of the block H holding its tx; the checker sees no violation."""
+    nodes = await _chaos_net(tmp_path, 5, "stk", validators=4, app="staking")
+    rig = pchaos.InProcRig(nodes)
+    checker = pchaos.InvariantChecker(5)
+    pub4 = nodes[4].priv_validator.get_pub_key()
+    addr4 = pub4.address()
+
+    async def until(cond, what):
+        deadline = time.monotonic() + 30.0
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"timed out waiting for {what}")
+            for i, n in enumerate(nodes):
+                checker.observe_node(i, n)
+            await asyncio.sleep(0.05)
+
+    try:
+        await _wait_heights(nodes, 2)
+        for clause, verb, member in (("valset join 4 power=5", b"bond", True),
+                                     ("valset leave 4", b"edit", False)):
+            await pchaos.ScenarioRunner(pchaos.Scenario.parse(clause), rig).run()
+            await until(lambda: nodes[0].state_store.load().validators.has_address(addr4) == member,
+                        clause)
+            h = _stake_tx_height(nodes[0], pub4.bytes(), verb)
+            await _wait_heights(nodes, h + 2)
+            sets = [nodes[0].state_store.load_validators(x) for x in (h + 1, h + 2)]
+            assert [s.has_address(addr4) for s in sets] == [not member, member], clause
+            if member:
+                assert sets[1].get_by_address(addr4)[1].voting_power == 5
+                assert sets[1].size() == 5
+        for i, n in enumerate(nodes):
+            checker.observe_node(i, n)
+        checker.raise_if_violated()
+        updates = [e for e in nodes[0].flight_recorder.events() if e["kind"] == "valset.update"]
+        assert [e["new_size"] for e in updates] == [5, 4]
+    finally:
+        await _stop(nodes)
 
 
 async def test_partition_stalls_then_heals_within_bound(tmp_path):

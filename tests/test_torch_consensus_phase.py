@@ -1,6 +1,6 @@
 """chip_smoke.py phase 9 (the consensus core: a validator node committing
-heights from peers' proposals and vote frames, proposing one itself,
-changing round once, and recovering mid-height from its WAL and FilePV)
+heights 1-4 from peers' proposals and vote frames, changing round at 2,
+proposing 3 itself, and recovering mid-height from its WAL and FilePV)
 end to end at 7 validators on the CPU, the kernels' plain versions behind
 the engine and the real TimeoutTicker (timeout_commit 1 s, timeout_propose
 3 s).  Every check is inside the phase; this test holds what it returns.
@@ -24,10 +24,11 @@ def test_phase9_consensus_end_to_end_on_cpu(monkeypatch):
     monkeypatch.setattr(cs, "ABCI_CORRUPT", 10)
     out = cs.phase_consensus(cs.make_keys(7), "cpu", torch.device("cpu"))
     # validate_block at prevote, lock, finalize and in apply_block: 4 per
-    # height at 2-5, 6 at height 6 (two replayed by catchup_replay)
-    assert out["validate_blocks"] == out["indexed_dispatches"] == 22
-    # one prevote and one precommit frame per round (6 peers), 7 rounds
-    assert out["frames"] == 14
+    # height at 2-3, 6 at height 4 (two replayed by catchup_replay)
+    assert cs.CS_HEIGHTS == 4
+    assert out["validate_blocks"] == out["indexed_dispatches"] == 14
+    # one prevote and one precommit frame per round (6 peers), 5 rounds
+    assert out["frames"] == 10
     assert out["launches"] == dict.fromkeys(
         ("ed25519_ladder", "ed25519_window_tables", "ed25519_tabulated"), 0)
     assert batch_hook.get_indexed_verifier() is None

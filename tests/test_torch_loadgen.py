@@ -10,7 +10,12 @@ on the port's own HTTP/1.1 client) against the JAX package's (on aiohttp).
   retry_after hints, never `transport` (JAX tests/test_overload.py:529).
 - `run_lite_load` against the port's liteserve gateway gives the JAX
   report's keys, every tenant sustained and no transport error.
-- `--mode bank` exits 2 naming ROADMAP 1.8; the CLI parses the JAX flags.
+- `make_bank_tx` gives the JAX bytes for the same key and sequence number,
+  the overdraft slot and the nonce it reuses included; `_bank_start_seq`
+  reads a worker's nonce lane from a port node on the bank app, as JAX's
+  does from a JAX node; `run_load(mode="bank")` and the CLI's `--mode bank`
+  against a port node on the bank app give the JAX report's keys, with the
+  overdrafts as `app:13` and fault 3.13's `app:12` (ROADMAP 3).
 """
 
 import asyncio
@@ -34,6 +39,26 @@ def test_make_tx_bytes_equal_jax(worker, seq, tx_bytes, fee, signed):
                                    signed=signed)
     assert ploadgen.worker_key(worker).pub_key().bytes() == PKey.from_secret(
         secret).pub_key().bytes()
+
+
+@pytest.mark.parametrize("worker,seq,fee", [
+    (0, 0, 0), (1, 1, 0), (2, 48, 0), (3, 49, 0), (3, 50, 0), (4, 99, 3), (5, 149, 0),
+    (6, 1234, 1)])
+def test_make_bank_tx_bytes_equal_jax(worker, seq, fee):
+    """Slot 49 of every 50 is the overdraft (2^62) and reuses the nonce the
+    next real transfer takes."""
+    got = ploadgen.make_bank_tx(ploadgen.worker_key(worker), seq, fee=fee)
+    assert got == jloadgen.make_bank_tx(JKey.from_secret(b"loadgen-%d" % worker), seq, fee=fee)
+    assert ploadgen._HOT_ACCOUNT == jloadgen._HOT_ACCOUNT
+    assert ploadgen._BANK_OVERDRAFT_EVERY == jloadgen._BANK_OVERDRAFT_EVERY == 50
+    nonce = seq - seq // 50
+    assert got.endswith(b":%d" % nonce)
+    assert (b":%d:" % (1 << 62) in got) == (seq % 50 == 49)
+
+
+def test_make_bank_tx_reuses_the_overdrafts_nonce():
+    txs = [ploadgen.make_bank_tx(ploadgen.worker_key(0), seq) for seq in (48, 49, 50)]
+    assert [tx.rsplit(b":", 1)[1] for tx in txs] == [b"48", b"49", b"49"]
 
 
 def _node(pkg, tmp_path, mutate=None):
@@ -149,11 +174,78 @@ async def test_run_lite_load_against_the_port_gateway(tmp_path):
     assert report["lite_server_verify"] and report["lite_commit_latency_ms"]["p50"] >= 0
 
 
-def test_bank_mode_exits_2_naming_the_roadmap_item(capsys):
-    assert ploadgen.main(["127.0.0.1:1", "--mode", "bank"]) == 2
-    assert "ROADMAP 1.8" in capsys.readouterr().err
-    with pytest.raises(ValueError, match=r"ROADMAP 1\.8"):
-        asyncio.run(ploadgen.run_load(["127.0.0.1:1"], mode="bank"))
+def _bank(cfg):
+    cfg.base.proxy_app = "bank"
+
+
+async def _advance(node, wid, n):
+    """Commit n transfers of worker `wid`'s key on the node, one a block."""
+    for seq in range(n):
+        tx = ploadgen.make_bank_tx(ploadgen.worker_key(wid), seq)
+        h = node.block_store.height()
+        assert (await node.mempool.check_tx(tx)).code == 0
+        while node.block_store.height() < h + 2:
+            await asyncio.sleep(0.02)
+
+
+@pytest.mark.parametrize("node_pkg", ["port", "jax"])
+async def test_bank_start_seq_reads_the_chains_nonce(node_pkg, tmp_path):
+    """Both tools resume a worker's lane from `abci_query path=nonce` on a
+    node of either package on the bank app: seq = nonce + nonce // 49."""
+    import aiohttp
+
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+
+    node = await _live(node_pkg, tmp_path, _bank)
+    try:
+        await _advance(node, 2, 3)
+        target = node.rpc_server.listen_addr
+        client = HTTPClient(target, timeout=5.0)
+        try:
+            got = [await ploadgen._bank_start_seq(client, ploadgen.worker_key(w)) for w in (2, 3)]
+        finally:
+            await client.close()
+        async with aiohttp.ClientSession() as session:
+            want = [await jloadgen._bank_start_seq(session, jloadgen._base_url(target),
+                                                   JKey.from_secret(b"loadgen-%d" % w))
+                    for w in (2, 3)]
+        dead = HTTPClient("127.0.0.1:1", timeout=1.0)
+        try:
+            assert await ploadgen._bank_start_seq(dead, ploadgen.worker_key(2)) == 0
+        finally:
+            await dead.close()
+    finally:
+        await node.stop()
+    assert got == want == [3, 0]
+
+
+async def test_bank_mode_against_a_port_node_on_the_bank_app(tmp_path, capsys):
+    """`--mode bank` runs: the JAX report's keys; accepted transfers move the
+    hot account; overdrafts come back app:13; and most of a worker's later
+    txs app:12, fault 3.13 (CheckTx reads committed nonces only, while the
+    tool advances its lane on every send), as with the JAX tool."""
+    node = await _live("port", tmp_path, _bank)
+    try:
+        target = node.rpc_server.listen_addr
+        report = await ploadgen.run_load([target], duration=1.5, rate=200, connections=2,
+                                         mode="bank")
+        jreport = await jloadgen.run_load([target], duration=0.5, rate=40, connections=2,
+                                          mode="bank")
+        h = node.block_store.height()
+        while node.block_store.height() < h + 2:
+            await asyncio.sleep(0.02)
+        hot = node.proxy_app.query().app._account(ploadgen._HOT_ACCOUNT)
+        rc = await asyncio.get_event_loop().run_in_executor(None, ploadgen.main, [
+            target, "--mode", "bank", "--duration", "0.5", "--rate", "20", "--connections", "1",
+            "--json"])
+    finally:
+        await node.stop()
+    assert set(report) == set(jreport) and report["mode"] == "bank"
+    assert report["accepted"] > 0 and report["transport_errors"] == 0 and _split_adds_up(report)
+    assert report["reject_codes"].get("app:12", 0) > 0
+    assert set(report["reject_codes"]) <= {"app:12", "app:13"}
+    assert hot[0] > 1_000_000
+    assert rc == 0 and '"mode": "bank"' in capsys.readouterr().out
 
 
 def test_percentiles_equal_jax():

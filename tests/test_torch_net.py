@@ -10,7 +10,8 @@ Checked, with tolerance 0: heights 1-3 commit with identical block hashes
 on all four nodes; a tx sent to a port node is applied by the JAX apps and
 the reverse; a late port node fast-syncs from the JAX nodes and then
 follows the tip; a double-sign reaches every node's evidence pool and a
-block.  Each wait runs under asyncio.wait_for with its own limit.
+block; on `proxy_app = "staking"` a bond from a key outside the net and
+an epoch's power shift give identical blocks, app hashes and sets.  Each wait runs under asyncio.wait_for with its own limit.
 """
 
 import asyncio
@@ -49,7 +50,7 @@ def _seeds(n, tag):
                   key=lambda s: PPrivKey(s).pub_key().address())
 
 
-def _genesis(seeds):
+def _genesis(seeds, app_state=None):
     """The same genesis in both packages (time_iota_ms 1, as make_net)."""
     jg = JGenesisDoc(chain_id=CHAIN_ID, genesis_time_ns=T0, consensus_params=JCP(
         block=JBP(time_iota_ms=1)), validators=[
@@ -59,12 +60,14 @@ def _genesis(seeds):
         block=PBP(time_iota_ms=1)), validators=[
         PGenesisValidator(PPrivKey(s).pub_key().address(), PPrivKey(s).pub_key(), 10)
         for s in seeds])
+    jg.app_state = pg.app_state = app_state
     return jg, pg
 
 
-def _node(kind, tmp_path, name, seed, jg, pg, fast_sync=False):
+def _node(kind, tmp_path, name, seed, jg, pg, fast_sync=False, app="kvstore"):
     test_config = jtest_config if kind == "jax" else ptest_config
     cfg = test_config(str(tmp_path / name))
+    cfg.base.proxy_app = app
     cfg.rpc.laddr = ""
     cfg.base.db_backend = "memdb"
     cfg.p2p.laddr = "127.0.0.1:0"
@@ -95,10 +98,10 @@ async def _mesh(nodes):
     await asyncio.wait_for(meshed(), 10.0)
 
 
-async def _make_net(tmp_path, kinds, name="mix"):
+async def _make_net(tmp_path, kinds, name="mix", app="kvstore", app_state=None):
     seeds = _seeds(len(kinds), name)
-    jg, pg = _genesis(seeds)
-    nodes = [_node(k, tmp_path, f"{name}{i}", s, jg, pg) for i, (k, s) in
+    jg, pg = _genesis(seeds, app_state)
+    nodes = [_node(k, tmp_path, f"{name}{i}", s, jg, pg, app=app) for i, (k, s) in
              enumerate(zip(kinds, seeds))]
     for n in nodes:
         await n.start()
@@ -250,5 +253,50 @@ async def test_double_sign_evidence_reaches_every_pool_and_a_block(tmp_path):
         hashes = {ev.hash() for n in nodes for hh in range(1, n.block_store.height() + 1)
                   for ev in (n.block_store.load_block(hh).evidence or [])}
         assert len(hashes) == 1
+    finally:
+        await _stop(nodes)
+
+
+STK_EPOCH = 4
+
+
+async def test_mixed_net_on_the_staking_app_agrees_across_a_bond_and_an_epoch(tmp_path):
+    """Two JAX and two port nodes on the staking app (epoch 4): a bond of
+    15 from a key that runs no node enters through a port node's mempool;
+    it joins at H+2, the next epoch permutes the five powers, and every
+    node holds the same blocks, app hashes and sets throughout."""
+    from tendermint_tpu_torch.apps.staking import make_bond_tx
+
+    nodes, *_ = await _make_net(tmp_path, KINDS, name="stk", app="staking",
+                                app_state={"staking": {"epoch_length": STK_EPOCH}})
+    outsider = PPrivKey.from_secret(b"mixed-net-bond")
+    try:
+        await _wait_height(nodes, 2, 40.0)
+        res = await nodes[1].mempool.check_tx(make_bond_tx(outsider, 15, 0))
+        assert res.code == 0
+        addr = outsider.pub_key().address()
+
+        def joined():
+            return nodes[0].state_store.load().validators.has_address(addr)
+
+        async def until_joined():
+            while not joined():
+                await asyncio.sleep(0.05)
+
+        await asyncio.wait_for(until_joined(), 40.0)
+        top = nodes[0].block_store.height() + 2 * STK_EPOCH
+        await _wait_height(nodes, top, 60.0)
+        for h in range(1, top + 1):
+            assert len({_block_hash(n, h) for n in nodes}) == 1, f"height {h} diverged"
+            assert len({n.block_store.load_block(h).header.app_hash for n in nodes}) == 1
+        sets = {h: nodes[1].state_store.load_validators(h) for h in range(1, top + 1)}
+        for n in nodes:
+            for h in (1, top):
+                assert n.state_store.load_validators(h).hash() == sets[h].hash()
+        shifted = [h for h in range(2, top + 1)
+                   if sets[h].pubkeys_digest() == sets[h - 1].pubkeys_digest()
+                   and sets[h].hash() != sets[h - 1].hash()]
+        assert sets[top].size() == 5 and shifted, "no epoch shift seen"
+        assert sorted(v.voting_power for v in sets[top].validators) == [10, 10, 10, 10, 15]
     finally:
         await _stop(nodes)
