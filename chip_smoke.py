@@ -46,19 +46,20 @@
    fails on any wrong verdict, a batch of 16 or more votes on the host, or
    a ladder that was not launched.  Its launches add to the kernels line.
 6. The light client at full width (lite2, statesync's engine lane,
-   liteserve's VerifyCache): a chain of 505 heights whose 10,000-validator
-   set (power 10) replaces its 2,500 oldest validators by new keys every
-   100 heights (5 replacements); commits are signed on first request.  Run 1: bisection
-   1 -> 500 through the installed BatchVerifier and TableCache (tabulated
+   liteserve's VerifyCache): a chain of 302 heights whose 10,000-validator
+   set (power 10) replaces its 3,400 oldest validators by new keys every
+   100 heights (3 replacements; 505 heights of 2,500 until phase 19 needed
+   the time); commits are signed on first request.  Run 1: bisection
+   1 -> 300 through the installed BatchVerifier and TableCache (tabulated
    auto) with an honest witness; it must make the 3 expected steps, persist
-   {1, 250, 500} and build tables for each new set.  Run 2:
-   sequence 500 -> 505 on the next set, persisted to a sqlite DBStore
+   {1, 150, 300} and build tables for each new set.  Run 2:
+   sequence 300 -> 302 on the next set, persisted to a sqlite DBStore
    that is reopened and read back.  Run 3: the same bisection with
    the node's engine settings and EngineCommitPreverify (each commit one
    verify_many arrival).  Run 4: eight tenants bisect concurrently through
    one VerifyCache(async_verifier=...): 3 misses, 29 hits or coalesced
-   joins.  Run 5: a flipped signature in header 500 (ValueError "wrong
-   signature (#i)") and a witness serving another header 500
+   joins.  Run 5: a flipped signature in header 300 (ValueError "wrong
+   signature (#i)") and a witness serving another header 300
    (DivergedHeaderError, store rolled back).  Prints per step the path,
    batch, host prep and device ms and the table cache's hit or miss; per new
    set the table build (host rows, kernel 2); per run wall time and headers
@@ -362,9 +363,9 @@
    HTTPClient), its VerifyCache on D's AsyncBatchVerifier.  Starting it
    after catch-up is deliberate: at Node.start D's stores do not hold
    header 2 yet, and the bootstrap gives up after five tries (the JAX
-   node does the same).  8 tenants each open a session
-   (`lite_session_new`) and ask for the commits of heights 2-6 at once
-   (40 `lite_commit` answers of ~1.4 MB of JSON).  Prints D's time from
+   node does the same).  4 tenants (8 until phase 19 needed the time)
+   each open a session (`lite_session_new`) and ask for the commits of
+   heights 2-6 at once (20 `lite_commit` answers of ~2 MB of JSON).  Prints D's time from
    its start to the subscription, `node started`, the seed dial, each
    peer learned by PEX, each dial, each applied block, caught up and
    meshed; its book and the PEX frames; the notifications and their lag
@@ -609,6 +610,32 @@
    lite2_skip_across_rotation_ok, the joiner's height, loadgen's counters
    (its app:12 share is fault 3.13) and the rebuild events beside kernel
    2's launches.
+19. The other key types.  (a) BASELINE config #3 (kvstore, 100
+   validators, sr25519 keys + multisig): `python -m tendermint_tpu_torch
+   init --key-type sr25519` (in the process) writes a home whose FilePV
+   holds a random sr25519 key; 99 seeded sr25519 keys join it so that it
+   is the round-0 proposer of height 3 (kt_init, kt_sr_keys); phase 9's
+   consensus core (cs_run) then runs heights 1-4 on that home at power 10
+   each, with 100 plain kvstore txs a height, peers' proposals, vote
+   frames routed as the consensus reactor routes them (an sr25519 key
+   verifies on the host), one flipped precommit frame a round, the round
+   change at 2, our proposal at 3 and the WAL restart at 4.  The chain's
+   commits then go through verify_commit and verify_commit_trusting (1/3,
+   lite2's call); a 2-of-3 multisig over sr25519 sub-keys verifies on the
+   host (valid, below threshold, wrong position), and its vote is refused
+   by the 96-byte signature cap, as in the JAX package.  Fails unless the
+   ladder and the tabulated sum launch 0 times from the node's start on.
+   (b) Phase 3's set with 100 of its keys replaced by sr25519 and 4 by
+   secp256k1 keys (9,896 keep ed25519 and phase 3's signatures) on an
+   installed BatchVerifier and TableCache (tabulated auto): 1. the full
+   commit through verify_commit: one flat ladder batch of 9,896 (its
+   verify.dispatch event) beside 104 host verifies; one bad signature of
+   each type and a high-S secp256k1 signature each raise "wrong signature
+   (#i)" at their index; 2. the ed25519 members' commit (the others
+   absent) takes the indexed path: kernel 2 builds the mixed set's tables
+   (foreign rows as in the JAX package) and the profile's pick serves, cold
+   and warm; 3. verify_commit_trusting over the full commit.  Prints each
+   check's ms, dispatches and host verify ms by key type.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -621,6 +648,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -644,15 +672,16 @@ SIGN_POOL_MIN = 2000  # from this many votes on, cs_votes signs in worker proces
 # Phase 6: the light client's chain (BASELINE config #5 widths)
 SEC = 1_000_000_000
 LITE_T0 = 1_700_000_000 * SEC
-LITE_ROTATE = 2500  # validators replaced at each epoch boundary
+LITE_ROTATE = 3400  # validators replaced at each epoch boundary (34 %)
 LITE_EPOCH = 100  # heights per epoch
-LITE_TOP = 505  # the chain's last height: 5 set replacements (every LITE_EPOCH heights)
-LITE_TARGET = 500  # what the bisections verify
+LITE_TOP = 302  # the chain's last height: 3 set replacements (every LITE_EPOCH heights)
+LITE_TARGET = 300  # what the bisections verify: the last height of epoch 2
 LITE_TENANTS = 8
-# bisection 1 -> 500: (trusted height, untrusted height, trusted?); the
-# trust check passes when the two sets are at most two epochs apart
-LITE_STEPS = [(1, 500, False), (1, 250, True), (250, 500, True)]
-LITE_HEIGHTS = [500, 250, 1]  # what it persists, descending
+# bisection 1 -> 300: (trusted height, untrusted height, trusted?); the
+# trust check passes when the two sets are one epoch apart (66 % shared),
+# not two (32 %, under the 1/3 trust level)
+LITE_STEPS = [(1, 300, False), (1, 150, True), (150, 300, True)]
+LITE_HEIGHTS = [300, 150, 1]  # what it persists, descending
 LITE_DISTINCT = 3  # distinct headers a bisection asks for: 1 and the 2 untrusted heights
 
 # Phase 7: fast-sync replay from the stores (BASELINE config #5 widths)
@@ -1659,7 +1688,7 @@ def print_steps(run, rec, card):
 
 def host_breakdown(chain, card):
     """Host ms of the parts of one skipping step at full width, on the
-    last step (250 -> 500) with a VerifyCache lookup serving the signatures (what
+    last step (150 -> 300) with a VerifyCache lookup serving the signatures (what
     a tenant of run 4 pays per call once the commit is verified)."""
     from tendermint_tpu_torch.liteserve.cache import _commit_digest
     from tendermint_tpu_torch.lite2 import verify_non_adjacent
@@ -2787,12 +2816,17 @@ async def cs_node(home, gen, lane, timer):
     node.cs = ConsensusState(ConsensusConfig(), state, node.executor, node.block_store,
                              node.mempool, node.evpool, node.bus)
     node.init_ms = _ms(t0)  # with reconstruct_last_commit_if_needed
-    node.pv = FilePV.load(os.path.join(home, "config", "priv_validator_key.json"),
-                          os.path.join(home, "data", "priv_validator_state.json"))
+    node.pv = FilePV.load(*pv_files(home))
     node.cs.set_priv_validator(node.pv)
     node.cs.wal = WAL(os.path.join(home, "data", "cs.wal", "wal"))
     instrument_cs(node)
     return node
+
+
+def pv_files(home):
+    """A home's FilePV key and state files, where `init` writes them."""
+    return (os.path.join(home, "config", "priv_validator_key.json"),
+            os.path.join(home, "data", "priv_validator_state.json"))
 
 
 def instrument_cs(node):
@@ -2914,20 +2948,42 @@ def cut_frames(votes):
 
 def cs_frames(vals, votes, msgs):
     """vote_batch frames (cut_frames); per frame its votes and the
-    (pubkey, sign bytes, signature) items the engine verifies."""
+    (pubkey, sign bytes, signature) items it verifies: the raw key where the
+    consensus reactor's _engine_key gives one (ed25519), else the PubKey
+    itself, which verifies on the host."""
+    from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+
     msg_of = {id(v): m for v, m in zip(votes, msgs)}
-    return [(f, [(vals.validators[v.validator_index].pub_key.bytes(), msg_of[id(v)], v.signature)
-                 for v in f]) for f in cut_frames(votes)]
+
+    def key(v):
+        pk = vals.validators[v.validator_index].pub_key
+        raw = ConsensusReactor._engine_key(pk)
+        return pk if raw is None else raw
+
+    return [(f, [(key(v), msg_of[id(v)], v.signature) for v in f]) for f in cut_frames(votes)]
 
 
 async def cs_verify(lane, items):
-    """A frame's verdicts: verify_direct from CS_DIRECT_MIN votes on, else
-    verify_many (consensus/reactor.py's rule)."""
+    """A frame's verdicts, routed as the consensus reactor's vote_batch
+    handler routes them: raw ed25519 keys to the engine (verify_direct from
+    CS_DIRECT_MIN of them on, else verify_many), other keys' own verify on
+    the host."""
     import asyncio
 
-    if len(items) >= CS_DIRECT_MIN:
-        return await lane.verify_direct(items)
-    return list(await asyncio.gather(*lane.verify_many(items)))
+    engine = [j for j, (pk, _, _) in enumerate(items) if isinstance(pk, bytes)]
+    out = [None] * len(items)
+    for j, (pk, m, s) in enumerate(items):
+        if not isinstance(pk, bytes):
+            out[j] = bool(pk.verify(m, s))
+    if engine:
+        sub = [items[j] for j in engine]
+        if len(sub) >= CS_DIRECT_MIN:
+            res = await lane.verify_direct(sub)
+        else:
+            res = await asyncio.gather(*lane.verify_many(sub))
+        for j, ok in zip(engine, res):
+            out[j] = bool(ok)
+    return out
 
 
 async def cs_send(node, frames, bad=None):
@@ -2979,24 +3035,31 @@ def cs_ingest_line(node, rec, seq, t_sent, t_done, n_votes, add0, wal0, card):
     dev = [e["device_ms"] for e in d]
     add = node.add_ms[add0:]
     wal = sum(node.wal_ms[wal0:])
-    return (f"{n_votes} votes in {len(d)} frames, {(t_done - t_sent) * 1000:.3f} ms; per frame "
-            f"host_prep p50 {percentile(prep, 50):.3f} p99 {percentile(prep, 99):.3f} ms, device "
-            f"p50 {percentile(dev, 50):.3f} p99 {percentile(dev, 99):.3f} ms; receive routine "
+    split = (f"per frame host_prep p50 {percentile(prep, 50):.3f} p99 {percentile(prep, 99):.3f} "
+             f"ms, device p50 {percentile(dev, 50):.3f} p99 {percentile(dev, 99):.3f} ms" if d
+             else "every frame verified on the host by its keys")
+    return (f"{n_votes} votes in {len(d)} engine frames, {(t_done - t_sent) * 1000:.3f} ms; "
+            f"{split}; receive routine "
             f"_try_add_vote p50 {percentile(add, 50) * 1000:.1f} us, mean "
             f"{sum(add) / max(1, len(add)) * 1000:.1f} us + WAL write "
             f"{wal / max(1, n_votes) * 1000:.1f} us per vote ({card})")
 
 
-def phase_consensus(keys, card, dev):
+def phase_consensus(keys, card, dev, **kw):
     """The consensus core at full width (see the module docstring, 9).
     Returns the phase's launches by counter, the validate_block calls on
     heights >= 2, the indexed dispatches and the accepted vote frames."""
     import asyncio
 
-    return asyncio.run(cs_run(keys, card, dev))
+    return asyncio.run(cs_run(keys, card, dev, **kw))
 
 
-async def cs_run(keys, card, dev):
+async def cs_run(keys, card, dev, traffic=None, home=None, inspect=None):
+    """Phase 9's run (cs_run's defaults) or phase 19 (a)'s: `traffic` is
+    (bursts by height, the corrupted txs) in place of abci_traffic's
+    signed envelopes, `home` a home whose FilePV (config/ and data/, as
+    `init` writes them) is the round-0 proposer of CS_OURS_AT among `keys`,
+    and `inspect(node)` runs on the stopped node before its stores close."""
     import tempfile
 
     from tendermint_tpu_torch.consensus.types import RoundStep
@@ -3015,7 +3078,7 @@ async def cs_run(keys, card, dev):
 
     n = len(keys)
     t0 = time.perf_counter()
-    bursts, bad_txs, _ = abci_traffic(keys, [], top=CS_HEIGHTS)
+    bursts, bad_txs = traffic or abci_traffic(keys, [], top=CS_HEIGHTS)[:2]
     key_of = {k.pub_key().address(): k for k in keys}
     gen = GenesisDoc(CHAIN_ID, genesis_time_ns=LITE_T0, validators=[
         GenesisValidator(k.pub_key().address(), k.pub_key(), 10) for k in keys])
@@ -3023,7 +3086,9 @@ async def cs_run(keys, card, dev):
     vals.increment_proposer_priority(CS_OURS_AT - 1)
     ours = key_of[vals.get_proposer().address]
     ours_addr = ours.pub_key().address()
-    log(f"  traffic: {CS_HEIGHTS} bursts of {ABCI_TXS} signed envelopes ({len(bad_txs)} corrupted) "
+    if home is not None and FilePV.load(*pv_files(home)).address() != ours_addr:
+        raise AssertionError(f"the FilePV in {home} is not the round-0 proposer of {CS_OURS_AT}")
+    log(f"  traffic: {CS_HEIGHTS} bursts of {len(bursts[1])} txs ({len(bad_txs)} corrupted) "
         f"made in {_ms(t0):.3f} ms; our validator {ours_addr.hex()[:12]} (round-0 proposer of "
         f"{CS_OURS_AT}) of {n}")
 
@@ -3035,14 +3100,15 @@ async def cs_run(keys, card, dev):
     # its warmup mode leaves the commit checks' table builds synchronous
     lane = bvm.AsyncBatchVerifier(bvm.BatchVerifier(device=dev, min_device_batch=16,
                                                     recorder=rec))
-    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-cs-")
-    home = tmp.name
-    for d in ("config", "data"):
-        os.makedirs(os.path.join(home, d))
-    FilePV(FilePVKey(ours_addr, ours.pub_key(), ours,
-                     os.path.join(home, "config", "priv_validator_key.json")),
-           FilePVLastSignState(file_path=os.path.join(home, "data",
-                                                      "priv_validator_state.json"))).save()
+    tmp = None
+    if home is None:
+        tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-cs-")
+        home = tmp.name
+        for d in ("config", "data"):
+            os.makedirs(os.path.join(home, d))
+        key_file, state_file = pv_files(home)
+        FilePV(FilePVKey(ours_addr, ours.pub_key(), ours, key_file),
+               FilePVLastSignState(file_path=state_file)).save()
     timer = StepTimer()
     verify_commit = timer.wrap(ValidatorSet, "verify_commit",
                                height_of=lambda vs, chain_id, bid, height, *a, **k: height + 1)
@@ -3177,6 +3243,8 @@ async def cs_run(keys, card, dev):
             cs_report(old, node, rec, seq0, per_h, timer, sign_s, launches, dev, cache, card)
             cs_check(node, n, ours_addr, proposals, per_h, bursts, bad_txs, errors,
                      BLOCK_ID_FLAG_COMMIT)
+            if inspect is not None:
+                inspect(node)
         validate_blocks = sum(timer.n.get(("validate_block", h), 0)
                               for h in range(2, CS_HEIGHTS + 1))
         indexed = [e for e in rec.events(since=seq0, kinds=["verify.dispatch"])
@@ -3193,7 +3261,8 @@ async def cs_run(keys, card, dev):
         await lane.stop()
         batch_hook.set_verifier(None)
         batch_hook.set_indexed_verifier(None)
-        tmp.cleanup()
+        if tmp is not None:
+            tmp.cleanup()
     return {"launches": launches, "validate_blocks": validate_blocks,
             "indexed_dispatches": len(indexed), "frames": frames_ok}
 
@@ -6083,7 +6152,7 @@ def ss_report(c, probe, t_c, t_started, dump, l_end, card) -> dict:
     return {"stages": stages, "snapshot": probe.restores[0] if probe.restores else None}
 
 
-SH_TENANTS = 8  # phase 13: the gateway's light-client tenants (16 before phase 17)
+SH_TENANTS = 4  # phase 13: the gateway's light-client tenants (16 before phase 17, 8 before 19)
 SH_ROOT = 2  # the gateway's trust height; tenants ask for SH_ROOT .. NET_HEIGHTS
 SH_WITNESS_TIMEOUT = 30.0  # s: a witness /commit of the 10k set is ~1.4 MB (see sh_gateway)
 SH_CAUGHT_UP_S = 300.0  # D's start to caught up, at most
@@ -6347,7 +6416,7 @@ async def sh_run(keys, card, dev, live):
 
 async def sh_gateway(d, client_a, live, probe, card) -> dict:
     """D's gateway through the wiring Node.start runs for liteserve.enable,
-    rooted at A's header 2 with A and B as witnesses, then 8 tenants: each
+    rooted at A's header 2 with A and B as witnesses, then SH_TENANTS tenants: each
     opens a session and asks for the commits of heights 2-6 at once.  The
     witness timeout is 30 s, not the JAX default 3 s: each witness read is a
     1.4 MB /commit, and this loop also serves the tenants' answers."""
@@ -9058,6 +9127,371 @@ def run_chaos_rotation(card, dev, picked, report):
         report[name]["launches"] += c
 
 
+KT_SR_VALIDATORS = 100  # phase 19 (a): BASELINE config #3's set, power 10 each
+KT_SR_TXS = 100  # (a): plain kvstore txs per height (no signed envelope: the lane stays idle)
+KT_INIT_TRIES = 64  # (a): homes `init` may write until its key's address suits (kt_init)
+KT_MIX_SR = 100  # (b): sr25519 members of the mixed 10,000-validator set
+KT_MIX_SECP = 4  # (b): secp256k1 members; the other members keep phase 3's ed25519 keys
+
+
+class KeyTimer:
+    """Host verify calls and ms by key type while the block runs: class-level
+    wrappers on the verify of sr25519, secp256k1 and multisig keys (a
+    multisig's time holds its sub-keys', which count on their own line
+    too)."""
+
+    def __init__(self):
+        from tendermint_tpu_torch.crypto.keys import Secp256k1PubKey
+        from tendermint_tpu_torch.crypto.multisig import MultisigThresholdPubKey
+        from tendermint_tpu_torch.crypto.sr25519 import Sr25519PubKey
+
+        self.orig = {c: c.verify for c in (Sr25519PubKey, Secp256k1PubKey,
+                                            MultisigThresholdPubKey)}
+        self.ms, self.n = collections.Counter(), collections.Counter()
+
+    def __enter__(self):
+        for cls, orig in self.orig.items():
+            cls.verify = self._timed(cls.__name__, orig)
+        return self
+
+    def _timed(self, name, orig):
+        def verify(pk, *a, **k):
+            t = time.perf_counter()
+            try:
+                return orig(pk, *a, **k)
+            finally:
+                self.ms[name] += _ms(t)
+                self.n[name] += 1
+        return verify
+
+    def __exit__(self, *exc):
+        for cls, orig in self.orig.items():
+            cls.verify = orig
+
+    def line(self) -> str:
+        return ", ".join(f"{name} {self.n[name]} in {self.ms[name]:.3f} ms "
+                         f"({self.ms[name] / self.n[name]:.3f} ms each)"
+                         for name in sorted(self.n)) or "none"
+
+
+def kt_init(root):
+    """`init --key-type sr25519` into fresh homes under `root` until its
+    random key's address lies in [1/64, 1/2) of the address space, so that
+    kt_sr_keys finds CS_OURS_AT - 1 keys below it and the rest above it in
+    a few hundred derivations.  Returns the home, its key and the tries."""
+    from tendermint_tpu_torch import cli
+    from tendermint_tpu_torch.privval import FilePV
+
+    for t in range(1, KT_INIT_TRIES + 1):
+        home = os.path.join(root, f"home{t}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["--home", home, "init", "--key-type", "sr25519", "--chain-id",
+                           CHAIN_ID])
+        if rc != 0:
+            raise AssertionError(f"init --key-type sr25519 exited {rc}")
+        key = FilePV.load(*pv_files(home)).key.priv_key
+        if key.TYPE != "tendermint/PrivKeySr25519":
+            raise AssertionError(f"init --key-type sr25519 wrote a {key.TYPE} key")
+        if 1 << 154 <= int.from_bytes(key.pub_key().address(), "big") < 1 << 159:
+            return home, key, t
+    raise AssertionError(f"no key of {KT_INIT_TRIES} init runs had a usable address")
+
+
+def kt_sr_keys(ours, n):
+    """n sr25519 keys holding `ours` such that it is the round-0 proposer of
+    CS_OURS_AT at power 10 each (the CS_OURS_AT-th lowest address): the
+    first CS_OURS_AT - 1 seeded keys whose address sorts below ours, the
+    first n - CS_OURS_AT above.  Returns them and the keys derived."""
+    from tendermint_tpu_torch.crypto.sr25519 import Sr25519PrivKey
+
+    below, above, i = [], [], 0
+    addr = ours.pub_key().address()
+    while len(below) < CS_OURS_AT - 1 or len(above) < n - CS_OURS_AT:
+        k = Sr25519PrivKey.from_secret(b"sr-%d" % i)
+        (below if k.pub_key().address() < addr else above).append(k)
+        i += 1
+    return [ours] + below[:CS_OURS_AT - 1] + above[:n - CS_OURS_AT], i
+
+
+def kt_multisig(card):
+    """BASELINE config #3's multisig on the host: a 2-of-3
+    PubKeyMultisigThreshold over sr25519 sub-keys, valid, below threshold
+    and at a wrong position; and its vote, which the 96-byte signature cap
+    refuses."""
+    from tendermint_tpu_torch.crypto.multisig import (MultisigThresholdPubKey,
+                                                      build_multisig_signature)
+    from tendermint_tpu_torch.crypto.sr25519 import Sr25519PrivKey
+    from tendermint_tpu_torch.libs.bitarray import BitArray
+    from tendermint_tpu_torch.types.block import BlockID, PartSetHeader
+    from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE
+    from tendermint_tpu_torch.types.params import MAX_SIGNATURE_SIZE
+    from tendermint_tpu_torch.types.vote import Vote
+
+    subs = [Sr25519PrivKey.from_secret(b"ms-%d" % i) for i in range(3)]
+    pub = MultisigThresholdPubKey(2, [k.pub_key() for k in subs])
+    vote = Vote(PRECOMMIT_TYPE, 1, 0, BlockID(b"\x33" * 32, PartSetHeader(1, b"\x44" * 32)),
+                LITE_T0, pub.address(), 0)
+    msg = vote.sign_bytes(CHAIN_ID)
+    s = [k.sign(msg) for k in subs]
+
+    def sig(signed, sigs):
+        bits = BitArray(3)
+        for i in signed:
+            bits.set_index(i, True)
+        return build_multisig_signature(bits, sigs)
+
+    t0 = time.perf_counter()
+    got = {name: pub.verify(msg, sig(signed, sigs)) for name, signed, sigs in (
+        ("valid", [0, 2], [s[0], s[2]]), ("below threshold", [1], [s[1]]),
+        ("wrong position", [0, 1], [s[0], s[2]]))}
+    ms = _ms(t0)
+    if got != {"valid": True, "below threshold": False, "wrong position": False}:
+        raise AssertionError(f"the 2-of-3 multisig gave {got}")
+    vote.signature = sig([0, 2], [s[0], s[2]])
+    try:
+        vote.validate_basic()
+        raise AssertionError("a 2-of-3 multisig vote passed the signature cap")
+    except ValueError as e:
+        refused = str(e)
+    log(f"  (a) multisig: a 2-of-3 PubKeyMultisigThreshold over sr25519 sub-keys verifies {got} "
+        f"on the host in {ms:.3f} ms; a multisig validator cannot sign in this chain: its "
+        f"{len(vote.signature)}-byte signature is over MAX_SIGNATURE_SIZE {MAX_SIGNATURE_SIZE} "
+        f"and Vote.validate_basic refuses it ('{refused}'), as in the JAX package ({card})")
+
+
+def phase_sr_chain(card, dev):
+    """Phase 19 (a) (see the module docstring, 19).  Returns the launches
+    from the node's start on, the node's own, the part's seconds and its
+    host verifies by key type."""
+    import tempfile
+
+    import numpy as np
+
+    t_start = time.perf_counter()
+    root = tempfile.TemporaryDirectory(prefix="chip-smoke-sr-")
+    try:
+        t0 = time.perf_counter()
+        home, ours, tries = kt_init(root.name)
+        init_ms = _ms(t0)
+        t0 = time.perf_counter()
+        keys, derived = kt_sr_keys(ours, KT_SR_VALIDATORS)
+        log(f"  (a) init --key-type sr25519: {tries} home(s) in {init_ms:.3f} ms, our key "
+            f"{ours.pub_key().address().hex()[:12]}; the other {KT_SR_VALIDATORS - 1} sr25519 "
+            f"keys chosen of {derived} derived in {_ms(t0):.3f} ms ({card})")
+        rng = np.random.default_rng(19)
+        bursts = {h: [b"sr%d-%d=" % (h, i) + rng.bytes(16).hex().encode()
+                      for i in range(KT_SR_TXS)] for h in range(1, CS_HEIGHTS + 1)}
+        commits = {}
+
+        def inspect(node):
+            for h in range(1, CS_HEIGHTS + 1):
+                commit = (node.block_store.load_block(h + 1).last_commit if h < CS_HEIGHTS
+                          else node.block_store.load_seen_commit(h))
+                commits[h] = (node.state_store.load_validators(h), commit)
+
+        before = launch_counts()
+        with KeyTimer() as kt:
+            t0 = time.perf_counter()
+            out = phase_consensus(keys, card, dev, traffic=(bursts, set()), home=home,
+                                  inspect=inspect)
+            log(f"  (a) heights 1-{CS_HEIGHTS} on sr25519 keys in {time.perf_counter() - t0:.3f} "
+                f"s; host verifies: {kt.line()} ({card})")
+            for h, (vals, commit) in commits.items():
+                if {type(v.pub_key).__name__ for v in vals.validators} != {"Sr25519PubKey"}:
+                    raise AssertionError(f"height {h}'s set is not all sr25519")
+                n = sum(not cs.is_absent() for cs in commit.signatures)
+                t0 = time.perf_counter()
+                vals.verify_commit(CHAIN_ID, commit.block_id, h, commit)
+                t1 = time.perf_counter()
+                vals.verify_commit_trusting(CHAIN_ID, commit.block_id, h, commit, 1, 3)
+                log(f"    (a) height {h}'s commit of {n} sr25519 signatures: verify_commit "
+                    f"{(t1 - t0) * 1000:.3f} ms, verify_commit_trusting at 1/3 {_ms(t1):.3f} ms "
+                    f"({card})")
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+        kt_multisig(card)
+        return {"launches": launches, "node": out["launches"], "s": time.perf_counter() - t_start,
+                "host_ms": dict(kt.ms), "verifies": dict(kt.n)}
+    finally:
+        root.cleanup()
+
+
+def kt_mixed_set(keys, commit):
+    """Phase 3's set with its first KT_MIX_SR + KT_MIX_SECP keys replaced
+    by sr25519 and secp256k1 keys, and its full commit: phase 3's signature
+    for every ed25519 member (its CommitSig, timestamp and all), a fresh
+    one for each new member.  Returns the set, the commit and the members'
+    indices by key type."""
+    import hashlib
+
+    from tendermint_tpu_torch.crypto.keys import Secp256k1PrivKey
+    from tendermint_tpu_torch.crypto.sr25519 import Sr25519PrivKey
+    from tendermint_tpu_torch.types.block import Commit
+    from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE
+    from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
+    from tendermint_tpu_torch.types.vote import Vote
+
+    new = ([Sr25519PrivKey.from_secret(b"mix-sr-%d" % i) for i in range(KT_MIX_SR)]
+           + [Secp256k1PrivKey(hashlib.sha256(b"mix-secp-%d" % i).digest())
+              for i in range(KT_MIX_SECP)])
+    mset = ValidatorSet([Validator.new(k.pub_key(), 10) for k in keys[len(new):] + new])
+    old = {cs.validator_address: cs for cs in commit.signatures}
+    signer = {k.pub_key().address(): k for k in new}
+    sigs, idx = [], collections.defaultdict(list)
+    for i, v in enumerate(mset.validators):
+        idx[type(v.pub_key).__name__].append(i)
+        if v.address in old:
+            sigs.append(old[v.address])
+            continue
+        vote = Vote(PRECOMMIT_TYPE, commit.height, 0, commit.block_id, LITE_T0 + i, v.address, i)
+        vote.signature = signer[v.address].sign(vote.sign_bytes(CHAIN_ID))
+        sigs.append(vote.commit_sig())
+    return mset, Commit(commit.height, 0, commit.block_id, sigs), idx
+
+
+def phase_mixed(keys, commit, card, dev):
+    """Phase 19 (b) (see the module docstring, 19).  Returns each check's
+    launches, dispatches, ms and host verify ms, the flat batch's size and
+    the part's seconds."""
+    import dataclasses
+
+    from tendermint_tpu_torch.crypto import backend
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+    from tendermint_tpu_torch.libs.tracing import FlightRecorder
+    from tendermint_tpu_torch.types.block import Commit, CommitSig
+
+    t_start = time.perf_counter()
+    mset, full, idx = kt_mixed_set(keys, commit)
+    n_ed = len(idx["Ed25519PubKey"])
+    log(f"  (b) a mixed set of {mset.size()}: {n_ed} ed25519 (phase 3's keys and signatures), "
+        f"{len(idx['Sr25519PubKey'])} sr25519, {len(idx['Secp256k1PubKey'])} secp256k1; keys and the new members' "
+        f"signatures in {(time.perf_counter() - t_start) * 1000:.3f} ms ({card})")
+    rec = FlightRecorder(size=1 << 12)
+    bv = bvm.BatchVerifier(device=dev, recorder=rec).install()
+    bvm.TableCache(bv, tabulated=None).install()
+    # the process's kernel verdict was last timed at an earlier phase's set
+    # size; drop it, as TableCache.rebuild does on a size change, so that
+    # the mixed set's first indexed check profiles at its own size
+    bvm.invalidate_tabulated_profile()
+    bid, height = full.block_id, full.height
+    out = {"checks": {}, "n_ed": n_ed}
+
+    def check(name, fn, want_error=None):
+        """One check: its launches, verify.dispatch events, ms and host
+        verifies, logged and kept under `name`."""
+        seq, before = next_seq(rec), launch_counts()
+        with KeyTimer() as kt:
+            t0 = time.perf_counter()
+            try:
+                fn()
+                err = None
+            except ValueError as e:
+                err = str(e)
+            ms = _ms(t0)
+        if (err is None) != (want_error is None) or (err and not err.startswith(want_error)):
+            raise AssertionError(f"(b) {name}: want {want_error!r}, got {err!r}")
+        d = rec.events(since=seq, kinds=["verify.dispatch"])
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+        paths = [(e["path"], e["n"]) for e in d]
+        log(f"    (b) {name}: {ms:.3f} ms{'; raised ' + repr(err[:32] + '...') if err else ''}; "
+            f"dispatches {paths}, host_prep {sum(e['host_prep_ms'] for e in d):.3f} ms, device "
+            f"{sum(e['device_ms'] for e in d):.3f} ms; host verifies: {kt.line()}; launches "
+            f"{launches} ({card})")
+        out["checks"][name] = {"launches": launches, "paths": paths, "ms": ms,
+                               "host_ms": dict(kt.ms)}
+        return paths
+
+    def tampered(i, fix):
+        sigs = list(full.signatures)
+        sigs[i] = dataclasses.replace(sigs[i], signature=fix(sigs[i].signature))
+        return Commit(height, 0, bid, sigs)
+
+    def flip(sig):
+        return bytes([sig[0] ^ 1]) + sig[1:]
+
+    def high_s(sig):
+        return sig[:32] + (backend.SECP_N - int.from_bytes(sig[32:], "big")).to_bytes(32, "big")
+
+    try:
+        paths = check("1 full commit, verify_commit",
+                      lambda: mset.verify_commit(CHAIN_ID, bid, height, full))
+        if paths != [("device", n_ed)]:
+            raise AssertionError(f"the full mixed commit's dispatches were {paths}, not one flat "
+                                 f"ladder batch of the {n_ed} ed25519 signatures")
+        out["flat_n"] = paths[0][1]
+        for kind, at, fix in (("ed25519", idx["Ed25519PubKey"][n_ed // 2], flip),
+                              ("sr25519", idx["Sr25519PubKey"][-1], flip),
+                              ("secp256k1", idx["Secp256k1PubKey"][0], flip),
+                              ("secp256k1 high-S", idx["Secp256k1PubKey"][-1], high_s)):
+            bad = tampered(at, fix)
+            check(f"1 one {kind} signature bad at #{at}",
+                  lambda: mset.verify_commit(CHAIN_ID, bid, height, bad),
+                  want_error=f"wrong signature (#{at})")
+        ed = set(idx["Ed25519PubKey"])
+        ed_only = Commit(height, 0, bid, [cs if i in ed else CommitSig.absent()
+                                         for i, cs in enumerate(full.signatures)])
+        for run in ("cold", "warm"):
+            paths = check(f"2 the ed25519 members' commit, verify_commit ({run} table)",
+                          lambda: mset.verify_commit(CHAIN_ID, bid, height, ed_only))
+            if len(paths) != 1 or paths[0][0] not in ("tabulated", "indexed", "chunked"):
+                raise AssertionError(f"the ed25519 members' commit did not take the indexed "
+                                     f"path alone: {paths}")
+        prof = rec.events(kinds=["verify.tabulated_profile"])
+        if dev.type == "cuda":
+            if len(prof) != 1 or prof[0]["validators"] != mset.size():
+                raise AssertionError(f"the mixed set was not profiled once at its size: {prof}")
+            out["engaged"] = prof[0]["engaged"]
+            if (paths[0][0] == "tabulated") != out["engaged"]:
+                raise AssertionError(f"the profile engaged {out['engaged']}, the warm check took "
+                                     f"{paths[0][0]}")
+            log(f"    (b) the mixed set's profile: tabulated {prof[0]['tab_ms']} ms, ladder "
+                f"{prof[0]['ladder_ms']} ms, engaged {out['engaged']}; its tables (kernel 2) "
+                f"{prof[0]['table_build_ms']} ms ({card})")
+        paths = check("3 verify_commit_trusting at 1/3 (lite2's call)",
+                      lambda: mset.verify_commit_trusting(CHAIN_ID, bid, height, full, 1, 3))
+        if paths != [("device", n_ed)]:
+            raise AssertionError(f"verify_commit_trusting's dispatches were {paths}, not one "
+                                 f"flat ladder batch of {n_ed}")
+    finally:
+        batch_hook.set_verifier(None)
+        batch_hook.set_indexed_verifier(None)
+    out["s"] = time.perf_counter() - t_start
+    return out
+
+
+def run_keytypes(keys, commit, card, dev, report):
+    """Phase 19 with its launch checks, its launches added to `report`."""
+    log("[19] the other key types on the card: (a) BASELINE config #3, 100 sr25519 validators "
+        "through the consensus core, and its multisig; (b) a mixed 10,000-validator set of "
+        "ed25519, sr25519 and secp256k1 keys")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    a = phase_sr_chain(card, dev)
+    log(f"  (a) launches from the node's start on: {a['launches']} (the node's run alone: "
+        f"{a['node']}); kernel 2 builds nothing: verify_commit consults the TableCache only "
+        f"for a commit whose signers are all ed25519, and no vote of this chain reaches the "
+        f"engine's lane; (a) took {a['s']:.3f} s ({card})")
+    b = phase_mixed(keys, commit, card, dev)
+    counts = launch_counts()
+    checks = b["checks"]
+    log(f"  launches in phase 19: {counts}; (b) took {b['s']:.3f} s; phase 19 took "
+        f"{time.perf_counter() - t0:.3f} s ({card})")
+    if a["launches"]["ed25519_ladder"] or a["launches"]["ed25519_tabulated"]:
+        raise AssertionError(f"phase 19 (a) launched a verify kernel: {a['launches']}")
+    full = checks["1 full commit, verify_commit"]["launches"]
+    if full["ed25519_ladder"] != 1 or full["ed25519_tabulated"] or full["ed25519_window_tables"]:
+        raise AssertionError(f"the full mixed commit did not launch the ladder alone, once: {full}")
+    cold = checks["2 the ed25519 members' commit, verify_commit (cold table)"]["launches"]
+    warm = checks["2 the ed25519 members' commit, verify_commit (warm table)"]["launches"]
+    pick = "ed25519_tabulated" if b["engaged"] else "ed25519_ladder"
+    other = "ed25519_ladder" if b["engaged"] else "ed25519_tabulated"
+    if cold["ed25519_window_tables"] != 1 or warm[pick] == 0 or warm[other]:
+        raise AssertionError(f"the ed25519 members' commit was not served by kernel 2's tables "
+                             f"and the mixed set's pick ({pick}): cold {cold}, warm {warm}")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+
 def kernel_device_ms(fn, names) -> dict:
     """Device ms of each named kernel in one run of fn, from torch.profiler;
     a name is missing where the profiler records no device time for it."""
@@ -9349,7 +9783,7 @@ def main() -> int:
         raise
 
     log("[13] a node from a stock home: D knows only seed A, meshes by PEX, fast-syncs the "
-        "10,000-validator chain, streams NewBlock over /websocket and serves 8 light-client "
+        "10,000-validator chain, streams NewBlock over /websocket and serves 4 light-client "
         "tenants from its gateway")
     launch_counts(zero=True)
     t0 = time.perf_counter()
@@ -9425,6 +9859,7 @@ def main() -> int:
 
     run_staking(keys, card, dev, picked, report)
     run_chaos_rotation(card, dev, picked, report)
+    run_keytypes(keys, commit, card, dev, report)
 
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
     keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -135,7 +135,8 @@ def _testnet_peer_indices(i: int, n: int):
 def _load_or_draw_pv(cfg: Config, draw_key):
     from .privval.file import FilePV, FilePVKey, FilePVLastSignState, load_or_gen_file_pv
 
-    if draw_key is None or os.path.exists(cfg.priv_validator_key_file()):
+    if (draw_key is None or cfg.base.key_type != "ed25519"
+            or os.path.exists(cfg.priv_validator_key_file())):
         return load_or_gen_file_pv(cfg)
     priv = draw_key()
     pv = FilePV(FilePVKey(priv.pub_key().address(), priv.pub_key(), priv,
@@ -168,8 +169,10 @@ def cmd_testnet(args, draw_key=None) -> int:
     the unsafe chaos routes on every node, seeded by `--chaos-seed`; node
     `--twin` double-signs from genesis.
 
-    `draw_key` makes each new key, a validator's then its node key, node
-    by node (default: a fresh random key, as the JAX command draws)."""
+    `draw_key` makes each new ed25519 key, a validator's then its node
+    key, node by node (default: a fresh random key, as the JAX command
+    draws); a validator key of another `--key-type` comes from
+    generate_priv_key."""
     n = args.validators
     out = os.path.abspath(args.output)
     chain_id = args.chain_id or f"testnet-{os.urandom(3).hex()}"
@@ -993,7 +996,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument(
         "--key-type", choices=list(KEY_TYPES), default="ed25519",
         help="consensus key scheme for the generated priv_validator key "
-        "(only ed25519 is ported)",
+        "(bls12381 is not ported: ROADMAP 1.9)",
     )
     sp.set_defaults(fn=cmd_init)
 
@@ -1034,7 +1037,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sp.add_argument(
         "--key-type", choices=list(KEY_TYPES), default="ed25519",
-        help="consensus key scheme for every generated validator key (only ed25519 is ported)",
+        help="consensus key scheme for every generated validator key "
+        "(bls12381 is not ported: ROADMAP 1.9)",
     )
     sp.set_defaults(fn=cmd_testnet)
 

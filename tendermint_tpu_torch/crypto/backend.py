@@ -1,5 +1,6 @@
-"""Host-crypto backend: the port's copy of `active_tier` and of the secret
-connection's primitives from tendermint_tpu/crypto/backend.py.
+"""Host-crypto backend: the port's copy of `active_tier`, of the secret
+connection's primitives and of the pure-Python secp256k1 ECDSA from
+tendermint_tpu/crypto/backend.py.
 
 The JAX package picks among three tiers for serial host work:
 `cryptography` (OpenSSL), the project's C library, pure Python.  The port
@@ -7,8 +8,10 @@ has no `cryptography` tier (the card's machine lacks the package), so
 tier 1 never reports here.  ChaCha20-Poly1305 runs on the C library
 (csrc/sha512_batch.c through crypto/hostprep.py) where it builds, else on
 the pure tier; X25519 (once per connection) and HKDF-SHA256 are pure, as
-the JAX package's tiers 2 and 3 have them.  Every function's bytes equal
-the JAX package's on every tier.
+the JAX package's tiers 2 and 3 have them.  secp256k1 is the JAX
+package's tier-3 branch (RFC 6979 nonces, so its signatures equal that
+branch's byte for byte).  Every function's bytes equal the JAX package's
+on every tier.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import hashlib
 import hmac as _hmac
 import os
 import struct
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 def active_tier() -> int:
@@ -222,3 +225,126 @@ def hkdf_sha256(ikm: bytes, length: int, info: bytes, salt: bytes = b"") -> byte
         okm += t
         i += 1
     return okm[:length]
+
+
+# --------------------------------------------------------------------------
+# secp256k1 ECDSA (pure Python; the JAX package's tier-3 branch)
+# --------------------------------------------------------------------------
+
+SECP_P = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEFFFFFC2F
+SECP_N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
+_SECP_GX = 0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798
+_SECP_GY = 0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8
+_SECP_P, _SECP_N = SECP_P, SECP_N
+
+
+def _secp_add(pt1, pt2):
+    if pt1 is None:
+        return pt2
+    if pt2 is None:
+        return pt1
+    x1, y1 = pt1
+    x2, y2 = pt2
+    if x1 == x2 and (y1 + y2) % _SECP_P == 0:
+        return None
+    if pt1 == pt2:
+        lam = (3 * x1 * x1) * pow(2 * y1, _SECP_P - 2, _SECP_P) % _SECP_P
+    else:
+        lam = (y2 - y1) * pow(x2 - x1, _SECP_P - 2, _SECP_P) % _SECP_P
+    x3 = (lam * lam - x1 - x2) % _SECP_P
+    return (x3, (lam * (x1 - x3) - y1) % _SECP_P)
+
+
+def _secp_mul(k: int, pt):
+    acc = None
+    while k:
+        if k & 1:
+            acc = _secp_add(acc, pt)
+        pt = _secp_add(pt, pt)
+        k >>= 1
+    return acc
+
+
+def _secp_decompress(data: bytes) -> Optional[Tuple[int, int]]:
+    if len(data) != 33 or data[0] not in (2, 3):
+        return None
+    x = int.from_bytes(data[1:], "big")
+    if x >= _SECP_P:
+        return None
+    y2 = (x * x * x + 7) % _SECP_P
+    y = pow(y2, (_SECP_P + 1) // 4, _SECP_P)
+    if y * y % _SECP_P != y2:
+        return None
+    if (y & 1) != (data[0] & 1):
+        y = _SECP_P - y
+    return (x, y)
+
+
+def ecdsa_compress(x: int, y: int) -> bytes:
+    return bytes([2 | (y & 1)]) + x.to_bytes(32, "big")
+
+
+def ecdsa_pub_from_priv(priv: bytes) -> bytes:
+    """33-byte compressed pubkey."""
+    d = int.from_bytes(priv, "big")
+    pt = _secp_mul(d, (_SECP_GX, _SECP_GY))
+    return ecdsa_compress(*pt)
+
+
+def ecdsa_generate() -> bytes:
+    while True:
+        d = int.from_bytes(os.urandom(32), "big")
+        if 0 < d < _SECP_N:
+            return d.to_bytes(32, "big")
+
+
+def _rfc6979_k(priv: bytes, digest: bytes) -> int:
+    """Deterministic nonce (RFC 6979, SHA-256)."""
+    v = b"\x01" * 32
+    k = b"\x00" * 32
+    k = _hmac.new(k, v + b"\x00" + priv + digest, hashlib.sha256).digest()
+    v = _hmac.new(k, v, hashlib.sha256).digest()
+    k = _hmac.new(k, v + b"\x01" + priv + digest, hashlib.sha256).digest()
+    v = _hmac.new(k, v, hashlib.sha256).digest()
+    while True:
+        v = _hmac.new(k, v, hashlib.sha256).digest()
+        cand = int.from_bytes(v, "big")
+        if 0 < cand < _SECP_N:
+            return cand
+        k = _hmac.new(k, v + b"\x00", hashlib.sha256).digest()
+        v = _hmac.new(k, v, hashlib.sha256).digest()
+
+
+def ecdsa_sign(priv: bytes, msg: bytes) -> Tuple[int, int]:
+    """SHA-256 ECDSA, low-S normalized; returns (r, s)."""
+    digest = hashlib.sha256(msg).digest()
+    z = int.from_bytes(digest, "big")
+    d = int.from_bytes(priv, "big")
+    while True:
+        k = _rfc6979_k(priv, digest)
+        pt = _secp_mul(k, (_SECP_GX, _SECP_GY))
+        r = pt[0] % _SECP_N
+        if r == 0:
+            continue
+        s = pow(k, _SECP_N - 2, _SECP_N) * (z + r * d) % _SECP_N
+        if s == 0:
+            continue
+        if s > _SECP_N // 2:
+            s = _SECP_N - s
+        return r, s
+
+
+def ecdsa_verify(pub33: bytes, msg: bytes, r: int, s: int) -> bool:
+    if not (0 < r < _SECP_N and 0 < s < _SECP_N):
+        return False
+    pt = _secp_decompress(pub33)
+    if pt is None:
+        return False
+    z = int.from_bytes(hashlib.sha256(msg).digest(), "big")
+    w = pow(s, _SECP_N - 2, _SECP_N)
+    u1 = z * w % _SECP_N
+    u2 = r * w % _SECP_N
+    res = _secp_add(_secp_mul(u1, (_SECP_GX, _SECP_GY)), _secp_mul(u2, pt))
+    if res is None:
+        return False
+    return res[0] % _SECP_N == r

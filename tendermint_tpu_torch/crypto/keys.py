@@ -1,10 +1,18 @@
-"""ed25519 keys: the consensus key type.
+"""Key types: ed25519 (consensus default), secp256k1, and the dispatch that
+also routes sr25519 (crypto/sr25519.py) and threshold multisig
+(crypto/multisig.py).
 
-Reference parity: crypto/ed25519/ed25519.go (address = SHA256(pubkey)[:20],
-ed25519.go:138; GenPrivKeyFromSecret, ed25519.go:106).  Signing, public-key
-derivation and single verification go through the package's C library
-(csrc/sha512_batch.c, loaded by hostprep), with the pure-Python
-ed25519_math path only where that library cannot be built.
+Reference parity: `crypto.PubKey`/`PrivKey` interfaces (crypto/crypto.go:22,29),
+ed25519 keys (crypto/ed25519/ed25519.go; address = SHA256(pubkey)[:20],
+ed25519.go:138; GenPrivKeyFromSecret, ed25519.go:106), secp256k1 keys
+(crypto/secp256k1/; 33-byte compressed keys, address =
+RIPEMD160(SHA256(pubkey)), lower-S signatures).
+
+ed25519 signing, public-key derivation and single verification go through
+the package's C library (csrc/sha512_batch.c, loaded by hostprep), with the
+pure-Python ed25519_math path only where that library cannot be built.
+secp256k1 runs on crypto/backend.py's pure-Python ECDSA (RFC 6979 nonces).
+bls12381 keys are not ported: they raise TypeError naming ROADMAP 1.9.
 """
 
 from __future__ import annotations
@@ -12,13 +20,65 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+from abc import ABC, abstractmethod
 
 from ..encoding.codec import register
+from . import backend
 from . import ed25519_math as em
 from . import hostprep
 from .tmhash import sum_truncated
 
 ADDRESS_SIZE = 20
+
+
+class PubKey(ABC):
+    TYPE: str = ""
+
+    @abstractmethod
+    def address(self) -> bytes: ...
+
+    @abstractmethod
+    def bytes(self) -> bytes: ...
+
+    @abstractmethod
+    def verify(self, msg: bytes, sig: bytes) -> bool: ...
+
+    def equals(self, other: "PubKey") -> bool:
+        return type(self) is type(other) and self.bytes() == other.bytes()
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, PubKey) and self.equals(other)
+
+    def __hash__(self) -> int:
+        return hash((self.TYPE, self.bytes()))
+
+    def to_dict(self) -> dict:
+        return {"type": self.TYPE, "value": self.bytes()}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PubKey":
+        return pubkey_from_dict(d)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.bytes().hex()[:16]}…)"
+
+
+class PrivKey(ABC):
+    TYPE: str = ""
+
+    @abstractmethod
+    def bytes(self) -> bytes: ...
+
+    @abstractmethod
+    def sign(self, msg: bytes) -> bytes: ...
+
+    @abstractmethod
+    def pub_key(self) -> PubKey: ...
+
+
+# ---------------------------------------------------------------------------
+# ed25519
+# ---------------------------------------------------------------------------
 
 
 def _expand_seed(seed: bytes):
@@ -32,7 +92,7 @@ def _expand_seed(seed: bytes):
 
 
 @register("pk/ed25519")
-class Ed25519PubKey:
+class Ed25519PubKey(PubKey):
     TYPE = "tendermint/PubKeyEd25519"
     SIZE = 32
     SIG_SIZE = 64
@@ -70,11 +130,8 @@ class Ed25519PubKey:
     def __hash__(self) -> int:
         return hash((self.TYPE, self._data))
 
-    def __repr__(self) -> str:
-        return f"Ed25519PubKey({self._data.hex()[:16]}…)"
 
-
-class Ed25519PrivKey:
+class Ed25519PrivKey(PrivKey):
     TYPE = "tendermint/PrivKeyEd25519"
     SIZE = 32  # seed
 
@@ -126,46 +183,133 @@ class Ed25519PrivKey:
         return cls(d["value"])
 
 
-def pubkey_from_dict(d: dict) -> Ed25519PubKey:
-    """Route a {"type", "value"} dict to its key; this slice carries
-    ed25519 keys only, and any other type raises as an unknown one."""
+# ---------------------------------------------------------------------------
+# secp256k1 (ECDSA).  Reference: crypto/secp256k1/secp256k1.go — 33-byte
+# compressed pubkeys, address = RIPEMD160(SHA256(pub)), lower-S signatures
+# (secp256k1_nocgo.go:34 malleability check), 64-byte r||s encoding.
+# ---------------------------------------------------------------------------
+
+_SECP_N = backend.SECP_N
+
+
+@register("pk/secp256k1")
+class Secp256k1PubKey(PubKey):
+    TYPE = "tendermint/PubKeySecp256k1"
+    SIZE = 33
+
+    def __init__(self, data: bytes):
+        if len(data) != self.SIZE:
+            raise ValueError(f"secp256k1 pubkey must be {self.SIZE} bytes")
+        self._data = bytes(data)
+
+    def address(self) -> bytes:
+        sha = hashlib.sha256(self._data).digest()
+        return hashlib.new("ripemd160", sha).digest()
+
+    def bytes(self) -> bytes:
+        return self._data
+
+    def verify(self, msg: bytes, sig: bytes) -> bool:
+        if len(sig) != 64:
+            return False
+        r = int.from_bytes(sig[:32], "big")
+        s = int.from_bytes(sig[32:], "big")
+        if s > _SECP_N // 2:  # reject malleable high-S, parity with reference
+            return False
+        return backend.ecdsa_verify(self._data, msg, r, s)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Secp256k1PubKey":
+        return cls(d["value"])
+
+
+@register("sk/secp256k1")
+class Secp256k1PrivKey(PrivKey):
+    TYPE = "tendermint/PrivKeySecp256k1"
+    SIZE = 32
+
+    def __init__(self, data: bytes):
+        if len(data) != self.SIZE:
+            raise ValueError("secp256k1 privkey must be 32 bytes")
+        self._data = bytes(data)
+        self._pub = Secp256k1PubKey(backend.ecdsa_pub_from_priv(self._data))
+
+    @classmethod
+    def generate(cls) -> "Secp256k1PrivKey":
+        return cls(backend.ecdsa_generate())
+
+    def bytes(self) -> bytes:
+        return self._data
+
+    def sign(self, msg: bytes) -> bytes:
+        r, s = backend.ecdsa_sign(self._data, msg)  # low-S normalized
+        return r.to_bytes(32, "big") + s.to_bytes(32, "big")
+
+    def pub_key(self) -> Secp256k1PubKey:
+        return self._pub
+
+    def to_dict(self) -> dict:
+        return {"type": self.TYPE, "value": self._data}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Secp256k1PrivKey":
+        return cls(d["value"])
+
+
+# ---------------------------------------------------------------------------
+
+_BLS_REFUSED = "bls12381 keys are not ported yet (ROADMAP 1.9)"
+
+
+def pubkey_from_dict(d: dict) -> PubKey:
     t = d.get("type")
-    if t == Ed25519PubKey.TYPE:
-        return Ed25519PubKey(d["value"])
+    for cls in (Ed25519PubKey, Secp256k1PubKey):
+        if t == cls.TYPE:
+            return cls(d["value"])
+    from .sr25519 import Sr25519PubKey  # cyclic at import time
+
+    if t == Sr25519PubKey.TYPE:
+        return Sr25519PubKey(d["value"])
+    if t == "tendermint/PubKeyBLS12381":
+        raise TypeError(_BLS_REFUSED)
+    from .multisig import MultisigThresholdPubKey  # cyclic at import time
+
+    if t == MultisigThresholdPubKey.TYPE:
+        return MultisigThresholdPubKey.from_dict(d)
     raise ValueError(f"unknown pubkey type {t!r}")
 
 
-# the JAX package's other key types, each waiting for its slice
-_LATER_PRIV_TYPES = {
-    "tendermint/PrivKeySr25519": "1.8 (sr25519)",
-    "tendermint/PrivKeySecp256k1": "1.8 (secp256k1)",
-    "tendermint/PrivKeyBLS12381": "1.9 (bls12381)",
-}
-_LATER_KEY_TYPES = {"sr25519": "1.8", "secp256k1": "1.8", "bls12381": "1.9"}
-
-# key-type names the JAX package accepts (`testnet --key-type`,
-# FilePV.generate)
-KEY_TYPES = ("ed25519", "sr25519", "bls12381", "secp256k1")
-
-
-def privkey_from_dict(d: dict) -> Ed25519PrivKey:
-    """Route a {"type", "value"} dict to its key — the privval key-file
-    loader's dispatch.  This slice carries ed25519 keys only; the JAX
-    package's other types raise TypeError naming the ROADMAP item that
-    ports them."""
+def privkey_from_dict(d: dict) -> PrivKey:
+    """Route a {"type", "value"} dict to the concrete PrivKey — the
+    privval key-file loader's dispatch (mirrors pubkey_from_dict)."""
     t = d.get("type")
     if t == Ed25519PrivKey.TYPE:
         return Ed25519PrivKey(d["value"])
-    if t in _LATER_PRIV_TYPES:
-        raise TypeError(f"{t} keys are not ported yet (ROADMAP {_LATER_PRIV_TYPES[t]})")
+    if t == Secp256k1PrivKey.TYPE:
+        return Secp256k1PrivKey(d["value"])
+    from .sr25519 import Sr25519PrivKey
+
+    if t == Sr25519PrivKey.TYPE:
+        return Sr25519PrivKey(d["value"])
+    if t == "tendermint/PrivKeyBLS12381":
+        raise TypeError(_BLS_REFUSED)
     raise ValueError(f"unknown privkey type {t!r}")
 
 
-def generate_priv_key(key_type: str = "ed25519") -> Ed25519PrivKey:
+# key-type names accepted by `testnet --key-type` / FilePV.generate —
+# mirrors the reference's key-type plumbing (sr25519 rode the same path)
+KEY_TYPES = ("ed25519", "sr25519", "bls12381", "secp256k1")
+
+
+def generate_priv_key(key_type: str = "ed25519") -> PrivKey:
     if key_type == "ed25519":
         return Ed25519PrivKey.generate()
-    if key_type in _LATER_KEY_TYPES:
-        raise TypeError(
-            f"{key_type} keys are not ported yet (ROADMAP {_LATER_KEY_TYPES[key_type]})"
-        )
+    if key_type == "secp256k1":
+        return Secp256k1PrivKey.generate()
+    if key_type == "sr25519":
+        from .sr25519 import Sr25519PrivKey
+
+        return Sr25519PrivKey.generate()
+    if key_type == "bls12381":
+        raise TypeError(_BLS_REFUSED)
     raise ValueError(f"unknown key type {key_type!r} (want one of {KEY_TYPES})")

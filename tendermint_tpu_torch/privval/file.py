@@ -19,9 +19,7 @@ import tempfile
 from dataclasses import dataclass, replace
 from typing import Tuple
 
-from ..crypto.keys import Ed25519PrivKey as PrivKey
-from ..crypto.keys import Ed25519PubKey as PubKey
-from ..crypto.keys import generate_priv_key, privkey_from_dict, pubkey_from_dict
+from ..crypto.keys import PrivKey, PubKey, generate_priv_key, privkey_from_dict, pubkey_from_dict
 from ..types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
 from ..types.priv_validator import PrivValidator
 from ..types.proposal import Proposal
@@ -70,9 +68,9 @@ def _atomic_write_json(path: str, obj: dict) -> None:
 
 @dataclass
 class FilePVKey:
-    """privval/file.go:42 — the immutable key half.  This slice carries
-    ed25519 keys; another type in a key file raises TypeError naming the
-    ROADMAP item that ports it (privkey_from_dict)."""
+    """privval/file.go:42 — the immutable key half.  The priv key may be
+    ed25519, sr25519 or secp256k1; a bls12381 key file raises TypeError
+    naming ROADMAP 1.9 (privkey_from_dict)."""
 
     address: bytes
     pub_key: PubKey
@@ -332,8 +330,8 @@ class FilePV(PrivValidator):
 
 def load_or_gen_file_pv(config) -> FilePV:
     """DefaultNewNode's privval hook (node/node.go:115) from a Config.  A
-    `base.key_type` other than ed25519 raises generate_priv_key's TypeError
-    naming the ROADMAP item that ports it (1.8 or 1.9)."""
+    `base.key_type` of bls12381 raises generate_priv_key's TypeError
+    naming ROADMAP 1.9."""
     return FilePV.load_or_generate(
         config.priv_validator_key_file(),
         config.priv_validator_state_file(),

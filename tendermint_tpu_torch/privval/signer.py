@@ -34,7 +34,7 @@ import os
 import struct
 from typing import Callable, Optional, Tuple
 
-from ..crypto.keys import Ed25519PrivKey, Ed25519PubKey as PubKey, pubkey_from_dict
+from ..crypto.keys import Ed25519PrivKey, PubKey, pubkey_from_dict
 from ..encoding import codec
 from ..libs.log import get_logger
 from ..libs.service import Service

@@ -24,10 +24,10 @@ chunker.py, IO in reactor.py, and this file owns the bootstrap pipeline:
 A rejected/failed snapshot falls through to the next candidate; when all
 candidates are exhausted the caller falls back to fastsync-from-genesis.
 
-The port carries ed25519 only: a commit over other key types raises the
-TypeError naming ROADMAP 1.8 in mixed_batch_verify, and aggregate (BLS)
-commits do not decode (ROADMAP 1.9), so EngineCommitPreverify has no
-aggregate branch.
+EngineCommitPreverify sends the ed25519 signatures of a commit to the
+engine; sr25519, secp256k1 and multisig signers verify on the host in
+mixed_batch_verify, as in the JAX package.  Aggregate (BLS) commits do not
+decode (ROADMAP 1.9), so it has no aggregate branch.
 """
 
 from __future__ import annotations

@@ -238,8 +238,9 @@ class Commit:
     def vote_sign_bytes(self, chain_id: str, val_idx: int, pub_key=None) -> bytes:
         """Sign-bytes for slot val_idx (types/block.go:621) — only the
         timestamp differs between validators.  `pub_key` keeps the JAX
-        package's signature; this slice carries ed25519 keys only, which
-        all sign the timestamped layout."""
+        package's signature; every key type the port carries (ed25519,
+        sr25519, secp256k1, multisig) signs the timestamped layout, and
+        BLS keys, which would not, are not ported (ROADMAP 1.9)."""
         cs = self.signatures[val_idx]
         bid = cs.block_id(self.block_id)
         return canonical.canonical_vote_sign_bytes(

@@ -1,7 +1,8 @@
 """Genesis document: the port's copy of tendermint_tpu/types/genesis.py.
-The port carries ed25519 validators only (pubkey_from_dict raises on any
-other type), so the BLS proof-of-possession check has nothing to check; the
-`pop` field keeps the JSON layout.
+Validators carry any key type the port has (ed25519, sr25519, secp256k1;
+pubkey_from_dict raises TypeError on bls12381, ROADMAP 1.9), so the BLS
+proof-of-possession check has nothing to check; the `pop` field keeps the
+JSON layout.
 
 Reference parity: types/genesis.go (GenesisValidator:31, GenesisDoc:38,
 ValidateAndComplete:67).
@@ -15,8 +16,7 @@ import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-from ..crypto.keys import Ed25519PubKey as PubKey
-from ..crypto.keys import pubkey_from_dict
+from ..crypto.keys import PubKey, pubkey_from_dict
 from .params import MAX_CHAIN_ID_LEN, ConsensusParams
 from .validator import Validator, ValidatorSet
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from abc import ABC, abstractmethod
 
-from ..crypto.keys import Ed25519PrivKey, Ed25519PubKey as PubKey
+from ..crypto.keys import Ed25519PrivKey, PubKey
 from .proposal import Proposal
 from .vote import Vote
 

@@ -1,7 +1,8 @@
 """Validator and ValidatorSet: proposer-priority math, change sets and
 batched commit verification.
 
-The port's copy of tendermint_tpu/types/validator.py, ed25519 keys only.
+The port's copy of tendermint_tpu/types/validator.py, for every key type
+but bls12381 (ROADMAP 1.9).
 Reference parity: types/validator.go (Validator:16), types/validator_set.go
 (ValidatorSet:42, IncrementProposerPriority:86, UpdateWithChangeSet:624,
 VerifyCommit:629, VerifyFutureCommit:703, VerifyCommitTrusting:754).  The
@@ -14,10 +15,12 @@ client checks headers against; to_dict / from_dict keep the JAX package's
 layout, so a trusted store carries across.
 
 VerifyCommit* gather (pubkey, msg, sig) triples for ALL non-absent
-signatures and hand them to the installed batch hooks (crypto/batch.py) as
-one batch, then tally voting power from the boolean mask.  The reference's
-early exit at 2/3 becomes whole-batch verification — strictly stricter (a
-bad signature after the 2/3 mark fails the commit) and deterministic.
+signatures, hand the ed25519 ones to the installed batch hooks
+(crypto/batch.py) as one batch and verify the other key types on the host
+with their own PubKey.verify, then tally voting power from the boolean
+mask.  The reference's early exit at 2/3 becomes whole-batch verification
+— strictly stricter (a bad signature after the 2/3 mark fails the commit)
+and deterministic.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 from ..crypto import batch as crypto_batch
 from ..crypto import merkle
-from ..crypto.keys import Ed25519PubKey, pubkey_from_dict
+from ..crypto.keys import Ed25519PubKey, PubKey, pubkey_from_dict
 from ..encoding import codec
 from ..encoding.proto import field_bytes, field_varint
 from .block import BlockID, Commit
@@ -53,33 +56,51 @@ def safe_sub_clip(a: int, b: int) -> int:
 
 
 def mixed_batch_verify(
-    pubkey_objs: Sequence[Ed25519PubKey],
+    pubkey_objs: Sequence[PubKey],
     msgs: Sequence[bytes],
     sigs: Sequence[bytes],
     batch_verify: Optional[Callable] = None,
     indexed: Optional[tuple] = None,
 ) -> List[bool]:
-    """Verify a commit's signatures through the installed batch hooks.
+    """Verify a commit's signatures, routing by key type: ed25519 rides the
+    installed batch hooks (crypto/batch.py); other key types (sr25519,
+    secp256k1, threshold multisig) verify with their own PubKey.verify on
+    the host, and an exception there is a False verdict.
 
     `indexed=(set_key, set_pubkey_rows, row_idxs)` lets callers that know
     the validator-set identity and row indices route through the
-    per-valset device table engine (crypto/batch.py indexed hook); when it
-    declines, the flat batch verifier serves.  This slice carries ed25519
-    keys only and raises on any other key type."""
-    for pk in pubkey_objs:
-        if not isinstance(pk, Ed25519PubKey):
-            raise TypeError(f"unsupported key type {type(pk).__name__}: this slice verifies ed25519 only")
-    if not msgs:
-        return []
-    if indexed is not None and batch_verify is None:
+    per-valset device table engine (crypto/batch.py indexed hook); it
+    serves only when every signer of the call is ed25519, and when it
+    declines, the flat batch verifier serves."""
+    n = len(msgs)
+    out: List[bool] = [False] * n
+    ed_idx = [i for i, pk in enumerate(pubkey_objs) if isinstance(pk, Ed25519PubKey)]
+    if ed_idx and len(ed_idx) == n and indexed is not None and batch_verify is None:
         iv = crypto_batch.get_indexed_verifier()
         if iv is not None:
             set_key, set_rows, row_idxs = indexed
             res = iv(set_key, set_rows, row_idxs, msgs, sigs)
             if res is not None:
                 return [bool(r) for r in res]
-    verify = batch_verify or crypto_batch.get_verifier()
-    return [bool(r) for r in verify([pk.bytes() for pk in pubkey_objs], msgs, sigs)]
+    if ed_idx:
+        verify = batch_verify or crypto_batch.get_verifier()
+        res = verify(
+            [pubkey_objs[i].bytes() for i in ed_idx],
+            [msgs[i] for i in ed_idx],
+            [sigs[i] for i in ed_idx],
+        )
+        for i, r in zip(ed_idx, res):
+            out[i] = bool(r)
+    if len(ed_idx) != n:
+        ed_set = set(ed_idx)
+        for i, pk in enumerate(pubkey_objs):
+            if i in ed_set:
+                continue
+            try:
+                out[i] = bool(pk.verify(msgs[i], sigs[i]))
+            except Exception:
+                out[i] = False
+    return out
 
 
 class NotEnoughVotingPowerError(Exception):
@@ -98,12 +119,12 @@ class Validator:
     """types/validator.go:16.  ProposerPriority is volatile per-round state."""
 
     address: bytes
-    pub_key: Ed25519PubKey
+    pub_key: PubKey
     voting_power: int
     proposer_priority: int = 0
 
     @classmethod
-    def new(cls, pub_key: Ed25519PubKey, voting_power: int) -> "Validator":
+    def new(cls, pub_key: PubKey, voting_power: int) -> "Validator":
         return cls(pub_key.address(), pub_key, voting_power, 0)
 
     def copy(self) -> "Validator":
@@ -575,6 +596,18 @@ class ValidatorSet:
                 tallied += powers[pos]
         if tallied <= needed:
             raise NotEnoughVotingPowerError(got=tallied, needed=needed)
+
+    def pubkey_table(self):
+        """[V, 32] uint8 array of the raw pubkeys, set order; a row whose
+        key is not 32 bytes (secp256k1, multisig) stays zero."""
+        import numpy as np
+
+        table = np.zeros((len(self.validators), 32), dtype=np.uint8)
+        for i, v in enumerate(self.validators):
+            pk = v.pub_key.bytes()
+            if len(pk) == 32:
+                table[i] = np.frombuffer(pk, dtype=np.uint8)
+        return table
 
     def to_dict(self) -> dict:
         return {

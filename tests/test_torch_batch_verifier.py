@@ -183,8 +183,12 @@ def test_entry_points_never_drift_onto_cpu(monkeypatch):
 
 
 def test_mixed_batch_verify_rejects_other_key_types():
-    with pytest.raises(TypeError, match="ed25519 only"):
-        mixed_batch_verify([object()], [b"m"], [b"s" * 64])
+    """A key the batch cannot verify and whose own verify raises is a False
+    verdict, as in the JAX package."""
+    from tendermint_tpu.types.validator import mixed_batch_verify as jax_mixed
+
+    assert mixed_batch_verify([object()], [b"m"], [b"s" * 64]) == [False]
+    assert jax_mixed([object()], [b"m"], [b"s" * 64]) == [False]
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,10 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import tendermint_tpu.crypto.multisig  # noqa: F401 - registers pk/multisig
+import tendermint_tpu.crypto.sr25519  # noqa: F401 - registers tm/PubKeySr25519
+import tendermint_tpu_torch.crypto.multisig  # noqa: F401
+import tendermint_tpu_torch.crypto.sr25519  # noqa: F401
 from tendermint_tpu.encoding import codec as jcodec
 from tendermint_tpu_torch.encoding import codec as pcodec
 from tendermint_tpu_torch.encoding import msgpack as pmsgpack
@@ -22,8 +26,9 @@ from test_torch_chain_types import CHAIN, HEIGHTS, JAX, PORT, PART, chain, evide
 
 
 def _instances(ns):
-    """One instance of every type the port registers, built from the same
-    inputs in either package."""
+    """One instance of every type the port registers (the key types once
+    their modules are imported, as above), built from the same inputs in
+    either package."""
     c = chain(ns)
     blk = c["blocks"][3]
     ev = evidence_pair(ns)
@@ -31,8 +36,16 @@ def _instances(ns):
     proposal = ns.codec.class_for("tm/Proposal")(height=3, round=1, pol_round=0,
                                                  block_id=c["ids"][3], timestamp_ns=blk.time_ns)
     proposal.signature = c["keys"][0].sign(proposal.sign_bytes(CHAIN))
+    cls = ns.codec.class_for
+    sr = cls("tm/PubKeySr25519")(bytes.fromhex(
+        "d43593c715fdd31c61141abd04a99fd6822c8558854ccde39a5684e7a56da27d"))
+    secp = cls("sk/secp256k1")(b"\x05" * 32)
     return {
         "pk/ed25519": c["keys"][0].pub_key(),
+        "tm/PubKeySr25519": sr,
+        "pk/secp256k1": secp.pub_key(),
+        "sk/secp256k1": secp,
+        "pk/multisig": cls("pk/multisig")(2, [c["keys"][1].pub_key(), sr, secp.pub_key()]),
         "tm/Vote": ev.vote_a,
         "tm/Commit": c["commits"][2],
         "tm/SignedHeader": ns.SignedHeader(c["blocks"][2].header, c["commits"][2]),
