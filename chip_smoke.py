@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 1. Setup: prints the card (nvidia-smi name and power limit), builds the
-   CUDA kernels from the checkout's sources and the host-prep C library.
+   CUDA kernels from the checkout's sources and the host-prep C library,
+   and (on a thread beside nvcc) the BLS12-381 C tier from
+   tendermint_tpu_torch/csrc/bls12_381.c into tendermint_tpu_torch/_build/;
+   fails unless scheme.active_tier() is "c".
 2. Each kernel against its plain torch version on the card, on the same
    inputs, tolerance 0 (integer math), at ragged shapes (no multiple of 8
    or 32): kernel 1 (ladder) at B = 1021 and kernel 3 (tabulated verify)
@@ -219,7 +222,8 @@
    its decline, set B by _valset_watch, set B again by the restarted
    node's empty TableCache), the first node declined exactly once, the
    profile's pick served every table hit and the ladder every accepted
-   frame and decline.  (b) The CLI in subprocesses: `python -m
+   frame and decline.  (b) The CLI in subprocesses (on a thread beside
+   phase 13 since phase 20: it launches nothing in this process): `python -m
    tendermint_tpu_torch --home H2 init --chain-id chip-smoke-solo`, p2p and
    RPC turned off through load_config/save_config, `node` until the block
    store reaches height 3, SIGTERM (exit 0 within 30 s), `node` again from
@@ -556,7 +560,10 @@
    dispatches and its chaos series from /metrics.  The nodes' launches are
    in their own processes and not in the kernels line.
 18. Validator sets that change while the card verifies (the bank and
-   staking apps).  (a) Full width, after phase 15: phase 8's harness
+   staking apps).  (a) Full width, in a process of its own (PhaseChild:
+   its own launch counters, read there and added to the kernels line)
+   beside phase 17 with 18 (b) and phase 19 (b) since phase 20 (after
+   phase 15 until then): phase 8's harness
    (abci_node on sqlite stores, the mempool's signed-tx lane on an
    AsyncBatchVerifier at min_device_batch 16, the installed BatchVerifier
    and TableCache for validate_block) with the app taken through
@@ -610,7 +617,8 @@
    lite2_skip_across_rotation_ok, the joiner's height, loadgen's counters
    (its app:12 share is fault 3.13) and the rebuild events beside kernel
    2's launches.
-19. The other key types.  (a) BASELINE config #3 (kvstore, 100
+19. The other key types.  (a), in a process of its own beside (b) since
+   phase 20 (its launches read there, and required to be 0): BASELINE config #3 (kvstore, 100
    validators, sr25519 keys + multisig): `python -m tendermint_tpu_torch
    init --key-type sr25519` (in the process) writes a home whose FilePV
    holds a random sr25519 key; 99 seeded sr25519 keys join it so that it
@@ -625,17 +633,44 @@
    host (valid, below threshold, wrong position), and its vote is refused
    by the 96-byte signature cap, as in the JAX package.  Fails unless the
    ladder and the tabulated sum launch 0 times from the node's start on.
-   (b) Phase 3's set with 100 of its keys replaced by sr25519 and 4 by
-   secp256k1 keys (9,896 keep ed25519 and phase 3's signatures) on an
-   installed BatchVerifier and TableCache (tabulated auto): 1. the full
-   commit through verify_commit: one flat ladder batch of 9,896 (its
-   verify.dispatch event) beside 104 host verifies; one bad signature of
+   (b) Phase 3's set with 100 of its keys replaced by sr25519, 4 by
+   secp256k1 and 100 by bls12381 keys (9,796 keep ed25519 and phase 3's
+   signatures; the BLS members sign the timestamp-free layout, and their
+   proofs of possession pass one batch_pop_verify) on an installed
+   BatchVerifier and TableCache (tabulated auto): 1. the full commit
+   through verify_commit: one flat ladder batch of 9,796 (its
+   verify.dispatch event) beside 204 host verifies; one bad signature of
    each type and a high-S secp256k1 signature each raise "wrong signature
    (#i)" at their index; 2. the ed25519 members' commit (the others
    absent) takes the indexed path: kernel 2 builds the mixed set's tables
    (foreign rows as in the JAX package) and the profile's pick serves, cold
    and warm; 3. verify_commit_trusting over the full commit.  Prints each
    check's ms, dispatches and host verify ms by key type.
+
+20. BLS12-381 keys on a mixed set (the state an ed25519 -> BLS12-381
+   migration passes through, which the staking app exists for).  `python
+   -m tendermint_tpu_torch init --key-type bls12381` (in the process)
+   writes a home whose FilePV holds a random BLS key and whose
+   genesis.json carries its proof of possession; 49 more seeded bls12381
+   keys and 50 ed25519 keys join it so that it is the round-0 proposer of
+   height 3 (kt_bls_keys); phase 9's consensus core (cs_run) then runs
+   heights 1-4 on that home at power 10 each (genesis checks the 50
+   proofs of possession in one batch), `[consensus]
+   bls_aggregate_commits` at its default (true), with 100 plain kvstore
+   txs a height, peers' proposals, vote frames routed as the consensus
+   reactor routes them (ed25519 members to the lane and the ladder, BLS
+   members on the host, over the timestamp-free sign-bytes), one flipped
+   precommit frame a round, the round change at 2, our proposal at 3 and
+   the WAL restart at 4; in a process of its own beside phase 19 (b), its
+   launches read there and added to the kernels line.  A mixed set does
+   not fold (the JAX package folds
+   only a uniformly BLS set; aggregate commits are ROADMAP 1.9b), so every
+   stored commit must be a per-vote Commit; each height's commit then
+   goes through verify_commit and verify_commit_trusting (1/3) on an
+   installed BatchVerifier, each one flat ladder batch of its ed25519
+   signatures.  The BLS tier is the C tier built in phase 1.  Prints the
+   host verifies by key type with their count and ms, and fails unless
+   the ladder launched in the node's run.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -653,6 +688,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2867,27 +2903,31 @@ def cs_votes(vals, key_of, ours_addr, kind, h, r, block, bid, iota_ns, skip=(),
     for nil), but those of the addresses in `skip`, stamped as _vote_time
     stamps them, signed (pool_sign from SIGN_POOL_MIN votes on, else on
     SIGN_THREADS threads), with their wire bytes; and their sign bytes,
-    which are one message for them all (a vote's sign bytes name no
-    validator)."""
+    which are one message for every member of one key domain (a vote's
+    sign bytes name no validator; a BLS12-381 member signs the
+    timestamp-free layout, Vote.sign_bytes_for_key)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from tendermint_tpu_torch.types.vote import Vote
+    from tendermint_tpu_torch.types.vote import Vote, is_bls_key
 
     now = time.time_ns()
     ts = max(now, block.time_ns + iota_ns) if block is not None else now
     votes = [Vote(kind, h, r, bid, ts, v.address, i) for i, v in enumerate(vals.validators)
              if v.address != ours_addr and v.address not in skip]
+    bls = [is_bls_key(vals.validators[v.validator_index].pub_key) for v in votes]
     msg = votes[0].sign_bytes(chain_id) if votes else b""
+    msg_bls = votes[0].bls_sign_bytes(chain_id) if any(bls) else b""
+    msgs = [msg_bls if b else msg for b in bls]
     keys = [key_of[v.validator_address] for v in votes]
-    if len(votes) >= SIGN_POOL_MIN:
-        sigs = pool_sign(keys, [msg] * len(keys))
+    if len(votes) >= SIGN_POOL_MIN and not any(bls):
+        sigs = pool_sign(keys, msgs)
     else:
         with ThreadPoolExecutor(SIGN_THREADS) as ex:
-            sigs = list(ex.map(lambda k: k.sign(msg), keys, chunksize=512))
+            sigs = list(ex.map(lambda k, m: k.sign(m), keys, msgs, chunksize=512))
     for v, s in zip(votes, sigs):
         v.signature = s
         v.wire()
-    return votes, [msg] * len(votes)
+    return votes, msgs
 
 
 _SIGN_POOL = []  # the worker processes of pool_sign, made at its first call
@@ -3075,13 +3115,17 @@ async def cs_run(keys, card, dev, traffic=None, home=None, inspect=None):
     from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
     from tendermint_tpu_torch.types.proposal import Proposal
     from tendermint_tpu_torch.types.validator import ValidatorSet
+    from tendermint_tpu_torch.types.vote import is_bls_key
 
     n = len(keys)
     t0 = time.perf_counter()
     bursts, bad_txs = traffic or abci_traffic(keys, [], top=CS_HEIGHTS)[:2]
     key_of = {k.pub_key().address(): k for k in keys}
+    # a BLS12-381 member carries its proof of possession (genesis checks
+    # them in one batch)
     gen = GenesisDoc(CHAIN_ID, genesis_time_ns=LITE_T0, validators=[
-        GenesisValidator(k.pub_key().address(), k.pub_key(), 10) for k in keys])
+        GenesisValidator(k.pub_key().address(), k.pub_key(), 10,
+                         pop=k.pop() if is_bls_key(k.pub_key()) else b"") for k in keys])
     vals = make_genesis_state(gen).validators.copy()
     vals.increment_proposer_priority(CS_OURS_AT - 1)
     ours = key_of[vals.get_proposer().address]
@@ -3296,6 +3340,7 @@ async def cs_restart(old, home, gen, lane, timer, h, ours_addr, card):
     before.  Returns the new node and the restart's numbers."""
     from tendermint_tpu_torch.consensus import ConsensusState
     from tendermint_tpu_torch.consensus import replay as cs_replay
+    from tendermint_tpu_torch.types.vote import is_bls_key
 
     own = {k: v for k, v in old.watch.signed.items() if k[0] == h}
     t0 = time.perf_counter()
@@ -3340,7 +3385,17 @@ async def cs_restart(old, home, gen, lane, timer, h, ours_addr, card):
                            is not None, "the replayed precommit")
     restart_ms = _ms(t0)
     resigned = {k: v for k, v in node.watch.signed.items() if k[0] == h}
-    if not resigned or any(v[1] != own.get(k, (0, None))[1] for k, v in resigned.items()):
+
+    def signed_part(d):
+        # a BLS12-381 key signs no timestamp: its FilePV re-signs with the
+        # stored signature and leaves the request's timestamp (as in the
+        # JAX package), so only the signed fields must be equal
+        if d is None or not is_bls_key(node.pv.get_pub_key()):
+            return d
+        return {k: v for k, v in d.items() if k != "timestamp_ns"}
+
+    if not resigned or any(signed_part(v[1]) != signed_part(own.get(k, (0, None))[1])
+                           for k, v in resigned.items()):
         raise AssertionError(f"the FilePV re-signed {sorted(resigned)} differently from what it "
                              f"signed before the stop ({sorted(own)})")
     if node.handshaker.n_blocks != 0 or len(catchup) != 1 or not records["msg"]:
@@ -3351,7 +3406,7 @@ async def cs_restart(old, home, gen, lane, timer, h, ours_addr, card):
         f"{node.init_ms:.3f} ms, of which reconstruct_last_commit_if_needed {rebuild[0]:.3f} ms "
         f"(host verifies of the seen commit); catchup_replay {catchup[0]:.3f} ms over "
         f"{sum(records.values())} WAL records {dict(records)}; the FilePV re-signed "
-        f"{len(resigned)} vote(s) byte-equal; down {_ms(t1) + stop_ms:.3f} ms in all ({card})")
+        f"{len(resigned)} vote(s) with equal signed fields; down {_ms(t1) + stop_ms:.3f} ms in all ({card})")
     return node, restart_ms
 
 
@@ -4056,6 +4111,30 @@ def store_height(home) -> int:
         return 0
     payload, _ = unseal(bytes(row[0]))
     return codec.loads(payload)["height"]
+
+
+class Beside:
+    """fn, a phase part whose work runs in subprocesses (it launches no
+    kernel in this process), on a thread of its own beside the phase the
+    caller runs next; join() waits for it, logs its seconds and re-raises
+    its error."""
+
+    def __init__(self, phase, fn):
+        self.phase, self.fn, self.error, self.t0 = phase, fn, None, time.perf_counter()
+        self.thread = threading.Thread(target=self._run, name=f"phase {phase}", daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            self.fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised by join()
+            self.error = e
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        log(f"  phase {self.phase} took {time.perf_counter() - self.t0:.3f} s, beside")
 
 
 def phase_cli(card):
@@ -9132,20 +9211,25 @@ KT_SR_TXS = 100  # (a): plain kvstore txs per height (no signed envelope: the la
 KT_INIT_TRIES = 64  # (a): homes `init` may write until its key's address suits (kt_init)
 KT_MIX_SR = 100  # (b): sr25519 members of the mixed 10,000-validator set
 KT_MIX_SECP = 4  # (b): secp256k1 members; the other members keep phase 3's ed25519 keys
+KT_MIX_BLS = 100  # (b): bls12381 members
+BLS_VALIDATORS = 100  # phase 20: the mixed set, power 10 each
+BLS_MEMBERS = 50  # phase 20: of them bls12381 (ours included); the others ed25519
+BLS_TXS = 100  # phase 20: plain kvstore txs per height
 
 
 class KeyTimer:
     """Host verify calls and ms by key type while the block runs: class-level
-    wrappers on the verify of sr25519, secp256k1 and multisig keys (a
-    multisig's time holds its sub-keys', which count on their own line
+    wrappers on the verify of sr25519, secp256k1, bls12381 and multisig keys
+    (a multisig's time holds its sub-keys', which count on their own line
     too)."""
 
     def __init__(self):
+        from tendermint_tpu_torch.crypto.bls.keys import BlsPubKey
         from tendermint_tpu_torch.crypto.keys import Secp256k1PubKey
         from tendermint_tpu_torch.crypto.multisig import MultisigThresholdPubKey
         from tendermint_tpu_torch.crypto.sr25519 import Sr25519PubKey
 
-        self.orig = {c: c.verify for c in (Sr25519PubKey, Secp256k1PubKey,
+        self.orig = {c: c.verify for c in (Sr25519PubKey, Secp256k1PubKey, BlsPubKey,
                                             MultisigThresholdPubKey)}
         self.ms, self.n = collections.Counter(), collections.Counter()
 
@@ -9174,24 +9258,27 @@ class KeyTimer:
                          for name in sorted(self.n)) or "none"
 
 
-def kt_init(root):
-    """`init --key-type sr25519` into fresh homes under `root` until its
+def kt_init(root, key_type="sr25519"):
+    """`init --key-type <key_type>` into fresh homes under `root` until its
     random key's address lies in [1/64, 1/2) of the address space, so that
-    kt_sr_keys finds CS_OURS_AT - 1 keys below it and the rest above it in
-    a few hundred derivations.  Returns the home, its key and the tries."""
+    kt_sr_keys (kt_bls_keys) finds CS_OURS_AT - 1 keys below it and the
+    rest above it in a few hundred derivations.  Returns the home, its key
+    and the tries."""
     from tendermint_tpu_torch import cli
     from tendermint_tpu_torch.privval import FilePV
 
+    want = {"sr25519": "tendermint/PrivKeySr25519",
+            "bls12381": "tendermint/PrivKeyBLS12381"}[key_type]
     for t in range(1, KT_INIT_TRIES + 1):
         home = os.path.join(root, f"home{t}")
         with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli.main(["--home", home, "init", "--key-type", "sr25519", "--chain-id",
+            rc = cli.main(["--home", home, "init", "--key-type", key_type, "--chain-id",
                            CHAIN_ID])
         if rc != 0:
-            raise AssertionError(f"init --key-type sr25519 exited {rc}")
+            raise AssertionError(f"init --key-type {key_type} exited {rc}")
         key = FilePV.load(*pv_files(home)).key.priv_key
-        if key.TYPE != "tendermint/PrivKeySr25519":
-            raise AssertionError(f"init --key-type sr25519 wrote a {key.TYPE} key")
+        if key.TYPE != want:
+            raise AssertionError(f"init --key-type {key_type} wrote a {key.TYPE} key")
         if 1 << 154 <= int.from_bytes(key.pub_key().address(), "big") < 1 << 159:
             return home, key, t
     raise AssertionError(f"no key of {KT_INIT_TRIES} init runs had a usable address")
@@ -9316,13 +9403,15 @@ def phase_sr_chain(card, dev):
 
 
 def kt_mixed_set(keys, commit):
-    """Phase 3's set with its first KT_MIX_SR + KT_MIX_SECP keys replaced
-    by sr25519 and secp256k1 keys, and its full commit: phase 3's signature
-    for every ed25519 member (its CommitSig, timestamp and all), a fresh
-    one for each new member.  Returns the set, the commit and the members'
-    indices by key type."""
+    """Phase 3's set with its first KT_MIX_SR + KT_MIX_SECP + KT_MIX_BLS
+    keys replaced by sr25519, secp256k1 and bls12381 keys, and its full
+    commit: phase 3's signature for every ed25519 member (its CommitSig,
+    timestamp and all), a fresh one for each new member (a BLS member's
+    over the timestamp-free layout).  Returns the set, the commit, the
+    members' indices by key type and the BLS keys."""
     import hashlib
 
+    from tendermint_tpu_torch.crypto.bls.keys import BlsPrivKey
     from tendermint_tpu_torch.crypto.keys import Secp256k1PrivKey
     from tendermint_tpu_torch.crypto.sr25519 import Sr25519PrivKey
     from tendermint_tpu_torch.types.block import Commit
@@ -9330,9 +9419,10 @@ def kt_mixed_set(keys, commit):
     from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
     from tendermint_tpu_torch.types.vote import Vote
 
+    bls = [BlsPrivKey.from_secret(b"mix-bls-%d" % i) for i in range(KT_MIX_BLS)]
     new = ([Sr25519PrivKey.from_secret(b"mix-sr-%d" % i) for i in range(KT_MIX_SR)]
            + [Secp256k1PrivKey(hashlib.sha256(b"mix-secp-%d" % i).digest())
-              for i in range(KT_MIX_SECP)])
+              for i in range(KT_MIX_SECP)] + bls)
     mset = ValidatorSet([Validator.new(k.pub_key(), 10) for k in keys[len(new):] + new])
     old = {cs.validator_address: cs for cs in commit.signatures}
     signer = {k.pub_key().address(): k for k in new}
@@ -9343,9 +9433,9 @@ def kt_mixed_set(keys, commit):
             sigs.append(old[v.address])
             continue
         vote = Vote(PRECOMMIT_TYPE, commit.height, 0, commit.block_id, LITE_T0 + i, v.address, i)
-        vote.signature = signer[v.address].sign(vote.sign_bytes(CHAIN_ID))
+        vote.signature = signer[v.address].sign(vote.sign_bytes_for_key(CHAIN_ID, v.pub_key))
         sigs.append(vote.commit_sig())
-    return mset, Commit(commit.height, 0, commit.block_id, sigs), idx
+    return mset, Commit(commit.height, 0, commit.block_id, sigs), idx, bls
 
 
 def phase_mixed(keys, commit, card, dev):
@@ -9360,12 +9450,23 @@ def phase_mixed(keys, commit, card, dev):
     from tendermint_tpu_torch.libs.tracing import FlightRecorder
     from tendermint_tpu_torch.types.block import Commit, CommitSig
 
+    from tendermint_tpu_torch.crypto.bls import scheme as bls_scheme
+
     t_start = time.perf_counter()
-    mset, full, idx = kt_mixed_set(keys, commit)
+    mset, full, idx, bls = kt_mixed_set(keys, commit)
     n_ed = len(idx["Ed25519PubKey"])
     log(f"  (b) a mixed set of {mset.size()}: {n_ed} ed25519 (phase 3's keys and signatures), "
-        f"{len(idx['Sr25519PubKey'])} sr25519, {len(idx['Secp256k1PubKey'])} secp256k1; keys and the new members' "
-        f"signatures in {(time.perf_counter() - t_start) * 1000:.3f} ms ({card})")
+        f"{len(idx['Sr25519PubKey'])} sr25519, {len(idx['Secp256k1PubKey'])} secp256k1, "
+        f"{len(idx['BlsPubKey'])} bls12381; keys and the new members' signatures in "
+        f"{(time.perf_counter() - t_start) * 1000:.3f} ms ({card})")
+    t0 = time.perf_counter()
+    pops = [(k.pub_key().bytes(), k.pop()) for k in bls]
+    t1 = time.perf_counter()
+    if not bls_scheme.batch_pop_verify(pops):
+        raise AssertionError("the mixed set's bls12381 proofs of possession failed their batch")
+    log(f"    (b) the {len(pops)} bls12381 members' proofs of possession: made in "
+        f"{(t1 - t0) * 1000:.3f} ms, one batch_pop_verify on the {bls_scheme.active_tier()} "
+        f"tier {_ms(t1):.3f} ms ({card})")
     rec = FlightRecorder(size=1 << 12)
     bv = bvm.BatchVerifier(device=dev, recorder=rec).install()
     bvm.TableCache(bv, tabulated=None).install()
@@ -9409,6 +9510,9 @@ def phase_mixed(keys, commit, card, dev):
     def flip(sig):
         return bytes([sig[0] ^ 1]) + sig[1:]
 
+    def flip_last(sig):
+        return sig[:-1] + bytes([sig[-1] ^ 1])
+
     def high_s(sig):
         return sig[:32] + (backend.SECP_N - int.from_bytes(sig[32:], "big")).to_bytes(32, "big")
 
@@ -9422,7 +9526,8 @@ def phase_mixed(keys, commit, card, dev):
         for kind, at, fix in (("ed25519", idx["Ed25519PubKey"][n_ed // 2], flip),
                               ("sr25519", idx["Sr25519PubKey"][-1], flip),
                               ("secp256k1", idx["Secp256k1PubKey"][0], flip),
-                              ("secp256k1 high-S", idx["Secp256k1PubKey"][-1], high_s)):
+                              ("secp256k1 high-S", idx["Secp256k1PubKey"][-1], high_s),
+                              ("bls12381", idx["BlsPubKey"][len(bls) // 2], flip_last)):
             bad = tampered(at, fix)
             check(f"1 one {kind} signature bad at #{at}",
                   lambda: mset.verify_commit(CHAIN_ID, bid, height, bad),
@@ -9459,25 +9564,16 @@ def phase_mixed(keys, commit, card, dev):
     return out
 
 
-def run_keytypes(keys, commit, card, dev, report):
-    """Phase 19 with its launch checks, its launches added to `report`."""
-    log("[19] the other key types on the card: (a) BASELINE config #3, 100 sr25519 validators "
-        "through the consensus core, and its multisig; (b) a mixed 10,000-validator set of "
-        "ed25519, sr25519 and secp256k1 keys")
+def run_mixed(keys, commit, card, dev, report):
+    """Phase 19 (b) with its launch checks, its launches added to `report`."""
+    log("[19] (b) the other key types on the card: a mixed 10,000-validator set of ed25519, "
+        "sr25519, secp256k1 and bls12381 keys (beside it, each in a process of its own: "
+        "18 (a), 19 (a) and 20)")
     launch_counts(zero=True)
-    t0 = time.perf_counter()
-    a = phase_sr_chain(card, dev)
-    log(f"  (a) launches from the node's start on: {a['launches']} (the node's run alone: "
-        f"{a['node']}); kernel 2 builds nothing: verify_commit consults the TableCache only "
-        f"for a commit whose signers are all ed25519, and no vote of this chain reaches the "
-        f"engine's lane; (a) took {a['s']:.3f} s ({card})")
     b = phase_mixed(keys, commit, card, dev)
     counts = launch_counts()
     checks = b["checks"]
-    log(f"  launches in phase 19: {counts}; (b) took {b['s']:.3f} s; phase 19 took "
-        f"{time.perf_counter() - t0:.3f} s ({card})")
-    if a["launches"]["ed25519_ladder"] or a["launches"]["ed25519_tabulated"]:
-        raise AssertionError(f"phase 19 (a) launched a verify kernel: {a['launches']}")
+    log(f"  launches in phase 19 (b): {counts}; (b) took {b['s']:.3f} s ({card})")
     full = checks["1 full commit, verify_commit"]["launches"]
     if full["ed25519_ladder"] != 1 or full["ed25519_tabulated"] or full["ed25519_window_tables"]:
         raise AssertionError(f"the full mixed commit did not launch the ladder alone, once: {full}")
@@ -9488,6 +9584,245 @@ def run_keytypes(keys, commit, card, dev, report):
     if cold["ed25519_window_tables"] != 1 or warm[pick] == 0 or warm[other]:
         raise AssertionError(f"the ed25519 members' commit was not served by kernel 2's tables "
                              f"and the mixed set's pick ({pick}): cold {cold}, warm {warm}")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+
+def check_sr_chain(a, card):
+    """Phase 19 (a)'s launch check, on child_phase's result."""
+    log(f"  (a) launches from the node's start on, in its process: {a['launches']} (the node's "
+        f"run alone: {a['node']}); kernel 2 builds nothing: verify_commit consults the "
+        f"TableCache only for a commit whose signers are all ed25519, and no vote of this "
+        f"chain reaches the engine's lane; (a) took {a['s']:.3f} s ({card})")
+    if a["launches"]["ed25519_ladder"] or a["launches"]["ed25519_tabulated"]:
+        raise AssertionError(f"phase 19 (a) launched a verify kernel: {a['launches']}")
+
+
+def kt_bls_keys(ours, n, n_bls):
+    """n keys holding `ours` (a bls12381 key), n_bls of them bls12381 and
+    the rest ed25519, such that ours is the round-0 proposer of CS_OURS_AT
+    at power 10 each (the CS_OURS_AT-th lowest address): seeded keys of
+    each type, CS_OURS_AT - 1 of them below ours and the rest above (the
+    last ed25519 slots wait for a key below while one is still missing).
+    Returns them and the keys derived."""
+    from tendermint_tpu_torch.crypto.bls.keys import BlsPrivKey
+    from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
+
+    addr = ours.pub_key().address()
+    below, above, derived = [], [], 0
+    need = {"bls": n_bls - 1, "ed": n - n_bls}
+    make = {"bls": lambda i: BlsPrivKey.from_secret(b"p20-bls-%d" % i),
+            "ed": lambda i: Ed25519PrivKey.from_secret(b"p20-ed-%d" % i)}
+    for kind in ("bls", "ed"):
+        i = 0
+        while need[kind]:
+            k = make[kind](i)
+            i, derived = i + 1, derived + 1
+            missing = CS_OURS_AT - 1 - len(below)
+            if k.pub_key().address() < addr:
+                if not missing:
+                    continue
+                below.append(k)
+            elif kind == "ed" and need[kind] <= missing:
+                continue
+            else:
+                above.append(k)
+            need[kind] -= 1
+    return [ours] + below + above, derived
+
+
+def phase_bls_chain(card, dev):
+    """Phase 20 (see the module docstring, 20).  Returns the launches from
+    the node's start on, the node's own, the part's seconds, the host
+    verifies by key type and the commit checks' flat batches."""
+    import tempfile
+
+    import numpy as np
+
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+    from tendermint_tpu_torch.crypto.bls import scheme as bls_scheme
+    from tendermint_tpu_torch.libs.tracing import FlightRecorder
+    from tendermint_tpu_torch.types.block import Commit
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    t_start = time.perf_counter()
+    root = tempfile.TemporaryDirectory(prefix="chip-smoke-bls-")
+    try:
+        t0 = time.perf_counter()
+        home, ours, tries = kt_init(root.name, "bls12381")
+        init_ms = _ms(t0)
+        # init's genesis: its one validator, ours, carries its proof of possession
+        init_gen = GenesisDoc.from_file(os.path.join(home, "config", "genesis.json"))
+        entry = init_gen.validators[0]
+        if (entry.pub_key != ours.pub_key() or entry.pop != ours.pop()
+                or not bls_scheme.pop_verify(ours.pub_key().bytes(), entry.pop)):
+            raise AssertionError("init --key-type bls12381 wrote no valid proof of possession "
+                                 "for its key into genesis.json")
+        t0 = time.perf_counter()
+        keys, derived = kt_bls_keys(ours, BLS_VALIDATORS, BLS_MEMBERS)
+        kinds = collections.Counter(type(k).__name__ for k in keys)
+        log(f"  init --key-type bls12381: {tries} home(s) in {init_ms:.3f} ms, our key "
+            f"{ours.pub_key().address().hex()[:12]} with its proof of possession in "
+            f"genesis.json; the other {BLS_VALIDATORS - 1} keys chosen of {derived} derived in "
+            f"{_ms(t0):.3f} ms: {dict(kinds)}; BLS tier {bls_scheme.active_tier()} ({card})")
+        rng = np.random.default_rng(20)
+        bursts = {h: [b"bls%d-%d=" % (h, i) + rng.bytes(16).hex().encode()
+                      for i in range(BLS_TXS)] for h in range(1, CS_HEIGHTS + 1)}
+        commits = {}
+
+        def inspect(node):
+            for h in range(1, CS_HEIGHTS + 1):
+                commit = (node.block_store.load_block(h + 1).last_commit if h < CS_HEIGHTS
+                          else node.block_store.load_seen_commit(h))
+                commits[h] = (node.state_store.load_validators(h), commit,
+                              node.block_store.load_block_commit(h),
+                              node.block_store.load_seen_commit(h))
+
+        before = launch_counts()
+        with KeyTimer() as kt:
+            t0 = time.perf_counter()
+            out = phase_consensus(keys, card, dev, traffic=(bursts, set()), home=home,
+                                  inspect=inspect)
+            run_s = time.perf_counter() - t0
+            node_line = kt.line()
+        log(f"  heights 1-{CS_HEIGHTS} on the mixed set in {run_s:.3f} s, [consensus] "
+            f"bls_aggregate_commits at its default (true); host verifies: {node_line} ({card})")
+        rec = FlightRecorder(size=1 << 10)
+        bvm.BatchVerifier(device=dev, recorder=rec).install()
+        flat = []
+        try:
+            with KeyTimer() as kt2:
+                for h, (vals, commit, block_commit, seen) in commits.items():
+                    for c in (commit, block_commit, seen):
+                        if c is not None and type(c) is not Commit:
+                            raise AssertionError(f"height {h} stored a {type(c).__name__}, not "
+                                                 "a per-vote Commit")
+                    types = collections.Counter(type(v.pub_key).__name__ for v in vals.validators)
+                    if types != {"BlsPubKey": BLS_MEMBERS,
+                                 "Ed25519PubKey": BLS_VALIDATORS - BLS_MEMBERS}:
+                        raise AssertionError(f"height {h}'s set is {dict(types)}")
+                    signed = [i for i, cs in enumerate(commit.signatures) if not cs.is_absent()]
+                    n_ed = sum(type(vals.validators[i].pub_key).__name__ == "Ed25519PubKey"
+                               for i in signed)
+                    seq = next_seq(rec)
+                    t0 = time.perf_counter()
+                    vals.verify_commit(CHAIN_ID, commit.block_id, h, commit)
+                    t1 = time.perf_counter()
+                    vals.verify_commit_trusting(CHAIN_ID, commit.block_id, h, commit, 1, 3)
+                    t2 = time.perf_counter()
+                    paths = [(e["path"], e["n"])
+                             for e in rec.events(since=seq, kinds=["verify.dispatch"])]
+                    if paths != [("device", n_ed)] * 2:
+                        raise AssertionError(f"height {h}'s commit checks dispatched {paths}, not "
+                                             f"one flat ladder batch of its {n_ed} ed25519 "
+                                             "signatures each")
+                    flat.append(n_ed)
+                    log(f"    height {h}'s commit: {len(signed)} signatures ({n_ed} ed25519, "
+                        f"{len(signed) - n_ed} bls12381); verify_commit {(t1 - t0) * 1000:.3f} "
+                        f"ms, verify_commit_trusting at 1/3 {(t2 - t1) * 1000:.3f} ms, each one "
+                        f"flat ladder batch of {n_ed} ({card})")
+            log(f"  the commits' checks: host verifies {kt2.line()} ({card})")
+        finally:
+            batch_hook.set_verifier(None)
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+        return {"launches": launches, "node": out["launches"], "s": time.perf_counter() - t_start,
+                "run_s": run_s, "host_ms": dict(kt.ms), "verifies": dict(kt.n), "flat": flat,
+                "frames": out["frames"]}
+    finally:
+        root.cleanup()
+
+
+CHILD_RESULT = "phase-child-result "  # the prefix of a PhaseChild's result line
+
+
+class PhaseChild:
+    """A phase run in a process of its own, beside what this process runs
+    meanwhile: `python -c` imports this script and calls `fn_name(*args)`,
+    which runs the phase on the card with that process's own launch
+    counters and returns a JSON-able result.  Its output is logged here as
+    it comes, each line tagged; join() waits, re-raises its failure and
+    returns its result."""
+
+    def __init__(self, tag, fn_name, *args):
+        code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as cs; "
+                f"print(cs.CHILD_RESULT + json.dumps(cs.{fn_name}(*json.loads(sys.argv[2]))), "
+                "flush=True)")
+        self.tag, self.result, self.tail = tag, None, collections.deque(maxlen=40)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-c", code, HERE, json.dumps(args)],
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True, env=child_env(), cwd=HERE)
+        self.reader = threading.Thread(target=self._read, name=f"phase {tag} output",
+                                       daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            line = line.rstrip("\n")
+            if line.startswith(CHILD_RESULT):
+                self.result = json.loads(line[len(CHILD_RESULT):])
+            else:
+                self.tail.append(line)
+                log(f"[{self.tag}] {line}")
+
+    def join(self, timeout=900):
+        try:
+            rc = self.proc.wait(timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        self.reader.join()
+        if rc != 0 or self.result is None:
+            raise AssertionError(f"phase {self.tag} in its own process exited {rc}: "
+                                 + "\n".join(self.tail))
+        log(f"  phase {self.tag} took {time.perf_counter() - self.t0:.3f} s in its own process, "
+            "beside")
+        return self.result
+
+
+def child_phase(name, card, picked=None, device="cuda", sizes=None):
+    """A PhaseChild's entry point: the kernel library (built by phase 1 of
+    the parent run) loaded, then phase 18 (a), 19 (a) or 20 on `device`
+    (the card; the CPU to rehearse, with `sizes` overriding this module's
+    size constants).  Returns the phase's launches (and 19 (a)'s
+    numbers)."""
+    import torch
+
+    from tendermint_tpu_torch.ops import _build
+
+    globals().update(sizes or {})
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _build.lib()
+    report = {k: {"launches": 0} for k in launch_counts()}
+    if name == "18 a":
+        run_staking(make_keys(N_VALIDATORS), card, dev, picked, report)
+    elif name == "19 a":
+        launch_counts(zero=True)
+        a = phase_sr_chain(card, dev)
+        return {k: a[k] for k in ("launches", "node", "s", "host_ms", "verifies")}
+    elif name == "20":
+        run_bls(card, dev, report)
+    else:
+        raise ValueError(f"no phase {name!r} runs in a process of its own")
+    return {k: r["launches"] for k, r in report.items()}
+
+
+def run_bls(card, dev, report):
+    """Phase 20 with its launch checks, its launches added to `report`."""
+    log(f"[20] BLS12-381 keys on a mixed set: {BLS_VALIDATORS} validators ({BLS_MEMBERS} "
+        f"bls12381, ours from init --key-type bls12381, the rest ed25519) through the consensus "
+        f"core, per-vote commits (aggregate commits: ROADMAP 1.9b)")
+    launch_counts(zero=True)
+    out = phase_bls_chain(card, dev)
+    counts = launch_counts()
+    log(f"  launches in phase 20: {counts} (the node's run: {out['node']}); {out['frames']} vote "
+        f"frames accepted; phase 20 took {out['s']:.3f} s ({card})")
+    if counts["ed25519_ladder"] == 0 or out["node"]["ed25519_ladder"] == 0:
+        raise AssertionError(f"the ladder was not launched for phase 20's ed25519 members: "
+                             f"{counts}, the node's {out['node']}")
     for name, c in counts.items():
         report[name]["launches"] += c
 
@@ -9531,6 +9866,30 @@ def add_resources(report, log_text, sm_count):
         r["bound_share"] = r["bound_ms"] / r["ms"]
 
 
+def bls_tier_built(t0, card):
+    """Build (or find) the BLS12-381 C tier from the checkout's
+    tendermint_tpu_torch/csrc/bls12_381.c into tendermint_tpu_torch/_build/,
+    named by the source's hash; fails unless scheme.active_tier() is "c"
+    on that library."""
+    import hashlib
+
+    from tendermint_tpu_torch.crypto.bls import ctier, scheme
+
+    lib = ctier._load_lib()
+    tier = scheme.active_tier()
+    src = os.path.join(ctier._csrc_path(), "bls12_381.c")
+    with open(src, "rb") as f:
+        src_hash = hashlib.sha256(f.read()).hexdigest()[:16]
+    path = os.path.realpath(lib._name) if lib is not None else None
+    build = os.path.realpath(os.path.join(HERE, "tendermint_tpu_torch", "_build"))
+    if (tier != "c" or path is None or os.path.dirname(path) != build
+            or not path.endswith(f"-{src_hash}.so")):
+        raise AssertionError(f"BLS12-381 tier {tier}, library {path}: not the C tier built "
+                             f"from {src} into {build}")
+    log(f"  BLS12-381 C tier built from tendermint_tpu_torch/csrc/bls12_381.c in "
+        f"{time.perf_counter() - t0:.3f} s ({path}); scheme.active_tier() = {tier!r} ({card})")
+
+
 def main() -> int:
     try:
         import torch
@@ -9545,6 +9904,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
 
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
     from tendermint_tpu_torch.crypto import batch_verifier as bvm
@@ -9558,8 +9919,13 @@ def main() -> int:
 
     log("[1] setup")
     t0 = time.perf_counter()
-    _build.lib()
-    log(f"  CUDA kernels built in {time.perf_counter() - t0:.3f} s ({_build.library_path()})")
+    # the BLS12-381 C tier (host code: cc into tendermint_tpu_torch/_build/)
+    # builds on a thread while nvcc builds the kernels
+    with ThreadPoolExecutor(1) as ex:
+        bls_build = ex.submit(bls_tier_built, t0, card)
+        _build.lib()
+        log(f"  CUDA kernels built in {time.perf_counter() - t0:.3f} s ({_build.library_path()})")
+        bls_build.result()
     with open(_build.ptxas_log_path()) as f:
         ptxas_log = f.read()
     for line in ptxas_log.splitlines():
@@ -9722,9 +10088,7 @@ def main() -> int:
                              "check in phase 10")
     for name, c in counts.items():
         report[name]["launches"] += c
-    t0 = time.perf_counter()
-    phase_cli(card)
-    log(f"  phase 10 (b) took {time.perf_counter() - t0:.3f} s")
+    log("  phase 10 (b), the CLI, runs beside phase 13")
 
     log("[11] two port nodes of the 10,000-validator chain over TCP: four relays, node B "
         "through the CLI fast-syncing from A and following it")
@@ -9787,7 +10151,12 @@ def main() -> int:
         "tenants from its gateway")
     launch_counts(zero=True)
     t0 = time.perf_counter()
-    out = phase_stockhome(keys, card, dev, ss)
+    log("[10] (b) the CLI in a subprocess on the card, beside phase 13")
+    cli = Beside("10 (b)", lambda: phase_cli(card))
+    try:
+        out = phase_stockhome(keys, card, dev, ss)
+    finally:
+        cli.join()
     counts = launch_counts()
     stages = out["stages"]
     log(f"  launches in phase 13 on D (A's and B's, in their own processes, are not counted): "
@@ -9857,10 +10226,31 @@ def main() -> int:
     for name, c in counts.items():
         report[name]["launches"] += c
 
-    run_staking(keys, card, dev, picked, report)
-    run_chaos_rotation(card, dev, picked, report)
-    run_keytypes(keys, commit, card, dev, report)
-
+    # phase 18 (a) in a process of its own (its own launch counters, read
+    # there) beside phases 17 with 18 (b) and 19 (b) in this one; phases
+    # 19 (a) and 20 likewise, beside 19 (b)
+    t0 = time.perf_counter()
+    kids = {"18 a": PhaseChild("18 a", "child_phase", "18 a", card, picked)}
+    try:
+        run_chaos_rotation(card, dev, picked, report)
+        kids.update((tag, PhaseChild(tag, "child_phase", tag, card)) for tag in ("19 a", "20"))
+        run_mixed(keys, commit, card, dev, report)
+    finally:
+        done, failed = {}, []
+        for tag, kid in kids.items():
+            try:
+                done[tag] = kid.join()
+            except AssertionError as e:
+                failed.append(e)
+    if failed:
+        raise failed[0]
+    check_sr_chain(done["19 a"], card)
+    for tag in ("18 a", "20"):
+        for name, c in done[tag].items():
+            report[name]["launches"] += c
+    log(f"  launches in phase 18 (a) and 20, each in its process: {done['18 a']}, "
+        f"{done['20']}; phases 17, 18, 19 and 20 took {time.perf_counter() - t0:.3f} s "
+        f"together ({card})")
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
     keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share",

@@ -34,15 +34,6 @@ the app-side source of truth, the consensus ValidatorSet follows.
 validators at every epoch boundary deterministically (a barrel shift of
 the power assignment in owner order), so a chain held at steady state
 still exercises set updates every epoch with zero client traffic.
-
-The port carries no BLS keys yet (ROADMAP 1.9): every bls12381 branch
-answers as in JAX where JAX needs no BLS arithmetic (an unknown key type
-or a wrong length 21, a missing proof of possession 22, a key in use 23).
-Where JAX would verify a proof of possession, the port refuses the tx with
-22 and a log naming 1.9, in CheckTx and DeliverTx alike, so that a tx from
-outside cannot halt the node; where JAX would take a bls12381 genesis
-validator's address (the operator's own input), the port raises TypeError
-naming 1.9.
 """
 
 from __future__ import annotations
@@ -205,10 +196,9 @@ class StakingApplication(BankApplication):
     @staticmethod
     def _address_of(key_type: str, pub_key: bytes) -> bytes:
         if key_type == "bls12381":
-            raise TypeError(
-                f"bls12381 genesis validator {pub_key.hex()[:16]}: BLS keys are not "
-                "ported yet (ROADMAP 1.9)"
-            )
+            from ..crypto.bls.keys import BlsPubKey
+
+            return BlsPubKey(pub_key).address()
         from ..crypto.keys import Ed25519PubKey
 
         return Ed25519PubKey(pub_key).address()
@@ -320,13 +310,13 @@ class StakingApplication(BankApplication):
                 # (validator_updates_from_abci would reject the whole block)
                 if not pop:
                     return CODE_BAD_POP, "bls12381 rotation requires a proof of possession", None
-                # refused, not raised: a tx from outside must not halt the node
-                return (
-                    CODE_BAD_POP,
-                    "bls12381 rotation: verifying a proof of possession needs BLS keys, "
-                    "which are not ported yet (ROADMAP 1.9)",
-                    None,
-                )
+                try:
+                    from ..crypto.bls.keys import BlsPubKey
+
+                    if not BlsPubKey(new_pub).verify_pop(pop):
+                        return CODE_BAD_POP, "invalid proof of possession", None
+                except Exception:
+                    return CODE_BAD_POP, "invalid bls12381 pubkey", None
             return CODE_OK, "", self._apply_rotate(
                 sender, fee, key_type, new_pub, pop, expected_nonce
             )

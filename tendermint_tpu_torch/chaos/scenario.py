@@ -65,7 +65,9 @@ rotate), so every assumption downstream — verify-table identity, BLS
 aggregation uniformity, lite-client bisection — gets exercised exactly
 the way a production set change would exercise it.
 In the port a `bls` migration raises NotImplementedError naming ROADMAP
-1.9 (BLS keys) before any tx is made.
+1.9b before any tx is made: it ends in a uniformly BLS12-381 set, whose
+commits the reference package folds into aggregate commits, which the
+port does not carry yet.
 
 The executor (`ScenarioRunner`) drives any object satisfying the Rig
 surface; `InProcRig` adapts a list of in-process Nodes (the test path),
@@ -520,8 +522,8 @@ class InProcRig:
     async def valset(self, op: str, i: int, **kv) -> None:
         if op == "migrate" and kv.get("scheme") == "bls12381":
             raise NotImplementedError(
-                f"valset migrate node {i}: a bls12381 migration needs BLS12-381 keys "
-                "(ROADMAP 1.9), which are not ported yet"
+                f"valset migrate node {i}: a bls12381 migration ends in a uniformly "
+                "BLS12-381 set, whose aggregate commits (ROADMAP 1.9b) are not ported yet"
             )
         from ..apps.staking import (
             make_bond_tx,

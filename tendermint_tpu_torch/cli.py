@@ -71,7 +71,9 @@ def cmd_init(args) -> int:
         gen = GenesisDoc(
             chain_id=cfg.base.chain_id,
             genesis_time_ns=time.time_ns(),
-            validators=[GenesisValidator(pv.address(), pv.get_pub_key(), 10)],
+            validators=[
+                GenesisValidator(pv.address(), pv.get_pub_key(), 10, pop=_pv_pop(pv))
+            ],
         )
         gen.save_as(gen_file)
     print(f"Initialized node in {cfg.home} (chain_id={cfg.base.chain_id})")
@@ -130,6 +132,16 @@ def _testnet_peer_indices(i: int, n: int):
         offsets.append(k)
         k *= 2
     return sorted({(i + off) % n for off in offsets} - {i})
+
+
+def _pv_pop(pv) -> bytes:
+    """Proof of possession for a FilePV's consensus key — non-empty only
+    for BLS12-381 keys (genesis PoP enforcement requires it; other
+    schemes don't carry one)."""
+    priv = getattr(getattr(pv, "key", None), "priv_key", None)
+    if priv is not None and hasattr(priv, "pop"):
+        return priv.pop()
+    return b""
 
 
 def _load_or_draw_pv(cfg: Config, draw_key):
@@ -206,7 +218,10 @@ def cmd_testnet(args, draw_key=None) -> int:
     genesis = GenesisDoc(
         chain_id=chain_id,
         genesis_time_ns=time.time_ns(),
-        validators=[GenesisValidator(pv.address(), pv.get_pub_key(), 10) for pv in pvs],
+        validators=[
+            GenesisValidator(pv.address(), pv.get_pub_key(), 10, pop=_pv_pop(pv))
+            for pv in pvs
+        ],
         consensus_params=consensus_params,
     )
     base_port = args.base_port
@@ -249,6 +264,16 @@ def cmd_testnet(args, draw_key=None) -> int:
             cfg.consensus.timeout_prevote_delta = 0.002
             cfg.consensus.timeout_precommit = 0.02
             cfg.consensus.timeout_precommit_delta = 0.002
+            if key_type == "bls12381":
+                # BLS timing model: a reference-tier verify is a pairing,
+                # so a proposal can cost more wall time to CHECK than the
+                # ed25519-grade propose timeout — receivers would prevote
+                # nil before the proposal lands and the net churns rounds.
+                # Timeouts sit above pairing latency, as in the reference
+                # package.
+                cfg.consensus.timeout_propose = 2.0
+                cfg.consensus.timeout_prevote = 0.5
+                cfg.consensus.timeout_precommit = 0.5
             cfg.consensus.timeout_commit = 0.0
             cfg.consensus.skip_timeout_commit = True
             cfg.consensus.peer_gossip_sleep_duration = 0.005
@@ -996,7 +1021,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument(
         "--key-type", choices=list(KEY_TYPES), default="ed25519",
         help="consensus key scheme for the generated priv_validator key "
-        "(bls12381 is not ported: ROADMAP 1.9)",
+        "(an all-bls12381 chain needs bls_aggregate_commits = false: ROADMAP 1.9b)",
     )
     sp.set_defaults(fn=cmd_init)
 
@@ -1037,8 +1062,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sp.add_argument(
         "--key-type", choices=list(KEY_TYPES), default="ed25519",
-        help="consensus key scheme for every generated validator key "
-        "(bls12381 is not ported: ROADMAP 1.9)",
+        help="consensus key scheme for every generated validator key; "
+        "bls12381 genesis validators carry proofs of possession; an all-"
+        "bls12381 net runs with [consensus] bls_aggregate_commits = false "
+        "until aggregate commits are ported (ROADMAP 1.9b)",
     )
     sp.set_defaults(fn=cmd_testnet)
 

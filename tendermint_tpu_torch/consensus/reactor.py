@@ -13,9 +13,9 @@ Two deviations from the JAX reactor (ROADMAP 3):
   sits inside that `try`; any other exception is the peer's data and
   reaches the connection, which stops the peer.  A False verdict keeps the
   JAX behaviour exactly.
-- Aggregate (BLS) commits are not ported (ROADMAP 1.9): an `agg_commit`
+- Aggregate (BLS) commits are not ported (ROADMAP 1.9b): an `agg_commit`
   frame, and catchup over a folded height (`_send_agg_commit`), raise
-  TypeError naming 1.9, as ConsensusState's aggregate inputs do.
+  TypeError naming 1.9b, as ConsensusState's aggregate inputs do.
 
 Reference parity: consensus/reactor.go (channels 0x20-0x23 :24-27,
 Receive:214 demux, SwitchToConsensus:102, broadcastHasVoteMessage:422,
@@ -722,7 +722,7 @@ class ConsensusReactor(Reactor):
             elif kind == "vote_batch":
                 await self._receive_vote_batch(peer, ps, msg)
             elif kind == "agg_commit":
-                raise TypeError("aggregate (BLS) commits are not ported yet (ROADMAP 1.9)")
+                raise TypeError("aggregate (BLS) commits are not ported yet (ROADMAP 1.9b)")
         elif chan_id == VOTE_SET_BITS_CHANNEL:
             if kind == "vote_set_bits":
                 our_votes = None
@@ -1408,8 +1408,8 @@ class ConsensusReactor(Reactor):
 
     async def _send_agg_commit(self, peer, ps: PeerRoundState, commit) -> bool:
         """Catchup for a folded (aggregate) height: the JAX reactor ships the
-        stored AggregateCommit as one frame.  Not ported (ROADMAP 1.9)."""
-        raise TypeError("aggregate (BLS) commits are not ported yet (ROADMAP 1.9)")
+        stored AggregateCommit as one frame.  Not ported (ROADMAP 1.9b)."""
+        raise TypeError("aggregate (BLS) commits are not ported yet (ROADMAP 1.9b)")
 
     async def _send_votes(
         self, peer, ps: PeerRoundState, vote_set, relay_ok: bool = True

@@ -19,10 +19,14 @@ The `decide_proposal` / `do_prevote` / `set_proposal` methods are instance
 attributes precisely so byzantine tests can hijack them
 (consensus/state.go:124-126).
 
-Deviation (ROADMAP 3): the BLS tier is not ported (ROADMAP 1.9).  A commit
-is embedded unfolded — the JAX package's fold returns an ed25519 commit
-unchanged too — and the aggregate-commit inputs raise TypeError naming
-1.9: `add_agg_commit_input`, and an aggregate seen commit met by
+Deviation (ROADMAP 3): aggregate (BLS) commits are not ported (ROADMAP
+1.9b).  `_maybe_fold_commit` stands where the JAX package folds: a commit
+the JAX package would fold (a uniformly BLS12-381 set with `[consensus]
+bls_aggregate_commits` on) raises TypeError naming 1.9b, so no per-vote
+commit is ever embedded where the JAX package embeds an AggregateCommit;
+every other commit (mixed sets, the knob off) passes unchanged, as in the
+JAX package.  The aggregate-commit inputs raise TypeError naming 1.9b too:
+`add_agg_commit_input`, and an aggregate seen commit met by
 `reconstruct_last_commit_if_needed`.  The aggregate catchup lane
 (`_apply_aggregate_commit`, `_finalize_from_aggregate`) is therefore left
 out: nothing could reach it.
@@ -49,6 +53,31 @@ from ..types.vote_set import VoteSet
 from .ticker import TimeoutInfo, TimeoutTicker
 from .types import GotVoteFromUnwantedRoundError, HeightVoteSet, RoundState, RoundStep
 from .wal import NilWAL
+
+
+def folds_in_reference(commit, val_set) -> bool:
+    """True iff the JAX package's `fold_commit` folds this commit (its
+    types/agg_commit.py): a per-vote commit of a uniformly BLS12-381 set of
+    its own size, with at least one signature for the block, a
+    power-weighted median time and signatures that all decompress.  In
+    every other case the JAX package keeps the per-vote commit."""
+    from ..state.state import weighted_median_timestamp
+    from ..types.vote import set_is_uniform_bls
+
+    if not isinstance(commit, Commit) or not commit.signatures:
+        return False
+    if val_set.size() != len(commit.signatures) or not set_is_uniform_bls(val_set):
+        return False
+    sigs = [cs.signature for cs in commit.signatures if cs.is_for_block()]
+    if not sigs:
+        return False
+    try:
+        weighted_median_timestamp(commit, val_set)
+    except ValueError:
+        return False
+    from ..crypto.bls import scheme
+
+    return scheme.aggregate_signatures(sigs) is not None
 
 
 class VoteHeightMismatchError(VoteError):
@@ -202,7 +231,7 @@ class ConsensusState(Service):
             )
         if not isinstance(seen_commit, Commit):
             raise TypeError(
-                "aggregate (BLS) seen commits are not ported yet (ROADMAP 1.9)"
+                "aggregate (BLS) seen commits are not ported yet (ROADMAP 1.9b)"
             )
         last_precommits = commit_to_vote_set(state.chain_id, seen_commit, state.last_validators)
         if not last_precommits.has_two_thirds_majority():
@@ -290,7 +319,7 @@ class ConsensusState(Service):
     async def add_agg_commit_input(self, commit, peer_id: str = "") -> None:
         """The JAX package's catchup fast-path for aggregate-commit nets;
         the BLS tier is not ported."""
-        raise TypeError("aggregate (BLS) commits are not ported yet (ROADMAP 1.9)")
+        raise TypeError("aggregate (BLS) commits are not ported yet (ROADMAP 1.9b)")
 
     async def add_block_part_input(
         self, height: int, round_: int, part: Part, peer_id: str = ""
@@ -640,7 +669,9 @@ class ConsensusState(Service):
         if rs.height == 1:
             commit = Commit(0, 0, BlockID(), [])
         elif rs.last_commit is not None and rs.last_commit.has_two_thirds_majority():
-            commit = rs.last_commit.make_commit()
+            commit = self._maybe_fold_commit(
+                rs.last_commit.make_commit(), self.sm_state.last_validators
+            )
         else:
             self.log.error("cannot propose: no commit for the previous block")
             return None
@@ -650,6 +681,23 @@ class ConsensusState(Service):
         )
         parts = block.make_part_set(BLOCK_PART_SIZE_BYTES)
         return block, parts
+
+    def _maybe_fold_commit(self, commit, val_set):
+        """Where the JAX package folds a +2/3 commit into one aggregate BLS
+        signature (a uniformly BLS12-381 set with `bls_aggregate_commits`
+        on).  Aggregate commits are not ported (ROADMAP 1.9b), so a commit
+        the JAX package would fold raises TypeError rather than go out per
+        vote; every other commit passes unchanged, as there."""
+        if not getattr(self.config, "bls_aggregate_commits", True):
+            return commit
+        if folds_in_reference(commit, val_set):
+            raise TypeError(
+                f"height {commit.height}: the validator set is uniformly bls12381 and "
+                "[consensus] bls_aggregate_commits is on, so the commit folds into an "
+                "AggregateCommit, which is not ported yet (ROADMAP 1.9b); set "
+                "bls_aggregate_commits = false"
+            )
+        return commit
 
     def _last_commit_signed_count(self) -> int:
         """Signer count of rs.last_commit — the speculative-proposal
@@ -884,13 +932,16 @@ class ConsensusState(Service):
         if not ok:
             raise RuntimeError("cannot finalize commit: no +2/3 majority")
         await self._finalize_block(
-            block_id, lambda: rs.votes.precommits(rs.commit_round).make_commit()
+            block_id,
+            lambda: self._maybe_fold_commit(
+                rs.votes.precommits(rs.commit_round).make_commit(), rs.validators
+            ),
         )
 
     async def _finalize_block(self, block_id, seen_commit_fn) -> None:
         """The tail of finalize_commit: `block_id` and the lazily-built
         seen commit come from the precommit vote set (the JAX package also
-        feeds it from a verified AggregateCommit, ROADMAP 1.9)."""
+        feeds it from a verified AggregateCommit, ROADMAP 1.9b)."""
         # one delivery in flight at a time: H's apply must complete (and
         # its state swap in) before H+1's persist/apply can start
         await self._ensure_delivered()
@@ -1025,7 +1076,9 @@ class ConsensusState(Service):
             addr = self.priv_validator.get_pub_key().address()
             if rs.validators.get_proposer().address != addr:
                 return
-            commit = rs.last_commit.make_commit()
+            commit = self._maybe_fold_commit(
+                rs.last_commit.make_commit(), state.last_validators
+            )
             block = self.block_exec.create_proposal_block(rs.height, state, commit, addr)
             parts = block.make_part_set(BLOCK_PART_SIZE_BYTES)
             self._spec_proposal = (

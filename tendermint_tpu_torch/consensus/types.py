@@ -147,7 +147,7 @@ class RoundState:
     last_validators: Optional[ValidatorSet] = None
     triggered_timeout_precommit: bool = False
     # Aggregate-commit catchup: kept for the JAX package's layout; it stays
-    # None until the BLS tier is ported (ROADMAP 1.9).
+    # None until the BLS tier is ported (ROADMAP 1.9b).
     catchup_agg_commit: Optional[object] = None
 
     def event_dict(self) -> dict:

@@ -1,0 +1,44 @@
+"""BLS12-381 min-pk signatures: pubkeys in G1 (48B), signatures in G2 (96B).
+
+The port's copy of the reference package's BLS subsystem.  BLS12-381
+validator keys load, sign, verify and prove possession here; a mixed
+ed25519 + BLS set commits one signature per vote, its BLS members
+verified on the host and its ed25519 members on the card.  The reference
+package also folds a uniformly BLS set's +2/3 commit into ONE 96-byte
+aggregate signature + signer bitmap ("Performance of EdDSA and BLS
+Signatures in Committee-Based Consensus", arXiv:2302.00418); that fold is
+not ported yet (ROADMAP 1.9b), but the aggregate helpers it needs
+(`fast_aggregate_verify`, `batch_pop_verify`, the memo) are here, and the
+genesis proof-of-possession check already uses them.
+
+Two host tiers, as in the reference package:
+
+* C fast tier (`ctier` loading csrc/bls12_381.c): Montgomery-limb field
+  tower, multi-pairing Miller loop with one shared final exponentiation,
+  subgroup-checked decompress and the aggregate/apk fold scalar work —
+  compiled on demand (hostprep discipline) into `_build/`, GIL-dropping,
+  far faster than the pure tier per aggregate check.  The default
+  whenever a toolchain exists; `scheme.active_tier()` /
+  `tendermint_verify_bls_tier` report it.
+* reference tier (`fields`/`curve`/`pairing`/`hash_to_curve`/`scheme`):
+  pure-Python field towers and pairings — the differential oracle the C
+  tier is verdict- and bit-pinned against, and the dependency-less
+  no-toolchain path.
+
+The reference package's third tier, a batched device fold of the pure
+lanes' multi-point sums (`[tpu] bls_jax_aggregation`), is not ported
+(ROADMAP 2.1): `scheme.set_jax_aggregation(True)` raises, and the node's
+`check_ported` refuses the setting first.
+
+Key classes (`BlsPubKey`/`BlsPrivKey`) live in `crypto/bls/keys.py` and
+slot into the polymorphic `crypto.PubKey` verify routing, so ed25519 and
+sr25519 validator sets are untouched.
+"""
+
+from .keys import (  # noqa: F401
+    BlsPrivKey,
+    BlsPubKey,
+    PUBKEY_SIZE,
+    SIGNATURE_SIZE,
+)
+from . import scheme  # noqa: F401

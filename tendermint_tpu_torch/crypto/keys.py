@@ -12,7 +12,8 @@ ed25519 signing, public-key derivation and single verification go through
 the package's C library (csrc/sha512_batch.c, loaded by hostprep), with the
 pure-Python ed25519_math path only where that library cannot be built.
 secp256k1 runs on crypto/backend.py's pure-Python ECDSA (RFC 6979 nonces).
-bls12381 keys are not ported: they raise TypeError naming ROADMAP 1.9.
+bls12381 keys live in crypto/bls/ (a C pairing tier on the host, with the
+pure-Python tower as its reference).
 """
 
 from __future__ import annotations
@@ -258,9 +259,6 @@ class Secp256k1PrivKey(PrivKey):
 
 # ---------------------------------------------------------------------------
 
-_BLS_REFUSED = "bls12381 keys are not ported yet (ROADMAP 1.9)"
-
-
 def pubkey_from_dict(d: dict) -> PubKey:
     t = d.get("type")
     for cls in (Ed25519PubKey, Secp256k1PubKey):
@@ -271,7 +269,9 @@ def pubkey_from_dict(d: dict) -> PubKey:
     if t == Sr25519PubKey.TYPE:
         return Sr25519PubKey(d["value"])
     if t == "tendermint/PubKeyBLS12381":
-        raise TypeError(_BLS_REFUSED)
+        from .bls import BlsPubKey  # lazy: the field tower is import-heavy
+
+        return BlsPubKey(d["value"])
     from .multisig import MultisigThresholdPubKey  # cyclic at import time
 
     if t == MultisigThresholdPubKey.TYPE:
@@ -292,7 +292,9 @@ def privkey_from_dict(d: dict) -> PrivKey:
     if t == Sr25519PrivKey.TYPE:
         return Sr25519PrivKey(d["value"])
     if t == "tendermint/PrivKeyBLS12381":
-        raise TypeError(_BLS_REFUSED)
+        from .bls import BlsPrivKey
+
+        return BlsPrivKey(d["value"])
     raise ValueError(f"unknown privkey type {t!r}")
 
 
@@ -311,5 +313,7 @@ def generate_priv_key(key_type: str = "ed25519") -> PrivKey:
 
         return Sr25519PrivKey.generate()
     if key_type == "bls12381":
-        raise TypeError(_BLS_REFUSED)
+        from .bls import BlsPrivKey
+
+        return BlsPrivKey.generate()
     raise ValueError(f"unknown key type {key_type!r} (want one of {KEY_TYPES})")

@@ -68,7 +68,7 @@ def verify_commit_run(
     pairs: (block_id, height, commit) per height.  Returns per-height ok.
     The JAX package folds aggregate (BLS) commits of the run into one
     pairing product; the port carries none yet and raises TypeError
-    (ROADMAP 1.9)."""
+    (ROADMAP 1.9b)."""
     from ..types.validator import mixed_batch_verify
 
     idxs: List[Tuple[int, int]] = []  # (pair_idx, sig_idx)
@@ -78,7 +78,7 @@ def verify_commit_run(
         if not isinstance(commit, Commit):
             raise TypeError(
                 f"verify_commit_run over {type(commit).__name__}: aggregate (BLS) commits "
-                "are not ported yet (ROADMAP 1.9)"
+                "are not ported yet (ROADMAP 1.9b)"
             )
         try:
             if val_set.size() != commit.size():

@@ -59,10 +59,22 @@ from .types.events import EventBus
 from .types.genesis import GenesisDoc
 
 
-def check_ported(config: Config) -> None:
+def check_ported(config: Config, genesis_doc: Optional[GenesisDoc] = None) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a setting
-    whose subsystem the port does not carry yet."""
+    whose subsystem the port does not carry yet; with `genesis_doc`, also
+    for a genesis set that is uniformly bls12381 while `[consensus]
+    bls_aggregate_commits` is on (its commits fold into aggregate commits,
+    ROADMAP 1.9b)."""
     cfg = config
+    if genesis_doc is not None and cfg.consensus.bls_aggregate_commits:
+        from .types.vote import set_is_uniform_bls
+
+        if set_is_uniform_bls(genesis_doc):
+            raise NotImplementedError(
+                "a uniformly bls12381 genesis set with consensus.bls_aggregate_commits "
+                "folds its commits into aggregate commits, which are not ported yet "
+                "(ROADMAP 1.9b); set bls_aggregate_commits = false"
+            )
     unported = (
         (cfg.tpu.mesh == "on", 'tpu.mesh = "on": the multi-card verify mesh', "2.2",
          'tpu.mesh = "auto"'),
@@ -177,7 +189,7 @@ class Node(Service):
         db_backend: Optional[str] = None,
         device=None,
     ):
-        check_ported(config)
+        check_ported(config, genesis_doc)
         super().__init__("node")
         self.config = config
         # the engine's card, resolved before anything is opened
@@ -330,6 +342,26 @@ class Node(Service):
         from .crypto import backend as _crypto_backend
 
         self.metrics_provider.verify.backend_tier.set(_crypto_backend.active_tier())
+        # The BLS pairing tier, as a gauge: probed only when this chain
+        # carries BLS validators (an ed25519-only node neither compiles
+        # csrc/bls12_381.c nor warns about a missing toolchain), and on an
+        # executor thread, so that a cold build never stalls the loop.
+        from .types.vote import is_bls_key
+
+        if any(is_bls_key(v.pub_key) for v in self.genesis_doc.validators):
+            from .crypto.bls import scheme as _bls_scheme
+
+            def _probe_bls_tier() -> int:
+                return 1 if _bls_scheme.active_tier() == "c" else 2
+
+            _bls_gauge = self.metrics_provider.verify.bls_tier
+            asyncio.get_running_loop().run_in_executor(
+                None, _probe_bls_tier
+            ).add_done_callback(
+                lambda fut: _bls_gauge.set(fut.result())
+                if fut.exception() is None
+                else None
+            )
         # crash-persistent flight spool ([instrumentation] flight_spool):
         # recorder events journal to disk on a cadence OFF the recording
         # hot path, so a SIGKILL leaves the last seconds of spans for

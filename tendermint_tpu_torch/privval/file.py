@@ -69,8 +69,8 @@ def _atomic_write_json(path: str, obj: dict) -> None:
 @dataclass
 class FilePVKey:
     """privval/file.go:42 — the immutable key half.  The priv key may be
-    ed25519, sr25519 or secp256k1; a bls12381 key file raises TypeError
-    naming ROADMAP 1.9 (privkey_from_dict)."""
+    any registered consensus key type (ed25519 default; sr25519,
+    secp256k1 and bls12381 ride `testnet --key-type`)."""
 
     address: bytes
     pub_key: PubKey
@@ -218,8 +218,10 @@ class FilePV(PrivValidator):
         return self.key.address
 
     def sign_vote(self, chain_id: str, vote: Vote) -> None:
-        """privval/file.go:296 signVote (sign-bytes through
-        Vote.sign_bytes_for_key, as every verification path routes them)."""
+        """privval/file.go:296 signVote.  BLS validators sign the
+        timestamp-free aggregation domain (sign_bytes_for_key routing) —
+        the same-HRS re-sign logic then short-circuits on byte equality
+        since timestamps never enter the message."""
         step = _VOTE_STEP.get(vote.type)
         if step is None:
             raise ValueError(f"unknown vote type {vote.type}")
@@ -329,9 +331,7 @@ class FilePV(PrivValidator):
 
 
 def load_or_gen_file_pv(config) -> FilePV:
-    """DefaultNewNode's privval hook (node/node.go:115) from a Config.  A
-    `base.key_type` of bls12381 raises generate_priv_key's TypeError
-    naming ROADMAP 1.9."""
+    """DefaultNewNode's privval hook (node/node.go:115) from a Config."""
     return FilePV.load_or_generate(
         config.priv_validator_key_file(),
         config.priv_validator_state_file(),

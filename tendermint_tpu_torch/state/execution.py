@@ -1,5 +1,5 @@
 """BlockExecutor: the commit pipeline (the port's copy of
-tendermint_tpu/state/execution.py; ed25519 validator updates only).
+tendermint_tpu/state/execution.py).
 
 Reference parity: state/execution.go (BlockExecutor:23, ApplyBlock:126,
 CreateProposalBlock:92, Commit:197, execBlockOnProxyApp:248,
@@ -27,19 +27,32 @@ from .validation import InvalidBlockError, validate_block
 def validator_updates_from_abci(updates: List[abci.ValidatorUpdate]) -> List[Validator]:
     """types/protobuf.go PB2TM.ValidatorUpdates.
 
-    ed25519 keys are admitted.  The JAX package also admits bls12381 keys
-    (with a proof of possession); the port carries no BLS keys yet and
-    raises TypeError naming ROADMAP 1.9.
+    ed25519 and bls12381 keys are admitted.  A BLS key with non-zero power
+    MUST carry a proof of possession (`vu.pop`): FastAggregateVerify —
+    what fold_commit/agg_commit rely on once a set goes uniform-BLS — is
+    rogue-key-sound only over PoP-checked keys, and the genesis PoP gate
+    (types/genesis.py:_validate_bls_pops) never sees ABCI-driven joins.
+    Removals (power 0) skip the check: the key is leaving, not signing.
     """
     out = []
     for vu in updates:
         if vu.pub_key_type == "ed25519":
             pk = Ed25519PubKey(vu.pub_key)
         elif vu.pub_key_type == "bls12381":
-            raise TypeError(
-                f"bls12381 validator update {vu.pub_key.hex()[:16]}: BLS keys are not "
-                "ported yet (ROADMAP 1.9)"
-            )
+            from ..crypto.bls.keys import BlsPubKey
+
+            pk = BlsPubKey(vu.pub_key)
+            if vu.power != 0:
+                if not vu.pop:
+                    raise ValueError(
+                        f"bls12381 validator update {vu.pub_key.hex()[:16]} "
+                        "lacks a proof of possession"
+                    )
+                if not pk.verify_pop(vu.pop):
+                    raise ValueError(
+                        f"bls12381 validator update {vu.pub_key.hex()[:16]} "
+                        "has an invalid proof of possession"
+                    )
         else:
             raise ValueError(f"unsupported pubkey type {vu.pub_key_type}")
         out.append(Validator(pk.address(), pk, vu.power))

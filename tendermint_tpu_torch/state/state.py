@@ -144,11 +144,11 @@ def median_time(commit: Commit, validators: ValidatorSet) -> int:
     """Power-weighted median of commit timestamps (state/state.go:166
     MedianTime; BFT-time spec).  Deterministic across nodes.  The JAX
     package also takes an aggregate (BLS) commit here; the port carries
-    none yet (ROADMAP 1.9)."""
+    none yet (ROADMAP 1.9b)."""
     if not isinstance(commit, Commit):
         raise TypeError(
             f"median_time of {type(commit).__name__}: aggregate (BLS) commits are not "
-            "ported yet (ROADMAP 1.9)"
+            "ported yet (ROADMAP 1.9b)"
         )
     return weighted_median_timestamp(commit, validators)
 

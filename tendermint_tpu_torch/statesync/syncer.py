@@ -27,7 +27,7 @@ candidates are exhausted the caller falls back to fastsync-from-genesis.
 EngineCommitPreverify sends the ed25519 signatures of a commit to the
 engine; sr25519, secp256k1 and multisig signers verify on the host in
 mixed_batch_verify, as in the JAX package.  Aggregate (BLS) commits do not
-decode (ROADMAP 1.9), so it has no aggregate branch.
+decode (ROADMAP 1.9b), so it has no aggregate branch.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """PartSetHeader, BlockID, CommitSig, Commit, Header, Block and
 SignedHeader: the port's copy of tendermint_tpu/types/block.py, with its
-to_dict / from_dict layout and codec tags.  Aggregate (BLS) commits are not
-carried: a dict holding one raises TypeError (ROADMAP 1.9).
+to_dict / from_dict layout and codec tags.  A commit of a set with
+BLS12-381 members carries one signature per vote, its BLS slots signed
+over the timestamp-free layout.  Aggregate (BLS) commits are not carried:
+a dict holding one raises TypeError (ROADMAP 1.9b).
 
 Reference parity: types/block.go (Header:323, CommitSig:452, Commit:556,
 SignedHeader:748, BlockID:893).  Times are integer unix nanoseconds
@@ -140,6 +142,9 @@ class CommitSig:
     def is_absent(self) -> bool:
         return self.block_id_flag == BLOCK_ID_FLAG_ABSENT
 
+    def is_for_block(self) -> bool:
+        return self.block_id_flag == BLOCK_ID_FLAG_COMMIT
+
     def block_id(self, commit_block_id: BlockID) -> BlockID:
         """The BlockID this sig signed over (types/block.go:497)."""
         if self.block_id_flag == BLOCK_ID_FLAG_COMMIT:
@@ -237,12 +242,24 @@ class Commit:
 
     def vote_sign_bytes(self, chain_id: str, val_idx: int, pub_key=None) -> bytes:
         """Sign-bytes for slot val_idx (types/block.go:621) — only the
-        timestamp differs between validators.  `pub_key` keeps the JAX
-        package's signature; every key type the port carries (ed25519,
-        sr25519, secp256k1, multisig) signs the timestamped layout, and
-        BLS keys, which would not, are not ported (ROADMAP 1.9)."""
+        timestamp differs between validators.  When `pub_key` identifies a
+        BLS validator, the timestamp-free aggregation domain applies (the
+        slot in a mixed-set commit routes per scheme)."""
         cs = self.signatures[val_idx]
         bid = cs.block_id(self.block_id)
+        if pub_key is not None:
+            from .vote import is_bls_key
+
+            if is_bls_key(pub_key):
+                return canonical.canonical_vote_sign_bytes_no_ts(
+                    chain_id,
+                    canonical.PRECOMMIT_TYPE,
+                    self.height,
+                    self.round,
+                    bid.hash,
+                    bid.parts_header.total,
+                    bid.parts_header.hash,
+                )
         return canonical.canonical_vote_sign_bytes(
             chain_id,
             canonical.PRECOMMIT_TYPE,
@@ -302,12 +319,12 @@ codec.register("tm/Commit")(Commit)
 
 def commit_from_dict(d: Optional[dict]) -> Optional[Commit]:
     """Decode a stored or wire commit dict.  The JAX package also decodes
-    aggregate (BLS) commits here; the port carries none yet (ROADMAP 1.9)."""
+    aggregate (BLS) commits here; the port carries none yet (ROADMAP 1.9b)."""
     if d is None:
         return None
     if "agg_sig" in d:
         raise TypeError(
-            "aggregate (BLS) commits are not ported yet (ROADMAP 1.9): this slice carries "
+            "aggregate (BLS) commits are not ported yet (ROADMAP 1.9b): this slice carries "
             "per-vote ed25519 commits only"
         )
     return Commit.from_dict(d)

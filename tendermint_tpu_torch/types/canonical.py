@@ -1,8 +1,8 @@
 """Canonical sign-bytes for votes and proposals.
 
 Reference parity: types/canonical.go (CanonicalVote/CanonicalProposal),
-types/vote.go:83 (SignBytes).  The timestamp-free (BLS) vote sign-bytes
-wait for the BLS tier (ROADMAP 1.9).
+types/vote.go:83 (SignBytes), with the timestamp-free vote sign-bytes
+that BLS validators sign.
 
 Batch-first layout choice: height/round/pol_round are fixed64 (as in the
 reference) and the embedded BlockID/timestamp have fixed shapes, so all vote
@@ -68,6 +68,35 @@ def canonical_vote_sign_bytes(
     # every vote's sign-bytes the same static length so a commit's batch is
     # one fixed-shape [N, L] array.
     payload += field_fixed64(5, timestamp_ns, emit_zero=True)
+    payload += field_bytes(6, chain_id)
+    return length_prefixed(payload)
+
+
+def canonical_vote_sign_bytes_no_ts(
+    chain_id: str,
+    vote_type: int,
+    height: int,
+    round_: int,
+    block_id_hash: bytes,
+    block_id_psh_total: int,
+    block_id_psh_hash: bytes,
+) -> bytes:
+    """Timestamp-FREE vote sign-bytes — the BLS aggregation domain.
+
+    Every +2/3 precommit for a block signs this identical message, which is
+    what lets commit assembly fold them into ONE aggregate signature
+    checked by a single pairing (FastAggregateVerify requires a common
+    message).  Field 5 (timestamp) is omitted entirely, so these bytes can
+    never collide with the timestamped layout above (which always emits
+    the field-5 header, even for ts=0) — a signature in one domain cannot
+    be replayed in the other.
+    """
+    payload = field_varint(1, vote_type)
+    payload += field_fixed64(2, height)
+    payload += field_fixed64(3, round_)
+    bid = _canonical_block_id(block_id_hash, block_id_psh_total, block_id_psh_hash)
+    if bid:
+        payload += field_bytes(4, bid)
     payload += field_bytes(6, chain_id)
     return length_prefixed(payload)
 

@@ -92,9 +92,12 @@ class DuplicateVoteEvidence(Evidence):
             raise ValueError("blockIDs are the same - not a real duplicate vote")
         if pub_key.address() != a.validator_address:
             raise ValueError("address does not match pubkey")
-        if not pub_key.verify(a.sign_bytes(chain_id), a.signature):
+        # per-scheme sign-bytes: BLS votes sign the timestamp-free domain,
+        # and a BLS equivocation is two DIFFERENT messages (block ids
+        # differ), so the evidence stays meaningful without timestamps
+        if not pub_key.verify(a.sign_bytes_for_key(chain_id, pub_key), a.signature):
             raise ValueError("invalid signature on VoteA")
-        if not pub_key.verify(b.sign_bytes(chain_id), b.signature):
+        if not pub_key.verify(b.sign_bytes_for_key(chain_id, pub_key), b.signature):
             raise ValueError("invalid signature on VoteB")
 
     def validate_basic(self) -> None:

@@ -1,8 +1,7 @@
 """Genesis document: the port's copy of tendermint_tpu/types/genesis.py.
-Validators carry any key type the port has (ed25519, sr25519, secp256k1;
-pubkey_from_dict raises TypeError on bls12381, ROADMAP 1.9), so the BLS
-proof-of-possession check has nothing to check; the `pop` field keeps the
-JSON layout.
+Validators carry any key type the port has (ed25519, sr25519, secp256k1,
+bls12381); every BLS12-381 validator must carry a valid proof of
+possession, checked in one batch.
 
 Reference parity: types/genesis.go (GenesisValidator:31, GenesisDoc:38,
 ValidateAndComplete:67).
@@ -27,8 +26,11 @@ class GenesisValidator:
     pub_key: PubKey
     power: int
     name: str = ""
-    # BLS12-381 proof of possession in the JAX package's layout; BLS keys
-    # are not ported (ROADMAP 1.9)
+    # BLS12-381 proof of possession (96B signature over the pubkey, DST
+    # BLS_POP_*).  REQUIRED for BLS validators: FastAggregateVerify — the
+    # single pairing check behind aggregate commits — is only sound against
+    # rogue-key attacks when every key in the set proved possession, and
+    # genesis is where this framework's validator keys enter the set.
     pop: bytes = b""
 
     def to_dict(self) -> dict:
@@ -90,8 +92,39 @@ class GenesisDoc:
                 raise ValueError(f"incorrect address for validator {v} in the genesis file")
             if not v.address:
                 v.address = v.pub_key.address()
+        self._validate_bls_pops()
         if self.genesis_time_ns == 0:
             self.genesis_time_ns = time.time_ns()
+
+    def _validate_bls_pops(self) -> None:
+        """Every BLS12-381 validator must carry a VALID proof of
+        possession.  FastAggregateVerify — the single pairing check behind
+        aggregate commits — is only sound against rogue-key attacks for
+        PoP-checked key sets, and genesis is the ONLY door BLS keys have
+        into a validator set besides ABCI updates, which carry their own
+        proof (state/execution.py)."""
+        from .vote import is_bls_key
+
+        bls = [v for v in self.validators if is_bls_key(v.pub_key)]
+        if not bls:
+            return
+        for v in bls:
+            if not v.pop:
+                raise ValueError(
+                    f"BLS validator {v.name or v.address.hex()} has no proof of "
+                    "possession; aggregate verification would be rogue-key-forgeable"
+                )
+        from ..crypto.bls import scheme
+
+        if scheme.batch_pop_verify([(v.pub_key.bytes(), v.pop) for v in bls]):
+            return
+        for v in bls:  # attribute the liar
+            if not scheme.pop_verify(v.pub_key.bytes(), v.pop):
+                raise ValueError(
+                    f"invalid BLS proof of possession for validator "
+                    f"{v.name or v.address.hex()}"
+                )
+        raise ValueError("BLS proof-of-possession batch check failed")
 
     # -- JSON file round-trip ---------------------------------------------
     def to_json(self) -> str:

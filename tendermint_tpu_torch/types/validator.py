@@ -1,8 +1,9 @@
 """Validator and ValidatorSet: proposer-priority math, change sets and
 batched commit verification.
 
-The port's copy of tendermint_tpu/types/validator.py, for every key type
-but bls12381 (ROADMAP 1.9).
+The port's copy of tendermint_tpu/types/validator.py, for every key type.
+A commit of a set with BLS12-381 members is checked per vote; aggregate
+(BLS) commits are not carried yet (ROADMAP 1.9b).
 Reference parity: types/validator.go (Validator:16), types/validator_set.go
 (ValidatorSet:42, IncrementProposerPriority:86, UpdateWithChangeSet:624,
 VerifyCommit:629, VerifyFutureCommit:703, VerifyCommitTrusting:754).  The

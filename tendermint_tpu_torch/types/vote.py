@@ -1,5 +1,4 @@
-"""Vote type + errors (a copy of tendermint_tpu/types/vote.py without the
-BLS sign-bytes, ROADMAP 1.9).
+"""Vote type + errors (a copy of tendermint_tpu/types/vote.py).
 
 Reference parity: types/vote.go (Vote:48, CommitSig:60, Verify:124,
 ValidateBasic:136).
@@ -23,6 +22,14 @@ class VoteError(Exception):
 def is_bls_key(pub_key) -> bool:
     """True for BLS12-381 keys."""
     return getattr(pub_key, "TYPE", None) == "tendermint/PubKeyBLS12381"
+
+
+def set_is_uniform_bls(val_set) -> bool:
+    """True iff EVERY validator key is BLS12-381: the JAX package's
+    aggregation gate (its types/agg_commit.py).  Mixed sets keep per-vote
+    commits and per-scheme verify routing."""
+    vals = val_set.validators
+    return bool(vals) and all(is_bls_key(v.pub_key) for v in vals)
 
 
 class ErrVoteConflictingVotes(VoteError):
@@ -72,12 +79,26 @@ class Vote:
             self.timestamp_ns,
         )
 
+    def bls_sign_bytes(self, chain_id: str) -> bytes:
+        """Timestamp-free sign-bytes — the message BLS validators sign so
+        that every precommit for one block is aggregatable into a single
+        pairing check (canonical.canonical_vote_sign_bytes_no_ts)."""
+        return canonical.canonical_vote_sign_bytes_no_ts(
+            chain_id,
+            self.type,
+            self.height,
+            self.round,
+            self.block_id.hash,
+            self.block_id.parts_header.total,
+            self.block_id.parts_header.hash,
+        )
+
     def sign_bytes_for_key(self, chain_id: str, pub_key) -> bytes:
-        """Per-scheme sign-bytes routing.  Every key type this slice carries
-        signs the timestamped layout; a BLS key (timestamp-free domain)
-        raises until ROADMAP 1.9."""
+        """Per-scheme sign-bytes routing: BLS validators sign (and are
+        verified against) the timestamp-free domain; every other key type
+        keeps the reference layout."""
         if is_bls_key(pub_key):
-            raise TypeError("BLS vote sign-bytes are not ported yet (ROADMAP 1.9)")
+            return self.bls_sign_bytes(chain_id)
         return self.sign_bytes(chain_id)
 
     def commit_sig(self) -> CommitSig:
@@ -100,7 +121,7 @@ class Vote:
         verifies through crypto.batch_verifier instead."""
         if pub_key.address() != self.validator_address:
             raise VoteError("invalid validator address")
-        if not pub_key.verify(self.sign_bytes(chain_id), self.signature):
+        if not pub_key.verify(self.sign_bytes_for_key(chain_id, pub_key), self.signature):
             raise VoteError("invalid signature")
 
     def validate_basic(self) -> None:

@@ -5,9 +5,8 @@ JAX package's (tendermint_tpu/apps), tolerance exact.
   from the same seeded keys: each gives a transcript of its codes, logs,
   events, validator updates, query answers, balances and app hashes, and
   the two transcripts must be equal (the JAX test's own assertions are
-  checked on both). The bls12381 rotation with a proof of possession is
-  where the port refuses with 22 and a log naming ROADMAP 1.9; every
-  bls12381 branch that needs no BLS arithmetic answers as in JAX.
+  checked on both), the bls12381 rotation with its proof of possession
+  included.
 - A seeded hypothesis property: random mixes of bank and stake txs, some
   malformed, some with bad nonces, fees or signatures, over 20 blocks give
   equal responses, validator updates and app hashes.
@@ -289,15 +288,14 @@ def staking_bond_rejects_consensus_key_held_by_other_owner(r):
 
 
 def staking_rotate_to_bls_requires_valid_pop(r):
-    """The JAX case up to where it verifies a proof of possession: no PoP is
-    22 in both packages (and an unknown type or a wrong length 21); with a
-    PoP, JAX verifies it (22 for another key's, OK for the key's own) and
-    the port refuses it with 22 and a log naming ROADMAP 1.9 in CheckTx and
-    DeliverTx, leaving its state as it was, so such a tx cannot halt a port
-    node."""
-    from tendermint_tpu.crypto.bls.keys import BlsPrivKey
-
+    """The JAX case: no PoP is 22 (and an unknown type or a wrong length
+    21); another key's PoP is 22 and the key's own is accepted, in CheckTx
+    and DeliverTx alike.  Each package's BLS key signs its own PoP."""
     P = r.P
+    bls_mod = (__import__("tendermint_tpu_torch.crypto.bls.keys", fromlist=["BlsPrivKey"])
+               if P is PORT else __import__("tendermint_tpu.crypto.bls.keys",
+                                            fromlist=["BlsPrivKey"]))
+    BlsPrivKey = bls_mod.BlsPrivKey
     app = P.staking.StakingApplication()
     owner = key(P, 5)
     r.block(app, 1, P.staking.make_bond_tx(owner, 40, 0))
@@ -308,22 +306,16 @@ def staking_rotate_to_bls_requires_valid_pop(r):
     assert r.check(app, rotate(owner, "bls12381", pub, 1)).code == P.staking.CODE_BAD_POP
     assert r.deliver(app, rotate(owner, "bls12381", pub[:47], 1)).code == P.staking.CODE_BAD_KEY
     assert r.deliver(app, rotate(owner, "bls12382", pub, 1)).code == P.staking.CODE_BAD_KEY
-    before = (app._state_digest(), dict(app.validators), dict(app.accounts))
     other_pop = BlsPrivKey.from_secret(b"\x08" * 32).pop()
-    for pop in (other_pop, bls.pop()):
-        tx = rotate(owner, "bls12381", pub, 1, pop=pop)
-        if P is PORT:
-            # answered off the transcript: JAX answers these by BLS arithmetic
-            for res in (app.deliver_tx(P.t.RequestDeliverTx(tx=tx)),
-                        app.check_tx(P.t.RequestCheckTx(tx=tx))):
-                assert res.code == P.staking.CODE_BAD_POP
-                assert "ROADMAP 1.9" in res.log
-            assert (app._state_digest(), dict(app.validators), dict(app.accounts)) == before
-    if P is JAX:
-        assert app.deliver_tx(jabci.RequestDeliverTx(
-            tx=rotate(owner, "bls12381", pub, 1, pop=other_pop))).code == jstaking.CODE_BAD_POP
-        assert app.deliver_tx(jabci.RequestDeliverTx(
-            tx=rotate(owner, "bls12381", pub, 1, pop=bls.pop()))).code == jstaking.CODE_OK
+    assert r.check(app, rotate(owner, "bls12381", pub, 1, pop=other_pop)).code == \
+        P.staking.CODE_BAD_POP
+    assert r.deliver(app, rotate(owner, "bls12381", pub, 1, pop=other_pop)).code == \
+        P.staking.CODE_BAD_POP
+    assert r.check(app, rotate(owner, "bls12381", pub, 1, pop=bls.pop())).code == P.staking.CODE_OK
+    assert r.deliver(app, rotate(owner, "bls12381", pub, 1, pop=bls.pop())).code == \
+        P.staking.CODE_OK
+    r.note("updates", app.end_block(r.t.RequestEndBlock(height=2)).validator_updates)
+    r.note("commit", app.commit())
 
 
 def staking_rotate_rejects_key_in_use_and_bad_lengths(r):
@@ -493,12 +485,20 @@ def test_strip_fee_agrees_with_the_mempools_priority(payload):
 
 
 def test_a_bls12381_genesis_validator_raises_naming_1_9():
+    """A bls12381 genesis validator registers under its BLS address in both
+    packages: equal InitChain answers, validator records and state digests
+    (the name is from when the port refused it)."""
     from tendermint_tpu.crypto.bls.keys import BlsPrivKey
 
     pub = BlsPrivKey.from_secret(b"\x07" * 32).pub_key().bytes()
-    req = pabci.RequestInitChain(validators=[pabci.ValidatorUpdate("bls12381", pub, 10, b"\x01")])
-    with pytest.raises(TypeError, match=r"ROADMAP 1\.9"):
-        pstaking.StakingApplication().init_chain(req)
+    out = []
+    for P in (JAX, PORT):
+        app = P.staking.StakingApplication()
+        req = P.t.RequestInitChain(validators=[P.t.ValidatorUpdate("bls12381", pub, 10, b"\x01")])
+        res = app.init_chain(req)
+        out.append((norm(res), sorted((k, norm(v)) for k, v in app.validators.items()),
+                    app._state_digest()))
+    assert out[0] == out[1] and out[1][1]
 
 
 # -- fault 3.13 -----------------------------------------------------------------------

@@ -14,8 +14,10 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import tendermint_tpu.crypto.bls  # noqa: F401 - registers pk/bls12381, sk/bls12381
 import tendermint_tpu.crypto.multisig  # noqa: F401 - registers pk/multisig
 import tendermint_tpu.crypto.sr25519  # noqa: F401 - registers tm/PubKeySr25519
+import tendermint_tpu_torch.crypto.bls  # noqa: F401
 import tendermint_tpu_torch.crypto.multisig  # noqa: F401
 import tendermint_tpu_torch.crypto.sr25519  # noqa: F401
 from tendermint_tpu.encoding import codec as jcodec
@@ -40,7 +42,10 @@ def _instances(ns):
     sr = cls("tm/PubKeySr25519")(bytes.fromhex(
         "d43593c715fdd31c61141abd04a99fd6822c8558854ccde39a5684e7a56da27d"))
     secp = cls("sk/secp256k1")(b"\x05" * 32)
+    bls = cls("sk/bls12381")(b"\x06" * 32)
     return {
+        "pk/bls12381": bls.pub_key(),
+        "sk/bls12381": bls,
         "pk/ed25519": c["keys"][0].pub_key(),
         "tm/PubKeySr25519": sr,
         "pk/secp256k1": secp.pub_key(),

@@ -436,9 +436,32 @@ def test_exec_helpers_match_jax():
         ]
 
     assert helpers(PORT) == helpers(JAX)
-    with pytest.raises(TypeError, match="1.9"):
-        PORT.execution.validator_updates_from_abci(
-            [PORT.abci.ValidatorUpdate("bls12381", b"\x01" * 48, 10, pop=b"\x02" * 96)])
+
+    # bls12381 updates: admitted with a valid proof of possession, refused
+    # without one or with another key's, removals unchecked — as in JAX
+    from tendermint_tpu.crypto.bls.keys import BlsPrivKey
+
+    bls, other = BlsPrivKey.from_secret(b"upd-bls"), BlsPrivKey.from_secret(b"upd-other")
+    pub = bls.pub_key().bytes()
+
+    def bls_updates(ns):
+        a = ns.abci
+        out = []
+        for vu in (a.ValidatorUpdate("bls12381", pub, 10, pop=bls.pop()),
+                   a.ValidatorUpdate("bls12381", pub, 0),
+                   a.ValidatorUpdate("bls12381", pub, 10),
+                   a.ValidatorUpdate("bls12381", pub, 10, pop=other.pop()),
+                   a.ValidatorUpdate("bls12381", b"\x01" * 48, 10, pop=b"\x02" * 96)):
+            res = outcome(lambda vu=vu: ns.execution.validator_updates_from_abci([vu]))
+            if res[0] == "ok":
+                res = [(v.address, v.pub_key.to_dict(), v.voting_power)
+                       for v in ns.execution.validator_updates_from_abci([vu])]
+            out.append(res)
+        return out
+
+    ours = bls_updates(PORT)
+    assert ours == bls_updates(JAX)
+    assert ours[0][0][0] == bls.pub_key().address() and ours[2][0] == "ValueError"
 
 
 def test_provisional_next_state_matches_jax():

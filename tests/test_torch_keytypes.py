@@ -24,6 +24,7 @@ import pytest
 import tendermint_tpu.cli as jcli
 import tendermint_tpu.crypto.backend as jbackend
 import tendermint_tpu.crypto.keys as jkeys
+import tendermint_tpu.crypto.bls.keys as jbls
 import tendermint_tpu.crypto.sr25519 as jsr
 import tendermint_tpu.types as jtypes
 from tendermint_tpu.crypto import armor as jarmor
@@ -37,6 +38,7 @@ from tendermint_tpu.libs.bitarray import BitArray as JBitArray
 from tendermint_tpu.privval import file as jfile
 from tendermint_tpu_torch import cli as pcli
 from tendermint_tpu_torch.crypto import armor as parmor
+from tendermint_tpu_torch.crypto.bls import keys as pbls
 from tendermint_tpu_torch.crypto import backend as pbackend
 from tendermint_tpu_torch.crypto import batch as batch_hook
 from tendermint_tpu_torch.crypto import batch_verifier as bvm
@@ -664,7 +666,7 @@ def test_signature_cap_refuses_a_multisig_validators_vote_as_jax():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("key_type", ["ed25519", "sr25519", "secp256k1"])
+@pytest.mark.parametrize("key_type", ["ed25519", "sr25519", "secp256k1", "bls12381"])
 def test_key_and_genesis_files_cross_load(key_type, tmp_path):
     for writer, reader in ((pfile, jfile), (jfile, pfile)):
         d = tmp_path / writer.__name__.split(".")[0]
@@ -681,13 +683,16 @@ def test_key_and_genesis_files_cross_load(key_type, tmp_path):
         other.key.file_path = kf + ".again"
         other.key.save()
         assert open(kf + ".again", "rb").read() == raw
-    pub = pfile.FilePV.load(kf, sf).get_pub_key()
+    ppv = pfile.FilePV.load(kf, sf)
+    pub = ppv.get_pub_key()
+    pop = pcli._pv_pop(ppv)
+    assert (pop != b"") == (key_type == "bls12381")
     gen = pgenesis.GenesisDoc(CHAIN, genesis_time_ns=T0, validators=[
-        pgenesis.GenesisValidator(pub.address(), pub, 10)])
+        pgenesis.GenesisValidator(pub.address(), pub, 10, pop=pop)])
     gen.save_as(str(tmp_path / "genesis.json"))
     jpub = jkeys.pubkey_from_dict(pub.to_dict())
     jgen = jtypes.GenesisDoc(CHAIN, genesis_time_ns=T0, validators=[
-        jtypes.GenesisValidator(jpub.address(), jpub, 10)])
+        jtypes.GenesisValidator(jpub.address(), jpub, 10, pop=pop)])
     jgen.save_as(str(tmp_path / "genesis-jax.json"))
     assert open(tmp_path / "genesis.json", "rb").read() == open(tmp_path / "genesis-jax.json",
                                                                 "rb").read()
@@ -710,6 +715,8 @@ def _patch_draws(monkeypatch):
     def secp(cls, s):
         return cls(hashlib.sha256(s).digest())
 
+    for blsmod in (jbls, pbls):
+        monkeypatch.setattr(blsmod.BlsPrivKey, "generate", _seq_draws(blsmod.BlsPrivKey, b"bls", ed))
     for mod, srmod in ((jkeys, jsr), (pkeys, psr)):
         monkeypatch.setattr(mod.Ed25519PrivKey, "generate", _seq_draws(mod.Ed25519PrivKey, b"ed", ed))
         monkeypatch.setattr(srmod.Sr25519PrivKey, "generate",
@@ -723,7 +730,7 @@ FILES = ("config/config.toml", "config/genesis.json", "config/node_key.json",
          "config/priv_validator_key.json", "data/priv_validator_state.json")
 
 
-@pytest.mark.parametrize("key_type", ["sr25519", "secp256k1"])
+@pytest.mark.parametrize("key_type", ["sr25519", "secp256k1", "bls12381"])
 def test_init_and_testnet_trees_equal_jax(key_type, tmp_path, monkeypatch):
     _patch_draws(monkeypatch)
     for cmd, argv, homes in (
@@ -744,7 +751,8 @@ def test_init_and_testnet_trees_equal_jax(key_type, tmp_path, monkeypatch):
                 assert a == (out["p"] / home / f).read_bytes(), (cmd, home, f)
         key = json.loads((out["p"] / homes[0] / FILES[3]).read_text())
         want = {"sr25519": "tendermint/PrivKeySr25519",
-                "secp256k1": "tendermint/PrivKeySecp256k1"}[key_type]
+                "secp256k1": "tendermint/PrivKeySecp256k1",
+                "bls12381": "tendermint/PrivKeyBLS12381"}[key_type]
         assert key["priv_key"]["type"] == want
         gen = pgenesis.GenesisDoc.from_file(str(out["j"] / homes[0] / FILES[1]))
         assert base64.b64decode(json.loads((out["p"] / homes[0] / FILES[1]).read_text())[
@@ -752,12 +760,18 @@ def test_init_and_testnet_trees_equal_jax(key_type, tmp_path, monkeypatch):
 
 
 def test_bls_stays_refused_naming_the_roadmap_item(tmp_path):
-    for fn in (lambda: pkeys.pubkey_from_dict({"type": "tendermint/PubKeyBLS12381",
-                                               "value": b"\x00" * 48}),
-               lambda: pkeys.generate_priv_key("bls12381"),
-               lambda: pfile.FilePV.generate(str(tmp_path / "k"), str(tmp_path / "s"),
-                                             "bls12381")):
-        assert outcome(fn) == ("TypeError", "bls12381 keys are not ported yet (ROADMAP 1.9)")
+    """bls12381 keys load, generate and make FilePVs as in the JAX package
+    (the name is from when the port refused them)."""
+    raw = pbls.BlsPrivKey.from_secret(b"kt-bls").pub_key().bytes()
+    d = {"type": "tendermint/PubKeyBLS12381", "value": raw}
+    ours, theirs = pkeys.pubkey_from_dict(d), jkeys.pubkey_from_dict(d)
+    assert (ours.to_dict(), ours.address()) == (theirs.to_dict(), theirs.address())
+    assert type(pkeys.generate_priv_key("bls12381")) is pbls.BlsPrivKey
+    pv = pfile.FilePV.generate(str(tmp_path / "k"), str(tmp_path / "s"), "bls12381")
+    assert jkeys.pubkey_from_dict(pv.get_pub_key().to_dict()).address() == pv.address()
+    bad = {"type": "tendermint/PubKeyBLS12381", "value": b"\x00" * 47}
+    assert outcome(lambda: pkeys.pubkey_from_dict(bad)) == outcome(
+        lambda: jkeys.pubkey_from_dict(bad))
 
 
 # ---------------------------------------------------------------------------

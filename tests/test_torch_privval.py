@@ -124,11 +124,16 @@ def test_key_helpers_match_jax():
         key = pkeys.generate_priv_key(t)
         assert type(key).__name__ == type(jkeys.generate_priv_key(t)).__name__
         assert jkeys.privkey_from_dict(key.to_dict()).pub_key().to_dict() == key.pub_key().to_dict()
-    # bls12381 stays refused, naming the ROADMAP item that ports it
-    with pytest.raises(TypeError, match="1.9"):
-        pkeys.privkey_from_dict({"type": "tendermint/PrivKeyBLS12381", "value": b"\x00" * 32})
-    with pytest.raises(TypeError, match="1.9"):
-        pkeys.generate_priv_key("bls12381")
+    # bls12381 loads and generates as in the JAX package
+    raw = b"\x00" * 32
+    ours = pkeys.privkey_from_dict({"type": "tendermint/PrivKeyBLS12381", "value": raw})
+    theirs = jkeys.privkey_from_dict({"type": "tendermint/PrivKeyBLS12381", "value": raw})
+    assert ours.to_dict() == theirs.to_dict()
+    assert ours.pub_key().to_dict() == theirs.pub_key().to_dict()
+    assert ours.pop() == theirs.pop()
+    key = pkeys.generate_priv_key("bls12381")
+    assert type(key).__name__ == type(jkeys.generate_priv_key("bls12381")).__name__
+    assert jkeys.privkey_from_dict(key.to_dict()).pub_key().to_dict() == key.pub_key().to_dict()
     assert outcome(lambda: pkeys.privkey_from_dict({"type": "x", "value": b""})) == outcome(
         lambda: jkeys.privkey_from_dict({"type": "x", "value": b""}))
     assert outcome(lambda: pkeys.generate_priv_key("rsa")) == outcome(
@@ -151,9 +156,11 @@ def test_vote_wire_and_key_routed_sign_bytes_match_jax():
     class BlsKey:
         TYPE = "tendermint/PubKeyBLS12381"
 
-    with pytest.raises(TypeError, match="1.9"):
-        vote(PORT, pkeys.Ed25519PrivKey.from_secret(b"x"), 2, 1, 0, T0).sign_bytes_for_key(
-            CHAIN, BlsKey())
+    # a BLS key routes to the timestamp-free domain in both packages
+    sbs = [vote(ns, ns.keys.Ed25519PrivKey.from_secret(b"x"), 2, 1, 0, T0 + k)
+           .sign_bytes_for_key(CHAIN, BlsKey()) for ns in BOTH for k in (0, 9)]
+    assert len(set(sbs)) == 1 and sbs[0] != vote(
+        PORT, pkeys.Ed25519PrivKey.from_secret(b"x"), 2, 1, 0, T0).sign_bytes(CHAIN)
 
 
 # ---------------------------------------------------------------------------
