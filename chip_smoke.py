@@ -393,7 +393,8 @@
    keys at power 10 under a chain id of its own, its time the run's start
    (so `light` keeps its default trusting period of a week).  The node's
    home is phase 10's (config.toml by save_config at the JAX defaults, p2p
-   off, the signed-tx precheck with its journal, a mempool of 10,000) with
+   off, the signed-tx precheck with its journal, a mempool of 10,000;
+   `timeout_propose` 30 s, as phase 15's) with
    RPC on a local port, `proxy_app` an ABCI socket address,
    `priv_validator_laddr` a local tcp address and `instrumentation
    .prometheus` on with its listener on a local port; no FilePV in it.
@@ -562,8 +563,8 @@
 18. Validator sets that change while the card verifies (the bank and
    staking apps).  (a) Full width, in a process of its own (PhaseChild:
    its own launch counters, read there and added to the kernels line)
-   beside phase 17 with 18 (b) and phase 19 (b) since phase 20 (after
-   phase 15 until then): phase 8's harness
+   beside phases 9, 10 (a) and 15 (see the schedule below): phase 8's
+   harness
    (abci_node on sqlite stores, the mempool's signed-tx lane on an
    AsyncBatchVerifier at min_device_batch 16, the installed BatchVerifier
    and TableCache for validate_block) with the app taken through
@@ -605,10 +606,19 @@
    4 the twin, [tpu] enabled at min_device_batch 1): growth 4 -> 7 through
    InProcRig.valset and the JAX scenario (a partition across the set
    change), the twin's evidence committed, the epoch shift, the twin voted
-   out; in place of the JAX BLS migration (ROADMAP 1.9) node 0, a
-   RotatingPV of two ed25519 keys, rotates live to its second key by a
-   stake tx the harness builds; a fresh node fast-syncs the rotated
-   history and lite2 bisects from height 2 to the tip; then `python -m
+   out; then the JAX rig's BLS step: every node but the twin holds a
+   RotatingPV of its ed25519 key and a BLS12-381 one, validators 0-3, 5
+   and 6 migrate live to BLS12-381 by `valset migrate N bls` (their six
+   txs in flight together), a stored commit above the uniform height
+   becomes an AggregateCommit with a 96-byte agg_sig, and after node 0
+   rotates back to ed25519 the commits are per vote again; the nodes'
+   recorders split the step where every node is past the first aggregate
+   height and at the rotation back's tx, and on the card the aggregate
+   window (4 aggregate heights) holds no kernel dispatch and
+   the windows around it at least one each (the ladder and tabulated
+   launches of each window printed); a fresh node fast-syncs the rotated
+   history, the aggregate heights included, and lite2 bisects from height
+   2 to the tip; then `python -m
    tendermint_tpu_torch.tools.loadgen --mode bank` runs 5 s at 200 tx/s
    over 8 connections against node 0's RPC.  Fails on a checker violation
    (the twin exempt), a missing step, no valset.update or
@@ -617,8 +627,9 @@
    lite2_skip_across_rotation_ok, the joiner's height, loadgen's counters
    (its app:12 share is fault 3.13) and the rebuild events beside kernel
    2's launches.
-19. The other key types.  (a), in a process of its own beside (b) since
-   phase 20 (its launches read there, and required to be 0): BASELINE config #3 (kvstore, 100
+19. The other key types.  (a), in a process of its own beside the end
+   of 18 (b) and then (b) (its launches read there, and required to be
+   0): BASELINE config #3 (kvstore, 100
    validators, sr25519 keys + multisig): `python -m tendermint_tpu_torch
    init --key-type sr25519` (in the process) writes a home whose FilePV
    holds a random sr25519 key; 99 seeded sr25519 keys join it so that it
@@ -661,16 +672,48 @@
    reactor routes them (ed25519 members to the lane and the ladder, BLS
    members on the host, over the timestamp-free sign-bytes), one flipped
    precommit frame a round, the round change at 2, our proposal at 3 and
-   the WAL restart at 4; in a process of its own beside phase 19 (b), its
-   launches read there and added to the kernels line.  A mixed set does
-   not fold (the JAX package folds
-   only a uniformly BLS set; aggregate commits are ROADMAP 1.9b), so every
+   the WAL restart at 4; in a process of its own beside the end of
+   18 (b) and then 19 (b), its launches read there and added to the
+   kernels line.  A mixed set does
+   not fold (only a uniformly BLS set folds: phase 21), so every
    stored commit must be a per-vote Commit; each height's commit then
    goes through verify_commit and verify_commit_trusting (1/3) on an
    installed BatchVerifier, each one flat ladder batch of its ed25519
    signatures.  The BLS tier is the C tier built in phase 1.  Prints the
    host verifies by key type with their count and ms, and fails unless
    the ladder launched in the node's run.
+21. A uniformly BLS12-381 net (the JAX networks/local/bls_smoke.py), in a
+   process of its own beside the end of 18 (b) and then 19 (b):
+   `testnet --validators 4
+   --key-type bls12381` (in the process) writes four homes at the default
+   config (aggregation on, the engine on the card, sqlite, PEX, fast sync
+   on); the four validators run in the process, leaving fast sync
+   together, until each is at height 6.  Every
+   stored block commit and seen commit below the tip, on every node, must
+   be an AggregateCommit whose bitmap holds more than 2/3 of the set, and
+   each node's `/commit` must answer with `agg_sig` and `signers` and no
+   `signatures` (bls_smoke's check).  Then two empty non-validators join:
+   one with fast sync off must catch up through the consensus reactor's
+   `agg_commit` lane (its `commit.agg_catchup` events), one with fast sync
+   on must fast-sync; its stored aggregate commits then go through
+   verify_commit_run in one call, the scheme's memo cleared, one blinded
+   pairing product.  Last, validator 3 stops and restarts from its home:
+   it must rebuild its AggregateLastCommit and commit again.  Prints each
+   part's seconds, the host BLS verifies and pairing checks by count and
+   ms, and one height's stored commit (the block store's codec) against
+   the per-vote Commit of the same precommits; a uniformly BLS set
+   launches no kernel.
+
+Schedule (the run must end within 1,200 s on a slow host): phases 1-5 in
+this process; then phases 6-8 (one after another), 14 and 18 (a), each in
+a process of its own (PhaseChild), beside phases 9, 10 (a) and 15 in this
+one; then phases 11-13 alone (10 (b) on a thread beside 13); then phase 17
+with 18 (b), then 19 (b), in this process, with 19 (a), 20 and 21, each
+in a process of its own, beside 18 (b) from the end of phase 17 on and
+then beside 19 (b).  A child reads its own launch counters and its
+own auto-profile's pick (the parent's where it has profiled nothing), and
+its result line carries the launches that the parent adds to the kernels
+line.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch, registers, stack and
@@ -6750,9 +6793,9 @@ def signer_child(key_dir, laddr) -> int:
 def bd_home(home, gen, ports):
     """Phase 14's node home: config.toml by save_config at the JAX defaults
     but p2p off, RPC, the app's socket, the signer's listener and /metrics
-    on local ports, the signed-tx precheck with its journal and a mempool of
-    10,000 as phase 10's; the genesis file.  No FilePV: the key is the
-    signer's."""
+    on local ports, the signed-tx precheck with its journal, a mempool of
+    10,000 as phase 10's and phase 15's timeout_propose; the genesis file.
+    No FilePV: the key is the signer's."""
     from tendermint_tpu_torch.config import Config, save_config
 
     cfg = Config(home=home)
@@ -6766,6 +6809,10 @@ def bd_home(home, gen, ports):
     cfg.mempool.sig_precheck = True
     cfg.mempool.wal_dir = "data/mempool.wal"
     cfg.mempool.size = ABCI_MEMPOOL
+    # the peers' proposals are built once the node is at PROPOSE, after the
+    # height's burst: on a slow host that took longer than the default 3 s
+    # (the node prevoted nil at height 2), as phase 15 found first
+    cfg.consensus.timeout_propose = GR_TIMEOUT_PROPOSE
     cfg.ensure_dirs()
     path = os.path.join(home, "config", "config.toml")
     save_config(cfg, path)
@@ -7799,13 +7846,23 @@ def ch_health(port):
 def ch_base_port(avoid=()):
     """A base port whose 4 x 10 ports are free now (testnet takes p2p at
     base + 10 i, RPC at + 1; the phase puts /metrics at + 2), 40 or more
-    from each base in `avoid`."""
+    from each base in `avoid`, and below the kernel's ephemeral range:
+    connections and binds to port 0 take their ports from that range, so a
+    port there can be taken between this check and the node's bind (the
+    card's machine starts it at 16000)."""
     import random
     import socket
 
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            ephemeral_lo = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        ephemeral_lo = 32768
+    hi = min(30000, ephemeral_lo) - 40
+    lo = max(1024, hi - 10000)
     rng = random.Random()
     for _ in range(100):
-        base = rng.randrange(20000, 30000, 10)
+        base = rng.randrange(lo, hi, 10)
         if any(abs(base - other) < 40 for other in avoid):
             continue
         try:
@@ -8832,11 +8889,14 @@ def rt_config(tmp, i, dev, rpc_port=None):
 async def rt_build(tmp, dev, rpc_port):
     """Seven nodes: 0-3 the genesis validators (powers 10/20/30/40, sorted by
     address), 4 the twin (a MockPV, which TwinSigner wraps), 5 and 6
-    followers; every node but the twin holds a RotatingPV of two ed25519
-    keys (the JAX rig's second candidate is a BLS key: ROADMAP 1.9).  The
-    nodes start behind the fast-sync gate while the mesh forms."""
+    followers; every node but the twin holds a RotatingPV of its ed25519
+    identity (the stake-tx owner key) and a BLS12-381 candidate, as in the
+    JAX rig (its keys seeded here).  The nodes start behind the fast-sync
+    gate while the mesh forms, and every node must then switch to
+    consensus."""
     import asyncio
 
+    from tendermint_tpu_torch.crypto.bls.keys import BlsPrivKey
     from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
     from tendermint_tpu_torch.fastsync import reactor as fs_reactor
     from tendermint_tpu_torch.node import Node
@@ -8844,11 +8904,12 @@ async def rt_build(tmp, dev, rpc_port):
     from tendermint_tpu_torch.types.params import BlockParams, ConsensusParams
     from tendermint_tpu_torch.types.priv_validator import MockPV, RotatingPV
 
-    def key(tag, i):
-        return Ed25519PrivKey.from_secret(f"rotation-{tag}-{i}".encode())
+    def key(i):
+        return Ed25519PrivKey.from_secret(f"rotation-id-{i}".encode())
 
-    pvs = [MockPV(key("id", i)) if i == RT_TWIN else
-           RotatingPV(MockPV(key("id", i)), MockPV(key("next", i))) for i in range(7)]
+    pvs = [MockPV(key(i)) if i == RT_TWIN else
+           RotatingPV(MockPV(key(i)), MockPV(BlsPrivKey.from_secret(b"rotation-bls-%d" % i)))
+           for i in range(7)]
     pvs[:4] = sorted(pvs[:4], key=lambda pv: pv.get_pub_key().address())
     gen = GenesisDoc(
         chain_id="rotation-smoke", genesis_time_ns=time.time_ns(),
@@ -8874,22 +8935,35 @@ async def rt_build(tmp, dev, rpc_port):
                                  return_exceptions=True)
             await asyncio.sleep(0.5)
         await rt_wait(lambda: all(n.switch.num_peers() >= 6 for n in nodes), 60.0,
-                      "the 7-node mesh")
+                      "the 7-node mesh", nodes=nodes)
     finally:
         fs_reactor.SWITCH_TO_CONSENSUS_INTERVAL = orig
     await rt_wait(lambda: all(n.consensus is not None and n.consensus.is_running for n in nodes),
-                  30.0, "every node's switch from fast sync to consensus")
+                  30.0, "every node's switch from fast sync to consensus", nodes=nodes)
     return nodes, gen, time.perf_counter() - t0
 
 
-async def rt_wait(pred, budget, what, tick=0.1):
+async def rt_wait(pred, budget, what, tick=0.1, nodes=(), phase="18 (b)"):
+    """Wait for pred(); on a timeout the error names each of `nodes` by its
+    store height, round state, peers and fast-sync progress."""
     import asyncio
 
     deadline = time.monotonic() + budget
     while not pred():
         if time.monotonic() > deadline:
-            raise AssertionError(f"phase 18 (b): timed out after {budget:.0f} s waiting for {what}")
+            raise AssertionError(f"phase {phase}: timed out after {budget:.0f} s waiting for "
+                                 f"{what}; nodes (store, height/round/step, peers, synced): "
+                                 f"{[rt_node_state(n) for n in nodes]}")
         await asyncio.sleep(tick)
+
+
+def rt_node_state(node):
+    rs = node.consensus.rs if node.consensus is not None else None
+    running = node.consensus is not None and node.consensus.is_running
+    return (node.block_store.height(),
+            f"{rs.height}/{rs.round}/{rs.step}{'' if running else ' stopped'}" if rs else None,
+            node.switch.num_peers() if node.switch is not None else 0,
+            node.blockchain_reactor.blocks_synced if node.blockchain_reactor else None)
 
 
 async def rt_mesh_keeper(nodes, interval=2.0):
@@ -8927,6 +9001,120 @@ def rt_recorder_counts(nodes) -> dict:
     return out
 
 
+def rt_dispatches(nodes, since_ns, until_ns=None) -> dict:
+    """The nodes' kernel dispatches by path between two monotonic times:
+    in-process nodes share the process's batch hooks, so a commit check's
+    dispatch lands in the recorder of whichever node installed them last."""
+    return dict(collections.Counter(
+        e["path"] for node in nodes for e in node.flight_recorder.events(kinds=["verify.dispatch"])
+        if e["t_ns"] >= since_ns and (until_ns is None or e["t_ns"] < until_ns)))
+
+
+RT_HOST_PATHS = ("host", "host-cold")  # dispatch paths that stay off the card
+
+
+async def rt_bls_step(nodes, rig, ids, say):
+    """Step 6 of phase 18 (b): the JAX rig's live ed25519 -> BLS12-381
+    migration of validators 0-3, 5 and 6 (`valset migrate N bls`, each
+    waited for as the JAX rig waits), the first aggregate commit above the
+    uniform height, then node 0 back to ed25519 and per-vote commits
+    again.  Two moments split the step into three windows: every node past
+    the first aggregate height, and the rotation back's tx; on the card,
+    the nodes' recorders hold no kernel dispatch in the aggregate window
+    and at least one in each of the others.  Returns the step's numbers."""
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+    from tendermint_tpu_torch.types.vote import is_bls_key
+
+    rec = nodes[0].flight_recorder
+    out = {}
+    t = time.monotonic()
+    seq0, t0_ns, launches0 = next_seq(rec), time.monotonic_ns(), launch_counts()
+    migrators = RT_GENESIS + [RT_JOINER_A, RT_JOINER_B]
+    for i in migrators:  # the six txs in flight together (the JAX rig waits for each)
+        await rig.valset("migrate", i, scheme="bls12381")
+    bls_addrs = [rig._candidate_key(i, "bls12381").pub_key().address() for i in migrators]
+    await rt_wait(lambda: (all(rt_set(nodes[0]).has_address(a) for a in bls_addrs)
+                           and not any(rt_set(nodes[0]).has_address(ids[i]) for i in migrators)),
+                  RT_BUDGET_S, "validators 0-3, 5 and 6 migrating to bls12381")
+    vset = rt_set(nodes[0])
+    if not all(is_bls_key(v.pub_key) for v in vset.validators):
+        raise AssertionError("phase 18 (b): the set is not uniformly BLS after the migrations")
+    h_uniform = out["bls_uniform_height"] = nodes[0].state_store.load().last_block_height
+
+    def engaged():
+        bs = nodes[0].block_store
+        for h in range(h_uniform, bs.height() + 1):
+            if isinstance(bs.load_block_commit(h), AggregateCommit):
+                out["agg_engaged_height"] = h
+                return True
+        return False
+
+    await rt_wait(engaged, RT_BUDGET_S, "BLS aggregation to engage")
+    h_agg = out["agg_engaged_height"]
+    out["bls_migration_height_gap"] = h_agg - h_uniform
+    commit = nodes[0].block_store.load_block_commit(h_agg)
+    if len(commit.agg_sig) != 96 or commit.signers.count() * 3 <= commit.signers.bits * 2:
+        raise AssertionError(f"phase 18 (b): the aggregate commit at {h_agg} is malformed: "
+                             f"{commit!r}, a {len(commit.agg_sig)}-byte signature")
+    # the aggregate window opens once every node has applied the height
+    # after the first aggregate one (the last per-vote commit, checked in
+    # each validate_block of the first aggregate height, is behind them)
+    # and closes at the rotation back's tx, a few aggregate heights later
+    running = [x for x in nodes if x.is_running]
+    await rt_wait(lambda: all(x.state_store.load().last_block_height > h_agg for x in running),
+                  RT_BUDGET_S, f"every node applying height {h_agg + 1}")
+    t_agg_ns, launches_agg = time.monotonic_ns(), launch_counts()
+    await rt_wait(lambda: nodes[0].block_store.height() >= h_agg + 4, RT_BUDGET_S,
+                  "4 heights past the first aggregate commit")
+    folds = rec.events(since=seq0, kinds=["commit.aggregate"])
+    t_back_ns, launches_back = time.monotonic_ns(), launch_counts()
+    out["agg_last_height"] = nodes[0].block_store.height() - 1
+    await rig.valset("migrate", 0, scheme="ed25519")
+    await rt_wait(lambda: rt_set(nodes[0]).has_address(ids[0]), RT_BUDGET_S,
+                  "node 0 rotating back to ed25519")
+    h_mixed = nodes[0].state_store.load().last_block_height
+
+    def disengaged():
+        bs = nodes[0].block_store
+        tip = bs.height()
+        if tip < h_mixed + 3:
+            return False
+        c = bs.load_block_commit(tip - 1)
+        if isinstance(c, AggregateCommit):
+            return False
+        out["agg_disengaged_height"] = tip - 1
+        return True
+
+    await rt_wait(disengaged, RT_BUDGET_S, "aggregation to disengage")
+    windows = {"before": (t0_ns, t_agg_ns, launches0, launches_agg),
+               "aggregate": (t_agg_ns, t_back_ns, launches_agg, launches_back),
+               "after": (t_back_ns, None, launches_back, launch_counts())}
+    for name, (a, b, l0, l1) in windows.items():
+        out[f"dispatch_{name}"] = rt_dispatches(nodes, a, b)
+        out[f"launches_{name}"] = {k: l1[k] - l0[k] for k in l0}
+    out["bls_ms"] = (time.monotonic() - t) * 1000
+    say(f"every validator migrated to bls12381: uniform at height {h_uniform}, aggregation "
+        f"engaged at {h_agg} (gap {out['bls_migration_height_gap']}) with a 96-byte agg_sig "
+        f"of {commit.signers.count()}/{commit.signers.bits} signers, {len(folds)} folds on "
+        f"node 0 to height {out['agg_last_height']}; node 0 back on ed25519 at {h_mixed}, "
+        f"per-vote commits again at {out['agg_disengaged_height']}; "
+        f"{out['bls_ms']:.1f} ms")
+    for name, what in (("before", "before the aggregate window"), ("aggregate", "in the "
+                       "aggregate window"), ("after", "from the rotation back's tx on")):
+        say(f"  {what}: the nodes' verify.dispatch by path {out[f'dispatch_{name}']}, "
+            f"launches {out[f'launches_{name}']}")
+    device = {name: sum(n for p, n in out[f"dispatch_{name}"].items() if p not in RT_HOST_PATHS)
+              for name in windows}
+    if device["aggregate"]:
+        raise AssertionError(f"phase 18 (b): a node dispatched to the card in the aggregate "
+                             f"window: {out['dispatch_aggregate']}")
+    if nodes[0].device is not None and nodes[0].device.type == "cuda" and (
+            not device["before"] or not device["after"]):
+        raise AssertionError(f"phase 18 (b): no node dispatched to the card before "
+                             f"uniformity or after the rotation back: {device}")
+    return out
+
+
 def phase_rotation(card, dev):
     """Phase 18 (b): the JAX rotation rig on 7 in-process port nodes (see
     the module docstring, 18); returns its numbers."""
@@ -8939,12 +9127,13 @@ async def rt_run(card, dev):
     import asyncio
     import tempfile
 
-    from tendermint_tpu_torch.apps.staking import make_rotate_key_tx
     from tendermint_tpu_torch.chaos import InProcRig, InvariantChecker, Scenario, ScenarioRunner
     from tendermint_tpu_torch.chaos.checker import scan_committed_evidence
     from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.fastsync import reactor as fs_reactor
     from tendermint_tpu_torch.lite2 import BISECTION, Client, LocalProvider, TrustOptions
     from tendermint_tpu_torch.node import Node
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit
     from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
     from tendermint_tpu_torch.types.priv_validator import MockPV
 
@@ -8967,7 +9156,7 @@ async def rt_run(card, dev):
         try:
             # 1. growth: a join through the rig, timed to the set's change
             await rt_wait(lambda: min(n.block_store.height() for n in nodes) >= 3, RT_BUDGET_S,
-                          "3 commits everywhere")
+                          "3 commits everywhere", nodes=nodes)
             rig = InProcRig(nodes)
             t = time.monotonic()
             await rig.valset("join", RT_JOINER_A, power=15)
@@ -9023,48 +9212,47 @@ async def rt_run(card, dev):
             out["set_size_after_leave"] = rt_set(nodes[0]).size()
             say(f"twin voted out: {out['set_size_after_leave']} validators")
             counts_mid = rt_recorder_counts(nodes)
-            # 6. (the JAX rig's BLS migration waits for ROADMAP 1.9) node 0
-            # rotates live to its second ed25519 key; `valset migrate 0
-            # ed25519` would pick the key in use, so the harness builds the tx
-            owner = pvs[0].candidates[0].priv_key
-            new_pub = pvs[0].candidates[1].get_pub_key()
-            nonce = await rig._next_nonce(nodes[0], owner.pub_key().address())
-            res = await nodes[0].mempool.check_tx(make_rotate_key_tx(owner, "ed25519",
-                                                                     new_pub.bytes(), nonce))
-            if res.code != 0:
-                raise AssertionError(f"phase 18 (b): node 0's rotation was refused: {res.log}")
-            t = time.monotonic()
-            await rt_wait(lambda: (rt_set(nodes[0]).has_address(new_pub.address())
-                                   and not rt_set(nodes[0]).has_address(ids[0])),
-                          RT_BUDGET_S, "node 0's rotation to its second key")
-            h_rot = nodes[0].state_store.load().last_block_height
-            await rt_wait(lambda: nodes[0].block_store.height() >= h_rot + 3, RT_BUDGET_S,
-                          "3 commits on node 0's new key")
-            last = nodes[0].block_store.load_block_commit(nodes[0].block_store.height() - 1)
-            if not any(cs.validator_address == new_pub.address() and not cs.is_absent()
-                       for cs in last.signatures):
-                raise AssertionError("phase 18 (b): node 0's new key signs no commit")
-            out["rotation_ms"] = (time.monotonic() - t) * 1000
-            say(f"node 0 rotated live to its second ed25519 key in {out['rotation_ms']:.1f} ms; "
-                f"its new key signs the commits")
+            # 6. every validator migrates live to BLS12-381 through the chaos
+            # clause; aggregation engages on the uniform set and disengages
+            # when node 0 rotates back to ed25519 (rotation_smoke.py:424-485)
+            out.update(await rt_bls_step(nodes, rig, ids, say))
             # 7. a fresh node fast-syncs the rotated history
             tip = max(n.block_store.height() for n in nodes)
             cfg = rt_config(tmp, RT_FRESH, dev)
             cfg.chaos.twin = False
             fresh = Node(cfg, gen, priv_validator=MockPV(), db_backend="memdb", device=dev)
             t = time.perf_counter()
-            await fresh.start()
-            keeper_nodes.append(fresh)
-            for j in range(7):
-                if j != RT_TWIN:
-                    with contextlib.suppress(Exception):
-                        await fresh.switch.dial_peer(
-                            f"{nodes[j].node_key.id}@{nodes[j].switch.transport.listen_addr}")
+            # as the launch: the fast-sync gate held while its links form
+            # and until a peer's status has reported the tip (a peer counts
+            # at height 0 until then, and a switch check in between would
+            # hand the node to consensus's catch-up with nothing synced)
+            fs_gate = fs_reactor.SWITCH_TO_CONSENSUS_INTERVAL
+            fs_reactor.SWITCH_TO_CONSENSUS_INTERVAL = 3600.0
+            try:
+                await fresh.start()
+                await asyncio.gather(*(
+                    fresh.switch.dial_peer(f"{x.node_key.id}@{x.switch.transport.listen_addr}")
+                    for j, x in enumerate(nodes) if j != RT_TWIN), return_exceptions=True)
+                keeper_nodes.append(fresh)
+                await rt_wait(lambda: fresh.blockchain_reactor.scheduler.max_peer_height() >= tip,
+                              60.0, "the fresh node's peers reporting their heights",
+                              nodes=nodes + [fresh])
+            finally:
+                fs_reactor.SWITCH_TO_CONSENSUS_INTERVAL = fs_gate
             await rt_wait(lambda: fresh.block_store.height() >= tip, RT_BUDGET_S,
-                          f"the fresh node fast-syncing {tip} heights", tick=0.25)
+                          f"the fresh node fast-syncing {tip} heights", tick=0.25,
+                          nodes=nodes + [fresh])
             out["fastsync_joiner_height"] = fresh.block_store.height()
+            if fresh.blockchain_reactor.blocks_synced < tip - 1:
+                raise AssertionError(f"phase 18 (b): the fresh node fast-synced "
+                                     f"{fresh.blockchain_reactor.blocks_synced} of {tip} heights")
+            if not isinstance(fresh.block_store.load_block_commit(out["agg_engaged_height"]),
+                              AggregateCommit):
+                raise AssertionError("phase 18 (b): the fresh node stored no aggregate commit at "
+                                     f"height {out['agg_engaged_height']}")
             say(f"fresh node fast-synced to {out['fastsync_joiner_height']} in "
-                f"{time.perf_counter() - t:.3f} s across every set change")
+                f"{time.perf_counter() - t:.3f} s across every set change, the aggregate "
+                f"heights {out['agg_engaged_height']}-{out['agg_last_height']} included")
             # 8. lite2 bisects from height 2 to the tip across the rotations
             root = nodes[0].block_store.load_block(2)
             lite_tip = nodes[0].block_store.height() - 1
@@ -9132,6 +9320,197 @@ async def rt_run(card, dev):
     return out
 
 
+def process_pick(default=None):
+    """The kernel this process's auto-profile picked (its first profile,
+    which every later table of the process follows), or `default` where
+    it has profiled nothing."""
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+
+    prof = next(iter(bvm.tabulated_profiles.values()), None)
+    if prof is None:
+        return default
+    return "ed25519_tabulated" if prof["tab_ms"] < prof["ladder_ms"] else "ed25519_ladder"
+
+
+def add_launches(report, counts, tag):
+    """Adds a phase's launch counts to `report`, also under the phase's tag."""
+    for name, c in counts.items():
+        report[name]["launches"] += c
+        report[name][tag] = c
+
+
+def run_light(keys, card, dev, picked, report):
+    """Phase 6 with its launch checks, its launches added to `report`."""
+    log("[6] light client: bisection, sequence, engine lane and shared cache at 10k validators")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    _, launches_34 = phase_light(keys, card, dev, report)
+    counts = launch_counts()
+    log(f"  launches in phase 6: {counts}; phase 6 took {time.perf_counter() - t0:.3f} s")
+    if counts["ed25519_window_tables"] == 0:
+        raise AssertionError("kernel 2 (window tables) was not launched in phase 6")
+    if launches_34["ed25519_ladder"] == 0:
+        raise AssertionError("the ladder was not launched in phase 6's engine lane")
+    add_launches(report, counts, "6")
+
+
+def run_replay(keys, card, dev, picked, report):
+    """Phase 7 with its launch checks, its launches added to `report`."""
+    log("[7] fast-sync replay from sqlite stores at 10k validators across a set rotation")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    launches_a = phase_replay(keys, card, dev)
+    counts = launch_counts()
+    log(f"  launches in phase 7: {counts}; phase 7 took {time.perf_counter() - t0:.3f} s")
+    picked = process_pick(picked)
+    if counts["ed25519_ladder"] == 0:
+        raise AssertionError("the ladder was not launched in phase 7")
+    if counts["ed25519_window_tables"] != 2:
+        raise AssertionError("kernel 2 (window tables) was not launched once per set in phase 7")
+    if launches_a[picked] == 0:
+        raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in phase 7 (a)")
+    add_launches(report, counts, "7")
+
+
+def run_abci(keys, card, dev, picked, report):
+    """Phase 8 with its launch checks, its launches added to `report`."""
+    log("[8] blocks applied to the kvstore app at 10k validators: mempool, BlockExecutor, "
+        "fast sync, handshake")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    launches = phase_abci(keys, card, dev)
+    counts = launch_counts()
+    log(f"  launches in phase 8: {counts}; phase 8 took {time.perf_counter() - t0:.3f} s")
+    picked = process_pick(picked)
+    if launches["flushes"]["ed25519_ladder"] == 0:
+        raise AssertionError("the ladder was not launched by the mempool's signed-tx flushes")
+    if launches["a"]["ed25519_window_tables"] != 2:
+        raise AssertionError("kernel 2 (window tables) was not launched once per set in phase 8 (a)")
+    for part in ("a", "b", "c3"):
+        if launches[part][picked] == 0:
+            raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in phase 8 "
+                                 f"({part})")
+    add_launches(report, counts, "8")
+
+
+def run_boundary(keys, card, dev, picked, report):
+    """Phase 14 with its launch checks, its launches added to `report`."""
+    log("[14] a validator across its process boundaries: its app behind the ABCI socket "
+        "(abci_cli kvstore), its key in a remote signer process, /metrics, and `light` in "
+        "front of its RPC, at 10,000 validators")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    out = phase_boundary(keys, card, dev)
+    counts = launch_counts()
+    log(f"  launches in phase 14 on the node (light's, in its own process, are not counted): "
+        f"{counts}; {out['validate_blocks']} validate_block calls on heights >= 2, "
+        f"{out['hits']} table hits, {out['declines']} declines, {out['frames']} vote frames "
+        f"accepted; phase 14 took {time.perf_counter() - t0:.3f} s")
+    log(f"  light's engine in its own process (its exit line; not in the kernels line): "
+        f"launches {out['light']['launches']}, dispatch paths {out['light']['paths']}, "
+        f"table lookups {out['light']['tables']}")
+    picked = process_pick(picked)
+    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 1:
+        raise AssertionError("kernel 2 (window tables) did not build the node's genesis table "
+                             "exactly once in phase 14")
+    if counts[picked] < out["hits"]:
+        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
+                             "in phase 14")
+    if counts["ed25519_ladder"] < out["frames"] + out["declines"]:
+        raise AssertionError("the ladder did not serve every accepted vote frame and the "
+                             "genesis set's declined check in phase 14")
+    add_launches(report, counts, "14")
+
+
+def run_side(keys, card, dev, picked, report):
+    """Phases 9, 10 (a) and 15, one after another, with their launch
+    checks, their launches added to `report` (phases 6-8, 14 and 18 (a)
+    run beside them, each in a process of its own)."""
+    log("[9] consensus at 10k validators: proposals, vote frames, a round change and a restart "
+        "from the WAL")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    out = phase_consensus(keys, card, dev)
+    counts = launch_counts()
+    log(f"  launches in phase 9: {counts}; {out['validate_blocks']} validate_block calls on heights "
+        f">= 2, {out['indexed_dispatches']} indexed dispatches, {out['frames']} vote frames "
+        f"accepted; phase 9 took {time.perf_counter() - t0:.3f} s")
+    if counts["ed25519_window_tables"] != 1:
+        raise AssertionError("kernel 2 (window tables) was not launched exactly once in phase 9")
+    if out["indexed_dispatches"] != out["validate_blocks"] or counts[picked] < out["validate_blocks"]:
+        raise AssertionError(f"the auto-profile's pick ({picked}) was not launched once per "
+                             "validate_block in phase 9")
+    if picked == "ed25519_tabulated" and counts[picked] != out["validate_blocks"]:
+        raise AssertionError("the tabulated sum launched other than once per validate_block")
+    if counts["ed25519_ladder"] < out["frames"]:
+        raise AssertionError("the ladder was not launched for every accepted vote frame in phase 9")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+    log("[10] node wiring: a 10,000-validator node from its home directory, stopped and "
+        "resumed; then the CLI")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    out = phase_node(keys, card, dev)
+    counts = launch_counts()
+    log(f"  launches in phase 10 (a): {counts}; {out['validate_blocks']} validate_block calls on "
+        f"heights >= 2, {out['hits']} table hits, declines by node {out['declines']}, tables "
+        f"built {out['tables']}, {out['frames']} vote frames accepted; phase 10 (a) took "
+        f"{time.perf_counter() - t0:.3f} s")
+    if sorted(out["tables"]) != ["table-build", "table-build", "table-rebuild"]:
+        raise AssertionError(f"phase 10 built tables {out['tables']}, not the genesis set's, set "
+                             "B's by _valset_watch and set B's by the restarted node")
+    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 3:
+        raise AssertionError("kernel 2 (window tables) was not launched once per table in "
+                             "phase 10")
+    if out["declines"][0] != 1:
+        raise AssertionError("the first node declined other than exactly once (the genesis "
+                             "set's first check)")
+    if counts[picked] < out["hits"]:
+        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
+                             "in phase 10")
+    if counts["ed25519_ladder"] < out["frames"] + sum(out["declines"]):
+        raise AssertionError("the ladder did not serve every accepted vote frame and declined "
+                             "check in phase 10")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+    log("  phase 10 (b), the CLI, runs beside phase 13")
+
+    log("[15] transactions from outside at 10,000 validators: the app over ABCI gRPC "
+        "(abci_cli --abci grpc kvstore), a tm-bench firehose (loadgen) at the RPC, the "
+        "BroadcastAPI on rpc.grpc_laddr")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    out = phase_grpc(keys, card, dev)
+    counts = launch_counts()
+    log(f"  launches in phase 15 on the node: {counts}; {out['validate_blocks']} validate_block "
+        f"calls on heights >= 2, {out['hits']} table hits, {out['declines']} declines, "
+        f"{out['frames']} vote frames accepted, {out['flushes']} signed-tx flushes; phase 15 "
+        f"took {time.perf_counter() - t0:.3f} s")
+    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 1:
+        raise AssertionError("kernel 2 (window tables) did not build the node's genesis table "
+                             "exactly once in phase 15")
+    if counts[picked] < out["hits"]:
+        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
+                             "in phase 15")
+    if counts["ed25519_ladder"] < out["frames"] + out["declines"] + out["flushes"]:
+        raise AssertionError("the ladder did not serve every signed-tx flush, accepted vote frame "
+                             "and the genesis set's declined check in phase 15")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+
+def join_kids(kids):
+    """Joins every PhaseChild of `kids`: ({tag: result}, [failures])."""
+    done, failed = {}, []
+    for tag, kid in kids.items():
+        try:
+            done[tag] = kid.join()
+        except AssertionError as e:
+            failed.append(e)
+    return done, failed
+
+
 def run_staking(keys, card, dev, picked, report):
     """Phase 18 (a) with its launch checks, its launches added to `report`."""
     log("[18] (a) validator sets that change while the card verifies: one validator of the "
@@ -9159,10 +9538,11 @@ def run_staking(keys, card, dev, picked, report):
         report[name]["launches"] += c
 
 
-def run_chaos_rotation(card, dev, picked, report):
+def run_chaos_rotation(card, dev, picked, report, after_17=None):
     """Phase 17 and, at the same time, phase 18 (b), with their launch
     checks (phase 17 launches nothing in this process), the launches added
-    to `report`."""
+    to `report`; after_17() is called once phase 17 has passed, while
+    18 (b) runs on."""
     import threading
 
     log("[17] the chaos rig on the card: two 4-validator localnets at once through the CLI "
@@ -9183,6 +9563,8 @@ def run_chaos_rotation(card, dev, picked, report):
     rot_thread.start()
     try:
         out = phase_chaos(card, dev)
+        if after_17 is not None:
+            after_17()
     finally:
         rot_thread.join()
     counts = launch_counts()
@@ -9215,15 +9597,22 @@ KT_MIX_BLS = 100  # (b): bls12381 members
 BLS_VALIDATORS = 100  # phase 20: the mixed set, power 10 each
 BLS_MEMBERS = 50  # phase 20: of them bls12381 (ours included); the others ed25519
 BLS_TXS = 100  # phase 20: plain kvstore txs per height
+BN_VALIDATORS = 4  # phase 21: `testnet --key-type bls12381`'s validators
+BN_HEIGHTS = 6  # phase 21: the height every validator reaches before the joiners start
+BN_BUDGET_S = 120.0  # phase 21: a part's wait, at most
 
 
 class KeyTimer:
     """Host verify calls and ms by key type while the block runs: class-level
     wrappers on the verify of sr25519, secp256k1, bls12381 and multisig keys
     (a multisig's time holds its sub-keys', which count on their own line
-    too)."""
+    too), and module-level ones on the BLS scheme's aggregate checks (one
+    pairing each; a batch of k claims is one blinded pairing product)."""
+
+    PAIRINGS = ("fast_aggregate_verify", "batch_verify_aggregates")
 
     def __init__(self):
+        from tendermint_tpu_torch.crypto.bls import scheme
         from tendermint_tpu_torch.crypto.bls.keys import BlsPubKey
         from tendermint_tpu_torch.crypto.keys import Secp256k1PubKey
         from tendermint_tpu_torch.crypto.multisig import MultisigThresholdPubKey
@@ -9231,11 +9620,15 @@ class KeyTimer:
 
         self.orig = {c: c.verify for c in (Sr25519PubKey, Secp256k1PubKey, BlsPubKey,
                                             MultisigThresholdPubKey)}
+        self.scheme = scheme
+        self.orig_fns = {name: getattr(scheme, name) for name in self.PAIRINGS}
         self.ms, self.n = collections.Counter(), collections.Counter()
 
     def __enter__(self):
         for cls, orig in self.orig.items():
             cls.verify = self._timed(cls.__name__, orig)
+        for name, orig in self.orig_fns.items():
+            setattr(self.scheme, name, self._timed(name, orig))
         return self
 
     def _timed(self, name, orig):
@@ -9251,6 +9644,8 @@ class KeyTimer:
     def __exit__(self, *exc):
         for cls, orig in self.orig.items():
             cls.verify = orig
+        for name, orig in self.orig_fns.items():
+            setattr(self.scheme, name, orig)
 
     def line(self) -> str:
         return ", ".join(f"{name} {self.n[name]} in {self.ms[name]:.3f} ms "
@@ -9568,7 +9963,7 @@ def run_mixed(keys, commit, card, dev, report):
     """Phase 19 (b) with its launch checks, its launches added to `report`."""
     log("[19] (b) the other key types on the card: a mixed 10,000-validator set of ed25519, "
         "sr25519, secp256k1 and bls12381 keys (beside it, each in a process of its own: "
-        "18 (a), 19 (a) and 20)")
+        "19 (a), 20 and 21)")
     launch_counts(zero=True)
     b = phase_mixed(keys, commit, card, dev)
     counts = launch_counts()
@@ -9733,6 +10128,229 @@ def phase_bls_chain(card, dev):
         root.cleanup()
 
 
+def bn_check_commit(commit: dict, n_vals: int) -> None:
+    """networks/local/bls_smoke.py's check_commit on a `/commit` answer's
+    commit: the aggregate representation, a 96-byte `agg_sig` and a
+    `signers` bitmap over the set holding more than 2/3 of it, and no
+    per-vote `signatures`."""
+    import base64
+
+    if "signatures" in commit:
+        raise AssertionError(f"commit at height {commit.get('height')} carries per-vote "
+                             "signatures: aggregation did not engage")
+    sig, signers = (base64.b64decode(commit.get(k, {}).get("@b", ""))
+                    for k in ("agg_sig", "signers"))
+    if len(sig) != 96:
+        raise AssertionError(f"bad agg_sig in commit: {commit}")
+    nbits = int.from_bytes(signers[:4], "big")  # BitArray: 4-byte bit count + the bits
+    popcount = sum(bin(b).count("1") for b in signers[4:])
+    if nbits != n_vals or popcount * 3 <= n_vals * 2:
+        raise AssertionError(f"signer bitmap {popcount}/{nbits} below +2/3 of {n_vals}")
+
+
+def bn_commit_bytes(node) -> tuple:
+    """The stored bytes (the block store's codec) of one height's commit
+    both ways: the seen AggregateCommit the node stored, and the per-vote
+    Commit of the same precommits, made from the node's LastCommit vote
+    set.  Returns (height, aggregate bytes, per-vote bytes)."""
+    from tendermint_tpu_torch.encoding import codec
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+
+    last = node.consensus.rs.last_commit
+    per_vote = last.make_commit()
+    agg = node.block_store.load_seen_commit(last.height)
+    if not isinstance(agg, AggregateCommit) or per_vote.height != agg.height:
+        raise AssertionError(f"phase 21: no aggregate seen commit beside the LastCommit of "
+                             f"height {last.height}: {agg!r}")
+    return last.height, len(codec.dumps(agg)), len(codec.dumps(per_vote))
+
+
+def bn_get(url) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return json.load(r)
+
+
+def phase_bls_net(card, dev):
+    """Phase 21 (see the module docstring, 21); returns its numbers."""
+    import asyncio
+
+    return asyncio.run(bn_run(card, dev))
+
+
+def bn_folded(node, below, n_vals):
+    """Every stored block commit and seen commit of `node` below `below`
+    is an AggregateCommit over n_vals signer slots holding more than 2/3."""
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit
+
+    for h in range(1, below):
+        for c in (node.block_store.load_block_commit(h), node.block_store.load_seen_commit(h)):
+            if not isinstance(c, AggregateCommit) or c.signers.bits != n_vals \
+                    or c.signers.count() * 3 <= n_vals * 2:
+                raise AssertionError(f"phase 21: height {h} stored {c!r}, not an aggregate "
+                                     f"commit of more than 2/3 of {n_vals}")
+
+
+async def bn_run(card, dev):
+    import asyncio
+    import tempfile
+
+    from tendermint_tpu_torch import cli
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto.bls import scheme as bls_scheme
+    from tendermint_tpu_torch.fastsync import reactor as fs_reactor
+    from tendermint_tpu_torch.fastsync import verify_commit_run
+    from tendermint_tpu_torch.node import Node, default_new_node
+    from tendermint_tpu_torch.types.agg_commit import AggregateLastCommit
+    from tendermint_tpu_torch.types.block import BlockID
+    from tendermint_tpu_torch.types.params import BLOCK_PART_SIZE_BYTES
+    from tendermint_tpu_torch.types.priv_validator import MockPV
+
+    def say(msg):
+        log(f"  [21] {msg}")
+
+    def addr(node):
+        return f"{node.node_key.id}@{node.switch.transport.listen_addr}"
+
+    out, parts = {}, {}
+    t_start = time.perf_counter()
+    n = BN_VALIDATORS
+    switch_interval = fs_reactor.SWITCH_TO_CONSENSUS_INTERVAL
+    nodes, joiners = [], []
+    with tempfile.TemporaryDirectory(prefix="phase21-") as tmp, KeyTimer() as kt:
+        try:
+            # the net: testnet's homes at their default config, on the card
+            t = time.perf_counter()
+            base = ch_base_port()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["testnet", "--validators", str(n), "--output", tmp,
+                               "--base-port", str(base), "--key-type", "bls12381",
+                               "--chain-id", "bls-net"])
+            if rc != 0:
+                raise AssertionError(f"testnet --key-type bls12381 exited {rc}")
+            cfgs = [load_config(os.path.join(tmp, f"node{i}", "config", "config.toml"),
+                                home=os.path.join(tmp, f"node{i}")) for i in range(n)]
+            if not all(c.consensus.bls_aggregate_commits and c.tpu.enabled for c in cfgs):
+                raise AssertionError("testnet --key-type bls12381 turned aggregation or the "
+                                     "engine off")
+            nodes = [default_new_node(c, device=dev) for c in cfgs]
+            gen = nodes[0].genesis_doc
+            for node in nodes:
+                await node.start()
+            await rt_wait(lambda: all(x.block_store.height() >= BN_HEIGHTS for x in nodes),
+                          BN_BUDGET_S, f"{n} validators at height {BN_HEIGHTS}", nodes=nodes,
+                          phase="21")
+            parts["net"] = time.perf_counter() - t
+            # every stored commit below the tip folds, on every node and on /commit
+            t = time.perf_counter()
+            checked = 0
+            for i, node in enumerate(nodes):
+                tip = node.block_store.height()
+                bn_folded(node, tip, n)
+                for h in range(1, tip):
+                    url = f"http://127.0.0.1:{base + 10 * i + 1}/commit?height={h}"
+                    answer = await asyncio.to_thread(bn_get, url)  # the RPC runs on this loop
+                    bn_check_commit(answer["result"]["signed_header"]["commit"], n)
+                    checked += 1
+            h_bytes, out["commit_bytes"], out["per_vote_bytes"] = bn_commit_bytes(nodes[0])
+            parts["commits"] = time.perf_counter() - t
+            say(f"{n} validators from testnet --key-type bls12381 at heights "
+                f"{[x.block_store.height() for x in nodes]} in {parts['net']:.3f} s; "
+                f"{checked} commits below the tips aggregate on every node and on /commit "
+                f"(block and seen commits); height {h_bytes}'s commit stores in "
+                f"{out['commit_bytes']} bytes against {out['per_vote_bytes']} per vote; "
+                f"BLS tier {bls_scheme.active_tier()} ({card})")
+
+            # the joiners: catch-up (fast sync off) and fast sync, both empty
+            # non-validators; the fast-sync one stays behind the gate (as in
+            # phase 18 (b)'s start) until it has the validators' heights
+            t = time.perf_counter()
+            fs_reactor.SWITCH_TO_CONSENSUS_INTERVAL = 3600.0
+            for name, fast_sync in (("catchup", False), ("fastsync", True)):
+                home = os.path.join(tmp, name)
+                cfg = load_config(os.path.join(tmp, "node0", "config", "config.toml"), home=home)
+                cfg.base.fast_sync = fast_sync
+                cfg.base.db_backend = "memdb"
+                cfg.p2p.laddr = "tcp://127.0.0.1:0"
+                cfg.p2p.persistent_peers = ""
+                cfg.p2p.pex = False
+                cfg.rpc.laddr = ""
+                cfg.ensure_dirs()
+                joiners.append(Node(cfg, gen, priv_validator=MockPV(), db_backend="memdb",
+                                    device=dev))
+            for j in joiners:
+                await j.start()
+                await asyncio.gather(*(j.switch.dial_peer(addr(node)) for node in nodes))
+            target = min(x.block_store.height() for x in nodes)
+            await rt_wait(lambda: all(j.block_store.height() >= target for j in joiners),
+                          BN_BUDGET_S, f"the joiners at height {target}", nodes=nodes + joiners,
+                          phase="21")
+            fs_reactor.SWITCH_TO_CONSENSUS_INTERVAL = switch_interval
+            parts["joiners"] = time.perf_counter() - t
+            catchup, fast = joiners
+            for j in joiners:
+                bn_folded(j, target - 1, n)
+            lanes = sum(e["kind"] == "commit.agg_catchup" for e in catchup.flight_recorder.events())
+            if not lanes:
+                raise AssertionError("phase 21: the catch-up joiner took no agg_commit frame")
+            synced = fast.blockchain_reactor.blocks_synced
+            if synced != fast.block_store.height():
+                raise AssertionError(f"phase 21: the fast-sync joiner synced {synced} of its "
+                                     f"{fast.block_store.height()} blocks")
+            # the fast-sync joiner's stored commits as one run: one pairing product
+            t = time.perf_counter()
+            vals = fast.state_store.load_validators(1)
+            pairs = []
+            for h in range(1, target - 1):
+                block = fast.block_store.load_block(h)
+                pairs.append((BlockID(block.hash(),
+                                      block.make_part_set(BLOCK_PART_SIZE_BYTES).header()),
+                              h, fast.block_store.load_block_commit(h)))
+            runs = kt.n["batch_verify_aggregates"]
+            bls_scheme._memo.clear()  # so that the run pays its pairing product
+            verdicts = verify_commit_run(vals, gen.chain_id, pairs)
+            if verdicts != [True] * len(pairs) or kt.n["batch_verify_aggregates"] != runs + 1:
+                raise AssertionError(f"phase 21: verify_commit_run over the fast-sync joiner's "
+                                     f"{len(pairs)} aggregate commits gave {verdicts}")
+            out["run_ms"] = _ms(t)
+            say(f"catch-up joiner (fast sync off) at {catchup.block_store.height()} through "
+                f"{lanes} agg_commit catch-ups, fast-sync joiner at {fast.block_store.height()} "
+                f"({synced} blocks synced) in {parts['joiners']:.3f} s; verify_commit_run over "
+                f"its {len(pairs)} aggregate commits in one pairing product "
+                f"{out['run_ms']:.3f} ms ({card})")
+
+            # a validator restarts and rebuilds its AggregateLastCommit
+            t = time.perf_counter()
+            await nodes[-1].stop()
+            stopped_at = nodes[-1].block_store.height()
+            nodes[-1] = default_new_node(cfgs[-1], device=dev)
+            await nodes[-1].start()
+            if not isinstance(nodes[-1].consensus.rs.last_commit, AggregateLastCommit):
+                raise AssertionError(f"phase 21: the restarted validator holds "
+                                     f"{nodes[-1].consensus.rs.last_commit!r}")
+            await rt_wait(lambda: nodes[-1].block_store.height() >= stopped_at + 2,
+                          BN_BUDGET_S, "the restarted validator committing again", nodes=nodes,
+                          phase="21")
+            bn_folded(nodes[-1], stopped_at + 1, n)
+            parts["restart"] = time.perf_counter() - t
+            say(f"validator {n - 1} stopped at {stopped_at}, restarted with its "
+                f"AggregateLastCommit and at {nodes[-1].block_store.height()} in "
+                f"{parts['restart']:.3f} s ({card})")
+        finally:
+            fs_reactor.SWITCH_TO_CONSENSUS_INTERVAL = switch_interval
+            stopping = [x for x in nodes + joiners if x.is_running]
+            await asyncio.gather(*(x.stop() for x in stopping), return_exceptions=True)
+            batch_hook.set_verifier(None)
+            batch_hook.set_indexed_verifier(None)
+    out.update(parts=parts, checked=checked, s=time.perf_counter() - t_start,
+               host_ms=dict(kt.ms), verifies=dict(kt.n))
+    say(f"host BLS work: {kt.line()}; parts {', '.join(f'{k} {v:.3f} s' for k, v in parts.items())}; "
+        f"phase 21 took {out['s']:.3f} s ({card})")
+    return out
+
+
 CHILD_RESULT = "phase-child-result "  # the prefix of a PhaseChild's result line
 
 
@@ -9782,11 +10400,14 @@ class PhaseChild:
         return self.result
 
 
-def child_phase(name, card, picked=None, device="cuda", sizes=None):
+def child_phase(name, card, picked=None, device="cuda", sizes=None, ms=None):
     """A PhaseChild's entry point: the kernel library (built by phase 1 of
-    the parent run) loaded, then phase 18 (a), 19 (a) or 20 on `device`
-    (the card; the CPU to rehearse, with `sizes` overriding this module's
-    size constants).  Returns the phase's launches (and 19 (a)'s
+    the parent run) loaded, then phases 6-8 (one after another), 14,
+    18 (a), 19 (a), 20 or 21 on `device` (the card; the CPU to rehearse,
+    with `sizes` overriding this module's size constants).  `picked` is
+    the parent's auto-profile pick, for a process that has profiled
+    nothing yet; `ms` phase 4's kernel times, for phase 6's saving line.
+    Returns the phase's launches (by phase for 6-8; and 19 (a)'s
     numbers)."""
     import torch
 
@@ -9796,8 +10417,16 @@ def child_phase(name, card, picked=None, device="cuda", sizes=None):
     dev = torch.device(device)
     if dev.type == "cuda":
         _build.lib()
-    report = {k: {"launches": 0} for k in launch_counts()}
-    if name == "18 a":
+    report = {k: {"launches": 0, **({"ms": ms[k]} if k in (ms or {}) else {})}
+              for k in launch_counts()}
+    if name == "6 7 8":
+        keys = make_keys(N_VALIDATORS)
+        for run in (run_light, run_replay, run_abci):
+            run(keys, card, dev, picked, report)
+        return {k: {p: r[p] for p in ("6", "7", "8")} for k, r in report.items()}
+    elif name == "14":
+        run_boundary(make_keys(N_VALIDATORS), card, dev, picked, report)
+    elif name == "18 a":
         run_staking(make_keys(N_VALIDATORS), card, dev, picked, report)
     elif name == "19 a":
         launch_counts(zero=True)
@@ -9805,6 +10434,8 @@ def child_phase(name, card, picked=None, device="cuda", sizes=None):
         return {k: a[k] for k in ("launches", "node", "s", "host_ms", "verifies")}
     elif name == "20":
         run_bls(card, dev, report)
+    elif name == "21":
+        run_bls_net(card, dev, report)
     else:
         raise ValueError(f"no phase {name!r} runs in a process of its own")
     return {k: r["launches"] for k, r in report.items()}
@@ -9814,7 +10445,7 @@ def run_bls(card, dev, report):
     """Phase 20 with its launch checks, its launches added to `report`."""
     log(f"[20] BLS12-381 keys on a mixed set: {BLS_VALIDATORS} validators ({BLS_MEMBERS} "
         f"bls12381, ours from init --key-type bls12381, the rest ed25519) through the consensus "
-        f"core, per-vote commits (aggregate commits: ROADMAP 1.9b)")
+        f"core, per-vote commits (a mixed set does not fold)")
     launch_counts(zero=True)
     out = phase_bls_chain(card, dev)
     counts = launch_counts()
@@ -9823,6 +10454,20 @@ def run_bls(card, dev, report):
     if counts["ed25519_ladder"] == 0 or out["node"]["ed25519_ladder"] == 0:
         raise AssertionError(f"the ladder was not launched for phase 20's ed25519 members: "
                              f"{counts}, the node's {out['node']}")
+    for name, c in counts.items():
+        report[name]["launches"] += c
+
+
+def run_bls_net(card, dev, report):
+    """Phase 21, its launches (none expected: a uniformly BLS set verifies
+    on the host) added to `report`."""
+    log(f"[21] a uniformly BLS net: {BN_VALIDATORS} validators from testnet --key-type "
+        f"bls12381 on the card, aggregate commits, a catch-up and a fast-sync joiner and a "
+        f"restart")
+    launch_counts(zero=True)
+    out = phase_bls_net(card, dev)
+    counts = launch_counts()
+    log(f"  launches in phase 21: {counts}; phase 21 took {out['s']:.3f} s ({card})")
     for name, c in counts.items():
         report[name]["launches"] += c
 
@@ -9992,103 +10637,29 @@ def main() -> int:
     for name, c in counts.items():
         report[name]["launches"] += c
 
-    log("[6] light client: bisection, sequence, engine lane and shared cache at 10k validators")
-    launch_counts(zero=True)
+    # phases 6-8 (one after another), 14 and 18 (a), each in a process of
+    # its own (its own launch counters, read there and added), beside
+    # phases 9, 10 (a) and 15 in this one
+    picked = process_pick()
+    ms = {k: report[k]["ms"] for k in ("ed25519_ladder", "ed25519_tabulated")}
     t0 = time.perf_counter()
-    _, launches_34 = phase_light(keys, card, dev, report)
-    counts = launch_counts()
-    log(f"  launches in phase 6: {counts}; phase 6 took {time.perf_counter() - t0:.3f} s")
-    if counts["ed25519_window_tables"] == 0:
-        raise AssertionError("kernel 2 (window tables) was not launched in phase 6")
-    if launches_34["ed25519_ladder"] == 0:
-        raise AssertionError("the ladder was not launched in phase 6's engine lane")
-    for name, c in counts.items():
-        report[name]["launches"] += c
-
-    log("[7] fast-sync replay from sqlite stores at 10k validators across a set rotation")
-    launch_counts(zero=True)
-    t0 = time.perf_counter()
-    launches_a = phase_replay(keys, card, dev)
-    counts = launch_counts()
-    log(f"  launches in phase 7: {counts}; phase 7 took {time.perf_counter() - t0:.3f} s")
-    prof = next(iter(bvm.tabulated_profiles.values()))
-    picked = "ed25519_tabulated" if prof["tab_ms"] < prof["ladder_ms"] else "ed25519_ladder"
-    if counts["ed25519_ladder"] == 0:
-        raise AssertionError("the ladder was not launched in phase 7")
-    if counts["ed25519_window_tables"] != 2:
-        raise AssertionError("kernel 2 (window tables) was not launched once per set in phase 7")
-    if launches_a[picked] == 0:
-        raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in phase 7 (a)")
-    for name, c in counts.items():
-        report[name]["launches"] += c
-
-    log("[8] blocks applied to the kvstore app at 10k validators: mempool, BlockExecutor, "
-        "fast sync, handshake")
-    launch_counts(zero=True)
-    t0 = time.perf_counter()
-    launches = phase_abci(keys, card, dev)
-    counts = launch_counts()
-    log(f"  launches in phase 8: {counts}; phase 8 took {time.perf_counter() - t0:.3f} s")
-    if launches["flushes"]["ed25519_ladder"] == 0:
-        raise AssertionError("the ladder was not launched by the mempool's signed-tx flushes")
-    if launches["a"]["ed25519_window_tables"] != 2:
-        raise AssertionError("kernel 2 (window tables) was not launched once per set in phase 8 (a)")
-    for part in ("a", "b", "c3"):
-        if launches[part][picked] == 0:
-            raise AssertionError(f"the auto-profile's pick ({picked}) was not launched in phase 8 "
-                                 f"({part})")
-    for name, c in counts.items():
-        report[name]["launches"] += c
-
-    log("[9] consensus at 10k validators: proposals, vote frames, a round change and a restart "
-        "from the WAL")
-    launch_counts(zero=True)
-    t0 = time.perf_counter()
-    out = phase_consensus(keys, card, dev)
-    counts = launch_counts()
-    log(f"  launches in phase 9: {counts}; {out['validate_blocks']} validate_block calls on heights "
-        f">= 2, {out['indexed_dispatches']} indexed dispatches, {out['frames']} vote frames "
-        f"accepted; phase 9 took {time.perf_counter() - t0:.3f} s")
-    if counts["ed25519_window_tables"] != 1:
-        raise AssertionError("kernel 2 (window tables) was not launched exactly once in phase 9")
-    if out["indexed_dispatches"] != out["validate_blocks"] or counts[picked] < out["validate_blocks"]:
-        raise AssertionError(f"the auto-profile's pick ({picked}) was not launched once per "
-                             "validate_block in phase 9")
-    if picked == "ed25519_tabulated" and counts[picked] != out["validate_blocks"]:
-        raise AssertionError("the tabulated sum launched other than once per validate_block")
-    if counts["ed25519_ladder"] < out["frames"]:
-        raise AssertionError("the ladder was not launched for every accepted vote frame in phase 9")
-    for name, c in counts.items():
-        report[name]["launches"] += c
-
-    log("[10] node wiring: a 10,000-validator node from its home directory, stopped and "
-        "resumed; then the CLI")
-    launch_counts(zero=True)
-    t0 = time.perf_counter()
-    out = phase_node(keys, card, dev)
-    counts = launch_counts()
-    log(f"  launches in phase 10 (a): {counts}; {out['validate_blocks']} validate_block calls on "
-        f"heights >= 2, {out['hits']} table hits, declines by node {out['declines']}, tables "
-        f"built {out['tables']}, {out['frames']} vote frames accepted; phase 10 (a) took "
-        f"{time.perf_counter() - t0:.3f} s")
-    if sorted(out["tables"]) != ["table-build", "table-build", "table-rebuild"]:
-        raise AssertionError(f"phase 10 built tables {out['tables']}, not the genesis set's, set "
-                             "B's by _valset_watch and set B's by the restarted node")
-    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 3:
-        raise AssertionError("kernel 2 (window tables) was not launched once per table in "
-                             "phase 10")
-    if out["declines"][0] != 1:
-        raise AssertionError("the first node declined other than exactly once (the genesis "
-                             "set's first check)")
-    if counts[picked] < out["hits"]:
-        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
-                             "in phase 10")
-    if counts["ed25519_ladder"] < out["frames"] + sum(out["declines"]):
-        raise AssertionError("the ladder did not serve every accepted vote frame and declined "
-                             "check in phase 10")
-    for name, c in counts.items():
-        report[name]["launches"] += c
-    log("  phase 10 (b), the CLI, runs beside phase 13")
+    kids = {tag: PhaseChild(tag, "child_phase", tag, card, picked, "cuda", None, ms)
+            for tag in ("6 7 8", "14", "18 a")}
+    try:
+        run_side(keys, card, dev, picked, report)
+    finally:
+        done, failed = join_kids(kids)
+    if failed:
+        raise failed[0]
+    for name, by_phase in done["6 7 8"].items():
+        report[name]["launches"] += sum(by_phase.values())
+    for tag in ("14", "18 a"):
+        for name, c in done[tag].items():
+            report[name]["launches"] += c
+    by = {p: {n: c[p] for n, c in done["6 7 8"].items()} for p in ("6", "7", "8")}
+    log(f"  launches in phases 6, 7, 8, 14 and 18 (a), each in a process of its own: {by['6']}, "
+        f"{by['7']}, {by['8']}, {done['14']}, {done['18 a']}; phases 6-10 (a), 14, 15 and "
+        f"18 (a) took {time.perf_counter() - t0:.3f} s together ({card})")
 
     log("[11] two port nodes of the 10,000-validator chain over TCP: four relays, node B "
         "through the CLI fast-syncing from A and following it")
@@ -10177,80 +10748,28 @@ def main() -> int:
     for name, c in counts.items():
         report[name]["launches"] += c
 
-    log("[14] a validator across its process boundaries: its app behind the ABCI socket "
-        "(abci_cli kvstore), its key in a remote signer process, /metrics, and `light` in "
-        "front of its RPC, at 10,000 validators")
-    launch_counts(zero=True)
+    # phases 19 (a), 20 and 21, each in a process of its own, from the end
+    # of phase 17 on, beside 18 (b) and then phase 19 (b) in this one
     t0 = time.perf_counter()
-    out = phase_boundary(keys, card, dev)
-    counts = launch_counts()
-    log(f"  launches in phase 14 on the node (light's, in its own process, are not counted): "
-        f"{counts}; {out['validate_blocks']} validate_block calls on heights >= 2, "
-        f"{out['hits']} table hits, {out['declines']} declines, {out['frames']} vote frames "
-        f"accepted; phase 14 took {time.perf_counter() - t0:.3f} s")
-    log(f"  light's engine in its own process (its exit line; not in the kernels line): "
-        f"launches {out['light']['launches']}, dispatch paths {out['light']['paths']}, "
-        f"table lookups {out['light']['tables']}")
-    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 1:
-        raise AssertionError("kernel 2 (window tables) did not build the node's genesis table "
-                             "exactly once in phase 14")
-    if counts[picked] < out["hits"]:
-        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
-                             "in phase 14")
-    if counts["ed25519_ladder"] < out["frames"] + out["declines"]:
-        raise AssertionError("the ladder did not serve every accepted vote frame and the "
-                             "genesis set's declined check in phase 14")
-    for name, c in counts.items():
-        report[name]["launches"] += c
+    kids = {}
 
-    log("[15] transactions from outside at 10,000 validators: the app over ABCI gRPC "
-        "(abci_cli --abci grpc kvstore), a tm-bench firehose (loadgen) at the RPC, the "
-        "BroadcastAPI on rpc.grpc_laddr")
-    launch_counts(zero=True)
-    t0 = time.perf_counter()
-    out = phase_grpc(keys, card, dev)
-    counts = launch_counts()
-    log(f"  launches in phase 15 on the node: {counts}; {out['validate_blocks']} validate_block "
-        f"calls on heights >= 2, {out['hits']} table hits, {out['declines']} declines, "
-        f"{out['frames']} vote frames accepted, {out['flushes']} signed-tx flushes; phase 15 "
-        f"took {time.perf_counter() - t0:.3f} s")
-    if picked == "ed25519_tabulated" and counts["ed25519_window_tables"] != 1:
-        raise AssertionError("kernel 2 (window tables) did not build the node's genesis table "
-                             "exactly once in phase 15")
-    if counts[picked] < out["hits"]:
-        raise AssertionError(f"the auto-profile's pick ({picked}) did not serve every table hit "
-                             "in phase 15")
-    if counts["ed25519_ladder"] < out["frames"] + out["declines"] + out["flushes"]:
-        raise AssertionError("the ladder did not serve every signed-tx flush, accepted vote frame "
-                             "and the genesis set's declined check in phase 15")
-    for name, c in counts.items():
-        report[name]["launches"] += c
+    def start_kids():
+        kids.update((tag, PhaseChild(tag, "child_phase", tag, card))
+                    for tag in ("19 a", "20", "21"))
 
-    # phase 18 (a) in a process of its own (its own launch counters, read
-    # there) beside phases 17 with 18 (b) and 19 (b) in this one; phases
-    # 19 (a) and 20 likewise, beside 19 (b)
-    t0 = time.perf_counter()
-    kids = {"18 a": PhaseChild("18 a", "child_phase", "18 a", card, picked)}
     try:
-        run_chaos_rotation(card, dev, picked, report)
-        kids.update((tag, PhaseChild(tag, "child_phase", tag, card)) for tag in ("19 a", "20"))
+        run_chaos_rotation(card, dev, picked, report, after_17=start_kids)
         run_mixed(keys, commit, card, dev, report)
     finally:
-        done, failed = {}, []
-        for tag, kid in kids.items():
-            try:
-                done[tag] = kid.join()
-            except AssertionError as e:
-                failed.append(e)
+        done, failed = join_kids(kids)
     if failed:
         raise failed[0]
     check_sr_chain(done["19 a"], card)
-    for tag in ("18 a", "20"):
+    for tag in ("20", "21"):
         for name, c in done[tag].items():
             report[name]["launches"] += c
-    log(f"  launches in phase 18 (a) and 20, each in its process: {done['18 a']}, "
-        f"{done['20']}; phases 17, 18, 19 and 20 took {time.perf_counter() - t0:.3f} s "
-        f"together ({card})")
+    log(f"  launches in phases 20 and 21, each in its process: {done['20']}, {done['21']}; "
+        f"phases 17-21 but 18 (a) took {time.perf_counter() - t0:.3f} s together ({card})")
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
     keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share",

@@ -17,7 +17,7 @@ Pieces:
                BeginBlock byzantine_validators)
   scenario.py  declarative seeded fault timelines + the async runner and
                the in-process rig (its `valset` clauses run through the
-               staking app; a bls migration raises naming ROADMAP 1.9b)
+               staking app)
   checker.py   Jepsen-flavor invariant checker: agreement, no height
                regression, bounded recovery, accountability, no serving
                of corrupted blocks

@@ -63,11 +63,10 @@ The valset clauses are faults in the same sense as partitions: they
 mutate the validator set THROUGH the staking app's tx path (bond/edit/
 rotate), so every assumption downstream — verify-table identity, BLS
 aggregation uniformity, lite-client bisection — gets exercised exactly
-the way a production set change would exercise it.
-In the port a `bls` migration raises NotImplementedError naming ROADMAP
-1.9b before any tx is made: it ends in a uniformly BLS12-381 set, whose
-commits the reference package folds into aggregate commits, which the
-port does not carry yet.
+the way a production set change would exercise it.  A `bls` migration
+carries the new key's proof of possession in its rotate tx; once every
+member has migrated, the set is uniformly BLS12-381 and its commits fold
+into aggregate commits.
 
 The executor (`ScenarioRunner`) drives any object satisfying the Rig
 surface; `InProcRig` adapts a list of in-process Nodes (the test path),
@@ -520,11 +519,6 @@ class InProcRig:
         return int(res.value or b"0")
 
     async def valset(self, op: str, i: int, **kv) -> None:
-        if op == "migrate" and kv.get("scheme") == "bls12381":
-            raise NotImplementedError(
-                f"valset migrate node {i}: a bls12381 migration ends in a uniformly "
-                "BLS12-381 set, whose aggregate commits (ROADMAP 1.9b) are not ported yet"
-            )
         from ..apps.staking import (
             make_bond_tx,
             make_edit_power_tx,

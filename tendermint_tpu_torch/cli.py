@@ -1021,7 +1021,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument(
         "--key-type", choices=list(KEY_TYPES), default="ed25519",
         help="consensus key scheme for the generated priv_validator key "
-        "(an all-bls12381 chain needs bls_aggregate_commits = false: ROADMAP 1.9b)",
+        "(bls12381 unlocks aggregate commits)",
     )
     sp.set_defaults(fn=cmd_init)
 
@@ -1063,9 +1063,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument(
         "--key-type", choices=list(KEY_TYPES), default="ed25519",
         help="consensus key scheme for every generated validator key; "
-        "bls12381 genesis validators carry proofs of possession; an all-"
-        "bls12381 net runs with [consensus] bls_aggregate_commits = false "
-        "until aggregate commits are ported (ROADMAP 1.9b)",
+        "bls12381 genesis validators carry proofs of possession and the "
+        "net commits blocks with ONE aggregate signature per commit",
     )
     sp.set_defaults(fn=cmd_testnet)
 

@@ -2,9 +2,8 @@
 copy of tendermint_tpu/consensus/reactor.py; its frames' bytes equal the JAX
 package's).
 
-Two deviations from the JAX reactor (ROADMAP 3):
-
-- No fallback hides the engine.  The JAX reactor drops a vote_batch frame
+One deviation from the JAX reactor (ROADMAP 3): no fallback hides the
+engine.  The JAX reactor drops a vote_batch frame
   whose engine call raises, and reads a single vote whose engine call
   raises as badly signed (the peer is stopped).  Here an error of the
   engine itself (crypto.batch.EngineError) logs at ERROR and raises
@@ -13,9 +12,6 @@ Two deviations from the JAX reactor (ROADMAP 3):
   sits inside that `try`; any other exception is the peer's data and
   reaches the connection, which stops the peer.  A False verdict keeps the
   JAX behaviour exactly.
-- Aggregate (BLS) commits are not ported (ROADMAP 1.9b): an `agg_commit`
-  frame, and catchup over a folded height (`_send_agg_commit`), raise
-  TypeError naming 1.9b, as ConsensusState's aggregate inputs do.
 
 Reference parity: consensus/reactor.go (channels 0x20-0x23 :24-27,
 Receive:214 demux, SwitchToConsensus:102, broadcastHasVoteMessage:422,
@@ -92,7 +88,8 @@ from ..p2p.node_info import (
     GOSSIP_SUMMARY_VERSION,
     GOSSIP_TRACE_VERSION,
 )
-from ..types.block import BlockID, Commit, PartSetHeader
+from ..types.agg_commit import AggregateCommit, AggregateLastCommit
+from ..types.block import BlockID, PartSetHeader
 from ..types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
 from ..types.part_set import Part
 from ..types.proposal import Proposal
@@ -483,8 +480,13 @@ class ConsensusReactor(Reactor):
         self.peer_states[peer.id] = ps
         self._peer_gen += 1
         peer.set("cs_peer_state", ps)
-        await peer.send(STATE_CHANNEL, self._new_round_step_msg())
+        # while fast-syncing, our round state is announced only at the
+        # handover (reactor.go AddPeer): a peer told our height now would
+        # send us proposals and votes that receive drops, mark them
+        # delivered, and keep them marked after the handover's
+        # new_round_step at the same height and round
         if not self.wait_sync:
+            await peer.send(STATE_CHANNEL, self._new_round_step_msg())
             self._start_gossip(peer, ps)
 
     def _start_gossip(self, peer, ps) -> None:
@@ -722,7 +724,19 @@ class ConsensusReactor(Reactor):
             elif kind == "vote_batch":
                 await self._receive_vote_batch(peer, ps, msg)
             elif kind == "agg_commit":
-                raise TypeError("aggregate (BLS) commits are not ported yet (ROADMAP 1.9b)")
+                try:
+                    commit = AggregateCommit.from_dict(msg["commit"])
+                    commit.validate_basic()
+                except Exception as e:
+                    await self.switch.stop_peer_for_error(peer, f"invalid agg_commit: {e}")
+                    return
+                hp = self._trace_recv("agg_commit", peer, msg, commit.height)
+                if hp is not None:
+                    self._store_hop(("agg", commit.height), hp)
+                # the signature check (one pairing) runs inside the
+                # consensus routine against OUR validator set; a forged
+                # commit is dropped there
+                await self.cs.add_agg_commit_input(commit, peer.id)
         elif chan_id == VOTE_SET_BITS_CHANNEL:
             if kind == "vote_set_bits":
                 our_votes = None
@@ -1346,10 +1360,15 @@ class ConsensusReactor(Reactor):
             if rs.height == ps.height:
                 sent = await self._gossip_votes_for_height(peer, ps, repair)
             elif rs.height == ps.height + 1 and rs.last_commit is not None:
-                sent = await self._send_votes(peer, ps, rs.last_commit)
+                if isinstance(rs.last_commit, AggregateLastCommit):
+                    # restart adapter: the folded seen commit has no votes
+                    # to stream, so ship the aggregate itself
+                    sent = await self._send_agg_commit(peer, ps, rs.last_commit.commit)
+                else:
+                    sent = await self._send_votes(peer, ps, rs.last_commit)
             elif rs.height >= ps.height + 2 and ps.height >= self.cs.block_store.base():
                 commit = self.cs.block_store.load_block_commit(ps.height)
-                if commit is not None and not isinstance(commit, Commit):
+                if isinstance(commit, AggregateCommit):
                     sent = await self._send_agg_commit(peer, ps, commit)
                 elif commit is not None:
                     sent = await self._send_commit_votes(peer, ps, commit)
@@ -1406,10 +1425,30 @@ class ConsensusReactor(Reactor):
                 return True
         return False
 
+    AGG_COMMIT_RESEND_S = 2.0  # lost-frame repair cadence per stuck peer
+
     async def _send_agg_commit(self, peer, ps: PeerRoundState, commit) -> bool:
-        """Catchup for a folded (aggregate) height: the JAX reactor ships the
-        stored AggregateCommit as one frame.  Not ported (ROADMAP 1.9b)."""
-        raise TypeError("aggregate (BLS) commits are not ported yet (ROADMAP 1.9b)")
+        """Catchup for a folded height: the per-vote precommits were
+        dropped at fold time, so ship the stored AggregateCommit itself, ONE
+        ~190-byte frame; the receiver checks it with one pairing and
+        finalizes from it (state._apply_aggregate_commit).  Deduped per
+        stuck height with a coarse resend timer."""
+        if ps.height != commit.height:
+            return False
+        now = time.monotonic()
+        last_h, last_t = ps.agg_commit_sent
+        if last_h == commit.height and now - last_t < self.AGG_COMMIT_RESEND_S:
+            return False
+        fields = {"commit": commit.to_dict()}
+        if self._peer_traced(peer):
+            self._stamp_trace(fields, self._content_hop(("agg", commit.height)))
+        ok = await peer.send(VOTE_CHANNEL, _enc("agg_commit", fields))
+        if ok:
+            ps.agg_commit_sent = (commit.height, now)
+            self.cs.recorder.record(
+                "gossip.agg_commit", height=commit.height, peer=peer.id[:8]
+            )
+        return ok
 
     async def _send_votes(
         self, peer, ps: PeerRoundState, vote_set, relay_ok: bool = True

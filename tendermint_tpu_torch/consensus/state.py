@@ -19,17 +19,12 @@ The `decide_proposal` / `do_prevote` / `set_proposal` methods are instance
 attributes precisely so byzantine tests can hijack them
 (consensus/state.go:124-126).
 
-Deviation (ROADMAP 3): aggregate (BLS) commits are not ported (ROADMAP
-1.9b).  `_maybe_fold_commit` stands where the JAX package folds: a commit
-the JAX package would fold (a uniformly BLS12-381 set with `[consensus]
-bls_aggregate_commits` on) raises TypeError naming 1.9b, so no per-vote
-commit is ever embedded where the JAX package embeds an AggregateCommit;
-every other commit (mixed sets, the knob off) passes unchanged, as in the
-JAX package.  The aggregate-commit inputs raise TypeError naming 1.9b too:
-`add_agg_commit_input`, and an aggregate seen commit met by
-`reconstruct_last_commit_if_needed`.  The aggregate catchup lane
-(`_apply_aggregate_commit`, `_finalize_from_aggregate`) is therefore left
-out: nothing could reach it.
+Aggregate (BLS) commits: on a uniformly BLS12-381 set with `[consensus]
+bls_aggregate_commits` on, `_maybe_fold_commit` folds every +2/3 commit
+(the proposal's last commit and the seen commit) into an AggregateCommit;
+a peer two heights ahead ships that stored commit in an `agg_commit` frame,
+which `_apply_aggregate_commit` checks with one pairing before the height
+finalizes from it.
 """
 
 from __future__ import annotations
@@ -43,41 +38,18 @@ from ..libs.fail import fail_point
 from ..libs.log import get_logger
 from ..libs.service import Service
 from ..state.state import State as SMState
+from ..types.agg_commit import AggregateCommit, AggregateLastCommit, fold_commit
 from ..types.block import Block, BlockID, Commit, PartSetHeader
 from ..types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
 from ..types.part_set import Part, PartSet, PartSetError
 from ..types.params import BLOCK_PART_SIZE_BYTES
 from ..types.proposal import Proposal
+from ..types.validator import NotEnoughVotingPowerError
 from ..types.vote import ErrVoteConflictingVotes, Vote, VoteError
 from ..types.vote_set import VoteSet
 from .ticker import TimeoutInfo, TimeoutTicker
 from .types import GotVoteFromUnwantedRoundError, HeightVoteSet, RoundState, RoundStep
 from .wal import NilWAL
-
-
-def folds_in_reference(commit, val_set) -> bool:
-    """True iff the JAX package's `fold_commit` folds this commit (its
-    types/agg_commit.py): a per-vote commit of a uniformly BLS12-381 set of
-    its own size, with at least one signature for the block, a
-    power-weighted median time and signatures that all decompress.  In
-    every other case the JAX package keeps the per-vote commit."""
-    from ..state.state import weighted_median_timestamp
-    from ..types.vote import set_is_uniform_bls
-
-    if not isinstance(commit, Commit) or not commit.signatures:
-        return False
-    if val_set.size() != len(commit.signatures) or not set_is_uniform_bls(val_set):
-        return False
-    sigs = [cs.signature for cs in commit.signatures if cs.is_for_block()]
-    if not sigs:
-        return False
-    try:
-        weighted_median_timestamp(commit, val_set)
-    except ValueError:
-        return False
-    from ..crypto.bls import scheme
-
-    return scheme.aggregate_signatures(sigs) is not None
 
 
 class VoteHeightMismatchError(VoteError):
@@ -152,6 +124,9 @@ class ConsensusState(Service):
         #: node wires a libs.watchdog.StorageHealth so persistence faults
         #: reach the disk_fault watchdog alarm + forensics pipeline
         self.storage_health = None
+        # set only while finalizing from a peer-shipped AggregateCommit;
+        # update_to_state consumes it as the next height's last-commit
+        self._pending_agg_last_commit = None
         # -- consensus pipeline (config.pipeline_delivery) -----------------
         # In-flight ABCI delivery for the last committed height: a task
         # resolving to ("ok", (new_state, retain_height)) or ("err", exc)
@@ -219,8 +194,10 @@ class ConsensusState(Service):
     def reconstruct_last_commit_if_needed(self, state: SMState) -> None:
         """consensus/state.go:487 — rebuild LastCommit votes from the
         stored SeenCommit, one host verify per signature.  An aggregate
-        seen commit (the JAX package verifies its pairing and carries it
-        through an adapter) raises until the BLS tier is ported."""
+        seen commit has no per-vote signatures to rebuild a VoteSet from:
+        verify its single pairing against the stored set and carry it
+        through an adapter instead (proposal assembly embeds it as it is;
+        height-1 straggler precommits are ignored, the commit is +2/3)."""
         if state.last_block_height == 0:
             return
         seen_commit = self.block_store.load_seen_commit(state.last_block_height)
@@ -229,10 +206,12 @@ class ConsensusState(Service):
                 f"failed to reconstruct last commit: seen commit for height "
                 f"{state.last_block_height} not found"
             )
-        if not isinstance(seen_commit, Commit):
-            raise TypeError(
-                "aggregate (BLS) seen commits are not ported yet (ROADMAP 1.9b)"
+        if isinstance(seen_commit, AggregateCommit):
+            state.last_validators.verify_commit(
+                state.chain_id, seen_commit.block_id, state.last_block_height, seen_commit
             )
+            self.rs.last_commit = AggregateLastCommit(seen_commit)
+            return
         last_precommits = commit_to_vote_set(state.chain_id, seen_commit, state.last_validators)
         if not last_precommits.has_two_thirds_majority():
             raise RuntimeError("failed to reconstruct last commit: does not have +2/3 maj")
@@ -317,9 +296,11 @@ class ConsensusState(Service):
         await self.msg_queue.put({"type": "proposal", "proposal": proposal, "peer_id": peer_id})
 
     async def add_agg_commit_input(self, commit, peer_id: str = "") -> None:
-        """The JAX package's catchup fast-path for aggregate-commit nets;
-        the BLS tier is not ported."""
-        raise TypeError("aggregate (BLS) commits are not ported yet (ROADMAP 1.9b)")
+        """Catchup fast path for aggregate-commit nets: a peer two or more
+        heights ahead has no per-vote precommits to serve for a folded
+        height, so it ships the stored AggregateCommit itself (the
+        reactor's `agg_commit` frame); ONE pairing replaces the vote tally."""
+        await self.msg_queue.put({"type": "agg_commit", "commit": commit, "peer_id": peer_id})
 
     async def add_block_part_input(
         self, height: int, round_: int, part: Part, peer_id: str = ""
@@ -475,6 +456,8 @@ class ConsensusState(Service):
                         cb(self.rs)
             elif kind == "vote":
                 await self._try_add_vote(mi["vote"], peer_id, mi.get("verified", False))
+            elif kind == "agg_commit":
+                await self._apply_aggregate_commit(mi["commit"], peer_id)
         except ErrVoteConflictingVotes:
             raise  # own double-sign — _try_add_vote re-raises only then; halt
         except (VoteError, PartSetError, InvalidProposalSignatureError,
@@ -683,21 +666,23 @@ class ConsensusState(Service):
         return block, parts
 
     def _maybe_fold_commit(self, commit, val_set):
-        """Where the JAX package folds a +2/3 commit into one aggregate BLS
-        signature (a uniformly BLS12-381 set with `bls_aggregate_commits`
-        on).  Aggregate commits are not ported (ROADMAP 1.9b), so a commit
-        the JAX package would fold raises TypeError rather than go out per
-        vote; every other commit passes unchanged, as there."""
+        """Fold a +2/3 commit into ONE aggregate BLS signature and a signer
+        bitmap when the signing set is uniformly BLS (types/agg_commit.py).
+        A commit that cannot fold (a mixed or non-BLS set, or one already
+        folded by the restart adapter) passes unchanged: aggregation turns
+        itself off, and per-scheme routing still verifies it."""
         if not getattr(self.config, "bls_aggregate_commits", True):
             return commit
-        if folds_in_reference(commit, val_set):
-            raise TypeError(
-                f"height {commit.height}: the validator set is uniformly bls12381 and "
-                "[consensus] bls_aggregate_commits is on, so the commit folds into an "
-                "AggregateCommit, which is not ported yet (ROADMAP 1.9b); set "
-                "bls_aggregate_commits = false"
-            )
-        return commit
+        folded = fold_commit(commit, val_set, self.sm_state.chain_id)
+        if folded is None:
+            return commit
+        self.recorder.record(
+            "commit.aggregate",
+            height=folded.height,
+            signers=folded.signers.count(),
+            bytes=len(folded.encode()),
+        )
+        return folded
 
     def _last_commit_signed_count(self) -> int:
         """Signer count of rs.last_commit — the speculative-proposal
@@ -938,10 +923,77 @@ class ConsensusState(Service):
             ),
         )
 
+    async def _apply_aggregate_commit(self, commit, peer_id: str = "") -> None:
+        """Commit this height from a peer-shipped AggregateCommit: the
+        catchup lane for folded heights (their per-vote precommits exist
+        nowhere, so the vote tally can never fire).  One pairing against
+        OUR validator set authenticates it; the block is either in hand, or
+        the part set is retargeted so catchup block parts flow, with the
+        verified commit parked on rs.catchup_agg_commit for the
+        completion hook."""
+        rs = self.rs
+        if commit.height != rs.height or rs.validators is None:
+            return
+        if self.block_store.height() >= commit.height:
+            return  # already committed; duplicate catchup frame
+        try:
+            commit.validate_basic()
+            # one pairing + a +2/3-power tally, memoized in the scheme so a
+            # resent frame costs a dict lookup
+            rs.validators.verify_commit(
+                self.sm_state.chain_id, commit.block_id, commit.height, commit
+            )
+        except (ValueError, NotEnoughVotingPowerError) as e:
+            # NotEnoughVotingPowerError is not a ValueError: a peer that
+            # aggregates a genuine minority of signers (a valid pairing
+            # under 2/3 of the power) is dropped here, not passed to the
+            # receive loop as a consensus failure
+            self.log.debug("invalid agg_commit from peer", peer=peer_id, err=str(e))
+            return
+        self.recorder.record(
+            "commit.agg_catchup", height=commit.height,
+            src=peer_id[:8] if peer_id else "self",
+        )
+        if rs.locked_block is not None and rs.locked_block.hashes_to(commit.block_id.hash):
+            rs.proposal_block = rs.locked_block
+            rs.proposal_block_parts = rs.locked_block_parts
+        if rs.proposal_block is not None and rs.proposal_block.hashes_to(commit.block_id.hash):
+            await self._finalize_from_aggregate(commit)
+            return
+        # block not in hand: retarget the part set (enter_commit's
+        # unknown-block shape) and let the data-gossip catchup fill it
+        rs.catchup_agg_commit = commit
+        if rs.proposal_block_parts is None or not rs.proposal_block_parts.has_header(
+            commit.block_id.parts_header
+        ):
+            rs.proposal_block = None
+            rs.proposal_block_parts = PartSet.from_header(commit.block_id.parts_header)
+            if self.event_bus:
+                await self.event_bus.publish_valid_block(rs.event_dict())
+            for cb in self.on_valid_block:
+                cb(rs)
+
+    async def _finalize_from_aggregate(self, commit) -> None:
+        rs = self.rs
+        rs.catchup_agg_commit = None
+        rs.commit_round = max(commit.round, 0)
+        self._update_round_step(rs.round, RoundStep.COMMIT)
+        rs.commit_time = self.clock.monotonic()
+        await self._new_step()
+        # update_to_state (inside _finalize_block) must not look for +2/3
+        # in the precommit vote set: the commit's votes never existed here;
+        # carry the verified aggregate as the next height's last-commit
+        # adapter instead
+        self._pending_agg_last_commit = AggregateLastCommit(commit)
+        try:
+            await self._finalize_block(commit.block_id, lambda: commit)
+        finally:
+            self._pending_agg_last_commit = None
+
     async def _finalize_block(self, block_id, seen_commit_fn) -> None:
-        """The tail of finalize_commit: `block_id` and the lazily-built
-        seen commit come from the precommit vote set (the JAX package also
-        feeds it from a verified AggregateCommit, ROADMAP 1.9b)."""
+        """The source-independent tail of finalize_commit: `block_id` and
+        the lazily-built seen commit come from either the precommit vote
+        set (the normal path) or a verified AggregateCommit (catchup)."""
         # one delivery in flight at a time: H's apply must complete (and
         # its state swap in) before H+1's persist/apply can start
         await self._ensure_delivered()
@@ -1234,6 +1286,17 @@ class ConsensusState(Service):
                     rs.valid_block = rs.proposal_block
                     rs.valid_block_parts = rs.proposal_block_parts
 
+            agg = rs.catchup_agg_commit
+            if (
+                agg is not None
+                and agg.height == rs.height
+                and rs.proposal_block.hashes_to(agg.block_id.hash)
+            ):
+                # aggregate-commit catchup: the commit was verified before
+                # the block arrived; finalize now that the block is whole
+                await self._finalize_from_aggregate(agg)
+                return added
+
             if rs.step <= RoundStep.PROPOSE and self._is_proposal_complete():
                 await self.enter_prevote(height, rs.round)
                 if has_two_thirds:
@@ -1454,7 +1517,13 @@ class ConsensusState(Service):
             return
 
         last_precommits = None
-        if rs.commit_round > -1 and rs.votes is not None:
+        pending_agg = self._pending_agg_last_commit
+        if pending_agg is not None and pending_agg.height == state.last_block_height:
+            # aggregate-commit catchup: the committed height's precommits
+            # never existed as votes here; the verified aggregate itself is
+            # the last-commit surface (the restart's adapter)
+            last_precommits = pending_agg
+        elif rs.commit_round > -1 and rs.votes is not None:
             pc = rs.votes.precommits(rs.commit_round)
             if pc is None or not pc.has_two_thirds_majority():
                 raise RuntimeError("update_to_state called but last precommit round lacks +2/3")

@@ -146,8 +146,10 @@ class RoundState:
     last_commit: Optional[VoteSet] = None
     last_validators: Optional[ValidatorSet] = None
     triggered_timeout_precommit: bool = False
-    # Aggregate-commit catchup: kept for the JAX package's layout; it stays
-    # None until the BLS tier is ported (ROADMAP 1.9b).
+    # Aggregate-commit catchup (types/agg_commit.py): a VERIFIED aggregate
+    # commit for this height whose block is still being fetched; the
+    # block-part completion path finalizes from it, since a folded commit
+    # has no per-vote precommits to drive the vote tally.
     catchup_agg_commit: Optional[object] = None
 
     def event_dict(self) -> dict:

@@ -1059,6 +1059,37 @@ class AsyncBatchVerifier(Service):
         self.verifier.recorder.record("verify.direct_batch", n=len(items))
         return await loop.run_in_executor(self._executor, self.verifier.verify, pubkeys, msgs, sigs)
 
+    async def verify_bls_aggregates(
+        self, items: Sequence[Tuple[Sequence[bytes], bytes, bytes]]
+    ) -> List[bool]:
+        """BLS aggregate-commit lane: each item is a FastAggregateVerify
+        claim (pubkeys, msg, aggregate_sig).  The whole batch runs as ONE
+        blinded pairing product (crypto/bls/scheme.batch_verify_aggregates)
+        on the flush executor, serialized with the card's work and never on
+        the event loop.  The scheme memoizes the results, so the synchronous
+        verify_commit that follows a pre-verify lane (state sync, lite2,
+        fast sync) hits the memo instead of pairing again."""
+        if not items:
+            return []
+        from .bls import scheme as _bls_scheme
+
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        self.verifier.recorder.record(
+            "verify.bls_agg", n=len(items), tier=_bls_scheme.active_tier()
+        )
+        if self._executor is not None:
+            res = await loop.run_in_executor(
+                self._executor, _bls_scheme.batch_verify_aggregates, list(items)
+            )
+        else:
+            res = _bls_scheme.batch_verify_aggregates(list(items))
+        m = self.verifier.metrics
+        m.bls_agg_seconds.observe(loop.time() - t0)
+        for _ in items:
+            m.bls_agg_checks.inc()
+        return res
+
     def verify_many(
         self, items: Sequence[Tuple[bytes, bytes, bytes]]
     ) -> List["asyncio.Future[bool]"]:

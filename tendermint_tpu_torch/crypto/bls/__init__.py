@@ -3,13 +3,13 @@
 The port's copy of the reference package's BLS subsystem.  BLS12-381
 validator keys load, sign, verify and prove possession here; a mixed
 ed25519 + BLS set commits one signature per vote, its BLS members
-verified on the host and its ed25519 members on the card.  The reference
-package also folds a uniformly BLS set's +2/3 commit into ONE 96-byte
-aggregate signature + signer bitmap ("Performance of EdDSA and BLS
-Signatures in Committee-Based Consensus", arXiv:2302.00418); that fold is
-not ported yet (ROADMAP 1.9b), but the aggregate helpers it needs
-(`fast_aggregate_verify`, `batch_pop_verify`, the memo) are here, and the
-genesis proof-of-possession check already uses them.
+verified on the host and its ed25519 members on the card.  A uniformly
+BLS set's +2/3 commit folds into ONE 96-byte aggregate signature + signer
+bitmap (types/agg_commit.py; "Performance of EdDSA and BLS Signatures in
+Committee-Based Consensus", arXiv:2302.00418), checked here by
+`fast_aggregate_verify` or, for a run of commits, one blinded pairing
+product (`batch_verify_aggregates`), with a memo between the async
+pre-verify lanes and the synchronous checks.
 
 Two host tiers, as in the reference package:
 

@@ -1,6 +1,5 @@
 """Processor: pure verify-and-apply queue, and the cross-height commit
-batch (the port's copy of tendermint_tpu/fastsync/processor.py; per-vote
-ed25519 commits only).
+batch (the port's copy of tendermint_tpu/fastsync/processor.py).
 
 Reference parity: blockchain/v2/processor.go:173 (pure state machine:
 holds downloaded blocks, yields contiguous (first, second) pairs for
@@ -12,6 +11,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..types.agg_commit import AggregateCommit
 from ..types.block import Block, BlockID, Commit
 
 
@@ -66,20 +66,18 @@ def verify_commit_run(
     10k-validator replay config (BASELINE config #5) saturate the card.
 
     pairs: (block_id, height, commit) per height.  Returns per-height ok.
-    The JAX package folds aggregate (BLS) commits of the run into one
-    pairing product; the port carries none yet and raises TypeError
-    (ROADMAP 1.9b)."""
+    The per-vote commits' ed25519 signatures go to the card as one flat
+    batch; the run's aggregate (BLS) commits fold into ONE blinded pairing
+    product on the host."""
+    from ..crypto.bls import scheme as bls_scheme
     from ..types.validator import mixed_batch_verify
 
     idxs: List[Tuple[int, int]] = []  # (pair_idx, sig_idx)
     pubkeys, msgs, sigs = [], [], []
     structural_ok = []
+    agg_items: List[Tuple[int, tuple]] = []  # (pair_idx, claim): one batch
+    agg_power: dict = {}
     for pi, (block_id, height, commit) in enumerate(pairs):
-        if not isinstance(commit, Commit):
-            raise TypeError(
-                f"verify_commit_run over {type(commit).__name__}: aggregate (BLS) commits "
-                "are not ported yet (ROADMAP 1.9b)"
-            )
         try:
             if val_set.size() != commit.size():
                 raise ValueError("commit size mismatch")
@@ -90,6 +88,18 @@ def verify_commit_run(
             structural_ok.append(False)
             continue
         structural_ok.append(True)
+        if isinstance(commit, AggregateCommit):
+            # the run's aggregate commits become ONE blinded pairing
+            # product below (k commits, one final exponentiation)
+            signer_idxs = commit.signers.true_indices()
+            try:
+                pks = [val_set.validators[i].pub_key.bytes() for i in signer_idxs]
+            except IndexError:
+                structural_ok[pi] = False
+                continue
+            agg_items.append((pi, (pks, commit.sign_message(chain_id), commit.agg_sig)))
+            agg_power[pi] = sum(val_set.validators[i].voting_power for i in signer_idxs)
+            continue
         for i, cs in enumerate(commit.signatures):
             if cs.is_absent():
                 continue
@@ -111,6 +121,13 @@ def verify_commit_run(
         cs = pairs[pi][2].signatures[i]
         if pairs[pi][0] == cs.block_id(pairs[pi][2].block_id):
             tallied[pi] += val_set.validators[i].voting_power
+    if agg_items:
+        agg_ok = bls_scheme.batch_verify_aggregates([c for _, c in agg_items])
+        for (pi, _), good in zip(agg_items, agg_ok):
+            if not good:
+                sig_ok[pi] = False
+            else:
+                tallied[pi] = agg_power[pi]
     return [
         structural_ok[pi] and sig_ok[pi] and tallied[pi] > needed for pi in range(len(pairs))
     ]

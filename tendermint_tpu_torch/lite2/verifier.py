@@ -103,11 +103,10 @@ def verify_non_adjacent(
             trust_numerator=trust_level[0],
             trust_denominator=trust_level[1],
             batch_verify=batch_verify,
-            # The JAX package also passes commit_vals=untrusted_vals, which
-            # only aggregate (BLS) commits read (their signer bitmap indexes
-            # the untrusted header's own set).  This slice has no aggregate
-            # commits, so the port's verify_commit_trusting has no such
-            # argument.
+            # aggregate (BLS) commits: the signer bitmap indexes the
+            # untrusted header's own set; power is tallied against the
+            # trusted set by address
+            commit_vals=untrusted_vals,
         )
     except NotEnoughVotingPowerError as e:
         raise ErrNewValSetCantBeTrusted(e)

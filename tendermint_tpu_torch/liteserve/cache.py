@@ -1,18 +1,18 @@
 """Shared verification cache: N light clients cost ONE commit verification.
-The port's copy of tendermint_tpu/liteserve/cache.py, for ed25519 commits
-(aggregate BLS commits are not part of the port yet).
+The port's copy of tendermint_tpu/liteserve/cache.py.
 
 The cache sits at the `commit_preverify` hook point every lite2 Client
 already exposes (the same seam statesync's EngineCommitPreverify uses), so
 the bisection control flow stays per-tenant and cheap (hash comparisons,
 power tallies in Python) while the expensive part — the whole-commit
-signature batch — is keyed by ``(chain_id, height, header_hash)`` and paid
-at most once per header, process-wide.
+signature batch (ed25519) or the aggregate pairing (BLS) — is keyed by
+``(chain_id, height, header_hash)`` and paid at most once per header,
+process-wide.
 
 Two disciplines compose:
 
-  - **LRU verdict cache**: per key, the per-signature verdict map of the
-    first verification.  Later tenants' synchronous ``verify_commit`` /
+  - **LRU verdict cache**: per key, the per-signature verdict map (or the
+    aggregate-pairing verdict) of the first verification.  Later tenants' synchronous ``verify_commit`` /
     ``verify_commit_trusting`` calls are served as table lookups.  A
     commit-digest guard protects against a different commit for the same
     header hash (stray-vote variance): a digest mismatch falls through to a
@@ -36,7 +36,9 @@ from ..crypto.keys import Ed25519PubKey
 from ..crypto.tmhash import sum_sha256
 from ..encoding import codec
 from ..libs.log import get_logger
+from ..types.agg_commit import AggregateCommit
 from ..types.block import SignedHeader
+from ..types.vote import is_bls_key
 
 Key = Tuple[str, int, bytes]  # (chain_id, height, header_hash)
 
@@ -45,7 +47,9 @@ Key = Tuple[str, int, bytes]  # (chain_id, height, header_hash)
 class _Entry:
     commit_digest: bytes
     # ed25519 commits: (pubkey_bytes, msg, sig) -> verdict
-    sig_ok: Dict[Tuple[bytes, bytes, bytes], bool]
+    sig_ok: Optional[Dict[Tuple[bytes, bytes, bytes], bool]] = None
+    # BLS aggregate commits: ((pk, ...), msg, agg_sig, verdict)
+    agg: Optional[Tuple[tuple, bytes, bytes, bool]] = None
     extra: Dict[Tuple[bytes, bytes, bytes], bool] = field(default_factory=dict)
 
 
@@ -129,7 +133,8 @@ class VerifyCache:
         if self.recorder is not None:
             self.recorder.record(
                 "liteserve.verify", height=sh.height,
-                header_hash=sh.header.hash().hex()[:16], agg=False,
+                header_hash=sh.header.hash().hex()[:16],
+                agg=entry.agg is not None if entry else False,
             )
         if entry is None:
             return None  # malformed shape; the sync path raises its own error
@@ -146,6 +151,8 @@ class VerifyCache:
 
     async def _verify(self, sh: SignedHeader, vals_sets, digest: bytes) -> Optional[_Entry]:
         vals = vals_sets[0]  # index-aligned set; other sets share pubkeys by address
+        if isinstance(sh.commit, AggregateCommit):
+            return await self._verify_agg(sh, vals, digest)
         if vals.size() != len(sh.commit.signatures):
             return None
         items: List[Tuple[bytes, bytes, bytes]] = []
@@ -175,7 +182,42 @@ class VerifyCache:
             sig_ok=dict(zip(items, (bool(r) for r in results))),
         )
 
+    async def _verify_agg(self, sh: SignedHeader, vals, digest: bytes) -> Optional[_Entry]:
+        """ONE pairing for the whole commit; the scheme memo it warms
+        serves every synchronous verify_commit(_trusting) that follows."""
+        from ..crypto.bls import scheme
+
+        commit = sh.commit
+        if vals.size() != commit.signers.bits:
+            return None
+        pks = []
+        for i in commit.signers.true_indices():
+            pk = vals.validators[i].pub_key
+            if not is_bls_key(pk):
+                return None
+            pks.append(pk.bytes())
+        msg = commit.sign_message(sh.header.chain_id)
+        ok = scheme.memo_get(pks, msg, commit.agg_sig)
+        if ok is None:
+            # a pairing is slow on the pure tier: off the event loop
+            ok = await asyncio.get_running_loop().run_in_executor(
+                None, scheme.fast_aggregate_verify, pks, msg, commit.agg_sig
+            )
+            scheme.memo_put(pks, msg, commit.agg_sig, ok)
+        return _Entry(commit_digest=digest, agg=(tuple(pks), msg, commit.agg_sig, bool(ok)))
+
     def _serve(self, entry: _Entry):
+        if entry.agg is not None:
+            # warm the scheme memo again (it may have evicted the claim) so
+            # the synchronous aggregate branch is a memo hit, then let the
+            # sync path route itself
+            from ..crypto.bls import scheme
+
+            pks, msg, sig, ok = entry.agg
+            if scheme.memo_get(list(pks), msg, sig) is None:
+                scheme.memo_put(list(pks), msg, sig, ok)
+            return None
+
         def lookup(pubkeys: List[bytes], msgs: List[bytes], sigs: List[bytes]) -> List[bool]:
             out: List[bool] = []
             miss: List[int] = []

@@ -59,22 +59,10 @@ from .types.events import EventBus
 from .types.genesis import GenesisDoc
 
 
-def check_ported(config: Config, genesis_doc: Optional[GenesisDoc] = None) -> None:
+def check_ported(config: Config) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a setting
-    whose subsystem the port does not carry yet; with `genesis_doc`, also
-    for a genesis set that is uniformly bls12381 while `[consensus]
-    bls_aggregate_commits` is on (its commits fold into aggregate commits,
-    ROADMAP 1.9b)."""
+    whose subsystem the port does not carry yet."""
     cfg = config
-    if genesis_doc is not None and cfg.consensus.bls_aggregate_commits:
-        from .types.vote import set_is_uniform_bls
-
-        if set_is_uniform_bls(genesis_doc):
-            raise NotImplementedError(
-                "a uniformly bls12381 genesis set with consensus.bls_aggregate_commits "
-                "folds its commits into aggregate commits, which are not ported yet "
-                "(ROADMAP 1.9b); set bls_aggregate_commits = false"
-            )
     unported = (
         (cfg.tpu.mesh == "on", 'tpu.mesh = "on": the multi-card verify mesh', "2.2",
          'tpu.mesh = "auto"'),
@@ -189,7 +177,7 @@ class Node(Service):
         db_backend: Optional[str] = None,
         device=None,
     ):
-        check_ported(config, genesis_doc)
+        check_ported(config)
         super().__init__("node")
         self.config = config
         # the engine's card, resolved before anything is opened

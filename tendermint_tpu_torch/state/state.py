@@ -11,6 +11,7 @@ from dataclasses import dataclass, field, replace
 from typing import List, Optional
 
 from ..encoding import codec
+from ..types.agg_commit import AggregateCommit, weighted_median_timestamp
 from ..types.block import Block, BlockID, Commit, Header
 from ..types.evidence import evidence_list_hash
 from ..types.genesis import GenesisDoc
@@ -142,39 +143,17 @@ codec.register("tm/State")(State)
 
 def median_time(commit: Commit, validators: ValidatorSet) -> int:
     """Power-weighted median of commit timestamps (state/state.go:166
-    MedianTime; BFT-time spec).  Deterministic across nodes.  The JAX
-    package also takes an aggregate (BLS) commit here; the port carries
-    none yet (ROADMAP 1.9b)."""
-    if not isinstance(commit, Commit):
-        raise TypeError(
-            f"median_time of {type(commit).__name__}: aggregate (BLS) commits are not "
-            "ported yet (ROADMAP 1.9b)"
-        )
+    MedianTime; BFT-time spec).  Deterministic across nodes.
+
+    An AggregateCommit carries ONE timestamp, computed at fold time by the
+    same weighted-median rule from the per-vote timestamps it summarizes,
+    so it is returned as it is.  BLS votes sign timestamp-free bytes, so no
+    one can derive that median from signatures again: on all-BLS nets
+    block time is proposer-attested, bounded by header monotonicity
+    (validate_block) and the propose-side clock-drift prevote gate."""
+    if isinstance(commit, AggregateCommit):
+        return commit.timestamp_ns
     return weighted_median_timestamp(commit, validators)
-
-
-def weighted_median_timestamp(commit: Commit, validators) -> int:
-    """Power-weighted median of a classic commit's non-absent timestamps
-    (the JAX package's types/agg_commit.py rule)."""
-    weighted = []
-    total_power = 0
-    for cs in commit.signatures:
-        if cs.is_absent():
-            continue
-        _, val = validators.get_by_address(cs.validator_address)
-        if val is not None:
-            total_power += val.voting_power
-            weighted.append((cs.timestamp_ns, val.voting_power))
-    if total_power == 0:
-        raise ValueError("weighted_median_timestamp: no commit signatures match the validator set")
-    weighted.sort()
-    median = total_power // 2
-    acc = 0
-    for ts, power in weighted:
-        if acc + power > median:
-            return ts
-        acc += power
-    raise AssertionError("unreachable: weighted median not found")
 
 
 def make_genesis_state(gen_doc: GenesisDoc) -> State:

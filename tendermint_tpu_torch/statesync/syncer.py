@@ -26,8 +26,8 @@ candidates are exhausted the caller falls back to fastsync-from-genesis.
 
 EngineCommitPreverify sends the ed25519 signatures of a commit to the
 engine; sr25519, secp256k1 and multisig signers verify on the host in
-mixed_batch_verify, as in the JAX package.  Aggregate (BLS) commits do not
-decode (ROADMAP 1.9b), so it has no aggregate branch.
+mixed_batch_verify, as in the JAX package.  An aggregate (BLS) commit is
+one pairing claim, run through the verifier's `verify_bls_aggregates` lane.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from ..libs.tracing import NOP as NOP_RECORDER
 from ..lite2 import BISECTION, Client as LightClient, TrustOptions
 from ..lite2.provider import HTTPProvider, Provider
 from ..state.state import State
+from ..types.agg_commit import AggregateCommit
 from ..types.block import SignedHeader
 from ..types.validator import ValidatorSet
 from .chunker import ChunkScheduler
@@ -81,6 +82,20 @@ class EngineCommitPreverify:
 
     async def __call__(self, sh: SignedHeader, vals_sets: List[ValidatorSet]):
         vals = vals_sets[0]  # index-aligned set; other sets share pubkeys by address
+        if isinstance(sh.commit, AggregateCommit):
+            # ONE pairing claim for the whole commit, run on the engine's
+            # flush executor; the scheme memo it warms serves the
+            # synchronous verify_commit / verify_commit_trusting that follow
+            if vals.size() != sh.commit.signers.bits:
+                return None
+            pks = [
+                vals.validators[i].pub_key.bytes()
+                for i in sh.commit.signers.true_indices()
+            ]
+            await self.async_verifier.verify_bls_aggregates(
+                [(pks, sh.commit.sign_message(sh.header.chain_id), sh.commit.agg_sig)]
+            )
+            return None  # the sync path takes the aggregate branch and the memo
         if vals.size() != len(sh.commit.signatures):
             return None  # malformed; let verify_commit raise its own error
         items = []

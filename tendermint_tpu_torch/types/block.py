@@ -2,8 +2,8 @@
 SignedHeader: the port's copy of tendermint_tpu/types/block.py, with its
 to_dict / from_dict layout and codec tags.  A commit of a set with
 BLS12-381 members carries one signature per vote, its BLS slots signed
-over the timestamp-free layout.  Aggregate (BLS) commits are not carried:
-a dict holding one raises TypeError (ROADMAP 1.9b).
+over the timestamp-free layout.  A dict holding an aggregate (BLS) commit
+decodes to types/agg_commit.py's AggregateCommit.
 
 Reference parity: types/block.go (Header:323, CommitSig:452, Commit:556,
 SignedHeader:748, BlockID:893).  Times are integer unix nanoseconds
@@ -317,19 +317,6 @@ class Commit:
 codec.register("tm/Commit")(Commit)
 
 
-def commit_from_dict(d: Optional[dict]) -> Optional[Commit]:
-    """Decode a stored or wire commit dict.  The JAX package also decodes
-    aggregate (BLS) commits here; the port carries none yet (ROADMAP 1.9b)."""
-    if d is None:
-        return None
-    if "agg_sig" in d:
-        raise TypeError(
-            "aggregate (BLS) commits are not ported yet (ROADMAP 1.9b): this slice carries "
-            "per-vote ed25519 commits only"
-        )
-    return Commit.from_dict(d)
-
-
 @dataclass(frozen=True)
 class Header:
     """types/block.go:323.  version is (block, app) protocol ints."""
@@ -555,6 +542,8 @@ class Block:
 
     @classmethod
     def from_dict(cls, d: dict) -> "Block":
+        from .agg_commit import commit_from_dict
+
         return cls(
             header=Header.from_dict(d["header"]),
             txs=d["txs"],
@@ -611,6 +600,8 @@ class SignedHeader:
 
     @classmethod
     def from_dict(cls, d: dict) -> "SignedHeader":
+        from .agg_commit import commit_from_dict
+
         return cls(Header.from_dict(d["header"]), commit_from_dict(d["commit"]))
 
 

@@ -2,8 +2,9 @@
 batched commit verification.
 
 The port's copy of tendermint_tpu/types/validator.py, for every key type.
-A commit of a set with BLS12-381 members is checked per vote; aggregate
-(BLS) commits are not carried yet (ROADMAP 1.9b).
+A commit of a set with BLS12-381 members is checked per vote; an
+aggregate (BLS) commit of a uniformly BLS set is checked by one pairing
+(`verify_aggregate_commit`).
 Reference parity: types/validator.go (Validator:16), types/validator_set.go
 (ValidatorSet:42, IncrementProposerPriority:86, UpdateWithChangeSet:624,
 VerifyCommit:629, VerifyFutureCommit:703, VerifyCommitTrusting:754).  The
@@ -35,6 +36,7 @@ from ..crypto import merkle
 from ..crypto.keys import Ed25519PubKey, PubKey, pubkey_from_dict
 from ..encoding import codec
 from ..encoding.proto import field_bytes, field_varint
+from .agg_commit import AggregateCommit
 from .block import BlockID, Commit
 
 INT64_MAX = (1 << 63) - 1
@@ -454,6 +456,67 @@ class ValidatorSet:
         delete_addrs = {v.address for v in deletes}
         self.validators = [v for v in self.validators if v.address not in delete_addrs]
 
+    # -- aggregate (BLS) commit verification -------------------------------
+    def verify_aggregate_commit(
+        self,
+        chain_id: str,
+        block_id: BlockID,
+        height: int,
+        commit,
+        needed: int,
+        commit_vals: Optional["ValidatorSet"] = None,
+    ) -> None:
+        """ONE pairing check for an AggregateCommit: e(sum pk_bitmap, H(m)) .
+        e(-g1, sigma) == 1, with power tallied against SELF.  `commit_vals`
+        is the set the bitmap indexes (the commit's own set); when omitted
+        it is this set (verify_commit).  The scheme's memo lets an async
+        pre-verify lane (state sync, lite2, fast sync) that already paired
+        this commit serve the check without pairing again."""
+        commit.validate_basic()
+        if height != commit.height:
+            raise ValueError(f"invalid commit height: want {height}, got {commit.height}")
+        if block_id != commit.block_id:
+            raise ValueError(
+                f"invalid commit -- wrong block ID: want {block_id}, got {commit.block_id}"
+            )
+        bitmap_vals = commit_vals if commit_vals is not None else self
+        if commit.signers.bits != bitmap_vals.size():
+            raise ValueError(
+                f"invalid aggregate commit -- wrong bitmap size: "
+                f"{commit.signers.bits} vs {bitmap_vals.size()}"
+            )
+        from ..crypto.bls import scheme
+        from .vote import is_bls_key
+
+        idxs = commit.signers.true_indices()
+        pks = []
+        for i in idxs:
+            pk = bitmap_vals.validators[i].pub_key
+            if not is_bls_key(pk):
+                raise ValueError(f"aggregate commit signer #{i} is not a BLS12-381 key")
+            pks.append(pk.bytes())
+        msg = commit.sign_message(chain_id)
+
+        ok = scheme.memo_get(pks, msg, commit.agg_sig)
+        if ok is None:
+            ok = scheme.fast_aggregate_verify(pks, msg, commit.agg_sig)
+            scheme.memo_put(pks, msg, commit.agg_sig, ok)
+        if not ok:
+            raise ValueError("invalid aggregate commit signature")
+
+        if bitmap_vals is self:
+            tallied = sum(self.validators[i].voting_power for i in idxs)
+        else:
+            # trusting and future checks: the bitmap indexes the commit's
+            # set; credit only signers that are members of THIS set too
+            tallied = 0
+            for i in idxs:
+                _, val = self.get_by_address(bitmap_vals.validators[i].address)
+                if val is not None:
+                    tallied += val.voting_power
+        if tallied <= needed:
+            raise NotEnoughVotingPowerError(got=tallied, needed=needed)
+
     # -- batched commit verification ---------------------------------------
     def _indexed(self, row_idxs: List[int]):
         """The indexed-hook argument, or None when no table engine is
@@ -477,7 +540,14 @@ class ValidatorSet:
     ) -> None:
         """+2/3 of this set signed the commit (types/validator_set.go:629).
         Signatures and validators are index-aligned, so pubkeys gather by
-        index — the validator index IS the table row."""
+        index — the validator index IS the table row.  Aggregate (BLS)
+        commits route to the single-pairing check instead."""
+        if isinstance(commit, AggregateCommit):
+            self.verify_aggregate_commit(
+                chain_id, block_id, height, commit,
+                needed=self.total_voting_power() * 2 // 3,
+            )
+            return
         if self.size() != len(commit.signatures):
             raise ValueError(
                 f"invalid commit -- wrong set size: {self.size()} vs {len(commit.signatures)}"
@@ -521,6 +591,16 @@ class ValidatorSet:
         commit must be valid for new_set AND >2/3 of the old set signed."""
         new_set.verify_commit(chain_id, block_id, height, commit, batch_verify)
 
+        if isinstance(commit, AggregateCommit):
+            # the signature is checked (and memoized) against new_set
+            # above; this pass tallies the bitmap against the OLD set
+            self.verify_aggregate_commit(
+                chain_id, block_id, height, commit,
+                needed=self.total_voting_power() * 2 // 3,
+                commit_vals=new_set,
+            )
+            return
+
         seen = set()
         idxs, powers, pubkeys, msgs, sigs = [], [], [], [], []
         for idx, cs in enumerate(commit.signatures):
@@ -557,15 +637,29 @@ class ValidatorSet:
         trust_numerator: int = 1,
         trust_denominator: int = 3,
         batch_verify: Optional[Callable] = None,
+        commit_vals: Optional["ValidatorSet"] = None,
     ) -> None:
         """trustLevel of this (old, trusted) set signed the commit — the
         light-client skipping-verification core (types/validator_set.go:754).
         Validators are matched by address since the commit may belong to a
-        different validator set."""
+        different validator set.  For an AggregateCommit the bitmap indexes
+        the commit's OWN set, so callers supply it as `commit_vals` (lite2
+        always holds it: it is the untrusted header's set)."""
         if trust_numerator * 3 < trust_denominator or trust_numerator > trust_denominator:
             raise ValueError(
                 f"trustLevel must be within [1/3, 1], given {trust_numerator}/{trust_denominator}"
             )
+        if isinstance(commit, AggregateCommit):
+            if commit_vals is None:
+                raise ValueError(
+                    "aggregate commit trusting-verify requires the commit's validator set"
+                )
+            self.verify_aggregate_commit(
+                chain_id, block_id, height, commit,
+                needed=self.total_voting_power() * trust_numerator // trust_denominator,
+                commit_vals=commit_vals,
+            )
+            return
         _verify_commit_basic(commit, height, block_id)
 
         seen_vals = {}

@@ -24,14 +24,6 @@ def is_bls_key(pub_key) -> bool:
     return getattr(pub_key, "TYPE", None) == "tendermint/PubKeyBLS12381"
 
 
-def set_is_uniform_bls(val_set) -> bool:
-    """True iff EVERY validator key is BLS12-381: the JAX package's
-    aggregation gate (its types/agg_commit.py).  Mixed sets keep per-vote
-    commits and per-scheme verify routing."""
-    vals = val_set.validators
-    return bool(vals) and all(is_bls_key(v.pub_key) for v in vals)
-
-
 class ErrVoteConflictingVotes(VoteError):
     """Raised by VoteSet on double-sign; carries the evidence
     (types/vote.go:29)."""

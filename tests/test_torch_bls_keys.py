@@ -14,10 +14,11 @@ hashes and verdicts equal, raised errors equal by type and message.
   (tampered BLS signatures included), its ed25519 members as one flat
   batch on the port's CPU engine, `update_state` with BLS updates, the
   staking app's `_address_of` and a BLS `rotate`.
-- Aggregate commits are not ported (ROADMAP 1.9b): `check_ported` refuses
-  a uniformly BLS genesis while `[consensus] bls_aggregate_commits` is on,
-  and the consensus fold point raises exactly where the JAX package's
-  `fold_commit` folds.
+- Aggregate commits: `check_ported` accepts a uniformly BLS genesis with
+  `[consensus] bls_aggregate_commits` on and still refuses the JAX BLS
+  aggregation and the mesh, and the consensus fold point returns the JAX
+  package's AggregateCommit byte for byte exactly where its `fold_commit`
+  folds (tests/test_torch_agg_commit.py holds the rest).
 - Nets of two port and two JAX validators: a mixed set commits per-vote
   commits with aggregation on (JAX
   TestBlsNets.test_mixed_set_net_commits_without_aggregation), and a
@@ -29,6 +30,7 @@ import asyncio
 import dataclasses
 import json
 import re
+import types
 
 import numpy as np
 import pytest
@@ -188,9 +190,8 @@ def test_filepv_files_round_trip_and_resign_as_jax(tmp_path):
 
 def test_init_writes_the_proof_of_possession_and_the_home_is_refused(tmp_path):
     """`init --key-type bls12381` writes a genesis whose one validator
-    carries a PoP the JAX package verifies; the home is uniformly BLS, so
-    the port's node refuses it at construction with aggregation on (ROADMAP
-    1.9b) and accepts it with `bls_aggregate_commits = false`."""
+    carries a PoP the JAX package verifies; the home is uniformly BLS, and
+    the port accepts it with aggregation on (its default) and off."""
     home = str(tmp_path / "home")
     parsed = pcli.build_parser().parse_args(
         ["--home", home, "init", "--chain-id", "bls-init", "--key-type", "bls12381"])
@@ -203,13 +204,17 @@ def test_init_writes_the_proof_of_possession_and_the_home_is_refused(tmp_path):
     assert doc["validators"][0]["pub_key"]["type"] == "tendermint/PubKeyBLS12381"
     cfg = Config(home=home)
     gen = pgenesis.GenesisDoc.from_file(cfg.genesis_file())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.9b.*bls_aggregate_commits = false"):
-        pnode.check_ported(cfg, gen)
+    assert cfg.consensus.bls_aggregate_commits and pgenesis.GenesisDoc.from_file(
+        cfg.genesis_file()).validator_set().size() == 1
+    pnode.check_ported(cfg)
     cfg.consensus.bls_aggregate_commits = False
-    pnode.check_ported(cfg, gen)
+    pnode.check_ported(cfg)
 
 
-def test_check_ported_refuses_only_a_uniformly_bls_genesis_with_aggregation_on():
+def test_check_ported_refuses_only_a_uniformly_bls_genesis_with_aggregation_on(tmp_path):
+    """A uniformly BLS, a mixed and an empty genesis all construct a port
+    node with aggregation on; the settings still unported (the JAX BLS
+    aggregation, ROADMAP 2.1, and the mesh, 2.2) are refused, each named."""
     bls = [pbls.BlsPrivKey.from_secret(b"cp-%d" % i) for i in range(2)]
     ed = pkeys.Ed25519PrivKey.from_secret(b"cp-ed")
     gv = pgenesis.GenesisValidator
@@ -218,13 +223,19 @@ def test_check_ported_refuses_only_a_uniformly_bls_genesis_with_aggregation_on()
     mixed = pgenesis.GenesisDoc("cp", validators=uniform.validators + [gv(b"", ed.pub_key(), 10)])
     empty = pgenesis.GenesisDoc("cp", validators=[])
     cfg = Config(home="/nonexistent")
-    for doc, refused in ((uniform, True), (mixed, False), (empty, False), (None, False)):
-        got = outcome(lambda: pnode.check_ported(cfg, doc))
-        assert (got[0] == "NotImplementedError") == refused, got
-    cfg.consensus.bls_aggregate_commits = False
-    pnode.check_ported(cfg, uniform)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.9b"):
-        pnode.Node(Config(home="/nonexistent"), uniform, device="cpu")
+    assert cfg.consensus.bls_aggregate_commits
+    pnode.check_ported(cfg)
+    for i, doc in enumerate((uniform, mixed, empty)):
+        node = pnode.Node(Config(home=str(tmp_path / str(i))), doc, db_backend="memdb",
+                          device="cpu")
+        assert node.config.consensus.bls_aggregate_commits
+    for knob, item in (("bls_jax_aggregation", "2.1"), ("mesh", "2.2")):
+        c = Config(home="/nonexistent")
+        setattr(c.tpu, knob, True if knob == "bls_jax_aggregation" else "on")
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
+            pnode.check_ported(c)
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
+            pnode.Node(c, uniform, db_backend="memdb", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -486,7 +497,7 @@ def test_staking_address_of_and_bls_rotate_equal_jax():
 
 
 # ---------------------------------------------------------------------------
-# where the JAX package folds (aggregate commits, ROADMAP 1.9b)
+# where the JAX package folds (aggregate commits)
 # ---------------------------------------------------------------------------
 
 
@@ -507,27 +518,31 @@ def _fold_cases(ns):
 
 @pytest.mark.parametrize("case", list(_fold_cases(PORT)))
 def test_the_fold_point_raises_exactly_where_jax_folds(case):
-    """`folds_in_reference` is True exactly where the JAX package's
-    `fold_commit` returns an AggregateCommit; there, with
-    `bls_aggregate_commits` on, the port's fold point raises TypeError
-    naming 1.9b, and everywhere else (and with the knob off) it returns the
-    per-vote commit unchanged."""
+    """With `bls_aggregate_commits` on, the port's fold point returns an
+    AggregateCommit byte-equal (encode, hash, dict) to the JAX package's
+    `fold_commit` exactly where that folds, and the per-vote commit
+    unchanged everywhere else; with the knob off it never folds."""
     pset, pc = _fold_cases(PORT)[case]
     jset, jc = _fold_cases(JAX)[case]
-    folds = jagg.fold_commit(jc, jset, CHAIN) is not None
-    assert pcs.folds_in_reference(pc, pset) == folds
+    theirs = jagg.fold_commit(jc, jset, CHAIN)
+    folds = theirs is not None
     assert folds == (case in ("uniform", "uniform, one nil and one absent"))
 
     class _Cfg:
         bls_aggregate_commits = True
 
-    holder = type("Holder", (), {"config": _Cfg()})()
+    rec = FlightRecorder(size=16)
+    holder = type("Holder", (), {"config": _Cfg(), "recorder": rec,
+                                 "sm_state": types.SimpleNamespace(chain_id=CHAIN)})()
     fold = pcs.ConsensusState._maybe_fold_commit
+    ours = fold(holder, pc, pset)
     if folds:
-        with pytest.raises(TypeError, match=r"ROADMAP 1\.9b"):
-            fold(holder, pc, pset)
+        assert type(ours).__name__ == "AggregateCommit"
+        assert (ours.encode(), ours.hash(), ours.to_dict()) == \
+            (theirs.encode(), theirs.hash(), theirs.to_dict())
+        assert [e["kind"] for e in rec.events()] == ["commit.aggregate"]
     else:
-        assert fold(holder, pc, pset) is pc
+        assert ours is pc
     _Cfg.bls_aggregate_commits = False
     assert fold(holder, pc, pset) is pc
 

@@ -300,14 +300,24 @@ def test_block_validate_basic_errors_match_jax():
 
 
 def test_aggregate_commit_dicts_raise_type_error():
-    """The JAX package decodes BLS aggregate commits here; the port names
-    ROADMAP 1.9 instead."""
-    d = chain(PORT)["blocks"][2].to_dict()
-    d["last_commit"] = dict(d["last_commit"], agg_sig=b"\x00" * 96)
-    with pytest.raises(TypeError, match="1.9"):
-        pblock.Block.from_dict(d)
-    with pytest.raises(TypeError, match="1.9"):
-        pstate.median_time(object(), chain(PORT)["states"][1].validators)
+    """A block dict whose last commit is an aggregate (BLS) commit decodes
+    to the same AggregateCommit bytes in both packages, and median_time
+    reads its one timestamp (or fails as the JAX package fails)."""
+    got = {}
+    for ns in (PORT, JAX):
+        d = chain(ns)["blocks"][2].to_dict()
+        lc = d["last_commit"]
+        d["last_commit"] = {"height": lc["height"], "round": lc["round"],
+                            "block_id": lc["block_id"], "signers": b"\x00\x01\x0f",
+                            "agg_sig": b"\x00" * 96, "timestamp_ns": 77}
+        blk = ns.Block.from_dict(d)
+        vals = chain(ns)["states"][1].validators
+        median_time = (pstate if ns is PORT else jstate_mod).median_time
+        got[ns is PORT] = (type(blk.last_commit).__name__, blk.last_commit.encode(),
+                           blk.last_commit.hash(), median_time(blk.last_commit, vals),
+                           outcome(lambda: median_time(object(), vals)))
+    assert got[True] == got[False]
+    assert got[True][0] == "AggregateCommit" and got[True][3] == 77
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ through both packages.
   same ScenarioError text; the runner drives a recording rig with the same
   calls.  `valset join`/`leave`/`power`/`migrate ed25519` submit the same
   stake tx bytes, at the same nonces and through the same node, as the JAX
-  InProcRig on recording nodes; `valset migrate N bls` raises
-  NotImplementedError naming ROADMAP 1.9 before any tx is made.
+  InProcRig on recording nodes; `valset migrate N bls` submits the JAX
+  rotate tx with the BLS candidate's proof of possession.
 - Link policies: a seeded LinkPolicyTable gives the same drop, delay and
   throttle decisions over 10,000 sends and try_sends to four peers (the
   loop's sleep and clock injected, so no test sleeps), and the same
@@ -179,9 +179,27 @@ async def test_runner_drives_the_rig_with_the_jax_calls(monkeypatch):
 
 @pytest.mark.parametrize("clause, item", [("valset migrate 0 bls", "1.9")])
 async def test_valset_clauses_raise_naming_the_staking_app(clause, item):
-    rig = pscenario.InProcRig([types.SimpleNamespace(is_running=False)] * 2)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
-        await pscenario.ScenarioRunner(pscenario.Scenario.parse(clause), rig).run()
+    """`valset migrate N bls` (ROADMAP 1.9, aggregate commits included) is
+    lifted: node 0's RotatingPV holds an ed25519 owner key and a BLS
+    candidate, and the clause submits the JAX rotate tx, the candidate's
+    proof of possession in it, at the same nonce through the same node;
+    the port's scenario module names ROADMAP `item` nowhere any more."""
+    import inspect
+
+    assert f"ROADMAP {item}" not in inspect.getsource(pscenario)
+    seen = {}
+    for pkg, mod in (("jax", jscenario), ("port", pscenario)):
+        nodes = _stake_rig_nodes(pkg, "rotating-bls", False)
+        await mod.ScenarioRunner(mod.Scenario.parse(clause), mod.InProcRig(nodes)).run()
+        seen[pkg] = [(n.sent, n.queries) for n in nodes]
+    assert seen["port"] == seen["jax"]
+    (tx,), _ = seen["port"][0]
+    import base64
+
+    from tendermint_tpu_torch.crypto.bls import BlsPrivKey
+
+    pop = base64.b64encode(BlsPrivKey.from_secret(b"valset-bls").pop())
+    assert b"stake:rotate:bls12381:" in tx and pop in tx
 
 
 class _StakeRecNode:
@@ -207,13 +225,17 @@ def _stake_rig_nodes(pkg, pv_kind, down):
     """Two recording nodes of one package: node 0's privval is a MockPV, a
     RotatingPV of two ed25519 keys or a TwinSigner; node 1's a MockPV."""
     if pkg == "jax":
+        from tendermint_tpu.crypto.bls import BlsPrivKey
         from tendermint_tpu.types import RotatingPV
         Key, MockPV, Twin = JPrivKey, JMockPV, jtwin.TwinSigner
     else:
+        from tendermint_tpu_torch.crypto.bls import BlsPrivKey
         from tendermint_tpu_torch.types.priv_validator import RotatingPV
         Key, MockPV, Twin = PPrivKey, PMockPV, ptwin.TwinSigner
     k0, k0b, k1 = (Key.from_secret(b"valset-%d" % i) for i in range(3))
     pv0 = {"mock": lambda: MockPV(k0), "rotating": lambda: RotatingPV(MockPV(k0), MockPV(k0b)),
+           "rotating-bls": lambda: RotatingPV(
+               MockPV(k0), MockPV(BlsPrivKey.from_secret(b"valset-bls"))),
            "twin": lambda: Twin(MockPV(k0))}[pv_kind]()
     return [_StakeRecNode(pv0, 3, running=not down), _StakeRecNode(MockPV(k1), 7)]
 

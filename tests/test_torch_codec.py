@@ -53,6 +53,10 @@ def _instances(ns):
         "pk/multisig": cls("pk/multisig")(2, [c["keys"][1].pub_key(), sr, secp.pub_key()]),
         "tm/Vote": ev.vote_a,
         "tm/Commit": c["commits"][2],
+        "tm/AggCommit": cls("tm/AggCommit").from_dict({
+            "height": 2, "round": 0, "block_id": c["ids"][2].to_dict(),
+            "signers": b"\x00\x00\x00\x04\xe0", "agg_sig": b"\x07" * 96,
+            "timestamp_ns": blk.time_ns}),
         "tm/SignedHeader": ns.SignedHeader(c["blocks"][2].header, c["commits"][2]),
         "tm/ValidatorSet": c["states"][HEIGHTS].validators,
         "tm/DuplicateVoteEvidence": ev,

@@ -517,9 +517,16 @@ def test_the_chain_took_the_designed_path():
 
 
 def test_aggregate_commit_input_names_the_bls_slice():
-    async def go():
-        cs = object.__new__(pstate_machine.ConsensusState)
-        with pytest.raises(TypeError, match="1.9"):
-            await cs.add_agg_commit_input(object())
+    """The aggregate catch-up input (ROADMAP 1.9's BLS slice) queues the
+    commit for the receive routine as the JAX package does."""
+    async def go(mod):
+        cs = object.__new__(mod.ConsensusState)
+        cs.msg_queue = asyncio.Queue()
+        commit = object()
+        await cs.add_agg_commit_input(commit, "peer-1")
+        item = cs.msg_queue.get_nowait()
+        assert item.pop("commit") is commit and cs.msg_queue.empty()
+        return item
 
-    run(go())
+    got = [run(go(mod)) for mod in (jstate_machine, pstate_machine)]
+    assert got[0] == got[1] == {"type": "agg_commit", "peer_id": "peer-1"}

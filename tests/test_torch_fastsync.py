@@ -134,9 +134,10 @@ def test_verify_commit_run_matches_jax():
         batch_hook.set_verifier(None)
     theirs = JAX.verify_commit_run(jvals, CHAIN, jpairs)
     assert ours == theirs == [True, False, False, False, False, True]
-    # an aggregate (BLS) commit: the JAX package pairs it, the port names 1.9
-    with pytest.raises(TypeError, match="1.9"):
-        PORT.verify_commit_run(vals, CHAIN, [(pairs[0][0], 1, object())])
+    # what is no commit at all fails as in the JAX package (aggregate
+    # commits: tests/test_torch_agg_commit.py)
+    assert outcome(lambda: PORT.verify_commit_run(vals, CHAIN, [(pairs[0][0], 1, object())])) \
+        == outcome(lambda: JAX.verify_commit_run(jvals, CHAIN, [(jpairs[0][0], 1, object())]))
 
 
 def test_phase7_replay_end_to_end_on_cpu(monkeypatch):

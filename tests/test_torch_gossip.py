@@ -495,15 +495,29 @@ def test_peer_state_bounds():
 
 
 async def test_aggregate_commit_frames_are_not_ported():
-    vset, _ = _vset_and_votes(n=2)
-    reactor = preactor.ConsensusReactor(_fake_cs(PORT, vset))
-    reactor.switch = _FakeSwitch()
-    peer = _CapturePeer("ee" * 20)
-    reactor.peer_states[peer.id] = preactor.PeerRoundState()
-    with pytest.raises(TypeError, match=r"ROADMAP 1\.9"):
-        await reactor.receive(VOTE_CHANNEL, peer, preactor._enc("agg_commit", {"commit": {}}))
-    with pytest.raises(TypeError, match=r"ROADMAP 1\.9"):
-        await reactor._send_agg_commit(peer, preactor.PeerRoundState(), object())
+    """A malformed `agg_commit` frame stops the peer with the JAX reason
+    and reaches no consensus input; `_send_agg_commit` for a commit of
+    another height than the peer's sends nothing, in both packages."""
+    seen = {}
+    for pkg in (JAX, PORT):
+        vset, _ = _vset_and_votes(pkg, n=2)
+        cs = _fake_cs(pkg, vset)
+        fed = []
+
+        async def add_agg_commit_input(commit, peer_id="", fed=fed):
+            fed.append(commit)
+
+        cs.add_agg_commit_input = add_agg_commit_input
+        reactor = pkg.reactor.ConsensusReactor(cs)
+        reactor.switch = _FakeSwitch()
+        peer = _CapturePeer("ee" * 20)
+        reactor.peer_states[peer.id] = pkg.reactor.PeerRoundState()
+        await reactor.receive(VOTE_CHANNEL, peer, pkg.reactor._enc("agg_commit", {"commit": {}}))
+        other = SimpleNamespace(height=9)
+        sent = await reactor._send_agg_commit(peer, pkg.reactor.PeerRoundState(), other)
+        seen[pkg is PORT] = (reactor.switch.stopped, fed, sent, peer.sent)
+    assert seen[True] == seen[False]
+    assert seen[True][0] == [("ee" * 20, "invalid agg_commit: 'height'")] and not seen[True][2]
 
 
 # -- the deviation: engine errors reach the caller --------------------------------

@@ -255,12 +255,16 @@ async def test_port_node_runs_against_a_grpc_app(app_pkg, tmp_path):
         await node.start()
         assert isinstance(node.proxy_app.consensus(), pgrpc_abci.GRPCClient)
         await node.mempool.check_tx(b"grpc=works")
+        # the tx is in the mempool: it is in the block after the one being
+        # proposed now at the latest, and the app has it once that block is
+        # applied (the block store saves a block before its apply ends)
+        top = max(2, node.block_store.height() + 2)
 
         async def reach(h):
-            while node.block_store.height() < h:
+            while node.state_store.load().last_block_height < h:
                 await asyncio.sleep(0.02)
 
-        await asyncio.wait_for(reach(2), 30.0)
+        await asyncio.wait_for(reach(top), 30.0)
         q = await node.proxy_app.query().query(pabci.RequestQuery(path="/key", data=b"grpc"))
         assert q.value == b"works"
     finally:

@@ -3,10 +3,11 @@
 staking app, rehearsed on the CPU (the engine on, at a min_device_batch
 that keeps every batch on the host path): growth 4 -> 7 through
 InProcRig.valset and the DSL with a partition across the set change, the
-twin's evidence committed, the epoch shift, the twin voted out, node 0's
-live rotation to its second ed25519 key, a fresh node fast-syncing the
-rotated history, lite2 bisecting from height 2 to the tip, and
-`loadgen --mode bank` against node 0's RPC.  Every check is inside the
+twin's evidence committed, the epoch shift, the twin voted out, the live
+ed25519 -> BLS12-381 migration of every validator (aggregate commits
+engage on the uniform set and disengage when node 0 rotates back), a
+fresh node fast-syncing the rotated history, lite2 bisecting from height 2
+to the tip, and `loadgen --mode bank` against node 0's RPC.  Every check is inside the
 phase; this test holds what it returns.
 """
 
@@ -30,6 +31,14 @@ def test_phase18b_rotation_rig_on_cpu(monkeypatch):
     assert out["epoch_rotation_observed"] % cs.RT_EPOCH == 0
     assert out["valset_update_events"] > 0 and out["table_rebuild_ok_events"] > 0
     assert out["fastsync_joiner_height"] >= out["epoch_rotation_observed"]
+    # the BLS step: aggregation engages above the uniform height, folds on
+    # node 0 until the rotation back, and disengages after it; nothing
+    # dispatches to a kernel in the aggregate window
+    assert out["bls_uniform_height"] <= out["agg_engaged_height"] <= out["agg_last_height"]
+    assert out["agg_disengaged_height"] > out["agg_last_height"]
+    assert out["bls_migration_height_gap"] == out["agg_engaged_height"] - out["bls_uniform_height"]
+    assert out["dispatch_aggregate"] == {} and out["dispatch_before"]
+    assert out["fastsync_joiner_height"] > out["agg_disengaged_height"]
     load = out["bank_load"]
     # fault 3.13 (ROADMAP 3): past each worker's first tx, its lane runs
     # ahead of the committed nonce

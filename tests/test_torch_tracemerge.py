@@ -366,12 +366,23 @@ def port_net_nodes(tmp_path, n=4, name="tm", rpc=False, spool=False):
     return nodes
 
 
-async def run_port_net(nodes, mark_at=3, top=9, inside=None):
+async def run_port_net(nodes, mark_at=3, top=9, inside=None, until=None):
     """Start and mesh `nodes`, take each recorder's watermark once all hold
     `mark_at` blocks, run to `top`, await `inside(nodes)` if given, and
     return each node's snapshot since its watermark (named by moniker);
-    every node is stopped on return."""
+    every node is stopped on return.  With `until(dumps)`, the net runs on
+    past `top` (60 s at most) until the snapshots satisfy it: on a loaded
+    host a node that lags skips steps (ROADMAP 3.10), and the heights to
+    `top` may hold too few complete chains."""
     import test_torch_net as tnet
+
+    def snapshots(marks):
+        dumps = []
+        for i, n in enumerate(nodes):
+            snap = n.flight_recorder.snapshot(since=marks[i])
+            snap["node"] = n.config.base.moniker
+            dumps.append(snap)
+        return dumps
 
     try:
         for n in nodes:
@@ -382,11 +393,11 @@ async def run_port_net(nodes, mark_at=3, top=9, inside=None):
         await tnet._wait_height(nodes, top, 60.0)
         if inside is not None:
             await inside(nodes)
-        dumps = []
-        for i, n in enumerate(nodes):
-            snap = n.flight_recorder.snapshot(since=marks[i])
-            snap["node"] = n.config.base.moniker
-            dumps.append(snap)
+        dumps = snapshots(marks)
+        deadline = time.monotonic() + 60.0
+        while until is not None and not until(dumps) and time.monotonic() < deadline:
+            await asyncio.sleep(0.25)
+            dumps = snapshots(marks)
         return dumps
     finally:
         await tnet._stop(nodes)

@@ -109,11 +109,18 @@ def test_reports_equal_jax_on_seeded_events(report):
 @pytest.fixture(scope="module")
 def net_events(tmp_path_factory):
     """Each node's recorder events of an in-process 4-validator port net
-    (tests/test_torch_tracemerge.py's settings), heights 3-9."""
+    (tests/test_torch_tracemerge.py's settings), heights 3-9, or on until
+    node 0's events hold a budget of every stage and a complete span."""
     import test_torch_tracemerge as tm
 
+    def complete(dumps):
+        events = dumps[0]["events"]
+        budget = ptracing.stage_budget(events)
+        return (budget is not None and set(budget["stages"]) == set(ptracing.BUDGET_STAGES)
+                and bool(ptracing.span_report(events, since=1)["complete"]))
+
     nodes = tm.port_net_nodes(tmp_path_factory.mktemp("tracing-net"))
-    return [d["events"] for d in asyncio.run(tm.run_port_net(nodes))]
+    return [d["events"] for d in asyncio.run(tm.run_port_net(nodes, until=complete))]
 
 
 @pytest.mark.parametrize("report", sorted(REPORTS))
