@@ -17,7 +17,13 @@
    against the pure-Python ed25519 oracle.  Then the four-lane point
    helpers (csrc/ge_quad.cuh) against the one-lane helpers (csrc/fe51.cuh)
    on real points: doubling and mixed add equal bit for bit, the add (which
-   takes 2d*T cached) equal as canonical values.
+   takes 2d*T cached) equal as canonical values.  Then both BLS12-381 fold
+   kernels (csrc/bls12_381_fold.cu) against their plain version, every
+   output limb, and against the pure fold as compressed points, on keys and
+   signatures made by the C tier: 8, 9 and 33 points (buckets 8, 16, 64,
+   every other point a sum of two so Z != 1), the edge rows (a doubling,
+   P + (-P), the identity on either side) and 8 rows at infinity with one
+   finite point.
 3. The main path at full size: a 10,000-validator set signs a full commit;
    ValidatorSet.verify_commit runs through the crypto.batch hooks on the
    ladder, on the tabulated path and under the auto profile, then the
@@ -703,23 +709,50 @@
    ms, and one height's stored commit (the block store's codec) against
    the per-vote Commit of the same precommits; a uniformly BLS set
    launches no kernel.
+22. The batched BLS12-381 point fold (the JAX package's
+   crypto/bls/jax_tier.py behind `[tpu] bls_jax_aggregation`), in a
+   process of its own beside the end of 18 (b) and then 19 (b).  (a) At
+   BASELINE config #5's set size: 10,000 BLS keys from seeds, all signing
+   one message (the C tier, SIGN_THREADS threads), decompressed to
+   Jacobian ints; cuda_tier.aggregate_g1 / g2 fold the pubkeys (G1) and the
+   signatures (G2) once (counted), then each kernel's output is held
+   against its plain version's (every limb), the pure fold's and the C
+   tier's sum (compressed points), and timed (CUDA events, mean of 5 after
+   one warm-up) beside the plain version, the host prep (ints -> limbs) and
+   the pure fold (host clock), with its bound.  (b) The aggregate-commit
+   paths through the normal entry points on a uniformly BLS set of 1,024
+   validators at power 10, (a)'s first 1,024 keys (cut from 10,000: the
+   pure tier decompresses every key in Python): 4 heights of precommits
+   signed on the C tier; fold_commit, ValidatorSet.verify_commit
+   (verify_aggregate_commit) and batch_verify_aggregates over the 4 commits (the second carrying the
+   third's aggregate, a valid point: the pairing product fails and the
+   per-claim checks attribute it) on the C tier with the fold off, then the
+   same calls with the pure tier forced (ctier.set_forced("pure")) and
+   scheme.set_jax_aggregation(True) on the card.  Fails unless the bytes and
+   verdicts are equal, every fold ran at bucket 1,024 and each launched its
+   kernel once per tree level (10 times).  Prints the pure lane's
+   decompressions, host prep, kernels (CUDA events) and pairings by count
+   and ms.
 
 Schedule (the run must end within 1,200 s on a slow host): phases 1-5 in
 this process; then phases 6-8 (one after another), 14 and 18 (a), each in
 a process of its own (PhaseChild), beside phases 9, 10 (a) and 15 in this
 one; then phases 11-13 alone (10 (b) on a thread beside 13); then phase 17
-with 18 (b), then 19 (b), in this process, with 19 (a), 20 and 21, each
-in a process of its own, beside 18 (b) from the end of phase 17 on and
-then beside 19 (b).  A child reads its own launch counters and its
+with 18 (b), then 19 (b), in this process, with 19 (a), 20, 21 and 22,
+each in a process of its own, beside 18 (b) from the end of phase 17 on
+and then beside 19 (b).  A child reads its own launch counters and its
 own auto-profile's pick (the parent's where it has profiled nothing), and
 its result line carries the launches that the parent adds to the kernels
 line.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
-also its threads and warps per SM at the 10k launch, registers, stack and
-spill bytes from the ptxas log, and bound_ms / ms) and the card line; the last line is {"ok": true, "device": {...}}.  Exits non-zero,
-printing no result, without a card, outside a checkout, or when any phase
-fails.
+also its threads and warps per SM at the 10k launch (the fold's at its
+widest level), registers, stack and spill bytes from the ptxas log, and
+bound_ms / ms; the fold kernels' numbers come from phase 22 (a), their
+launches, one per tree level, from its two entry-point folds and (b)) and
+the card line; the last line is {"ok": true, "device": {...}}.  Exits
+non-zero, printing no result, without a card, outside a checkout, or when
+any phase fails.
 """
 
 from __future__ import annotations
@@ -778,6 +811,27 @@ ABCI_CORRUPT = 100  # every 100th envelope carries a flipped signature byte
 ABCI_ROTATE_AT = 4  # this block delivers the val: txs; set B serves from ABCI_ROTATE_AT + 2
 ABCI_ROTATE = 2500  # val: txs remove this many of the oldest keys and add as many new ones
 ABCI_MEMPOOL = 10_000  # an operator's size: the rotation block's txs exceed the default 5,000
+
+# The kernels of the kernels line: the ed25519 path's (phases 2-21) and the
+# BLS12-381 fold's (phases 2 and 22)
+ED_KERNELS = ("ed25519_ladder", "ed25519_tabulated", "ed25519_window_tables")
+FOLD_KERNELS = ("bls12_381_fold_g1", "bls12_381_fold_g2")
+KERNELS = ED_KERNELS + FOLD_KERNELS
+
+# Phases 2 and 22: the BLS12-381 point fold
+FOLD_SIZES = (8, 9, 33)  # phase 2: points per fold (buckets 8, 16 and 64)
+FOLD_POINTS = 10_000  # phase 22 (a): BASELINE config #5's set size
+FOLD_SET = 1024  # phase 22 (b): validators (cut from 10,000: the pure tier decompresses in Python)
+FOLD_HEIGHTS = 4  # phase 22 (b): commits in one batch_verify_aggregates, one with a wrong aggregate
+# The fold's work in 32x32->64 partial products: a 12-limb CIOS multiply
+# 144 (a x b) + 144 (m x P) + 12 (m) = 300, a squaring 78 + 144 + 12 = 234
+# (a x a's half); an Fp2 multiply 3 Fp multiplies (Karatsuba), an Fp2
+# squaring 2 (complex squaring).  A pair of two distinct finite points needs
+# add-2007-bl's 12 multiplies and 4 squarings; a pair of equal ones the
+# same-x and same-y test (6 multiplies, 2 squarings) and dbl-2009-l (2
+# multiplies, 5 squarings); a pair with the identity none (fold_work
+# counts the pairs of a run's data)
+FOLD_MUL_SQR = {"bls12_381_fold_g1": (300, 234), "bls12_381_fold_g2": (900, 600)}
 
 # Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s
 # float32 outside the tensor cores.  The integer multiply rate is not in the
@@ -876,13 +930,15 @@ def wall_ms(fn) -> float:
 
 
 def launch_counts(zero=False, add=None) -> dict:
-    """The kernels' launch counters as {report name: count}; `zero` sets
-    them to 0 after reading, `add` adds to them."""
-    from tendermint_tpu_torch.ops import ed25519_cuda, ed25519_table
+    """The kernels' launch counters as {report name: count}, every kernel
+    of KERNELS; `zero` sets them to 0 after reading, `add` adds to them."""
+    from tendermint_tpu_torch.ops import bls12_381_fold, ed25519_cuda, ed25519_table
 
     where = {"ed25519_ladder": (ed25519_cuda, "LAUNCHES"),
              "ed25519_window_tables": (ed25519_table, "BUILD_LAUNCHES"),
-             "ed25519_tabulated": (ed25519_table, "SUM_LAUNCHES")}
+             "ed25519_tabulated": (ed25519_table, "SUM_LAUNCHES"),
+             "bls12_381_fold_g1": (bls12_381_fold, "G1_LAUNCHES"),
+             "bls12_381_fold_g2": (bls12_381_fold, "G2_LAUNCHES")}
     counts = {k: getattr(m, attr) for k, (m, attr) in where.items()}
     for k, (m, attr) in where.items():
         setattr(m, attr, (0 if zero else counts[k]) + (add or {}).get(k, 0))
@@ -9525,7 +9581,7 @@ def run_staking(keys, card, dev, picked, report):
         f"{out['misses']}; phase 18 (a) took {time.perf_counter() - t0:.3f} s ({card})")
     if out["flushes"]["ed25519_ladder"] == 0:
         raise AssertionError("the ladder was not launched by phase 18's signed-tx flushes")
-    if any(c == 0 for c in counts.values()):
+    if any(counts[name] == 0 for name in ED_KERNELS):
         raise AssertionError(f"a kernel was not launched in phase 18 (a): {counts}")
     if counts["ed25519_window_tables"] != 2 or out["a"]["ed25519_window_tables"] != 2:
         raise AssertionError("kernel 2 (window tables) was not launched exactly for the genesis "
@@ -9542,7 +9598,7 @@ def run_chaos_rotation(card, dev, picked, report, after_17=None):
     """Phase 17 and, at the same time, phase 18 (b), with their launch
     checks (phase 17 launches nothing in this process), the launches added
     to `report`; after_17() is called once phase 17 has passed, while
-    18 (b) runs on."""
+    18 (b) runs on.  Returns the seconds of 17 (a), 17 (b) and 18 (b)."""
     import threading
 
     log("[17] the chaos rig on the card: two 4-validator localnets at once through the CLI "
@@ -9586,6 +9642,7 @@ def run_chaos_rotation(card, dev, picked, report, after_17=None):
         raise AssertionError("kernel 2 (window tables) was not launched for phase 18 (b)'s sets")
     for name, c in counts.items():
         report[name]["launches"] += c
+    return {"17 a": out["a"]["s"], "17 b": out["b"]["s"], "18 b": rot["out"]["s"]}
 
 
 KT_SR_VALIDATORS = 100  # phase 19 (a): BASELINE config #3's set, power 10 each
@@ -10383,6 +10440,7 @@ class PhaseChild:
             else:
                 self.tail.append(line)
                 log(f"[{self.tag}] {line}")
+        self.s = time.perf_counter() - self.t0  # to the end of its output: its exit
 
     def join(self, timeout=900):
         try:
@@ -10395,20 +10453,19 @@ class PhaseChild:
         if rc != 0 or self.result is None:
             raise AssertionError(f"phase {self.tag} in its own process exited {rc}: "
                                  + "\n".join(self.tail))
-        log(f"  phase {self.tag} took {time.perf_counter() - self.t0:.3f} s in its own process, "
-            "beside")
+        log(f"  phase {self.tag} took {self.s:.3f} s in its own process, beside")
         return self.result
 
 
 def child_phase(name, card, picked=None, device="cuda", sizes=None, ms=None):
     """A PhaseChild's entry point: the kernel library (built by phase 1 of
     the parent run) loaded, then phases 6-8 (one after another), 14,
-    18 (a), 19 (a), 20 or 21 on `device` (the card; the CPU to rehearse,
-    with `sizes` overriding this module's size constants).  `picked` is
-    the parent's auto-profile pick, for a process that has profiled
-    nothing yet; `ms` phase 4's kernel times, for phase 6's saving line.
-    Returns the phase's launches (by phase for 6-8; and 19 (a)'s
-    numbers)."""
+    18 (a), 19 (a), 20, 21 or 22 on `device` (the card; the CPU to
+    rehearse, with `sizes` overriding this module's size constants).
+    `picked` is the parent's auto-profile pick, for a process that has
+    profiled nothing yet; `ms` phase 4's kernel times, for phase 6's saving
+    line.  Returns the phase's launches (by phase for 6-8; and 19 (a)'s
+    numbers; for 22 phase_fold's result)."""
     import torch
 
     from tendermint_tpu_torch.ops import _build
@@ -10436,6 +10493,12 @@ def child_phase(name, card, picked=None, device="cuda", sizes=None, ms=None):
         run_bls(card, dev, report)
     elif name == "21":
         run_bls_net(card, dev, report)
+    elif name == "22":
+        # its CPU bursts (10,000 keys signed on SIGN_THREADS threads, the
+        # pure tier's decompressions) yield to 18 (b)'s nodes and the
+        # other children beside it; its kernel times are CUDA events
+        os.nice(10)
+        return phase_fold(card, dev)
     else:
         raise ValueError(f"no phase {name!r} runs in a process of its own")
     return {k: r["launches"] for k, r in report.items()}
@@ -10470,6 +10533,356 @@ def run_bls_net(card, dev, report):
     log(f"  launches in phase 21: {counts}; phase 21 took {out['s']:.3f} s ({card})")
     for name, c in counts.items():
         report[name]["launches"] += c
+
+
+def fold_data(n, tag, msg):
+    """n BLS12-381 keys from seeds (sha256 of tag-0 .. tag-(n-1)), each
+    signing msg, on SIGN_THREADS threads on the C tier: the pubkeys (G1)
+    and signatures (G2) as Jacobian ints, decompressed by the C tier, and
+    as its blobs; and the keys."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tendermint_tpu_torch.crypto.bls import ctier
+    from tendermint_tpu_torch.crypto.bls.keys import BlsPrivKey
+
+    ct = ctier.get()
+
+    def one(i):
+        key = BlsPrivKey(hashlib.sha256(f"{tag}-{i}".encode()).digest())
+        return key, ct.g1_decompress(key.pub_key().bytes()), ct.g2_decompress(key.sign(msg))
+
+    with ThreadPoolExecutor(SIGN_THREADS) as ex:
+        made = list(ex.map(one, range(n), chunksize=64))
+    g1b, g2b = [m[1] for m in made], [m[2] for m in made]
+    return ([ct.g1_point(b) for b in g1b], [ct.g2_point(b) for b in g2b], g1b, g2b,
+            [m[0] for m in made])
+
+
+def fold_group(name):
+    """(rows of points, kernel wrapper, output to Jacobian ints, pure add,
+    identity, negation, compression) of a fold kernel's group."""
+    from tendermint_tpu_torch.crypto.bls import cuda_tier, curve
+    from tendermint_tpu_torch.ops import bls12_381_fold as bf
+
+    if name == "bls12_381_fold_g1":
+        return (cuda_tier.g1_rows, bf.fold_g1, cuda_tier.g1_point, curve.g1_add, curve.G1_INF,
+                curve.g1_neg, curve.g1_compress)
+    return (cuda_tier.g2_rows, bf.fold_g2, cuda_tier.g2_point, curve.g2_add, curve.G2_INF,
+            curve.g2_neg, curve.g2_compress)
+
+
+def fold_products(name, adds, doubles) -> int:
+    """The partial products of `adds` additions and `doubles` doublings
+    (FOLD_MUL_SQR)."""
+    mul, sqr = FOLD_MUL_SQR[name]
+    return adds * (12 * mul + 4 * sqr) + doubles * (8 * mul + 7 * sqr)
+
+
+def fold_work(name, pts):
+    """The pure tier's fold in the kernels' association (jax_tier._tree:
+    the bucket's pairs level by level, the lower index on the left) and
+    the work the data needs: (sum, additions, doublings), where an
+    addition is a pair of two finite points that differ and a doubling a
+    pair of equal finite points; a pair with the identity needs none."""
+    from tendermint_tpu_torch.crypto.bls import cuda_tier, curve
+
+    g = name[-2:]
+    add, is_inf, eq = (getattr(curve, f"{g}_{f}") for f in ("add", "is_inf", "eq"))
+    cur = list(pts) + [curve.G1_INF if g == "g1" else curve.G2_INF] * (
+        cuda_tier._bucket(len(pts)) - len(pts))
+    adds = doubles = 0
+    while len(cur) > 1:
+        pairs = list(zip(cur[0::2], cur[1::2]))
+        for p, q in pairs:
+            if not (is_inf(p) or is_inf(q)):
+                same = eq(p, q)
+                doubles, adds = doubles + same, adds + (not same)
+        cur = [add(p, q) for p, q in pairs]
+    return cur[0], adds, doubles
+
+
+def fold_cases(name, pts):
+    """Phase 2's folds of one group: the first n of `pts` (every other one
+    replaced by a sum of two, so that Z != 1) for n in FOLD_SIZES; the edge
+    rows [P, P, Q, -Q, R, inf, inf, S, ...] (at level 0 a doubling, P + (-P),
+    R + inf and inf + S) cut to each n; and 8 rows at infinity and one not."""
+    _, _, _, add, inf, neg, _ = fold_group(name)
+    mixed = [add(p, q) if i % 2 else p for i, (p, q) in enumerate(zip(pts, pts[1:] + pts[:1]))]
+    p, q, r, s = mixed[:4]
+    edge = [p, p, q, neg(q), r, inf, inf, s] + mixed[4:]
+    return ([(f"{n} points", mixed[:n]) for n in FOLD_SIZES]
+            + [(f"{n} edge rows", edge[:n]) for n in FOLD_SIZES] + [("8 at infinity, 1 not",
+                                                                    [inf] * 8 + [p])])
+
+
+def phase_fold_kernels(report, dev):
+    """Both fold kernels against their plain versions on `dev` (tolerance 0,
+    every output limb) and against the pure fold (compressed points), on
+    fold_cases' inputs."""
+    import torch
+
+    from tendermint_tpu_torch.ops import bls12_381_fold as bf
+
+    g1, g2 = fold_data(max(FOLD_SIZES), "fold-phase2", b"phase 2")[:2]
+    for name, pts in zip(FOLD_KERNELS, (g1, g2)):
+        rows_of, fold, point_of, _, _, _, compress = fold_group(name)
+        for kind, case in fold_cases(name, pts):
+            rows = torch.as_tensor(rows_of(case), device=dev)
+            got = fold(rows)
+            err = max_abs_diff((got,), (bf.fold_plain(rows),))
+            same = compress(point_of(got)) == compress(fold_work(name, case)[0])
+            log(f"  {name}: {kind} (bucket {rows.shape[0]}) max|kernel - plain|={err}, "
+                f"{'equals' if same else 'DIFFERS FROM'} the pure fold")
+            if err or not same:
+                raise AssertionError(f"{name} disagrees with its plain version or the pure fold")
+            report[name]["max_abs_err"] = float(max(report[name].get("max_abs_err", 0.0), err))
+
+
+class FoldTimer:
+    """Phase 22 (b)'s pure lane by part, each with its count and ms:
+    wrappers on the pure tier's decompressions and pairing (host clock),
+    cuda_tier's host prep (host clock) and the fold wrappers (CUDA events
+    around each fold on the card); and the bucket of every fold."""
+
+    def __init__(self):
+        from tendermint_tpu_torch.crypto.bls import cuda_tier, curve, pairing
+        from tendermint_tpu_torch.ops import bls12_381_fold
+
+        self.parts = {"g1 decompress": (curve, "g1_decompress"),
+                      "g2 decompress": (curve, "g2_decompress"),
+                      "g1 host prep": (cuda_tier, "g1_rows"), "g2 host prep": (cuda_tier, "g2_rows"),
+                      "g1 kernel": (bls12_381_fold, "fold_g1"),
+                      "g2 kernel": (bls12_381_fold, "fold_g2"),
+                      "pairing": (pairing, "pairing_check")}
+        self.orig = {k: getattr(m, a) for k, (m, a) in self.parts.items()}
+        self.ms, self.n, self.buckets = collections.Counter(), collections.Counter(), []
+
+    def __enter__(self):
+        for key, (mod, attr) in self.parts.items():
+            setattr(mod, attr, self._timed(key, self.orig[key]))
+        return self
+
+    def _timed(self, key, orig):
+        def fn(*a, **k):
+            import torch
+
+            if key.endswith("kernel"):
+                self.buckets.append((key[:2], a[0].shape[0]))
+            if key.endswith("kernel") and a[0].is_cuda:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = orig(*a, **k)
+                end.record()
+                end.synchronize()
+                self.ms[key] += start.elapsed_time(end)
+            else:
+                t = time.perf_counter()
+                out = orig(*a, **k)
+                self.ms[key] += _ms(t)
+            self.n[key] += 1
+            return out
+        return fn
+
+    def __exit__(self, *exc):
+        for key, (mod, attr) in self.parts.items():
+            setattr(mod, attr, self.orig[key])
+
+    def line(self) -> str:
+        return ", ".join(f"{k} {self.n[k]} in {self.ms[k]:.3f} ms" for k in self.parts if self.n[k])
+
+
+def fold_set(keys):
+    """A uniformly BLS12-381 set of `keys`' validators at power 10 and the
+    keys in set order."""
+    from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
+
+    vset = ValidatorSet([Validator.new(k.pub_key(), 10) for k in keys])
+    by_addr = {k.pub_key().address(): k for k in keys}
+    return vset, [by_addr[v.address] for v in vset.validators]
+
+
+def fold_precommits(vset, keys, height, bid):
+    """Every validator's precommit for `bid` at `height` (one timestamp-free
+    message, signed on SIGN_THREADS threads), made a Commit by a VoteSet."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tendermint_tpu_torch.types.canonical import PRECOMMIT_TYPE
+    from tendermint_tpu_torch.types.vote import Vote
+    from tendermint_tpu_torch.types.vote_set import VoteSet
+
+    votes = [Vote(type=PRECOMMIT_TYPE, height=height, round=0, block_id=bid,
+                  timestamp_ns=LITE_T0 + height * SEC + i, validator_address=v.address,
+                  validator_index=i) for i, v in enumerate(vset.validators)]
+    msg = votes[0].bls_sign_bytes(CHAIN_ID)
+    with ThreadPoolExecutor(SIGN_THREADS) as ex:
+        sigs = list(ex.map(lambda k: k.sign(msg), keys, chunksize=64))
+    vs = VoteSet(CHAIN_ID, height, 0, PRECOMMIT_TYPE, vset)
+    for vote, sig in zip(votes, sigs):
+        vote.signature = sig
+        vs.add_vote(vote, verify=False)
+    return vs.make_commit()
+
+
+def fold_at_size(name, pts, blobs, dev, lib_info):
+    """Phase 22 (a) for one kernel: its output against its plain version's
+    (every limb), the pure fold's and the C tier's (compressed); its time
+    (CUDA events, mean of 5 after one warm-up) beside the plain version's,
+    the host prep's and the pure fold's (host clock); its bound."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.bls import ctier
+    from tendermint_tpu_torch.ops import _build
+    from tendermint_tpu_torch.ops import bls12_381_fold as bf
+
+    rows_of, fold, point_of, _, _, _, compress = fold_group(name)
+    t = time.perf_counter()
+    rows = rows_of(pts)
+    prep_ms = _ms(t)
+    rows_t = torch.as_tensor(rows, device=dev)
+    on_card = dev.type == "cuda"
+    k_ms = cuda_ms(lambda: fold(rows_t)) if on_card else None
+    got = fold(rows_t)
+    plain = []
+    p_ms = (wall_ms if on_card else host_ms)(lambda: plain.append(bf.fold_plain(rows_t)))
+    err = max_abs_diff((got,), tuple(plain))
+    t = time.perf_counter()
+    pure, adds, doubles = fold_work(name, pts)
+    pure_ms = _ms(t)
+    ct = ctier.get()
+    t = time.perf_counter()
+    c_sum = (ct.g1_sum if name.endswith("g1") else ct.g2_sum)(blobs)
+    c_ms = _ms(t)
+    c_pt = (ct.g1_point if name.endswith("g1") else ct.g2_point)(c_sum)
+    mine = compress(point_of(got))
+    n = len(pts)
+    products = fold_products(name, adds, doubles)
+    b_ms, b_by = bound(products / IMAD_PER_PRODUCT, n * rows[0].nbytes + got.numel() * 4)
+    row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=float(err),
+               prep_ms=prep_ms, pure_ms=pure_ms, c_ms=c_ms, products=products, additions=adds,
+               doublings=doubles, bucket=rows.shape[0])
+    if lib_info is not None:
+        lib, log_text, sm_count = lib_info
+        kernel = "fold_g1_kernel" if name.endswith("g1") else "fold_g2_kernel"
+        row.update(_build.resources_of(kernel, log_text), threads=lib.bls12_381_fold_threads(
+            rows.shape[0]), resident_warps_per_sm=lib.bls12_381_fold_resident_warps(
+            1 if name.endswith("g1") else 2))
+        row["warps_per_sm"] = row["threads"] / 32 / sm_count
+        row["bound_share"] = b_ms / k_ms
+    log(f"  (a) {name}: B={n} (bucket {rows.shape[0]}) max|kernel - plain|={err}; kernel "
+        f"{'not timed' if k_ms is None else f'{k_ms:.4f} ms'} (CUDA events, mean of 5), plain "
+        f"{p_ms:.1f} ms, host prep {prep_ms:.1f} ms, pure fold {pure_ms:.1f} ms, C tier "
+        f"{c_ms:.1f} ms (host clock); bound {b_ms:.4f} ms by {b_by} ({products:,} "
+        f"products: {adds:,} additions, {doubles} doublings)"
+        + ("" if lib_info is None else f"; {row['threads']} threads, {row['regs']} regs, "
+           f"stack {row['stack_bytes']} B, spill {row['spill_bytes']} B"))
+    if err or mine != compress(pure) or mine != compress(c_pt):
+        raise AssertionError(f"{name} at B={n} disagrees with its plain version, the pure fold "
+                             "or the C tier")
+    return row, point_of(got)
+
+
+def host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1000
+
+
+def phase_fold(card, dev):
+    """Phase 22: (a) both fold kernels at FOLD_POINTS points, (b) the
+    aggregate-commit paths' pure lanes through the fold on `dev`.  Returns
+    the kernels' numbers for the kernels line, the launches of (a)'s
+    entry-point folds and of (b), and the parts' times."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.bls import ctier, cuda_tier, scheme
+    from tendermint_tpu_torch.ops import _build
+    from tendermint_tpu_torch.types.agg_commit import AggregateCommit, fold_commit
+    from tendermint_tpu_torch.types.block import BlockID, PartSetHeader
+
+    t_start = time.perf_counter()
+    lib_info = None
+    if dev.type == "cuda":
+        with open(_build.ptxas_log_path()) as f:
+            lib_info = (_build.lib(), f.read(),
+                        torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"[22] (a) the BLS12-381 fold kernels at {FOLD_POINTS:,} points: the pubkeys (G1) and "
+        f"signatures (G2) of a uniformly BLS set, one message")
+    t0 = time.perf_counter()
+    g1, g2, g1b, g2b, fold_keys = fold_data(FOLD_POINTS, "fold", b"phase 22")
+    log(f"  {FOLD_POINTS:,} keys and signatures made and decompressed on the C tier on "
+        f"{SIGN_THREADS} threads in {time.perf_counter() - t0:.3f} s")
+    launch_counts(zero=True)
+    entry = {FOLD_KERNELS[0]: cuda_tier.aggregate_g1(g1, device=dev),
+             FOLD_KERNELS[1]: cuda_tier.aggregate_g2(g2, device=dev)}
+    launches = launch_counts(zero=True)  # of the two entry-point folds
+    rows = {}
+    for name, pts, blobs in zip(FOLD_KERNELS, (g1, g2), (g1b, g2b)):
+        rows[name], point = fold_at_size(name, pts, blobs, dev, lib_info)
+        if entry[name] != point:
+            raise AssertionError(f"cuda_tier's fold differs from {name}'s output")
+    launch_counts(zero=True)  # the comparisons' and timings' launches do not count
+    a_s = time.perf_counter() - t_start
+
+    log(f"[22] (b) the aggregate-commit paths on the pure tier with the fold on the card "
+        f"(set_jax_aggregation(True)): a uniformly BLS set of {FOLD_SET:,} validators at power "
+        f"10, fold_commit, verify_commit, batch_verify_aggregates over {FOLD_HEIGHTS} commits "
+        f"(one wrong), against the same calls on the C tier with the fold off")
+    t0 = time.perf_counter()
+    vset, keys = fold_set(fold_keys[:FOLD_SET])  # (a)'s first keys
+    bid = BlockID(hash=b"\x22" * 32, parts_header=PartSetHeader(total=1, hash=b"\x23" * 32))
+    commits = [fold_precommits(vset, keys, h, bid) for h in range(1, FOLD_HEIGHTS + 1)]
+    sign_s = time.perf_counter() - t0
+    pks = [v.pub_key.bytes() for v in vset.validators]
+    t0 = time.perf_counter()
+    aggs = [fold_commit(c, vset, CHAIN_ID) for c in commits]
+    vset.verify_commit(CHAIN_ID, bid, 1, aggs[0])
+    # the second claim carries the third height's aggregate: a valid point,
+    # so only the pairing refuses it
+    items = [(pks, a.sign_message(CHAIN_ID), a.agg_sig) for a in aggs]
+    items[1] = (pks, items[1][1], aggs[2].agg_sig)
+    c_verdicts = scheme.batch_verify_aggregates(items)
+    c_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctier.set_forced("pure")
+    try:
+        scheme.set_jax_aggregation(True, device=dev)
+        with FoldTimer() as ft:
+            launch_counts(zero=True)
+            folded = fold_commit(commits[0], vset, CHAIN_ID)
+            vset.verify_commit(CHAIN_ID, bid, 1, folded)
+            verdicts = scheme.batch_verify_aggregates(items)
+            counts = launch_counts()
+    finally:
+        scheme.set_jax_aggregation(False)
+        ctier.set_forced(None)
+    pure_s = time.perf_counter() - t0
+    log(f"  (b) {FOLD_SET:,} validators' {FOLD_HEIGHTS} commits signed in {sign_s:.3f} s; C tier "
+        f"with the fold off {c_s:.3f} s; the pure lane through the fold {pure_s:.3f} s: "
+        f"{ft.line()} ({card})")
+    log(f"  (b) folds (group, bucket): {collections.Counter(ft.buckets)}; launches {counts}; "
+        f"verdicts {verdicts} (C tier {c_verdicts})")
+    bucket = cuda_tier._bucket(FOLD_SET)
+    groups = {g for g, _ in ft.buckets}
+    if {b for _, b in ft.buckets} != {bucket} or groups != {"g1", "g2"}:
+        raise AssertionError(f"phase 22 (b)'s folds were not each group's at bucket {bucket}: "
+                             f"{ft.buckets}")
+    levels = bucket.bit_length() - 1  # launches a fold
+    if dev.type == "cuda" and (counts[FOLD_KERNELS[0]] != levels * ft.n["g1 kernel"]
+                               or counts[FOLD_KERNELS[1]] != levels * ft.n["g2 kernel"]):
+        raise AssertionError(f"phase 22 (b)'s folds did not launch the kernels {levels} times "
+                             f"each: {counts}")
+    if not isinstance(folded, AggregateCommit) or folded.encode() != aggs[0].encode():
+        raise AssertionError("the pure tier's fold_commit through the kernel differs from the "
+                             "C tier's")
+    if verdicts != c_verdicts or verdicts != [True, False] + [True] * (FOLD_HEIGHTS - 2):
+        raise AssertionError(f"batch_verify_aggregates gave {verdicts} through the fold, "
+                             f"{c_verdicts} on the C tier")
+    launches = {k: launches[k] + counts[k] for k in counts}
+    s = time.perf_counter() - t_start
+    log(f"  launches in phase 22: {launches}; (a) {a_s:.3f} s, phase 22 {s:.3f} s ({card})")
+    return {"rows": rows, "launches": launches, "s": s, "a_s": a_s, "pure_s": pure_s,
+            "parts": {k: [ft.n[k], ft.ms[k]] for k in ft.parts}}
 
 
 def kernel_device_ms(fn, names) -> dict:
@@ -10507,8 +10920,8 @@ def add_resources(report, log_text, sm_count):
         # warps launched per SM; how many of them one SM holds at once
         r["warps_per_sm"] = r["threads"] / 32 / sm_count
         r["resident_warps_per_sm"] = resident
-    for r in report.values():
-        r["bound_share"] = r["bound_ms"] / r["ms"]
+    for name in ED_KERNELS:
+        report[name]["bound_share"] = report[name]["bound_ms"] / report[name]["ms"]
 
 
 def bls_tier_built(t0, card):
@@ -10593,12 +11006,17 @@ def main() -> int:
              "tendermint_tpu/ops/ed25519_table.py:176"),
             ("ed25519_window_tables", "tendermint_tpu_torch/csrc/ed25519_table.cu",
              "tendermint_tpu/ops/ed25519_table.py:65"),
+            ("bls12_381_fold_g1", "tendermint_tpu_torch/csrc/bls12_381_fold.cu",
+             "tendermint_tpu/crypto/bls/jax_tier.py:223"),
+            ("bls12_381_fold_g2", "tendermint_tpu_torch/csrc/bls12_381_fold.cu",
+             "tendermint_tpu/crypto/bls/jax_tier.py:223"),
         )
     }
 
     log("[2] kernels vs plain versions (tolerance 0)")
     dev = torch.device("cuda")
     phase_kernels(np.random.default_rng(2024), keys[:TABLE_VALIDATORS], report, dev)
+    phase_fold_kernels(report, dev)
 
     log("[3] main path: 10k-validator commit through the hooks")
     launch_counts(zero=True)
@@ -10606,14 +11024,14 @@ def main() -> int:
     counts = launch_counts()
     log(f"  launches on the main path: {counts}")
     for name, c in counts.items():
-        if c == 0:
+        if c == 0 and name in ED_KERNELS:  # the fold's path is phase 22's
             raise AssertionError(f"kernel {name} was not launched on the main path")
         report[name]["launches"] = c
 
     log("[4] kernels vs plain versions and timing at the main path's shapes")
     phase_timing(vset, commit, msgs, tab_cache, report)
     add_resources(report, ptxas_log, torch.cuda.get_device_properties(0).multi_processor_count)
-    for r in report.values():
+    for r in (report[name] for name in ED_KERNELS):
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.1f} ms, bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}, share {r['bound_share']:.4f}; "
             f"{r['threads']} threads, {r['warps_per_sm']:.2f} warps/SM launched, "
@@ -10748,14 +11166,14 @@ def main() -> int:
     for name, c in counts.items():
         report[name]["launches"] += c
 
-    # phases 19 (a), 20 and 21, each in a process of its own, from the end
-    # of phase 17 on, beside 18 (b) and then phase 19 (b) in this one
+    # phases 19 (a), 20, 21 and 22, each in a process of its own, from the
+    # end of phase 17 on, beside 18 (b) and then phase 19 (b) in this one
     t0 = time.perf_counter()
     kids = {}
 
     def start_kids():
         kids.update((tag, PhaseChild(tag, "child_phase", tag, card))
-                    for tag in ("19 a", "20", "21"))
+                    for tag in ("19 a", "20", "21", "22"))
 
     try:
         run_chaos_rotation(card, dev, picked, report, after_17=start_kids)
@@ -10765,11 +11183,19 @@ def main() -> int:
     if failed:
         raise failed[0]
     check_sr_chain(done["19 a"], card)
-    for tag in ("20", "21"):
-        for name, c in done[tag].items():
+    fold = done["22"]
+    for counts in (done["20"], done["21"], fold["launches"]):
+        for name, c in counts.items():
             report[name]["launches"] += c
-    log(f"  launches in phases 20 and 21, each in its process: {done['20']}, {done['21']}; "
-        f"phases 17-21 but 18 (a) took {time.perf_counter() - t0:.3f} s together ({card})")
+    for name in FOLD_KERNELS:  # phase 22 (a)'s numbers; max_abs_err also phase 2's
+        row = fold["rows"][name]
+        row["max_abs_err"] = max(row["max_abs_err"], report[name]["max_abs_err"])
+        report[name].update(row)
+        if report[name]["launches"] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the fold's paths")
+    log(f"  launches in phases 20, 21 and 22, each in its process: {done['20']}, {done['21']}, "
+        f"{fold['launches']}; phase 22 took {fold['s']:.3f} s; phases 17-22 but 18 (a) took "
+        f"{time.perf_counter() - t0:.3f} s together ({card})")
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
     keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share",

@@ -9,7 +9,8 @@ Times are seconds (float) here; per-round growth matches base + delta*round.
 Every section, default, `validate_basic` message and the TOML bytes of
 `save_config` equal the JAX package's, so one config.toml loads in either
 package.  The `[tpu]` section keeps the JAX field names; node.py says what
-the port does with each (a mesh and the JAX BLS aggregation raise there).
+the port does with each (a mesh raises there; `bls_jax_aggregation` turns on
+the batched BLS fold on the card).
 """
 
 from __future__ import annotations
@@ -329,11 +330,11 @@ class TPUConfig:
     # Tabulated zero-doubling kernel: "auto" profiles break-even once per
     # process and engages only where it wins; "on"/"off" force it.
     tabulated: str = "auto"
-    # Route BLS multi-point aggregation (Σpk / Σsig of aggregate commits)
-    # through the batched JAX tier (crypto/bls/jax_tier).  OFF by default:
-    # on CPU-only hosts the pure-python fold wins below committee scale
-    # (measured ~5 ms vs ~200 ms warm + a multi-second compile at N=100 on
-    # a 2-core container); flip on for real device meshes.
+    # Route the pure BLS tier's multi-point sums (Σpk / Σsig of aggregate
+    # commits, from 8 points on) through the batched fold on the engine's
+    # card (crypto/bls/cuda_tier; the name is the JAX package's).  The C
+    # tier's lanes sum on the host and never reach it, so it engages only
+    # where the pure tier serves.  OFF by default.
     bls_jax_aggregation: bool = False
 
 

@@ -25,10 +25,14 @@ Two host tiers, as in the reference package:
   tier is verdict- and bit-pinned against, and the dependency-less
   no-toolchain path.
 
-The reference package's third tier, a batched device fold of the pure
-lanes' multi-point sums (`[tpu] bls_jax_aggregation`), is not ported
-(ROADMAP 2.1): `scheme.set_jax_aggregation(True)` raises, and the node's
-`check_ported` refuses the setting first.
+A third tier, `cuda_tier`, folds the pure lanes' multi-point sums (Σpk,
+Σsig, from 8 points on) on the card: the CUDA kernels of
+csrc/bls12_381_fold.cu, a binary tree of complete G1 or G2 additions whose
+Jacobian result equals the reference package's jax_tier limb for limb.
+`scheme.set_jax_aggregation(True, device=...)` turns it on (a node does so
+at start with `[tpu] bls_jax_aggregation`); the C tier's lanes sum on the
+host and never reach it.  Where the fold's build, launch or card fails it
+raises; the reference's tier returns None and folds on the host.
 
 Key classes (`BlsPubKey`/`BlsPrivKey`) live in `crypto/bls/keys.py` and
 slot into the polymorphic `crypto.PubKey` verify routing, so ed25519 and

@@ -23,7 +23,7 @@ import hmac
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from . import curve, hash_to_curve
+from . import cuda_tier, curve, hash_to_curve
 from .ctier import bounded_put
 from .fields import R
 
@@ -266,6 +266,8 @@ def _apk_blobs(ct, pks: Sequence[bytes]) -> Optional[list]:
 def _sum_g1(pts):
     # only reached from the pure lanes (the C lanes fold blobs via
     # ctier.g1_sum/g2_sum directly, never through here)
+    if _fold_device is not None and len(pts) >= cuda_tier.MIN_BATCH:
+        return cuda_tier.aggregate_g1(pts, device=_fold_device)
     acc = curve.G1_INF
     for p in pts:
         acc = curve.g1_add(acc, p)
@@ -273,21 +275,28 @@ def _sum_g1(pts):
 
 
 def _sum_g2(pts):
+    if _fold_device is not None and len(pts) >= cuda_tier.MIN_BATCH:
+        return cuda_tier.aggregate_g2(pts, device=_fold_device)
     acc = curve.G2_INF
     for p in pts:
         acc = curve.g2_add(acc, p)
     return acc
 
 
-def set_jax_aggregation(enabled: bool, mesh=None) -> None:
-    """The reference routes the pure lanes' multi-point sums through a
-    batched device fold here.  That fold is not ported (ROADMAP 2.1), so
-    only turning it off is accepted."""
-    if enabled:
-        raise NotImplementedError(
-            "the batched BLS point fold (bls_jax_aggregation) is not ported "
-            "yet (ROADMAP 2.1)"
-        )
+_fold_device = None  # the batched fold's device; None: the fold is off
+
+
+def set_jax_aggregation(enabled: bool, mesh=None, device=None) -> None:
+    """Route the pure lanes' multi-point G1/G2 sums (from MIN_BATCH points
+    on) through the batched fold of `cuda_tier` on `device`: the card
+    unless the caller names the CPU, raising where there is no card.
+    Engine nodes turn it on at start with `[tpu] bls_jax_aggregation`
+    (the reference's name); the C lanes never reach it.  A sharded fold
+    (`mesh`) is not ported (ROADMAP 2.2)."""
+    global _fold_device
+    if mesh is not None:
+        raise NotImplementedError("a sharded BLS fold (mesh) is not ported yet (ROADMAP 2.2)")
+    _fold_device = cuda_tier.resolve_device(device) if enabled else None
 
 
 def fast_aggregate_verify(

@@ -66,9 +66,6 @@ def check_ported(config: Config) -> None:
     unported = (
         (cfg.tpu.mesh == "on", 'tpu.mesh = "on": the multi-card verify mesh', "2.2",
          'tpu.mesh = "auto"'),
-        (cfg.tpu.bls_jax_aggregation,
-         "tpu.bls_jax_aggregation: the batched BLS aggregation kernel", "2.1",
-         "bls_jax_aggregation = false"),
     )
     for on, what, item, fix in unported:
         if on:
@@ -399,6 +396,12 @@ class Node(Service):
                 recorder=self.flight_recorder,
             )
             await self.async_verifier.start()
+            if cfg.tpu.bls_jax_aggregation:
+                # the pure BLS lanes' multi-point sums fold on the engine's
+                # device (the C lanes never reach the fold)
+                from .crypto.bls import scheme as _bls_scheme
+
+                _bls_scheme.set_jax_aggregation(True, device=self.device)
         # remote signer: wait for the external signer to dial in BEFORE
         # consensus needs a pubkey (node/node.go:612-618)
         if isinstance(self.priv_validator, Service) and not self.priv_validator.is_running:

@@ -126,13 +126,19 @@ def lib() -> ctypes.CDLL:
         cdll.ed25519_window_tables_launch.restype = i
         cdll.ed25519_quad_selftest_launch.argtypes = [vp] * 6 + [i, vp]
         cdll.ed25519_quad_selftest_launch.restype = i
+        for fn in ("bls12_381_fold_g1_launch", "bls12_381_fold_g2_launch"):
+            getattr(cdll, fn).argtypes = [vp, vp, vp, i, vp]
+            getattr(cdll, fn).restype = i
         # launch shapes, read by chip_smoke.py's report
         cdll.ed25519_ladder_threads.argtypes = [i]
         cdll.ed25519_table_threads.argtypes = [i, i]
         cdll.ed25519_ladder_resident_warps.argtypes = []
         cdll.ed25519_table_resident_warps.argtypes = [i]
+        cdll.bls12_381_fold_threads.argtypes = [i]
+        cdll.bls12_381_fold_resident_warps.argtypes = [i]
         for fn in ("ed25519_ladder_threads", "ed25519_table_threads",
-                   "ed25519_ladder_resident_warps", "ed25519_table_resident_warps"):
+                   "ed25519_ladder_resident_warps", "ed25519_table_resident_warps",
+                   "bls12_381_fold_threads", "bls12_381_fold_resident_warps"):
             getattr(cdll, fn).restype = i
         _lib = cdll
         return _lib

@@ -16,7 +16,9 @@ numpy.  The pure tier is slow, so its runs keep to a few pairings.
 Also: the C tier builds into the package's `_build/` with the source hash
 in its name, a host without a toolchain falls back to the pure tier with
 one warning, the codec tags equal JAX's, and the batched device fold
-(`bls_jax_aggregation`) stays refused, naming ROADMAP 2.1.
+(`bls_jax_aggregation`, ported in crypto/bls/cuda_tier.py) is refused only
+where it cannot run: on a host without a card unless the CPU is named, and
+sharded over a mesh (ROADMAP 2.2).
 """
 
 import contextlib
@@ -25,6 +27,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import tendermint_tpu.crypto.bls as jbls
 import tendermint_tpu.crypto.bls.ctier as jctier
@@ -390,12 +393,20 @@ def test_keys_codec_and_refused_device_fold():
     assert (pk.pub_key().verify(b"m", pk.sign(b"m")), pk.pub_key().verify(b"m", b"\x00" * 95)) == (
         True, False)
     pscheme.set_jax_aggregation(False)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 2\.1"):
-        pscheme.set_jax_aggregation(True)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP 2\.2"):
+        pscheme.set_jax_aggregation(True, mesh=object())
+    try:
+        pscheme.set_jax_aggregation(True, device="cpu")
+        assert pscheme._fold_device == torch.device("cpu")
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                pscheme.set_jax_aggregation(True)
+    finally:
+        pscheme.set_jax_aggregation(False)
+    assert pscheme._fold_device is None
     from tendermint_tpu_torch.config import Config
     from tendermint_tpu_torch.node import check_ported
 
     cfg = Config(home="/nonexistent")
     cfg.tpu.bls_jax_aggregation = True
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 2\.1"):
-        check_ported(cfg)
+    check_ported(cfg)

@@ -213,8 +213,9 @@ def test_init_writes_the_proof_of_possession_and_the_home_is_refused(tmp_path):
 
 def test_check_ported_refuses_only_a_uniformly_bls_genesis_with_aggregation_on(tmp_path):
     """A uniformly BLS, a mixed and an empty genesis all construct a port
-    node with aggregation on; the settings still unported (the JAX BLS
-    aggregation, ROADMAP 2.1, and the mesh, 2.2) are refused, each named."""
+    node with aggregation on, and so does each with the batched BLS fold
+    (`tpu.bls_jax_aggregation`, ported since ROADMAP 2.1); the setting still
+    unported (the mesh, 2.2) is refused, named."""
     bls = [pbls.BlsPrivKey.from_secret(b"cp-%d" % i) for i in range(2)]
     ed = pkeys.Ed25519PrivKey.from_secret(b"cp-ed")
     gv = pgenesis.GenesisValidator
@@ -229,13 +230,17 @@ def test_check_ported_refuses_only_a_uniformly_bls_genesis_with_aggregation_on(t
         node = pnode.Node(Config(home=str(tmp_path / str(i))), doc, db_backend="memdb",
                           device="cpu")
         assert node.config.consensus.bls_aggregate_commits
-    for knob, item in (("bls_jax_aggregation", "2.1"), ("mesh", "2.2")):
-        c = Config(home="/nonexistent")
-        setattr(c.tpu, knob, True if knob == "bls_jax_aggregation" else "on")
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
-            pnode.check_ported(c)
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
-            pnode.Node(c, uniform, db_backend="memdb", device="cpu")
+    for i, doc in enumerate((uniform, mixed, empty)):
+        c = Config(home=str(tmp_path / f"fold{i}"))
+        c.tpu.bls_jax_aggregation = True
+        pnode.check_ported(c)
+        assert pnode.Node(c, doc, db_backend="memdb", device="cpu").config.tpu.bls_jax_aggregation
+    c = Config(home="/nonexistent")
+    c.tpu.mesh = "on"
+    with pytest.raises(NotImplementedError, match=r"ROADMAP 2\.2"):
+        pnode.check_ported(c)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP 2\.2"):
+        pnode.Node(c, uniform, db_backend="memdb", device="cpu")
 
 
 # ---------------------------------------------------------------------------

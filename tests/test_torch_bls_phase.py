@@ -39,8 +39,7 @@ def test_phase20_mixed_bls_chain_end_to_end_on_cpu(monkeypatch):
     # fewer where a precommit came late)
     assert len(out["flat"]) == cs.CS_HEIGHTS and all(0 < n <= 4 for n in out["flat"])
     # on the CPU nothing launches a kernel
-    assert out["launches"] == dict.fromkeys(
-        ("ed25519_ladder", "ed25519_window_tables", "ed25519_tabulated"), 0)
+    assert out["launches"] == dict.fromkeys(cs.KERNELS, 0)
     assert batch_hook.get_verifier() is not None  # the host default, reset
     assert batch_hook.get_indexed_verifier() is None
 
@@ -58,8 +57,7 @@ def test_a_phase_runs_in_a_process_of_its_own_on_cpu(monkeypatch):
     kid = cs.PhaseChild("19 a", "child_phase", "19 a", "cpu", None, "cpu",
                         {"KT_SR_VALIDATORS": 8, "KT_SR_TXS": 5})
     out = kid.join()
-    assert out["launches"] == out["node"] == dict.fromkeys(
-        ("ed25519_ladder", "ed25519_window_tables", "ed25519_tabulated"), 0)
+    assert out["launches"] == out["node"] == dict.fromkeys(cs.KERNELS, 0)
     assert out["verifies"]["Sr25519PubKey"] > 2 * 7 * 5
     assert any("heights 1-4 on sr25519 keys" in line for line in kid.tail)
     bad = cs.PhaseChild("x", "child_phase", "no such phase", "cpu", None, "cpu")

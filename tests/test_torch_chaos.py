@@ -29,8 +29,9 @@ through both packages.
   sign is committed as evidence and reaches BeginBlock's
   byzantine_validators; the six `unsafe_chaos_*` routes answer as the JAX
   routes do, with chaos on and with it off, and stay behind `rpc.unsafe`.
-- `check_ported` accepts `chaos.enabled` and `p2p.test_fuzz` and still
-  refuses `tpu.mesh = "on"` and `tpu.bls_jax_aggregation`.
+- `check_ported` accepts `chaos.enabled` and `p2p.test_fuzz` (and
+  `tpu.bls_jax_aggregation`, the batched BLS fold) and still refuses
+  `tpu.mesh = "on"`.
 - Phase 17 (a) of chip_smoke.py rehearsed on the CPU: four port nodes
   through the CLI in processes of their own, on the host path.
 """
@@ -781,7 +782,7 @@ async def test_chaos_off_leaves_every_store_unwrapped(tmp_path):
 
 PORTED = {"chaos": ("chaos", "enabled", True, None), "test_fuzz": ("p2p", "test_fuzz", True, None),
           "twin": ("chaos", "twin", True, None), "mesh_on": ("tpu", "mesh", "on", "2.2"),
-          "bls_jax_aggregation": ("tpu", "bls_jax_aggregation", True, "2.1")}
+          "bls_jax_aggregation": ("tpu", "bls_jax_aggregation", True, None)}
 
 
 @pytest.mark.parametrize("case", sorted(PORTED))

@@ -29,6 +29,5 @@ def test_phase9_consensus_end_to_end_on_cpu(monkeypatch):
     assert out["validate_blocks"] == out["indexed_dispatches"] == 14
     # one prevote and one precommit frame per round (6 peers), 5 rounds
     assert out["frames"] == 10
-    assert out["launches"] == dict.fromkeys(
-        ("ed25519_ladder", "ed25519_window_tables", "ed25519_tabulated"), 0)
+    assert out["launches"] == dict.fromkeys(cs.KERNELS, 0)
     assert batch_hook.get_indexed_verifier() is None

@@ -43,7 +43,6 @@ def test_phase15_transactions_from_outside_end_to_end_on_cpu(monkeypatch):
     # on the CPU no stage launches a kernel
     assert set(out["stages"]) == {"start", "heights", "after"}
     for stage in out["stages"].values():
-        assert stage == {"ed25519_ladder": 0, "ed25519_window_tables": 0,
-                         "ed25519_tabulated": 0}
+        assert stage == dict.fromkeys(cs.KERNELS, 0)
     assert batch_hook.get_indexed_verifier() is None
     assert loopprof.active() is None

@@ -38,8 +38,7 @@ def test_phase19_keytypes_end_to_end_on_cpu(monkeypatch):
     # and precommits over 5 rounds (a flipped precommit frame each), the
     # LastCommits and the commits checked after the run
     assert a["verifies"]["Sr25519PubKey"] > 2 * 15 * 5
-    assert a["launches"] == dict.fromkeys(
-        ("ed25519_ladder", "ed25519_window_tables", "ed25519_tabulated"), 0)
+    assert a["launches"] == dict.fromkeys(cs.KERNELS, 0)
     keys = cs.make_keys(16)
     _, _, commit, _ = cs.build_commit(keys)
     b = cs.phase_mixed(keys, commit, "cpu", dev)

@@ -15,7 +15,7 @@ recorder event's fields.  Then each package's node restarts from the
 other's home and commits two more heights, and the two resumed chains
 must agree.  Each configuration the port does not carry raises
 NotImplementedError naming its ROADMAP item, before anything is opened
-(`p2p.test_fuzz` and `chaos.enabled` now pass); a
+(`p2p.test_fuzz`, `chaos.enabled` and `tpu.bls_jax_aggregation` now pass); a
 node with the flight spool on flushes on its cadence and stops with a
 synced final flush; a stock `init` home (PEX on) with a seed starts, and
 so does a node with `liteserve.enable`.
@@ -251,12 +251,13 @@ def test_only_validator_is_us_equals_jax():
 
 
 # item None: a setting the port now carries (the chaos rig lifted
-# `p2p.test_fuzz` and `chaos.enabled`); check_ported passes it
+# `p2p.test_fuzz` and `chaos.enabled`, the batched BLS fold
+# `tpu.bls_jax_aggregation`); check_ported passes it
 UNPORTED = {
     "test_fuzz": ("p2p.test_fuzz", True, None),
     "chaos": ("chaos.enabled", True, None),
     "mesh_on": ("tpu.mesh", "on", "2.2"),
-    "bls_jax_aggregation": ("tpu.bls_jax_aggregation", True, "2.1"),
+    "bls_jax_aggregation": ("tpu.bls_jax_aggregation", True, None),
 }
 
 

@@ -30,7 +30,7 @@ def test_phase18a_staking_chain_on_cpu(monkeypatch):
     # the genesis set's first check and the check of the first set with new
     # pubkeys; the epoch's power-only set hits the cache
     assert out["misses"] == [2, cs.STK_STAKE_AT + 3]
-    zero = dict.fromkeys(("ed25519_ladder", "ed25519_window_tables", "ed25519_tabulated"), 0)
+    zero = dict.fromkeys(cs.KERNELS, 0)
     assert out["a"] == out["flushes"] == out["b"] == zero
     assert batch_hook.get_indexed_verifier() is None
 

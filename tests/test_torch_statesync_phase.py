@@ -33,8 +33,7 @@ def test_phase12_statesync_end_to_end_on_cpu(monkeypatch):
     # the restored sets carry ValidatorSet(vals)'s priorities (ROADMAP 3.6)
     assert out["priorities"] > 0
     # on the CPU nothing launches a kernel
-    assert out["stages"]["all"] == {"ed25519_ladder": 0, "ed25519_window_tables": 0,
-                                    "ed25519_tabulated": 0}
+    assert out["stages"]["all"] == dict.fromkeys(cs.KERNELS, 0)
     # the homes are gone, and every node gave the hooks back
     assert not os.path.exists(net["a"][0])
     assert batch_hook.get_indexed_verifier() is None
