@@ -22,8 +22,12 @@
    output limb, and against the pure fold as compressed points, on keys and
    signatures made by the C tier: 8, 9 and 33 points (buckets 8, 16, 64,
    every other point a sum of two so Z != 1), the edge rows (a doubling,
-   P + (-P), the identity on either side) and 8 rows at infinity with one
-   finite point.
+   P + (-P), the identity on either side), 8 rows at infinity with one
+   finite point, and the seams of the fold's tiers (LEAVES points a block
+   of the first, ops/bls12_381_fold.py plan()): 2 x LEAVES copies of one
+   point (every pair a doubling, in both tiers), two halves that sum to S
+   and -S (the last tier's one addition P + (-P)), and LEAVES rows at
+   infinity before the live ones (every live row in the last block).
 3. The main path at full size: a 10,000-validator set signs a full commit;
    ValidatorSet.verify_commit runs through the crypto.batch hooks on the
    ladder, on the tabulated path and under the auto profile, then the
@@ -730,7 +734,7 @@
    same calls with the pure tier forced (ctier.set_forced("pure")) and
    scheme.set_jax_aggregation(True) on the card.  Fails unless the bytes and
    verdicts are equal, every fold ran at bucket 1,024 and each launched its
-   kernel once per tree level (10 times).  Prints the pure lane's
+   kernel once.  Prints the pure lane's
    decompressions, host prep, kernels (CUDA events) and pairings by count
    and ms.
 
@@ -747,9 +751,9 @@ line.
 
 Prints, before the last line, a JSON object {"kernels": [...]} (per kernel
 also its threads and warps per SM at the 10k launch (the fold's at its
-widest level), registers, stack and spill bytes from the ptxas log, and
-bound_ms / ms; the fold kernels' numbers come from phase 22 (a), their
-launches, one per tree level, from its two entry-point folds and (b)) and
+first, widest tier), registers, stack and spill bytes from the ptxas
+log, and bound_ms / ms; the fold kernels' numbers come from phase 22 (a),
+their launches, one a fold, from its two entry-point folds and (b)) and
 the card line; the last line is {"ok": true, "device": {...}}.  Exits
 non-zero, printing no result, without a card, outside a checkout, or when
 any phase fails.
@@ -10606,14 +10610,26 @@ def fold_cases(name, pts):
     """Phase 2's folds of one group: the first n of `pts` (every other one
     replaced by a sum of two, so that Z != 1) for n in FOLD_SIZES; the edge
     rows [P, P, Q, -Q, R, inf, inf, S, ...] (at level 0 a doubling, P + (-P),
-    R + inf and inf + S) cut to each n; and 8 rows at infinity and one not."""
+    R + inf and inf + S) cut to each n; 8 rows at infinity and one not; and
+    the tiers' seams at L = LEAVES points a block: 2L copies of P
+    (doublings in both tiers), a first half A (the points, then the
+    identity) and its negation (S + (-S) in the last tier), and L rows at
+    infinity before the points (every live row in the last block)."""
+    from tendermint_tpu_torch.ops import bls12_381_fold as bf
+
     _, _, _, add, inf, neg, _ = fold_group(name)
     mixed = [add(p, q) if i % 2 else p for i, (p, q) in enumerate(zip(pts, pts[1:] + pts[:1]))]
     p, q, r, s = mixed[:4]
     edge = [p, p, q, neg(q), r, inf, inf, s] + mixed[4:]
+    leaves = bf.LEAVES
+    half = (mixed + [inf] * leaves)[:leaves]
     return ([(f"{n} points", mixed[:n]) for n in FOLD_SIZES]
-            + [(f"{n} edge rows", edge[:n]) for n in FOLD_SIZES] + [("8 at infinity, 1 not",
-                                                                    [inf] * 8 + [p])])
+            + [(f"{n} edge rows", edge[:n]) for n in FOLD_SIZES]
+            + [("8 at infinity, 1 not", [inf] * 8 + [p]),
+               (f"{2 * leaves} copies of one point", [p] * (2 * leaves)),
+               ("halves summing to S and -S", half + [neg(x) for x in half]),
+               (f"{leaves} at infinity, then {min(len(mixed), leaves)} points",
+                [inf] * leaves + mixed[:leaves])])
 
 
 def phase_fold_kernels(report, dev):
@@ -10632,7 +10648,8 @@ def phase_fold_kernels(report, dev):
             got = fold(rows)
             err = max_abs_diff((got,), (bf.fold_plain(rows),))
             same = compress(point_of(got)) == compress(fold_work(name, case)[0])
-            log(f"  {name}: {kind} (bucket {rows.shape[0]}) max|kernel - plain|={err}, "
+            log(f"  {name}: {kind} (bucket {rows.shape[0]}, plan {bf.plan(rows.shape[0])}) "
+                f"max|kernel - plain|={err}, "
                 f"{'equals' if same else 'DIFFERS FROM'} the pure fold")
             if err or not same:
                 raise AssertionError(f"{name} disagrees with its plain version or the pure fold")
@@ -10764,9 +10781,11 @@ def fold_at_size(name, pts, blobs, dev, lib_info):
     if lib_info is not None:
         lib, log_text, sm_count = lib_info
         kernel = "fold_g1_kernel" if name.endswith("g1") else "fold_g2_kernel"
-        row.update(_build.resources_of(kernel, log_text), threads=lib.bls12_381_fold_threads(
-            rows.shape[0]), resident_warps_per_sm=lib.bls12_381_fold_resident_warps(
-            1 if name.endswith("g1") else 2))
+        group = 1 if name.endswith("g1") else 2
+        leaves, blocks = bf.plan(rows.shape[0])[0]  # the first, widest tier
+        row.update(_build.resources_of(kernel, log_text),
+                   threads=lib.bls12_381_fold_threads(group, blocks),
+                   resident_warps_per_sm=lib.bls12_381_fold_resident_warps(group, leaves))
         row["warps_per_sm"] = row["threads"] / 32 / sm_count
         row["bound_share"] = b_ms / k_ms
     log(f"  (a) {name}: B={n} (bucket {rows.shape[0]}) max|kernel - plain|={err}; kernel "
@@ -10867,11 +10886,10 @@ def phase_fold(card, dev):
     if {b for _, b in ft.buckets} != {bucket} or groups != {"g1", "g2"}:
         raise AssertionError(f"phase 22 (b)'s folds were not each group's at bucket {bucket}: "
                              f"{ft.buckets}")
-    levels = bucket.bit_length() - 1  # launches a fold
-    if dev.type == "cuda" and (counts[FOLD_KERNELS[0]] != levels * ft.n["g1 kernel"]
-                               or counts[FOLD_KERNELS[1]] != levels * ft.n["g2 kernel"]):
-        raise AssertionError(f"phase 22 (b)'s folds did not launch the kernels {levels} times "
-                             f"each: {counts}")
+    if dev.type == "cuda" and (counts[FOLD_KERNELS[0]] != ft.n["g1 kernel"]
+                               or counts[FOLD_KERNELS[1]] != ft.n["g2 kernel"]):
+        raise AssertionError(f"phase 22 (b)'s folds did not launch the kernels once each: "
+                             f"{counts}")
     if not isinstance(folded, AggregateCommit) or folded.encode() != aggs[0].encode():
         raise AssertionError("the pure tier's fold_commit through the kernel differs from the "
                              "C tier's")

@@ -19,12 +19,16 @@ Z1 = 0 gives Q, Z2 = 0 gives P, the same x and y the double, the same x
 alone the all-zero point.  With the same association and formulas every
 output limb equals JAX's.
 
-On CUDA tensors `fold_g1` / `fold_g2` launch the kernels of
-csrc/bls12_381_fold.cu (one launch per tree level, log2(bucket) of them,
-on a scratch copy in device memory); on CPU tensors they run `fold_plain`,
-the only reason they ever do.  `G1_LAUNCHES` / `G2_LAUNCHES` count the
-kernel launches of the folds that ran, log2(bucket) a fold, and nothing
-else.
+On CUDA tensors `fold_g1` / `fold_g2` launch a kernel of
+csrc/bls12_381_fold.cu once a fold, by the tiers of `plan(bucket)`: the
+blocks of the first tier fold aligned subtrees of LEAVES points each, and
+the block that completes a group of TIER_LEAVES block sums folds them in
+the next tier, until one sum is left (at 10,000 points, bucket 16,384: 128
+blocks of 128 points, 8 of 16 sums, one of 8).  An aligned subtree of
+_tree's perfect binary tree is what its first levels compute there, so the
+plan keeps the association.  On CPU tensors they run `fold_plain`, the only
+reason they ever do.  `G1_LAUNCHES` / `G2_LAUNCHES` count the kernel
+launches of the folds that ran, one a fold, and nothing else.
 
 `fold_plain` computes in radix 2^16 (24 limbs in int64, CIOS Montgomery
 with the same R), where the kernel computes in radix 2^32: an int64 has no
@@ -34,6 +38,9 @@ do not depend on the radix, so both give the same limbs.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
@@ -42,8 +49,15 @@ from . import _build, _check
 NL = 48  # 8-bit limbs per Fp element (the rows' layout)
 P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
 
+LEAVES = 128  # points a block of the first tier folds: one aligned subtree
+TIER_LEAVES = 16  # block sums a block of a later tier folds
+
 G1_LAUNCHES = 0
 G2_LAUNCHES = 0
+
+# (device, stream) -> the kernels' group counters: zeros, and zeros again
+# after every fold (its last block of a group wraps the group's counter to 0)
+_counters: dict = {}
 
 # ---------------------------------------------------------------------------
 # plain version: radix 2^16, 24 limbs in int64
@@ -217,20 +231,59 @@ def _check_bucket(bucket: int) -> None:
         raise ValueError(f"the fold takes a power-of-two bucket >= 2, got {bucket}")
 
 
-def _launch(name: str, rows: torch.Tensor, coord: tuple) -> torch.Tensor:
-    """Runs the fold's log2(bucket) launches, one per tree level."""
+def plan(bucket: int, leaves: int | None = None, tier_leaves: int | None = None) -> list:
+    """The fold's tiers for a bucket: (points a block folds, blocks) of
+    each, the first on the rows, every other on the block sums before it,
+    the last one block.  A block of the first tier folds an aligned subtree
+    of `leaves` (LEAVES) points, a later one `tier_leaves` (TIER_LEAVES)
+    block sums, or all that is left where fewer remain."""
+    _check_bucket(bucket)
+    per = leaves or LEAVES
+    later = tier_leaves or TIER_LEAVES
+    for k in (per, later):
+        if k < 2 or k & (k - 1):
+            raise ValueError(f"a block folds a power-of-two count >= 2 of points, got {k}")
+    out, n = [], bucket
+    while n > 1:
+        k = min(per, n)
+        out.append((k, n // k))
+        n //= k
+        per = later
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(bucket: int, leaves: int, tier_leaves: int) -> tuple:
+    """A fold's launch arguments that depend on the bucket alone: the block
+    sums (one for every block of every tier but the last), the counters (one
+    for every block of every tier but the first), each tier's points a block
+    (a ctypes array) and the tier count."""
+    tiers = plan(bucket, leaves, tier_leaves)
+    return (sum(b for _, b in tiers[:-1]), sum(b for _, b in tiers[1:]),
+            (ctypes.c_int * len(tiers))(*(k for k, _ in tiers)), len(tiers))
+
+
+def _launch(name: str, rows: torch.Tensor, coord: tuple, sum_words: int) -> torch.Tensor:
+    """Runs the fold's one launch by `plan`; `sum_words`: 32-bit words a
+    block sum (G1's carries Z^2 and Z^3 beside X, Y, Z)."""
     bucket = rows.shape[0]
     _check_bucket(bucket)
     _check.tensors(rows.device, rows=(rows, torch.int32, (bucket, 3) + coord))
-    words = 3 * int(np.prod(coord)) // 4  # 32-bit words per point
-    scratch = torch.empty((bucket // 2, words), dtype=torch.int32, device=rows.device)
-    out = torch.empty((3,) + coord, dtype=torch.int32, device=rows.device)
+    sums, n, leaves, tiers = _launch_args(bucket, LEAVES, TIER_LEAVES)
+    words = 3 * int(np.prod(coord)) // 4  # 32-bit words a row
+    # the output's 8-bit limbs, then the block sums (16-byte aligned)
+    buf = torch.empty(4 * words + sums * sum_words, dtype=torch.int32, device=rows.device)
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    counters = _counters.get((rows.device, stream))
+    if counters is None or counters.numel() < n:
+        counters = _counters[(rows.device, stream)] = torch.zeros(
+            max(n, 256), dtype=torch.int32, device=rows.device)
     rc = getattr(_build.lib(), f"{name}_launch")(
-        rows.data_ptr(), scratch.data_ptr(), out.data_ptr(), bucket,
-        torch.cuda.current_stream(rows.device).cuda_stream,
+        rows.data_ptr(), buf.data_ptr() + 16 * words, counters.data_ptr(), buf.data_ptr(), bucket,
+        leaves, tiers, stream,
     )
     _check.launched(name, rc)
-    return out
+    return buf[:4 * words].view((3,) + coord)
 
 
 def fold_g1(rows: torch.Tensor) -> torch.Tensor:
@@ -238,8 +291,8 @@ def fold_g1(rows: torch.Tensor) -> torch.Tensor:
     if rows.device.type == "cpu":
         return fold_plain(rows)
     global G1_LAUNCHES
-    out = _launch("bls12_381_fold_g1", rows, (NL,))
-    G1_LAUNCHES += rows.shape[0].bit_length() - 1  # one launch per tree level
+    out = _launch("bls12_381_fold_g1", rows, (NL,), 5 * NL // 4)
+    G1_LAUNCHES += 1
     return out
 
 
@@ -248,6 +301,6 @@ def fold_g2(rows: torch.Tensor) -> torch.Tensor:
     if rows.device.type == "cpu":
         return fold_plain(rows)
     global G2_LAUNCHES
-    out = _launch("bls12_381_fold_g2", rows, (2, NL))
-    G2_LAUNCHES += rows.shape[0].bit_length() - 1  # one launch per tree level
+    out = _launch("bls12_381_fold_g2", rows, (2, NL), 3 * NL // 2)
+    G2_LAUNCHES += 1
     return out

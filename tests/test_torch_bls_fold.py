@@ -14,6 +14,10 @@ byte for byte, commit bytes and verdicts exactly.
   (every row but one at infinity, doublings, opposites).
 - The wrappers: a CPU tensor takes the plain version and counts no launch;
   a bucket that is no power of two >= 2 raises.
+- The fold's plan: the kernels' association (fold_plain on each aligned
+  subtree of a tier, then on the block sums) at subtrees of 4 and 8
+  points, buckets 2-64 in 1-3 tiers, equals fold_plain whole limb for limb
+  and the pure fold as compressed points; plan() itself.
 - Routing: with the knob on, 7 points fold on the host and 8 through the
   fold; the C lanes never reach it.
 - The slice: on an 8-validator uniformly BLS set under a forced pure tier,
@@ -174,6 +178,78 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_check_the_bucket():
             fold.fold_g1(bad)
 
 
+# -- the fold's plan ------------------------------------------------------------
+
+
+def fold_by_plan(rows: torch.Tensor, leaves: int) -> torch.Tensor:
+    """The kernels' association on the CPU: each tier of fold.plan (every
+    block `leaves` points) folds its aligned subtrees (fold_plain on each),
+    the next one the block sums."""
+    cur = rows
+    for per, blocks in fold.plan(rows.shape[0], leaves, leaves):
+        cur = torch.stack([fold.fold_plain(cur[b * per:(b + 1) * per]) for b in range(blocks)])
+    assert cur.shape[0] == 1
+    return cur[0]
+
+
+def plan_case(group, kind, leaves):
+    """Points for a plan case: `n` seeded points (every other one a sum of
+    two, so Z != 1), the edge rows, or a seam of the plan at `leaves`: 2L
+    copies of one point, halves summing to S and -S, the live rows in the
+    last subtree."""
+    inf, add, neg = GROUPS[group][2], GROUPS[group][3], GROUPS[group][4]
+    pts = points(group, 9, seed=SEED + 3)
+    mixed = [add(p, q) if i % 2 else p for i, (p, q) in enumerate(zip(pts, pts[1:] + pts[:1]))]
+    if kind == "copies":
+        return [mixed[1]] * (2 * leaves)
+    if kind == "opposite halves":
+        half = (mixed + [inf] * leaves)[:leaves]
+        return half + [neg(p) for p in half]
+    if kind == "last subtree":
+        return [inf] * leaves + mixed[:leaves]
+    if kind == "edge":
+        return edge(group, 8)
+    return (mixed * 8)[:kind]
+
+
+PLAN_CASES = [(4, 2, 1), (4, 3, 1), (4, 9, 2), (4, 33, 3), (8, 5, 1), (8, 17, 2), (8, 33, 2),
+              (4, "edge", 2), (4, "copies", 2), (4, "opposite halves", 2),
+              (8, "last subtree", 2)]
+
+
+@pytest.mark.parametrize("leaves,kind,tiers", PLAN_CASES)
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_the_plan_keeps_the_association(group, leaves, kind, tiers):
+    pts = plan_case(group, kind, leaves)
+    rows = torch.as_tensor((cuda_tier.g1_rows if group == "g1" else cuda_tier.g2_rows)(pts))
+    assert len(fold.plan(rows.shape[0], leaves, leaves)) == tiers
+    got = fold_by_plan(rows, leaves)
+    assert torch.equal(got, fold.fold_plain(rows))
+    point = (cuda_tier.g1_point if group == "g1" else cuda_tier.g2_point)(got)
+    compress = GROUPS[group][5]
+    assert compress(point) == compress(pure_sum(group, pts))
+
+
+def test_the_plan():
+    assert (fold.LEAVES, fold.TIER_LEAVES) == (128, 16)
+    assert fold.plan(16384) == [(128, 128), (16, 8), (8, 1)]  # 10,000 points
+    assert fold.plan(1024) == [(128, 8), (8, 1)]
+    assert fold.plan(128) == [(128, 1)] and fold.plan(8) == [(8, 1)] and fold.plan(2) == [(2, 1)]
+    assert fold.plan(1 << 21) == [(128, 16384), (16, 1024), (16, 64), (16, 4), (4, 1)]
+    assert fold.plan(64, 4, 4) == [(4, 16), (4, 4), (4, 1)] and fold.plan(64, 4) == [(4, 16), (16, 1)]
+    for bucket in (2, 8, 1024, 16384, 1 << 20):
+        steps = fold.plan(bucket)
+        assert steps[0][0] * steps[0][1] == bucket
+        assert all(a[1] == b[0] * b[1] for a, b in zip(steps, steps[1:])) and steps[-1][1] == 1
+    for bad in (1, 3, 6):
+        with pytest.raises(ValueError, match="power-of-two count"):
+            fold.plan(16, bad)
+        with pytest.raises(ValueError, match="power-of-two count"):
+            fold.plan(16, 4, bad)
+    with pytest.raises(ValueError, match="power-of-two bucket"):
+        fold.plan(12)
+
+
 # -- routing -----------------------------------------------------------------
 
 
@@ -293,6 +369,10 @@ def cs(monkeypatch):
 
 def test_phase2_fold_checks_rehearsed_on_cpu(cs, monkeypatch):
     monkeypatch.setattr(cs, "FOLD_SIZES", (8, 9))
+    monkeypatch.setattr(fold, "LEAVES", 4)  # the seams at 8 points, in two tiers
+    cases = [(kind, len(pts)) for kind, pts in cs.fold_cases("bls12_381_fold_g1", points("g1", 9))]
+    assert cases[-3:] == [("8 copies of one point", 8), ("halves summing to S and -S", 8),
+                          ("4 at infinity, then 4 points", 8)]
     report = {n: {"launches": 0} for n in cs.KERNELS}
     cs.phase_fold_kernels(report, torch.device("cpu"))
     assert [report[n]["max_abs_err"] for n in cs.FOLD_KERNELS] == [0.0, 0.0]
