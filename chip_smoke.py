@@ -737,12 +737,32 @@
    kernel once.  Prints the pure lane's
    decompressions, host prep, kernels (CUDA events) and pairings by count
    and ms.
+23. The verify mesh (the JAX package's sharded engine: resolve_mesh, the
+   batch axis split over devices with the pubkey rows replicated, the
+   sharded fold), in a process of its own beside phase 22.  (a)
+   resolve_mesh for "auto", "on" and "off" on this machine (one card: one
+   shard each, no card listed twice) and node.build_engine with [tpu]
+   mesh = "on" (resolve_mesh's shard count).  (b) A mesh of 4 virtual
+   shards over the one card, each shard on its own CUDA stream, against
+   the one-card path: ValidatorSet.verify_commit of a fresh 10,000-validator
+   commit through the indexed hook, of the same commit with its last
+   signature absent (9,999), and with one flipped signature in each
+   shard's slice (the outcome and the hook's verdicts equal, exactly those
+   rows rejected); the chunked single shot forced on both tables; a flat
+   BatchVerifier.verify of the 10,000 (with the flipped rows).  The ladder
+   must launch once per shard a dispatch (a chunk), and shard 0's first
+   launch is held against the plain ladder.  (c) cuda_tier.aggregate_g1 /
+   g2 of 10,000 BLS pubkeys and signatures on the 4 shards (a launch a
+   shard, then the 4 roots folded on the first shard's device) and on 3
+   (unsharded, as in JAX), each limb-equal to the one-card fold and to the
+   plain version.  Prints each call's host-clock ms and each launch's CUDA
+   events; a run across distinct cards needs a machine with more than one.
 
 Schedule (the run must end within 1,200 s on a slow host): phases 1-5 in
 this process; then phases 6-8 (one after another), 14 and 18 (a), each in
 a process of its own (PhaseChild), beside phases 9, 10 (a) and 15 in this
 one; then phases 11-13 alone (10 (b) on a thread beside 13); then phase 17
-with 18 (b), then 19 (b), in this process, with 19 (a), 20, 21 and 22,
+with 18 (b), then 19 (b), in this process, with 19 (a), 20, 21, 22 and 23,
 each in a process of its own, beside 18 (b) from the end of phase 17 on
 and then beside 19 (b).  A child reads its own launch counters and its
 own auto-profile's pick (the parent's where it has profiled nothing), and
@@ -10464,12 +10484,12 @@ class PhaseChild:
 def child_phase(name, card, picked=None, device="cuda", sizes=None, ms=None):
     """A PhaseChild's entry point: the kernel library (built by phase 1 of
     the parent run) loaded, then phases 6-8 (one after another), 14,
-    18 (a), 19 (a), 20, 21 or 22 on `device` (the card; the CPU to
+    18 (a), 19 (a), 20, 21, 22 or 23 on `device` (the card; the CPU to
     rehearse, with `sizes` overriding this module's size constants).
     `picked` is the parent's auto-profile pick, for a process that has
     profiled nothing yet; `ms` phase 4's kernel times, for phase 6's saving
     line.  Returns the phase's launches (by phase for 6-8; and 19 (a)'s
-    numbers; for 22 phase_fold's result)."""
+    numbers; for 22 and 23 phase_fold's and phase_mesh's results)."""
     import torch
 
     from tendermint_tpu_torch.ops import _build
@@ -10503,6 +10523,9 @@ def child_phase(name, card, picked=None, device="cuda", sizes=None, ms=None):
         # other children beside it; its kernel times are CUDA events
         os.nice(10)
         return phase_fold(card, dev)
+    elif name == "23":
+        os.nice(10)  # as phase 22's: its keys and signatures yield to the phases beside it
+        return phase_mesh(card, dev)
     else:
         raise ValueError(f"no phase {name!r} runs in a process of its own")
     return {k: r["launches"] for k, r in report.items()}
@@ -10903,6 +10926,303 @@ def phase_fold(card, dev):
             "parts": {k: [ft.n[k], ft.ms[k]] for k in ft.parts}}
 
 
+MESH_SHARDS = 4  # phase 23: virtual shards over the one card
+MESH_ODD = 3  # phase 23 (c): a shard count the fold cannot split evenly
+MESH_LIAR = 7  # phase 23 (b): the flipped row in each shard's slice
+
+
+class LaunchEvents:
+    """CUDA events around every call of the given kernel wrappers
+    ((module, attribute) pairs) while the block runs, each pair recorded on
+    the stream the call launches on (the current stream of its first
+    tensor's card), and every call's arguments and result, for a check
+    against the plain version.  On the CPU the calls are kept untimed."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = [(mod, attr, getattr(mod, attr)) for mod, attr in self.targets]
+        for mod, attr, real in self.saved:
+            setattr(mod, attr, self._wrap(attr, real))
+        return self
+
+    def _wrap(self, attr, real):
+        def call(*args, **kw):
+            import torch
+
+            dev = args[0].device
+            if dev.type != "cuda":
+                out = real(*args, **kw)
+                self.calls.append((attr, args, out, None))
+                return out
+            stream = torch.cuda.current_stream(dev)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record(stream)
+            out = real(*args, **kw)
+            end.record(stream)
+            self.calls.append((attr, args, out, (start, end)))
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for mod, attr, real in self.saved:
+            setattr(mod, attr, real)
+
+    def times(self):
+        """(each call's device ms, the span from the first start to the
+        last end, ms) of the calls on the card; ([], 0.0) on the CPU."""
+        evs = [ev for _, _, _, ev in self.calls if ev is not None]
+        if not evs:
+            return [], 0.0
+        for _, end in evs:
+            end.synchronize()
+        origin = evs[0][0]
+        starts = [origin.elapsed_time(s) for s, _ in evs]
+        ends = [origin.elapsed_time(e) for _, e in evs]
+        return [e - s for s, e in zip(starts, ends)], max(ends) - min(starts)
+
+
+def mesh_probe(card, dev):
+    """Phase 23 (a): resolve_mesh's triple for each mode on this machine,
+    and the engine build_engine makes with [tpu] mesh = "on"."""
+    import torch
+
+    from tendermint_tpu_torch.config import Config
+    from tendermint_tpu_torch.crypto.backend import resolve_mesh
+    from tendermint_tpu_torch.node import build_engine, uninstall_engine
+
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    probe = {} if dev.type == "cuda" else {"device": dev, "cpu_shards": 1}
+    for mode in ("auto", "on", "off"):
+        mesh, shards, reason = resolve_mesh(mode, 0, **probe)
+        log(f"  resolve_mesh({mode!r}): {shards} shard(s), {reason!r} ({card})")
+        want = 1 if mode == "off" or cards == 1 else cards
+        if shards != want or (mesh is None) != (want == 1):
+            raise AssertionError(f"resolve_mesh({mode!r}) gave {shards} shard(s) on {cards} card(s)")
+        if mesh is not None and len(set(mesh.devices)) != mesh.size:
+            raise AssertionError(f"resolve_mesh({mode!r}) listed a card twice: {mesh}")
+    tpu = Config().tpu
+    tpu.mesh = "on"
+    mesh, shards, reason = resolve_mesh(tpu.mesh, tpu.mesh_devices, **probe)
+    bv, table_cache, _ = build_engine(tpu, dev, mesh=mesh)
+    try:
+        log(f"  build_engine with [tpu] mesh = \"on\": {bv.shards} shard(s) ({reason}), "
+            f"device {bv.device}")
+        if bv.shards != shards or table_cache.verifier is not bv:
+            raise AssertionError(f"the engine's shards {bv.shards} are not resolve_mesh's {shards}")
+    finally:
+        uninstall_engine(bv, table_cache)
+    return shards
+
+
+def phase_mesh(card, dev):
+    """Phase 23: the verify mesh.  (a) mesh_probe.  (b) a mesh of
+    MESH_SHARDS virtual shards over `dev` against the one-card path:
+    ValidatorSet.verify_commit of the N_VALIDATORS commit through the hooks,
+    a commit of N_VALIDATORS - 1 signatures, one flipped signature in each
+    shard's slice, the chunked single shot forced, and a flat
+    BatchVerifier.verify of N_VALIDATORS; every verdict equal, the ladder
+    launched once per shard a dispatch (each chunk of the chunked path),
+    shard 0's first launch held against the plain ladder.  (c) both folds
+    at FOLD_POINTS points on MESH_SHARDS shards (one launch a shard and one
+    for the roots) and on MESH_ODD (unsharded, one launch), limb-equal to
+    the one-card fold and the plain version.  Host clock for every call,
+    and CUDA events around each shard's launch.  Returns the launches of
+    (b) and (c) and the numbers."""
+    import dataclasses
+
+    import torch
+
+    from tendermint_tpu_torch.crypto import batch as batch_hook
+    from tendermint_tpu_torch.crypto import batch_verifier as bvm
+    from tendermint_tpu_torch.crypto.backend import Mesh
+    from tendermint_tpu_torch.crypto.bls import cuda_tier
+    from tendermint_tpu_torch.ops import bls12_381_fold as bf
+    from tendermint_tpu_torch.ops import ed25519, ed25519_cuda
+    from tendermint_tpu_torch.types.block import Commit, CommitSig
+
+    t_start = time.perf_counter()
+    log(f"[23] (a) the mesh probe on this machine ({card})")
+    probe_shards = mesh_probe(card, dev)
+
+    mesh = Mesh([dev] * MESH_SHARDS)
+    log(f"[23] (b) the {N_VALIDATORS:,}-validator commit on {mesh.size} virtual shards over "
+        f"{mesh.devices[0]} against the one-card path ({card})")
+    t0 = time.perf_counter()
+    keys = make_keys(N_VALIDATORS)
+    vset, bid, commit, msgs = build_commit(keys)
+    log(f"  {N_VALIDATORS:,} keys made and the commit signed in {time.perf_counter() - t0:.3f} s")
+    one = bvm.BatchVerifier(device=dev)
+    sharded = bvm.BatchVerifier(mesh=mesh)
+    caches = {"one card": bvm.TableCache(one, tabulated=False),
+              f"{mesh.size} shards": bvm.TableCache(sharded)}
+    sigs = list(commit.signatures)
+    bucket = sharded._bucket(len(sigs))
+    q = bucket // mesh.size
+    liars = [k * q + MESH_LIAR for k in range(mesh.size) if k * q + MESH_LIAR < len(sigs)]
+    for i in liars:
+        b = bytearray(sigs[i].signature)
+        b[0] ^= 1
+        sigs[i] = dataclasses.replace(sigs[i], signature=bytes(b))
+    commits = {"the commit": commit,
+               f"{N_VALIDATORS - 1:,} signatures": Commit(
+                   7, 0, bid, list(commit.signatures[:-1]) + [CommitSig.absent()]),
+               f"a flipped signature at {liars}": Commit(7, 0, bid, sigs)}
+
+    def through_hooks(cache, c):
+        """verify_commit with `cache` installed: (outcome, the indexed
+        hook's verdicts, its dispatch, host ms)."""
+        got = []
+
+        def hook(*a):
+            got.append(cache.verify_indexed(*a))
+            return got[-1]
+
+        batch_hook.set_indexed_verifier(hook)
+        t = time.perf_counter()
+        try:
+            vset.verify_commit(CHAIN_ID, bid, 7, c)
+            outcome = "verified"
+        except ValueError as e:
+            outcome = str(e)[:48]
+        finally:
+            batch_hook.set_indexed_verifier(None)
+        return outcome, got, dict(cache.verifier.last_dispatch), _ms(t)
+
+    def launched(run):
+        """run()'s result and its ladder launches, and the device ms of each
+        launch and their span (CUDA events)."""
+        before = launch_counts()["ed25519_ladder"]
+        with LaunchEvents((ed25519_cuda, "verify_indexed")) as ev:
+            out = run()
+        per, span = ev.times()
+        return out, launch_counts()["ed25519_ladder"] - before, per, span, ev.calls
+
+    card_launches = dev.type == "cuda"  # the plain versions on the CPU count no launch
+    launch_counts(zero=True)
+    for label, cache in caches.items():  # the tables' first build, untimed
+        through_hooks(cache, commit)
+        for tab in cache._tables.values():  # one dispatch a check: no AUTO chunking
+            tab.chunked_single_shot = False
+    rows = {}
+    held = False
+    for name, c in commits.items():
+        results = {}
+        for label, cache in caches.items():
+            (outcome, got, d, ms), n_launch, per, span, calls = launched(
+                lambda: through_hooks(cache, c))
+            results[label] = (outcome, got)
+            want_launch = 1 if label == "one card" else mesh.size
+            log(f"  {name} [{label}]: {outcome}; path {d['path']}, n {d['n']}, bucket "
+                f"{d['bucket']}, shards {d['shards']}; ladder launches {n_launch}; "
+                f"verify_commit {ms:.3f} ms (host prep {d['host_prep_ms']:.3f}, dispatch "
+                f"{d['device_ms']:.3f} ms), launches {[round(x, 4) for x in per]} ms, span "
+                f"{span:.4f} ms (CUDA events) ({card})")
+            if (card_launches and n_launch != want_launch) or d["shards"] != (
+                    1 if label == "one card" else mesh.size):
+                raise AssertionError(f"{name} [{label}]: {n_launch} ladder launches, "
+                                     f"{d['shards']} shards")
+            rows[f"{name} [{label}]"] = {"ms": ms, "launch_ms": per, "span_ms": span}
+            if label != "one card" and not held and card_launches:
+                _, args, out, _ = calls[0]  # shard 0's launch: its rows, idx and scalars
+                plain = ed25519.verify_prepared_packed(args[0][args[1].long()], *args[2:])
+                err = max_abs_diff((out,), (plain,))
+                log(f"  shard 0's ladder launch (B = {args[1].shape[0]}) against the plain "
+                    f"ladder: max|kernel - plain|={err}")
+                if err:
+                    raise AssertionError("the sharded ladder disagrees with its plain version")
+                held = True
+        (o1, v1), (o4, v4) = results.values()
+        if o1 != o4 or v1 != v4 or len(v4) != 1:
+            raise AssertionError(f"{name}: the mesh's verdicts differ from the one-card path's")
+        bad = [i for i, ok in enumerate(v4[0]) if not ok]
+        want_bad = liars if "flipped" in name else []
+        if bad != want_bad:
+            raise AssertionError(f"{name}: rejected rows {bad}, not {want_bad}")
+
+    log("  the chunked single shot, forced on both tables")
+    for cache in caches.values():
+        for tab in cache._tables.values():
+            tab.chunked_single_shot = True
+    results = {}
+    for label, cache in caches.items():
+        (outcome, got, d, ms), n_launch, per, span, _ = launched(
+            lambda: through_hooks(cache, commit))
+        chunks = -(-d["n"] // d["bucket"])
+        want_launch = chunks * (1 if label == "one card" else mesh.size)
+        log(f"  chunked [{label}]: {outcome}; path {d['path']}, chunk {d['bucket']}, {chunks} "
+            f"chunks; ladder launches {n_launch}; verify_commit {ms:.3f} ms, launches span "
+            f"{span:.4f} ms (CUDA events) ({card})")
+        if d["path"] != "chunked" or (card_launches and n_launch != want_launch):
+            raise AssertionError(f"chunked [{label}]: path {d['path']}, {n_launch} launches")
+        results[label] = (outcome, got)
+        rows[f"chunked [{label}]"] = {"ms": ms, "launch_ms": per, "span_ms": span}
+    if len(set(map(repr, results.values()))) != 1 or results["one card"][0] != "verified":
+        raise AssertionError("the chunked single shot's verdicts differ between the paths")
+
+    pks = [v.pub_key.bytes() for v in vset.validators]
+    flat_sigs = [s.signature for s in sigs]
+    results = {}
+    for label, bv in (("one card", one), (f"{mesh.size} shards", sharded)):
+        t = time.perf_counter()
+        out, n_launch, per, span, _ = launched(lambda: bv.verify(pks, msgs, flat_sigs))
+        ms = _ms(t)
+        d = bv.last_dispatch
+        log(f"  flat verify of {len(pks):,} [{label}]: bucket {d['bucket']}, ladder launches "
+            f"{n_launch}; {ms:.3f} ms (host prep {d['host_prep_ms']:.3f}, dispatch "
+            f"{d['device_ms']:.3f} ms), launches {[round(x, 4) for x in per]} ms, span "
+            f"{span:.4f} ms (CUDA events) ({card})")
+        if card_launches and n_launch != (1 if bv is one else mesh.size):
+            raise AssertionError(f"flat verify [{label}]: {n_launch} ladder launches")
+        results[label] = out
+        rows[f"flat [{label}]"] = {"ms": ms, "launch_ms": per, "span_ms": span}
+    if results["one card"] != results[f"{mesh.size} shards"] or [
+            i for i, ok in enumerate(results["one card"]) if not ok] != liars:
+        raise AssertionError("the flat batch's verdicts differ between the paths")
+    b_s = time.perf_counter() - t_start
+
+    log(f"[23] (c) the folds at {FOLD_POINTS:,} points on {mesh.size} shards and on "
+        f"{MESH_ODD} (unsharded) against the one-card fold and the plain version ({card})")
+    t0 = time.perf_counter()
+    g1, g2 = fold_data(FOLD_POINTS, "mesh", b"phase 23")[:2]
+    log(f"  {FOLD_POINTS:,} BLS12-381 keys and signatures in {time.perf_counter() - t0:.3f} s")
+    odd = Mesh([dev] * MESH_ODD)
+    for name, pts in zip(FOLD_KERNELS, (g1, g2)):
+        rows_of, fold, point_of = fold_group(name)[:3]
+        aggregate = cuda_tier.aggregate_g1 if name.endswith("g1") else cuda_tier.aggregate_g2
+        wrapper = fold.__name__
+        plain = point_of(bf.fold_plain(torch.as_tensor(rows_of(pts), device=dev)))
+        got = {}
+        for label, kw, want_launch in (("one card", {"device": dev}, 1),
+                                       (f"{mesh.size} shards", {"mesh": mesh}, mesh.size + 1),
+                                       (f"{odd.size} shards", {"mesh": odd}, 1)):
+            before = launch_counts()[name]
+            t = time.perf_counter()
+            with LaunchEvents((bf, wrapper)) as ev:
+                got[label] = aggregate(pts, **kw)
+            ms = _ms(t)
+            per, span = ev.times()
+            n_launch = launch_counts()[name] - before
+            buckets = [args[0].shape[0] for _, args, _, _ in ev.calls]
+            log(f"  {name} [{label}]: folds of {buckets} rows, launches {n_launch}; "
+                f"{ms:.3f} ms (host clock), launches {[round(x, 4) for x in per]} ms, span "
+                f"{span:.4f} ms (CUDA events); {'equals' if got[label] == plain else 'DIFFERS FROM'} "
+                f"the plain version ({card})")
+            if got[label] != plain or (card_launches and n_launch != want_launch):
+                raise AssertionError(f"{name} [{label}] differs from the plain fold or launched "
+                                     f"{n_launch} times")
+            rows[f"{name} [{label}]"] = {"ms": ms, "launch_ms": per, "span_ms": span}
+    launches = launch_counts()
+    if card_launches and any(launches[k] == 0 for k in ("ed25519_ladder",) + FOLD_KERNELS):
+        raise AssertionError(f"a kernel of the mesh's paths was not launched: {launches}")
+    s = time.perf_counter() - t_start
+    log(f"  launches in phase 23: {launches}; (b) {b_s:.3f} s, phase 23 {s:.3f} s ({card})")
+    return {"launches": launches, "s": s, "b_s": b_s, "probe_shards": probe_shards,
+            "rows": rows}
+
+
 def kernel_device_ms(fn, names) -> dict:
     """Device ms of each named kernel in one run of fn, from torch.profiler;
     a name is missing where the profiler records no device time for it."""
@@ -11184,14 +11504,14 @@ def main() -> int:
     for name, c in counts.items():
         report[name]["launches"] += c
 
-    # phases 19 (a), 20, 21 and 22, each in a process of its own, from the
-    # end of phase 17 on, beside 18 (b) and then phase 19 (b) in this one
+    # phases 19 (a), 20, 21, 22 and 23, each in a process of its own, from
+    # the end of phase 17 on, beside 18 (b) and then phase 19 (b) in this one
     t0 = time.perf_counter()
     kids = {}
 
     def start_kids():
         kids.update((tag, PhaseChild(tag, "child_phase", tag, card))
-                    for tag in ("19 a", "20", "21", "22"))
+                    for tag in ("19 a", "20", "21", "22", "23"))
 
     try:
         run_chaos_rotation(card, dev, picked, report, after_17=start_kids)
@@ -11201,8 +11521,8 @@ def main() -> int:
     if failed:
         raise failed[0]
     check_sr_chain(done["19 a"], card)
-    fold = done["22"]
-    for counts in (done["20"], done["21"], fold["launches"]):
+    fold, mesh = done["22"], done["23"]
+    for counts in (done["20"], done["21"], fold["launches"], mesh["launches"]):
         for name, c in counts.items():
             report[name]["launches"] += c
     for name in FOLD_KERNELS:  # phase 22 (a)'s numbers; max_abs_err also phase 2's
@@ -11211,8 +11531,9 @@ def main() -> int:
         report[name].update(row)
         if report[name]["launches"] == 0:
             raise AssertionError(f"kernel {name} was not launched on the fold's paths")
-    log(f"  launches in phases 20, 21 and 22, each in its process: {done['20']}, {done['21']}, "
-        f"{fold['launches']}; phase 22 took {fold['s']:.3f} s; phases 17-22 but 18 (a) took "
+    log(f"  launches in phases 20, 21, 22 and 23, each in its process: {done['20']}, "
+        f"{done['21']}, {fold['launches']}, {mesh['launches']}; phase 22 took {fold['s']:.3f} s, "
+        f"phase 23 {mesh['s']:.3f} s; phases 17-23 but 18 (a) took "
         f"{time.perf_counter() - t0:.3f} s together ({card})")
     log(f"whole run: {time.perf_counter() - t_start:.3f} s")
     keys_order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

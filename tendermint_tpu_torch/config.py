@@ -9,8 +9,8 @@ Times are seconds (float) here; per-round growth matches base + delta*round.
 Every section, default, `validate_basic` message and the TOML bytes of
 `save_config` equal the JAX package's, so one config.toml loads in either
 package.  The `[tpu]` section keeps the JAX field names; node.py says what
-the port does with each (a mesh raises there; `bls_jax_aggregation` turns on
-the batched BLS fold on the card).
+the port does with each (`mesh` and `mesh_devices` go to `resolve_mesh`;
+`bls_jax_aggregation` turns on the batched BLS fold on the card).
 """
 
 from __future__ import annotations

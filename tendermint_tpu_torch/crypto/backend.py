@@ -12,16 +12,21 @@ the JAX package's tiers 2 and 3 have them.  secp256k1 is the JAX
 package's tier-3 branch (RFC 6979 nonces, so its signatures equal that
 branch's byte for byte).  Every function's bytes equal the JAX package's
 on every tier.
+
+`resolve_mesh` and `Mesh` are the verify engine's device mesh, JAX's
+`resolve_mesh` on torch devices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import hmac as _hmac
 import os
 import struct
-from typing import Optional, Tuple
+import threading
+from typing import Optional, Sequence, Tuple
 
 
 def active_tier() -> int:
@@ -37,6 +42,158 @@ def _clib():
     from . import hostprep
 
     return hostprep._load_lib()
+
+
+# --------------------------------------------------------------------------
+# device mesh probe (the batch engine's scale axis)
+# --------------------------------------------------------------------------
+
+
+class Mesh:
+    """The verify engine's mesh: an ordered list of torch devices along one
+    axis, the batch axis (a one-axis `jax.sharding.Mesh` named "batch").  A
+    batch of b rows, b a multiple of `size`, gives shard k its k-th
+    contiguous slice of b / size rows: the slice `NamedSharding(mesh,
+    P("batch"))` gives device k.  Shards run in this process, each on a
+    CUDA stream of its own (`on_shard`), so no collective and no process
+    group is needed.
+
+    A device may be listed more than once (virtual shards over one card or
+    over the CPU); `resolve_mesh` itself never lists a card twice."""
+
+    AXIS = "batch"
+
+    def __init__(self, devices: Sequence):
+        import torch
+
+        devs = []
+        for d in devices:
+            d = torch.device(d)
+            if d.type == "cuda" and d.index is None:
+                d = torch.device("cuda", torch.cuda.current_device())
+            devs.append(d)
+        if not devs:
+            raise ValueError("a mesh needs at least one device")
+        if len({d.type for d in devs}) != 1:
+            raise ValueError(f"a mesh's devices are of one kind, got {devs}")
+        self.devices = tuple(devs)
+        self.size = len(devs)
+        self.shape = {self.AXIS: self.size}
+        self._streams = None
+        self._lock = threading.Lock()
+
+    def __repr__(self) -> str:
+        return f"Mesh({[str(d) for d in self.devices]})"
+
+    def lead(self, device=None):
+        """The mesh's first device, where its unsharded work runs.  A caller
+        that names a device must name this one (a card without an index
+        stands for any card); anything else raises rather than move the
+        caller's work onto other devices."""
+        import torch
+
+        first = self.devices[0]
+        if device is not None:
+            d = torch.device(device)
+            if d != first and not (d.type == first.type == "cuda" and d.index is None):
+                raise ValueError(f"device {d} is not the mesh's first device: {self}")
+        return first
+
+    def distinct(self) -> list:
+        """The mesh's devices, each once, in mesh order."""
+        return list(dict.fromkeys(self.devices))
+
+    def streams(self) -> tuple:
+        """One CUDA stream per shard, made at first use; None for a shard
+        on the CPU."""
+        with self._lock:
+            if self._streams is None:
+                import torch
+
+                self._streams = tuple(
+                    torch.cuda.Stream(device=d) if d.type == "cuda" else None
+                    for d in self.devices
+                )
+            return self._streams
+
+    @contextlib.contextmanager
+    def on_shard(self, k: int):
+        """Run the block's device work on shard k: its device current and
+        its own stream current, after the work already queued on that
+        device's current stream (the caller's uploads).  Yields the stream
+        (None on the CPU, where the block just runs)."""
+        stream = self.streams()[k]
+        if stream is None:
+            yield None
+            return
+        import torch
+
+        dev = self.devices[k]
+        with torch.cuda.device(dev):
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                yield stream
+
+
+def resolve_mesh(
+    mode: str = "auto", max_devices: int = 0, device=None, cpu_shards: int = 1
+) -> Tuple[Optional[Mesh], int, str]:
+    """Probe the visible devices and decide the verify engine's mesh: the
+    JAX package's (mesh_or_None, shard_count, reason) triple, which the node
+    logs at start and exports as `tendermint_verify_shards`.
+
+    `device` None or "cuda" probes the cards: the visible devices are the
+    `torch.cuda.device_count()` distinct cards, and the mesh lists each
+    once.  A card named with its index ("cuda:2") pins the engine to it:
+    "auto" keeps to that card, and "on" shards over the cards from it on,
+    so that nodes given different cards do not share them.  `device="cpu"`
+    makes `cpu_shards` virtual CPU shards visible instead (the counterpart
+    of JAX's xla_force_host_platform_device_count).
+
+    Modes ([tpu] mesh), with JAX's rules:
+      "auto" — shard over every visible device when there is more than
+               one, except virtual CPU shards, unless mesh_devices > 1;
+      "on"   — shard whenever more than one device is visible;
+      "off"  — never shard.
+    `max_devices` ([tpu] mesh_devices) caps the shard count; 0 = all.
+
+    Unlike JAX, which degrades a failed probe to one device with the
+    failure in the reason, a failed probe raises: the engine must not hide
+    a broken device plane behind fewer shards."""
+    if mode == "off":
+        return None, 1, "mesh off (config)"
+    try:
+        import torch
+
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("CUDA is not available")
+            devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if dev.index is not None and dev not in devs:
+                raise RuntimeError(f"{dev} is not one of the {len(devs)} visible cards")
+            backend = "cuda"
+        else:
+            devs = [dev] * cpu_shards
+            backend = dev.type
+    except Exception as e:
+        raise RuntimeError(f"mesh probe failed: {e!r}") from e
+    named = ""
+    if dev.type == "cuda" and dev.index is not None:
+        if mode != "on":
+            return None, 1, f"single device ({dev} named, {len(devs)} visible, {backend})"
+        named = f" from {dev}"
+        devs = devs[dev.index:]
+    cap = max_devices if max_devices > 0 else len(devs)
+    cap = min(cap, len(devs))
+    if cap <= 1:
+        return None, 1, f"single device ({len(devs)} visible{named}, {backend})"
+    if mode == "auto" and backend == "cpu" and max_devices <= 1:
+        return None, 1, (
+            f"{len(devs)} virtual cpu devices ignored by mesh=auto "
+            "(set mesh=on or mesh_devices to shard)"
+        )
+    return Mesh(devs[:cap]), cap, f"sharded over {cap}/{len(devs)} {backend} devices{named}"
 
 
 # --------------------------------------------------------------------------

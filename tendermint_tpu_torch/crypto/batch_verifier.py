@@ -11,12 +11,21 @@ of labor:
            over per-validator window tables built by kernel 2
            (ops/ed25519_table.py).
 
-A CUDA kernel takes any batch size, so batches are not padded to buckets
-and nothing is compiled per shape: the JAX package's per-bucket compile
-warmup becomes one background build of the kernel library.  Every entry
-point takes `device`: None means "cuda", and without a card it raises
+A CUDA kernel takes any batch size, so on one card batches are not padded
+to buckets and nothing is compiled per shape: the JAX package's per-bucket
+compile warmup becomes one background build of the kernel library.  Every
+entry point takes `device`: None means "cuda", and without a card it raises
 unless the caller passes device="cpu", where the wrappers run their plain
 torch versions.
+
+With a `mesh` (crypto/backend.py `Mesh`, from `resolve_mesh`) the batch is
+sharded as the JAX package shards it: padded to JAX's bucket (a multiple of
+the shard count), split into one contiguous slice per shard, the pubkey
+rows replicated on every device of the mesh, kernel 1 launched once per
+shard on the shard's own stream before any verdict is read back, the
+verdicts gathered through non-blocking copies and events.  One device is
+a mesh of one shard, on the same path, with no padding.  A shard whose
+launch fails raises; nothing is served by the host or by fewer shards.
 
 Vote ingress: AsyncBatchVerifier coalesces single checks (verify_one),
 pre-batched relay frames (verify_direct) and whole batches (verify_many)
@@ -29,6 +38,7 @@ import asyncio
 import collections
 import contextlib
 import logging
+import math
 import statistics
 import threading
 import time
@@ -41,9 +51,10 @@ import torch
 from ..libs import tracing
 from ..libs.metrics import VerifyMetrics
 from ..libs.service import Service
-from ..ops import _build
+from ..ops import _build, _check
 from . import batch as batch_hook
 from . import ed25519_math as em
+from .backend import Mesh
 
 logger = logging.getLogger(__name__)
 
@@ -189,6 +200,22 @@ def prepare_batch(
     return neg_a, h_digits, s_digits, r_y_raw, r_sign, valid
 
 
+def _pad_rows(b: int, *arrays: np.ndarray) -> Tuple[np.ndarray, ...]:
+    """Each array zero-padded along its first axis to b rows."""
+    return tuple(
+        a if a.shape[0] >= b else np.concatenate([a, np.zeros((b - a.shape[0],) + a.shape[1:], a.dtype)])
+        for a in arrays
+    )
+
+
+def _staged(a: np.ndarray, card: bool) -> torch.Tensor:
+    """A host array as a tensor, in pinned memory when it goes to a card:
+    then its uploads are asynchronous, and every shard's launch is queued
+    without waiting for the copies of the shards after it."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if card else t
+
+
 def _device_rows(device, idx, h_digits, s_digits, r_y, r_sign):
     """Per-signature host arrays -> the kernels' device tensors."""
     return (
@@ -222,6 +249,18 @@ def _engine_call(what: str):
 # ---------------------------------------------------------------------------
 
 _CHUNK = 2048  # chunk of the double-buffered single shot (PubkeyTable._verify_chunked)
+_MIN_BUCKET = 16
+
+
+def _bucket_size(n: int, multiple_of: int = 1) -> int:
+    """The JAX package's power-of-two bucket (at least 16), rounded up to a
+    multiple of `multiple_of`."""
+    b = _MIN_BUCKET
+    while b < n:
+        b *= 2
+    if b % multiple_of:
+        b = ((b + multiple_of - 1) // multiple_of) * multiple_of
+    return b
 
 
 class BatchVerifier:
@@ -234,7 +273,13 @@ class BatchVerifier:
     `recorder` (and kept in `last_dispatch`), with the JAX package's fields;
     `metrics` gets the same observations as there.  `chunk_size` (0 = the
     module's _CHUNK) and `chunk_depth` shape PubkeyTable's chunked single
-    shot.  `shards` is 1: one card."""
+    shot.
+
+    `mesh` (None: one device) shards every device batch over the mesh's
+    devices (see the module docstring); the mesh's first device is the
+    verifier's `device`, where unsharded work runs, and a `device` the
+    caller names must be that one.  `shards` is the shard count, stamped on
+    every `verify.*` event."""
 
     # min_device_batch values past this can never be reached by a real
     # batch: the engine routes everything to the host, and start_warmup
@@ -249,10 +294,15 @@ class BatchVerifier:
         recorder=None,
         chunk_size: int = 0,
         chunk_depth: int = 2,
+        mesh: Optional[Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.lead(device))
+        self.mesh = mesh
+        # the devices the ladder runs on: the mesh, or a mesh of the one
+        # device (whose own stream serves every dispatch)
+        self._shards = mesh or Mesh([self.device])
         self.min_device_batch = min_device_batch
-        self.shards = 1
+        self.shards = self._shards.size
         self.chunk_size = chunk_size
         self.chunk_depth = chunk_depth
         self.metrics = metrics if metrics is not None else VerifyMetrics()
@@ -306,6 +356,7 @@ class BatchVerifier:
         error = None
         try:
             _build.lib()
+            self._warm_devices()
         except Exception as e:  # kept, and raised by the next device-routed verify
             logger.exception("CUDA kernel library build failed")
             error = e
@@ -316,12 +367,32 @@ class BatchVerifier:
         self.recorder.record("verify.bucket_compile", bucket=n, ms=round(_ms_since(t0), 3),
                              ok=error is None, shards=self.shards)
 
+    def _warm_devices(self) -> None:
+        """Load the kernel library on every card of the mesh (or the one
+        card): each card's context, its copy of kernel 1's base table, its
+        kernel module (an occupancy query loads it there) and the shards'
+        streams, so no shard's first dispatch pays a first use.  The
+        counterpart of JAX compiling the sharded bucket at warmup."""
+        from ..ops import ed25519_cuda
+
+        for dev in self._shards.distinct():
+            if dev.type != "cuda":
+                continue
+            with torch.cuda.device(dev):
+                _check.device_const(ed25519_cuda.BASE_TABLE, dev)
+                if _build.lib().ed25519_ladder_resident_warps() < 0:
+                    raise RuntimeError(f"kernel 1 did not load on {dev}")
+        self._shards.streams()
+
     def start_warmup(self) -> "BatchVerifier":
         """Enable cold-start routing and start building the kernel library
-        in the background (nothing to build on the CPU, once it is loaded,
-        or when min_device_batch keeps every batch on the host)."""
+        in the background (nothing to build on the CPU or when
+        min_device_batch keeps every batch on the host); a library already
+        loaded is warmed on every card of the mesh here."""
         self._warmup_mode = True
         if self.min_device_batch < self._NEVER_DEVICE:
+            if self._needs_library and _build.loaded():
+                self._warm_devices()
             self._library_state(max(1, self.min_device_batch))
         return self
 
@@ -382,8 +453,61 @@ class BatchVerifier:
 
     def effective_chunk(self) -> int:
         """Chunk size of the chunked single shot: the configured size or
-        the module default (one card: nothing to round to)."""
-        return self.chunk_size or _CHUNK
+        the module default, rounded up so that each chunk splits evenly
+        over the mesh."""
+        cs = self.chunk_size or _CHUNK
+        m = self.shards
+        return ((cs + m - 1) // m) * m
+
+    def _bucket(self, n: int) -> int:
+        """Rows a device batch of n signatures is padded to.  One device:
+        n (a kernel takes any size).  Under a mesh, the JAX package's XLA
+        bucket: a power of two (at least 16) rounded to a multiple of the
+        shard count up to 2,048, then multiples of lcm(1024, shards)."""
+        if self.mesh is None:
+            return n
+        m = self.shards
+        if n <= 2048:
+            return _bucket_size(n, m)
+        step = 1024 * m // math.gcd(1024, m)
+        return ((n + step - 1) // step) * step
+
+    def _sharded(self, rows_of, idx, h_digits, s_digits, r_y, r_sign) -> np.ndarray:
+        """Kernel 1 on every shard (one on one device).  The per-signature
+        host arrays have the padded bucket's rows; shard k verifies its k-th
+        contiguous slice against `rows_of(k, device)`, on its own stream.
+        The inputs go up from pinned memory without blocking the host, and
+        every shard's launch is queued before any verdict is read: each
+        shard's verdicts come back by a non-blocking copy into pinned host
+        memory and an event on its stream, which the gather waits for."""
+        from ..ops import ed25519_cuda
+
+        mesh = self._shards
+        b = len(idx)
+        q = b // mesh.size
+        card = self.device.type == "cuda"
+        host = [_staged(a, card) for a in (
+            idx.astype(np.int32), _pack_digits(h_digits), _pack_digits(s_digits),
+            r_y.astype(np.int16), r_sign.astype(np.uint8))]
+        launched = []
+        for k, dev in enumerate(mesh.devices):
+            with mesh.on_shard(k) as stream:
+                args = [t[k * q:(k + 1) * q].to(dev, non_blocking=True) for t in host]
+                ok = ed25519_cuda.verify_indexed(rows_of(k, dev), *args)
+                if stream is None:
+                    launched.append((ok, None))
+                    continue
+                verdicts = torch.empty(q, dtype=torch.bool, pin_memory=True)
+                verdicts.copy_(ok, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+                launched.append((verdicts, done))
+        out = np.empty(b, dtype=bool)
+        for k, (verdicts, done) in enumerate(launched):
+            if done is not None:
+                done.synchronize()
+            out[k * q:(k + 1) * q] = verdicts.numpy()
+        return out
 
     def chunked_auto(self) -> bool:
         """True when the RTT probe says the chunked single shot pays."""
@@ -398,8 +522,6 @@ class BatchVerifier:
     def verify(
         self, pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes]
     ) -> List[bool]:
-        from ..ops import ed25519_cuda
-
         n = len(sigs)
         if n == 0:
             return []
@@ -417,7 +539,8 @@ class BatchVerifier:
                 f"are not served from the host: {self._build_error!r}"
             ) from self._build_error
         if state == "building":
-            self._dispatch(n=n, bucket=n, path="host-cold", host_prep_ms=0.0, device_ms=0.0)
+            self._dispatch(n=n, bucket=self._bucket(n), path="host-cold", host_prep_ms=0.0,
+                           device_ms=0.0)
             return batch_hook.host_batch_verify(pubkeys, msgs, sigs)
         t0 = time.perf_counter()
         neg_a, h_digits, s_digits, r_y, r_sign, valid = prepare_batch(pubkeys, msgs, sigs)
@@ -425,15 +548,23 @@ class BatchVerifier:
         self.metrics.host_prep_seconds.observe(prep_s)
         if not valid.any():
             return [False] * n
+        b = self._bucket(n)
         t1 = time.perf_counter()
+        # padding rows (under a mesh) repeat the last pubkey row (JAX's
+        # rule); their scalars are zero and their verdicts are dropped
+        if b > n:
+            neg_a = np.concatenate([neg_a, np.repeat(neg_a[-1:], b - n, axis=0)])
+        h_digits, s_digits, r_y, r_sign = _pad_rows(b, h_digits, s_digits, r_y, r_sign)
+        q = b // self.shards
         with _engine_call("ladder"):
-            rows = torch.as_tensor(neg_a, device=self.device)
-            ok = ed25519_cuda.verify_indexed(
-                rows, *_device_rows(self.device, np.arange(n), h_digits, s_digits, r_y, r_sign)
-            ).cpu().numpy()
+            rows = _staged(neg_a, self.device.type == "cuda")
+            ok = self._sharded(
+                lambda k, dev: rows[k * q:(k + 1) * q].to(dev, non_blocking=True),
+                np.arange(b) % q, h_digits, s_digits, r_y, r_sign,
+            )[:n]
         dev_s = time.perf_counter() - t1
         self.metrics.device_seconds.observe(dev_s)
-        self._dispatch(n=n, bucket=n, path="device", host_prep_ms=round(prep_s * 1000, 3),
+        self._dispatch(n=n, bucket=b, path="device", host_prep_ms=round(prep_s * 1000, 3),
                        device_ms=round(dev_s * 1000, 3))
         return np.logical_and(ok, valid).tolist()
 
@@ -520,7 +651,13 @@ class PubkeyTable:
     `chunked_single_shot` splits a large ladder batch into chunks whose
     host prep overlaps the device's work on the previous ones
     (_verify_chunked).  None (the default) is AUTO: the verifier's RTT
-    probe decides.  True/False force it either way."""
+    probe decides.  True/False force it either way.
+
+    Under the verifier's mesh the rows are replicated on every device of
+    the mesh, and the ladder paths are sharded with a shard-local gather:
+    each shard gathers from its own device's copy.  AUTO tabulated is off
+    there (the JAX package's rule); a forced `tabulated=True` runs
+    unsharded on the mesh's first device."""
 
     TABULATED_MAX_VALIDATORS = 16384  # ~2.6 GB of device tables
 
@@ -543,13 +680,19 @@ class PubkeyTable:
                 row_valid[i] = True
         self.pubkeys = [bytes(pk) for pk in pubkeys]
         self.row_valid = row_valid
-        self.neg_a_rows = torch.as_tensor(rows, device=self.device)
+        self._shards = self.verifier._shards
+        self._set_rows(rows)
         self._window_tables: Optional[torch.Tensor] = None
         if n > self.TABULATED_MAX_VALIDATORS:
             tabulated = False
         self.tabulated = tabulated
         self.chunked_single_shot: Optional[bool] = None
-        self._stream = None  # the chunked single shot's CUDA stream, made at first use
+
+    def _set_rows(self, rows: np.ndarray) -> None:
+        """The [V, 4, 20] −A rows on every device of the shards, once per
+        device; `neg_a_rows` is the first device's copy."""
+        self._replicas = {d: torch.as_tensor(rows, device=d) for d in self._shards.distinct()}
+        self.neg_a_rows = self._replicas[self._shards.devices[0]]
 
     def __len__(self) -> int:
         return len(self.pubkeys)
@@ -570,8 +713,9 @@ class PubkeyTable:
     def _auto_tabulated(self, n: int) -> bool:
         """Engage the tables only where a timed comparison on this card, at
         this commit's size, says kernel 3 beats kernel 1.  The verdict is
-        cached per card name for the process."""
-        if self.device.type != "cuda":
+        cached per card name for the process.  Off under a mesh, where the
+        sharded ladder serves (the JAX package's rule)."""
+        if self.device.type != "cuda" or self.verifier.mesh is not None:
             return False
         key = torch.cuda.get_device_name(self.device)
         with _tabulated_lock:
@@ -635,7 +779,7 @@ class PubkeyTable:
         self, idxs: Sequence[int], msgs: Sequence[bytes], sigs: Sequence[bytes]
     ) -> List[bool]:
         """Verify msgs[i]/sigs[i] against table row idxs[i]."""
-        from ..ops import ed25519_cuda, ed25519_table
+        from ..ops import ed25519_table
 
         n = len(sigs)
         if n == 0:
@@ -672,18 +816,22 @@ class PubkeyTable:
         self.verifier.metrics.host_prep_seconds.observe(prep_s)
         if not valid.any():
             return [False] * n
+        b = n if tab else self.verifier._bucket(n)
         t1 = time.perf_counter()
-        with _engine_call("tabulated sum" if tab else "indexed ladder"):
-            args = _device_rows(self.device, idx_arr, h_digits, s_digits, r_y, r_sign)
-            if tab:
-                ok = ed25519_table.verify_tabulated(self.build_tables(), *args)
-            else:
-                ok = ed25519_cuda.verify_indexed(self.neg_a_rows, *args)
-            ok = ok.cpu().numpy()
+        if tab:
+            with _engine_call("tabulated sum"):
+                args = _device_rows(self.device, idx_arr, h_digits, s_digits, r_y, r_sign)
+                ok = ed25519_table.verify_tabulated(self.build_tables(), *args).cpu().numpy()
+        else:
+            idx_arr, h_digits, s_digits, r_y, r_sign = _pad_rows(
+                b, idx_arr, h_digits, s_digits, r_y, r_sign)
+            with _engine_call("indexed ladder"):
+                ok = self.verifier._sharded(lambda k, dev: self._replicas[dev],
+                                            idx_arr, h_digits, s_digits, r_y, r_sign)[:n]
         dev_s = time.perf_counter() - t1
         self.verifier.metrics.device_seconds.observe(dev_s)
         self.verifier._dispatch(
-            n=n, bucket=n, path="tabulated" if tab else "indexed",
+            n=n, bucket=b, path="tabulated" if tab else "indexed",
             host_prep_ms=round(prep_s * 1000, 3), device_ms=round(dev_s * 1000, 3),
         )
         return np.logical_and(ok, valid).tolist()
@@ -693,60 +841,59 @@ class PubkeyTable:
         runs while the card verifies chunk k, so a large batch costs about
         prep(one chunk) + device(all) instead of prep(all) + device(all).
 
-        On the card every launch and copy runs on this table's own CUDA
-        stream.  A ring of chunk_depth slots of pinned host buffers holds
-        the chunks in flight: inputs go H2D and verdicts D2H without
-        blocking the host, and an event recorded after the verdict copy
-        gates both the slot's refill and the reading of its verdicts.  On
-        CPU tensors the same loop runs with plain buffers and no stream."""
+        Each shard (the one device, or every shard of the mesh) has its own
+        CUDA stream and its own ring of chunk_depth slots of pinned host
+        buffers: inputs go H2D and verdicts D2H without blocking the host,
+        and an event recorded after the verdict copy gates both the slot's
+        refill and the reading of its verdicts.  Under a mesh every chunk is
+        padded to cs rows (the JAX package's chunk) and split into one
+        contiguous slice per shard.  On CPU tensors the same loop runs with
+        plain buffers and no stream."""
         from ..ops import ed25519_cuda
 
         n = len(items)
-        dev = self.device
-        card = dev.type == "cuda"
+        shards = self._shards
+        sharded = self.verifier.mesh is not None
+        card = self.device.type == "cuda"
         n_chunks = (n + cs - 1) // cs
+        depth = min(max(1, self.verifier.chunk_depth), n_chunks)
+        width = cs // shards.size  # rows a shard verifies of a chunk
         with _engine_call("chunked ladder"):
-            slots = [_ChunkSlot(cs, card)
-                     for _ in range(min(max(1, self.verifier.chunk_depth), n_chunks))]
+            rings = [[_ChunkSlot(width, card) for _ in range(depth)] for _ in shards.devices]
         pending: "collections.deque" = collections.deque()
         out: List[bool] = []
 
         def collect():
-            slot, cnt, valid_c = pending.popleft()
+            slots, w, cnt, valid_c = pending.popleft()
             with _engine_call("chunked ladder"):
-                verdicts = slot.verdicts(cnt)
+                verdicts = np.concatenate([slot.verdicts(w) for slot in slots])[:cnt]
             out.extend(np.logical_and(verdicts, valid_c).tolist())
 
         t0 = time.perf_counter()
-        ctx = contextlib.nullcontext()
-        stream = None
-        if card:
-            with _engine_call("chunked ladder"):
-                if self._stream is None:
-                    self._stream = torch.cuda.Stream(device=dev)
-                stream = self._stream
-                # the rows were uploaded on the caller's stream
-                stream.wait_stream(torch.cuda.current_stream(dev))
-            ctx = torch.cuda.stream(stream)
-        with ctx:
-            for k, start in enumerate(range(0, n, cs)):
-                end = min(start + cs, n)
-                cnt = end - start
-                h, s, ry, rs, valid_c = _scalar_rows(items[start:end])
-                # the oldest chunk in flight holds the slot this one refills
-                while len(pending) >= len(slots):
-                    collect()
-                slot = slots[k % len(slots)]
-                slot.fill(cnt, idx_arr[start:end], _pack_digits(h), _pack_digits(s), ry, rs)
-                with _engine_call("chunked ladder"):
-                    args = [t[:cnt].to(dev, non_blocking=True) for t in slot.inputs]
-                    ok = ed25519_cuda.verify_indexed(self.neg_a_rows, *args)
-                    slot.ok[:cnt].copy_(ok, non_blocking=True)
-                    if card:
-                        slot.done.record(stream)
-                pending.append((slot, cnt, valid_c))
-            while pending:
+        for k, start in enumerate(range(0, n, cs)):
+            end = min(start + cs, n)
+            cnt = end - start
+            h, s, ry, rs, valid_c = _scalar_rows(items[start:end])
+            arrays = (idx_arr[start:end], _pack_digits(h), _pack_digits(s), ry, rs)
+            w = cnt
+            if sharded:
+                arrays, w = _pad_rows(cs, *arrays), width
+            # the oldest chunk in flight holds the slots this one refills
+            while len(pending) >= depth:
                 collect()
+            slots = [ring[k % depth] for ring in rings]
+            for j, slot in enumerate(slots):
+                slot.fill(w, *(a[j * w:(j + 1) * w] for a in arrays))
+                dev = shards.devices[j]
+                with _engine_call("chunked ladder"), shards.on_shard(j) as stream:
+                    args = [t[:w].to(dev, non_blocking=True) for t in slot.inputs]
+                    ok = ed25519_cuda.verify_indexed(self._replicas[dev], *args)
+                    slot.ok[:w].copy_(ok, non_blocking=True)
+                    if stream is not None:
+                        slot.done.record(stream)
+            pending.append((slots, w, cnt, valid_c))
+        while pending:
+            collect()
         # prep and device time interleave by design: the overlapped wall
         # time is reported as device_ms
         self.verifier._dispatch(n=n, bucket=cs, path="chunked", host_prep_ms=0.0,
@@ -755,12 +902,15 @@ class PubkeyTable:
 
 
 def from_jax_state(
-    neg_a_rows: np.ndarray, window_tables: Optional[np.ndarray], device=None
+    neg_a_rows: np.ndarray, window_tables: Optional[np.ndarray], device=None, mesh=None
 ) -> PubkeyTable:
     """A PubkeyTable whose device state is the JAX package's arrays: the
-    [V, 4, 20] −A rows (PubkeyTable.neg_a_rows) and, optionally, the
-    [V*1024, 4, 20] int16 window tables (build_window_tables).  Given
-    tables, the table serves tabulated; without, it decides as AUTO.
+    [V, 4, 20] −A rows (PubkeyTable.neg_a_rows; under a JAX mesh they are
+    replicated, so any device's copy is the whole table) and, optionally,
+    the [V*1024, 4, 20] int16 window tables (build_window_tables).  Given
+    tables, the table serves tabulated; without, it decides as AUTO.  With
+    `mesh` the table's verifier shards over it and the rows are replicated
+    on each of its devices.
 
     Host prep hashes the raw pubkeys, so they are re-encoded from the rows
     (A = (−x, y); decompression accepts only canonical encodings, so this
@@ -775,10 +925,11 @@ def from_jax_state(
     for r in rows:
         nx, y = (sum(int(l) << (_LIMB_BITS * i) for i, l in enumerate(r[c])) for c in (0, 1))
         pubkeys.append(em.compress((em.P - nx) % em.P, y))
-    table = PubkeyTable([], device=device, tabulated=True if window_tables is not None else None)
+    table = PubkeyTable([], verifier=BatchVerifier(device=device, mesh=mesh),
+                        tabulated=True if window_tables is not None else None)
     table.pubkeys = pubkeys
     table.row_valid = ~(rows == IDENTITY_ROW).all(axis=(1, 2))
-    table.neg_a_rows = torch.as_tensor(rows, device=table.device)
+    table._set_rows(rows)
     if window_tables is not None:
         wt = np.ascontiguousarray(window_tables).astype(np.int16)
         if wt.shape != (v * 1024, 4, _N_LIMBS):

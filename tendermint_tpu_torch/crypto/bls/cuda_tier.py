@@ -11,10 +11,18 @@ ops/bls12_381_fold.py: the CUDA kernels of csrc/bls12_381_fold.cu on the
 card, their plain torch version on the CPU.  For the same points the
 Jacobian triple equals jax_tier's, limb for limb.
 
+With a mesh (crypto/backend.py `Mesh`) of a power-of-two count m of
+shards the fold is sharded as jax_tier shards it: the bucket grows to a
+multiple of m (`_mesh_bucket`), shard k folds the aligned subtree of rows
+[k·b/m, (k+1)·b/m) with the same kernel on its own stream, and the m roots,
+copied to the mesh's first device, fold as a bucket of m.  That is _tree's
+association, so the triple stays limb-equal to jax_tier's sharded jit.  A
+one-row shard's root is its row, with no launch.  Any other mesh folds on
+its first device, unsharded, as jax_tier's does.
+
 Unlike jax_tier, which returns None on any failure so that the scheme
-folds on the host, a failed build, launch or device raises here.  No
-mesh is taken: `scheme.set_jax_aggregation` refuses one (ROADMAP 2.2).
-The pure tier (`curve.py`) stays the differential oracle.
+folds on the host, a failed build, launch or device raises here, on any
+shard.  The pure tier (`curve.py`) stays the differential oracle.
 """
 
 from __future__ import annotations
@@ -66,23 +74,39 @@ def _bucket(n: int) -> int:
     return b
 
 
-def _rows(coords, n: int, shape) -> np.ndarray:
-    """[bucket, *shape] int32 rows: the Montgomery limbs of `coords` (ints
-    in row order), zero rows after the n points."""
+def _mesh_bucket(n: int, mesh):
+    """(bucket, mesh to shard over or None) for a fold of n points, by
+    jax_tier._mesh_bucket's rule: a power-of-two mesh of m >= 2 shards
+    grows the bucket to a multiple of m; any other mesh folds unsharded."""
+    b = _bucket(n)
+    if mesh is None:
+        return b, None
+    m = mesh.size
+    if m < 2 or m & (m - 1):
+        return b, None
+    while b % m:
+        b *= 2
+    return b, mesh
+
+
+def _rows(coords, n: int, shape, bucket: Optional[int] = None) -> np.ndarray:
+    """[bucket, *shape] int32 rows (bucket: _bucket(n) unless given): the
+    Montgomery limbs of `coords` (ints in row order), zero rows after the n
+    points."""
     flat = b"".join(_to_mont(c % P).to_bytes(NL, "little") for c in coords)
-    rows = np.zeros((_bucket(n),) + shape, dtype=np.int32)
+    rows = np.zeros((bucket or _bucket(n),) + shape, dtype=np.int32)
     rows.reshape(-1)[: len(flat)] = np.frombuffer(flat, dtype=np.uint8)
     return rows
 
 
-def g1_rows(pts: Sequence[Tuple[int, int, int]]) -> np.ndarray:
+def g1_rows(pts: Sequence[Tuple[int, int, int]], bucket: Optional[int] = None) -> np.ndarray:
     """The [bucket, 3, 48] rows jax_tier.aggregate_g1 builds."""
-    return _rows((c for pt in pts for c in pt), len(pts), (3, NL))
+    return _rows((c for pt in pts for c in pt), len(pts), (3, NL), bucket)
 
 
-def g2_rows(pts) -> np.ndarray:
+def g2_rows(pts, bucket: Optional[int] = None) -> np.ndarray:
     """The [bucket, 3, 2, 48] rows jax_tier.aggregate_g2 builds."""
-    return _rows((c for pt in pts for coord in pt for c in coord), len(pts), (3, 2, NL))
+    return _rows((c for pt in pts for coord in pt for c in coord), len(pts), (3, 2, NL), bucket)
 
 
 def g1_point(out) -> Tuple[int, int, int]:
@@ -110,28 +134,57 @@ def resolve_device(device):
     return dev
 
 
-def aggregate_g1(pts: Sequence[Tuple[int, int, int]],
+def _fold(rows: np.ndarray, fold, mesh, device):
+    """The sum of the rows by `fold` (ops/bls12_381_fold.fold_g1 or
+    fold_g2): sharded over `mesh` when _mesh_bucket takes it, else on the
+    mesh's first device (which a named `device` must be), or on `device`
+    without a mesh."""
+    import torch
+
+    first = mesh.lead(device) if mesh is not None else resolve_device(device)
+    bucket, sharded = _mesh_bucket(rows.shape[0], mesh)
+    if sharded is None:
+        return fold(torch.as_tensor(rows, device=first))
+    q = bucket // mesh.size
+    host = torch.from_numpy(rows)
+    if first.type == "cuda":  # pinned: each shard's upload runs without blocking the host
+        host = host.pin_memory()
+    roots = []
+    for k, dev in enumerate(mesh.devices):
+        with mesh.on_shard(k) as stream:
+            part = host[k * q:(k + 1) * q].to(dev, non_blocking=True)
+            roots.append((fold(part) if q > 1 else part[0], dev, stream))
+    gathered = []
+    for root, dev, stream in roots:
+        if stream is not None:
+            # the copy to the first device and the root fold run after the
+            # shard's fold, on the devices' current streams
+            for d in (dev, first):
+                torch.cuda.current_stream(d).wait_stream(stream)
+            root.record_stream(torch.cuda.current_stream(dev))
+        gathered.append(root.to(first))
+    return fold(torch.stack(gathered))
+
+
+def aggregate_g1(pts: Sequence[Tuple[int, int, int]], mesh=None,
                  device=None) -> Optional[Tuple[int, int, int]]:
-    """Σ of Jacobian G1 points by the fold on `device` (None: the card);
-    None for no points, as jax_tier."""
-    import torch
-
+    """Σ of Jacobian G1 points by the fold, over `mesh` or on `device`
+    (None: the card); None for no points, as jax_tier."""
     from ...ops import bls12_381_fold
 
     if not pts:
         return None
-    rows = torch.as_tensor(g1_rows(pts), device=resolve_device(device))
-    return g1_point(bls12_381_fold.fold_g1(rows))
+    rows = g1_rows(pts, _mesh_bucket(len(pts), mesh)[0])
+    return g1_point(_fold(rows, bls12_381_fold.fold_g1, mesh, device))
 
 
-def aggregate_g2(pts, device=None) -> Optional[tuple]:
-    """Σ of Jacobian G2 points (Fp2 coords as int pairs) by the fold on
-    `device` (None: the card); None for no points, as jax_tier."""
-    import torch
-
+def aggregate_g2(pts, mesh=None, device=None) -> Optional[tuple]:
+    """Σ of Jacobian G2 points (Fp2 coords as int pairs) by the fold, over
+    `mesh` or on `device` (None: the card); None for no points, as
+    jax_tier."""
     from ...ops import bls12_381_fold
 
     if not pts:
         return None
-    rows = torch.as_tensor(g2_rows(pts), device=resolve_device(device))
-    return g2_point(bls12_381_fold.fold_g2(rows))
+    rows = g2_rows(pts, _mesh_bucket(len(pts), mesh)[0])
+    return g2_point(_fold(rows, bls12_381_fold.fold_g2, mesh, device))

@@ -267,7 +267,7 @@ def _sum_g1(pts):
     # only reached from the pure lanes (the C lanes fold blobs via
     # ctier.g1_sum/g2_sum directly, never through here)
     if _fold_device is not None and len(pts) >= cuda_tier.MIN_BATCH:
-        return cuda_tier.aggregate_g1(pts, device=_fold_device)
+        return cuda_tier.aggregate_g1(pts, mesh=_fold_mesh, device=_fold_device)
     acc = curve.G1_INF
     for p in pts:
         acc = curve.g1_add(acc, p)
@@ -276,7 +276,7 @@ def _sum_g1(pts):
 
 def _sum_g2(pts):
     if _fold_device is not None and len(pts) >= cuda_tier.MIN_BATCH:
-        return cuda_tier.aggregate_g2(pts, device=_fold_device)
+        return cuda_tier.aggregate_g2(pts, mesh=_fold_mesh, device=_fold_device)
     acc = curve.G2_INF
     for p in pts:
         acc = curve.g2_add(acc, p)
@@ -284,19 +284,24 @@ def _sum_g2(pts):
 
 
 _fold_device = None  # the batched fold's device; None: the fold is off
+_fold_mesh = None  # the verify engine's mesh the fold shards over; None: unsharded
 
 
 def set_jax_aggregation(enabled: bool, mesh=None, device=None) -> None:
     """Route the pure lanes' multi-point G1/G2 sums (from MIN_BATCH points
-    on) through the batched fold of `cuda_tier` on `device`: the card
-    unless the caller names the CPU, raising where there is no card.
+    on) through the batched fold of `cuda_tier`: sharded over `mesh` (the
+    verify engine's, whose first device a named `device` must be; a mesh
+    that cannot shard the bucket evenly folds unsharded on that device),
+    else on `device`, the card unless the caller names the CPU, raising
+    where there is no card.
     Engine nodes turn it on at start with `[tpu] bls_jax_aggregation`
-    (the reference's name); the C lanes never reach it.  A sharded fold
-    (`mesh`) is not ported (ROADMAP 2.2)."""
-    global _fold_device
-    if mesh is not None:
-        raise NotImplementedError("a sharded BLS fold (mesh) is not ported yet (ROADMAP 2.2)")
-    _fold_device = cuda_tier.resolve_device(device) if enabled else None
+    (the reference's name); the C lanes never reach it."""
+    global _fold_device, _fold_mesh
+    if not enabled:
+        _fold_device = _fold_mesh = None
+        return
+    _fold_device = mesh.lead(device) if mesh is not None else cuda_tier.resolve_device(device)
+    _fold_mesh = mesh
 
 
 def fast_aggregate_verify(

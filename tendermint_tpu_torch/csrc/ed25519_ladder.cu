@@ -39,6 +39,8 @@
 // helpers of fe51.cuh (chip_smoke.py phase 2); it is no part of the path.
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 #include "ge_quad.cuh"
 
 namespace {
@@ -151,6 +153,27 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// The ladder's shared-memory carveout on the current device: set at its
+// first call there (kMaxDevices slots; a device past them sets it on every
+// call), its result kept for later calls.
+constexpr int kMaxDevices = 64;
+std::once_flag carveout_once[kMaxDevices];
+cudaError_t carveout_rc[kMaxDevices];
+
+cudaError_t set_carveout() {
+  return cudaFuncSetAttribute(ladder_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+cudaError_t ladder_carveout() {
+  int dev = 0;
+  const cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return set_carveout();
+  std::call_once(carveout_once[dev], [dev] { carveout_rc[dev] = set_carveout(); });
+  return carveout_rc[dev];
+}
+
 }  // namespace
 
 extern "C" int ed25519_ladder_launch(const void *rows, const void *idx, const void *h_le,
@@ -158,10 +181,9 @@ extern "C" int ed25519_ladder_launch(const void *rows, const void *idx, const vo
                                      const void *base_table, void *ok, void *r_out,
                                      int n_rows, int batch, void *stream) {
   // the most shared memory per SM, so that five blocks of 16 signatures fit;
-  // set once per process (a function-local static is initialized once)
-  static const cudaError_t carveout = cudaFuncSetAttribute(
-      ladder_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
+  // a function attribute holds for the current device only, so it is set
+  // once per device, on the first launch there
+  const cudaError_t carveout = ladder_carveout();
   if (carveout != cudaSuccess) return (int)carveout;
   ladder_kernel<<<ladder_blocks(batch), kThreads, kSharedBytes, (cudaStream_t)stream>>>(
       (const int16_t *)rows, (const int32_t *)idx, (const uint8_t *)h_le,

@@ -20,7 +20,9 @@ AsyncBatchVerifier on it, whose start puts the verifier in warmup mode, so
 a validator set's first commit check declines while its table builds in
 the background, and `_valset_watch` builds a rotated set's table before
 its first commit.  `device=None` means the card; without one the node
-raises at construction unless the caller passes device="cpu".
+raises at construction unless the caller passes device="cpu".  The
+engine's mesh is `resolve_mesh([tpu] mesh, [tpu] mesh_devices)` over the
+visible cards, as JAX resolves it over its devices.
 
 A node whose stores are empty, with `[statesync] enable` and p2p on,
 bootstraps from a peer's app snapshot: the handshake is skipped, the
@@ -61,12 +63,9 @@ from .types.genesis import GenesisDoc
 
 def check_ported(config: Config) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a setting
-    whose subsystem the port does not carry yet."""
-    cfg = config
-    unported = (
-        (cfg.tpu.mesh == "on", 'tpu.mesh = "on": the multi-card verify mesh', "2.2",
-         'tpu.mesh = "auto"'),
-    )
+    whose subsystem the port does not carry yet.  None is left: the port
+    carries every setting the JAX node takes."""
+    unported: tuple = ()  # (on, what, ROADMAP item, the setting to use instead)
     for on, what, item, fix in unported:
         if on:
             raise NotImplementedError(
@@ -85,16 +84,18 @@ def engine_device(config: Config, device=None):
     return resolve_device(device)
 
 
-def install_engine(tpu, device, metrics=None, recorder=None):
-    """The verify hooks on `device` from a `[tpu]` section: one
-    BatchVerifier installed as the flat crypto.batch hook and a TableCache
-    on it installed as the indexed hook (tabulated windows auto-profiled on
-    the card).  Out of warmup mode: a missing kernel library builds at the
-    first launch and a set's first check builds its table, on the card."""
+def install_engine(tpu, device, metrics=None, recorder=None, mesh=None):
+    """The verify hooks on `device`, or sharded over `mesh`, from a `[tpu]`
+    section: one BatchVerifier installed as the flat crypto.batch hook and
+    a TableCache on it installed as the indexed hook (tabulated windows
+    auto-profiled on one card).  Out of warmup mode: a missing kernel
+    library builds at the first launch and a set's first check builds its
+    table, on the card."""
     from .crypto.batch_verifier import BatchVerifier, TableCache
 
     bv = BatchVerifier(
         device=device,
+        mesh=mesh,
         min_device_batch=tpu.min_device_batch,
         metrics=metrics,
         recorder=recorder,
@@ -107,13 +108,13 @@ def install_engine(tpu, device, metrics=None, recorder=None):
     return bv, table_cache
 
 
-def build_engine(tpu, device, metrics=None, recorder=None):
+def build_engine(tpu, device, metrics=None, recorder=None, mesh=None):
     """The verify engine as the node builds it: install_engine's hooks and
     an AsyncBatchVerifier on them, not yet started (its start puts the
     verifier in warmup mode)."""
     from .crypto.batch_verifier import AsyncBatchVerifier
 
-    bv, table_cache = install_engine(tpu, device, metrics=metrics, recorder=recorder)
+    bv, table_cache = install_engine(tpu, device, metrics=metrics, recorder=recorder, mesh=mesh)
     abv = AsyncBatchVerifier(
         bv,
         max_batch=tpu.max_batch,
@@ -381,27 +382,32 @@ class Node(Service):
         # crypto.batch hooks (handshake replay, verify_commit in block
         # validation) must already see the device path
         if cfg.tpu.enabled:
-            # one card: [tpu] mesh "auto" and "off" give one shard ("on"
-            # raised at construction)
-            self.metrics_provider.verify.shards.set(1)
+            # the mesh probe ([tpu] mesh = auto|on|off, mesh_devices caps
+            # the shard count), logged beside the host tier; a failed
+            # probe raises (JAX degrades it to one device)
+            mesh, shards, mesh_reason = _crypto_backend.resolve_mesh(
+                cfg.tpu.mesh, cfg.tpu.mesh_devices, device=self.device
+            )
+            self.metrics_provider.verify.shards.set(shards)
             self.log.info(
                 "verify engine",
-                shards=1,
-                mesh=f"{cfg.tpu.mesh}: one card",
+                shards=shards,
+                mesh=mesh_reason,
                 device=self.device,
                 host_tier=_crypto_backend.active_tier(),
             )
             self.batch_verifier, self.table_cache, self.async_verifier = build_engine(
                 cfg.tpu, self.device, metrics=self.metrics_provider.verify,
-                recorder=self.flight_recorder,
+                recorder=self.flight_recorder, mesh=mesh,
             )
             await self.async_verifier.start()
             if cfg.tpu.bls_jax_aggregation:
                 # the pure BLS lanes' multi-point sums fold on the engine's
-                # device (the C lanes never reach the fold)
+                # device, sharded over its mesh (the C lanes never reach
+                # the fold)
                 from .crypto.bls import scheme as _bls_scheme
 
-                _bls_scheme.set_jax_aggregation(True, device=self.device)
+                _bls_scheme.set_jax_aggregation(True, mesh=mesh, device=self.device)
         # remote signer: wait for the external signer to dial in BEFORE
         # consensus needs a pubkey (node/node.go:612-618)
         if isinstance(self.priv_validator, Service) and not self.priv_validator.is_running:

@@ -278,10 +278,11 @@ def _launch(name: str, rows: torch.Tensor, coord: tuple, sum_words: int) -> torc
     if counters is None or counters.numel() < n:
         counters = _counters[(rows.device, stream)] = torch.zeros(
             max(n, 256), dtype=torch.int32, device=rows.device)
-    rc = getattr(_build.lib(), f"{name}_launch")(
-        rows.data_ptr(), buf.data_ptr() + 16 * words, counters.data_ptr(), buf.data_ptr(), bucket,
-        leaves, tiers, stream,
-    )
+    with torch.cuda.device(rows.device):  # the launch goes to the tensors' card
+        rc = getattr(_build.lib(), f"{name}_launch")(
+            rows.data_ptr(), buf.data_ptr() + 16 * words, counters.data_ptr(), buf.data_ptr(),
+            bucket, leaves, tiers, stream,
+        )
     _check.launched(name, rc)
     return buf[:4 * words].view((3,) + coord)
 

@@ -2,7 +2,8 @@
 (csrc/ed25519_ladder.cu).
 
 `verify_indexed` verifies signature i against pubkey row `idx[i]` of
-`rows`.  On CUDA tensors it launches the kernel on the current stream; on
+`rows`.  On CUDA tensors it launches the kernel on the current stream of
+the tensors' card, with that card made current for the launch; on
 CPU tensors it runs the plain version (ops/ed25519.py) — the only reason it
 ever does.  `LAUNCHES` counts kernel launches and nothing else.
 
@@ -49,13 +50,14 @@ def verify_indexed(
     ok = torch.empty(batch, dtype=torch.uint8, device=rows.device)
     r_out = torch.empty((batch, 32), dtype=torch.uint8, device=rows.device) if want_r else None
     if batch:
-        rc = _build.lib().ed25519_ladder_launch(
-            rows.data_ptr(), idx.data_ptr(), h_le.data_ptr(), s_le.data_ptr(),
-            r_y.data_ptr(), r_sign.data_ptr(),
-            _check.device_const(BASE_TABLE, rows.device).data_ptr(),
-            ok.data_ptr(), r_out.data_ptr() if want_r else None,
-            rows.shape[0], batch, torch.cuda.current_stream(rows.device).cuda_stream,
-        )
+        with torch.cuda.device(rows.device):  # the launch goes to the tensors' card
+            rc = _build.lib().ed25519_ladder_launch(
+                rows.data_ptr(), idx.data_ptr(), h_le.data_ptr(), s_le.data_ptr(),
+                r_y.data_ptr(), r_sign.data_ptr(),
+                _check.device_const(BASE_TABLE, rows.device).data_ptr(),
+                ok.data_ptr(), r_out.data_ptr() if want_r else None,
+                rows.shape[0], batch, torch.cuda.current_stream(rows.device).cuda_stream,
+            )
         _check.launched("ed25519_ladder", rc)
         LAUNCHES += 1
     if want_r:
@@ -79,11 +81,12 @@ def quad_selftest(p_rows: torch.Tensor, q_rows: torch.Tensor, digits: torch.Tens
     raw = torch.empty((2, n, 3, 4, 5), dtype=torch.int64, device=p_rows.device)
     canon = torch.empty((2, n, 3, 4, 20), dtype=torch.int16, device=p_rows.device)
     if n:
-        rc = _build.lib().ed25519_quad_selftest_launch(
-            p_rows.data_ptr(), q_rows.data_ptr(), digits.data_ptr(),
-            _check.device_const(BASE_TABLE, p_rows.device).data_ptr(),
-            raw.data_ptr(), canon.data_ptr(), n,
-            torch.cuda.current_stream(p_rows.device).cuda_stream,
-        )
+        with torch.cuda.device(p_rows.device):
+            rc = _build.lib().ed25519_quad_selftest_launch(
+                p_rows.data_ptr(), q_rows.data_ptr(), digits.data_ptr(),
+                _check.device_const(BASE_TABLE, p_rows.device).data_ptr(),
+                raw.data_ptr(), canon.data_ptr(), n,
+                torch.cuda.current_stream(p_rows.device).cuda_stream,
+            )
         _check.launched("ed25519_quad_selftest", rc)
     return raw, canon

@@ -167,10 +167,11 @@ def build_window_tables(neg_a_rows: torch.Tensor) -> torch.Tensor:
     out = torch.empty((v * N_WINDOWS * N_DIGITS, 4, N), dtype=torch.int16,
                       device=neg_a_rows.device)
     if v:
-        rc = _build.lib().ed25519_window_tables_launch(
-            neg_a_rows.data_ptr(), out.data_ptr(), v,
-            torch.cuda.current_stream(neg_a_rows.device).cuda_stream,
-        )
+        with torch.cuda.device(neg_a_rows.device):  # the launch goes to the tensors' card
+            rc = _build.lib().ed25519_window_tables_launch(
+                neg_a_rows.data_ptr(), out.data_ptr(), v,
+                torch.cuda.current_stream(neg_a_rows.device).cuda_stream,
+            )
         _check.launched("ed25519_window_tables", rc)
         BUILD_LAUNCHES += 1
     return out
@@ -206,13 +207,14 @@ def verify_tabulated(
     ok = torch.empty(batch, dtype=torch.uint8, device=tables.device)
     r_out = torch.empty((batch, 32), dtype=torch.uint8, device=tables.device) if want_r else None
     if batch:
-        rc = _build.lib().ed25519_tabulated_launch(
-            tables.data_ptr(), idx.data_ptr(), h_le.data_ptr(), s_le.data_ptr(),
-            r_y.data_ptr(), r_sign.data_ptr(),
-            _check.device_const(base_windows_madd(), tables.device).data_ptr(),
-            ok.data_ptr(), r_out.data_ptr() if want_r else None,
-            rows, batch, torch.cuda.current_stream(tables.device).cuda_stream,
-        )
+        with torch.cuda.device(tables.device):
+            rc = _build.lib().ed25519_tabulated_launch(
+                tables.data_ptr(), idx.data_ptr(), h_le.data_ptr(), s_le.data_ptr(),
+                r_y.data_ptr(), r_sign.data_ptr(),
+                _check.device_const(base_windows_madd(), tables.device).data_ptr(),
+                ok.data_ptr(), r_out.data_ptr() if want_r else None,
+                rows, batch, torch.cuda.current_stream(tables.device).cuda_stream,
+            )
         _check.launched("ed25519_tabulated", rc)
         SUM_LAUNCHES += 1
     if want_r:

@@ -17,8 +17,8 @@ Also: the C tier builds into the package's `_build/` with the source hash
 in its name, a host without a toolchain falls back to the pure tier with
 one warning, the codec tags equal JAX's, and the batched device fold
 (`bls_jax_aggregation`, ported in crypto/bls/cuda_tier.py) is refused only
-where it cannot run: on a host without a card unless the CPU is named, and
-sharded over a mesh (ROADMAP 2.2).
+where it cannot run, on a host without a card unless the CPU is named; a
+mesh is taken and folds on its first device's kind.
 """
 
 import contextlib
@@ -393,8 +393,11 @@ def test_keys_codec_and_refused_device_fold():
     assert (pk.pub_key().verify(b"m", pk.sign(b"m")), pk.pub_key().verify(b"m", b"\x00" * 95)) == (
         True, False)
     pscheme.set_jax_aggregation(False)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 2\.2"):
-        pscheme.set_jax_aggregation(True, mesh=object())
+    from tendermint_tpu_torch.crypto.backend import Mesh
+
+    mesh = Mesh(["cpu", "cpu"])
+    pscheme.set_jax_aggregation(True, mesh=mesh)
+    assert pscheme._fold_mesh is mesh and pscheme._fold_device == torch.device("cpu")
     try:
         pscheme.set_jax_aggregation(True, device="cpu")
         assert pscheme._fold_device == torch.device("cpu")
@@ -403,7 +406,7 @@ def test_keys_codec_and_refused_device_fold():
                 pscheme.set_jax_aggregation(True)
     finally:
         pscheme.set_jax_aggregation(False)
-    assert pscheme._fold_device is None
+    assert pscheme._fold_device is None and pscheme._fold_mesh is None
     from tendermint_tpu_torch.config import Config
     from tendermint_tpu_torch.node import check_ported
 

@@ -24,8 +24,11 @@ byte for byte, commit bytes and verdicts exactly.
   with the knob on in both packages, fold_commit, verify_commit and
   batch_verify_aggregates (a corrupted aggregate among three) give the same
   bytes and verdicts in the port as in JAX, and each fold ran.
-- Refusals: `set_jax_aggregation` with a mesh raises naming ROADMAP 2.2;
-  the card is required unless the CPU is named.
+- The mesh: `set_jax_aggregation` takes one, and the scheme's sums of 8
+  points sharded over 4 CPU shards and unsharded on a 3-shard mesh equal
+  JAX's scheme with its 3-device mesh (unsharded at the bucket of 8 this
+  module compiles) and the pure fold.
+- Refusals: the card is required unless the CPU is named.
 - A port node with `[tpu] bls_jax_aggregation = true` starts on the CPU and
   installs the fold on its device.
 - chip_smoke.py's fold phases rehearsed on the CPU at small sizes: phase
@@ -314,14 +317,37 @@ def test_slice_through_the_fold_equals_jax(restored, monkeypatch):
 # -- refusals and the node -----------------------------------------------------
 
 
-def test_a_mesh_is_refused_naming_roadmap_2_2(restored):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 2\.2"):
-        pscheme.set_jax_aggregation(True, mesh=object())
-    assert pscheme._fold_device is None
-    pscheme.set_jax_aggregation(True, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 2\.2"):
-        pscheme.set_jax_aggregation(True, mesh=object(), device="cpu")
-    assert pscheme._fold_device == torch.device("cpu")  # the refusal changed nothing
+def test_a_mesh_is_refused_naming_roadmap_2_2(restored, monkeypatch):
+    """The mesh that ROADMAP 2.2 once refused is taken: the pure lanes'
+    sums fold over it, and equal JAX's scheme folding over its mesh.  A
+    power-of-two mesh shards the fold; a 3-shard mesh folds unsharded on
+    its first device in both packages."""
+    import jax
+    from jax.sharding import Mesh as JMesh
+
+    from tendermint_tpu_torch.crypto.backend import Mesh
+
+    devs = jax.devices("cpu")
+    if len(devs) < 8:
+        pytest.skip("needs 8 virtual CPU devices (conftest XLA_FLAGS)")
+    jscheme.set_jax_aggregation(True, mesh=JMesh(np.array(devs[:3]), ("batch",)))
+    for group, sum_of in (("g1", "_sum_g1"), ("g2", "_sum_g2")):
+        pts = points(group, 8)
+        want = getattr(jscheme, sum_of)(pts)
+        assert GROUPS[group][5](want) == GROUPS[group][5](pure_sum(group, pts))
+        for m in (4, 3):
+            mesh = Mesh(["cpu"] * m)
+            pscheme.set_jax_aggregation(True, mesh=mesh, device="cpu")
+            assert pscheme._fold_mesh is mesh and pscheme._fold_device == torch.device("cpu")
+            seen = []
+            real = getattr(cuda_tier, f"aggregate_{group}")
+            monkeypatch.setattr(cuda_tier, f"aggregate_{group}", lambda p, _r=real, **kw: (
+                seen.append(kw["mesh"]), _r(p, **kw))[1])
+            assert getattr(pscheme, sum_of)(pts) == want  # Jacobian, limb for limb
+            assert seen == [mesh]
+            monkeypatch.setattr(cuda_tier, f"aggregate_{group}", real)
+    pscheme.set_jax_aggregation(False)
+    assert pscheme._fold_device is None and pscheme._fold_mesh is None
 
 
 def test_the_card_is_required_unless_the_cpu_is_named(restored):

@@ -15,8 +15,8 @@ hashes and verdicts equal, raised errors equal by type and message.
   batch on the port's CPU engine, `update_state` with BLS updates, the
   staking app's `_address_of` and a BLS `rotate`.
 - Aggregate commits: `check_ported` accepts a uniformly BLS genesis with
-  `[consensus] bls_aggregate_commits` on and still refuses the JAX BLS
-  aggregation and the mesh, and the consensus fold point returns the JAX
+  `[consensus] bls_aggregate_commits` on, with the batched BLS fold and
+  with the mesh, and the consensus fold point returns the JAX
   package's AggregateCommit byte for byte exactly where its `fold_commit`
   folds (tests/test_torch_agg_commit.py holds the rest).
 - Nets of two port and two JAX validators: a mixed set commits per-vote
@@ -214,8 +214,9 @@ def test_init_writes_the_proof_of_possession_and_the_home_is_refused(tmp_path):
 def test_check_ported_refuses_only_a_uniformly_bls_genesis_with_aggregation_on(tmp_path):
     """A uniformly BLS, a mixed and an empty genesis all construct a port
     node with aggregation on, and so does each with the batched BLS fold
-    (`tpu.bls_jax_aggregation`, ported since ROADMAP 2.1); the setting still
-    unported (the mesh, 2.2) is refused, named."""
+    (`tpu.bls_jax_aggregation`, ported since ROADMAP 2.1) and with the
+    verify mesh on (`tpu.mesh = "on"`, the last refusal, lifted with
+    ROADMAP 2.2)."""
     bls = [pbls.BlsPrivKey.from_secret(b"cp-%d" % i) for i in range(2)]
     ed = pkeys.Ed25519PrivKey.from_secret(b"cp-ed")
     gv = pgenesis.GenesisValidator
@@ -235,12 +236,10 @@ def test_check_ported_refuses_only_a_uniformly_bls_genesis_with_aggregation_on(t
         c.tpu.bls_jax_aggregation = True
         pnode.check_ported(c)
         assert pnode.Node(c, doc, db_backend="memdb", device="cpu").config.tpu.bls_jax_aggregation
-    c = Config(home="/nonexistent")
+    c = Config(home=str(tmp_path / "mesh"))
     c.tpu.mesh = "on"
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 2\.2"):
-        pnode.check_ported(c)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 2\.2"):
-        pnode.Node(c, uniform, db_backend="memdb", device="cpu")
+    pnode.check_ported(c)
+    assert pnode.Node(c, uniform, db_backend="memdb", device="cpu").config.tpu.mesh == "on"
 
 
 # ---------------------------------------------------------------------------

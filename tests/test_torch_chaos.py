@@ -781,7 +781,7 @@ async def test_chaos_off_leaves_every_store_unwrapped(tmp_path):
 # -- check_ported --------------------------------------------------------------------
 
 PORTED = {"chaos": ("chaos", "enabled", True, None), "test_fuzz": ("p2p", "test_fuzz", True, None),
-          "twin": ("chaos", "twin", True, None), "mesh_on": ("tpu", "mesh", "on", "2.2"),
+          "twin": ("chaos", "twin", True, None), "mesh_on": ("tpu", "mesh", "on", None),
           "bls_jax_aggregation": ("tpu", "bls_jax_aggregation", True, None)}
 
 

@@ -14,8 +14,8 @@ tolerance exact; and the node's wiring of it and of the remote signer.
 - `check_ported` accepts `priv_validator_laddr`,
   `instrumentation.prometheus`, `rpc.grpc_laddr` (the BroadcastAPI) and
   `instrumentation.flight_spool` (the crash-persistent spool) and
-  `chaos.enabled` (the chaos rig), and still refuses `tpu.mesh = "on"`; a
-  port node with
+  `chaos.enabled` (the chaos rig) and `tpu.mesh = "on"` (the verify
+  mesh); a port node with
   prometheus on serves its registry at the configured address.
 """
 
@@ -154,9 +154,9 @@ BOUNDARY = {
     "grpc_laddr": ("rpc", "grpc_laddr", "tcp://127.0.0.1:36656"),
     "flight_spool": ("instrumentation", "flight_spool", True),
 }
-# item None: lifted by the chaos rig; check_ported passes it
+# item None: lifted (by the chaos rig, and the verify mesh); check_ported passes it
 STILL_REFUSED = {
-    "mesh_on": (("tpu", "mesh", "on"), r"2\.2"),
+    "mesh_on": (("tpu", "mesh", "on"), None),
     "chaos": (("chaos", "enabled", True), None),
 }
 

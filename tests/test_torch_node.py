@@ -15,7 +15,9 @@ recorder event's fields.  Then each package's node restarts from the
 other's home and commits two more heights, and the two resumed chains
 must agree.  Each configuration the port does not carry raises
 NotImplementedError naming its ROADMAP item, before anything is opened
-(`p2p.test_fuzz`, `chaos.enabled` and `tpu.bls_jax_aggregation` now pass); a
+(`p2p.test_fuzz`, `chaos.enabled`, `tpu.bls_jax_aggregation` and
+`tpu.mesh = "on"` now pass, and a node with `tpu.mesh = "on"` exports
+`resolve_mesh`'s shard count, JAX's on its 8 virtual CPU devices); a
 node with the flight spool on flushes on its cadence and stops with a
 synced final flush; a stock `init` home (PEX on) with a seed starts, and
 so does a node with `liteserve.enable`.
@@ -25,6 +27,7 @@ import asyncio
 import base64
 import contextlib
 import dataclasses
+import functools
 import gc
 import os
 import shutil
@@ -252,11 +255,12 @@ def test_only_validator_is_us_equals_jax():
 
 # item None: a setting the port now carries (the chaos rig lifted
 # `p2p.test_fuzz` and `chaos.enabled`, the batched BLS fold
-# `tpu.bls_jax_aggregation`); check_ported passes it
+# `tpu.bls_jax_aggregation`, the verify mesh `tpu.mesh = "on"`);
+# check_ported passes it
 UNPORTED = {
     "test_fuzz": ("p2p.test_fuzz", True, None),
     "chaos": ("chaos.enabled", True, None),
-    "mesh_on": ("tpu.mesh", "on", "2.2"),
+    "mesh_on": ("tpu.mesh", "on", None),
     "bls_jax_aggregation": ("tpu.bls_jax_aggregation", True, None),
 }
 
@@ -280,6 +284,54 @@ def test_unported_configuration_raises_before_opening(case, tmp_path):
             build()
     assert sorted(os.listdir(os.path.join(home, "data"))) == ["priv_validator_state.json"]
     assert not os.path.exists(cfg.priv_validator_key_file())
+
+
+@pytest.mark.parametrize("cpu_shards", [1, 8])
+async def test_a_node_with_mesh_on_exports_resolve_mesh_shards(cpu_shards, tmp_path, monkeypatch):
+    """`tpu.mesh = "on"` starts a node whose shards gauge, engine and log
+    line carry resolve_mesh's triple: on 8 virtual CPU shards the JAX
+    node's shard count on its 8 virtual CPU devices, on one a single
+    device."""
+    from tendermint_tpu.crypto.backend import resolve_mesh as jresolve
+    from tendermint_tpu_torch.crypto import backend as pbackend
+    from tendermint_tpu_torch.crypto.backend import resolve_mesh
+
+    home = str(tmp_path / "mesh")
+    make_home(PORT, home)
+    cfg = load_cfg(PORT, home)
+    cfg.tpu.mesh = "on"
+    pnode.check_ported(cfg)
+    _, shards, reason = resolve_mesh("on", 0, device="cpu", cpu_shards=cpu_shards)
+    if cpu_shards == 8:
+        assert (shards, reason) == jresolve("on", 0)[1:] == (8, "sharded over 8/8 cpu devices")
+    else:
+        assert (shards, reason) == (1, "single device (1 visible, cpu)")
+    from tendermint_tpu_torch.libs import metrics as pmetrics
+
+    seen = []
+
+    class Provider(pmetrics.MetricsProvider):  # the shards gauge, recorded
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.verify.shards = types.SimpleNamespace(set=seen.append)
+
+    monkeypatch.setattr(pmetrics, "MetricsProvider", Provider)
+    # the node's probe sees `cpu_shards` virtual CPU shards
+    monkeypatch.setattr(pbackend, "resolve_mesh",
+                        functools.partial(resolve_mesh, cpu_shards=cpu_shards))
+    node = pnode.default_new_node(cfg, device="cpu")
+    await node.start()
+    try:
+        assert seen == [shards]
+        bv = node.batch_verifier
+        assert bv.shards == shards and node.table_cache.verifier is bv
+        assert (bv.mesh is None) == (shards == 1)
+        assert bv.mesh is None or bv.mesh.devices == (torch.device("cpu"),) * 8
+        await until(lambda: node.block_store.height() >= 1, "the node's first block")
+    finally:
+        await node.stop()
+        batch_hook.set_verifier(None)
+        batch_hook.set_indexed_verifier(None)
 
 
 async def test_flight_spool_flushes_on_its_cadence_and_stops_synced(tmp_path):
